@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Build the PyTorch port's CUDA kernels and drive its main path on one card.
+
+    python3 chip_smoke.py
+
+Phases, one line each, and a non-zero exit on any failure:
+
+1. build   compile the kernels from ``src/repro_torch/kernels/csrc``.
+2. kernels each kernel against its plain PyTorch version on the card,
+           bit-identical keep masks and states, at B in {1, 256}, S in
+           {1, 8, 128}, ragged m, d = 4096 for DISTINCT, two seeds.
+3. main    the main path on a 2^25-row uservisits table (one worker's
+           partition of the Big Data benchmark): ``run_query`` TOP-N and
+           DISTINCT, ``engine_prune`` two_pass with 128 shards, and the four
+           ``kernels.ops`` entry points. Answers must be exact and every keep
+           mask a superset of the true survivors. Launch counts are set to 0
+           before each path and read after it.
+4. timing  on the same table, each kernel against its plain version at
+           every shape the main path gives it (bit-identical keep and state;
+           the one-lane scan on a prefix of SCAN_PREFIX entries), its median
+           time, its plain version's time and its bound; then the
+           ``kernels`` JSON line.
+
+Needs one CUDA card; exits non-zero without one. The last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
+MAX_CLOCK_HZ = 1.98e9          # H100 SXM boost clock, when nvidia-smi is mute
+SMEM_CYCLES = 20               # floor taken for a shared-memory round trip
+BARRIER_CYCLES = 20            # floor taken for a block barrier
+SCAN_PREFIX = 1 << 16          # entries of the S = 1, B = 1 scan compared
+M_MAIN = 1 << 25               # rows of the uservisits partition
+SHARDS = 128
+TOPN = dict(d=512, w=8)        # README quickstart: d=512, w=8, N=100
+TOPN_N = 100
+DISTINCT = dict(d=4096, w=4)   # 112 KB of shared memory per lane at B=256
+SEEDS = (0, 7)
+
+FAILURES: list[str] = []
+
+
+def say(phase: str, **kw) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def check(ok: bool, what: str) -> bool:
+    if not ok:
+        FAILURES.append(what)
+        say("FAIL", what=what)
+    return ok
+
+
+def same(a, b) -> bool:
+    """Bit-identical tensors (uint32 compared through its int32 view)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.uint32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def max_abs_err(pairs) -> float:
+    import torch
+
+    err = 0.0
+    for a, b in pairs:
+        if a.dtype == torch.uint32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.dtype == torch.bool:
+            a, b = a.to(torch.int64), b.to(torch.int64)
+        if a.numel():
+            err = max(err, float((a.to(torch.float64)
+                                  - b.to(torch.float64)).abs().max()))
+    return err
+
+
+def sync_time(fn):
+    """(result, wall seconds) of fn() ending in a device synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median device time of fn() in ms over ``reps`` runs, after a warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def card_line() -> str:
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30)
+        return res.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
+def max_clock_hz() -> float:
+    """The card's maximum SM clock, for the floor of a serial chain."""
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30)
+        return float(res.stdout.split()[0]) * 1e6
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return MAX_CLOCK_HZ
+
+
+# ------------------------------------------------------------------ phase 2
+def kernel_cases():
+    """(S, B, m) shapes: B = 1 keeps m <= 2^16 (the plain loop is slow)."""
+    return [(1, 1, 4099), (8, 1, 1 << 16), (128, 1, (1 << 16) - 5),
+            (1, 256, (1 << 16) + 77), (8, 256, 1 << 18),
+            (128, 256, (1 << 20) + 3)]
+
+
+def phase_kernels(torch, P, R, O):
+    from repro_torch.constants import NEG
+
+    g = torch.Generator().manual_seed(1234)
+    for S, B, m in kernel_cases():
+        x = (torch.rand(m, generator=g) * 1000).to("cuda")
+        f = torch.randint(0, 20000, (m,), generator=g).to(torch.int32) \
+            .view(torch.uint32).to("cuda")
+        xp, _ = O._pad_to(x, S * B, float(NEG))
+        fp, _ = O._pad_to(f, S * B, 0)
+        for seed in SEEDS:
+            t0 = time.perf_counter()
+            k, st = P.topn_shard_states_kernel(xp, shards=S, block=B,
+                                               seed=seed, **TOPN)
+            k2, st2 = R.topn_block_ref(xp.reshape(S, -1), block=B, seed=seed,
+                                       return_state=True, **TOPN)
+            ok_t = check(same(k, k2.reshape(-1)) and same(st, st2),
+                         f"topn_pass1 S={S} B={B} m={m} seed={seed}")
+            merged = P.merge_topn_states(st, TOPN["w"])
+            ka = P.topn_apply_kernel(xp, merged, d=TOPN["d"], shards=S,
+                                     seed=seed)
+            ka2 = P.topn_apply_plain(xp, merged[:, -1], d=TOPN["d"],
+                                     shards=S, seed=seed)
+            ok_ta = check(same(ka, ka2),
+                          f"topn_apply S={S} m={m} seed={seed}")
+            kd, sl, va, hd = P.distinct_shard_states_kernel(
+                fp, shards=S, block=B, seed=seed, **DISTINCT)
+            kd2, (sl2, va2, hd2) = R.distinct_block_ref(
+                fp.reshape(S, -1), block=B, seed=seed, return_state=True,
+                **DISTINCT)
+            ok_d = check(same(kd, kd2.reshape(-1)) and same(sl, sl2)
+                         and same(va, va2) and same(hd, hd2),
+                         f"distinct_pass1 S={S} B={B} m={m} seed={seed}")
+            ms, mv = P.merge_distinct_states(sl, va)
+            kda = P.distinct_apply_kernel(fp, kd, ms, mv, d=DISTINCT["d"],
+                                          shards=S, seed=seed)
+            kda2 = P.distinct_apply_plain(fp, kd, ms, mv, d=DISTINCT["d"],
+                                          shards=S, seed=seed)
+            ok_da = check(same(kda, kda2),
+                          f"distinct_apply S={S} m={m} seed={seed}")
+            say("kernels", S=S, B=B, m=m, seed=seed, topn_pass1=ok_t,
+                topn_apply=ok_ta, distinct_pass1=ok_d, distinct_apply=ok_da,
+                s=round(time.perf_counter() - t0, 3))
+
+
+# ------------------------------------------------------------------ phase 3
+def phase_main(torch, P, O):
+    from repro_torch import core
+    from repro_torch.query import QuerySpec, make_uservisits, run_query
+
+    table, secs = sync_time(lambda: make_uservisits(M_MAIN, seed=0))
+    xs = table.cols["ad_revenue"]
+    fs = table.cols["source_ip"]
+    say("main", table="uservisits", rows=M_MAIN, bytes=sum(
+        c.numel() * c.element_size() for c in table.cols.values()),
+        build_s=round(secs, 3))
+
+    # the truth, computed without the port: a stable top-N and torch.unique
+    srt = torch.sort(xs, descending=True, stable=True)
+    true_v, true_i = srt.values[:TOPN_N], srt.indices[:TOPN_N]
+    f64 = fs.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    uniq, inv = torch.unique(f64, return_inverse=True)
+    first = torch.full((uniq.numel(),), M_MAIN, dtype=torch.int64,
+                       device="cuda").scatter_reduce(
+        0, inv, torch.arange(M_MAIN, device="cuda"), "amin")
+    say("main", distinct_values=uniq.numel())
+
+    def topn_ok(keep, name, out=None):
+        v, i = core.master_complete_topn(xs, keep, TOPN_N) if out is None \
+            else out
+        check(torch.equal(v, true_v) and torch.equal(i, true_i),
+              f"{name}: top-{TOPN_N} differs from the stable sort")
+        check(bool(keep[true_i].all()), f"{name}: a top-N entry was pruned")
+
+    def distinct_ok(keep, name, out=None):
+        if out is None:
+            mask = core.master_complete_distinct(fs, keep)
+            out = torch.unique(f64[mask])
+        else:
+            out = out.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        check(torch.equal(out, uniq), f"{name}: DISTINCT differs from unique")
+        check(bool(keep[first].all()),
+              f"{name}: a first occurrence was pruned")
+
+    paths = {
+        "run_query_topn": (
+            lambda: run_query(QuerySpec("topn", ("ad_revenue",),
+                                        dict(N=TOPN_N, **TOPN)), table),
+            lambda r: topn_ok(r["keep"], "run_query_topn", r["output"]),
+            lambda r: r["keep"], ("topn_pass1",)),
+        "run_query_distinct": (
+            lambda: run_query(QuerySpec("distinct", ("source_ip",),
+                                        dict(policy="fifo", **DISTINCT)),
+                              table),
+            lambda r: distinct_ok(r["keep"], "run_query_distinct",
+                                  r["output"]),
+            lambda r: r["keep"], ("distinct_pass1",)),
+        "engine_two_pass_topn": (
+            lambda: core.engine_prune("topn_rand", xs, mode="two_pass",
+                                      shards=SHARDS, **TOPN),
+            lambda r: topn_ok(r.keep, "engine_two_pass_topn"),
+            lambda r: r.keep, ("topn_pass1", "topn_apply")),
+        "engine_two_pass_distinct": (
+            lambda: core.engine_prune("distinct", fs, mode="two_pass",
+                                      shards=SHARDS, policy="fifo",
+                                      **DISTINCT),
+            lambda r: distinct_ok(r.keep, "engine_two_pass_distinct"),
+            lambda r: r.keep, ("distinct_pass1", "distinct_apply")),
+        "ops_topn_prune_parallel": (
+            lambda: O.topn_prune_parallel(xs, shards=SHARDS, block=256,
+                                          **TOPN),
+            lambda k: topn_ok(k, "ops_topn_prune_parallel"),
+            lambda k: k, ("topn_pass1", "topn_apply")),
+        "ops_distinct_prune_parallel": (
+            lambda: O.distinct_prune_parallel(fs, shards=SHARDS, block=256,
+                                              **DISTINCT),
+            lambda k: distinct_ok(k, "ops_distinct_prune_parallel"),
+            lambda k: k, ("distinct_pass1", "distinct_apply")),
+        "ops_topn_prune": (
+            lambda: O.topn_prune(xs, block=256, **TOPN),
+            lambda k: topn_ok(k, "ops_topn_prune"),
+            lambda k: k, ("topn_pass1",)),
+        "ops_distinct_prune": (
+            lambda: O.distinct_prune(fs, block=256, **DISTINCT),
+            lambda k: distinct_ok(k, "ops_distinct_prune"),
+            lambda k: k, ("distinct_pass1",)),
+    }
+    totals = {k.name: 0 for k in P.KERNELS}
+    for name, (run, verify, keep_of, needs) in paths.items():
+        P.reset_launch_counts()
+        res, secs = sync_time(run)
+        counts = {k.name: k.launches for k in P.KERNELS}
+        for k, n in counts.items():
+            totals[k] += n
+        keep = keep_of(res)
+        verify(res)
+        for k in needs:
+            check(counts[k] > 0, f"{name}: kernel {k} was never launched")
+        say("main", path=name, s=round(secs, 4),
+            pruned=round(1 - float(keep.float().mean()), 6),
+            launches=json.dumps(counts, separators=(",", ":")))
+    return table, totals
+
+
+# ------------------------------------------------------------------ phase 4
+# (path, S, B) of every pass-1 launch on the main path. The first is the
+# shape the kernels line reports; the S = 1, B = 1 scan is compared on a
+# prefix (see phase_timing).
+PASS1_SHAPES = (("ops.*_prune_parallel", SHARDS, 256),
+                ("engine_prune two_pass", SHARDS, 1),
+                ("ops.topn_prune / ops.distinct_prune", 1, 256),
+                ("run_query / engine_prune scan", 1, 1))
+
+
+def pass1_bound(m, S, B, state_bytes, clock_hz):
+    """(ms, what sets it) of the least time of one pass-1 launch.
+
+    Bytes: read x once, write keep and the S final states. Chain: each lane
+    makes m / (S * B) dependent steps on its shared-memory state; a step
+    takes at least one shared-memory round trip at B = 1, and two round
+    trips and two block barriers at B > 1, each counted at its floor.
+    """
+    t_bytes = (m * 4 + m + state_bytes) / HBM_BYTES_PER_S * 1e3
+    cycles = SMEM_CYCLES if B == 1 else 2 * (SMEM_CYCLES + BARRIER_CYCLES)
+    t_chain = m // (S * B) * cycles / clock_hz * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "chain")
+
+
+def pass1_fns(algo, P, R):
+    """(kernel, plain) of one algorithm: (values, S, B) -> (keep, states)."""
+    if algo == "topn_pass1":
+        def kernel(v, S, B):
+            keep, st = P.topn_shard_states_kernel(v, shards=S, block=B,
+                                                  **TOPN)
+            return keep, (st,)
+
+        def plain(v, S, B):
+            keep, st = R.topn_block_ref(v.reshape(S, -1), block=B,
+                                        return_state=True, **TOPN)
+            return keep.reshape(-1), (st,)
+        return kernel, plain
+
+    def kernel(v, S, B):
+        keep, *st = P.distinct_shard_states_kernel(v, shards=S, block=B,
+                                                   **DISTINCT)
+        return keep, tuple(st)
+
+    def plain(v, S, B):
+        keep, st = R.distinct_block_ref(v.reshape(S, -1), block=B,
+                                        return_state=True, **DISTINCT)
+        return keep.reshape(-1), st
+    return kernel, plain
+
+
+def phase_timing(torch, P, R, table, totals, clock_hz):
+    """Each kernel against its plain version at every main-path shape on the
+    2^25-row table, its median time, and its bound."""
+    xs = table.cols["ad_revenue"]
+    fs = table.cols["source_ip"]
+    m = M_MAIN
+    rows, states = [], {}
+    for name, v, state_bytes in [
+            ("topn_pass1", xs, lambda S: S * TOPN["d"] * TOPN["w"] * 4),
+            ("distinct_pass1", fs,
+             lambda S: S * (DISTINCT["d"] * DISTINCT["w"] * 5
+                            + DISTINCT["d"] * 4))]:
+        kernel, plain = pass1_fns(name, P, R)
+        errs = []
+        for path, S, B in PASS1_SHAPES:
+            keep, st = kernel(v, S, B)
+            if S == 1 and B == 1:
+                # The keep of entry i of a one-lane scan depends only on
+                # entries 0..i, so the plain scan of a prefix checks the
+                # full-size run's keep there; the final state is not
+                # compared. The plain loop takes one Python step an entry.
+                n = SCAN_PREFIX
+                (keep2, _), plain_s = sync_time(lambda: plain(v[:n], 1, 1))
+                err = max_abs_err([(keep[:n], keep2)])
+            else:
+                n = m
+                (keep2, st2), plain_s = sync_time(lambda: plain(v, S, B))
+                err = max_abs_err([(keep, keep2), *zip(st, st2)])
+            errs.append(err)
+            check(err == 0.0, f"{name} S={S} B={B} on the 2^25-row table")
+            if B == 1 and S > 1:
+                states[name] = (keep, st)
+            if B == 256 and S > 1:
+                states[name + " ops"] = (keep, st)
+            ms = event_ms(lambda: kernel(v, S, B), 2 if S == 1 else 5)
+            bound, by = pass1_bound(m, S, B, state_bytes(S), clock_hz)
+            say("timing", kernel=name, path=json.dumps(path), S=S, B=B,
+                ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
+                bound_ms=bound, bound_by=by, chain_steps=m // (S * B),
+                max_abs_err=err)
+            if path == PASS1_SHAPES[0][0]:
+                first = (ms, plain_s * 1e3, bound, by)
+        rows.append(_row(name, totals, max(errs), *first))
+
+    # pass 2 on the merged states of both two-pass callers: S = 128 after
+    # B = 256 (ops.*_prune_parallel, the timed shape) and after B = 1
+    # (engine_prune two_pass)
+    d_t, d_d = TOPN["d"], DISTINCT["d"]
+    errs = []
+    for key in ("topn_pass1 ops", "topn_pass1"):
+        merged = P.merge_topn_states(states[key][1][0], TOPN["w"])
+        ka = P.topn_apply_kernel(xs, merged, d=d_t, shards=SHARDS)
+        ka2 = P.topn_apply_plain(xs, merged[:, -1], d=d_t, shards=SHARDS)
+        errs.append(max_abs_err([(ka, ka2)]))
+        check(errs[-1] == 0.0, f"topn_apply after {key} at 2^25 rows")
+        if key.endswith("ops"):
+            ms = event_ms(lambda: P.topn_apply_kernel(
+                xs, merged, d=d_t, shards=SHARDS), 20)
+            plain_ms = event_ms(lambda: P.topn_apply_plain(
+                xs, merged[:, -1], d=d_t, shards=SHARDS), 5)
+    # bytes: read x, write keep, read the d row minima
+    nbytes = m * 4 + m + d_t * 4
+    rows.append(_row("topn_apply", totals, max(errs), ms, plain_ms,
+                     nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+    errs = []
+    for key in ("distinct_pass1 ops", "distinct_pass1"):
+        kd, (sl, va, _) = states[key]
+        mslots, mvalid = P.merge_distinct_states(sl, va)
+        kda = P.distinct_apply_kernel(fs, kd, mslots, mvalid, d=d_d,
+                                      shards=SHARDS)
+        kda2, plain_s = sync_time(lambda: P.distinct_apply_plain(
+            fs, kd, mslots, mvalid, d=d_d, shards=SHARDS))
+        errs.append(max_abs_err([(kda, kda2)]))
+        check(errs[-1] == 0.0, f"distinct_apply after {key} at 2^25 rows")
+        if key.endswith("ops"):
+            ms = event_ms(lambda: P.distinct_apply_kernel(
+                fs, kd, mslots, mvalid, d=d_d, shards=SHARDS), 10)
+            plain_ms = plain_s * 1e3
+            # bytes this run's data needs: keep1 read and keep written in
+            # full, the fingerprints of pass-1 survivors only (whole 32-byte
+            # sectors that hold one), and the union read once
+            sectors = int(kd.view(-1, 8).any(1).sum())
+            nbytes = m + m + sectors * 32 + mslots.numel() * 5
+    rows.append(_row("distinct_apply", totals, max(errs), ms, plain_ms,
+                     nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    return rows
+
+
+SOURCES = {
+    "topn_pass1": ("src/repro_torch/kernels/csrc/topn.cu",
+                   "src/repro/kernels/topn_prune.py:49, "
+                   "src/repro/kernels/parallel.py:86"),
+    "topn_apply": ("src/repro_torch/kernels/csrc/topn.cu",
+                   "src/repro/kernels/parallel.py:126"),
+    "distinct_pass1": ("src/repro_torch/kernels/csrc/distinct.cu",
+                       "src/repro/kernels/distinct_prune.py:67, "
+                       "src/repro/kernels/parallel.py:209"),
+    "distinct_apply": ("src/repro_torch/kernels/csrc/distinct.cu",
+                       "src/repro/kernels/parallel.py:267"),
+}
+
+
+def _row(name, totals, err, ms, plain_ms, bound_ms, bound_by):
+    """One entry of the kernels line. A serial chain is a bound by
+    operations: dependent steps, not bytes."""
+    source, replaces = SOURCES[name]
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": totals[name],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if bound_by == "bytes" else "operations",
+           "library_ms": None}
+    say("timing", **{k: json.dumps(v) for k, v in row.items()})
+    return row
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: PyTorch is missing: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.kernels import common
+        from repro_torch.kernels import ops as O
+        from repro_torch.kernels import parallel as P
+        from repro_torch.kernels import ref as R
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing: {e}",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    say("device", name=json.dumps(torch.cuda.get_device_name(0)),
+        torch=torch.__version__, cuda=torch.version.cuda)
+    card = card_line()
+    clock_hz = max_clock_hz()
+    say("device", card=json.dumps(card), max_sm_clock_hz=clock_hz)
+    try:
+        lib, secs = sync_time(lambda: common.build(verbose=True))
+        common.library()
+        say("build", library=lib.name, s=round(secs, 3))
+    except RuntimeError as e:
+        print(f"chip_smoke: kernel build failed: {e}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_kernels(torch, P, R, O)
+    table, totals = phase_main(torch, P, O)
+    rows = phase_timing(torch, P, R, table, totals, clock_hz)
+    say("done", s=round(time.perf_counter() - t_start, 3),
+        failures=len(FAILURES))
+    if FAILURES:
+        print("chip_smoke: failed: " + "; ".join(FAILURES), file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

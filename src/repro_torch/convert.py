@@ -1,0 +1,47 @@
+"""Carry the JAX package's outputs (as numpy arrays) into the port's objects.
+
+Each function takes numpy arrays and a device (``None``: the card, which
+raises RuntimeError when there is none).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.distinct import DistinctState
+from .core.topn import TopNRandState
+from .device import resolve_device
+from .query.tables import Table
+
+
+def _t(a, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+
+def topn_rand_state_from_numpy(vals, device=None) -> TopNRandState:
+    """A TOP-N matrix f32[d, w] (or stacked [S, d, w])."""
+    return TopNRandState(vals=_t(vals, np.float32, resolve_device(device)))
+
+
+def distinct_state_from_numpy(slots, valid, head, device=None) -> DistinctState:
+    """A DISTINCT cache: uint32 slots, bool valid, int32 head."""
+    dev = resolve_device(device)
+    return DistinctState(slots=_t(slots, np.uint32, dev),
+                         valid=_t(valid, np.bool_, dev),
+                         head=_t(head, np.int32, dev))
+
+
+def distinct_kernel_state_from_numpy(lo, hi, valid, device=None):
+    """(slots uint32, valid bool) from a Pallas DISTINCT kernel's state, which
+    carries each fingerprint as two exact f32 16-bit halves and valid as
+    f32 0/1."""
+    dev = resolve_device(device)
+    lo = np.asarray(lo, np.float32).astype(np.uint32)
+    hi = np.asarray(hi, np.float32).astype(np.uint32)
+    return (_t(lo + (hi << np.uint32(16)), np.uint32, dev),
+            _t(np.asarray(valid) > 0.5, np.bool_, dev))
+
+
+def table_from_numpy(cols: dict, name: str = "table", device=None) -> Table:
+    """A Table of the given numpy columns on ``device``."""
+    return Table.from_numpy(name, cols, device)

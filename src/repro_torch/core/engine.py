@@ -1,0 +1,281 @@
+"""Sharded pruning engine: superset-safe parallel execution (paper §3/§7.2).
+
+Forwarding any superset of a pruner's keep set leaves the query answer
+unchanged, so S independent switch lanes over S contiguous shards of the
+stream still yield a correct superset. ``engine_prune(algo, stream,
+mode=..., shards=S)`` runs one of three modes on the device the stream
+lives on:
+
+``scan``      one lane over the whole stream (the single-switch oracle).
+``sharded``   S lanes, each over its contiguous shard; the keep masks
+              concatenate.
+``two_pass``  pass 1 builds the S lane states, ``merge_states`` folds them
+              into one global state (per-row top-w union for TOP-N, cache
+              union with owner shards for DISTINCT), and pass 2 applies
+              the merged state to every entry.
+
+On a card pass 1 is the pass-1 CUDA kernel with blocks of one entry (the
+engine's per-entry semantics) and pass 2 the apply kernel; on the CPU both
+are their plain versions. The parallel modes' masks are supersets of the
+minimal correct survivor set, not of the scan's mask.
+
+Ported so far: ``topn_rand`` and ``distinct`` with ``policy="fifo"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..constants import NEG
+from ..kernels import parallel as kpar
+from ..kernels.ops import _pad_to
+from .distinct import DistinctState
+from .pruning import PruneResult
+from .topn import TopNRandState
+
+MODES = ("scan", "sharded", "two_pass", "mesh")
+ALGORITHMS = ("topn_det", "topn_rand", "distinct", "skyline", "groupby",
+              "having")
+PASS2 = ("master", "mesh", "auto")
+
+
+@dataclasses.dataclass
+class DistinctMerged:
+    """Union of the shard FIFO caches, with column-owner shard ids.
+
+    Pass 2 prunes a shard-kept entry iff its value sits in a lower-ranked
+    shard's final cache; column s*w + j belongs to shard s.
+    """
+
+    slots: torch.Tensor  # uint32[d, S*w]
+    valid: torch.Tensor  # bool[d, S*w]
+    w: int
+
+    @property
+    def shard(self) -> torch.Tensor:
+        """int32[S*w]: the owner shard of each cache column."""
+        S = self.slots.shape[1] // self.w
+        return torch.arange(S, dtype=torch.int32,
+                            device=self.slots.device).repeat_interleave(self.w)
+
+
+@dataclasses.dataclass(frozen=True)
+class _AlgoSpec:
+    """How the engine runs one pruning algorithm over S stacked lanes.
+
+    pass1(lanes [S, n], params)          -> (keep bool[S, n], stacked state)
+    pads(params)                         -> tail-pad fill of the stream
+    merge(stacked_state, params)         -> merged global state
+    apply(merged, lanes, keep1, params)  -> keep bool[S, n]
+    chunkable: the apply is elementwise over entries (no positional
+    dependence), so ``apply_block`` may cut it into blocks of entries.
+    """
+
+    pass1: Callable[[torch.Tensor, dict], tuple]
+    pads: Callable[[dict], Any]
+    merge: Callable[[Any, dict], Any]
+    apply: Callable[[Any, torch.Tensor, torch.Tensor, dict], torch.Tensor]
+    chunkable: bool = False
+
+
+# TOP-N randomized (d x w rolling matrix, Ex. 7) --------------------------
+def _topn_rand_pass1(lanes, p):
+    S = lanes.shape[0]
+    keep, vals = kpar.topn_shard_states_kernel(
+        lanes.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
+        seed=p.get("seed", 0))
+    return keep.reshape(lanes.shape), TopNRandState(vals=vals)
+
+
+def _topn_rand_merge(st, p):
+    return TopNRandState(vals=kpar.merge_topn_states(st.vals, p["w"]))
+
+
+def _topn_rand_apply(merged, lanes, keep1, p):
+    del keep1
+    keep = kpar.topn_apply_kernel(lanes.reshape(-1), merged.vals, d=p["d"],
+                                  shards=lanes.shape[0],
+                                  seed=p.get("seed", 0))
+    return keep.reshape(lanes.shape)
+
+
+# DISTINCT (d x w fingerprint cache, Ex. 2) --------------------------------
+def _distinct_pass1(lanes, p):
+    S = lanes.shape[0]
+    keep, slots, valid, head = kpar.distinct_shard_states_kernel(
+        lanes.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
+        seed=p.get("seed", 0))
+    return keep.reshape(lanes.shape), DistinctState(slots, valid, head)
+
+
+def _distinct_merge(st, p):
+    slots, valid = kpar.merge_distinct_states(st.slots, st.valid)
+    return DistinctMerged(slots=slots, valid=valid, w=st.slots.shape[2])
+
+
+def _distinct_apply(merged, lanes, keep1, p):
+    keep = kpar.distinct_apply_kernel(
+        lanes.reshape(-1), keep1.reshape(-1), merged.slots, merged.valid,
+        d=p["d"], shards=lanes.shape[0], seed=p.get("seed", 0))
+    return keep.reshape(lanes.shape)
+
+
+_SPECS: dict[str, _AlgoSpec] = {
+    "topn_rand": _AlgoSpec(_topn_rand_pass1, lambda p: float(NEG),
+                           _topn_rand_merge, _topn_rand_apply),
+    "distinct": _AlgoSpec(_distinct_pass1, lambda p: 0,
+                          _distinct_merge, _distinct_apply, chunkable=True),
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _spec(algo: str, params: dict) -> _AlgoSpec:
+    if algo not in ALGORITHMS:
+        raise KeyError(algo)
+    if algo not in _SPECS:
+        item = ("Queue 1 item 3: the topn_det scan kernel" if algo == "topn_det"
+                else "Queue 1 item 5: the other four algorithms")
+        raise _not_ported(f"algorithm {algo!r}", item)
+    if algo == "distinct" and params.get("policy", "lru") != "fifo":
+        raise _not_ported(f"DISTINCT policy={params.get('policy', 'lru')!r}",
+                          "Queue 1 item 3: the LRU scan kernel; pass "
+                          "policy='fifo'")
+    for k in ("state", "index_offset"):
+        if k in params:
+            raise _not_ported(f"{k}= (scan resume)",
+                              "Queue 1 item 9: streaming")
+    return _SPECS[algo]
+
+
+# ------------------------------------------------------------------ layout
+def shard_stack(arr: torch.Tensor, shards: int, fill=0) -> torch.Tensor:
+    """[m] -> [S, ceil(m/S)] contiguous chunks, the last tail-padded with
+    ``fill``: shard i holds entries [i*n, (i+1)*n)."""
+    return _pad_to(arr, shards, fill)[0].reshape(shards, -1)
+
+
+def _unshard(x: torch.Tensor, m: int) -> torch.Tensor:
+    return x.reshape((-1,) + tuple(x.shape[2:]))[:m]
+
+
+def unshard_mask(keep: torch.Tensor, m: int) -> torch.Tensor:
+    """Stacked [S, n] keep mask -> flat bool[m] (inverse of shard_stack)."""
+    return _unshard(keep, m)
+
+
+def _apply_chunked(apply_fn, pads_fn, merged, lanes, keep1, params,
+                   block: int) -> torch.Tensor:
+    """Run an apply body over blocks of ``block`` entries of every lane.
+
+    Exact for an apply that is elementwise over entries: each block keeps
+    its lanes as the leading axis, so lane ranks are unchanged.
+    """
+    n = keep1.shape[1]
+    nb = -(-n // block)
+    lanes, _ = _pad_to(lanes, block, pads_fn(params), dim=1)
+    keep1, _ = _pad_to(keep1, block, False, dim=1)
+    out = [apply_fn(merged, lanes[:, j * block:(j + 1) * block].contiguous(),
+                    keep1[:, j * block:(j + 1) * block].contiguous(), params)
+           for j in range(nb)]
+    return torch.cat(out, dim=1)[:, :n]
+
+
+def merge_states(algo: str, stacked_states, **params):
+    """Fold S shard-local switch states into one global state."""
+    return _spec(algo, params).merge(stacked_states, params)
+
+
+def apply_merged(algo: str, merged, shard_streams, keep1, **params):
+    """The pass-2 filter of ``algo`` on stacked lanes: keep bool[S, n]."""
+    (lanes,) = tuple(shard_streams)
+    return _spec(algo, params).apply(merged, lanes, keep1, params)
+
+
+def _reject_unported(options, mesh, tune, plan_cache, encoding, decode,
+                     obs) -> None:
+    if options is not None:
+        raise _not_ported("options= (ExecOptions)", "Queue 1 item 6")
+    if mesh is not None:
+        raise _not_ported("mesh=", "Queue 1 item 7: mesh mode")
+    if tune not in (None, "off") or plan_cache is not None:
+        raise _not_ported("tune= / plan_cache=", "Queue 1 item 11: tuning")
+    if encoding is not None or decode is not None:
+        raise _not_ported("encoded columns (encoding= / decode=)",
+                          "Queue 1 item 10: encoded columns")
+    if obs not in (None, "off"):
+        raise _not_ported(f"obs={obs!r}", "Queue 1 item 12: telemetry")
+
+
+def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
+                 shards: int | str | None = None, mesh=None,
+                 mesh_axis: str = "shards", apply_block: int | None = None,
+                 pass2: str | None = None, tune: str | None = None,
+                 plan_cache=None, encoding=None, decode: str | None = None,
+                 obs: str | None = None, **params) -> PruneResult:
+    """Run pruner ``algo`` over its stream in the requested mode.
+
+    streams: one array of m entries (f32 values for ``topn_rand``, uint32
+    fingerprints for ``distinct``), on the device to run on. A ragged m is
+    handled by tail-padding the final shard with neutral entries (NEG for
+    TOP-N, 0 for DISTINCT).
+
+    shards: lane count S (``None``: 8, capped at m). apply_block: chunk
+    size of the DISTINCT pass-2 filter; the mask is the same with or
+    without it.
+
+    Returns a PruneResult whose keep mask is over the original m entries.
+    state is the final scan state (``scan``), the stacked per-shard states
+    (``sharded``) or the merged global state (``two_pass``).
+    """
+    del mesh_axis
+    _reject_unported(options, mesh, tune, plan_cache, encoding, decode, obs)
+    mode = "scan" if mode is None else mode
+    pass2 = "master" if pass2 is None else pass2
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "mesh":
+        raise _not_ported("mode='mesh'", "Queue 1 item 7: mesh mode")
+    if pass2 not in PASS2:
+        raise ValueError(f"pass2 must be one of {PASS2}, got {pass2!r}")
+    if pass2 != "master":
+        raise ValueError(
+            f"pass2={pass2!r} only applies to mode='mesh' (got {mode!r})")
+    spec = _spec(algo, params)
+    streams = tuple(s for s in streams if s is not None)
+    if len(streams) != 1:
+        raise ValueError(f"{algo} takes one stream, got {len(streams)}")
+    (stream,) = streams
+    m = stream.shape[0]
+    if shards == "auto":
+        raise _not_ported("shards='auto'", "Queue 1 item 6: analytic "
+                          "planner")
+    if shards is None:
+        shards = min(8, m)
+    elif not isinstance(shards, int):
+        raise ValueError(
+            f"shards must be an int, None or 'auto', got {shards!r}")
+
+    if mode == "scan" or shards <= 1:
+        keep, st = spec.pass1(stream.contiguous()[None], params)
+        state = type(st)(*(getattr(st, f.name)[0]
+                           for f in dataclasses.fields(st)))
+        return PruneResult(keep=keep[0], state=state)
+    if shards > m:
+        raise ValueError(f"shards={shards} exceeds stream length {m}")
+    fill = spec.pads(params) if m % shards else 0
+    lanes = shard_stack(stream, shards, fill)
+    keep1, stacked = spec.pass1(lanes, params)
+    if mode == "sharded":
+        return PruneResult(keep=_unshard(keep1, m), state=stacked)
+    merged = spec.merge(stacked, params)
+    if apply_block and spec.chunkable and apply_block < lanes.shape[1]:
+        keep2 = _apply_chunked(spec.apply, spec.pads, merged, lanes, keep1,
+                               params, apply_block)
+    else:
+        keep2 = spec.apply(merged, lanes, keep1, params)
+    return PruneResult(keep=_unshard(keep2, m), state=merged)

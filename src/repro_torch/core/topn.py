@@ -1,0 +1,99 @@
+"""Randomized TOP-N pruning (paper §5 Ex. 7) and its sizing theorems.
+
+A d x w matrix: each entry is hashed (by its stream index) to a row that
+keeps a rolling descending top-w; an entry smaller than all w cached values
+of its row is pruned. Succeeds (no top-N entry pruned) with probability at
+least 1-δ for w per Theorem 2; Theorem 3 bounds the forwarded count.
+
+The scan runs on the pass-1 kernel with one lane and blocks of one entry,
+which is the per-entry semantics of the JAX package's ``lax.scan``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import math
+
+import numpy as np
+import torch
+
+from ..constants import NEG
+from .pruning import PruneResult
+
+
+@dataclasses.dataclass
+class TopNRandState:
+    vals: torch.Tensor  # f32[d, w] per-row descending rolling top-w
+
+
+def topn_rand_init(d: int, w: int, device) -> TopNRandState:
+    return TopNRandState(vals=torch.full((d, w), float(NEG),
+                                         dtype=torch.float32, device=device))
+
+
+def topn_rand_prune(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
+                    state: TopNRandState | None = None,
+                    index_offset=0) -> PruneResult:
+    """Randomized TOP-N matrix (Fig. 2) over f32[m] values (larger = better)."""
+    from ..kernels.parallel import topn_shard_states_kernel
+
+    if state is not None or index_offset:
+        raise NotImplementedError(
+            "resuming a scan (state=/index_offset=) is not ported yet; see "
+            "ROADMAP Queue 1 item 9 (streaming)")
+    keep, states = topn_shard_states_kernel(
+        values.to(torch.float32).contiguous(), d=d, w=w, shards=1, block=1,
+        seed=seed)
+    return PruneResult(keep=keep, state=TopNRandState(states[0]))
+
+
+def thm2_w(d: int, N: int, delta: float) -> int:
+    """Theorem 2: matrix columns for success probability 1-δ given d rows."""
+    num = 1.3 * math.log(d / delta)
+    den = math.log((d / (N * math.e)) * math.log(d / delta))
+    if den <= 0:
+        raise ValueError("d too small: need d > N*e/ln(d/δ) (Thm 2 precondition)")
+    return math.ceil(num / den)
+
+
+def thm2_opt_d(N: int, delta: float) -> int:
+    """Space-optimal d = δ·e^{W(N·e²/δ)} (§5 'Optimizing the Space')."""
+    z = N * math.e**2 / delta
+    wv = math.log(z) - math.log(max(math.log(z), 1e-9))
+    for _ in range(50):
+        ew = math.exp(wv)
+        wv -= (wv * ew - z) / (ew * (wv + 1))
+    return max(1, round(delta * math.exp(wv)))
+
+
+def thm3_forwarded_bound(m: int, d: int, w: int) -> float:
+    """Theorem 3: expected forwarded count <= w*d*ln(m*e/(w*d))."""
+    return w * d * math.log(m * math.e / (w * d))
+
+
+def opt_keep_topn(values, N: int) -> torch.Tensor:
+    """OPT forwards an entry iff it is among the top-N of the prefix so far
+    (a host-side oracle; returns a CPU bool tensor)."""
+    v = torch.as_tensor(values).cpu().numpy().astype(np.float64)
+    out = np.zeros(v.shape[0], bool)
+    heap: list = []
+    for i, x in enumerate(v.tolist()):
+        if len(heap) < N:
+            heapq.heappush(heap, x)
+            out[i] = True
+        elif x > heap[0]:
+            heapq.heapreplace(heap, x)
+            out[i] = True
+    return torch.from_numpy(out)
+
+
+def master_complete_topn(values: torch.Tensor, keep: torch.Tensor, N: int):
+    """Exact top-N among forwarded entries (master side): (values, indices).
+
+    Ties go to the lower index, as ``lax.top_k`` breaks them: a stable
+    descending sort keeps equal values in stream order.
+    """
+    masked = torch.where(keep, values.to(torch.float32),
+                         torch.tensor(float(NEG), device=values.device))
+    srt = torch.sort(masked, descending=True, stable=True)
+    return srt.values[:N], srt.indices[:N]

@@ -1,0 +1,183 @@
+"""Build, load and launch the CUDA pruning kernels.
+
+The kernels are CUDA C++ for Hopper (``csrc/*.cu``) with a plain C
+interface. On first use on a card, every source is compiled with ``nvcc``
+for ``sm_90a`` (one process per source, all started together), linked into
+one shared library under ``_build/<hash of the sources>/`` beside this file,
+and loaded with ``ctypes``. A change to any source changes the hash and so
+triggers a rebuild. Nothing here runs when the module is imported.
+
+``nvcc`` is taken from ``CUDA_HOME`` (as PyTorch resolves it: the
+environment variable, then ``PATH``, then ``/usr/local/cuda``); a missing
+compiler or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+LIB_NAME = "libcheetah_kernels.so"
+
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``; raises RuntimeError when there is none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found: set CUDA_HOME or put nvcc on PATH to build the "
+        "repro_torch CUDA kernels")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel sources into the shared library; returns its path.
+
+    The objects compile in parallel; the library is moved into place
+    atomically, so concurrent builders never load a half-written file.
+    """
+    out_dir = BUILD_ROOT / _source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                  "-fPIC", f"-I{CSRC}"]
+        if verbose:
+            common.append("-Xptxas=-v")
+        procs = []
+        objs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [*common, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            if verbose and out:
+                print(out)
+            if p.returncode != 0:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib,
+                              *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(str(build()))
+    return _lib
+
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+U32 = ctypes.c_uint32
+
+
+class CudaKernel:
+    """One C entry point of the kernel library and its launch count.
+
+    ``launches`` is a plain integer that goes up by one for every launch
+    and nowhere else, so a caller can show that a path ran the kernel.
+    """
+
+    def __init__(self, name: str, argtypes: list, smem_fn: str | None = None):
+        self.name = name
+        self.argtypes = argtypes
+        self.smem_fn = smem_fn
+        self.launches = 0
+
+    def _fn(self, name, argtypes, restype):
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        return fn
+
+    def smem_bytes(self, *args) -> int:
+        """Dynamic shared memory the launch will ask for."""
+        return int(self._fn(self.smem_fn, [I32] * len(args),
+                            ctypes.c_size_t)(*args))
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream, with ``device`` made the
+        current one (shared-memory attributes are set per device); raises on
+        a refused launch."""
+        fn = self._fn(self.name, self.argtypes + [P], I32)
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"cudaError {err}")
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               device: torch.device | None = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (on
+    ``device``, when given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the other inputs on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def grid_for(m: int, device: torch.device, threads: int = 256) -> int:
+    """Blocks for a grid-stride elementwise kernel over m entries."""
+    props = torch.cuda.get_device_properties(device)
+    return max(1, min(-(-m // threads), props.multi_processor_count * 16))
+
+
+MAX_SMEM = 232448  # bytes a Hopper block can opt into (227 KB)

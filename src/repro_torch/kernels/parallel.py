@@ -1,0 +1,244 @@
+"""The two-pass pruning kernels: per-shard pass 1, merge, pass-2 apply.
+
+Pass 1 runs S switch lanes, one per contiguous shard of the stream, each
+with block semantics (``ref.py``), and writes every lane's final state. The
+merge folds the S states with plain tensor ops (the JAX package leaves it
+to XLA as well). Pass 2 applies the merged state to every entry, with no
+state carried between entries.
+
+Each kernel entry point takes the CUDA kernel for a CUDA tensor and its
+plain version for a CPU tensor; a kernel that fails to build or launch
+raises. Keep masks are bool. Fingerprints stay uint32.
+
+The same pass-1 kernel carries four callers of the JAX package: the engine's
+scan (S = 1, B = 1), its sharded and two_pass modes (S lanes, B = 1), and
+the kernel entry points of ``ops.py`` (B = 256, S = 1 or S shards).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..constants import NEG
+from ..core.hashing import as_u32, hash_mod
+from . import ref
+from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, check_cuda,
+                     grid_for, ptr)
+
+TOPN_PASS1 = CudaKernel("topn_pass1", [P, P, P, I32, I32, I32, I32, I32, U32],
+                        smem_fn="topn_pass1_smem")
+TOPN_APPLY = CudaKernel("topn_apply", [P, P, P, I64, I32, I32, U32, I32])
+DISTINCT_PASS1 = CudaKernel(
+    "distinct_pass1", [P, P, P, P, P, I32, I32, I32, I32, I32, U32],
+    smem_fn="distinct_pass1_smem")
+DISTINCT_APPLY = CudaKernel(
+    "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32])
+KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _check_shape(m: int, d: int, shards: int, block: int) -> int:
+    if d >= (1 << 16):
+        raise ValueError("multiply-shift range reduction needs d < 2^16")
+    if shards < 1 or m % shards:
+        raise ValueError(f"stream length {m} is not a multiple of "
+                         f"shards={shards}")
+    shard_len = m // shards
+    if block < 1 or shard_len % block:
+        raise ValueError(f"shard length {shard_len} is not a multiple of "
+                         f"block={block}; pad the stream")
+    return shard_len
+
+
+def _check_pass1(kernel: CudaKernel, d: int, w: int, block: int) -> None:
+    if block > 1024:
+        raise ValueError(f"the CUDA pass-1 kernel takes block <= 1024, "
+                         f"got {block}")
+    need = kernel.smem_bytes(d, w, block)
+    if need > MAX_SMEM:
+        raise ValueError(f"{kernel.name} needs {need} bytes of shared memory "
+                         f"at d={d}, w={w}; a Hopper block has {MAX_SMEM}")
+
+
+# ======================================================= TOP-N (rand, Ex. 7)
+def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
+                             shards: int, block: int = 256, seed: int = 0):
+    """Pass 1: keep bool[m] and per-shard matrices f32[shards, d, w].
+
+    ``values`` is f32[m], m a multiple of shards * block; lane s owns the
+    entries [s * m/S, (s+1) * m/S) and hashes its shard-local index.
+    """
+    m = values.shape[0]
+    shard_len = _check_shape(m, d, shards, block)
+    if not values.is_cuda:
+        keep, states = ref.topn_block_ref(
+            values.reshape(shards, shard_len), d=d, w=w, block=block,
+            seed=seed, return_state=True)
+        return keep.reshape(m), states
+    check_cuda("values", values, torch.float32)
+    _check_pass1(TOPN_PASS1, d, w, block)
+    keep = torch.empty(m, dtype=torch.bool, device=values.device)
+    states = torch.empty((shards, d, w), dtype=torch.float32,
+                         device=values.device)
+    if m:
+        TOPN_PASS1.launch(values.device, ptr(values), ptr(keep), ptr(states),
+                          shards, shard_len, d, w, block, seed & 0xFFFFFFFF)
+    else:
+        states.fill_(float(NEG))
+    return keep, states
+
+
+def merge_topn_states(states: torch.Tensor, w: int) -> torch.Tensor:
+    """[S, d, w] shard matrices -> [d, w] per-row top-w of the union."""
+    S, d, _ = states.shape
+    cols = states.movedim(0, 1).reshape(d, -1)
+    return torch.sort(cols, dim=1, descending=True, stable=True).values[:, :w]
+
+
+def topn_apply_plain(values: torch.Tensor, rowmin: torch.Tensor, *, d: int,
+                     shards: int, seed: int = 0) -> torch.Tensor:
+    """Plain pass 2: keep = x >= rowmin[hash(shard-local index)]."""
+    m = values.shape[0]
+    idx = torch.arange(m // shards, device=values.device)
+    rows = hash_mod(idx, d, seed)
+    return (values.reshape(shards, -1) >= rowmin[rows]).reshape(m)
+
+
+def topn_apply_kernel(values: torch.Tensor, merged: torch.Tensor, *, d: int,
+                      shards: int, seed: int = 0) -> torch.Tensor:
+    """Pass 2: keep bool[m] = value >= the merged row minimum."""
+    m = values.shape[0]
+    shard_len = _check_shape(m, d, shards, 1)
+    if merged.ndim != 2 or merged.shape[0] != d:
+        raise ValueError(f"merged must be [d={d}, w], got {tuple(merged.shape)}")
+    rowmin = merged[:, -1].contiguous()
+    if not values.is_cuda:
+        return topn_apply_plain(values, rowmin, d=d, shards=shards, seed=seed)
+    check_cuda("values", values, torch.float32)
+    check_cuda("merged", rowmin, torch.float32, values.device)
+    keep = torch.empty(m, dtype=torch.bool, device=values.device)
+    if m:
+        TOPN_APPLY.launch(values.device, ptr(values), ptr(rowmin), ptr(keep),
+                          m, shard_len, d, seed & 0xFFFFFFFF,
+                          grid_for(m, values.device))
+    return keep
+
+
+def topn_parallel_ref(values, *, d, w, shards, block, seed=0):
+    """Plain pass 1 + merge + pass 2: the mirror of the two-pass kernels."""
+    _, states = ref.topn_block_ref(values.reshape(shards, -1), d=d, w=w,
+                                   block=block, seed=seed, return_state=True)
+    merged = merge_topn_states(states, w)
+    keep = topn_apply_plain(values, merged[:, -1], d=d, shards=shards,
+                            seed=seed)
+    return keep, states
+
+
+# ==================================================== DISTINCT (FIFO, Ex. 2)
+def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
+                                 shards: int, block: int = 256,
+                                 seed: int = 0):
+    """Pass 1: keep bool[m] and per-shard caches (slots uint32[S, d, w],
+    valid bool[S, d, w], head int32[S, d])."""
+    m = values.shape[0]
+    shard_len = _check_shape(m, d, shards, block)
+    if not values.is_cuda:
+        keep, state = ref.distinct_block_ref(
+            values.reshape(shards, shard_len), d=d, w=w, block=block,
+            seed=seed, return_state=True)
+        return (keep.reshape(m),) + state
+    check_cuda("values", values, torch.uint32)
+    _check_pass1(DISTINCT_PASS1, d, w, block)
+    dev = values.device
+    keep = torch.empty(m, dtype=torch.bool, device=dev)
+    slots = torch.empty((shards, d, w), dtype=torch.uint32, device=dev)
+    valid = torch.empty((shards, d, w), dtype=torch.bool, device=dev)
+    head = torch.empty((shards, d), dtype=torch.int32, device=dev)
+    if m:
+        DISTINCT_PASS1.launch(dev, ptr(values), ptr(keep), ptr(slots),
+                              ptr(valid), ptr(head), shards, shard_len, d, w, block,
+                              seed & 0xFFFFFFFF)
+    else:
+        slots.view(torch.int32).zero_()
+        valid.zero_()
+        head.zero_()
+    return keep, slots, valid, head
+
+
+def cols_by_shard(stacked: torch.Tensor) -> torch.Tensor:
+    """[S, d, w] per-shard row state -> [d, S*w] cache-column union
+    (column s*w + j is slot j of shard s)."""
+    S, d, w = stacked.shape
+    if stacked.dtype == torch.uint32:
+        return cols_by_shard(stacked.view(torch.int32)).view(torch.uint32)
+    return stacked.movedim(0, 1).reshape(d, S * w)
+
+
+def merge_distinct_states(slots: torch.Tensor, valid: torch.Tensor):
+    """[S, d, w] shard caches -> the [d, S*w] union of slots and valid flags.
+
+    The column order carries each slot's owner shard (``cols_by_shard``),
+    which pass 2 needs to ask "cached by a lower-ranked shard?"."""
+    return cols_by_shard(slots), cols_by_shard(valid)
+
+
+def distinct_apply_plain(values: torch.Tensor, keep1: torch.Tensor,
+                         mslots: torch.Tensor, mvalid: torch.Tensor, *,
+                         d: int, shards: int, seed: int = 0) -> torch.Tensor:
+    """Plain pass 2: drop a pass-1 survivor whose fingerprint is valid in the
+    cache of a lower-ranked shard. Loops over shards to bound memory."""
+    m = values.shape[0]
+    w = mslots.shape[1] // shards
+    x = as_u32(values).reshape(shards, -1)
+    rows = hash_mod(x, d, seed)
+    ms = as_u32(mslots)
+    dup = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for s in range(shards - 1):
+        cols = slice(s * w, (s + 1) * w)
+        r, xs = rows[s + 1:], x[s + 1:, :, None]
+        dup[s + 1:] |= ((ms[r, cols] == xs) & mvalid[r, cols]).any(-1)
+    return keep1 & ~dup.reshape(m)
+
+
+def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
+                          mslots: torch.Tensor, mvalid: torch.Tensor, *,
+                          d: int, shards: int, seed: int = 0) -> torch.Tensor:
+    """Pass 2: keep bool[m] = keep1 and not cached by a lower-ranked shard."""
+    m = values.shape[0]
+    shard_len = _check_shape(m, d, shards, 1)
+    sw = mslots.shape[-1]
+    if (mslots.shape != (d, sw) or mvalid.shape != (d, sw) or sw % shards
+            or keep1.shape != (m,)):
+        raise ValueError(
+            f"distinct apply takes keep1 [m={m}] and a [d={d}, S*w] union "
+            f"over S={shards} shards; got keep1 {tuple(keep1.shape)}, "
+            f"slots {tuple(mslots.shape)}, valid {tuple(mvalid.shape)}")
+    if not values.is_cuda:
+        return distinct_apply_plain(values, keep1, mslots, mvalid, d=d,
+                                    shards=shards, seed=seed)
+    check_cuda("values", values, torch.uint32)
+    check_cuda("keep1", keep1, torch.bool, values.device)
+    check_cuda("mslots", mslots, torch.uint32, values.device)
+    check_cuda("mvalid", mvalid, torch.bool, values.device)
+    keep = torch.empty(m, dtype=torch.bool, device=values.device)
+    if m:
+        DISTINCT_APPLY.launch(values.device, ptr(values), ptr(keep1),
+                              ptr(mslots), ptr(mvalid), ptr(keep), m,
+                              shard_len, d, sw // shards, sw,
+                              seed & 0xFFFFFFFF, grid_for(m, values.device))
+    return keep
+
+
+def distinct_parallel_ref(values, *, d, w, shards, block, seed=0):
+    """Plain pass 1 + merge + pass 2: the mirror of the two-pass kernels."""
+    keep1, state = ref.distinct_block_ref(
+        values.reshape(shards, -1), d=d, w=w, block=block, seed=seed,
+        return_state=True)
+    slots, valid, _ = state
+    mslots, mvalid = merge_distinct_states(slots, valid)
+    keep = distinct_apply_plain(values, keep1.reshape(-1), mslots, mvalid,
+                                d=d, shards=shards, seed=seed)
+    return keep, (slots, valid)

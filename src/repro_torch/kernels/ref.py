@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the pass-1 pruning kernels (block semantics).
+
+Ports of ``ref.topn_block_ref`` and ``ref.distinct_block_ref`` of the JAX
+package. Block semantics are the paper's §9 multi-entry rule: within a block
+of B entries every prune decision reads the pre-block state, and each row
+takes at most one insert per block. At B = 1 they are the per-entry scans of
+``core.topn.topn_rand_prune`` and ``core.distinct.distinct_prune(policy="fifo")``.
+
+Both take one stream ``[m]`` or S lane streams ``[S, n]`` and loop over
+blocks, vectorised across the B entries of a block and the S lanes. As in
+the JAX package, a stream is cut to a whole number of blocks. These are the
+versions the CPU runs, and what the CUDA kernels are held against on a card.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..constants import NEG
+from ..core.hashing import as_u32, hash_mod
+
+
+def _lanes(values: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
+    lanes = values if values.ndim == 2 else values[None]
+    nb = lanes.shape[1] // block
+    return lanes[:, : nb * block], nb
+
+
+def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
+                   seed: int = 0, return_state: bool = False):
+    """Randomized TOP-N matrix, block semantics: keep bool[m] (or [S, n]),
+    plus the final f32[d, w] (or [S, d, w]) matrix when ``return_state``."""
+    one = values.ndim == 1
+    x, nb = _lanes(values.to(torch.float32), block)
+    S, dev = x.shape[0], x.device
+    rows_all = hash_mod(torch.arange(nb * block, device=dev), d, seed)
+    state = torch.full((S, d, w), float(NEG), dtype=torch.float32, device=dev)
+    keep = torch.empty(x.shape, dtype=torch.bool, device=dev)
+    idxw = torch.arange(w, device=dev)
+    for c in range(nb):
+        sl = slice(c * block, (c + 1) * block)
+        xb, rows = x[:, sl], rows_all[sl]
+        row_min = state[:, :, -1]
+        keep[:, sl] = xb >= row_min[:, rows]
+        cand = torch.full((S, d), float(NEG), dtype=torch.float32, device=dev)
+        cand = cand.scatter_reduce(1, rows.expand(S, -1), xb, "amax")
+        do = cand > row_min
+        pos = (cand[:, :, None] <= state).sum(-1, keepdim=True)
+        shifted = torch.where(idxw > pos, state.roll(1, dims=2), state)
+        inserted = torch.where(idxw == pos, cand[:, :, None], shifted)
+        state = torch.where(do[:, :, None], inserted, state)
+    if one:
+        keep, state = keep[0], state[0]
+    return (keep, state) if return_state else keep
+
+
+def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
+                       seed: int = 0, return_state: bool = False):
+    """FIFO d x w fingerprint cache, block semantics: keep bool[m] (or
+    [S, n]), plus the final (slots uint32, valid bool, head int32) state
+    when ``return_state``."""
+    one = values.ndim == 1
+    v, nb = _lanes(values, block)
+    x = as_u32(v)                       # int64 lanes: exact uint32 compares
+    S, dev = x.shape[0], x.device
+    rows_all = hash_mod(x, d, seed)     # [S, nb * block]
+    # row d is a dump row for the entries that insert nothing, so that a
+    # block's inserts are one scatter with no host synchronisation
+    slots = torch.zeros((S, d + 1, w), dtype=torch.int64, device=dev)
+    valid = torch.zeros((S, d + 1, w), dtype=torch.bool, device=dev)
+    head = torch.zeros((S, d + 1), dtype=torch.int64, device=dev)
+    keep = torch.empty(x.shape, dtype=torch.bool, device=dev)
+    lane = torch.arange(S, device=dev)[:, None]
+    iota = torch.arange(block, device=dev).expand(S, -1)
+    for c in range(nb):
+        sl = slice(c * block, (c + 1) * block)
+        xb, rows = x[:, sl], rows_all[:, sl]
+        hit = ((slots[lane, rows] == xb[:, :, None])
+               & valid[lane, rows]).any(-1)
+        miss = ~hit
+        keep[:, sl] = miss
+        cand = torch.where(miss, iota, block)
+        first = torch.full((S, d), block, dtype=torch.int64, device=dev)
+        first = first.scatter_reduce(1, rows, cand, "amin")
+        insert = miss & (first.gather(1, rows) == iota)
+        h = head.gather(1, rows)
+        r = torch.where(insert, rows, d)
+        col = torch.where(insert, h, 0)
+        slots[lane, r, col] = xb
+        valid[lane, r, col] = True
+        head[lane, r] = (h + 1) % w
+    slots = slots[:, :d].to(torch.int32).view(torch.uint32)
+    valid = valid[:, :d].contiguous()
+    head = head[:, :d].to(torch.int32)
+    if one:
+        keep, slots, valid, head = keep[0], slots[0], valid[0], head[0]
+    return (keep, (slots, valid, head)) if return_state else keep

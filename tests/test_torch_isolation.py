@@ -1,0 +1,92 @@
+"""The port stands alone: no JAX, nothing of the JAX package, no quiet CPU."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.query import tables
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b")
+
+
+def test_no_jax_import_lines():
+    bad = [f"{p.relative_to(ROOT)}:{i}"
+           for p in PORT_FILES
+           for i, line in enumerate(p.read_text().splitlines(), 1)
+           if IMPORT.match(line)]
+    assert not bad
+
+
+def test_imports_with_jax_blocked():
+    """Every module of the port and chip_smoke's imports load with jax,
+    jaxlib and repro unimportable; none of them is loaded afterwards."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
+        import pkgutil, importlib
+        import repro_torch
+        for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(mod.name)
+        import chip_smoke
+        from repro_torch.kernels import common, ops, parallel, ref
+        loaded = [n for n, m in sys.modules.items() if m is not None and (
+            n.split(".")[0] in ("jax", "jaxlib", "repro"))]
+        assert not loaded, loaded
+        print("isolated")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_without_a_card_fails():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+CONSTRUCTORS = [
+    lambda: tables.make_uservisits(16),
+    lambda: tables.make_rankings(16),
+    lambda: tables.Table.from_numpy("t", {"a": np.zeros(4, np.float32)}),
+    lambda: convert.table_from_numpy({"a": np.zeros(4, np.float32)}),
+    lambda: convert.topn_rand_state_from_numpy(np.zeros((4, 2), np.float32)),
+    lambda: convert.distinct_state_from_numpy(
+        np.zeros((4, 2), np.uint32), np.zeros((4, 2), bool),
+        np.zeros(4, np.int32)),
+    lambda: convert.distinct_kernel_state_from_numpy(
+        np.zeros((4, 2), np.float32), np.zeros((4, 2), np.float32),
+        np.zeros((4, 2), np.float32)),
+]
+
+
+@pytest.mark.parametrize("make", CONSTRUCTORS)
+def test_default_device_is_the_card(make, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
