@@ -7,18 +7,21 @@ Phases, one line each, and a non-zero exit on any failure:
 
 1. build   compile the kernels from ``src/repro_torch/kernels/csrc``.
 2. kernels each kernel against its plain PyTorch version on the card,
-           bit-identical keep masks and states, at B in {1, 256}, S in
-           {1, 8, 128}, ragged m, d = 4096 for DISTINCT, two seeds.
+           bit-identical keep masks, states and tables, at B in {1, 256}, S
+           in {1, 8, 128}, ragged m, d = 4096 for DISTINCT, two seeds; both
+           APH associations and SUM for SKYLINE, both hash families and
+           table dtypes for Count-Min.
 3. main    the main path on a 2^25-row uservisits table (one worker's
-           partition of the Big Data benchmark): ``run_query`` TOP-N and
-           DISTINCT, ``engine_prune`` two_pass with 128 shards, and the four
-           ``kernels.ops`` entry points. Answers must be exact and every keep
-           mask a superset of the true survivors. Launch counts are set to 0
-           before each path and read after it.
+           partition of the Big Data benchmark): ``run_query`` TOP-N,
+           DISTINCT, SKYLINE and HAVING (COUNT and SUM), ``engine_prune``
+           two_pass with 128 shards, and the eight ``kernels.ops`` entry
+           points. Answers must be exact and every keep mask a superset of
+           the true survivors. Launch counts are set to 0 before each path
+           and read after it.
 4. timing  on the same table, each kernel against its plain version at
-           every shape the main path gives it (bit-identical keep and state;
-           the one-lane scan on a prefix of SCAN_PREFIX entries), its median
-           time, its plain version's time and its bound; then the
+           every shape the main path gives it (bit-identical keep, state and
+           table; a one-lane B = 1 scan on a prefix of SCAN_PREFIX entries),
+           its median time, its plain version's time and its bound; then the
            ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
@@ -46,6 +49,15 @@ TOPN = dict(d=512, w=8)        # README quickstart: d=512, w=8, N=100
 TOPN_N = 100
 DISTINCT = dict(d=4096, w=4)   # 112 KB of shared memory per lane at B=256
 SEEDS = (0, 7)
+SKYLINE = dict(w=8, score="aph")
+SKY_COLS = ("ad_revenue", "duration")
+# (key column, value column, engine params) of the two HAVING queries
+HAVING_COUNT = ("source_ip", "duration",
+                dict(threshold=100_000, rows=3, width=4096, agg="count"))
+HAVING_SUM = ("lang", "duration",
+              dict(threshold=262_000_000, rows=3, width=1024, agg="sum"))
+CMS_OPS = dict(rows=3, width=4096)   # ops.cms_build on source_ip
+FP32_OPS_PER_S = 33.5e12       # H100 SXM FP32 instructions/s without FMA
 
 FAILURES: list[str] = []
 
@@ -148,14 +160,21 @@ def kernel_cases():
 
 def phase_kernels(torch, P, R, O):
     from repro_torch.constants import NEG
+    from repro_torch.kernels import cms_sketch as C
 
     g = torch.Generator().manual_seed(1234)
+    # (score, form) of the SKYLINE pass 1 under each seed
+    sky_forms = {SEEDS[0]: (("aph", "engine"), ("sum", "kernel")),
+                 SEEDS[1]: (("aph", "kernel"),)}
     for S, B, m in kernel_cases():
         x = (torch.rand(m, generator=g) * 1000).to("cuda")
         f = torch.randint(0, 20000, (m,), generator=g).to(torch.int32) \
             .view(torch.uint32).to("cuda")
         xp, _ = O._pad_to(x, S * B, float(NEG))
         fp, _ = O._pad_to(f, S * B, 0)
+        pts = torch.stack([x, (f.view(torch.int32) % 1000).float()], -1)
+        pp, _ = O._pad_to(pts, S * B, float(NEG))
+        wi = (fp.view(torch.int32) % 1000).contiguous()
         for seed in SEEDS:
             t0 = time.perf_counter()
             k, st = P.topn_shard_states_kernel(xp, shards=S, block=B,
@@ -186,12 +205,70 @@ def phase_kernels(torch, P, R, O):
                                           shards=S, seed=seed)
             ok_da = check(same(kda, kda2),
                           f"distinct_apply S={S} m={m} seed={seed}")
+            ok_s = ok_sa = True
+            for score, form in sky_forms[seed]:
+                ks, ps, ss = P.skyline_shard_states_kernel(
+                    pp, w=SKYLINE["w"], shards=S, block=B, score=score,
+                    form=form)
+                ks2, (ps2, ss2) = R.skyline_block_ref(
+                    pp.reshape(S, -1, 2), w=SKYLINE["w"], block=B,
+                    score=score, form=form, return_state=True)
+                ok_s &= check(same(ks, ks2.reshape(-1)) and same(ps, ps2)
+                              and same(ss, ss2),
+                              f"skyline_pass1 S={S} B={B} m={m} {score} "
+                              f"{form}")
+                mp, msc = P.merge_skyline_states(ps, ss)
+                ok_sa &= check(same(P.skyline_apply_kernel(pp, mp, msc),
+                                    P.skyline_apply_plain(pp, mp, msc)),
+                               f"skyline_apply S={S} m={m} {score} {form}")
+            # Count-Min: the engine's family on int32 weights and on unit
+            # weights, the kernels' family on integer-valued f32 weights
+            ok_c = ok_q = True
+            for fam, wts in (("engine", wi), ("engine", None),
+                             ("kernel", wi.float())):
+                width = 4096 if fam == "kernel" else 1000 + seed
+                tb = C.cms_build_kernel(fp, wts, rows=3, width=width,
+                                        seed=seed, family=fam, shards=S)
+                tb2 = C.cms_build_plain(fp, wts, rows=3, width=width,
+                                        seed=seed, family=fam, shards=S)
+                ok_c &= check(same(tb, tb2),
+                              f"cms_build S={S} m={m} {fam} seed={seed}")
+                for thr in (None, 50):
+                    e = C.cms_query_kernel(tb[0], fp, seed=seed, family=fam,
+                                           threshold=thr)
+                    e2 = C.cms_query_plain(tb[0], fp, seed=seed, family=fam,
+                                           threshold=thr)
+                    ok_q &= check(same(e, e2), f"cms_query m={m} {fam} "
+                                  f"threshold={thr} seed={seed}")
             say("kernels", S=S, B=B, m=m, seed=seed, topn_pass1=ok_t,
                 topn_apply=ok_ta, distinct_pass1=ok_d, distinct_apply=ok_da,
-                s=round(time.perf_counter() - t0, 3))
+                skyline_pass1=ok_s, skyline_apply=ok_sa, cms_build=ok_c,
+                cms_query=ok_q, s=round(time.perf_counter() - t0, 3))
 
 
 # ------------------------------------------------------------------ phase 3
+def skyline_sweep(torch, pts):
+    """Exact 2-D skyline (maximising both columns) by sort and sweep, in
+    float64, independent of the port: a point survives iff its second
+    coordinate is the largest among points with its first coordinate and
+    larger than every second coordinate at a strictly larger first one."""
+    a, d = pts[:, 0].double(), pts[:, 1].double()
+    ua, inv = torch.unique(a, return_inverse=True)
+    gmax = torch.full_like(ua, -float("inf")).scatter_reduce(0, inv, d,
+                                                             "amax")
+    above = gmax.flip(0).cummax(0).values.flip(0)  # max over a' >= a
+    above = torch.cat([above[1:], above.new_full((1,), -float("inf"))])
+    return (d == gmax[inv]) & (gmax[inv] > above[inv])
+
+
+def having_truth(torch, keys, values, threshold, agg):
+    """(qualifying keys, rows that carry one) by torch.bincount."""
+    k = keys.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    w = None if agg == "count" else values.double()
+    sums = torch.bincount(k, weights=w)
+    return torch.nonzero(sums > threshold).flatten(), (sums > threshold)[k]
+
+
 def phase_main(torch, P, O):
     from repro_torch import core
     from repro_torch.query import QuerySpec, make_uservisits, run_query
@@ -212,6 +289,15 @@ def phase_main(torch, P, O):
                        device="cuda").scatter_reduce(
         0, inv, torch.arange(M_MAIN, device="cuda"), "amin")
     say("main", distinct_values=uniq.numel())
+    pts = torch.stack([table.cols[c].float() for c in SKY_COLS], -1)
+    sky = skyline_sweep(torch, pts)
+    truths = {q[2]["agg"]: having_truth(torch, table.cols[q[0]],
+                                        table.cols[q[1]], q[2]["threshold"],
+                                        q[2]["agg"])
+              for q in (HAVING_COUNT, HAVING_SUM)}
+    say("main", skyline_points=int(sky.sum()),
+        having_count_keys=truths["count"][0].numel(),
+        having_sum_keys=truths["sum"][0].numel())
 
     def topn_ok(keep, name, out=None):
         v, i = core.master_complete_topn(xs, keep, TOPN_N) if out is None \
@@ -219,6 +305,30 @@ def phase_main(torch, P, O):
         check(torch.equal(v, true_v) and torch.equal(i, true_i),
               f"{name}: top-{TOPN_N} differs from the stable sort")
         check(bool(keep[true_i].all()), f"{name}: a top-N entry was pruned")
+
+    def skyline_ok(keep, name, out=None):
+        if out is None:
+            out = core.master_complete_skyline(pts, keep)
+        check(torch.equal(out, sky), f"{name}: SKYLINE differs from the "
+              "sort-and-sweep skyline")
+        check(bool(keep[sky].all()), f"{name}: a skyline point was pruned")
+
+    def having_ok(keep, name, agg, out=None):
+        kname, vname, p = HAVING_COUNT if agg == "count" else HAVING_SUM
+        want, rows = truths[agg]
+        if out is None:
+            out = core.master_complete_having(
+                table.cols[kname], table.cols[vname], keep, p["threshold"],
+                agg)
+        check(out == want.tolist(), f"{name}: HAVING differs from bincount")
+        check(bool(keep[rows].all()),
+              f"{name}: a row of a qualifying key was pruned")
+
+    def cms_ok(est, name):
+        counts = torch.bincount(f64)
+        check(bool((est >= counts[f64].float()).all()),
+              f"{name}: a Count-Min estimate is below the true count")
+        having_ok(est > HAVING_COUNT[2]["threshold"], name, "count")
 
     def distinct_ok(keep, name, out=None):
         if out is None:
@@ -272,6 +382,50 @@ def phase_main(torch, P, O):
             lambda: O.distinct_prune(fs, block=256, **DISTINCT),
             lambda k: distinct_ok(k, "ops_distinct_prune"),
             lambda k: k, ("distinct_pass1",)),
+        "run_query_skyline": (
+            lambda: run_query(QuerySpec("skyline", SKY_COLS, SKYLINE), table),
+            lambda r: skyline_ok(r["keep"], "run_query_skyline", r["output"]),
+            lambda r: r["keep"], ("skyline_pass1",)),
+        "engine_two_pass_skyline": (
+            lambda: core.engine_prune("skyline", pts, mode="two_pass",
+                                      shards=SHARDS, **SKYLINE),
+            lambda r: skyline_ok(r.keep, "engine_two_pass_skyline"),
+            lambda r: r.keep, ("skyline_pass1", "skyline_apply")),
+        "ops_skyline_prune_parallel": (
+            lambda: O.skyline_prune_parallel(pts, shards=SHARDS, block=256,
+                                             **SKYLINE),
+            lambda k: skyline_ok(k, "ops_skyline_prune_parallel"),
+            lambda k: k, ("skyline_pass1", "skyline_apply")),
+        "ops_skyline_prune": (
+            lambda: O.skyline_prune(pts, block=256, **SKYLINE),
+            lambda k: skyline_ok(k, "ops_skyline_prune"),
+            lambda k: k, ("skyline_pass1",)),
+        "run_query_having_count": (
+            lambda: run_query(QuerySpec("having", HAVING_COUNT[:2],
+                                        HAVING_COUNT[2]), table),
+            lambda r: having_ok(r["keep"], "run_query_having_count", "count",
+                                r["output"]),
+            lambda r: r["keep"], ("cms_build", "cms_query")),
+        "run_query_having_sum": (
+            lambda: run_query(QuerySpec("having", HAVING_SUM[:2],
+                                        HAVING_SUM[2]), table),
+            lambda r: having_ok(r["keep"], "run_query_having_sum", "sum",
+                                r["output"]),
+            lambda r: r["keep"], ("cms_build", "cms_query")),
+        "engine_two_pass_having": (
+            lambda: core.engine_prune(
+                "having", table.cols[HAVING_COUNT[0]],
+                table.cols[HAVING_COUNT[1]], mode="two_pass", shards=SHARDS,
+                **HAVING_COUNT[2]),
+            lambda r: having_ok(r.keep, "engine_two_pass_having", "count"),
+            lambda r: r.keep, ("cms_build", "cms_query")),
+        "ops_cms": (
+            lambda: O.cms_query(O.cms_build(
+                fs, torch.ones(M_MAIN, dtype=torch.float32, device="cuda"),
+                **CMS_OPS), fs),
+            lambda est: cms_ok(est, "ops_cms"),
+            lambda est: est > HAVING_COUNT[2]["threshold"],
+            ("cms_build", "cms_query")),
     }
     totals = {k.name: 0 for k in P.KERNELS}
     for name, (run, verify, keep_of, needs) in paths.items():
@@ -287,7 +441,7 @@ def phase_main(torch, P, O):
         say("main", path=name, s=round(secs, 4),
             pruned=round(1 - float(keep.float().mean()), 6),
             launches=json.dumps(counts, separators=(",", ":")))
-    return table, totals
+    return table, pts, totals
 
 
 # ------------------------------------------------------------------ phase 4
@@ -300,7 +454,7 @@ PASS1_SHAPES = (("ops.*_prune_parallel", SHARDS, 256),
                 ("run_query / engine_prune scan", 1, 1))
 
 
-def pass1_bound(m, S, B, state_bytes, clock_hz):
+def pass1_bound(m, S, B, in_bytes, state_bytes, clock_hz):
     """(ms, what sets it) of the least time of one pass-1 launch.
 
     Bytes: read x once, write keep and the S final states. Chain: each lane
@@ -308,14 +462,31 @@ def pass1_bound(m, S, B, state_bytes, clock_hz):
     takes at least one shared-memory round trip at B = 1, and two round
     trips and two block barriers at B > 1, each counted at its floor.
     """
-    t_bytes = (m * 4 + m + state_bytes) / HBM_BYTES_PER_S * 1e3
+    t_bytes = (in_bytes + m + state_bytes) / HBM_BYTES_PER_S * 1e3
     cycles = SMEM_CYCLES if B == 1 else 2 * (SMEM_CYCLES + BARRIER_CYCLES)
     t_chain = m // (S * B) * cycles / clock_hz * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "chain")
 
 
 def pass1_fns(algo, P, R):
-    """(kernel, plain) of one algorithm: (values, S, B) -> (keep, states)."""
+    """(kernel, plain) of one algorithm: (values, S, B) -> (keep, states).
+
+    SKYLINE's main path takes the Pallas kernels' APH association in the
+    ``ops`` calls (B = 256) and the engine's in the engine (B = 1)."""
+    if algo == "skyline_pass1":
+        def kernel(v, S, B):
+            keep, pts, scs = P.skyline_shard_states_kernel(
+                v, shards=S, block=B, form="kernel" if B > 1 else "engine",
+                **SKYLINE)
+            return keep, (pts, scs)
+
+        def plain(v, S, B):
+            keep, st = R.skyline_block_ref(
+                v.reshape(S, -1, v.shape[1]), block=B,
+                form="kernel" if B > 1 else "engine", return_state=True,
+                **SKYLINE)
+            return keep.reshape(-1), st
+        return kernel, plain
     if algo == "topn_pass1":
         def kernel(v, S, B):
             keep, st = P.topn_shard_states_kernel(v, shards=S, block=B,
@@ -340,7 +511,7 @@ def pass1_fns(algo, P, R):
     return kernel, plain
 
 
-def phase_timing(torch, P, R, table, totals, clock_hz):
+def phase_timing(torch, P, R, table, pts, totals, clock_hz):
     """Each kernel against its plain version at every main-path shape on the
     2^25-row table, its median time, and its bound."""
     xs = table.cols["ad_revenue"]
@@ -351,7 +522,9 @@ def phase_timing(torch, P, R, table, totals, clock_hz):
             ("topn_pass1", xs, lambda S: S * TOPN["d"] * TOPN["w"] * 4),
             ("distinct_pass1", fs,
              lambda S: S * (DISTINCT["d"] * DISTINCT["w"] * 5
-                            + DISTINCT["d"] * 4))]:
+                            + DISTINCT["d"] * 4)),
+            ("skyline_pass1", pts,
+             lambda S: S * SKYLINE["w"] * (pts.shape[1] + 1) * 4)]:
         kernel, plain = pass1_fns(name, P, R)
         errs = []
         for path, S, B in PASS1_SHAPES:
@@ -375,7 +548,8 @@ def phase_timing(torch, P, R, table, totals, clock_hz):
             if B == 256 and S > 1:
                 states[name + " ops"] = (keep, st)
             ms = event_ms(lambda: kernel(v, S, B), 2 if S == 1 else 5)
-            bound, by = pass1_bound(m, S, B, state_bytes(S), clock_hz)
+            bound, by = pass1_bound(m, S, B, v.numel() * v.element_size(),
+                                    state_bytes(S), clock_hz)
             say("timing", kernel=name, path=json.dumps(path), S=S, B=B,
                 ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
                 bound_ms=bound, bound_by=by, chain_steps=m // (S * B),
@@ -426,7 +600,119 @@ def phase_timing(torch, P, R, table, totals, clock_hz):
             nbytes = m + m + sectors * 32 + mslots.numel() * 5
     rows.append(_row("distinct_apply", totals, max(errs), ms, plain_ms,
                      nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    rows.append(time_skyline_apply(torch, P, pts, states, totals))
+    rows.extend(time_cms(torch, table, totals))
     return rows
+
+
+def time_skyline_apply(torch, P, pts, states, totals):
+    """SKYLINE pass 2 after the S = 128 stores of B = 256 (ops, plain
+    union) and of B = 1 (engine, union sorted by score)."""
+    from repro_torch import core
+    from repro_torch.constants import NEG
+
+    m, D = pts.shape
+    errs = []
+    for key in ("skyline_pass1 ops", "skyline_pass1"):
+        _, (sp, ss) = states[key]
+        if key.endswith("ops"):
+            mp, msc = P.merge_skyline_states(sp, ss)
+        else:
+            merged = core.merge_states("skyline", core.SkylineState(sp, ss),
+                                       **SKYLINE)
+            mp, msc = merged.points, merged.scores
+        keep = P.skyline_apply_kernel(pts, mp, msc)
+        keep2, plain_s = sync_time(lambda: P.skyline_apply_plain(pts, mp,
+                                                                 msc))
+        errs.append(max_abs_err([(keep, keep2)]))
+        check(errs[-1] == 0.0, f"skyline_apply after {key} at 2^25 rows")
+        ms = event_ms(lambda: P.skyline_apply_kernel(pts, mp, msc), 10)
+        # the least work this run's data needs: a dominated entry one
+        # dominator's D comparisons, a survivor one comparison against
+        # every valid merged point; the full scan is m * S*w * D
+        sw, valid, kept = msc.numel(), int((msc > NEG).sum()), int(keep.sum())
+        compares = (m - kept) * D + kept * valid
+        t_ops = compares / FP32_OPS_PER_S * 1e3
+        t_bytes = (m * D * 4 + m + sw * (D + 1) * 4) / HBM_BYTES_PER_S * 1e3
+        bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "ops")
+        say("timing", kernel="skyline_apply", after=json.dumps(key), ms=ms,
+            plain_ms=plain_s * 1e3, bound_ms=bound, bound_by=by,
+            compares_needed=compares, compares_full=m * sw * D,
+            full_scan_ms=m * sw * D / FP32_OPS_PER_S * 1e3, survivors=kept,
+            max_abs_err=errs[-1])
+        if key.endswith("ops"):
+            first = (ms, plain_s * 1e3, bound, by)
+    return _row("skyline_apply", totals, max(errs), *first)
+
+
+def cms_shapes(table):
+    """(path, keys, weights, family, rows, width, lanes, threshold) of every
+    Count-Min launch on the main path; the first is the reported shape."""
+    import torch
+
+    src, dur, lang = (table.cols["source_ip"], table.cols["duration"],
+                      table.cols["lang"])
+    ones = torch.ones(M_MAIN, dtype=torch.float32, device="cuda")
+    cnt, sm = HAVING_COUNT[2], HAVING_SUM[2]
+    return [("ops.cms_build / ops.cms_query", src, ones, "kernel",
+             CMS_OPS["rows"], CMS_OPS["width"], 1, None),
+            ("run_query HAVING COUNT", src, None, "engine", cnt["rows"],
+             cnt["width"], 1, cnt["threshold"]),
+            ("run_query HAVING SUM", lang, dur, "engine", sm["rows"],
+             sm["width"], 1, sm["threshold"]),
+            ("engine_prune two_pass HAVING COUNT", src, None, "engine",
+             cnt["rows"], cnt["width"], SHARDS, cnt["threshold"])]
+
+
+def time_cms(torch, table, totals):
+    """Both Count-Min kernels against their plain versions at every
+    main-path shape; bound by bytes. The query of the two-pass path reads
+    the merged table of its S = 128 lane tables."""
+    from repro_torch import core
+    from repro_torch.kernels import cms_sketch as C
+
+    m = M_MAIN
+    errs_b, errs_q, out = [], [], []
+    for path, keys, wts, fam, rows_, width, lanes, thr in cms_shapes(table):
+        kw = dict(rows=rows_, width=width, family=fam, shards=lanes)
+        tb = C.cms_build_kernel(keys, wts, **kw)
+        tb2, plain_b = sync_time(lambda: C.cms_build_plain(keys, wts, **kw))
+        errs_b.append(max_abs_err([(tb, tb2)]))
+        check(errs_b[-1] == 0.0, f"cms_build {path} at 2^25 rows")
+        ms_b = event_ms(lambda: C.cms_build_kernel(keys, wts, **kw), 10)
+        wbytes = 0 if wts is None else m * 4
+        bound_b = (m * 4 + wbytes + tb.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        table_q = core.merge_states("having", core.CountMin(tb)).table
+        qkw = dict(family=fam, threshold=thr)
+        est = C.cms_query_kernel(table_q, keys, **qkw)
+        est2, plain_q = sync_time(lambda: C.cms_query_plain(table_q, keys,
+                                                            **qkw))
+        errs_q.append(max_abs_err([(est, est2)]))
+        check(errs_q[-1] == 0.0, f"cms_query {path} at 2^25 rows")
+        ms_q = event_ms(lambda: C.cms_query_kernel(table_q, keys, **qkw), 10)
+        bound_q = ((m * 4 + table_q.numel() * 4
+                    + m * est.element_size()) / HBM_BYTES_PER_S * 1e3)
+        # a yardstick, not the same function: index_add_ of the weights on
+        # cells whose hashes are computed before the timed call
+        cells = (C.row_hashes(keys, rows_, width, 0, fam)
+                 + torch.arange(rows_, device="cuda") * width).reshape(-1)
+        w_rep = (torch.ones(m * rows_, dtype=torch.float32, device="cuda")
+                 if wts is None else wts.float().repeat_interleave(rows_))
+        acc = torch.zeros(rows_ * width, dtype=torch.float32, device="cuda")
+        scatter_ms = event_ms(lambda: acc.index_add_(0, cells, w_rep), 10)
+        say("timing", kernel="cms_build", path=json.dumps(path), lanes=lanes,
+            width=width, dtype=str(tb.dtype), ms=ms_b,
+            plain_ms=plain_b * 1e3, bound_ms=bound_b, bound_by="bytes",
+            index_add_on_hashed_cells_ms=scatter_ms,
+            max_abs_err=errs_b[-1])
+        say("timing", kernel="cms_query", path=json.dumps(path),
+            fused_threshold=thr is not None, ms=ms_q, plain_ms=plain_q * 1e3,
+            bound_ms=bound_q, bound_by="bytes", max_abs_err=errs_q[-1])
+        if not out:
+            out = [(ms_b, plain_b * 1e3, bound_b), (ms_q, plain_q * 1e3,
+                                                    bound_q)]
+    return [_row("cms_build", totals, max(errs_b), *out[0], "bytes"),
+            _row("cms_query", totals, max(errs_q), *out[1], "bytes")]
 
 
 SOURCES = {
@@ -440,6 +726,15 @@ SOURCES = {
                        "src/repro/kernels/parallel.py:209"),
     "distinct_apply": ("src/repro_torch/kernels/csrc/distinct.cu",
                        "src/repro/kernels/parallel.py:267"),
+    "skyline_pass1": ("src/repro_torch/kernels/csrc/skyline.cu",
+                      "src/repro/kernels/skyline_prune.py:70, "
+                      "src/repro/kernels/parallel.py:357"),
+    "skyline_apply": ("src/repro_torch/kernels/csrc/skyline.cu",
+                      "src/repro/kernels/parallel.py:398"),
+    "cms_build": ("src/repro_torch/kernels/csrc/cms.cu",
+                  "src/repro/kernels/cms_sketch.py:39"),
+    "cms_query": ("src/repro_torch/kernels/csrc/cms.cu",
+                  "src/repro/kernels/cms_sketch.py:72"),
 }
 
 
@@ -490,8 +785,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_kernels(torch, P, R, O)
-    table, totals = phase_main(torch, P, O)
-    rows = phase_timing(torch, P, R, table, totals, clock_hz)
+    table, pts, totals = phase_main(torch, P, O)
+    rows = phase_timing(torch, P, R, table, pts, totals, clock_hz)
     say("done", s=round(time.perf_counter() - t_start, 3),
         failures=len(FAILURES))
     if FAILURES:

@@ -9,6 +9,8 @@ import numpy as np
 import torch
 
 from .core.distinct import DistinctState
+from .core.sketches import CountMin
+from .core.skyline import SkylineState
 from .core.topn import TopNRandState
 from .device import resolve_device
 from .query.tables import Table
@@ -40,6 +42,25 @@ def distinct_kernel_state_from_numpy(lo, hi, valid, device=None):
     hi = np.asarray(hi, np.float32).astype(np.uint32)
     return (_t(lo + (hi << np.uint32(16)), np.uint32, dev),
             _t(np.asarray(valid) > 0.5, np.bool_, dev))
+
+
+def skyline_state_from_numpy(points, scores, device=None) -> SkylineState:
+    """A SKYLINE store: points f32[w, D] and scores f32[w] (or a merged
+    [S*w, D] + [S*w] set, or stacked [S, w, D] + [S, w])."""
+    dev = resolve_device(device)
+    return SkylineState(points=_t(points, np.float32, dev),
+                        scores=_t(scores, np.float32, dev))
+
+
+def count_min_from_numpy(table, seed: int = 0, device=None) -> CountMin:
+    """A Count-Min sketch: an int32 or f32 table [rows, width] (or stacked
+    [S, rows, width]), in its own dtype."""
+    table = np.asarray(table)
+    if table.dtype not in (np.int32, np.float32):
+        raise TypeError(f"a Count-Min table is int32 or float32, got "
+                        f"{table.dtype}")
+    return CountMin(table=_t(table, table.dtype, resolve_device(device)),
+                    seed=seed)
 
 
 def table_from_numpy(cols: dict, name: str = "table", device=None) -> Table:

@@ -16,10 +16,14 @@ lives on:
 
 On a card pass 1 is the pass-1 CUDA kernel with blocks of one entry (the
 engine's per-entry semantics) and pass 2 the apply kernel; on the CPU both
-are their plain versions. The parallel modes' masks are supersets of the
-minimal correct survivor set, not of the scan's mask.
+are their plain versions. HAVING's pass 1 is the Count-Min build kernel
+over S lane tables and its pass 2 the fused query-and-threshold kernel;
+its keep rule is global, so ``sharded`` merges and applies as ``two_pass``
+does. The parallel modes' masks are supersets of the minimal correct
+survivor set, not of the scan's mask.
 
-Ported so far: ``topn_rand`` and ``distinct`` with ``policy="fifo"``.
+Ported so far: ``topn_rand``, ``distinct`` with ``policy="fifo"``,
+``skyline`` and ``having``.
 """
 from __future__ import annotations
 
@@ -30,9 +34,13 @@ import torch
 
 from ..constants import NEG
 from ..kernels import parallel as kpar
+from ..kernels.cms_sketch import cms_build_kernel, cms_query_kernel, wrap_i32
 from ..kernels.ops import _pad_to
 from .distinct import DistinctState
+from .hashing import as_u32
 from .pruning import PruneResult
+from .skyline import SkylineState
+from .sketches import CountMin
 from .topn import TopNRandState
 
 MODES = ("scan", "sharded", "two_pass", "mesh")
@@ -65,28 +73,36 @@ class DistinctMerged:
 class _AlgoSpec:
     """How the engine runs one pruning algorithm over S stacked lanes.
 
-    pass1(lanes [S, n], params)          -> (keep bool[S, n], stacked state)
-    pads(params)                         -> tail-pad fill of the stream
+    Every body takes ``lanes``, one [S, n, ...] tensor per stream.
+    pass1(lanes, params)                 -> (keep bool[S, n], stacked state)
+    pads(streams, params)                -> tail-pad fill of each stream
     merge(stacked_state, params)         -> merged global state
     apply(merged, lanes, keep1, params)  -> keep bool[S, n]
     chunkable: the apply is elementwise over entries (no positional
     dependence), so ``apply_block`` may cut it into blocks of entries.
+    sharded_needs_merge: a lane's own keep is unsafe (HAVING: a key's global
+    sum can pass the threshold while every lane's estimate stays below), so
+    ``sharded`` merges and applies as ``two_pass`` does.
+    max_streams: how many streams the algorithm takes.
     """
 
-    pass1: Callable[[torch.Tensor, dict], tuple]
-    pads: Callable[[dict], Any]
+    pass1: Callable[[tuple, dict], tuple]
+    pads: Callable[[tuple, dict], tuple]
     merge: Callable[[Any, dict], Any]
-    apply: Callable[[Any, torch.Tensor, torch.Tensor, dict], torch.Tensor]
+    apply: Callable[[Any, tuple, torch.Tensor, dict], torch.Tensor]
     chunkable: bool = False
+    sharded_needs_merge: bool = False
+    max_streams: int = 1
 
 
 # TOP-N randomized (d x w rolling matrix, Ex. 7) --------------------------
 def _topn_rand_pass1(lanes, p):
-    S = lanes.shape[0]
+    (x,) = lanes
+    S = x.shape[0]
     keep, vals = kpar.topn_shard_states_kernel(
-        lanes.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
+        x.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
         seed=p.get("seed", 0))
-    return keep.reshape(lanes.shape), TopNRandState(vals=vals)
+    return keep.reshape(x.shape), TopNRandState(vals=vals)
 
 
 def _topn_rand_merge(st, p):
@@ -95,19 +111,20 @@ def _topn_rand_merge(st, p):
 
 def _topn_rand_apply(merged, lanes, keep1, p):
     del keep1
-    keep = kpar.topn_apply_kernel(lanes.reshape(-1), merged.vals, d=p["d"],
-                                  shards=lanes.shape[0],
-                                  seed=p.get("seed", 0))
-    return keep.reshape(lanes.shape)
+    (x,) = lanes
+    keep = kpar.topn_apply_kernel(x.reshape(-1), merged.vals, d=p["d"],
+                                  shards=x.shape[0], seed=p.get("seed", 0))
+    return keep.reshape(x.shape)
 
 
 # DISTINCT (d x w fingerprint cache, Ex. 2) --------------------------------
 def _distinct_pass1(lanes, p):
-    S = lanes.shape[0]
+    (x,) = lanes
+    S = x.shape[0]
     keep, slots, valid, head = kpar.distinct_shard_states_kernel(
-        lanes.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
+        x.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
         seed=p.get("seed", 0))
-    return keep.reshape(lanes.shape), DistinctState(slots, valid, head)
+    return keep.reshape(x.shape), DistinctState(slots, valid, head)
 
 
 def _distinct_merge(st, p):
@@ -116,17 +133,99 @@ def _distinct_merge(st, p):
 
 
 def _distinct_apply(merged, lanes, keep1, p):
+    (x,) = lanes
     keep = kpar.distinct_apply_kernel(
-        lanes.reshape(-1), keep1.reshape(-1), merged.slots, merged.valid,
-        d=p["d"], shards=lanes.shape[0], seed=p.get("seed", 0))
-    return keep.reshape(lanes.shape)
+        x.reshape(-1), keep1.reshape(-1), merged.slots, merged.valid,
+        d=p["d"], shards=x.shape[0], seed=p.get("seed", 0))
+    return keep.reshape(x.shape)
+
+
+# SKYLINE (w stored points, Ex. 6) ---------------------------------------
+def _skyline_points(x):
+    S, n, D = x.shape
+    return x.reshape(S * n, D).to(torch.float32).contiguous()
+
+
+def _skyline_pass1(lanes, p):
+    (x,) = lanes
+    keep, pts, scs = kpar.skyline_shard_states_kernel(
+        _skyline_points(x), w=p["w"], shards=x.shape[0], block=1,
+        score=p.get("score", "aph"), form="engine")
+    return keep.reshape(x.shape[:2]), SkylineState(points=pts, scores=scs)
+
+
+def _skyline_merge(st, p):
+    S, w, D = st.points.shape
+    pts = st.points.reshape(S * w, D)
+    scs = st.scores.reshape(S * w)
+    order = torch.argsort(-scs, stable=True)  # keep the descending invariant
+    return SkylineState(points=pts[order], scores=scs[order])
+
+
+def _skyline_apply(merged, lanes, keep1, p):
+    del keep1
+    (x,) = lanes
+    # a true skyline point is dominated by nothing, so it always survives
+    keep = kpar.skyline_apply_kernel(_skyline_points(x), merged.points,
+                                     merged.scores)
+    return keep.reshape(x.shape[:2])
+
+
+# HAVING (Count-Min + threshold, Ex. 5) ----------------------------------
+def _having_pass1(lanes, p):
+    keys = lanes[0]
+    S = keys.shape[0]
+    weights = (None if p.get("agg", "sum") == "count" or len(lanes) < 2
+               else lanes[1].reshape(-1))
+    seed = p.get("seed", 0)
+    tables = cms_build_kernel(keys.reshape(-1), weights,
+                              rows=p.get("rows", 3),
+                              width=p.get("width", 1024), seed=seed,
+                              family="engine", shards=S)
+    if S > 1:  # sharded_needs_merge: a lane's own keep is never read
+        return None, CountMin(table=tables, seed=seed)
+    keep = cms_query_kernel(tables[0], keys.reshape(-1), seed=seed,
+                            family="engine", threshold=p["threshold"])
+    return keep[None], CountMin(table=tables, seed=seed)
+
+
+def _having_merge(st, p):
+    # sketch addition: the summed table equals one build over all lanes
+    t = st.table
+    summed = (wrap_i32(t.sum(0, dtype=torch.int64)) if t.dtype == torch.int32
+              else t.sum(0))
+    return CountMin(table=summed, seed=st.seed)
+
+
+def _having_apply(merged, lanes, keep1, p):
+    del keep1
+    keys = lanes[0]
+    keep = cms_query_kernel(merged.table, keys.reshape(-1), seed=merged.seed,
+                            family="engine", threshold=p["threshold"])
+    return keep.reshape(keys.shape)
+
+
+def _having_pads(streams, p):
+    # pads only inflate CMS estimates; the overestimate stays one-sided.
+    # Under agg="count" each pad adds 1 to keys[0]'s counters, as in the
+    # reference.
+    k0 = streams[0][:1]
+    fill = int(as_u32(k0)[0]) if k0.dtype == torch.uint32 else k0[0].item()
+    return (fill,) + ((0,) if len(streams) > 1 else ())
 
 
 _SPECS: dict[str, _AlgoSpec] = {
-    "topn_rand": _AlgoSpec(_topn_rand_pass1, lambda p: float(NEG),
+    "topn_rand": _AlgoSpec(_topn_rand_pass1, lambda s, p: (float(NEG),),
                            _topn_rand_merge, _topn_rand_apply),
-    "distinct": _AlgoSpec(_distinct_pass1, lambda p: 0,
+    "distinct": _AlgoSpec(_distinct_pass1, lambda s, p: (0,),
                           _distinct_merge, _distinct_apply, chunkable=True),
+    # a (NEG, ..., NEG) point dominates nothing and scores below/at every
+    # real point, so tail pads only (at worst) loosen the last shard
+    "skyline": _AlgoSpec(_skyline_pass1, lambda s, p: (float(NEG),),
+                         _skyline_merge, _skyline_apply, chunkable=True),
+    "having": _AlgoSpec(_having_pass1, _having_pads, _having_merge,
+                        _having_apply, sharded_needs_merge=True,
+                        max_streams=2),
 }
 
 
@@ -139,7 +238,7 @@ def _spec(algo: str, params: dict) -> _AlgoSpec:
         raise KeyError(algo)
     if algo not in _SPECS:
         item = ("Queue 1 item 3: the topn_det scan kernel" if algo == "topn_det"
-                else "Queue 1 item 5: the other four algorithms")
+                else "Queue 1 item 5: GROUP BY, port slice 3")
         raise _not_ported(f"algorithm {algo!r}", item)
     if algo == "distinct" and params.get("policy", "lru") != "fifo":
         raise _not_ported(f"DISTINCT policy={params.get('policy', 'lru')!r}",
@@ -154,9 +253,10 @@ def _spec(algo: str, params: dict) -> _AlgoSpec:
 
 # ------------------------------------------------------------------ layout
 def shard_stack(arr: torch.Tensor, shards: int, fill=0) -> torch.Tensor:
-    """[m] -> [S, ceil(m/S)] contiguous chunks, the last tail-padded with
-    ``fill``: shard i holds entries [i*n, (i+1)*n)."""
-    return _pad_to(arr, shards, fill)[0].reshape(shards, -1)
+    """[m, ...] -> [S, ceil(m/S), ...] contiguous chunks, the last
+    tail-padded with ``fill``: shard i holds entries [i*n, (i+1)*n)."""
+    return _pad_to(arr, shards, fill)[0].reshape((shards, -1)
+                                                 + tuple(arr.shape[1:]))
 
 
 def _unshard(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -168,6 +268,13 @@ def unshard_mask(keep: torch.Tensor, m: int) -> torch.Tensor:
     return _unshard(keep, m)
 
 
+def _lane(state, i: int):
+    """Lane i of a stacked state: every tensor field indexed, the rest kept."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name)[i] for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
 def _apply_chunked(apply_fn, pads_fn, merged, lanes, keep1, params,
                    block: int) -> torch.Tensor:
     """Run an apply body over blocks of ``block`` entries of every lane.
@@ -177,11 +284,16 @@ def _apply_chunked(apply_fn, pads_fn, merged, lanes, keep1, params,
     """
     n = keep1.shape[1]
     nb = -(-n // block)
-    lanes, _ = _pad_to(lanes, block, pads_fn(params), dim=1)
+    flat = tuple(_unshard(s, s.shape[0] * s.shape[1]) for s in lanes)
+    lanes = tuple(_pad_to(s, block, f, dim=1)[0]
+                  for s, f in zip(lanes, pads_fn(flat, params)))
     keep1, _ = _pad_to(keep1, block, False, dim=1)
-    out = [apply_fn(merged, lanes[:, j * block:(j + 1) * block].contiguous(),
-                    keep1[:, j * block:(j + 1) * block].contiguous(), params)
-           for j in range(nb)]
+    out = []
+    for j in range(nb):
+        cut = slice(j * block, (j + 1) * block)
+        out.append(apply_fn(merged, tuple(s[:, cut].contiguous()
+                                          for s in lanes),
+                            keep1[:, cut].contiguous(), params))
     return torch.cat(out, dim=1)[:, :n]
 
 
@@ -192,8 +304,8 @@ def merge_states(algo: str, stacked_states, **params):
 
 def apply_merged(algo: str, merged, shard_streams, keep1, **params):
     """The pass-2 filter of ``algo`` on stacked lanes: keep bool[S, n]."""
-    (lanes,) = tuple(shard_streams)
-    return _spec(algo, params).apply(merged, lanes, keep1, params)
+    return _spec(algo, params).apply(merged, tuple(shard_streams), keep1,
+                                     params)
 
 
 def _reject_unported(options, mesh, tune, plan_cache, encoding, decode,
@@ -219,14 +331,15 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
                  obs: str | None = None, **params) -> PruneResult:
     """Run pruner ``algo`` over its stream in the requested mode.
 
-    streams: one array of m entries (f32 values for ``topn_rand``, uint32
-    fingerprints for ``distinct``), on the device to run on. A ragged m is
-    handled by tail-padding the final shard with neutral entries (NEG for
-    TOP-N, 0 for DISTINCT).
+    streams: arrays of m entries on the device to run on: f32 values for
+    ``topn_rand``, uint32 fingerprints for ``distinct``, points [m, D] for
+    ``skyline``, and keys plus (optionally) values for ``having``. A ragged
+    m is handled by tail-padding the final shard with neutral entries (NEG
+    for TOP-N and SKYLINE, 0 for DISTINCT, ``(keys[0], 0)`` for HAVING).
 
     shards: lane count S (``None``: 8, capped at m). apply_block: chunk
-    size of the DISTINCT pass-2 filter; the mask is the same with or
-    without it.
+    size of the DISTINCT and SKYLINE pass-2 filters; the mask is the same
+    with or without it.
 
     Returns a PruneResult whose keep mask is over the original m entries.
     state is the final scan state (``scan``), the stacked per-shard states
@@ -247,10 +360,13 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
             f"pass2={pass2!r} only applies to mode='mesh' (got {mode!r})")
     spec = _spec(algo, params)
     streams = tuple(s for s in streams if s is not None)
-    if len(streams) != 1:
-        raise ValueError(f"{algo} takes one stream, got {len(streams)}")
-    (stream,) = streams
-    m = stream.shape[0]
+    if not 1 <= len(streams) <= spec.max_streams:
+        raise ValueError(f"{algo} takes {spec.max_streams} stream(s) at most "
+                         f"and one at least, got {len(streams)}")
+    m = streams[0].shape[0]
+    if any(s.shape[0] != m for s in streams):
+        raise ValueError(f"{algo}: streams of unequal length "
+                         f"{[s.shape[0] for s in streams]}")
     if shards == "auto":
         raise _not_ported("shards='auto'", "Queue 1 item 6: analytic "
                           "planner")
@@ -261,19 +377,19 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
             f"shards must be an int, None or 'auto', got {shards!r}")
 
     if mode == "scan" or shards <= 1:
-        keep, st = spec.pass1(stream.contiguous()[None], params)
-        state = type(st)(*(getattr(st, f.name)[0]
-                           for f in dataclasses.fields(st)))
-        return PruneResult(keep=keep[0], state=state)
+        keep, st = spec.pass1(tuple(s.contiguous()[None] for s in streams),
+                              params)
+        return PruneResult(keep=keep[0], state=_lane(st, 0))
     if shards > m:
         raise ValueError(f"shards={shards} exceeds stream length {m}")
-    fill = spec.pads(params) if m % shards else 0
-    lanes = shard_stack(stream, shards, fill)
+    fills = (spec.pads(streams, params) if m % shards
+             else (0,) * len(streams))
+    lanes = tuple(shard_stack(s, shards, f) for s, f in zip(streams, fills))
     keep1, stacked = spec.pass1(lanes, params)
-    if mode == "sharded":
+    if mode == "sharded" and not spec.sharded_needs_merge:
         return PruneResult(keep=_unshard(keep1, m), state=stacked)
     merged = spec.merge(stacked, params)
-    if apply_block and spec.chunkable and apply_block < lanes.shape[1]:
+    if apply_block and spec.chunkable and apply_block < lanes[0].shape[1]:
         keep2 = _apply_chunked(spec.apply, spec.pads, merged, lanes, keep1,
                                params, apply_block)
     else:

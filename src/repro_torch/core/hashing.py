@@ -13,6 +13,7 @@ import torch
 _M32 = 0xFFFFFFFF
 _C1 = 0x85EBCA6B
 _C2 = 0xC2B2AE35
+_C3 = 0x9E3779B9  # golden-ratio increment between the seeds of multi_hash
 
 
 def as_u32(x: torch.Tensor) -> torch.Tensor:
@@ -22,14 +23,30 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & _M32
 
 
-def mix32(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
-    """Murmur3 fmix32 finalizer with seed. Bijective for a fixed seed."""
-    h = as_u32(x) ^ (seed & _M32)
+def _fmix(h: torch.Tensor) -> torch.Tensor:
     h = h ^ (h >> 16)
     h = (h * _C1) & _M32
     h = h ^ (h >> 13)
     h = (h * _C2) & _M32
     return h ^ (h >> 16)
+
+
+def mix32(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """Murmur3 fmix32 finalizer with seed. Bijective for a fixed seed."""
+    return _fmix(as_u32(x) ^ (seed & _M32))
+
+
+def multi_hash(x: torch.Tensor, mod: int, num: int,
+               seed: int = 0) -> torch.Tensor:
+    """``num`` independent hashes in {0..mod-1}; shape ``x.shape + (num,)``.
+
+    Hash j mixes with the seed ``j * 0x9E3779B9 + seed`` (mod 2^32) and
+    reduces by modulo, on both sides of 2^16 (unlike ``hash_mod``).
+    Returns int64.
+    """
+    seeds = (torch.arange(num, dtype=torch.int64, device=x.device) * _C3
+             + seed) & _M32
+    return _fmix(as_u32(x)[..., None] ^ seeds) % mod
 
 
 def hash_mod_dyn(x: torch.Tensor, mod: int, seed: int = 0, *,

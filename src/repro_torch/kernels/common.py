@@ -117,6 +117,7 @@ P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 U32 = ctypes.c_uint32
+F32 = ctypes.c_float
 
 
 class CudaKernel:

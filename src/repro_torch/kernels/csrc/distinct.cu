@@ -169,14 +169,6 @@ __global__ void distinct_apply_kernel(const uint32_t* __restrict__ x,
   }
 }
 
-cudaError_t launch_prep(const void* fn, size_t smem) {
-  if (smem > CHEETAH_MAX_SMEM) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" size_t distinct_pass1_smem(int d, int w, int block) {
@@ -193,12 +185,12 @@ extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
                               uint32_t seed, cudaStream_t stream) {
   const size_t smem = distinct_pass1_smem(d, w, block);
   if (block == 1) {
-    cudaError_t err = launch_prep(reinterpret_cast<const void*>(distinct_pass1_serial), smem);
+    cudaError_t err = cheetah_launch_prep(reinterpret_cast<const void*>(distinct_pass1_serial), smem);
     if (err != cudaSuccess) return err;
     distinct_pass1_serial<<<shards, CHEETAH_STAGE, smem, stream>>>(
         x, keep, slots, valid, head, shard_len, d, w, seed);
   } else {
-    cudaError_t err = launch_prep(reinterpret_cast<const void*>(distinct_pass1_block), smem);
+    cudaError_t err = cheetah_launch_prep(reinterpret_cast<const void*>(distinct_pass1_block), smem);
     if (err != cudaSuccess) return err;
     distinct_pass1_block<<<shards, block, smem, stream>>>(
         x, keep, slots, valid, head, shard_len, d, w, seed);

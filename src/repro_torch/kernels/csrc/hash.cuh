@@ -1,10 +1,15 @@
-// Device-side hashing shared by the pruning kernels.
+// Device-side hashing, float helpers and the launch helper shared by the
+// pruning kernels.
 //
-// Replaces mix32 / hash_mod of src/repro/kernels/common.py:36-56 and is
-// bit-exact with repro_torch.core.hashing: murmur3 fmix32 with a seed, then
-// a 16-bit split multiply-shift range reduction below 2^16 rows (modulo
-// above). All arithmetic is uint32 and wraps exactly as on the host side.
+// Replaces mix32 / hash_mod of src/repro/kernels/common.py:36-56 and
+// multi_hash of src/repro/core/hashing.py:74-85, and is bit-exact with
+// repro_torch.core.hashing: murmur3 fmix32 with a seed, then a 16-bit split
+// multiply-shift range reduction below 2^16 rows (modulo above); multi_hash
+// derives hash j's seed as j * 0x9E3779B9 + seed and always reduces by
+// modulo. All arithmetic is uint32 and wraps exactly as on the host side.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -34,7 +39,37 @@ __device__ __forceinline__ int cheetah_hash_mod(uint32_t x, uint32_t mod,
   return static_cast<int>(h % mod);
 }
 
+// Hash j of multi_hash: one of ``num`` independent hashes of x.
+__device__ __forceinline__ int cheetah_multi_hash(uint32_t x, uint32_t mod,
+                                                  uint32_t j, uint32_t seed) {
+  return static_cast<int>(cheetah_mix32(x, j * 0x9E3779B9u + seed) % mod);
+}
+
 // Shared-memory budget a block may opt into on Hopper (227 KB).
 #define CHEETAH_MAX_SMEM 232448
+
+__device__ __forceinline__ float cheetah_neg_value() {
+  return __uint_as_float(CHEETAH_NEG_BITS);
+}
+
+// Order-preserving map of a float onto unsigned int, and its inverse.
+__device__ __forceinline__ unsigned cheetah_ordered(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float cheetah_unordered(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
+// Opt a kernel into ``smem`` bytes of dynamic shared memory when it needs
+// more than the default 48 KB; refuses more than a Hopper block can have.
+static inline cudaError_t cheetah_launch_prep(const void* fn, size_t smem) {
+  if (smem > CHEETAH_MAX_SMEM) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  return cudaSuccess;
+}
 // Entries staged per round by the serial (block == 1) pass-1 kernels.
 #define CHEETAH_STAGE 256

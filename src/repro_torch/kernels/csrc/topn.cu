@@ -28,20 +28,6 @@
 
 namespace {
 
-__device__ __forceinline__ float neg_value() {
-  return __uint_as_float(CHEETAH_NEG_BITS);
-}
-
-// Order-preserving map of a float onto unsigned int, and its inverse.
-__device__ __forceinline__ unsigned ordered(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float unordered(unsigned o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
-}
-
 // Sorted insert into a descending row of w values; the caller has checked
 // c > row[w - 1], so the position is < w (ref.py: pos = count(c <= row)).
 __device__ __forceinline__ void insert_sorted(float* row, int w, float c) {
@@ -61,7 +47,7 @@ __global__ void topn_pass1_serial(const float* __restrict__ x,
   int* rows = reinterpret_cast<int*>(xs + CHEETAH_STAGE);
   uint8_t* ks = reinterpret_cast<uint8_t*>(rows + CHEETAH_STAGE);
   const long long base = static_cast<long long>(blockIdx.x) * shard_len;
-  for (int i = threadIdx.x; i < d * w; i += blockDim.x) st[i] = neg_value();
+  for (int i = threadIdx.x; i < d * w; i += blockDim.x) st[i] = cheetah_neg_value();
   for (int c0 = 0; c0 < shard_len; c0 += CHEETAH_STAGE) {
     const int n = min(CHEETAH_STAGE, shard_len - c0);
     __syncthreads();
@@ -95,10 +81,10 @@ __global__ void topn_pass1_block(const float* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem[];
   float* st = reinterpret_cast<float*>(smem);
   unsigned* cand = reinterpret_cast<unsigned*>(st + d * w);
-  const unsigned neg_ord = ordered(neg_value());
+  const unsigned neg_ord = cheetah_ordered(cheetah_neg_value());
   const long long base = static_cast<long long>(blockIdx.x) * shard_len;
   const int t = threadIdx.x;
-  for (int i = t; i < d * w; i += blockDim.x) st[i] = neg_value();
+  for (int i = t; i < d * w; i += blockDim.x) st[i] = cheetah_neg_value();
   for (int r = t; r < d; r += blockDim.x) cand[r] = neg_ord;
   __syncthreads();
   for (int c0 = 0; c0 < shard_len; c0 += blockDim.x) {
@@ -106,12 +92,12 @@ __global__ void topn_pass1_block(const float* __restrict__ x,
     const float v = x[i];
     const int row = cheetah_hash_mod(static_cast<uint32_t>(c0 + t), d, seed);
     keep[i] = v >= st[row * w + w - 1];
-    atomicMax(&cand[row], ordered(v));
+    atomicMax(&cand[row], cheetah_ordered(v));
     __syncthreads();
     for (int r = t; r < d; r += blockDim.x) {
       const unsigned o = cand[r];
       if (o != neg_ord) {
-        const float c = unordered(o);
+        const float c = cheetah_unordered(o);
         float* rowp = st + r * w;
         if (c > rowp[w - 1]) insert_sorted(rowp, w, c);
         cand[r] = neg_ord;
@@ -144,14 +130,6 @@ __global__ void topn_apply_kernel(const float* __restrict__ x,
   }
 }
 
-cudaError_t launch_prep(const void* fn, size_t smem) {
-  if (smem > CHEETAH_MAX_SMEM) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" size_t topn_pass1_smem(int d, int w, int block) {
@@ -165,12 +143,12 @@ extern "C" int topn_pass1(const float* x, uint8_t* keep, float* states,
                           uint32_t seed, cudaStream_t stream) {
   const size_t smem = topn_pass1_smem(d, w, block);
   if (block == 1) {
-    cudaError_t err = launch_prep(reinterpret_cast<const void*>(topn_pass1_serial), smem);
+    cudaError_t err = cheetah_launch_prep(reinterpret_cast<const void*>(topn_pass1_serial), smem);
     if (err != cudaSuccess) return err;
     topn_pass1_serial<<<shards, CHEETAH_STAGE, smem, stream>>>(
         x, keep, states, shard_len, d, w, seed);
   } else {
-    cudaError_t err = launch_prep(reinterpret_cast<const void*>(topn_pass1_block), smem);
+    cudaError_t err = cheetah_launch_prep(reinterpret_cast<const void*>(topn_pass1_block), smem);
     if (err != cudaSuccess) return err;
     topn_pass1_block<<<shards, block, smem, stream>>>(x, keep, states,
                                                       shard_len, d, w, seed);

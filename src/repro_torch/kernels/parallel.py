@@ -13,6 +13,10 @@ raises. Keep masks are bool. Fingerprints stay uint32.
 The same pass-1 kernel carries four callers of the JAX package: the engine's
 scan (S = 1, B = 1), its sharded and two_pass modes (S lanes, B = 1), and
 the kernel entry points of ``ops.py`` (B = 256, S = 1 or S shards).
+SKYLINE's pass 1 also takes the APH association as ``form``: ``"kernel"``
+for ``ops.py`` (the Pallas kernels' score), ``"engine"`` for the engine.
+``KERNELS`` lists every CUDA kernel of the port, the Count-Min pair of
+``cms_sketch.py`` included.
 """
 from __future__ import annotations
 
@@ -20,7 +24,9 @@ import torch
 
 from ..constants import NEG
 from ..core.hashing import as_u32, hash_mod
+from ..core.skyline import FORMS, SCORES
 from . import ref
+from .cms_sketch import CMS_BUILD, CMS_QUERY
 from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, check_cuda,
                      grid_for, ptr)
 
@@ -32,7 +38,12 @@ DISTINCT_PASS1 = CudaKernel(
     smem_fn="distinct_pass1_smem")
 DISTINCT_APPLY = CudaKernel(
     "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32])
-KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY)
+SKYLINE_PASS1 = CudaKernel(
+    "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32],
+    smem_fn="skyline_pass1_smem")
+SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
+KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
+           SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY)
 
 
 def reset_launch_counts() -> None:
@@ -43,6 +54,10 @@ def reset_launch_counts() -> None:
 def _check_shape(m: int, d: int, shards: int, block: int) -> int:
     if d >= (1 << 16):
         raise ValueError("multiply-shift range reduction needs d < 2^16")
+    return _check_shards(m, shards, block)
+
+
+def _check_shards(m: int, shards: int, block: int) -> int:
     if shards < 1 or m % shards:
         raise ValueError(f"stream length {m} is not a multiple of "
                          f"shards={shards}")
@@ -54,13 +69,15 @@ def _check_shape(m: int, d: int, shards: int, block: int) -> int:
 
 
 def _check_pass1(kernel: CudaKernel, d: int, w: int, block: int) -> None:
+    """d is the row count (TOP-N, DISTINCT) or the point width D (SKYLINE)."""
     if block > 1024:
         raise ValueError(f"the CUDA pass-1 kernel takes block <= 1024, "
                          f"got {block}")
     need = kernel.smem_bytes(d, w, block)
     if need > MAX_SMEM:
         raise ValueError(f"{kernel.name} needs {need} bytes of shared memory "
-                         f"at d={d}, w={w}; a Hopper block has {MAX_SMEM}")
+                         f"at d={d}, w={w}, block={block}; a Hopper block has "
+                         f"{MAX_SMEM}")
 
 
 # ======================================================= TOP-N (rand, Ex. 7)
@@ -242,3 +259,102 @@ def distinct_parallel_ref(values, *, d, w, shards, block, seed=0):
     keep = distinct_apply_plain(values, keep1.reshape(-1), mslots, mvalid,
                                 d=d, shards=shards, seed=seed)
     return keep, (slots, valid)
+
+
+# ======================================================== SKYLINE (Ex. 6)
+SKYLINE_MAX_D = 8  # the apply kernel is instantiated for D = 1..8
+
+
+def _score_mode(score: str, form: str) -> int:
+    if score not in SCORES or form not in FORMS:
+        raise ValueError(f"score must be one of {SCORES} and form one of "
+                         f"{FORMS}, got {score!r}, {form!r}")
+    return 0 if score == "sum" else 1 + FORMS.index(form)
+
+
+def _check_points(name: str, points: torch.Tensor) -> int:
+    if points.ndim != 2 or points.shape[1] < 1:
+        raise ValueError(f"{name} must be [m, D], got {tuple(points.shape)}")
+    return points.shape[1]
+
+
+def skyline_shard_states_kernel(points: torch.Tensor, *, w: int, shards: int,
+                                block: int = 256, score: str = "aph",
+                                form: str = "kernel"):
+    """Pass 1: keep bool[m], stored points f32[S, w, D] and scores f32[S, w].
+
+    ``points`` is f32[m, D], m a multiple of shards * block; lane s owns the
+    rows [s * m/S, (s+1) * m/S).
+    """
+    D = _check_points("points", points)
+    m = points.shape[0]
+    shard_len = _check_shards(m, shards, block)
+    mode = _score_mode(score, form)
+    if w < 1:
+        raise ValueError(f"the store needs w >= 1 points, got {w}")
+    if not points.is_cuda:
+        keep, (pts, scs) = ref.skyline_block_ref(
+            points.reshape(shards, shard_len, D), w=w, block=block,
+            score=score, form=form, return_state=True)
+        return keep.reshape(m), pts, scs
+    check_cuda("points", points, torch.float32)
+    _check_pass1(SKYLINE_PASS1, D, w, block)
+    dev = points.device
+    keep = torch.empty(m, dtype=torch.bool, device=dev)
+    pts = torch.zeros((shards, w, D), dtype=torch.float32, device=dev)
+    scs = torch.full((shards, w), float(NEG), dtype=torch.float32,
+                     device=dev)
+    if m:
+        SKYLINE_PASS1.launch(dev, ptr(points), ptr(keep), ptr(pts), ptr(scs),
+                             shards, shard_len, D, w, block, mode)
+    return keep, pts, scs
+
+
+def merge_skyline_states(points: torch.Tensor, scores: torch.Tensor):
+    """[S, w, D] + [S, w] shard stores -> the [S*w, D] + [S*w] union."""
+    S, w, D = points.shape
+    return points.reshape(S * w, D), scores.reshape(S * w)
+
+
+def skyline_apply_plain(points: torch.Tensor, mpoints: torch.Tensor,
+                        mscores: torch.Tensor) -> torch.Tensor:
+    """Plain pass 2: keep iff no merged point with score > NEG dominates
+    the entry. Loops over blocks of entries to bound memory."""
+    m, D = points.shape
+    x = points.to(torch.float32)
+    valid = mscores > NEG
+    keep = torch.empty(m, dtype=torch.bool, device=points.device)
+    step = max(1, (1 << 24) // max(1, mpoints.shape[0] * D))
+    for i in range(0, m, step):
+        xc = x[i:i + step, None, :]
+        dom = ((xc <= mpoints[None]).all(-1) & (xc < mpoints[None]).any(-1)
+               & valid[None])
+        keep[i:i + step] = ~dom.any(-1)
+    return keep
+
+
+def skyline_apply_kernel(points: torch.Tensor, mpoints: torch.Tensor,
+                         mscores: torch.Tensor) -> torch.Tensor:
+    """Pass 2: keep bool[m] iff no merged stored point dominates the entry."""
+    D = _check_points("points", points)
+    m = points.shape[0]
+    sw = mscores.shape[0]
+    if mpoints.shape != (sw, D) or mscores.ndim != 1:
+        raise ValueError(
+            f"skyline apply takes a merged [S*w, D={D}] + [S*w] set; got "
+            f"{tuple(mpoints.shape)} and {tuple(mscores.shape)}")
+    if not points.is_cuda:
+        return skyline_apply_plain(points, mpoints, mscores)
+    check_cuda("points", points, torch.float32)
+    check_cuda("mpoints", mpoints, torch.float32, points.device)
+    check_cuda("mscores", mscores, torch.float32, points.device)
+    if D > SKYLINE_MAX_D:
+        raise ValueError(f"the CUDA skyline apply takes D <= {SKYLINE_MAX_D}, "
+                         f"got {D}")
+    keep = torch.empty(m, dtype=torch.bool, device=points.device)
+    if m:
+        SKYLINE_APPLY.launch(points.device, ptr(points), ptr(mpoints),
+                             ptr(mscores), ptr(keep), m, D, sw,
+                             grid_for(m, points.device))
+    return keep
+

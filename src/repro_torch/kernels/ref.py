@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the pass-1 pruning kernels (block semantics).
 
-Ports of ``ref.topn_block_ref`` and ``ref.distinct_block_ref`` of the JAX
-package. Block semantics are the paper's §9 multi-entry rule: within a block
+Ports of ``ref.topn_block_ref``, ``ref.distinct_block_ref`` and
+``ref.skyline_block_ref`` of the JAX package. Block semantics are the paper's §9 multi-entry rule: within a block
 of B entries every prune decision reads the pre-block state, and each row
 takes at most one insert per block. At B = 1 they are the per-entry scans of
 ``core.topn.topn_rand_prune`` and ``core.distinct.distinct_prune(policy="fifo")``.
@@ -17,6 +17,7 @@ import torch
 
 from ..constants import NEG
 from ..core.hashing import as_u32, hash_mod
+from ..core.skyline import score as skyline_score
 
 
 def _lanes(values: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
@@ -94,3 +95,50 @@ def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     if one:
         keep, slots, valid, head = keep[0], slots[0], valid[0], head[0]
     return (keep, (slots, valid, head)) if return_state else keep
+
+
+def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
+                      score: str = "aph", form: str = "engine",
+                      return_state: bool = False):
+    """w-point store, block semantics: keep bool[m] (or [S, n]) for f32
+    points [m, D] (or lanes [S, n, D]), plus the final (points f32[w, D],
+    scores f32[w]) store (or [S, w, D], [S, w]) when ``return_state``.
+
+    keep: no stored point with score > NEG dominates the entry (pre-block
+    store). Insert: the w rounds of "best remaining score of the block, ties
+    to the lowest index, sorted-inserted if it beats the last stored score"
+    leave the first w of the stable descending merge of the store and the
+    block's top-w candidates, store first; that merge is what runs here.
+    The scores of every entry and the top-w candidates of every block do not
+    depend on the store, so they are computed once, before the block loop.
+    ``form`` is the APH association (``core.skyline``): the JAX package's
+    oracle uses the engine's, its Pallas kernel the kernel's.
+    """
+    one = points.ndim == 2
+    x = (points[None] if one else points).to(torch.float32)
+    S, n, D = x.shape
+    nb = n // block
+    x = x[:, : nb * block]
+    dev = x.device
+    h = skyline_score(x, score, form).reshape(S, nb, block)
+    xb = x.reshape(S, nb, block, D)
+    r = min(w, block)
+    top = torch.sort(h, dim=-1, descending=True, stable=True).indices[..., :r]
+    cand_s = h.gather(-1, top)
+    cand_p = xb.gather(2, top[..., None].expand(-1, -1, -1, D))
+    pts = torch.zeros((S, w, D), dtype=torch.float32, device=dev)
+    scs = torch.full((S, w), float(NEG), dtype=torch.float32, device=dev)
+    keep = torch.empty((S, nb * block), dtype=torch.bool, device=dev)
+    for c in range(nb):
+        xc = xb[:, c, :, None, :]                       # [S, B, 1, D]
+        dom = ((xc <= pts[:, None]).all(-1) & (xc < pts[:, None]).any(-1)
+               & (scs > NEG)[:, None, :]).any(-1)
+        keep[:, c * block:(c + 1) * block] = ~dom
+        all_s = torch.cat([scs, cand_s[:, c]], 1)
+        all_p = torch.cat([pts, cand_p[:, c]], 1)
+        o = torch.sort(all_s, dim=1, descending=True, stable=True).indices[:, :w]
+        scs = all_s.gather(1, o)
+        pts = all_p.gather(1, o[..., None].expand(-1, -1, D))
+    if one:
+        keep, pts, scs = keep[0], pts[0], scs[0]
+    return (keep, (pts, scs)) if return_state else keep

@@ -2,12 +2,13 @@
 
 Without a mesh every query runs ``core.engine_prune`` in ``scan`` mode (one
 switch lane over the table), and the master completes the query on the
-survivors. Ported: TOP-N with ``mode="rand"`` (the default) and DISTINCT
-with ``policy="fifo"``.
+survivors. Ported: TOP-N with ``mode="rand"`` (the default), DISTINCT with
+``policy="fifo"``, SKYLINE and HAVING.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -15,7 +16,7 @@ from .. import core
 from ..core.hashing import as_u32
 from .tables import Table
 
-_QUEUED = ("join", "having", "skyline", "groupby", "filter")
+_QUEUED = ("join", "groupby", "filter")
 
 
 @dataclasses.dataclass
@@ -63,9 +64,43 @@ def _prepare(spec: QuerySpec, table: Table):
             return _result((topv, topi), r.keep)
 
         return "topn_rand", (stream,), params, complete
+    if k == "having":
+        kname, vname = spec.columns
+        kcol, vcol = table.col(kname), table.col(vname)
+        agg = p.get("agg", "sum")
+        params = dict(threshold=p["threshold"], rows=p.get("rows", 3),
+                      width=p.get("width", 1024), agg=agg)
+        if "seed" in p:
+            params["seed"] = p["seed"]
+
+        def complete(r):
+            # compact first: only survivor values are ever read
+            kidx = torch.nonzero(r.keep).flatten()
+            out = core.master_complete_having(
+                kcol.take(kidx), vcol.take(kidx),
+                torch.ones(kidx.shape[0], dtype=torch.bool,
+                           device=kidx.device), p["threshold"], agg)
+            return _result(out, r.keep)
+
+        return "having", (kcol.values, vcol.values), params, complete
+    if k == "skyline":
+        # uint32 columns by value (torch promotes no uint32), then the
+        # common type, as jnp.stack promotes: f32 as soon as one is f32
+        cols = [table.col(c).decoded() for c in spec.columns]
+        cols = [as_u32(c) if c.dtype == torch.uint32 else c for c in cols]
+        dtype = functools.reduce(torch.promote_types,
+                                 [c.dtype for c in cols])
+        pts = torch.stack([c.to(dtype) for c in cols], dim=-1)
+        params = dict(w=p["w"], score=p.get("score", "aph"))
+
+        def complete(r):
+            return _result(core.master_complete_skyline(pts, r.keep), r.keep)
+
+        return "skyline", (pts,), params, complete
     if k in _QUEUED:
         raise NotImplementedError(
-            f"query kind {k!r} is not ported yet (ROADMAP Queue 1 item 5)")
+            f"query kind {k!r} is not ported yet (ROADMAP Queue 1 item 5: "
+            "port slice 3)")
     raise KeyError(k)
 
 
@@ -75,8 +110,9 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     """Execute a query with switch pruning; returns output + statistics.
 
     Runs on the device the table's columns live on. ``output`` is
-    ``(values, indices)`` of the top N for TOP-N and the sorted distinct
-    values for DISTINCT.
+    ``(values, indices)`` of the top N for TOP-N, the sorted distinct
+    values for DISTINCT, the bool skyline membership mask over the rows for
+    SKYLINE, and the sorted list of qualifying keys for HAVING.
     """
     del axis
     if mesh is not None:

@@ -202,7 +202,9 @@ NOT_PORTED = [
     ("topn_rand", X, dict(d=8, w=2, tune="race")),
     ("topn_rand", X, dict(d=8, w=2, obs="counters")),
     ("topn_rand", X, dict(d=8, w=2, encoding=object())),
-    ("skyline", X, dict(w=2)),
+    ("groupby", X, dict(d=8, w=2)),
+    ("skyline", X[:, None], dict(w=2, state=None)),
+    ("having", F, dict(threshold=1, state=None)),
 ]
 
 

@@ -61,3 +61,14 @@ def test_as_u32_reads_the_bits(dtype):
     np.testing.assert_array_equal(
         th.hash_mod(torch.arange(100), 512, 2).numpy(),
         np.asarray(jh.hash_mod(jnp.asarray(idx), 512, 2)))
+
+
+@pytest.mark.parametrize("mod", [3, 1024, 65537, 1 << 20])
+@pytest.mark.parametrize("seed", [0, 7, 0xFFFFFFFF])
+def test_multi_hash_matches(mod, seed):
+    x = _keys(mod % 3)
+    want = np.asarray(jh.multi_hash(jnp.asarray(x), mod, 4, seed=seed))
+    got = th.multi_hash(torch.from_numpy(x), mod, 4, seed=seed).numpy()
+    assert got.shape == (x.shape[0], 4)
+    np.testing.assert_array_equal(got, want)
+    assert got.min() >= 0 and got.max() < mod

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, core
 from repro_torch.query import tables
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -82,6 +82,11 @@ CONSTRUCTORS = [
     lambda: convert.distinct_kernel_state_from_numpy(
         np.zeros((4, 2), np.float32), np.zeros((4, 2), np.float32),
         np.zeros((4, 2), np.float32)),
+    lambda: convert.skyline_state_from_numpy(np.zeros((4, 2), np.float32),
+                                             np.zeros(4, np.float32)),
+    lambda: convert.count_min_from_numpy(np.zeros((3, 8), np.int32)),
+    lambda: core.skyline_init(4, 2),
+    lambda: core.having_init(),
 ]
 
 

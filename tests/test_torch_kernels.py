@@ -217,10 +217,15 @@ def test_launch_counts_reset():
     for k in tpar.KERNELS:
         k.launches = 3
     tpar.reset_launch_counts()
-    assert [k.launches for k in tpar.KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in tpar.KERNELS] == [0] * len(tpar.KERNELS)
     # the plain versions on the CPU never count as launches
     tops.topn_prune_parallel(torch.rand(512), d=D, w=W, shards=2, block=16)
-    assert [k.launches for k in tpar.KERNELS] == [0, 0, 0, 0]
+    tops.skyline_prune_parallel(torch.rand(512, 2), w=W, shards=2, block=16)
+    tops.cms_query(tops.cms_build(torch.zeros(64, dtype=torch.int32),
+                                  torch.ones(64), rows=2, width=8),
+                   torch.zeros(64, dtype=torch.int32))
+    assert [k.launches for k in tpar.KERNELS] == [0] * len(tpar.KERNELS)
+    assert len({k.name for k in tpar.KERNELS}) == 8
 
 
 def test_apply_shape_checks():

@@ -80,9 +80,10 @@ def test_run_query_on_a_converted_table():
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(options=object())),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(decode="eager")),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(obs="trace")),
-    ("skyline", ("ad_revenue", "duration"), dict(w=2), {}),
+    ("skyline", ("ad_revenue", "duration"), dict(w=2), dict(mesh=object())),
     ("groupby", ("source_ip", "ad_revenue"), dict(d=8, w=2), {}),
-    ("having", ("source_ip", "ad_revenue"), dict(threshold=1.0), {}),
+    ("having", ("source_ip", "ad_revenue"), dict(threshold=1.0),
+     dict(tune="race")),
     ("join", ("source_ip", "source_ip"), dict(nbits=64), {}),
     ("filter", ("duration",), dict(formula=None), {}),
 ])
