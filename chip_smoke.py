@@ -10,19 +10,25 @@ Phases, one line each, and a non-zero exit on any failure:
            bit-identical keep masks, states and tables, at B in {1, 256}, S
            in {1, 8, 128}, ragged m, d = 4096 for DISTINCT, two seeds; both
            APH associations and SUM for SKYLINE, both hash families and
-           table dtypes for Count-Min.
-3. main    the main path on a 2^25-row uservisits table (one worker's
-           partition of the Big Data benchmark): ``run_query`` TOP-N,
-           DISTINCT, SKYLINE and HAVING (COUNT and SUM), ``engine_prune``
-           two_pass with 128 shards, and the eight ``kernels.ops`` entry
-           points. Answers must be exact and every keep mask a superset of
-           the true survivors. Launch counts are set to 0 before each path
-           and read after it.
-4. timing  on the same table, each kernel against its plain version at
+           table dtypes for Count-Min; both hash families, with and without
+           a mask, for Bloom; all four aggregates for the GROUP BY scan.
+3. main    the main path on a 2^25-row uservisits table and a 2^20-row
+           rankings table (one worker's partition of the Big Data
+           benchmark): ``run_query`` TOP-N, DISTINCT, SKYLINE, HAVING (COUNT
+           and SUM), JOIN (the benchmark's Query 3), FILTER (Query 1, and a
+           formula with an unsupported predicate) and GROUP BY (Query 2,
+           SUM and COUNT), ``engine_prune`` two_pass with 128 shards, and
+           the ten ``kernels.ops`` entry points. Answers must be exact (GROUP
+           BY SUM within 1e-2 relative of an f64 sum, as the JAX package's
+           own test holds it) and every keep mask a superset of the true
+           survivors. Launch counts are set to 0 before each path and read
+           after it.
+4. timing  on the same tables, each kernel against its plain version at
            every shape the main path gives it (bit-identical keep, state and
-           table; a one-lane B = 1 scan on a prefix of SCAN_PREFIX entries),
-           its median time, its plain version's time and its bound; then the
-           ``kernels`` JSON line.
+           table; a one-lane B = 1 scan on a prefix of SCAN_PREFIX entries,
+           the 128-lane GROUP BY scan on a prefix of GROUPBY_PREFIX
+           entries), its median time, its plain version's time and its
+           bound; then the ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +63,14 @@ HAVING_COUNT = ("source_ip", "duration",
 HAVING_SUM = ("lang", "duration",
               dict(threshold=262_000_000, rows=3, width=1024, agg="sum"))
 CMS_OPS = dict(rows=3, width=4096)   # ops.cms_build on source_ip
+M_RANKINGS = 1 << 20           # rows of the rankings partition
+# Big Data benchmark Query 3: uservisits JOIN rankings ON dest_url = page_url
+JOIN = dict(nbits=1 << 24, num_hashes=3, payload_a="ad_revenue",
+            payload_b="page_rank")
+BLOOM_OPS = dict(nbits=1 << 15, num_hashes=3)  # ops.bloom_* on page_url[:4096]
+BLOOM_OPS_KEYS = 4096
+GROUPBY = dict(d=4096, w=4)    # Query 2: GROUP BY source_ip, 144 KB a lane
+GROUPBY_PREFIX = 1 << 21       # entries of the S = 128 GROUP BY scan compared
 FP32_OPS_PER_S = 33.5e12       # H100 SXM FP32 instructions/s without FMA
 
 FAILURES: list[str] = []
@@ -244,6 +258,75 @@ def phase_kernels(torch, P, R, O):
                 topn_apply=ok_ta, distinct_pass1=ok_d, distinct_apply=ok_da,
                 skyline_pass1=ok_s, skyline_apply=ok_sa, cms_build=ok_c,
                 cms_query=ok_q, s=round(time.perf_counter() - t0, 3))
+    phase_kernels_bloom(torch, g)
+    phase_kernels_groupby(torch, g)
+
+
+def phase_kernels_bloom(torch, g):
+    """Both Bloom kernels against their plain versions: both hash families
+    on both sides of 2^16 bits, with and without a mask, ragged m."""
+    from repro_torch.kernels import bloom_filter as B
+
+    for m in (4099, (1 << 16) + 77, (1 << 20) + 3):
+        t0 = time.perf_counter()
+        keys = torch.randint(-(1 << 31), 1 << 31, (m,), generator=g,
+                             dtype=torch.int64).to(torch.int32).cuda()
+        mask = (torch.rand(m, generator=g) < 0.5).cuda()
+        probe = torch.cat([keys[: m // 2], torch.randint(
+            0, 1 << 30, (m - m // 2,), generator=g).to(torch.int32).cuda()])
+        ok_b = ok_q = True
+        for fam, nbits, msk in (("kernel", 1000, None),
+                                ("kernel", BLOOM_OPS["nbits"], None),
+                                ("engine", 12345, mask),
+                                ("engine", JOIN["nbits"], None),
+                                ("engine", JOIN["nbits"], mask)):
+            kw = dict(nbits=nbits, num_hashes=3, seed=m, family=fam)
+            w = B.bloom_build_kernel(keys, mask=msk, **kw)
+            ok_b &= check(same(w, B.bloom_build_plain(keys, mask=msk, **kw)),
+                          f"bloom_build m={m} {fam} nbits={nbits} "
+                          f"mask={msk is not None}")
+            ok_q &= check(same(B.bloom_query_kernel(w, probe, **kw),
+                               B.bloom_query_plain(w, probe, **kw)),
+                          f"bloom_query m={m} {fam} nbits={nbits}")
+        say("kernels", m=m, bloom_build=ok_b, bloom_query=ok_q,
+            s=round(time.perf_counter() - t0, 3))
+
+
+def phase_kernels_groupby(torch, g):
+    """The GROUP BY scan against its plain version at S in {1, 8, 128}, all
+    four aggregates, on ragged m padded as the engine pads (a validity
+    column, False on the pads and on a tenth of the real entries)."""
+    from repro_torch.kernels import groupby_scan as G
+    from repro_torch.kernels import ops as O
+
+    for S, m in ((1, 4099), (8, (1 << 15) + 3), (128, (1 << 16) - 5)):
+        t0 = time.perf_counter()
+        keys = torch.randint(0, 20000, (m,), generator=g).to(torch.int32) \
+            .view(torch.uint32).cuda()
+        vals = (torch.randn(m, generator=g) * 100).cuda()
+        valid = (torch.rand(m, generator=g) < 0.9).cuda()
+        kp, _ = O._pad_to(keys, S, 0)
+        vp, _ = O._pad_to(vals, S, 0.0)
+        okp, _ = O._pad_to(valid, S, False)
+        n = kp.shape[0] // S
+        res = {}
+        for agg in G.AGGS:
+            for v in (None, okp):
+                if v is None and S > 1:
+                    continue  # the engine always pads with a validity column
+                ev, st = G.groupby_pass1_kernel(kp, vp, v, agg=agg, shards=S,
+                                                seed=S, **GROUPBY)
+                ev2, st2 = G.groupby_pass1_plain(
+                    kp.view(S, n), vp.view(S, n),
+                    None if v is None else v.view(S, n), agg=agg, seed=S,
+                    **GROUPBY)
+                res[agg] = check(
+                    all(same(a, b.reshape(-1)) for a, b in zip(ev, ev2))
+                    and all(same(a, b) for a, b in zip(st, st2)),
+                    f"groupby_pass1 S={S} m={m} {agg} "
+                    f"valid={v is not None}") and res.get(agg, True)
+        say("kernels", S=S, m=m, groupby_pass1=json.dumps(res),
+            s=round(time.perf_counter() - t0, 3))
 
 
 # ------------------------------------------------------------------ phase 3
@@ -269,15 +352,80 @@ def having_truth(torch, keys, values, threshold, agg):
     return torch.nonzero(sums > threshold).flatten(), (sums > threshold)[k]
 
 
+def u64(torch, x):
+    """A 32-bit column by value in int64 (torch compares no uint32)."""
+    return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def join_truth(torch, table, rankings):
+    """The join of the full columns by an independent sort-merge: page_url
+    is a key of rankings (checked), so each uservisits row meets at most
+    one ranking; the triples in (key, val_a, val_b) order."""
+    dest = u64(torch, table.cols["dest_url"])
+    page = u64(torch, rankings.cols["page_url"])
+    check(torch.unique(page).numel() == page.numel(),
+          "rankings.page_url is not a key")
+    sp, order = torch.sort(page)
+    pos = torch.searchsorted(sp, dest).clamp(max=sp.numel() - 1)
+    hit = sp[pos] == dest
+    key = dest[hit]
+    va = table.cols["ad_revenue"][hit]
+    vb = rankings.cols["page_rank"][order[pos[hit]]]
+    o = torch.sort(va, stable=True).indices
+    key, va, vb = key[o], va[o], vb[o]
+    o = torch.sort(key, stable=True).indices
+    return (key[o], va[o], vb[o]), hit, torch.isin(page, dest)
+
+
+def groupby_truth(torch, table):
+    """(keys, f64 SUM(ad_revenue), COUNT(*)) by source_ip, by bincount."""
+    k = u64(torch, table.cols["source_ip"])
+    sums = torch.bincount(k, weights=table.cols["ad_revenue"].double())
+    counts = torch.bincount(k)
+    keys = torch.nonzero(counts).flatten()
+    return keys, sums[keys], counts[keys]
+
+
+def filter_formulas(core, page_rank_cut):
+    """(name, table, columns, formula, truth(cols)) of the FILTER queries:
+    the benchmark's Query 1 on rankings, and a formula on uservisits with a
+    predicate the switch cannot evaluate (relaxed to TRUE, so the truth
+    table and the master both do real work)."""
+    def like(c):
+        return (c * 3 + 1) % 7 == 0
+
+    q1 = core.Pred("page_rank", "gt", page_rank_cut)
+    uv = core.And((core.Pred("lang", "lt", 16),
+                   core.Or((core.Pred("duration", "like", like, False),
+                            core.Pred("ad_revenue", "gt", 150.0))),
+                   core.Pred("source_ip", "ne", 0)))
+
+    def uv_truth(t):
+        import torch
+
+        return ((u64(torch, t["lang"]) < 16)
+                & (like(t["duration"]) | (t["ad_revenue"] > 150.0))
+                & (u64(torch, t["source_ip"]) != 0))
+    return [("rankings", ("page_rank",), q1,
+             lambda t: t["page_rank"] > page_rank_cut),
+            ("uservisits", ("lang", "duration", "ad_revenue", "source_ip"),
+             uv, uv_truth)]
+
+
 def phase_main(torch, P, O):
     from repro_torch import core
-    from repro_torch.query import QuerySpec, make_uservisits, run_query
+    from repro_torch.query import (QuerySpec, make_rankings, make_uservisits,
+                                   run_query)
 
     table, secs = sync_time(lambda: make_uservisits(M_MAIN, seed=0))
     xs = table.cols["ad_revenue"]
     fs = table.cols["source_ip"]
     say("main", table="uservisits", rows=M_MAIN, bytes=sum(
         c.numel() * c.element_size() for c in table.cols.values()),
+        build_s=round(secs, 3))
+    rankings, secs = sync_time(lambda: make_rankings(M_RANKINGS, seed=1))
+    say("main", table="rankings", rows=M_RANKINGS, bytes=sum(
+        c.numel() * c.element_size() for c in rankings.cols.values()),
         build_s=round(secs, 3))
 
     # the truth, computed without the port: a stable top-N and torch.unique
@@ -298,6 +446,14 @@ def phase_main(torch, P, O):
     say("main", skyline_points=int(sky.sum()),
         having_count_keys=truths["count"][0].numel(),
         having_sum_keys=truths["sum"][0].numel())
+    (join_t, join_rows_a, join_rows_b) = join_truth(torch, table, rankings)
+    gb_keys, gb_sum, gb_count = groupby_truth(torch, table)
+    cut = float(torch.quantile(rankings.cols["page_rank"], 0.9))
+    filters = filter_formulas(core, cut)
+    tabs = {"uservisits": table, "rankings": rankings}
+    say("main", join_matches=join_t[0].numel(),
+        join_rows_a=int(join_rows_a.sum()), join_rows_b=int(join_rows_b.sum()),
+        groupby_keys=gb_keys.numel(), page_rank_cut=cut)
 
     def topn_ok(keep, name, out=None):
         v, i = core.master_complete_topn(xs, keep, TOPN_N) if out is None \
@@ -339,6 +495,70 @@ def phase_main(torch, P, O):
         check(torch.equal(out, uniq), f"{name}: DISTINCT differs from unique")
         check(bool(keep[first].all()),
               f"{name}: a first occurrence was pruned")
+
+    def join_ok(r, name):
+        out = r["output"]
+        check(len(out) == 3 and all(torch.equal(a, b)
+                                    for a, b in zip(out, join_t)),
+              f"{name}: JOIN differs from the sort-merge join")
+        keep_a, keep_b = r["keep"][:M_MAIN], r["keep"][M_MAIN:]
+        check(bool(keep_a[join_rows_a].all() and keep_b[join_rows_b].all()),
+              f"{name}: a matching row was pruned")
+
+    def groupby_ok(out, name, agg):
+        keys = torch.tensor(list(out.keys()), dtype=torch.int64,
+                            device="cuda")
+        vals = torch.tensor(list(out.values()), dtype=torch.float64,
+                            device="cuda")
+        o = torch.argsort(keys)
+        keys, vals = keys[o], vals[o]
+        if not check(torch.equal(keys, gb_keys),
+                     f"{name}: GROUP BY keys differ from bincount"):
+            return
+        if agg == "count":
+            check(torch.equal(vals, gb_count.double()),
+                  f"{name}: GROUP BY COUNT differs from bincount")
+        else:
+            rel = float(((vals - gb_sum).abs() / gb_sum.abs()).max())
+            say("main", path=name, max_rel_err_vs_f64=rel)
+            check(rel <= 1e-2, f"{name}: GROUP BY SUM off by {rel} relative")
+
+    def groupby_traffic(name, traffic, slots, reported_pruned):
+        """The true switch->master traffic (valid evictions and valid state
+        slots) beside the pruned fraction the reference's keep reports."""
+        say("main", path=name, true_traffic=traffic, slots=slots,
+            true_forwarded_share=traffic / slots,
+            true_pruned_fraction=1 - traffic / M_MAIN,
+            reported_pruned_fraction=reported_pruned)
+
+    def run_query_groupby_ok(r, agg):
+        name = f"run_query_groupby_{agg}"
+        groupby_ok(r["output"], name, agg)
+        # keep = ~traffic, reproduced from the reference (ROADMAP Queue 3)
+        groupby_traffic(name, int((~r["keep"]).sum()), r["total"],
+                        r["pruned_fraction"])
+
+    def engine_groupby_ok(r):
+        name = "engine_two_pass_groupby"
+        groupby_ok(core.master_complete_groupby(r, "count"), name, "count")
+        traffic = int(r.emitted[2].sum()) + int(r.state.valid.sum())
+        groupby_traffic(name, traffic,
+                        r.emitted[2].numel() + r.state.valid.numel(),
+                        1 - float(r.keep.float().mean()))
+
+    def filter_ok(r, name, truth):
+        check(torch.equal(r["output"], torch.nonzero(truth).flatten()),
+              f"{name}: FILTER differs from a direct evaluation")
+        check(bool(r["keep"][truth].all()),
+              f"{name}: a matching row was pruned")
+
+    def bloom_ok(keep, name):
+        member = torch.isin(u64(torch, table.cols["dest_url"]),
+                            u64(torch, rankings.cols["page_url"]
+                                [:BLOOM_OPS_KEYS]))
+        check(bool(keep[member].all()), f"{name}: a false negative")
+        say("main", path=name, members=int(member.sum()),
+            positives=int(keep.sum()))
 
     paths = {
         "run_query_topn": (
@@ -426,6 +646,36 @@ def phase_main(torch, P, O):
             lambda est: cms_ok(est, "ops_cms"),
             lambda est: est > HAVING_COUNT[2]["threshold"],
             ("cms_build", "cms_query")),
+        "run_query_join": (
+            lambda: run_query(QuerySpec("join", ("dest_url", "page_url"),
+                                        JOIN), (table, rankings)),
+            lambda r: join_ok(r, "run_query_join"),
+            lambda r: r["keep"], ("bloom_build", "bloom_query")),
+        "ops_bloom": (
+            lambda: O.bloom_query(O.bloom_build(
+                rankings.cols["page_url"][:BLOOM_OPS_KEYS], **BLOOM_OPS),
+                table.cols["dest_url"], num_hashes=BLOOM_OPS["num_hashes"]),
+            lambda k: bloom_ok(k, "ops_bloom"),
+            lambda k: k, ("bloom_build", "bloom_query")),
+        **{f"run_query_filter_{tname}": (
+            lambda tname=tname, cols=cols, f=f: run_query(
+                QuerySpec("filter", cols, dict(formula=f)), tabs[tname]),
+            lambda r, tname=tname, truth=truth: filter_ok(
+                r, f"run_query_filter_{tname}", truth(tabs[tname].cols)),
+            lambda r: r["keep"], ())
+            for tname, cols, f, truth in filters},
+        **{f"run_query_groupby_{agg}": (
+            lambda agg=agg: run_query(QuerySpec(
+                "groupby", ("source_ip", "ad_revenue"),
+                dict(agg=agg, **GROUPBY)), table),
+            lambda r, agg=agg: run_query_groupby_ok(r, agg),
+            lambda r: r["keep"], ("groupby_pass1",))
+            for agg in ("sum", "count")},
+        "engine_two_pass_groupby": (
+            lambda: core.engine_prune("groupby", fs, xs, mode="two_pass",
+                                      shards=SHARDS, agg="count", **GROUPBY),
+            engine_groupby_ok,
+            lambda r: r.keep, ("groupby_pass1",)),
     }
     totals = {k.name: 0 for k in P.KERNELS}
     for name, (run, verify, keep_of, needs) in paths.items():
@@ -441,7 +691,7 @@ def phase_main(torch, P, O):
         say("main", path=name, s=round(secs, 4),
             pruned=round(1 - float(keep.float().mean()), 6),
             launches=json.dumps(counts, separators=(",", ":")))
-    return table, pts, totals
+    return table, rankings, pts, totals
 
 
 # ------------------------------------------------------------------ phase 4
@@ -511,7 +761,7 @@ def pass1_fns(algo, P, R):
     return kernel, plain
 
 
-def phase_timing(torch, P, R, table, pts, totals, clock_hz):
+def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz):
     """Each kernel against its plain version at every main-path shape on the
     2^25-row table, its median time, and its bound."""
     xs = table.cols["ad_revenue"]
@@ -602,6 +852,8 @@ def phase_timing(torch, P, R, table, pts, totals, clock_hz):
                      nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
     rows.append(time_skyline_apply(torch, P, pts, states, totals))
     rows.extend(time_cms(torch, table, totals))
+    rows.extend(time_bloom(torch, table, rankings, totals))
+    rows.append(time_groupby(torch, table, totals, clock_hz))
     return rows
 
 
@@ -715,6 +967,117 @@ def time_cms(torch, table, totals):
             _row("cms_query", totals, max(errs_q), *out[1], "bytes")]
 
 
+def bloom_shapes(table, rankings):
+    """(path, keys, family, nbits, seed) of every Bloom build on the main
+    path, the reported shape first; each query probes the other side's
+    filter (JOIN) or the ops filter with every dest_url."""
+    dest, page = table.cols["dest_url"], rankings.cols["page_url"]
+    nb = JOIN["nbits"]
+    return [("run_query JOIN F_A (dest_url)", dest, "engine", nb, 0),
+            ("run_query JOIN F_B (page_url)", page, "engine", nb, 7919),
+            ("ops.bloom_build (page_url[:4096])", page[:BLOOM_OPS_KEYS],
+             "kernel", BLOOM_OPS["nbits"], 0)]
+
+
+def time_bloom(torch, table, rankings, totals):
+    """Both Bloom kernels against their plain versions at every main-path
+    shape; bound by bytes (keys read once, bitset or keep written once)."""
+    from repro_torch.kernels import bloom_filter as B
+
+    H = JOIN["num_hashes"]
+    built = {}
+    errs_b, errs_q, out = [], [], {}
+    for path, keys, fam, nbits, seed in bloom_shapes(table, rankings):
+        kw = dict(nbits=nbits, num_hashes=H, seed=seed, family=fam)
+        w = B.bloom_build_kernel(keys, **kw)
+        w2, plain_s = sync_time(lambda: B.bloom_build_plain(keys, **kw))
+        errs_b.append(max_abs_err([(w, w2)]))
+        check(errs_b[-1] == 0.0, f"bloom_build {path}")
+        built[path] = (w, kw)
+        ms = event_ms(lambda: B.bloom_build_kernel(keys, **kw), 10)
+        bound = (keys.numel() * 4 + w.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        # a yardstick, not the same function: index_put_ of True at bits
+        # hashed before the timed call, into a bool[nbits] vector
+        idx = B.probe_bits(keys, **kw).reshape(-1)
+        bits = torch.zeros(nbits, dtype=torch.bool, device="cuda")
+        one = torch.ones((), dtype=torch.bool, device="cuda")
+        put_ms = event_ms(lambda: bits.index_put_((idx,), one), 10)
+        say("timing", kernel="bloom_build", path=json.dumps(path),
+            keys=keys.numel(), nbits=nbits, family=fam, ms=ms,
+            plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
+            index_put_on_hashed_bits_ms=put_ms, max_abs_err=errs_b[-1])
+        out.setdefault("build", (ms, plain_s * 1e3, bound))
+    (fa, kwa), (fb, kwb), (fo, kwo) = built.values()
+    dest, page = table.cols["dest_url"], rankings.cols["page_url"]
+    for path, words, keys, kw in (
+            ("run_query JOIN keep_a (F_B on dest_url)", fb, dest, kwb),
+            ("run_query JOIN keep_b (F_A on page_url)", fa, page, kwa),
+            ("ops.bloom_query (dest_url)", fo, dest, kwo)):
+        keep = B.bloom_query_kernel(words, keys, **kw)
+        keep2, plain_s = sync_time(lambda: B.bloom_query_plain(words, keys,
+                                                               **kw))
+        errs_q.append(max_abs_err([(keep, keep2)]))
+        check(errs_q[-1] == 0.0, f"bloom_query {path}")
+        ms = event_ms(lambda: B.bloom_query_kernel(words, keys, **kw), 10)
+        bound = ((keys.numel() * 5 + words.numel() * 4) / HBM_BYTES_PER_S
+                 * 1e3)
+        say("timing", kernel="bloom_query", path=json.dumps(path),
+            keys=keys.numel(), positives=int(keep.sum()), ms=ms,
+            plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
+            max_abs_err=errs_q[-1])
+        out.setdefault("query", (ms, plain_s * 1e3, bound))
+    return [_row("bloom_build", totals, max(errs_b), *out["build"], "bytes"),
+            _row("bloom_query", totals, max(errs_q), *out["query"], "bytes")]
+
+
+def time_groupby(torch, table, totals, clock_hz):
+    """The GROUP BY scan against its plain version at every main-path shape:
+    the 128-lane COUNT of engine_prune two_pass (reported) and the one-lane
+    SUM and COUNT scans of run_query. The emissions of entry i of a lane
+    depend only on the lane's entries up to i, so the plain scan of each
+    lane's first GROUPBY_PREFIX / S entries (SCAN_PREFIX at S = 1) checks
+    the full-size run's emissions there, and the kernel rerun on that
+    prefix is checked state and all. The COUNT scan, which differs from
+    the SUM scan only in its fold, is checked on the prefix alone (no
+    full-size run). Bound: the serial chain, m / S steps a lane."""
+    from repro_torch.kernels import groupby_scan as G
+
+    keys, vals = table.cols["source_ip"], table.cols["ad_revenue"]
+    m = M_MAIN
+    errs, first = [], None
+    for path, agg, S, reps in (
+            ("engine_prune two_pass GROUP BY COUNT", "count", SHARDS, 5),
+            ("run_query GROUP BY SUM (scan)", "sum", 1, 2),
+            ("run_query GROUP BY COUNT (scan)", "count", 1, 0)):
+        kw = dict(agg=agg, **GROUPBY)
+        n = (GROUPBY_PREFIX if S > 1 else SCAN_PREFIX) // S
+        kp = keys.view(S, -1)[:, :n].contiguous()
+        vp = vals.view(S, -1)[:, :n].contiguous()
+        evp, stp = G.groupby_pass1_kernel(kp.view(-1), vp.view(-1), shards=S,
+                                          **kw)
+        (ev2, st2), plain_s = sync_time(
+            lambda: G.groupby_pass1_plain(kp, vp, None, **kw))
+        pairs = [(a.view(S, n), b) for a, b in zip(evp, ev2)] + list(
+            zip(stp, st2))
+        if reps:
+            ev, _ = G.groupby_pass1_kernel(keys, vals, shards=S, **kw)
+            pairs += [(a.view(S, -1)[:, :n], b) for a, b in zip(ev, ev2)]
+        errs.append(max_abs_err(pairs))
+        err = errs[-1]
+        check(err == 0.0, f"groupby_pass1 {path} on the 2^25-row table")
+        if not reps:
+            continue
+        ms = event_ms(lambda: G.groupby_pass1_kernel(keys, vals, shards=S,
+                                                     **kw), reps)
+        bound, by = pass1_bound(m, S, 1, m * 8, S * GROUPBY["d"]
+                                * GROUPBY["w"] * 9 + m * 8, clock_hz)
+        say("timing", kernel="groupby_pass1", path=json.dumps(path), S=S,
+            B=1, ms=ms, compared_entries=S * n, plain_ms=plain_s * 1e3,
+            bound_ms=bound, bound_by=by, chain_steps=m // S, max_abs_err=err)
+        first = first or (ms, plain_s * 1e3, bound, by)
+    return _row("groupby_pass1", totals, max(errs), *first)
+
+
 SOURCES = {
     "topn_pass1": ("src/repro_torch/kernels/csrc/topn.cu",
                    "src/repro/kernels/topn_prune.py:49, "
@@ -735,6 +1098,13 @@ SOURCES = {
                   "src/repro/kernels/cms_sketch.py:39"),
     "cms_query": ("src/repro_torch/kernels/csrc/cms.cu",
                   "src/repro/kernels/cms_sketch.py:72"),
+    "bloom_build": ("src/repro_torch/kernels/csrc/bloom.cu",
+                    "src/repro/kernels/bloom_filter.py:39"),
+    "bloom_query": ("src/repro_torch/kernels/csrc/bloom.cu",
+                    "src/repro/kernels/bloom_filter.py:71"),
+    # no pallas_call: the lax.scan of core.groupby.groupby_prune
+    "groupby_pass1": ("src/repro_torch/kernels/csrc/groupby.cu",
+                      "src/repro/core/groupby.py:80"),
 }
 
 
@@ -785,8 +1155,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_kernels(torch, P, R, O)
-    table, pts, totals = phase_main(torch, P, O)
-    rows = phase_timing(torch, P, R, table, pts, totals, clock_hz)
+    table, rankings, pts, totals = phase_main(torch, P, O)
+    rows = phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz)
     say("done", s=round(time.perf_counter() - t_start, 3),
         failures=len(FAILURES))
     if FAILURES:

@@ -9,10 +9,12 @@ import numpy as np
 import torch
 
 from .core.distinct import DistinctState
-from .core.sketches import CountMin
+from .core.groupby import GroupByState
+from .core.sketches import BloomFilter, CountMin
 from .core.skyline import SkylineState
 from .core.topn import TopNRandState
 from .device import resolve_device
+from .kernels.bloom_filter import pack_bits
 from .query.tables import Table
 
 
@@ -61,6 +63,24 @@ def count_min_from_numpy(table, seed: int = 0, device=None) -> CountMin:
                         f"{table.dtype}")
     return CountMin(table=_t(table, table.dtype, resolve_device(device)),
                     seed=seed)
+
+
+def bloom_filter_from_numpy(bits, num_hashes: int = 3, seed: int = 0,
+                            device=None) -> BloomFilter:
+    """A Bloom filter from its bool[nbits] bits (``BloomFilter.bits`` of the
+    JAX package), packed into uint32 words."""
+    bits = _t(np.asarray(bits) != 0, np.bool_, resolve_device(device))
+    return BloomFilter(words=pack_bits(bits), nbits=int(bits.shape[0]),
+                       num_hashes=num_hashes, seed=seed)
+
+
+def groupby_state_from_numpy(keys, aggs, valid, device=None) -> GroupByState:
+    """A GROUP BY cache: uint32 keys, f32 aggregates, bool valid [d, w] (or
+    stacked [S, d, w], merged [d, S*w])."""
+    dev = resolve_device(device)
+    return GroupByState(keys=_t(keys, np.uint32, dev),
+                        aggs=_t(aggs, np.float32, dev),
+                        valid=_t(valid, np.bool_, dev))
 
 
 def table_from_numpy(cols: dict, name: str = "table", device=None) -> Table:

@@ -1,11 +1,11 @@
-"""The pruning abstraction and the TOP-N / DISTINCT / SKYLINE / HAVING pruners
-(paper §3-§5).
+"""The pruning abstraction and the TOP-N / DISTINCT / SKYLINE / HAVING /
+JOIN / FILTER / GROUP BY pruners (paper §3-§5).
 
 A pruner maps a stream D to a keep mask selecting a subset with
 Q(subset) = Q(D); the master completes the query on the survivors.
 """
 from .pruning import PruneResult, compact, prune_rate_vs_opt
-from .hashing import mix32, hash_mod, hash_mod_dyn, multi_hash
+from .hashing import by_value, mix32, hash_mod, hash_mod_dyn, multi_hash
 from .distinct import (DistinctState, distinct_prune, master_complete_distinct,
                        opt_keep_distinct, thm1_bound)
 from .topn import (TopNRandState, topn_rand_prune, thm2_w, thm2_opt_d,
@@ -13,7 +13,14 @@ from .topn import (TopNRandState, topn_rand_prune, thm2_w, thm2_opt_d,
 from .skyline import (SkylineState, skyline_init, skyline_prune,
                       skyline_oracle, opt_keep_skyline,
                       master_complete_skyline, score_aph, score_sum)
-from .sketches import CountMin, cms_build, cms_query
+from .sketches import (BloomFilter, CountMin, bloom_build, bloom_query,
+                       cms_build, cms_query)
+from .join import (join_prune, join_prune_asymmetric, master_complete_join,
+                   join_oracle)
+from .filter import (Pred, And, Or, TRUE, relax, basic_preds, evaluate,
+                     evaluate_truthtable, filter_prune, master_complete_filter)
+from .groupby import (GroupByState, groupby_init, groupby_prune,
+                      master_complete_groupby, groupby_oracle)
 from .having import (having_init, having_prune, master_complete_having,
                      having_oracle)
 from .engine import (ALGORITHMS, MODES, PASS2, DistinctMerged, apply_merged,

@@ -19,11 +19,15 @@ engine's per-entry semantics) and pass 2 the apply kernel; on the CPU both
 are their plain versions. HAVING's pass 1 is the Count-Min build kernel
 over S lane tables and its pass 2 the fused query-and-threshold kernel;
 its keep rule is global, so ``sharded`` merges and applies as ``two_pass``
-does. The parallel modes' masks are supersets of the minimal correct
+does. GROUP BY's pass 1 is the ``groupby_pass1`` scan kernel; every entry is
+absorbed (keep all-False), the lanes' evictions come back as
+``PruneResult.emitted`` at the full padded length S * ceil(m/S) (a tail pad
+can evict a real partial), and ``two_pass`` merges the caches by column
+union. The parallel modes' masks are supersets of the minimal correct
 survivor set, not of the scan's mask.
 
 Ported so far: ``topn_rand``, ``distinct`` with ``policy="fifo"``,
-``skyline`` and ``having``.
+``skyline``, ``having`` and ``groupby``.
 """
 from __future__ import annotations
 
@@ -35,9 +39,11 @@ import torch
 from ..constants import NEG
 from ..kernels import parallel as kpar
 from ..kernels.cms_sketch import cms_build_kernel, cms_query_kernel, wrap_i32
-from ..kernels.ops import _pad_to
+from ..kernels.groupby_scan import groupby_pass1_kernel
+from ..kernels.ops import _pad_to, first_value
 from .distinct import DistinctState
-from .hashing import as_u32
+from .groupby import GroupByState
+from .hashing import by_value
 from .pruning import PruneResult
 from .skyline import SkylineState
 from .sketches import CountMin
@@ -74,7 +80,9 @@ class _AlgoSpec:
     """How the engine runs one pruning algorithm over S stacked lanes.
 
     Every body takes ``lanes``, one [S, n, ...] tensor per stream.
-    pass1(lanes, params)                 -> (keep bool[S, n], stacked state)
+    pass1(lanes, params)                 -> (keep bool[S, n], stacked state,
+                                             emitted: None or a tuple of
+                                             [S, n] streams)
     pads(streams, params)                -> tail-pad fill of each stream
     merge(stacked_state, params)         -> merged global state
     apply(merged, lanes, keep1, params)  -> keep bool[S, n]
@@ -84,6 +92,9 @@ class _AlgoSpec:
     sum can pass the threshold while every lane's estimate stays below), so
     ``sharded`` merges and applies as ``two_pass`` does.
     max_streams: how many streams the algorithm takes.
+    pad_validity: a ragged m gets a validity stream (True for real entries,
+    False for the tail pads) when the caller gave none, so that pads are
+    inert under any aggregate (GROUP BY COUNT has no neutral pad value).
     """
 
     pass1: Callable[[tuple, dict], tuple]
@@ -93,6 +104,7 @@ class _AlgoSpec:
     chunkable: bool = False
     sharded_needs_merge: bool = False
     max_streams: int = 1
+    pad_validity: bool = False
 
 
 # TOP-N randomized (d x w rolling matrix, Ex. 7) --------------------------
@@ -102,7 +114,7 @@ def _topn_rand_pass1(lanes, p):
     keep, vals = kpar.topn_shard_states_kernel(
         x.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
         seed=p.get("seed", 0))
-    return keep.reshape(x.shape), TopNRandState(vals=vals)
+    return keep.reshape(x.shape), TopNRandState(vals=vals), None
 
 
 def _topn_rand_merge(st, p):
@@ -124,7 +136,7 @@ def _distinct_pass1(lanes, p):
     keep, slots, valid, head = kpar.distinct_shard_states_kernel(
         x.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
         seed=p.get("seed", 0))
-    return keep.reshape(x.shape), DistinctState(slots, valid, head)
+    return keep.reshape(x.shape), DistinctState(slots, valid, head), None
 
 
 def _distinct_merge(st, p):
@@ -151,7 +163,8 @@ def _skyline_pass1(lanes, p):
     keep, pts, scs = kpar.skyline_shard_states_kernel(
         _skyline_points(x), w=p["w"], shards=x.shape[0], block=1,
         score=p.get("score", "aph"), form="engine")
-    return keep.reshape(x.shape[:2]), SkylineState(points=pts, scores=scs)
+    return (keep.reshape(x.shape[:2]), SkylineState(points=pts, scores=scs),
+            None)
 
 
 def _skyline_merge(st, p):
@@ -183,10 +196,10 @@ def _having_pass1(lanes, p):
                               width=p.get("width", 1024), seed=seed,
                               family="engine", shards=S)
     if S > 1:  # sharded_needs_merge: a lane's own keep is never read
-        return None, CountMin(table=tables, seed=seed)
+        return None, CountMin(table=tables, seed=seed), None
     keep = cms_query_kernel(tables[0], keys.reshape(-1), seed=seed,
                             family="engine", threshold=p["threshold"])
-    return keep[None], CountMin(table=tables, seed=seed)
+    return keep[None], CountMin(table=tables, seed=seed), None
 
 
 def _having_merge(st, p):
@@ -209,9 +222,38 @@ def _having_pads(streams, p):
     # pads only inflate CMS estimates; the overestimate stays one-sided.
     # Under agg="count" each pad adds 1 to keys[0]'s counters, as in the
     # reference.
-    k0 = streams[0][:1]
-    fill = int(as_u32(k0)[0]) if k0.dtype == torch.uint32 else k0[0].item()
-    return (fill,) + ((0,) if len(streams) > 1 else ())
+    return (first_value(streams[0]),) + ((0,) if len(streams) > 1 else ())
+
+
+# GROUP BY (d x w key/aggregate cache, paper §4.2/§8) ----------------------
+def _groupby_pass1(lanes, p):
+    keys, vals = lanes[0], lanes[1]
+    valid = lanes[2].reshape(-1).contiguous() if len(lanes) > 2 else None
+    ev, st = groupby_pass1_kernel(
+        keys.reshape(-1).contiguous(),
+        by_value(vals.reshape(-1)).to(torch.float32).contiguous(), valid,
+        d=p["d"], w=p["w"], agg=p.get("agg", "sum"), seed=p.get("seed", 0),
+        shards=keys.shape[0])
+    keep = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    return keep, GroupByState(*st), tuple(e.reshape(keys.shape) for e in ev)
+
+
+def _groupby_merge(st, p):
+    # cache-column union: the master's fold is a commutative monoid, so
+    # duplicate keys across shard columns fold exactly in completion
+    return GroupByState(*(kpar.cols_by_shard(x)
+                          for x in (st.keys, st.aggs, st.valid)))
+
+
+def _groupby_apply(merged, lanes, keep1, p):
+    del merged, lanes, p
+    return keep1  # all-False: every entry is absorbed into switch state
+
+
+def _groupby_pads(streams, p):
+    # pads carry valid=False, so the gated fold ignores key and value
+    # entirely; any fill works, COUNT included
+    return (first_value(streams[0]), 0, False)[:len(streams)]
 
 
 _SPECS: dict[str, _AlgoSpec] = {
@@ -226,6 +268,8 @@ _SPECS: dict[str, _AlgoSpec] = {
     "having": _AlgoSpec(_having_pass1, _having_pads, _having_merge,
                         _having_apply, sharded_needs_merge=True,
                         max_streams=2),
+    "groupby": _AlgoSpec(_groupby_pass1, _groupby_pads, _groupby_merge,
+                         _groupby_apply, max_streams=3, pad_validity=True),
 }
 
 
@@ -237,9 +281,8 @@ def _spec(algo: str, params: dict) -> _AlgoSpec:
     if algo not in ALGORITHMS:
         raise KeyError(algo)
     if algo not in _SPECS:
-        item = ("Queue 1 item 3: the topn_det scan kernel" if algo == "topn_det"
-                else "Queue 1 item 5: GROUP BY, port slice 3")
-        raise _not_ported(f"algorithm {algo!r}", item)
+        raise _not_ported(f"algorithm {algo!r}",
+                          "Queue 1 item 3: the topn_det scan kernel")
     if algo == "distinct" and params.get("policy", "lru") != "fifo":
         raise _not_ported(f"DISTINCT policy={params.get('policy', 'lru')!r}",
                           "Queue 1 item 3: the LRU scan kernel; pass "
@@ -333,9 +376,12 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
 
     streams: arrays of m entries on the device to run on: f32 values for
     ``topn_rand``, uint32 fingerprints for ``distinct``, points [m, D] for
-    ``skyline``, and keys plus (optionally) values for ``having``. A ragged
+    ``skyline``, keys plus (optionally) values for ``having``, and keys,
+    values and (optionally) a bool validity column for ``groupby``. A ragged
     m is handled by tail-padding the final shard with neutral entries (NEG
-    for TOP-N and SKYLINE, 0 for DISTINCT, ``(keys[0], 0)`` for HAVING).
+    for TOP-N and SKYLINE, 0 for DISTINCT, ``(keys[0], 0)`` for HAVING,
+    ``(keys[0], 0, False)`` for GROUP BY, which appends an all-True validity
+    column when it was given none).
 
     shards: lane count S (``None``: 8, capped at m). apply_block: chunk
     size of the DISTINCT and SKYLINE pass-2 filters; the mask is the same
@@ -343,7 +389,9 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
 
     Returns a PruneResult whose keep mask is over the original m entries.
     state is the final scan state (``scan``), the stacked per-shard states
-    (``sharded``) or the merged global state (``two_pass``).
+    (``sharded``) or the merged global state (``two_pass``). emitted is
+    GROUP BY's (evicted key, evicted aggregate, valid) streams: m long in
+    ``scan``, S * ceil(m/S) long (the padded lanes, flattened) otherwise.
     """
     del mesh_axis
     _reject_unported(options, mesh, tune, plan_cache, encoding, decode, obs)
@@ -377,21 +425,31 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
             f"shards must be an int, None or 'auto', got {shards!r}")
 
     if mode == "scan" or shards <= 1:
-        keep, st = spec.pass1(tuple(s.contiguous()[None] for s in streams),
-                              params)
-        return PruneResult(keep=keep[0], state=_lane(st, 0))
+        keep, st, ev = spec.pass1(
+            tuple(s.contiguous()[None] for s in streams), params)
+        return PruneResult(keep=keep[0], state=_lane(st, 0),
+                           emitted=None if ev is None
+                           else tuple(e[0] for e in ev))
     if shards > m:
         raise ValueError(f"shards={shards} exceeds stream length {m}")
+    if m % shards and spec.pad_validity and len(streams) < 3:
+        streams = streams + (torch.ones(m, dtype=torch.bool,
+                                        device=streams[0].device),)
     fills = (spec.pads(streams, params) if m % shards
              else (0,) * len(streams))
     lanes = tuple(shard_stack(s, shards, f) for s, f in zip(streams, fills))
-    keep1, stacked = spec.pass1(lanes, params)
+    keep1, stacked, ev = spec.pass1(lanes, params)
+    # emissions are switch->master traffic, not per-entry masks: keep the
+    # full padded length, since a tail pad can evict a real partial
+    emitted = None if ev is None else tuple(e.reshape(-1) for e in ev)
     if mode == "sharded" and not spec.sharded_needs_merge:
-        return PruneResult(keep=_unshard(keep1, m), state=stacked)
+        return PruneResult(keep=_unshard(keep1, m), state=stacked,
+                           emitted=emitted)
     merged = spec.merge(stacked, params)
     if apply_block and spec.chunkable and apply_block < lanes[0].shape[1]:
         keep2 = _apply_chunked(spec.apply, spec.pads, merged, lanes, keep1,
                                params, apply_block)
     else:
         keep2 = spec.apply(merged, lanes, keep1, params)
-    return PruneResult(keep=_unshard(keep2, m), state=merged)
+    return PruneResult(keep=_unshard(keep2, m), state=merged,
+                       emitted=emitted)

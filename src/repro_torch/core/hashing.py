@@ -23,6 +23,15 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & _M32
 
 
+def by_value(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a tensor that compares as its values do: uint32 by value in
+    int64 (torch compares no uint32 on the CPU), other integers in int64,
+    floats as they are."""
+    if x.dtype == torch.uint32:
+        return as_u32(x)
+    return x if x.is_floating_point() else x.to(torch.int64)
+
+
 def _fmix(h: torch.Tensor) -> torch.Tensor:
     h = h ^ (h >> 16)
     h = (h * _C1) & _M32

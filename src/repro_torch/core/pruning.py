@@ -18,7 +18,8 @@ class PruneResult:
 
     keep:    bool[m], True for entries forwarded to the master.
     state:   the final switch state (per shard, merged, or of the scan).
-    emitted: synthetic entries emitted at end of stream (unused here).
+    emitted: synthetic entries for the master (GROUP BY's evicted partials:
+             key, aggregate and valid streams).
     """
 
     keep: torch.Tensor

@@ -1,16 +1,60 @@
-"""Count-Min sketch (paper Ex. 5): one-sided overestimate, so HAVING
-f(key) > c never loses a qualifying key.
+"""Shared sketch substrate: Bloom filter and Count-Min (paper Ex. 4/5).
 
-The engine's family: ``multi_hash(key, width, rows, seed)``, a table of the
-weights' dtype (int32 for COUNT). Build and query run on the Count-Min CUDA
-kernels for CUDA tensors and on their plain versions for CPU tensors. The
-Bloom filter half of the JAX module belongs to JOIN (ROADMAP Queue 1 item 5).
+Bloom: no false negatives, so JOIN never prunes a matching key.
+Count-Min: one-sided overestimate, so HAVING f(key) > c never loses a
+qualifying key.
+
+Both take the engine's hash family, ``multi_hash(key, size, k, seed)``. The
+Bloom filter is a packed uint32 bitset (``bits`` gives the bool view of the
+JAX package's ``BloomFilter.bits``); the Count-Min table takes the weights'
+dtype (int32 for COUNT). Build and query run on the CUDA kernels for CUDA
+tensors and on their plain versions for CPU tensors.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+@dataclasses.dataclass
+class BloomFilter:
+    words: torch.Tensor  # uint32[ceil(nbits / 32)], bit i in word i // 32
+    nbits: int
+    num_hashes: int = 3
+    seed: int = 0
+
+    @property
+    def bits(self) -> torch.Tensor:
+        """bool[nbits]: the unpacked filter."""
+        from ..kernels.bloom_filter import unpack_bits
+
+        return unpack_bits(self.words, self.nbits)
+
+
+def bloom_build(keys: torch.Tensor, nbits: int, num_hashes: int = 3,
+                seed: int = 0,
+                mask: torch.Tensor | None = None) -> BloomFilter:
+    """The filter of ``keys``; entries whose ``mask`` is False are left out."""
+    from ..kernels.bloom_filter import bloom_build_kernel
+
+    if mask is not None:
+        mask = mask.contiguous()
+    words = bloom_build_kernel(keys.contiguous(), nbits=nbits,
+                               num_hashes=num_hashes, seed=seed,
+                               family="engine", mask=mask)
+    return BloomFilter(words=words, nbits=nbits, num_hashes=num_hashes,
+                       seed=seed)
+
+
+def bloom_query(f: BloomFilter, keys: torch.Tensor) -> torch.Tensor:
+    """bool[m]: True where the filter may hold the key (never a false
+    negative)."""
+    from ..kernels.bloom_filter import bloom_query_kernel
+
+    return bloom_query_kernel(f.words, keys.contiguous(), nbits=f.nbits,
+                              num_hashes=f.num_hashes, seed=f.seed,
+                              family="engine")
 
 
 @dataclasses.dataclass

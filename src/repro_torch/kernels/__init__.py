@@ -1,8 +1,10 @@
-"""Hand-written CUDA kernels for the TOP-N, DISTINCT, SKYLINE and Count-Min
-pruning hot path.
+"""Hand-written CUDA kernels for the TOP-N, DISTINCT, SKYLINE, Count-Min,
+Bloom and GROUP BY pruning hot path.
 
 Each kernel lives in ``csrc/`` with its plain PyTorch version beside its
 wrapper (``ref.py`` for pass 1, ``parallel.py`` for pass 2,
-``cms_sketch.py`` for Count-Min). Public entry points are in ``ops.py``.
+``cms_sketch.py`` for Count-Min, ``bloom_filter.py`` for Bloom,
+``groupby_scan.py`` for the GROUP BY scan). Public entry points are in
+``ops.py``.
 """
 from . import ops, parallel, ref

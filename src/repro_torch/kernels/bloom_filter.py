@@ -1,0 +1,152 @@
+"""Bloom filter build and query (paper Ex. 4, JOIN): CUDA kernels and their
+plain versions.
+
+``bloom_build_kernel`` replaces ``bloom_build_kernel`` of the JAX package
+(``kernels/bloom_filter.py:39``) and ``bloom_query_kernel`` its
+``bloom_query_kernel`` (``:71``); both also carry the engine's JOIN filters
+(``core.sketches``). Two hash families, as for Count-Min: ``"kernel"`` is
+the Pallas kernels' ``hash_mod(key, nbits, seed + 101 h)`` (nbits < 2^16),
+``"engine"`` the engine's ``multi_hash(key, nbits, H, seed)`` (modulo, any
+nbits).
+
+The filter is a packed bitset, uint32[ceil(nbits / 32)], bit i in bit
+i % 32 of word i // 32. ``unpack_bits`` gives the bool[nbits] view
+(``BloomFilter.bits`` of the JAX package) and ``pack_bits`` the inverse; the
+f32 0/1 view of the Pallas kernel is ``unpack_bits(...).float()``. Keys are
+32-bit lanes (uint32, int32, or float32 hashed by its bits).
+
+Each entry point launches the CUDA kernel for a CUDA tensor and runs the
+plain version for a CPU tensor. Both are exact: OR is idempotent, so the
+bitset is the same in any order of inserts.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.hashing import as_u32, hash_mod, multi_hash
+from .cms_sketch import _keys_u32
+from .common import I32, I64, P, U32, CudaKernel, check_cuda, grid_for, ptr
+
+BLOOM_BUILD = CudaKernel("bloom_build",
+                         [P, P, P, I64, U32, I32, U32, I32, I32])
+BLOOM_QUERY = CudaKernel("bloom_query",
+                         [P, P, P, I64, U32, I32, U32, I32, I32])
+FAMILIES = ("kernel", "engine")
+
+
+def _family(family: str, nbits: int) -> int:
+    if family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+    if nbits < 1 or nbits >= (1 << 32):
+        raise ValueError(f"nbits must be in [1, 2^32), got {nbits}")
+    return FAMILIES.index(family)
+
+
+def num_words(nbits: int) -> int:
+    return -(-nbits // 32)
+
+
+def probe_bits(keys: torch.Tensor, nbits: int, num_hashes: int, seed: int,
+               family: str) -> torch.Tensor:
+    """int64 [m, H]: the bit each of the H hashes of each key probes."""
+    if _family(family, nbits) == 1:
+        return multi_hash(keys, nbits, num_hashes, seed)
+    return torch.stack([hash_mod(keys, nbits, (seed + 101 * h) & 0xFFFFFFFF)
+                        for h in range(num_hashes)], -1)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bool[nbits] -> uint32[ceil(nbits / 32)] packed words."""
+    nbits = bits.shape[0]
+    b = torch.zeros(num_words(nbits) * 32, dtype=torch.int64,
+                    device=bits.device)
+    b[:nbits] = bits.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    w = (b.reshape(-1, 32) << shifts).sum(1)
+    w = torch.where(w >= (1 << 31), w - (1 << 32), w)
+    return w.to(torch.int32).view(torch.uint32)
+
+
+def unpack_bits(words: torch.Tensor, nbits: int) -> torch.Tensor:
+    """uint32[ceil(nbits / 32)] packed words -> bool[nbits]."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (as_u32(words)[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:nbits].to(torch.bool)
+
+
+def bloom_build_plain(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
+                      seed: int = 0, family: str = "kernel",
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain build: packed words with the H probed bits of every key whose
+    mask entry is True (every key without a mask)."""
+    idx = probe_bits(keys, nbits, num_hashes, seed, family)
+    if mask is not None:
+        idx = idx[mask]
+    bits = torch.zeros(nbits, dtype=torch.bool, device=keys.device)
+    bits[idx.reshape(-1)] = True
+    return pack_bits(bits)
+
+
+def bloom_build_kernel(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
+                       seed: int = 0, family: str = "kernel",
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """uint32 packed words of the filter of ``keys`` (entries with a False
+    ``mask`` left out). The kernels' family takes nbits < 2^16, as the Pallas
+    kernel asserts."""
+    fam = _family(family, nbits)
+    if fam == 0 and nbits >= (1 << 16):
+        raise ValueError("the kernels' hash family needs nbits < 2^16")
+    m = keys.shape[0]
+    if mask is not None and (mask.shape != (m,) or mask.dtype != torch.bool):
+        raise ValueError(f"mask must be bool[{m}], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if not keys.is_cuda:
+        return bloom_build_plain(keys, nbits=nbits, num_hashes=num_hashes,
+                                 seed=seed, family=family, mask=mask)
+    k = _keys_u32(keys)
+    check_cuda("keys", k, torch.uint32)
+    if mask is not None:
+        check_cuda("mask", mask, torch.bool, keys.device)
+    words = torch.zeros(num_words(nbits), dtype=torch.int32,
+                        device=keys.device).view(torch.uint32)
+    if m:
+        sms = torch.cuda.get_device_properties(
+            keys.device).multi_processor_count
+        BLOOM_BUILD.launch(keys.device, ptr(k),
+                           None if mask is None else ptr(mask), ptr(words), m,
+                           nbits, num_hashes, seed & 0xFFFFFFFF, fam,
+                           min(grid_for(m, keys.device), 4 * sms))
+    return words
+
+
+def bloom_query_plain(words: torch.Tensor, keys: torch.Tensor, *, nbits: int,
+                      num_hashes: int = 3, seed: int = 0,
+                      family: str = "kernel") -> torch.Tensor:
+    """Plain query: bool[m], True where all H probed bits are set."""
+    idx = probe_bits(keys, nbits, num_hashes, seed, family)
+    got = (as_u32(words)[idx >> 5] >> (idx & 31)) & 1
+    return got.to(torch.bool).all(-1)
+
+
+def bloom_query_kernel(words: torch.Tensor, keys: torch.Tensor, *, nbits: int,
+                       num_hashes: int = 3, seed: int = 0,
+                       family: str = "kernel") -> torch.Tensor:
+    """bool[m] membership of each key in the packed filter ``words``."""
+    fam = _family(family, nbits)
+    if words.shape != (num_words(nbits),) or words.dtype != torch.uint32:
+        raise ValueError(f"words must be uint32[{num_words(nbits)}], got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    if not keys.is_cuda:
+        return bloom_query_plain(words, keys, nbits=nbits,
+                                 num_hashes=num_hashes, seed=seed,
+                                 family=family)
+    m = keys.shape[0]
+    k = _keys_u32(keys)
+    check_cuda("keys", k, torch.uint32)
+    check_cuda("words", words, torch.uint32, keys.device)
+    keep = torch.empty(m, dtype=torch.bool, device=keys.device)
+    if m:
+        BLOOM_QUERY.launch(keys.device, ptr(words), ptr(k), ptr(keep), m,
+                           nbits, num_hashes, seed & 0xFFFFFFFF, fam,
+                           grid_for(m, keys.device))
+    return keep

@@ -1,0 +1,146 @@
+"""GROUP BY pass 1 (paper §4.2/§8): the per-lane scan kernel and its plain
+version.
+
+``groupby_pass1_kernel`` replaces the ``lax.scan`` of the JAX package's
+``core.groupby.groupby_prune`` (``core/groupby.py:80-120``), which has no
+Pallas kernel; it carries the engine's ``scan``, ``sharded`` and
+``two_pass`` modes. S lanes, one per contiguous shard of the stream, each
+with its own d x w cache of (key, f32 aggregate, valid) and per-entry
+semantics: a hit folds into the first valid slot holding the key; a miss
+shifts the row right, puts (key, fold(init, value)) in slot 0 and pushes the
+last slot out. Every entry emits the row's last slot as it was before the
+entry, valid when a valid entry missed and pushed a valid slot out. Entries
+whose validity is False touch nothing.
+
+Each entry point launches the CUDA kernel for a CUDA tensor and runs the
+plain version (a loop over entries, vectorised across lanes) for a CPU
+tensor. Both are bit-identical: the folds are f32 adds, compares and
+``+ 1.0`` in entry order.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..constants import NEG, POS
+from ..core.hashing import as_u32, hash_mod
+from .cms_sketch import _keys_u32, wrap_i32
+from .common import I32, MAX_SMEM, P, U32, CudaKernel, check_cuda, ptr
+
+GROUPBY_PASS1 = CudaKernel(
+    "groupby_pass1", [P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, U32],
+    smem_fn="groupby_pass1_smem")
+AGGS = ("sum", "count", "min", "max")
+INIT = {"sum": 0.0, "count": 0.0, "min": float(POS), "max": float(NEG)}
+
+
+def _agg(agg: str) -> int:
+    if agg not in AGGS:
+        raise ValueError(f"agg must be one of {AGGS}, got {agg!r}")
+    return AGGS.index(agg)
+
+
+def fold(agg: str, a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The switch's f32 fold of an aggregate ``a`` with a value ``v``."""
+    if agg == "sum":
+        return a + v
+    if agg == "count":
+        return a + 1.0
+    return torch.minimum(a, v) if agg == "min" else torch.maximum(a, v)
+
+
+def init_state(shards: int, d: int, w: int, agg: str,
+               device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Empty caches: keys uint32, aggregates f32 (the fold's init), valid
+    bool, each [shards, d, w]."""
+    shape = (shards, d, w)
+    return (torch.zeros(shape, dtype=torch.int32,
+                        device=device).view(torch.uint32),
+            torch.full(shape, INIT[agg], dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.bool, device=device))
+
+
+def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
+                        valid: torch.Tensor | None, *, d: int, w: int,
+                        agg: str = "sum", seed: int = 0):
+    """Plain pass 1 over lanes [S, n]: ((ev_k, ev_a, ev_valid) each [S, n],
+    (keys, aggs, valid) each [S, d, w])."""
+    _agg(agg)
+    S, n = keys.shape
+    dev = keys.device
+    k64 = as_u32(keys)
+    vals = values.to(torch.float32)
+    ok = (torch.ones((S, n), dtype=torch.bool, device=dev) if valid is None
+          else valid)
+    rows = hash_mod(keys, d, seed)
+    st_k, st_a, st_v = init_state(S, d, w, agg, dev)
+    st_k = as_u32(st_k)
+    ev_k = torch.empty((S, n), dtype=torch.int64, device=dev)
+    ev_a = torch.empty((S, n), dtype=torch.float32, device=dev)
+    ev_v = torch.empty((S, n), dtype=torch.bool, device=dev)
+    lane = torch.arange(S, device=dev)
+    init = torch.full((S,), INIT[agg], dtype=torch.float32, device=dev)
+    for t in range(n):
+        r, k, v, o = rows[:, t], k64[:, t], vals[:, t], ok[:, t]
+        kr, ar, vr = st_k[lane, r], st_a[lane, r], st_v[lane, r]
+        hitvec = (kr == k[:, None]) & vr
+        hit = hitvec.any(1)
+        pos = hitvec.to(torch.int8).argmax(1)
+        ev_k[:, t] = kr[:, -1]
+        ev_a[:, t] = ar[:, -1]
+        ev_v[:, t] = vr[:, -1] & ~hit & o
+        a_hit = ar.clone()
+        a_hit[lane, pos] = fold(agg, ar[lane, pos], v)
+        k_miss = torch.cat([k[:, None], kr[:, :-1]], 1)
+        a_miss = torch.cat([fold(agg, init, v)[:, None], ar[:, :-1]], 1)
+        v_miss = torch.cat([torch.ones_like(vr[:, :1]), vr[:, :-1]], 1)
+        h, o2 = hit[:, None], o[:, None]
+        st_k[lane, r] = torch.where(o2 & ~h, k_miss, kr)
+        st_a[lane, r] = torch.where(o2, torch.where(h, a_hit, a_miss), ar)
+        st_v[lane, r] = torch.where(o2 & ~h, v_miss, vr)
+    return ((wrap_i32(ev_k).view(torch.uint32), ev_a, ev_v),
+            (wrap_i32(st_k).view(torch.uint32), st_a, st_v))
+
+
+def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
+                         valid: torch.Tensor | None = None, *, d: int, w: int,
+                         agg: str = "sum", seed: int = 0, shards: int = 1):
+    """Pass 1 of S lanes over a stream of m keys (32-bit lanes) and values:
+    ((ev_k uint32, ev_a f32, ev_valid bool) each [m], (keys uint32, aggs f32,
+    valid bool) each [shards, d, w]). Lane s owns the entries
+    [s * m/S, (s+1) * m/S)."""
+    code = _agg(agg)
+    m = keys.shape[0]
+    if shards < 1 or m % shards:
+        raise ValueError(f"stream length {m} is not a multiple of "
+                         f"shards={shards}")
+    if d < 1 or w < 1:
+        raise ValueError(f"a cache needs d, w >= 1, got {d}, {w}")
+    if values.shape != (m,) or (valid is not None and valid.shape != (m,)):
+        raise ValueError("keys, values and valid must have one length")
+    n = m // shards
+    if not keys.is_cuda:
+        ev, st = groupby_pass1_plain(
+            _keys_u32(keys).reshape(shards, n), values.reshape(shards, n),
+            None if valid is None else valid.reshape(shards, n), d=d, w=w,
+            agg=agg, seed=seed)
+        return tuple(e.reshape(m) for e in ev), st
+    k = _keys_u32(keys)
+    check_cuda("keys", k, torch.uint32)
+    check_cuda("values", values, torch.float32, keys.device)
+    if valid is not None:
+        check_cuda("valid", valid, torch.bool, keys.device)
+    need = GROUPBY_PASS1.smem_bytes(d, w)
+    if need > MAX_SMEM:
+        raise ValueError(f"groupby_pass1 needs {need} bytes of shared memory "
+                         f"at d={d}, w={w}; a Hopper block has {MAX_SMEM}")
+    dev = keys.device
+    ev_k = torch.empty(m, dtype=torch.int32, device=dev).view(torch.uint32)
+    ev_a = torch.empty(m, dtype=torch.float32, device=dev)
+    ev_v = torch.empty(m, dtype=torch.bool, device=dev)
+    st = init_state(shards, d, w, agg, dev)
+    if m:
+        GROUPBY_PASS1.launch(dev, ptr(k), ptr(values),
+                             None if valid is None else ptr(valid), ptr(ev_k),
+                             ptr(ev_a), ptr(ev_v), *(ptr(s) for s in st),
+                             shards, n, d, w, code, seed & 0xFFFFFFFF)
+    return (ev_k, ev_a, ev_v), st

@@ -10,14 +10,19 @@ a plain-tensor merge and the pass-2 apply. Their keep mask is a superset of
 the true survivors, not of the sequential kernel's mask.
 
 ``cms_build`` / ``cms_query`` are the Count-Min sketch of HAVING with the
-Pallas kernels' hash family and an f32 table.
+Pallas kernels' hash family and an f32 table; ``bloom_build`` /
+``bloom_query`` the Bloom filter of JOIN with the same family, on the f32
+0/1 view of the filter (packed into uint32 words for the kernels).
 """
 from __future__ import annotations
 
 import torch
 
 from ..constants import NEG
+from ..core.hashing import as_u32
 from . import parallel
+from .bloom_filter import (bloom_build_kernel, bloom_query_kernel, pack_bits,
+                           unpack_bits)
 from .cms_sketch import cms_build_kernel, cms_query_kernel
 from .distinct_prune import distinct_prune_kernel
 from .skyline_prune import skyline_prune_kernel
@@ -42,6 +47,12 @@ def _pad_to(x: torch.Tensor, block: int, fill,
     shape[dim] = pad
     tail = torch.full(shape, fill, dtype=x.dtype, device=x.device)
     return torch.cat([x, tail], dim=dim), m
+
+
+def first_value(x: torch.Tensor):
+    """``x[0]`` as a Python number that ``_pad_to`` fills back bit for bit
+    (a uint32 by its value)."""
+    return int(as_u32(x[:1])[0]) if x.dtype == torch.uint32 else x[0].item()
 
 
 def distinct_prune(values: torch.Tensor, *, d: int, w: int, block: int = 256,
@@ -124,3 +135,27 @@ def cms_query(table: torch.Tensor, keys: torch.Tensor, *, block: int = 256,
     k, m = _pad_to(keys.contiguous(), block, 0)
     return cms_query_kernel(table.to(torch.float32).contiguous(), k,
                             seed=seed)[:m]
+
+
+def bloom_build(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
+                block: int = 256, seed: int = 0) -> torch.Tensor:
+    """f32[nbits] 0/1 Bloom bits of ``keys`` (nbits < 2^16). Pads to whole
+    blocks by repeating ``keys[0]``: a key 0 pad would set bits of a key
+    that is not in the set, a repeated key sets none that are new."""
+    fill = first_value(keys) if keys.shape[0] % block else 0
+    k, _ = _pad_to(keys.contiguous(), block, fill)
+    words = bloom_build_kernel(k, nbits=nbits, num_hashes=num_hashes,
+                               seed=seed, family="kernel")
+    return unpack_bits(words, nbits).to(torch.float32)
+
+
+def bloom_query(bits: torch.Tensor, keys: torch.Tensor, *,
+                num_hashes: int = 3, block: int = 256,
+                seed: int = 0) -> torch.Tensor:
+    """bool[m]: True where all H probed bits of ``bits`` (f32 0/1) are set.
+    Pads with key 0 to whole blocks and cuts the answer back to m."""
+    k, m = _pad_to(keys.contiguous(), block, 0)
+    words = pack_bits(bits > 0.5)
+    return bloom_query_kernel(words, k, nbits=bits.shape[0],
+                              num_hashes=num_hashes, seed=seed,
+                              family="kernel")[:m]

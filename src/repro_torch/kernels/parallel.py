@@ -16,7 +16,8 @@ the kernel entry points of ``ops.py`` (B = 256, S = 1 or S shards).
 SKYLINE's pass 1 also takes the APH association as ``form``: ``"kernel"``
 for ``ops.py`` (the Pallas kernels' score), ``"engine"`` for the engine.
 ``KERNELS`` lists every CUDA kernel of the port, the Count-Min pair of
-``cms_sketch.py`` included.
+``cms_sketch.py``, the Bloom pair of ``bloom_filter.py`` and the GROUP BY
+scan of ``groupby_scan.py`` included.
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ from ..constants import NEG
 from ..core.hashing import as_u32, hash_mod
 from ..core.skyline import FORMS, SCORES
 from . import ref
+from .bloom_filter import BLOOM_BUILD, BLOOM_QUERY
 from .cms_sketch import CMS_BUILD, CMS_QUERY
 from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, check_cuda,
                      grid_for, ptr)
+from .groupby_scan import GROUPBY_PASS1
 
 TOPN_PASS1 = CudaKernel("topn_pass1", [P, P, P, I32, I32, I32, I32, I32, U32],
                         smem_fn="topn_pass1_smem")
@@ -43,7 +46,8 @@ SKYLINE_PASS1 = CudaKernel(
     smem_fn="skyline_pass1_smem")
 SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
 KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
-           SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY)
+           SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
+           BLOOM_QUERY, GROUPBY_PASS1)
 
 
 def reset_launch_counts() -> None:

@@ -10,6 +10,9 @@ Both take one stream ``[m]`` or S lane streams ``[S, n]`` and loop over
 blocks, vectorised across the B entries of a block and the S lanes. As in
 the JAX package, a stream is cut to a whole number of blocks. These are the
 versions the CPU runs, and what the CUDA kernels are held against on a card.
+
+``bloom_build_ref`` / ``bloom_query_ref`` are the Pallas Bloom kernels'
+``ref.py`` counterparts on the f32 0/1 view of the filter.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import torch
 from ..constants import NEG
 from ..core.hashing import as_u32, hash_mod
 from ..core.skyline import score as skyline_score
+from .bloom_filter import (bloom_build_plain, bloom_query_plain, pack_bits,
+                           unpack_bits)
 
 
 def _lanes(values: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
@@ -142,3 +147,20 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
     if one:
         keep, pts, scs = keep[0], pts[0], scs[0]
     return (keep, (pts, scs)) if return_state else keep
+
+
+def bloom_build_ref(keys: torch.Tensor, *, nbits: int, num_hashes: int,
+                    seed: int = 0) -> torch.Tensor:
+    """f32[nbits] 0/1 Bloom bits of ``keys`` (hashes ``seed + 101 h``)."""
+    words = bloom_build_plain(keys, nbits=nbits, num_hashes=num_hashes,
+                              seed=seed, family="kernel")
+    return unpack_bits(words, nbits).to(torch.float32)
+
+
+def bloom_query_ref(bits: torch.Tensor, keys: torch.Tensor, *,
+                    num_hashes: int, seed: int = 0) -> torch.Tensor:
+    """int32[m]: 1 where every probed bit of ``bits`` (f32 0/1) is > 0.5."""
+    nbits = bits.shape[0]
+    return bloom_query_plain(pack_bits(bits > 0.5), keys, nbits=nbits,
+                             num_hashes=num_hashes, seed=seed,
+                             family="kernel").to(torch.int32)

@@ -1,9 +1,10 @@
 """Query execution on one device: switch pruning, then master completion.
 
-Without a mesh every query runs ``core.engine_prune`` in ``scan`` mode (one
-switch lane over the table), and the master completes the query on the
-survivors. Ported: TOP-N with ``mode="rand"`` (the default), DISTINCT with
-``policy="fifo"``, SKYLINE and HAVING.
+Without a mesh every single-table pruner runs ``core.engine_prune`` in
+``scan`` mode (one switch lane over the table), and the master completes the
+query on the survivors. JOIN keeps its own two-table Bloom exchange and
+FILTER is stateless. Ported: TOP-N with ``mode="rand"`` (the default),
+DISTINCT with ``policy="fifo"``, SKYLINE, HAVING, GROUP BY, JOIN and FILTER.
 """
 from __future__ import annotations
 
@@ -15,8 +16,6 @@ import torch
 from .. import core
 from ..core.hashing import as_u32
 from .tables import Table
-
-_QUEUED = ("join", "groupby", "filter")
 
 
 @dataclasses.dataclass
@@ -97,11 +96,50 @@ def _prepare(spec: QuerySpec, table: Table):
             return _result(core.master_complete_skyline(pts, r.keep), r.keep)
 
         return "skyline", (pts,), params, complete
-    if k in _QUEUED:
-        raise NotImplementedError(
-            f"query kind {k!r} is not ported yet (ROADMAP Queue 1 item 5: "
-            "port slice 3)")
+    if k == "groupby":
+        kname, vname = spec.columns
+        agg = p.get("agg", "sum")
+        params = dict(d=p["d"], w=p["w"], agg=agg)
+        if "seed" in p:
+            params["seed"] = p["seed"]
+
+        def complete(r):
+            out = core.master_complete_groupby(r, agg)
+            # switch->master traffic = valid evictions + valid state slots;
+            # the JAX package reports ~traffic as the keep mask (ROADMAP
+            # Queue 3), and so does the port
+            traffic = torch.cat([r.emitted[2].reshape(-1),
+                                 r.state.valid.reshape(-1)])
+            return _result(out, ~traffic)
+
+        return ("groupby", (table.col(kname).values, table.col(vname).values),
+                params, complete)
     raise KeyError(k)
+
+
+def _run_join(spec: QuerySpec, tables, p: dict) -> dict:
+    """Two-table Bloom exchange on one worker: F_A (seed 0) over A's keys
+    and F_B (seed 7919) over B's, each table pruned by the other's filter,
+    then the master's exact join of the survivors."""
+    ta, tb = tables
+    ka_name, kb_name = spec.columns
+    ka, kb = ta.col(ka_name).decoded(), tb.col(kb_name).decoded()
+    nbits, H = p["nbits"], p.get("num_hashes", 3)
+    fa = core.bloom_build(ka, nbits, H, seed=0)
+    fb = core.bloom_build(kb, nbits, H, seed=7919)
+    keep_a, keep_b = core.bloom_query(fb, ka), core.bloom_query(fa, kb)
+    va = ta.col(p.get("payload_a", ka_name)).decoded()
+    vb = tb.col(p.get("payload_b", kb_name)).decoded()
+    out = core.master_complete_join(ka, va, keep_a, kb, vb, keep_b)
+    return _result(out, torch.cat([keep_a, keep_b]))
+
+
+def _run_filter(spec: QuerySpec, table: Table, p: dict) -> dict:
+    formula = p["formula"]
+    cols = {c: table.col(c).decoded() for c in spec.columns}
+    pr = core.filter_prune(formula, cols, p.get("truthtable", True))
+    final = core.master_complete_filter(formula, cols, pr.keep)
+    return _result(torch.nonzero(final).flatten(), pr.keep)
 
 
 def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
@@ -112,7 +150,11 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     Runs on the device the table's columns live on. ``output`` is
     ``(values, indices)`` of the top N for TOP-N, the sorted distinct
     values for DISTINCT, the bool skyline membership mask over the rows for
-    SKYLINE, and the sorted list of qualifying keys for HAVING.
+    SKYLINE, the sorted list of qualifying keys for HAVING, the dict
+    {key: aggregate} for GROUP BY, the three aligned tensors (key, val_a,
+    val_b) of the sorted matches for JOIN (``tables`` is the pair (A, B);
+    keep covers A's rows, then B's), and the int64 indices of the matching
+    rows for FILTER.
     """
     del axis
     if mesh is not None:
@@ -130,6 +172,10 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     if obs not in (None, "off"):
         raise NotImplementedError(
             "run_query(obs=) is not ported yet (ROADMAP Queue 1 item 12)")
+    if spec.kind == "join":
+        return _run_join(spec, tables, dict(spec.params))
+    if spec.kind == "filter":
+        return _run_filter(spec, tables, dict(spec.params))
     algo, streams, params, complete = _prepare(spec, tables)
     r = _engine_call(algo, streams, params)
     return complete(r)

@@ -202,7 +202,7 @@ NOT_PORTED = [
     ("topn_rand", X, dict(d=8, w=2, tune="race")),
     ("topn_rand", X, dict(d=8, w=2, obs="counters")),
     ("topn_rand", X, dict(d=8, w=2, encoding=object())),
-    ("groupby", X, dict(d=8, w=2)),
+    ("groupby", X, dict(d=8, w=2, state=None)),
     ("skyline", X[:, None], dict(w=2, state=None)),
     ("having", F, dict(threshold=1, state=None)),
 ]

@@ -85,7 +85,12 @@ CONSTRUCTORS = [
     lambda: convert.skyline_state_from_numpy(np.zeros((4, 2), np.float32),
                                              np.zeros(4, np.float32)),
     lambda: convert.count_min_from_numpy(np.zeros((3, 8), np.int32)),
+    lambda: convert.bloom_filter_from_numpy(np.zeros(64, bool)),
+    lambda: convert.groupby_state_from_numpy(
+        np.zeros((4, 2), np.uint32), np.zeros((4, 2), np.float32),
+        np.zeros((4, 2), bool)),
     lambda: core.skyline_init(4, 2),
+    lambda: core.groupby_init(4, 2),
     lambda: core.having_init(),
 ]
 

@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.kernels.distinct_prune import distinct_prune_kernel as j_dpk
 from repro.kernels.topn_prune import topn_prune_kernel as j_tpk
 from repro_torch import convert
+from repro_torch import core as tcore
 from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import parallel as tpar
@@ -224,8 +225,12 @@ def test_launch_counts_reset():
     tops.cms_query(tops.cms_build(torch.zeros(64, dtype=torch.int32),
                                   torch.ones(64), rows=2, width=8),
                    torch.zeros(64, dtype=torch.int32))
+    tops.bloom_query(tops.bloom_build(torch.arange(64, dtype=torch.int32),
+                                      nbits=256), torch.zeros(64))
+    tcore.engine_prune("groupby", torch.arange(64, dtype=torch.int32),
+                       torch.ones(64), d=4, w=2, mode="two_pass", shards=2)
     assert [k.launches for k in tpar.KERNELS] == [0] * len(tpar.KERNELS)
-    assert len({k.name for k in tpar.KERNELS}) == 8
+    assert len({k.name for k in tpar.KERNELS}) == 11
 
 
 def test_apply_shape_checks():

@@ -81,11 +81,12 @@ def test_run_query_on_a_converted_table():
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(decode="eager")),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(obs="trace")),
     ("skyline", ("ad_revenue", "duration"), dict(w=2), dict(mesh=object())),
-    ("groupby", ("source_ip", "ad_revenue"), dict(d=8, w=2), {}),
+    ("groupby", ("source_ip", "ad_revenue"), dict(d=8, w=2),
+     dict(mesh=object())),
     ("having", ("source_ip", "ad_revenue"), dict(threshold=1.0),
      dict(tune="race")),
-    ("join", ("source_ip", "source_ip"), dict(nbits=64), {}),
-    ("filter", ("duration",), dict(formula=None), {}),
+    ("join", ("source_ip", "source_ip"), dict(nbits=64), dict(tune="race")),
+    ("filter", ("duration",), dict(formula=None), dict(obs="trace")),
 ])
 def test_run_query_not_ported_raises(kind, cols, params, kw):
     table = tt.make_uservisits(64, device="cpu")
