@@ -11,24 +11,37 @@ Phases, one line each, and a non-zero exit on any failure:
            in {1, 8, 128}, ragged m, d = 4096 for DISTINCT, two seeds; both
            APH associations and SUM for SKYLINE, both hash families and
            table dtypes for Count-Min; both hash families, with and without
-           a mask, for Bloom; all four aggregates for the GROUP BY scan.
+           a mask, for Bloom; all four aggregates for the GROUP BY scan;
+           the ``topn_det`` ladder scan (negative values, N above a shard,
+           w = 4 and 8), LRU DISTINCT (small caches with hits at every
+           slot) and the RLE run scan (ragged R, one run, all-distinct
+           runs, negative values, N above the rows).
 3. main    the main path on a 2^25-row uservisits table and a 2^20-row
            rankings table (one worker's partition of the Big Data
-           benchmark): ``run_query`` TOP-N, DISTINCT, SKYLINE, HAVING (COUNT
-           and SUM), JOIN (the benchmark's Query 3), FILTER (Query 1, and a
-           formula with an unsupported predicate) and GROUP BY (Query 2,
-           SUM and COUNT), ``engine_prune`` two_pass with 128 shards, and
-           the ten ``kernels.ops`` entry points. Answers must be exact (GROUP
-           BY SUM within 1e-2 relative of an f64 sum, as the JAX package's
-           own test holds it) and every keep mask a superset of the true
-           survivors. Launch counts are set to 0 before each path and read
-           after it.
+           benchmark): ``run_query`` TOP-N (randomized and the
+           threshold ladder), DISTINCT (FIFO and LRU, the default),
+           SKYLINE, HAVING (COUNT and SUM), JOIN (the benchmark's Query 3),
+           FILTER (Query 1, and a formula with an unsupported predicate)
+           and GROUP BY (Query 2, SUM and COUNT); the ladder TOP-N and LRU
+           DISTINCT again on dictionary- and RLE-encoded columns, whose
+           keep masks must equal the plain column's and whose decoded
+           survivors the plain rows; ``engine_prune`` two_pass with 128
+           shards, plain and encoded; and the thirteen ``kernels.ops`` entry
+           points, the run-level RLE pair on bench_encoded.py's layout
+           (2^19 runs of 64), each equal to the flat scan of the expanded
+           column. Answers must be exact (GROUP BY SUM within 1e-2 relative
+           of an f64 sum, as the JAX package's own test holds it) and every
+           keep mask a superset of the true survivors. Launch counts are set
+           to 0 before each path and read after it.
 4. timing  on the same tables, each kernel against its plain version at
            every shape the main path gives it (bit-identical keep, state and
-           table; a one-lane B = 1 scan on a prefix of SCAN_PREFIX entries,
-           the 128-lane GROUP BY scan on a prefix of GROUPBY_PREFIX
-           entries), its median time, its plain version's time and its
-           bound; then the ``kernels`` JSON line.
+           table on the whole table; the one-lane B = 1 scans on their first
+           SCAN_PREFIX entries, and the S = 128 GROUP BY scan on each lane's
+           first GROUPBY_PREFIX / S, rerun on that prefix for the state),
+           the run-level RLE scan also on two layouts that prune (shuffled
+           and descending run values), its median time, its plain version's
+           time and its bound, and the time of the ``lut[code]`` decode
+           gather; then the ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -72,6 +85,12 @@ BLOOM_OPS_KEYS = 4096
 GROUPBY = dict(d=4096, w=4)    # Query 2: GROUP BY source_ip, 144 KB a lane
 GROUPBY_PREFIX = 1 << 21       # entries of the S = 128 GROUP BY scan compared
 FP32_OPS_PER_S = 33.5e12       # H100 SXM FP32 instructions/s without FMA
+TOPN_DET = dict(N=100, w=8)    # README batch example: mode="det", w=8
+# bench_encoded.py's layout: 2^25 rows in runs of 64 (R = 2^19), sorted
+# draws below 4096 for TOP-N, unsorted draws below 2048 for DISTINCT
+RLE_RUN_LEN = 64
+RLE_TOPN = dict(N=250, w=8)
+RLE_DISTINCT = dict(d=256, w=4)
 
 FAILURES: list[str] = []
 
@@ -125,11 +144,13 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def event_ms(fn, reps: int) -> float:
-    """Median device time of fn() in ms over ``reps`` runs, after a warm-up."""
+def event_ms(fn, reps: int, warm: bool = True) -> float:
+    """Median device time of fn() in ms over ``reps`` runs, after a warm-up
+    (``warm=False``: the caller has just run fn)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -260,6 +281,7 @@ def phase_kernels(torch, P, R, O):
                 cms_query=ok_q, s=round(time.perf_counter() - t0, 3))
     phase_kernels_bloom(torch, g)
     phase_kernels_groupby(torch, g)
+    phase_kernels_ladder(torch, g)
 
 
 def phase_kernels_bloom(torch, g):
@@ -329,7 +351,87 @@ def phase_kernels_groupby(torch, g):
             s=round(time.perf_counter() - t0, 3))
 
 
+def phase_kernels_ladder(torch, g):
+    """The topn_det ladder scan and LRU DISTINCT at S in {1, 8, 128} on
+    ragged m padded as the engine pads, and the RLE run scan on ragged
+    layouts, each against its plain version on the card."""
+    from repro_torch.constants import NEG
+    from repro_torch.kernels import ops as O
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rle_scan as RS
+    from repro_torch.kernels import topn_det_scan as TD
+
+    for S, m in ((1, 4099), (8, (1 << 15) + 3), (128, (1 << 16) - 5)):
+        t0 = time.perf_counter()
+        x = (torch.rand(m, generator=g) * 1000).cuda()
+        ok_t = ok_l = True
+        for sign, v in (("pos", x), ("neg", x - 700.0)):
+            vp, _ = O._pad_to(v, S, float(NEG))
+            n = vp.shape[0] // S
+            for N, w in ((100, 8), (n + 7, 4), (250, 4)):  # n + 7: N > shard
+                k, st = TD.topn_det_pass1_kernel(vp, N=N, w=w, shards=S)
+                k2, st2 = TD.topn_det_pass1_plain(vp.view(S, n), N=N, w=w)
+                ok_t &= check(same(k, k2.reshape(-1)) and all(
+                    same(a, b) for a, b in zip(st, st2)),
+                    f"topn_det_pass1 S={S} m={m} {sign} N={N} w={w}")
+        # (d, w, universe): the engine's cache, and small caches whose rows
+        # fill, so that hits land at every slot
+        for d, w, U in ((DISTINCT["d"], DISTINCT["w"], 20000), (16, 4, 60),
+                        (64, 8, 700)):
+            f = torch.randint(0, U, (m,), generator=g).to(torch.int32) \
+                .view(torch.uint32).cuda()
+            fp, _ = O._pad_to(f, S, 0)
+            out = P.distinct_shard_states_kernel(fp, d=d, w=w, shards=S,
+                                                 block=1, seed=S,
+                                                 policy="lru")
+            k2, st2 = R.distinct_lru_ref(fp.view(S, -1), d=d, w=w, seed=S,
+                                         return_state=True)
+            ok_l &= check(same(out[0], k2.reshape(-1)) and all(
+                same(a, b) for a, b in zip(out[1:], st2)),
+                f"distinct_pass1_lru S={S} m={m} d={d} w={w} U={U}")
+        say("kernels", S=S, m=m, topn_det_pass1=ok_t, distinct_pass1_lru=ok_l,
+            s=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    ok_r = True
+    for name, R_, N, w in (("ragged", 1037, 250, 8), ("one run", 1, 16, 4),
+                           ("all distinct", 4101, 100, 8),
+                           ("negative", 777, 300, 4),
+                           ("N above the rows", 300, 1 << 20, 8)):
+        L = torch.randint(1, 100, (R_,), generator=g).to(torch.int32).cuda()
+        v = (torch.rand(R_, generator=g) * 100).cuda()
+        if name == "negative":
+            v = v - 50.0
+        if name == "all distinct":
+            v = torch.arange(1, R_ + 1, dtype=torch.float32, device="cuda")
+            L = torch.ones_like(L)
+        for block in (64, 256):
+            h, t = O.rle_topn_prune(v, L, N=N, w=w, block=block)
+            h2, t2 = RS.rle_topn_det_ref(v, L, N=N, w=w)
+            flat = TD.topn_det_pass1_plain(
+                torch.repeat_interleave(v, L)[None], N=N, w=w)[0][0]
+            ok_r &= check(same(h, h2) and same(t, t2) and same(
+                O.rle_expand_mask(h, t, L, int(L.sum())), flat),
+                f"rle_topn_det {name} R={R_} N={N} w={w} block={block}")
+    say("kernels", rle_topn_det=ok_r, s=round(time.perf_counter() - t0, 3))
+
+
 # ------------------------------------------------------------------ phase 3
+def rle_layouts(torch):
+    """bench_encoded.py's run layout at M_MAIN rows, R = M_MAIN / 64 runs,
+    kept apart (equal neighbours are two runs; both scans are exact on
+    any cut into runs): (f32 run values of the TOP-N stream, uint32 run
+    values of the DISTINCT stream, int32 run lengths), on the card."""
+    import numpy as np
+
+    R_ = M_MAIN // RLE_RUN_LEN
+    rv_t = np.sort(np.random.default_rng(0).integers(1, 4096, R_)
+                   .astype(np.float32))
+    rv_d = np.random.default_rng(1).integers(0, 2048, R_).astype(np.uint32)
+    rl = torch.full((R_,), RLE_RUN_LEN, dtype=torch.int32, device="cuda")
+    return (torch.from_numpy(rv_t).cuda(), torch.from_numpy(rv_d).cuda(), rl)
+
+
 def skyline_sweep(torch, pts):
     """Exact 2-D skyline (maximising both columns) by sort and sweep, in
     float64, independent of the port: a point survives iff its second
@@ -414,6 +516,7 @@ def filter_formulas(core, page_rank_cut):
 
 def phase_main(torch, P, O):
     from repro_torch import core
+    from repro_torch.core.encoding import take_rows
     from repro_torch.query import (QuerySpec, make_rankings, make_uservisits,
                                    run_query)
 
@@ -461,6 +564,28 @@ def phase_main(torch, P, O):
         check(torch.equal(v, true_v) and torch.equal(i, true_i),
               f"{name}: top-{TOPN_N} differs from the stable sort")
         check(bool(keep[true_i].all()), f"{name}: a top-N entry was pruned")
+
+    def topn_codes_ok(r, name, tab):
+        """TOP-N on a dictionary column, held to the reference's rule: the
+        codes are ordered as f32, ties to the lower row, which is exact
+        below 2^24 codes only (ROADMAP Queue 3: the dictionary of
+        ad_revenue has 21 M entries). Prints how many of the N rows differ
+        from the exact top-N."""
+        import numpy as np
+
+        keep, (v, i) = r["keep"], r["output"]
+        check(bool(keep[true_i].all()), f"{name}: a top-N entry was pruned")
+        kidx = torch.nonzero(keep).flatten()
+        key = (take_rows(tab.col("ad_revenue").codes, kidx)
+               .view(torch.int32).cpu().numpy().view(np.uint32)
+               .astype(np.float32))
+        order = np.argsort(-key, kind="stable")[:TOPN_DET["N"]]
+        rows = kidx[torch.from_numpy(order).cuda()]
+        check(torch.equal(i, rows) and torch.equal(v, xs[rows]),
+              f"{name}: top-{TOPN_DET['N']} differs from the f32 order of "
+              "the codes")
+        say("main", path=name, rows_off_the_exact_top_n=int(
+            (i != true_i[:TOPN_DET["N"]]).sum()))
 
     def skyline_ok(keep, name, out=None):
         if out is None:
@@ -551,6 +676,59 @@ def phase_main(torch, P, O):
               f"{name}: FILTER differs from a direct evaluation")
         check(bool(r["keep"][truth].all()),
               f"{name}: a matching row was pruned")
+
+    # encoded copies of the table and the run layouts: set-up, not a path
+    encoded, secs = sync_time(lambda: {
+        "dict ad_revenue": table.encode("ad_revenue"),
+        "dict source_ip": table.encode("source_ip"),
+        "rle source_ip": table.encode("source_ip", rle=True)})
+    say("main", encoded_tables=json.dumps(list(encoded)),
+        ad_revenue_dictionary=encoded["dict ad_revenue"].col(
+            "ad_revenue").encoding.size,
+        source_ip_dictionary=encoded["dict source_ip"].col(
+            "source_ip").encoding.size,
+        source_ip_runs=encoded["rle source_ip"].col("source_ip").num_runs,
+        build_s=round(secs, 3))
+    rle_t, rle_d, rle_l = rle_layouts(torch)
+    keeps = {}
+
+    def like_plain(name, base, keep, tab):
+        """keep equals the plain column's, and the decoded survivors of
+        every column equal the plain rows."""
+        check(torch.equal(keep, keeps[base]),
+              f"{name}: keep differs from the plain column's")
+        rows = tab.gather_decoded(keep)
+        check(all(same(v, take_rows(
+            table.cols[c], torch.nonzero(keep).flatten()))
+            for c, v in rows.items()),
+            f"{name}: decoded survivors differ from the plain rows")
+
+    def remember(base, keep):
+        keeps[base] = keep
+        return keep
+
+    def rle_topn_ok(r):
+        head, tstar, keep = r
+        flat = core.rle_expand(rle_t, rle_l, total=M_MAIN)
+        scan = core.topn_det_prune(flat, **RLE_TOPN).keep
+        check(torch.equal(keep, scan), "ops_rle_topn: the expanded mask "
+              "differs from the flat ladder scan")
+        srt = torch.sort(flat, descending=True, stable=True)
+        v, i = core.master_complete_topn(flat, keep, RLE_TOPN["N"])
+        check(torch.equal(v, srt.values[:RLE_TOPN["N"]])
+              and torch.equal(i, srt.indices[:RLE_TOPN["N"]]),
+              "ops_rle_topn: top-N differs from the stable sort")
+
+    def rle_distinct_ok(r):
+        run_keep, keep = r
+        flat = core.rle_expand(rle_d, rle_l, total=M_MAIN)
+        scan = core.distinct_prune(flat, **RLE_DISTINCT).keep
+        check(torch.equal(keep, scan), "ops_rle_distinct: the expanded mask "
+              "differs from the flat LRU scan")
+        f = u64(torch, flat)
+        out = torch.unique(f[core.master_complete_distinct(flat, keep)])
+        check(torch.equal(out, torch.unique(f)),
+              "ops_rle_distinct: DISTINCT differs from unique")
 
     def bloom_ok(keep, name):
         member = torch.isin(u64(torch, table.cols["dest_url"]),
@@ -677,6 +855,86 @@ def phase_main(torch, P, O):
             engine_groupby_ok,
             lambda r: r.keep, ("groupby_pass1",)),
     }
+    paths.update({
+        "run_query_topn_det": (
+            lambda: run_query(QuerySpec("topn", ("ad_revenue",),
+                                        dict(mode="det", **TOPN_DET)), table),
+            lambda r: topn_ok(remember("topn_det", r["keep"]),
+                              "run_query_topn_det", r["output"]),
+            lambda r: r["keep"], ("topn_det_pass1",)),
+        "run_query_topn_det_dict": (
+            lambda: run_query(QuerySpec("topn", ("ad_revenue",),
+                                        dict(mode="det", **TOPN_DET)),
+                              encoded["dict ad_revenue"]),
+            lambda r: (topn_codes_ok(r, "run_query_topn_det_dict",
+                                     encoded["dict ad_revenue"]),
+                       like_plain("run_query_topn_det_dict", "topn_det",
+                                  r["keep"], encoded["dict ad_revenue"])),
+            lambda r: r["keep"], ("topn_det_pass1",)),
+        "run_query_distinct_lru": (
+            lambda: run_query(QuerySpec("distinct", ("source_ip",),
+                                        DISTINCT), table),
+            lambda r: distinct_ok(remember("distinct_lru", r["keep"]),
+                                  "run_query_distinct_lru", r["output"]),
+            lambda r: r["keep"], ("distinct_pass1_lru",)),
+        **{f"run_query_distinct_lru_{kind}": (
+            lambda kind=kind: run_query(QuerySpec("distinct", ("source_ip",),
+                                                  DISTINCT),
+                                        encoded[f"{kind} source_ip"]),
+            lambda r, kind=kind: (
+                distinct_ok(r["keep"], f"run_query_distinct_lru_{kind}",
+                            r["output"]),
+                like_plain(f"run_query_distinct_lru_{kind}", "distinct_lru",
+                           r["keep"], encoded[f"{kind} source_ip"])),
+            lambda r: r["keep"], ("distinct_pass1_lru",))
+            for kind in ("dict", "rle")},
+        "engine_two_pass_topn_det": (
+            lambda: core.engine_prune("topn_det", xs, mode="two_pass",
+                                      shards=SHARDS, **TOPN_DET),
+            lambda r: topn_ok(remember("engine_topn_det", r.keep),
+                              "engine_two_pass_topn_det"),
+            lambda r: r.keep, ("topn_det_pass1",)),
+        "engine_two_pass_topn_det_dict": (
+            lambda: core.engine_prune(
+                "topn_det", encoded["dict ad_revenue"].col("ad_revenue").codes,
+                encoding=encoded["dict ad_revenue"].col(
+                    "ad_revenue").encoding, mode="two_pass", shards=SHARDS,
+                **TOPN_DET),
+            lambda r: (topn_ok(r.keep, "engine_two_pass_topn_det_dict"),
+                       check(torch.equal(r.keep, keeps["engine_topn_det"]),
+                             "engine_two_pass_topn_det_dict: keep differs "
+                             "from the plain column's")),
+            lambda r: r.keep, ("topn_det_pass1",)),
+        "engine_two_pass_distinct_lru": (
+            lambda: core.engine_prune("distinct", fs, mode="two_pass",
+                                      shards=SHARDS, **DISTINCT),
+            lambda r: distinct_ok(remember("engine_distinct_lru", r.keep),
+                                  "engine_two_pass_distinct_lru"),
+            lambda r: r.keep, ("distinct_pass1_lru", "distinct_apply")),
+        "engine_two_pass_distinct_lru_dict": (
+            lambda: core.engine_prune(
+                "distinct", encoded["dict source_ip"].col("source_ip").codes,
+                encoding=encoded["dict source_ip"].col(
+                    "source_ip").encoding, mode="two_pass", shards=SHARDS,
+                **DISTINCT),
+            lambda r: (distinct_ok(r.keep,
+                                   "engine_two_pass_distinct_lru_dict"),
+                       check(torch.equal(r.keep,
+                                         keeps["engine_distinct_lru"]),
+                             "engine_two_pass_distinct_lru_dict: keep "
+                             "differs from the plain column's")),
+            lambda r: r.keep, ("distinct_pass1_lru", "distinct_apply")),
+        "ops_rle_topn": (
+            lambda: (lambda h, t: (h, t, O.rle_expand_mask(
+                h, t, rle_l, M_MAIN)))(*O.rle_topn_prune(rle_t, rle_l,
+                                                         **RLE_TOPN)),
+            rle_topn_ok, lambda r: r[2], ("rle_topn_det",)),
+        "ops_rle_distinct": (
+            lambda: (lambda k: (k, O.rle_expand_mask(k, None, rle_l,
+                                                     M_MAIN)))(
+                O.rle_distinct_prune(rle_d, **RLE_DISTINCT)),
+            rle_distinct_ok, lambda r: r[1], ("distinct_pass1_lru",)),
+    })
     totals = {k.name: 0 for k in P.KERNELS}
     for name, (run, verify, keep_of, needs) in paths.items():
         P.reset_launch_counts()
@@ -691,7 +949,7 @@ def phase_main(torch, P, O):
         say("main", path=name, s=round(secs, 4),
             pruned=round(1 - float(keep.float().mean()), 6),
             launches=json.dumps(counts, separators=(",", ":")))
-    return table, rankings, pts, totals
+    return table, rankings, pts, totals, encoded, (rle_t, rle_l)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -761,7 +1019,8 @@ def pass1_fns(algo, P, R):
     return kernel, plain
 
 
-def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz):
+def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
+                 encoded, rle):
     """Each kernel against its plain version at every main-path shape on the
     2^25-row table, its median time, and its bound."""
     xs = table.cols["ad_revenue"]
@@ -797,7 +1056,9 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz):
                 states[name] = (keep, st)
             if B == 256 and S > 1:
                 states[name + " ops"] = (keep, st)
-            ms = event_ms(lambda: kernel(v, S, B), 2 if S == 1 else 5)
+            # the run just compared was the warm-up
+            ms = event_ms(lambda: kernel(v, S, B), 2 if S == 1 else 5,
+                          warm=False)
             bound, by = pass1_bound(m, S, B, v.numel() * v.element_size(),
                                     state_bytes(S), clock_hz)
             say("timing", kernel=name, path=json.dumps(path), S=S, B=B,
@@ -854,7 +1115,159 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz):
     rows.extend(time_cms(torch, table, totals))
     rows.extend(time_bloom(torch, table, rankings, totals))
     rows.append(time_groupby(torch, table, totals, clock_hz))
+    rows.append(time_topn_det(torch, xs, totals))
+    rows.append(time_lru(torch, P, R, fs, totals, clock_hz))
+    rows.append(time_rle(torch, *rle, totals))
+    time_decode(torch, encoded)
     return rows
+
+
+def time_topn_det(torch, xs, totals):
+    """The ladder scan against its plain version on the whole 2^25-row
+    column at S = 1 (run_query, engine scan: the reported shape) and
+    S = 128 (engine two_pass), state and all. Bound: bytes (read x, write
+    keep and the lane states); the scan has no dependent chain of probes."""
+    from repro_torch.kernels import topn_det_scan as TD
+
+    m, w = xs.numel(), TOPN_DET["w"]
+    errs, first = [], None
+    for path, S, reps in (("run_query / engine_prune scan", 1, 5),
+                          ("engine_prune two_pass", SHARDS, 20)):
+        k, st = TD.topn_det_pass1_kernel(xs, shards=S, **TOPN_DET)
+        (k2, st2), plain_s = sync_time(
+            lambda: TD.topn_det_pass1_plain(xs.view(S, -1), **TOPN_DET))
+        errs.append(max_abs_err([(k, k2.reshape(-1)), *zip(st, st2)]))
+        check(errs[-1] == 0.0, f"topn_det_pass1 {path} on the 2^25-row table")
+        ms = event_ms(lambda: TD.topn_det_pass1_kernel(xs, shards=S,
+                                                       **TOPN_DET), reps,
+                      warm=False)
+        bound = (m * 4 + m + S * (4 * w + 12)) / HBM_BYTES_PER_S * 1e3
+        say("timing", kernel="topn_det_pass1", path=json.dumps(path), S=S,
+            ms=ms, plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
+            kept=int(k.sum()), max_abs_err=errs[-1])
+        first = first or (ms, plain_s * 1e3, bound, "bytes")
+    return _row("topn_det_pass1", totals, max(errs), *first)
+
+
+def time_lru(torch, P, R, fs, totals, clock_hz):
+    """LRU pass 1 against its plain version at S = 1 (run_query, engine
+    scan: the reported shape) and S = 128 (engine two_pass). At S = 128 on
+    the whole table, keep and lane states; at S = 1 on the first
+    SCAN_PREFIX entries, as the FIFO scan is (the full-size run's keep
+    there, and the kernel rerun on the prefix state and all). Bound: the
+    B = 1 chain."""
+    m, d, w = fs.numel(), DISTINCT["d"], DISTINCT["w"]
+    errs, first = [], None
+    for path, S, reps in (("run_query / engine_prune scan", 1, 1),
+                          ("engine_prune two_pass", SHARDS, 5)):
+        kw = dict(shards=S, block=1, policy="lru", **DISTINCT)
+        full = P.distinct_shard_states_kernel(fs, **kw)
+        if S == 1:
+            n = SCAN_PREFIX
+            pre = P.distinct_shard_states_kernel(fs[:n], **kw)
+            (k2, st2), plain_s = sync_time(lambda: R.distinct_lru_ref(
+                fs[:n].view(1, n), d=d, w=w, return_state=True))
+            pairs = [(full[0][:n], k2.view(n)), (pre[0], k2.view(n)),
+                     *zip(pre[1:], st2)]
+        else:
+            n = m
+            (k2, st2), plain_s = sync_time(lambda: R.distinct_lru_ref(
+                fs.view(S, -1), d=d, w=w, return_state=True))
+            pairs = [(full[0].view(S, -1), k2), *zip(full[1:], st2)]
+        errs.append(max_abs_err(pairs))
+        check(errs[-1] == 0.0, f"distinct_pass1_lru {path} on the 2^25-row "
+              "table")
+        # the full-size run above was the warm-up
+        ms = event_ms(lambda: P.distinct_shard_states_kernel(fs, **kw), reps,
+                      warm=False)
+        bound, by = pass1_bound(m, S, 1, m * 4, S * (d * w * 5 + d * 4),
+                                clock_hz)
+        say("timing", kernel="distinct_pass1_lru", path=json.dumps(path),
+            S=S, B=1, ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
+            bound_ms=bound, bound_by=by, chain_steps=m // S,
+            kept=int(full[0].sum()), max_abs_err=errs[-1])
+        first = first or (ms, plain_s * 1e3, bound, by)
+    return _row("distinct_pass1_lru", totals, max(errs), *first)
+
+
+def rle_pruning_layouts(torch, rv, rl):
+    """Layouts of the same 2^19 run values that prune, which the ascending
+    bench layout does not (every run there clears the ladder): shuffled with
+    lengths drawn in [1, 127]; the same shifted by -2048 to cross 0, so that
+    t0 <= 0 and the ladder's levels are not a prefix (runs take the C
+    branch); and descending."""
+    import numpy as np
+
+    R_ = rv.numel()
+    sh = torch.from_numpy(np.random.default_rng(2).permutation(
+        rv.cpu().numpy())).cuda()
+    lr = torch.from_numpy(np.random.default_rng(3).integers(
+        1, 128, R_).astype(np.int32)).cuda()
+    return (("shuffled", sh, lr), ("shuffled - 2048", sh - 2048, lr),
+            ("descending", rv.flip(0).contiguous(), rl))
+
+
+def time_rle(torch, rv, rl, totals):
+    """The run-level scan against its plain version on bench_encoded.py's
+    2^19 runs (the timed shape), then on three layouts of the same runs
+    that prune, each also against the flat ladder scan of its expanded
+    column. Bound: bytes (read value and length, write head and tstar,
+    once a run)."""
+    from repro_torch import core
+    from repro_torch.kernels import ops as O
+    from repro_torch.kernels import rle_scan as RS
+
+    h, t = RS.rle_topn_det_kernel(rv, rl, **RLE_TOPN)
+    (h2, t2), plain_s = sync_time(lambda: RS.rle_topn_det_ref(rv, rl,
+                                                              **RLE_TOPN))
+    errs = [max_abs_err([(h, h2), (t, t2)])]
+    check(errs[0] == 0.0, "rle_topn_det at 2^19 runs")
+    ms = event_ms(lambda: RS.rle_topn_det_kernel(rv, rl, **RLE_TOPN), 20,
+                  warm=False)
+    bound = rv.numel() * 16 / HBM_BYTES_PER_S * 1e3
+    say("timing", kernel="rle_topn_det", layout="ascending", runs=rv.numel(),
+        ms=ms, plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
+        max_abs_err=errs[0])
+    branches = torch.zeros(3, dtype=torch.int64, device="cuda")
+    for name, v, L in rle_pruning_layouts(torch, rv, rl):
+        h, t = RS.rle_topn_det_kernel(v, L, **RLE_TOPN)
+        h2, t2 = RS.rle_topn_det_ref(v, L, **RLE_TOPN)
+        errs.append(max_abs_err([(h, h2), (t, t2)]))
+        check(errs[-1] == 0.0, f"rle_topn_det at 2^19 runs, {name}")
+        total = int(L.sum())
+        keep = O.rle_expand_mask(h, t, L, total)
+        flat = core.rle_expand(v, L, total=total)
+        check(torch.equal(keep, core.topn_det_prune(flat, **RLE_TOPN).keep),
+              f"rle_topn_det {name}: the expanded mask differs from the "
+              "flat ladder scan")
+        # tstar = 1: no saturated level fails (A < 0); 2^30: only the head
+        # is kept; else N - C (a ladder level above A catches the run)
+        n = torch.stack([(t == 1).sum(), (t == RS.BIG).sum(),
+                         ((t != 1) & (t != RS.BIG)).sum()])
+        branches += n
+        say("timing", kernel="rle_topn_det", layout=json.dumps(name),
+            runs=v.numel(), rows=total, pruned_rows=total - int(keep.sum()),
+            tstar_1=int(n[0]), tstar_big=int(n[1]), tstar_n_minus_c=int(n[2]),
+            max_abs_err=errs[-1])
+    check(bool((branches > 0).all()), "rle_topn_det: the pruning layouts do "
+          "not reach all three tstar branches")
+    return _row("rle_topn_det", totals, max(errs), ms, plain_s * 1e3, bound,
+                "bytes")
+
+
+def time_decode(torch, encoded):
+    """The ``lut[code]`` gather that every encoded body runs at entry (a
+    torch gather, not a kernel of the port), over the 2^25 codes of each
+    dictionary column. Bound: bytes (read the codes, write the values,
+    read the dictionary once)."""
+    for name, cname in (("dict ad_revenue", "ad_revenue"),
+                        ("dict source_ip", "source_ip")):
+        col = encoded[name].col(cname)
+        ms = event_ms(lambda: col.encoding.decode(col.codes), 20)
+        nbytes = col.codes.numel() * 8 + col.encoding.lut.numel() * 4
+        say("timing", kernel="lut[code] decode", column=json.dumps(name),
+            codes=col.codes.numel(), dictionary=col.encoding.size, ms=ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
 def time_skyline_apply(torch, P, pts, states, totals):
@@ -1067,8 +1480,9 @@ def time_groupby(torch, table, totals, clock_hz):
         check(err == 0.0, f"groupby_pass1 {path} on the 2^25-row table")
         if not reps:
             continue
+        # the full-size run above was the warm-up
         ms = event_ms(lambda: G.groupby_pass1_kernel(keys, vals, shards=S,
-                                                     **kw), reps)
+                                                     **kw), reps, warm=False)
         bound, by = pass1_bound(m, S, 1, m * 8, S * GROUPBY["d"]
                                 * GROUPBY["w"] * 9 + m * 8, clock_hz)
         say("timing", kernel="groupby_pass1", path=json.dumps(path), S=S,
@@ -1105,6 +1519,14 @@ SOURCES = {
     # no pallas_call: the lax.scan of core.groupby.groupby_prune
     "groupby_pass1": ("src/repro_torch/kernels/csrc/groupby.cu",
                       "src/repro/core/groupby.py:80"),
+    "rle_topn_det": ("src/repro_torch/kernels/csrc/topn_det.cu",
+                     "src/repro/kernels/rle_scan.py:98"),
+    # no pallas_call: the lax.scans of core.topn.topn_det_prune and of
+    # core.distinct.distinct_prune with policy "lru"
+    "topn_det_pass1": ("src/repro_torch/kernels/csrc/topn_det.cu",
+                       "src/repro/core/topn.py:112"),
+    "distinct_pass1_lru": ("src/repro_torch/kernels/csrc/distinct.cu",
+                           "src/repro/core/distinct.py:47"),
 }
 
 
@@ -1155,8 +1577,9 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_kernels(torch, P, R, O)
-    table, rankings, pts, totals = phase_main(torch, P, O)
-    rows = phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz)
+    table, rankings, pts, totals, encoded, rle = phase_main(torch, P, O)
+    rows = phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
+                        encoded, rle)
     say("done", s=round(time.perf_counter() - t_start, 3),
         failures=len(FAILURES))
     if FAILURES:

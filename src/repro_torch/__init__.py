@@ -9,6 +9,8 @@ tensors on the card unless given ``device="cpu"``.
 """
 from .core.engine import engine_prune  # noqa: E402
 from .query.engine import QuerySpec, run_query  # noqa: E402
-from .query.tables import PlainColumn, Table  # noqa: E402
+from .query.tables import (DictColumn, PlainColumn, RLEColumn,  # noqa: E402
+                           Table, dict_column, rle_column)
 
-__all__ = ["PlainColumn", "QuerySpec", "Table", "engine_prune", "run_query"]
+__all__ = ["DictColumn", "PlainColumn", "QuerySpec", "RLEColumn", "Table",
+           "dict_column", "engine_prune", "rle_column", "run_query"]

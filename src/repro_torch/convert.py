@@ -9,13 +9,15 @@ import numpy as np
 import torch
 
 from .core.distinct import DistinctState
+from .core.encoding import DictEncoding
+from .core.engine import TopNDetMerged
 from .core.groupby import GroupByState
 from .core.sketches import BloomFilter, CountMin
 from .core.skyline import SkylineState
-from .core.topn import TopNRandState
+from .core.topn import TopNDetState, TopNRandState
 from .device import resolve_device
 from .kernels.bloom_filter import pack_bits
-from .query.tables import Table
+from .query.tables import DictColumn, RLEColumn, Table
 
 
 def _t(a, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
@@ -25,6 +27,50 @@ def _t(a, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
 def topn_rand_state_from_numpy(vals, device=None) -> TopNRandState:
     """A TOP-N matrix f32[d, w] (or stacked [S, d, w])."""
     return TopNRandState(vals=_t(vals, np.float32, resolve_device(device)))
+
+
+def topn_det_state_from_numpy(t0=None, counts=None, seen=None,
+                              cur_level=None, *, threshold=None,
+                              device=None) -> TopNDetState | TopNDetMerged:
+    """A threshold ladder: f32 t0, int32 counts[w], seen and cur_level (or
+    stacked [S], [S, w]); with ``threshold=`` instead, the merged state of
+    two_pass (``TopNDetMerged``, an f32 scalar)."""
+    dev = resolve_device(device)
+    if threshold is not None:
+        return TopNDetMerged(threshold=_t(threshold, np.float32, dev))
+    return TopNDetState(t0=_t(t0, np.float32, dev),
+                        counts=_t(counts, np.int32, dev),
+                        seen=_t(seen, np.int32, dev),
+                        cur_level=_t(cur_level, np.int32, dev))
+
+
+def dict_encoding_from_numpy(lut, pad_slot: bool = False,
+                             device=None) -> DictEncoding:
+    """A ``DictEncoding`` of the sorted dictionary ``lut`` (in its own
+    dtype)."""
+    lut = np.asarray(lut)
+    return DictEncoding(lut=_t(lut, lut.dtype, resolve_device(device)),
+                        pad_slot=pad_slot)
+
+
+def dict_column_from_numpy(codes, lut, device=None) -> DictColumn:
+    """A ``DictColumn``: uint32 codes and their dictionary."""
+    dev = resolve_device(device)
+    return DictColumn(codes=_t(codes, np.uint32, dev),
+                      encoding=dict_encoding_from_numpy(lut, device=dev))
+
+
+def rle_column_from_numpy(run_values, run_lengths, lut=None,
+                          device=None) -> RLEColumn:
+    """An ``RLEColumn``: run values (uint32 codes when ``lut`` is given, in
+    their own dtype otherwise) and int32 run lengths."""
+    dev = resolve_device(device)
+    rv = np.asarray(run_values)
+    return RLEColumn(
+        run_values=_t(rv, np.uint32 if lut is not None else rv.dtype, dev),
+        run_lengths=_t(run_lengths, np.int32, dev),
+        encoding=None if lut is None else dict_encoding_from_numpy(
+            lut, device=dev))
 
 
 def distinct_state_from_numpy(slots, valid, head, device=None) -> DistinctState:

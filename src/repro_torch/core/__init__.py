@@ -1,5 +1,6 @@
 """The pruning abstraction and the TOP-N / DISTINCT / SKYLINE / HAVING /
-JOIN / FILTER / GROUP BY pruners (paper §3-§5).
+JOIN / FILTER / GROUP BY pruners (paper §3-§5), and the dictionary and RLE
+encodings they prune before decode.
 
 A pruner maps a stream D to a keep mask selecting a subset with
 Q(subset) = Q(D); the master completes the query on the survivors.
@@ -8,7 +9,8 @@ from .pruning import PruneResult, compact, prune_rate_vs_opt
 from .hashing import by_value, mix32, hash_mod, hash_mod_dyn, multi_hash
 from .distinct import (DistinctState, distinct_prune, master_complete_distinct,
                        opt_keep_distinct, thm1_bound)
-from .topn import (TopNRandState, topn_rand_prune, thm2_w, thm2_opt_d,
+from .topn import (TopNDetState, TopNRandState, topn_det_init,
+                   topn_det_prune, topn_rand_prune, thm2_w, thm2_opt_d,
                    thm3_forwarded_bound, opt_keep_topn, master_complete_topn)
 from .skyline import (SkylineState, skyline_init, skyline_prune,
                       skyline_oracle, opt_keep_skyline,
@@ -23,7 +25,10 @@ from .groupby import (GroupByState, groupby_init, groupby_prune,
                       master_complete_groupby, groupby_oracle)
 from .having import (having_init, having_prune, master_complete_having,
                      having_oracle)
-from .engine import (ALGORITHMS, MODES, PASS2, DistinctMerged, apply_merged,
-                     engine_prune, merge_states, shard_stack, unshard_mask)
+from .encoding import (DictEncoding, dict_encode, normalize_encodings,
+                       rle_encode, rle_expand)
+from .engine import (ALGORITHMS, DECODE_MODES, MODES, PASS2, DistinctMerged,
+                     TopNDetMerged, apply_merged, engine_prune, merge_states,
+                     shard_stack, unshard_mask)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,9 +1,12 @@
-"""DISTINCT pruning (paper §4.2 Ex. 2, Theorem 1) with a FIFO d x w cache.
+"""DISTINCT pruning (paper §4.2 Ex. 2, Theorem 1) with an LRU or FIFO d x w
+cache.
 
 Each row of the d x w matrix caches the last w fingerprints hashed to it; a
-repeat found in its row is pruned and a miss is inserted at the row's FIFO
-head. There are no false positives, so the master receives a superset of
-the distinct values. The scan runs on the pass-1 kernel with one lane and
+repeat found in its row is pruned. LRU (the default) moves a hit to the
+front of its row and inserts a miss at the front, dropping the last slot;
+FIFO leaves a hit in place and inserts a miss at the row's rotating head.
+There are no false positives, so the master receives a superset of the
+distinct values. The scan runs on the pass-1 kernel with one lane and
 blocks of one entry (the per-entry semantics of the JAX package's scan).
 """
 from __future__ import annotations
@@ -22,7 +25,7 @@ from .pruning import PruneResult
 class DistinctState:
     slots: torch.Tensor  # uint32[d, w] cached (finger)prints
     valid: torch.Tensor  # bool[d, w]
-    head: torch.Tensor   # int32[d] FIFO insert pointer
+    head: torch.Tensor   # int32[d] FIFO insert pointer (0 under LRU)
 
 
 def init_state(d: int, w: int, device) -> DistinctState:
@@ -37,21 +40,18 @@ def distinct_prune(values: torch.Tensor, *, d: int, w: int,
                    state: DistinctState | None = None) -> PruneResult:
     """Stream uint32[m] fingerprints through the d x w cache.
 
-    keep[i] is True iff value i was not found in its row's cache. Only the
-    FIFO policy is ported; "lru" (the default, as in the JAX package) raises.
+    keep[i] is True iff value i was not found in its row's cache.
+    ``policy`` is "lru" (the default, as in the JAX package) or "fifo".
     """
     from ..kernels.parallel import distinct_shard_states_kernel
 
-    if policy != "fifo":
-        raise NotImplementedError(
-            f"DISTINCT policy={policy!r} is not ported yet: the LRU scan "
-            "kernel is queued in ROADMAP Queue 1 item 3; pass policy='fifo'")
     if state is not None:
         raise NotImplementedError(
             "resuming a scan (state=) is not ported yet; see ROADMAP Queue 1 "
             "item 9 (streaming)")
     keep, slots, valid, head = distinct_shard_states_kernel(
-        values.contiguous(), d=d, w=w, shards=1, block=1, seed=seed)
+        values.contiguous(), d=d, w=w, shards=1, block=1, seed=seed,
+        policy=policy)
     return PruneResult(keep=keep, state=DistinctState(slots[0], valid[0],
                                                       head[0]))
 

@@ -16,7 +16,11 @@ lives on:
 
 On a card pass 1 is the pass-1 CUDA kernel with blocks of one entry (the
 engine's per-entry semantics) and pass 2 the apply kernel; on the CPU both
-are their plain versions. HAVING's pass 1 is the Count-Min build kernel
+are their plain versions. ``topn_det``'s pass 1 is the ladder scan kernel
+(``topn_det_pass1``), its merge the max over lanes of t0 * 2^cur_level and
+its pass 2 a plain compare, as in the reference. DISTINCT's LRU policy (the
+default) runs the serial LRU pass-1 kernel; merge and apply are FIFO's.
+HAVING's pass 1 is the Count-Min build kernel
 over S lane tables and its pass 2 the fused query-and-threshold kernel;
 its keep rule is global, so ``sharded`` merges and applies as ``two_pass``
 does. GROUP BY's pass 1 is the ``groupby_pass1`` scan kernel; every entry is
@@ -26,8 +30,15 @@ can evict a real partial), and ``two_pass`` merges the caches by column
 union. The parallel modes' masks are supersets of the minimal correct
 survivor set, not of the scan's mask.
 
-Ported so far: ``topn_rand``, ``distinct`` with ``policy="fifo"``,
-``skyline``, ``having`` and ``groupby``.
+``encoding=`` takes dictionary-encoded streams (uint32 codes and a
+``DictEncoding`` each): every pass-1 and apply body decodes its lanes with
+one ``lut[code]`` gather at entry, and tail pads become codes that decode to
+the plain fills, so masks are bit-identical to the decoded streams'.
+``decode="eager"`` decodes up front instead.
+
+Ported so far: all six algorithms (``topn_det``, ``topn_rand``,
+``distinct`` with ``policy="lru"`` or ``"fifo"``, ``skyline``, ``having``,
+``groupby``) in ``scan``, ``sharded`` and ``two_pass``, plain or encoded.
 """
 from __future__ import annotations
 
@@ -41,18 +52,33 @@ from ..kernels import parallel as kpar
 from ..kernels.cms_sketch import cms_build_kernel, cms_query_kernel, wrap_i32
 from ..kernels.groupby_scan import groupby_pass1_kernel
 from ..kernels.ops import _pad_to, first_value
+from ..kernels.topn_det_scan import pow2, topn_det_pass1_kernel
 from .distinct import DistinctState
+from .encoding import normalize_encodings
 from .groupby import GroupByState
 from .hashing import by_value
 from .pruning import PruneResult
 from .skyline import SkylineState
 from .sketches import CountMin
-from .topn import TopNRandState
+from .topn import TopNDetState, TopNRandState
 
 MODES = ("scan", "sharded", "two_pass", "mesh")
 ALGORITHMS = ("topn_det", "topn_rand", "distinct", "skyline", "groupby",
               "having")
 PASS2 = ("master", "mesh", "auto")
+DECODE_MODES = ("auto", "late", "eager")
+
+
+@dataclasses.dataclass
+class TopNDetMerged:
+    """Global TOP-N filter state: one threshold, provably query-safe.
+
+    A lane's ladder reaches t_i only after >= N of its entries are >= t_i,
+    so the N-th largest value overall is >= every lane's threshold and the
+    max over lanes never drops a true top-N entry.
+    """
+
+    threshold: torch.Tensor  # f32 scalar
 
 
 @dataclasses.dataclass
@@ -107,6 +133,29 @@ class _AlgoSpec:
     pad_validity: bool = False
 
 
+# TOP-N deterministic (threshold ladder, Ex. 3) --------------------------
+def _topn_det_pass1(lanes, p):
+    (x,) = lanes
+    keep, st = topn_det_pass1_kernel(
+        x.reshape(-1).to(torch.float32).contiguous(), N=p["N"],
+        w=p.get("w", 4), shards=x.shape[0])
+    return keep.reshape(x.shape), TopNDetState(*st), None
+
+
+def _topn_det_merge(st, p):
+    # the scan's own threshold: t0 * 2^cur_level, NEG without a level
+    thr = torch.where(st.cur_level >= 0,
+                      st.t0 * pow2(p.get("w", 4), st.t0.device)[
+                          st.cur_level.clamp(min=0)],
+                      torch.tensor(float(NEG), device=st.t0.device))
+    return TopNDetMerged(threshold=thr.max())
+
+
+def _topn_det_apply(merged, lanes, keep1, p):
+    del keep1
+    return lanes[0].to(torch.float32) >= merged.threshold
+
+
 # TOP-N randomized (d x w rolling matrix, Ex. 7) --------------------------
 def _topn_rand_pass1(lanes, p):
     (x,) = lanes
@@ -134,8 +183,8 @@ def _distinct_pass1(lanes, p):
     (x,) = lanes
     S = x.shape[0]
     keep, slots, valid, head = kpar.distinct_shard_states_kernel(
-        x.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
-        seed=p.get("seed", 0))
+        x.reshape(-1).contiguous(), d=p["d"], w=p["w"], shards=S, block=1,
+        seed=p.get("seed", 0), policy=p.get("policy", "lru"))
     return keep.reshape(x.shape), DistinctState(slots, valid, head), None
 
 
@@ -257,6 +306,8 @@ def _groupby_pads(streams, p):
 
 
 _SPECS: dict[str, _AlgoSpec] = {
+    "topn_det": _AlgoSpec(_topn_det_pass1, lambda s, p: (float(NEG),),
+                          _topn_det_merge, _topn_det_apply),
     "topn_rand": _AlgoSpec(_topn_rand_pass1, lambda s, p: (float(NEG),),
                            _topn_rand_merge, _topn_rand_apply),
     "distinct": _AlgoSpec(_distinct_pass1, lambda s, p: (0,),
@@ -280,18 +331,70 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def _spec(algo: str, params: dict) -> _AlgoSpec:
     if algo not in ALGORITHMS:
         raise KeyError(algo)
-    if algo not in _SPECS:
-        raise _not_ported(f"algorithm {algo!r}",
-                          "Queue 1 item 3: the topn_det scan kernel")
-    if algo == "distinct" and params.get("policy", "lru") != "fifo":
-        raise _not_ported(f"DISTINCT policy={params.get('policy', 'lru')!r}",
-                          "Queue 1 item 3: the LRU scan kernel; pass "
-                          "policy='fifo'")
     for k in ("state", "index_offset"):
         if k in params:
             raise _not_ported(f"{k}= (scan resume)",
                               "Queue 1 item 9: streaming")
     return _SPECS[algo]
+
+
+# ------------------------------------------------------- encoded streams
+# Streams whose plain pad is the stream's own first element (GROUP BY and
+# HAVING keys): their encoded pad is the stream's first code, which decodes
+# to exactly that value, so they need no pad slot. Every other encoded
+# stream pads with the ``with_pad`` slot, which decodes to the plain fill.
+_FIRST_ELEMENT_PADS: dict[str, tuple[int, ...]] = {
+    "groupby": (0,),
+    "having": (0,),
+}
+
+
+def _decode_streams(streams, encs):
+    """Gather each encoded stream through its dictionary."""
+    return tuple(s if e is None else e.decode(s)
+                 for s, e in zip(streams, encs))
+
+
+def _pads_probe(streams, encs):
+    """Length-1 decoded slices: enough for every pads body (they read only
+    ``stream[0]`` and dtypes), without decoding the whole stream."""
+    return tuple(s[:1] if e is None else e.decode(s[:1])
+                 for s, e in zip(streams, encs))
+
+
+def _padded_encodings(algo: str, spec: _AlgoSpec, encs, streams, params):
+    """Grow each constant-fill encoding by one pad slot (see above)."""
+    first_elem = _FIRST_ELEMENT_PADS.get(algo, ())
+    plain = spec.pads(_pads_probe(streams, encs), params)
+    return tuple(e if e is None or i in first_elem else e.with_pad(plain[i])
+                 for i, e in enumerate(encs))
+
+
+def _encoded_spec(algo: str, spec: _AlgoSpec, encs) -> _AlgoSpec:
+    """Wrap ``spec`` so its bodies run on dictionary-encoded lanes.
+
+    ``encs`` is a per-stream tuple of pad-slot-ready ``DictEncoding``s (from
+    ``_padded_encodings``) or None. Pass 1 and apply decode their lanes with
+    one ``lut[code]`` gather at entry, so their masks are those of the
+    decoded streams; pads returns the codes that decode to the plain fills.
+    """
+    first_elem = _FIRST_ELEMENT_PADS.get(algo, ())
+
+    def dec(lanes):
+        return _decode_streams(lanes, encs)
+
+    def pads(streams, p):
+        plain = spec.pads(_pads_probe(streams, encs), p)
+        return tuple(
+            plain[i] if encs[i] is None
+            else first_value(streams[i]) if i in first_elem
+            else encs[i].pad_code
+            for i in range(len(plain)))
+
+    return dataclasses.replace(
+        spec, pass1=lambda lanes, p: spec.pass1(dec(lanes), p),
+        apply=lambda mg, lanes, k1, p: spec.apply(mg, dec(lanes), k1, p),
+        pads=pads)
 
 
 # ------------------------------------------------------------------ layout
@@ -351,17 +454,13 @@ def apply_merged(algo: str, merged, shard_streams, keep1, **params):
                                      params)
 
 
-def _reject_unported(options, mesh, tune, plan_cache, encoding, decode,
-                     obs) -> None:
+def _reject_unported(options, mesh, tune, plan_cache, obs) -> None:
     if options is not None:
         raise _not_ported("options= (ExecOptions)", "Queue 1 item 6")
     if mesh is not None:
         raise _not_ported("mesh=", "Queue 1 item 7: mesh mode")
     if tune not in (None, "off") or plan_cache is not None:
         raise _not_ported("tune= / plan_cache=", "Queue 1 item 11: tuning")
-    if encoding is not None or decode is not None:
-        raise _not_ported("encoded columns (encoding= / decode=)",
-                          "Queue 1 item 10: encoded columns")
     if obs not in (None, "off"):
         raise _not_ported(f"obs={obs!r}", "Queue 1 item 12: telemetry")
 
@@ -375,9 +474,10 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
     """Run pruner ``algo`` over its stream in the requested mode.
 
     streams: arrays of m entries on the device to run on: f32 values for
-    ``topn_rand``, uint32 fingerprints for ``distinct``, points [m, D] for
-    ``skyline``, keys plus (optionally) values for ``having``, and keys,
-    values and (optionally) a bool validity column for ``groupby``. A ragged
+    ``topn_det`` and ``topn_rand``, uint32 fingerprints for ``distinct``,
+    points [m, D] for ``skyline``, keys plus (optionally) values for
+    ``having``, and keys, values and (optionally) a bool validity column
+    for ``groupby``. A ragged
     m is handled by tail-padding the final shard with neutral entries (NEG
     for TOP-N and SKYLINE, 0 for DISTINCT, ``(keys[0], 0)`` for HAVING,
     ``(keys[0], 0, False)`` for GROUP BY, which appends an all-True validity
@@ -392,9 +492,19 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
     (``sharded``) or the merged global state (``two_pass``). emitted is
     GROUP BY's (evicted key, evicted aggregate, valid) streams: m long in
     ``scan``, S * ceil(m/S) long (the padded lanes, flattened) otherwise.
+
+    encoding / decode: ``encoding`` is a ``DictEncoding`` (stream 0) or a
+    per-stream tuple of ``DictEncoding | None``; encoded streams carry uint32
+    codes and every body decodes them at entry, so the keep mask is
+    bit-identical to pruning the decoded streams. ``decode="eager"`` decodes
+    them up front; ``"auto"`` / ``"late"`` (the default) prune on codes.
     """
     del mesh_axis
-    _reject_unported(options, mesh, tune, plan_cache, encoding, decode, obs)
+    _reject_unported(options, mesh, tune, plan_cache, obs)
+    decode = "auto" if decode is None else decode
+    if decode not in DECODE_MODES:
+        raise ValueError(f"decode must be one of {DECODE_MODES}, "
+                         f"got {decode!r}")
     mode = "scan" if mode is None else mode
     pass2 = "master" if pass2 is None else pass2
     if mode not in MODES:
@@ -408,6 +518,11 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
             f"pass2={pass2!r} only applies to mode='mesh' (got {mode!r})")
     spec = _spec(algo, params)
     streams = tuple(s for s in streams if s is not None)
+    encs = normalize_encodings(encoding, len(streams))
+    if decode == "eager":
+        streams = _decode_streams(streams, encs)
+        encs = (None,) * len(streams)
+    encoded = any(e is not None for e in encs)
     if not 1 <= len(streams) <= spec.max_streams:
         raise ValueError(f"{algo} takes {spec.max_streams} stream(s) at most "
                          f"and one at least, got {len(streams)}")
@@ -425,6 +540,9 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
             f"shards must be an int, None or 'auto', got {shards!r}")
 
     if mode == "scan" or shards <= 1:
+        if encoded:
+            spec = _encoded_spec(algo, spec, _padded_encodings(
+                algo, spec, encs, streams, params))
         keep, st, ev = spec.pass1(
             tuple(s.contiguous()[None] for s in streams), params)
         return PruneResult(keep=keep[0], state=_lane(st, 0),
@@ -435,6 +553,12 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
     if m % shards and spec.pad_validity and len(streams) < 3:
         streams = streams + (torch.ones(m, dtype=torch.bool,
                                         device=streams[0].device),)
+        encs = encs + (None,)
+    if encoded:
+        # from here on every body runs on the wrapped spec: decode at the
+        # entry of pass 1 and apply, pads as codes of the plain fills
+        spec = _encoded_spec(algo, spec, _padded_encodings(
+            algo, spec, encs, streams, params))
     fills = (spec.pads(streams, params) if m % shards
              else (0,) * len(streams))
     lanes = tuple(shard_stack(s, shards, f) for s, f in zip(streams, fills))

@@ -1,12 +1,17 @@
-"""Randomized TOP-N pruning (paper §5 Ex. 7) and its sizing theorems.
+"""TOP-N pruning (paper §4.3 Ex. 3 deterministic, §5 Ex. 7 randomized).
 
-A d x w matrix: each entry is hashed (by its stream index) to a row that
-keeps a rolling descending top-w; an entry smaller than all w cached values
-of its row is pruned. Succeeds (no top-N entry pruned) with probability at
-least 1-δ for w per Theorem 2; Theorem 3 bounds the forwarded count.
+Deterministic: an exponential threshold ladder t_i = 2^i * t0, t0 the
+minimum of the first N entries; once >= N entries at or above t_i are
+seen, the prune threshold advances to t_i. Never prunes a true top-N entry.
+The scan runs on the ``topn_det_pass1`` kernel with one lane.
 
-The scan runs on the pass-1 kernel with one lane and blocks of one entry,
-which is the per-entry semantics of the JAX package's ``lax.scan``.
+Randomized: a d x w matrix; each entry is hashed (by its stream index) to a
+row that keeps a rolling descending top-w; an entry smaller than all w
+cached values of its row is pruned. Succeeds (no top-N entry pruned) with
+probability at least 1-δ for w per Theorem 2; Theorem 3 bounds the
+forwarded count. The scan runs on the pass-1 kernel with one lane and
+blocks of one entry, which is the per-entry semantics of the JAX package's
+``lax.scan``.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from ..constants import NEG
+from ..device import resolve_device
 from .pruning import PruneResult
 
 
@@ -45,6 +51,41 @@ def topn_rand_prune(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
         values.to(torch.float32).contiguous(), d=d, w=w, shards=1, block=1,
         seed=seed)
     return PruneResult(keep=keep, state=TopNRandState(states[0]))
+
+
+@dataclasses.dataclass
+class TopNDetState:
+    t0: torch.Tensor         # f32: min of the first N entries (POS: none yet)
+    counts: torch.Tensor     # int32[w]: entries >= t0 * 2^i seen so far
+    seen: torch.Tensor       # int32: entries processed
+    cur_level: torch.Tensor  # int32: highest i with counts[i] >= N (-1: none)
+
+
+def topn_det_init(w: int = 4, device=None) -> TopNDetState:
+    from ..kernels.topn_det_scan import init_state
+
+    t0, counts, seen, cur = init_state(1, w, resolve_device(device))
+    return TopNDetState(t0=t0[0], counts=counts[0], seen=seen[0],
+                        cur_level=cur[0])
+
+
+def topn_det_prune(values: torch.Tensor, *, N: int, w: int = 4,
+                   state: TopNDetState | None = None) -> PruneResult:
+    """Deterministic threshold-ladder TOP-N (Ex. 3) over f32[m] values.
+
+    During the first N entries nothing is pruned; afterwards an entry below
+    t0 * 2^cur_level is. A superset of the true top-N survives.
+    """
+    from ..kernels.topn_det_scan import topn_det_pass1_kernel
+
+    if state is not None:
+        raise NotImplementedError(
+            "resuming a scan (state=) is not ported yet; see ROADMAP Queue 1 "
+            "item 9 (streaming)")
+    keep, (t0, counts, seen, cur) = topn_det_pass1_kernel(
+        values.to(torch.float32).contiguous(), N=N, w=w)
+    return PruneResult(keep=keep, state=TopNDetState(t0[0], counts[0],
+                                                     seen[0], cur[0]))
 
 
 def thm2_w(d: int, N: int, delta: float) -> int:

@@ -120,18 +120,27 @@ U32 = ctypes.c_uint32
 F32 = ctypes.c_float
 
 
-class CudaKernel:
-    """One C entry point of the kernel library and its launch count.
+class LaunchCount:
+    """A named launch count.
 
     ``launches`` is a plain integer that goes up by one for every launch
     and nowhere else, so a caller can show that a path ran the kernel.
     """
 
-    def __init__(self, name: str, argtypes: list, smem_fn: str | None = None):
+    def __init__(self, name: str):
         self.name = name
+        self.launches = 0
+
+
+class CudaKernel(LaunchCount):
+    """One C entry point of the kernel library and its launch count. An
+    entry point that picks one of two kernels by an argument counts the
+    second in a ``LaunchCount`` of its own, passed to ``launch``."""
+
+    def __init__(self, name: str, argtypes: list, smem_fn: str | None = None):
+        super().__init__(name)
         self.argtypes = argtypes
         self.smem_fn = smem_fn
-        self.launches = 0
 
     def _fn(self, name, argtypes, restype):
         fn = getattr(library(), name)
@@ -144,17 +153,19 @@ class CudaKernel:
         return int(self._fn(self.smem_fn, [I32] * len(args),
                             ctypes.c_size_t)(*args))
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args,
+               count: LaunchCount | None = None) -> None:
         """Launch on ``device``'s current stream, with ``device`` made the
         current one (shared-memory attributes are set per device); raises on
-        a refused launch."""
+        a refused launch. The launch adds one to ``count``, or to this
+        entry point's own count."""
         fn = self._fn(self.name, self.argtypes + [P], I32)
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
-        self.launches += 1
+        (count or self).launches += 1
 
 
 def ptr(t: torch.Tensor) -> int:

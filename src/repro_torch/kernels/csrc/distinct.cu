@@ -1,4 +1,5 @@
-// FIFO DISTINCT pruning (paper Ex. 2) on Hopper: pass 1 and pass 2.
+// DISTINCT pruning (paper Ex. 2) on Hopper: pass 1 (FIFO, and LRU at B = 1)
+// and pass 2.
 //
 // distinct_pass1 replaces two pallas_calls of the JAX package:
 //   distinct_prune_kernel         src/repro/kernels/distinct_prune.py:67  (S = 1)
@@ -12,6 +13,13 @@
 // which then advances mod w. At B = 1 this is core.distinct.distinct_prune
 // with policy "fifo". At d = 4096, w = 4 the cache takes 112 KB, above the
 // 48 KB default, so the launch opts into dynamic shared memory.
+//
+// With lru = 1, distinct_pass1 runs the serial kernel with the LRU step of
+// core.distinct._step (src/repro/core/distinct.py:47-58), which the JAX
+// package computes with lax.scan and no Pallas kernel: a hit moves its slot
+// to the front (slots 1..hitpos take slots 0..hitpos-1, hitpos the first
+// hit), a miss inserts at the front and the last slot falls out; head stays
+// 0. The Pallas DISTINCT kernels are FIFO only, so LRU exists at B = 1 only.
 //
 // What bounds it: the serial chain of shard_len / B chunk steps (B = 1: one
 // thread's dependent shared-memory probes of w slots per entry; B > 1: an
@@ -31,6 +39,9 @@
 
 namespace {
 
+// kLru selects the cache policy at compile time, so the FIFO walk is the
+// same code as without LRU.
+template <bool kLru>
 __global__ void distinct_pass1_serial(const uint32_t* __restrict__ x,
                                       uint8_t* __restrict__ keep,
                                       uint32_t* __restrict__ slots_out,
@@ -65,14 +76,27 @@ __global__ void distinct_pass1_serial(const uint32_t* __restrict__ x,
         const uint32_t v = xs[t];
         const int r = rows[t];
         const int b = r * w;
-        bool hit = false;
-        for (int j = 0; j < w; ++j) hit |= valid[b + j] && slots[b + j] == v;
-        ks[t] = !hit;
-        if (!hit) {
-          const int h = head[r];
-          slots[b + h] = v;
-          valid[b + h] = 1;
-          head[r] = (h + 1 == w) ? 0 : h + 1;
+        if constexpr (kLru) {
+          int j = 0;  // the first hit, or w on a miss
+          while (j < w && !(valid[b + j] && slots[b + j] == v)) ++j;
+          ks[t] = j == w;
+          for (j = j == w ? w - 1 : j; j > 0; --j) {
+            slots[b + j] = slots[b + j - 1];
+            valid[b + j] = valid[b + j - 1];
+          }
+          slots[b] = v;
+          valid[b] = 1;
+        } else {
+          bool hit = false;
+          for (int j = 0; j < w; ++j)
+            hit |= valid[b + j] && slots[b + j] == v;
+          ks[t] = !hit;
+          if (!hit) {
+            const int h = head[r];
+            slots[b + h] = v;
+            valid[b + h] = 1;
+            head[r] = (h + 1 == w) ? 0 : h + 1;
+          }
         }
       }
     }
@@ -181,15 +205,22 @@ extern "C" size_t distinct_pass1_smem(int d, int w, int block) {
 
 extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
                               uint8_t* valid, int* head, int shards,
-                              int shard_len, int d, int w, int block,
+                              int shard_len, int d, int w, int block, int lru,
                               uint32_t seed, cudaStream_t stream) {
   const size_t smem = distinct_pass1_smem(d, w, block);
   if (block == 1) {
-    cudaError_t err = cheetah_launch_prep(reinterpret_cast<const void*>(distinct_pass1_serial), smem);
+    const void* fn = lru ? reinterpret_cast<const void*>(distinct_pass1_serial<true>)
+                         : reinterpret_cast<const void*>(distinct_pass1_serial<false>);
+    cudaError_t err = cheetah_launch_prep(fn, smem);
     if (err != cudaSuccess) return err;
-    distinct_pass1_serial<<<shards, CHEETAH_STAGE, smem, stream>>>(
-        x, keep, slots, valid, head, shard_len, d, w, seed);
+    if (lru)
+      distinct_pass1_serial<true><<<shards, CHEETAH_STAGE, smem, stream>>>(
+          x, keep, slots, valid, head, shard_len, d, w, seed);
+    else
+      distinct_pass1_serial<false><<<shards, CHEETAH_STAGE, smem, stream>>>(
+          x, keep, slots, valid, head, shard_len, d, w, seed);
   } else {
+    if (lru) return cudaErrorInvalidValue;  // LRU is per entry: B = 1 only
     cudaError_t err = cheetah_launch_prep(reinterpret_cast<const void*>(distinct_pass1_block), smem);
     if (err != cudaSuccess) return err;
     distinct_pass1_block<<<shards, block, smem, stream>>>(

@@ -13,18 +13,24 @@ the true survivors, not of the sequential kernel's mask.
 Pallas kernels' hash family and an f32 table; ``bloom_build`` /
 ``bloom_query`` the Bloom filter of JOIN with the same family, on the f32
 0/1 view of the filter (packed into uint32 words for the kernels).
+
+``rle_topn_prune`` / ``rle_distinct_prune`` prune an RLE column at run
+granularity, R runs instead of m entries, and ``rle_expand_mask`` turns
+their per-run answers into the flat mask, bit-identical to the flat
+``topn_det`` and DISTINCT scans of the expanded column.
 """
 from __future__ import annotations
 
 import torch
 
-from ..constants import NEG
+from ..constants import NEG, POS
 from ..core.hashing import as_u32
 from . import parallel
 from .bloom_filter import (bloom_build_kernel, bloom_query_kernel, pack_bits,
                            unpack_bits)
 from .cms_sketch import cms_build_kernel, cms_query_kernel
 from .distinct_prune import distinct_prune_kernel
+from .rle_scan import rle_topn_det_kernel
 from .skyline_prune import skyline_prune_kernel
 from .topn_prune import topn_prune_kernel
 
@@ -159,3 +165,56 @@ def bloom_query(bits: torch.Tensor, keys: torch.Tensor, *,
     return bloom_query_kernel(words, k, nbits=bits.shape[0],
                               num_hashes=num_hashes, seed=seed,
                               family="kernel")[:m]
+
+
+def rle_topn_prune(run_values: torch.Tensor, run_lengths: torch.Tensor, *,
+                   N: int, w: int = 4,
+                   block: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run-level deterministic TOP-N over an RLE column, no expansion.
+
+    Returns per-run ``(head, tstar)`` int32[R]: within a run of length L the
+    flat keep mask is ``(pos < head) | (pos + 1 >= tstar)``
+    (``rle_expand_mask``), bit-identical to ``core.topn_det_prune`` on the
+    expanded column. Pads the runs with (POS, 0) to whole blocks.
+    """
+    rv, R = _pad_to(run_values.to(torch.float32).contiguous(), block,
+                    float(POS))
+    rl, _ = _pad_to(run_lengths.to(torch.int32).contiguous(), block, 0)
+    head, tstar = rle_topn_det_kernel(rv, rl, N=N, w=w, block=block)
+    return head[:R], tstar[:R]
+
+
+def rle_distinct_prune(run_values: torch.Tensor, *, d: int, w: int,
+                       policy: str = "lru", seed: int = 0) -> torch.Tensor:
+    """Run-level DISTINCT over uint32 run values: bool[R] keep mask over the
+    run heads.
+
+    Every entry of a run after its first hits the cache and leaves it as it
+    was (FIFO skips the insert; LRU moves the front slot to the front), so
+    the flat scan's state depends on the run heads only, and scanning the
+    run values is exact: the flat mask is the head scatter
+    ``rle_expand_mask(keep, None, run_lengths, m)``.
+    """
+    from ..core.distinct import distinct_prune as seq_distinct
+
+    return seq_distinct(run_values.contiguous(), d=d, w=w, policy=policy,
+                        seed=seed).keep
+
+
+def rle_expand_mask(head: torch.Tensor, tstar: torch.Tensor | None,
+                    run_lengths: torch.Tensor, total: int) -> torch.Tensor:
+    """Flat bool[total] mask from per-run prefix-and-suffix descriptors.
+
+    ``head`` is the per-run keep-prefix length (a bool run mask works: True
+    is 1); ``tstar=None`` drops the suffix term (DISTINCT's head scatter).
+    ``total`` must equal ``sum(run_lengths)``.
+    """
+    rl = run_lengths.to(torch.int64)
+    starts = torch.cumsum(rl, 0) - rl
+    rid = torch.repeat_interleave(torch.arange(rl.shape[0], device=rl.device),
+                                  rl, output_size=total)
+    pos = torch.arange(total, device=rl.device) - starts[rid]
+    keep = pos < head.to(torch.int64)[rid]
+    if tstar is not None:
+        keep |= (pos + 1) >= tstar.to(torch.int64)[rid]
+    return keep

@@ -15,9 +15,12 @@ scan (S = 1, B = 1), its sharded and two_pass modes (S lanes, B = 1), and
 the kernel entry points of ``ops.py`` (B = 256, S = 1 or S shards).
 SKYLINE's pass 1 also takes the APH association as ``form``: ``"kernel"``
 for ``ops.py`` (the Pallas kernels' score), ``"engine"`` for the engine.
+DISTINCT's pass 1 also takes the cache policy: FIFO at any B, LRU at B = 1
+only (the engine's default policy; the Pallas kernels are FIFO only).
 ``KERNELS`` lists every CUDA kernel of the port, the Count-Min pair of
-``cms_sketch.py``, the Bloom pair of ``bloom_filter.py`` and the GROUP BY
-scan of ``groupby_scan.py`` included.
+``cms_sketch.py``, the Bloom pair of ``bloom_filter.py``, the GROUP BY
+scan of ``groupby_scan.py``, the ``topn_det`` ladder of
+``topn_det_scan.py`` and the RLE run scan of ``rle_scan.py`` included.
 """
 from __future__ import annotations
 
@@ -29,16 +32,20 @@ from ..core.skyline import FORMS, SCORES
 from . import ref
 from .bloom_filter import BLOOM_BUILD, BLOOM_QUERY
 from .cms_sketch import CMS_BUILD, CMS_QUERY
-from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, check_cuda,
-                     grid_for, ptr)
+from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, LaunchCount,
+                     check_cuda, grid_for, ptr)
 from .groupby_scan import GROUPBY_PASS1
+from .rle_scan import RLE_TOPN_DET
+from .topn_det_scan import TOPN_DET_PASS1
 
 TOPN_PASS1 = CudaKernel("topn_pass1", [P, P, P, I32, I32, I32, I32, I32, U32],
                         smem_fn="topn_pass1_smem")
 TOPN_APPLY = CudaKernel("topn_apply", [P, P, P, I64, I32, I32, U32, I32])
 DISTINCT_PASS1 = CudaKernel(
-    "distinct_pass1", [P, P, P, P, P, I32, I32, I32, I32, I32, U32],
+    "distinct_pass1", [P, P, P, P, P, I32, I32, I32, I32, I32, I32, U32],
     smem_fn="distinct_pass1_smem")
+# the LRU instantiation of distinct_pass1's serial kernel, counted apart
+DISTINCT_PASS1_LRU = LaunchCount("distinct_pass1_lru")
 DISTINCT_APPLY = CudaKernel(
     "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32])
 SKYLINE_PASS1 = CudaKernel(
@@ -47,7 +54,9 @@ SKYLINE_PASS1 = CudaKernel(
 SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
 KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
-           BLOOM_QUERY, GROUPBY_PASS1)
+           BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
+           RLE_TOPN_DET)
+POLICIES = ("lru", "fifo")
 
 
 def reset_launch_counts() -> None:
@@ -158,18 +167,27 @@ def topn_parallel_ref(values, *, d, w, shards, block, seed=0):
     return keep, states
 
 
-# ==================================================== DISTINCT (FIFO, Ex. 2)
+# ============================================== DISTINCT (FIFO / LRU, Ex. 2)
 def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                                  shards: int, block: int = 256,
-                                 seed: int = 0):
+                                 seed: int = 0, policy: str = "fifo"):
     """Pass 1: keep bool[m] and per-shard caches (slots uint32[S, d, w],
-    valid bool[S, d, w], head int32[S, d])."""
+    valid bool[S, d, w], head int32[S, d]). ``policy="lru"`` takes
+    block=1 only (head then stays 0)."""
+    if policy not in POLICIES:
+        raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
+    if policy == "lru" and block != 1:
+        raise ValueError(f"the LRU cache has per-entry semantics only: it "
+                         f"takes block=1, got block={block}")
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, block)
     if not values.is_cuda:
-        keep, state = ref.distinct_block_ref(
-            values.reshape(shards, shard_len), d=d, w=w, block=block,
-            seed=seed, return_state=True)
+        lanes = values.reshape(shards, shard_len)
+        keep, state = (
+            ref.distinct_lru_ref(lanes, d=d, w=w, seed=seed,
+                                 return_state=True) if policy == "lru"
+            else ref.distinct_block_ref(lanes, d=d, w=w, block=block,
+                                        seed=seed, return_state=True))
         return (keep.reshape(m),) + state
     check_cuda("values", values, torch.uint32)
     _check_pass1(DISTINCT_PASS1, d, w, block)
@@ -179,9 +197,11 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     valid = torch.empty((shards, d, w), dtype=torch.bool, device=dev)
     head = torch.empty((shards, d), dtype=torch.int32, device=dev)
     if m:
+        lru = policy == "lru"
         DISTINCT_PASS1.launch(dev, ptr(values), ptr(keep), ptr(slots),
-                              ptr(valid), ptr(head), shards, shard_len, d, w, block,
-                              seed & 0xFFFFFFFF)
+                              ptr(valid), ptr(head), shards, shard_len, d, w,
+                              block, int(lru), seed & 0xFFFFFFFF,
+                              count=DISTINCT_PASS1_LRU if lru else None)
     else:
         slots.view(torch.int32).zero_()
         valid.zero_()

@@ -5,6 +5,7 @@ Ports of ``ref.topn_block_ref``, ``ref.distinct_block_ref`` and
 of B entries every prune decision reads the pre-block state, and each row
 takes at most one insert per block. At B = 1 they are the per-entry scans of
 ``core.topn.topn_rand_prune`` and ``core.distinct.distinct_prune(policy="fifo")``.
+``distinct_lru_ref`` is the per-entry LRU scan (no block form).
 
 Both take one stream ``[m]`` or S lane streams ``[S, n]`` and loop over
 blocks, vectorised across the B entries of a block and the S lanes. As in
@@ -97,6 +98,45 @@ def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     slots = slots[:, :d].to(torch.int32).view(torch.uint32)
     valid = valid[:, :d].contiguous()
     head = head[:, :d].to(torch.int32)
+    if one:
+        keep, slots, valid, head = keep[0], slots[0], valid[0], head[0]
+    return (keep, (slots, valid, head)) if return_state else keep
+
+
+def distinct_lru_ref(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
+                     return_state: bool = False):
+    """LRU d x w fingerprint cache, per-entry semantics (the JAX package's
+    ``core.distinct._step`` with policy "lru"): keep bool[m] (or [S, n]),
+    plus the final (slots uint32, valid bool, head int32 = 0) state when
+    ``return_state``. A hit moves its first matching slot to the front; a
+    miss inserts at the front and drops the last slot. One loop step an
+    entry, vectorised across the S lanes."""
+    one = values.ndim == 1
+    x = as_u32(values[None] if one else values)   # int64: exact compares
+    S, n = x.shape
+    dev = x.device
+    rows = hash_mod(x, d, seed)
+    slots = torch.zeros((S, d, w), dtype=torch.int64, device=dev)
+    valid = torch.zeros((S, d, w), dtype=torch.bool, device=dev)
+    keep = torch.empty((S, n), dtype=torch.bool, device=dev)
+    lane = torch.arange(S, device=dev)
+    idx = torch.arange(w, device=dev)
+    for t in range(n):
+        r, v = rows[:, t], x[:, t]
+        sr, vr = slots[lane, r], valid[lane, r]
+        hitvec = (sr == v[:, None]) & vr
+        hit = hitvec.any(1)
+        limit = torch.where(hit, hitvec.to(torch.int8).argmax(1), w - 1)
+        shift = (idx >= 1) & (idx <= limit[:, None])
+        ns = torch.where(shift, sr.roll(1, 1), sr)
+        nv = torch.where(shift, vr.roll(1, 1), vr)
+        ns[:, 0] = v
+        nv[:, 0] = True
+        slots[lane, r] = ns
+        valid[lane, r] = nv
+        keep[:, t] = ~hit
+    slots = slots.to(torch.int32).view(torch.uint32)
+    head = torch.zeros((S, d), dtype=torch.int32, device=dev)
     if one:
         keep, slots, valid, head = keep[0], slots[0], valid[0], head[0]
     return (keep, (slots, valid, head)) if return_state else keep

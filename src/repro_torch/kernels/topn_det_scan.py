@@ -1,0 +1,103 @@
+"""Deterministic TOP-N pass 1 (paper Ex. 3): the per-lane threshold-ladder
+scan kernel and its plain version.
+
+``topn_det_pass1_kernel`` replaces the ``lax.scan`` of the JAX package's
+``core.topn.topn_det_prune`` (``core/topn.py:112-137``), which has no Pallas
+kernel; it carries the engine's ``scan``, ``sharded`` and ``two_pass``
+modes. S lanes, one per contiguous shard, each with a fresh ladder
+(t0 = POS, counts = 0, seen = 0). Per entry x_j of a lane:
+
+- t0_j is the running minimum of the first min(j + 1, N) entries and POS;
+- counts_j[i] counts the entries k <= j with x_k >= t0_k * 2^i;
+- cur_j is the highest i with counts_j[i] >= N (-1: none), and the entry is
+  kept while warm (j < N) or when x_j >= t0_j * 2^cur_j.
+
+So the ladder is a prefix computation: a ``cummin`` and a ``cumsum`` over
+[n, w]. Every step is an exact f32 minimum (NaN-propagating, as
+``jnp.minimum``), an exact multiply by a power of two, a compare or an
+integer count, so the plain version below is bit-identical to the scan, and
+so is the CUDA kernel (``csrc/topn_det.cu``). A CUDA tensor launches the
+kernel; a CPU tensor runs the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..constants import NEG, POS
+from .common import I32, P, CudaKernel, check_cuda, ptr
+
+TOPN_DET_PASS1 = CudaKernel("topn_det_pass1", [P, P, P, P, P, P, I32, I32,
+                                               I32, I32])
+MAX_W = 32  # levels the kernel carries (csrc/topn_det.cu: TOPN_DET_MAX_W)
+
+
+def pow2(w: int, device) -> torch.Tensor:
+    """f32[w]: 2^0 .. 2^(w-1), exact."""
+    return torch.tensor([2.0 ** i for i in range(w)], dtype=torch.float32,
+                        device=device)
+
+
+def check_levels(w: int) -> None:
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"the ladder takes 1 <= w <= {MAX_W} levels, got {w}")
+
+
+def init_state(shards: int, w: int, device):
+    """Fresh ladders: (t0 f32[S] = POS, counts int32[S, w], seen int32[S],
+    cur_level int32[S] = -1)."""
+    return (torch.full((shards,), float(POS), dtype=torch.float32,
+                       device=device),
+            torch.zeros((shards, w), dtype=torch.int32, device=device),
+            torch.zeros((shards,), dtype=torch.int32, device=device),
+            torch.full((shards,), -1, dtype=torch.int32, device=device))
+
+
+def topn_det_pass1_plain(x: torch.Tensor, *, N: int, w: int):
+    """Plain pass 1 over lanes [S, n]: (keep bool[S, n], (t0, counts, seen,
+    cur_level) of each lane)."""
+    check_levels(w)
+    S, n = x.shape
+    dev = x.device
+    if n == 0:
+        return torch.zeros((S, 0), dtype=torch.bool, device=dev), \
+            init_state(S, w, dev)
+    x = x.to(torch.float32)
+    warm = torch.arange(n, device=dev) < N
+    pos = torch.tensor(float(POS), dtype=torch.float32, device=dev)
+    cand = torch.where(warm, x, pos)
+    t0 = torch.minimum(torch.cummin(cand, 1).values, pos)      # [S, n]
+    p2 = pow2(w, dev)
+    ge = x[..., None] >= t0[..., None] * p2                      # [S, n, w]
+    counts = torch.cumsum(ge, 1, dtype=torch.int32)
+    levels = torch.arange(w, dtype=torch.int32, device=dev)
+    cur = torch.where(counts >= N, levels, -1).amax(-1)         # [S, n]
+    thr = torch.where(cur >= 0, t0 * p2[cur.clamp(min=0)],
+                      torch.tensor(float(NEG), device=dev))
+    keep = warm | (x >= thr)
+    seen = torch.full((S,), n, dtype=torch.int32, device=dev)
+    return keep, (t0[:, -1].contiguous(), counts[:, -1].contiguous(), seen,
+                  cur[:, -1].to(torch.int32).contiguous())
+
+
+def topn_det_pass1_kernel(values: torch.Tensor, *, N: int, w: int,
+                          shards: int = 1):
+    """Pass 1 of S ladders over f32[m] values: (keep bool[m], (t0 f32[S],
+    counts int32[S, w], seen int32[S], cur_level int32[S])). Lane s owns
+    the entries [s * m/S, (s+1) * m/S)."""
+    m = values.shape[0]
+    if shards < 1 or m % shards:
+        raise ValueError(f"stream length {m} is not a multiple of "
+                         f"shards={shards}")
+    check_levels(w)
+    n = m // shards
+    if not values.is_cuda:
+        keep, st = topn_det_pass1_plain(values.reshape(shards, n), N=N, w=w)
+        return keep.reshape(m), st
+    check_cuda("values", values, torch.float32)
+    dev = values.device
+    keep = torch.empty(m, dtype=torch.bool, device=dev)
+    st = init_state(shards, w, dev)
+    if m:
+        TOPN_DET_PASS1.launch(dev, ptr(values), ptr(keep),
+                              *(ptr(s) for s in st), shards, n, N, w)
+    return keep, st

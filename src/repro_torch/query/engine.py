@@ -3,8 +3,26 @@
 Without a mesh every single-table pruner runs ``core.engine_prune`` in
 ``scan`` mode (one switch lane over the table), and the master completes the
 query on the survivors. JOIN keeps its own two-table Bloom exchange and
-FILTER is stateless. Ported: TOP-N with ``mode="rand"`` (the default),
-DISTINCT with ``policy="fifo"``, SKYLINE, HAVING, GROUP BY, JOIN and FILTER.
+FILTER is stateless. Ported: TOP-N with ``mode="rand"`` (the default) or
+``"det"``, DISTINCT with ``policy="lru"`` (the default) or ``"fifo"``,
+SKYLINE, HAVING, GROUP BY, JOIN and FILTER, on plain, dictionary- and
+RLE-encoded columns.
+
+Encoded columns (``DictColumn`` / ``RLEColumn``) prune in code space, and
+the completions decode pass-1 survivors only (``Column.take``):
+- DISTINCT dedups codes (the sorted dictionary is a bijection) and decodes
+  the survivors;
+- TOP-N sorts codes (code order is value order, and equal values share a
+  code, so the index tie-break holds) and decodes the N winners. The codes
+  are compared in f32, as the JAX package compares them, which is exact
+  below 2^24 codes only (ROADMAP Queue 3);
+- HAVING groups survivor codes, aggregates decoded survivor values and
+  decodes only the qualifying keys;
+- SKYLINE compares codes only when every column shares one dictionary
+  (order isomorphism per dimension keeps dominance), else decoded values;
+- GROUP BY is unchanged: the engine decodes inside the scan, so its state
+  already holds decoded keys.
+``decode="eager"`` decodes every column up front instead.
 """
 from __future__ import annotations
 
@@ -14,8 +32,10 @@ import functools
 import torch
 
 from .. import core
-from ..core.hashing import as_u32
-from .tables import Table
+from ..constants import NEG
+from ..core.encoding import take_rows
+from ..core.hashing import as_u32, by_value
+from .tables import DictColumn, Table
 
 
 @dataclasses.dataclass
@@ -25,85 +45,134 @@ class QuerySpec:
     params: dict       # algorithm params (d, w, N, policy, seed, ...)
 
 
-def _engine_call(algo: str, streams: tuple, params: dict) -> core.PruneResult:
-    """One engine invocation per query: the sequential scan (no mesh)."""
-    return core.engine_prune(algo, *streams, mode="scan", **params)
+def _engine_call(algo: str, streams: tuple, params: dict,
+                 encoding=None) -> core.PruneResult:
+    """One engine invocation per query: the sequential scan (no mesh).
+    ``encoding``: a per-stream ``DictEncoding | None`` tuple; encoded
+    streams carry codes and pass 1 prunes in code space."""
+    return core.engine_prune(algo, *streams, mode="scan", encoding=encoding,
+                             **params)
 
 
-def _prepare(spec: QuerySpec, table: Table):
-    """(algo, streams, engine params, completion) for one query."""
+def _code_stream(col, decode: str):
+    """(engine stream, encoding) of one column under the decode policy."""
+    if decode == "eager":
+        return col.decoded(), None
+    return col.code_stream()
+
+
+def _unique_values(x: torch.Tensor) -> torch.Tensor:
+    """The sorted distinct values of ``x``; uint32 by value."""
+    if x.dtype == torch.uint32:
+        return torch.unique(as_u32(x)).to(torch.int32).view(torch.uint32)
+    return torch.unique(x)
+
+
+def _seeded(params: dict, p: dict) -> dict:
+    if "seed" in p:
+        params["seed"] = p["seed"]
+    return params
+
+
+def _prepare(spec: QuerySpec, table: Table, decode: str = "auto"):
+    """(algo, streams, encodings, engine params, completion) for one
+    query; ``complete`` maps the engine's result to the result dict."""
     k = spec.kind
     p = dict(spec.params)
     if k == "distinct":
         (cname,) = spec.columns
-        stream = table.col(cname).values
-        params = dict(d=p["d"], w=p["w"], policy=p.get("policy", "lru"))
-        if "seed" in p:
-            params["seed"] = p["seed"]
+        col = table.col(cname)
+        stream, enc = _code_stream(col, decode)
+        params = _seeded(dict(d=p["d"], w=p["w"],
+                              policy=p.get("policy", "lru")), p)
 
         def complete(r):
             out_mask = core.master_complete_distinct(stream, r.keep)
-            uniq = torch.unique(as_u32(stream)[out_mask])
-            return _result(uniq.to(torch.int32).view(torch.uint32), r.keep)
+            idx = torch.nonzero(out_mask).flatten()
+            return _result(_unique_values(col.take(idx)), r.keep)
 
-        return "distinct", (stream,), params, complete
+        return "distinct", (stream,), (enc,), params, complete
     if k == "topn":
         (cname,) = spec.columns
-        stream = table.col(cname).values
-        if p.get("mode", "rand") != "rand":
-            raise NotImplementedError(
-                "TOP-N mode='det' (the threshold ladder) is not ported yet "
-                "(ROADMAP Queue 1 item 3: the topn_det scan kernel)")
-        params = dict(d=p["d"], w=p["w"])
-        if "seed" in p:
-            params["seed"] = p["seed"]
+        col = table.col(cname)
+        stream, enc = _code_stream(col, decode)
+        if p.get("mode", "rand") == "rand":
+            algo, params = "topn_rand", _seeded(dict(d=p["d"], w=p["w"]), p)
+        else:
+            algo, params = "topn_det", dict(N=p["N"], w=p.get("w", 4))
 
         def complete(r):
             topv, topi = core.master_complete_topn(stream, r.keep, p["N"])
+            if enc is not None:
+                # decode the N winners through their rows; slots without a
+                # survivor (fewer than N) stay NEG. The codes are ordered
+                # as f32, as the reference orders them: exact below 2^24
+                # codes only (ROADMAP Queue 3).
+                topv = torch.where(topv != NEG,
+                                   col.take(topi).to(torch.float32),
+                                   float(NEG))
             return _result((topv, topi), r.keep)
 
-        return "topn_rand", (stream,), params, complete
+        return algo, (stream,), (enc,), params, complete
     if k == "having":
         kname, vname = spec.columns
         kcol, vcol = table.col(kname), table.col(vname)
+        kstream, kenc = _code_stream(kcol, decode)
+        vstream, venc = _code_stream(vcol, decode)
         agg = p.get("agg", "sum")
-        params = dict(threshold=p["threshold"], rows=p.get("rows", 3),
-                      width=p.get("width", 1024), agg=agg)
-        if "seed" in p:
-            params["seed"] = p["seed"]
+        params = _seeded(dict(threshold=p["threshold"], rows=p.get("rows", 3),
+                              width=p.get("width", 1024), agg=agg), p)
 
         def complete(r):
-            # compact first: only survivor values are ever read
+            # compact first: only survivor values are ever decoded
             kidx = torch.nonzero(r.keep).flatten()
             out = core.master_complete_having(
-                kcol.take(kidx), vcol.take(kidx),
+                take_rows(kstream, kidx), vcol.take(kidx),
                 torch.ones(kidx.shape[0], dtype=torch.bool,
                            device=kidx.device), p["threshold"], agg)
+            if kenc is not None:  # the sorted order of codes is the keys'
+                lut = by_value(kenc.lut)
+                out = [lut[c].item() for c in out]
             return _result(out, r.keep)
 
-        return "having", (kcol.values, vcol.values), params, complete
+        return ("having", (kstream, vstream), (kenc, venc), params,
+                complete)
     if k == "skyline":
-        # uint32 columns by value (torch promotes no uint32), then the
-        # common type, as jnp.stack promotes: f32 as soon as one is f32
-        cols = [table.col(c).decoded() for c in spec.columns]
-        cols = [as_u32(c) if c.dtype == torch.uint32 else c for c in cols]
-        dtype = functools.reduce(torch.promote_types,
-                                 [c.dtype for c in cols])
-        pts = torch.stack([c.to(dtype) for c in cols], dim=-1)
+        cols = [table.col(c) for c in spec.columns]
+        encs = [c.encoding if isinstance(c, DictColumn) else None
+                for c in cols]
+        # code-space dominance needs ONE dictionary for all D dimensions
+        shared = (decode != "eager" and all(e is not None for e in encs)
+                  and all(e is encs[0] for e in encs))
+        if shared:
+            pts = torch.stack([by_value(c.codes) for c in cols], dim=-1)
+            enc = encs[0]
+        else:
+            # uint32 columns by value (torch promotes no uint32), then the
+            # common type, as jnp.stack promotes: f32 as soon as one is f32
+            vals = [c.decoded() for c in cols]
+            vals = [as_u32(v) if v.dtype == torch.uint32 else v for v in vals]
+            dtype = functools.reduce(torch.promote_types,
+                                     [c.dtype for c in vals])
+            pts, enc = torch.stack([c.to(dtype) for c in vals], dim=-1), None
         params = dict(w=p["w"], score=p.get("score", "aph"))
 
         def complete(r):
+            # dominance is per-dimension <= / <; a shared sorted dictionary
+            # keeps both, so the mask needs no decode
             return _result(core.master_complete_skyline(pts, r.keep), r.keep)
 
-        return "skyline", (pts,), params, complete
+        return "skyline", (pts,), (enc,), params, complete
     if k == "groupby":
         kname, vname = spec.columns
+        kstream, kenc = _code_stream(table.col(kname), decode)
+        vstream, venc = _code_stream(table.col(vname), decode)
         agg = p.get("agg", "sum")
-        params = dict(d=p["d"], w=p["w"], agg=agg)
-        if "seed" in p:
-            params["seed"] = p["seed"]
+        params = _seeded(dict(d=p["d"], w=p["w"], agg=agg), p)
 
         def complete(r):
+            # the engine decodes inside the scan: r.state and r.emitted
+            # hold decoded keys and values, as in the plain run
             out = core.master_complete_groupby(r, agg)
             # switch->master traffic = valid evictions + valid state slots;
             # the JAX package reports ~traffic as the keep mask (ROADMAP
@@ -112,8 +181,8 @@ def _prepare(spec: QuerySpec, table: Table):
                                  r.state.valid.reshape(-1)])
             return _result(out, ~traffic)
 
-        return ("groupby", (table.col(kname).values, table.col(vname).values),
-                params, complete)
+        return ("groupby", (kstream, vstream), (kenc, venc), params,
+                complete)
     raise KeyError(k)
 
 
@@ -155,6 +224,10 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     val_b) of the sorted matches for JOIN (``tables`` is the pair (A, B);
     keep covers A's rows, then B's), and the int64 indices of the matching
     rows for FILTER.
+
+    ``decode``: ``"auto"`` / ``"late"`` (the default) prune encoded columns
+    in code space and decode the survivors only; ``"eager"`` decodes every
+    column up front.
     """
     del axis
     if mesh is not None:
@@ -166,9 +239,10 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     if options is not None:
         raise NotImplementedError(
             "run_query(options=) is not ported yet (ROADMAP Queue 1 item 6)")
-    if decode is not None:
-        raise NotImplementedError(
-            "run_query(decode=) is not ported yet (ROADMAP Queue 1 item 10)")
+    decode = "auto" if decode is None else decode
+    if decode not in core.DECODE_MODES:
+        raise ValueError(f"decode must be one of {core.DECODE_MODES}, got "
+                         f"{decode!r}")
     if obs not in (None, "off"):
         raise NotImplementedError(
             "run_query(obs=) is not ported yet (ROADMAP Queue 1 item 12)")
@@ -176,9 +250,8 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
         return _run_join(spec, tables, dict(spec.params))
     if spec.kind == "filter":
         return _run_filter(spec, tables, dict(spec.params))
-    algo, streams, params, complete = _prepare(spec, tables)
-    r = _engine_call(algo, streams, params)
-    return complete(r)
+    algo, streams, encs, params, complete = _prepare(spec, tables, decode)
+    return complete(_engine_call(algo, streams, params, encoding=encs))
 
 
 def _result(output, keep: torch.Tensor) -> dict:

@@ -1,7 +1,19 @@
-"""Columnar tables and the Big Data benchmark's table generators.
+"""Columnar tables, typed column encodings and the Big Data benchmark's
+table generators.
 
-Columns are flat tensors (wrapped as ``PlainColumn``) on one device. The
-generators draw from ``np.random.default_rng(seed)`` in the same order as
+Columns are flat tensors on one device, or typed columns:
+
+``PlainColumn``  a decoded flat column (what raw tensors are wrapped as).
+``DictColumn``   uint32 codes + a sorted ``core.encoding.DictEncoding``;
+                 ``code_stream()`` hands the engine the codes and the
+                 descriptor, so pass 1 prunes in code space and only
+                 survivors are decoded (``Table.gather_decoded``).
+``RLEColumn``    run values + int32 run lengths, the run values optionally
+                 dictionary-coded; ``code_stream()`` expands to the flat
+                 layout for the engine (run-level pruning without expansion
+                 is ``kernels.ops.rle_*``).
+
+The generators draw from ``np.random.default_rng(seed)`` in the same order as
 the JAX package's, so the same seed gives the same columns bit for bit, and
 then move them to the device.
 """
@@ -12,6 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.encoding import (DictEncoding, dict_encode, rle_encode,
+                             rle_expand, take_rows)
 from ..device import resolve_device
 
 
@@ -25,32 +39,102 @@ class PlainColumn:
     def num_rows(self) -> int:
         return int(self.values.shape[0])
 
+    def code_stream(self):
+        """(engine stream, encoding descriptor or None)."""
+        return self.values, None
+
     def decoded(self) -> torch.Tensor:
         return self.values
 
     def take(self, idx) -> torch.Tensor:
         """Decoded rows at ``idx``."""
-        idx = torch.as_tensor(idx, device=self.values.device)
-        if self.values.dtype == torch.uint32:
-            return self.values.view(torch.int32)[idx].view(torch.uint32)
-        return self.values[idx]
+        return take_rows(self.values,
+                       torch.as_tensor(idx, device=self.values.device))
 
 
-def as_column(v) -> PlainColumn:
-    """Wrap a raw tensor as PlainColumn; pass a PlainColumn through."""
-    if isinstance(v, PlainColumn):
+@dataclasses.dataclass(frozen=True)
+class DictColumn:
+    """Dictionary-encoded column: ``decoded = encoding.lut[codes]``."""
+
+    codes: torch.Tensor       # uint32[m]
+    encoding: DictEncoding
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.codes.shape[0])
+
+    def code_stream(self):
+        return self.codes, self.encoding
+
+    def decoded(self) -> torch.Tensor:
+        return self.encoding.decode(self.codes)
+
+    def take(self, idx) -> torch.Tensor:
+        # gather the codes first: only |idx| dictionary lookups happen
+        return self.encoding.decode(take_rows(
+            self.codes, torch.as_tensor(idx, device=self.codes.device)))
+
+
+@dataclasses.dataclass(frozen=True)
+class RLEColumn:
+    """Run-length-encoded column: ``run_values`` repeated ``run_lengths``;
+    ``encoding`` optionally dictionary-codes the run values (the common
+    Parquet layout), and ``code_stream`` then expands to flat codes."""
+
+    run_values: torch.Tensor   # [R]
+    run_lengths: torch.Tensor  # int32[R]
+    encoding: DictEncoding | None = None
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.run_lengths.sum())
+
+    @property
+    def num_runs(self) -> int:
+        return int(self.run_values.shape[0])
+
+    def code_stream(self):
+        return (rle_expand(self.run_values, self.run_lengths,
+                           total=self.num_rows), self.encoding)
+
+    def decoded(self) -> torch.Tensor:
+        flat, enc = self.code_stream()
+        return flat if enc is None else enc.decode(flat)
+
+    def take(self, idx) -> torch.Tensor:
+        flat = self.decoded()
+        return take_rows(flat, torch.as_tensor(idx, device=flat.device))
+
+
+Column = PlainColumn | DictColumn | RLEColumn
+
+
+def as_column(v) -> Column:
+    """Wrap a raw tensor as PlainColumn; pass typed columns through."""
+    if isinstance(v, (PlainColumn, DictColumn, RLEColumn)):
         return v
-    if isinstance(v, torch.Tensor):
-        return PlainColumn(values=v)
-    raise NotImplementedError(
-        f"column of type {type(v).__name__} is not ported yet (ROADMAP "
-        "Queue 1 item 10: encoded columns)")
+    return PlainColumn(values=v)
+
+
+def dict_column(values) -> DictColumn:
+    """A DictColumn of ``values`` (a tensor, on its device, or numpy)."""
+    codes, enc = dict_encode(values)
+    return DictColumn(codes=codes, encoding=enc)
+
+
+def rle_column(values, dictionary: bool = False) -> RLEColumn:
+    """An RLEColumn of ``values``; ``dictionary`` codes the run values."""
+    rv, rl = rle_encode(values)
+    if not dictionary:
+        return RLEColumn(run_values=rv, run_lengths=rl)
+    codes, enc = dict_encode(rv)
+    return RLEColumn(run_values=codes, run_lengths=rl, encoding=enc)
 
 
 @dataclasses.dataclass
 class Table:
     name: str
-    cols: dict  # str -> torch.Tensor [m] or PlainColumn
+    cols: dict  # str -> torch.Tensor [m] or PlainColumn/DictColumn/RLEColumn
 
     @classmethod
     def from_numpy(cls, name: str, cols: dict, device=None) -> "Table":
@@ -63,8 +147,31 @@ class Table:
     def num_rows(self) -> int:
         return as_column(next(iter(self.cols.values()))).num_rows
 
-    def col(self, name: str) -> PlainColumn:
+    def col(self, name: str) -> Column:
+        """The typed column (raw tensors wrapped as PlainColumn)."""
         return as_column(self.cols[name])
+
+    def decoded_cols(self) -> dict:
+        return {k: as_column(v).decoded() for k, v in self.cols.items()}
+
+    def encode(self, *names: str, rle: bool = False) -> "Table":
+        """A new Table with ``names`` dictionary- (or RLE over dictionary-)
+        encoded, on the device the columns live on."""
+        cols = dict(self.cols)
+        for n in names:
+            v = as_column(cols[n]).decoded()
+            cols[n] = (rle_column(v, dictionary=True) if rle
+                       else dict_column(v))
+        return Table(self.name, cols)
+
+    def gather_decoded(self, keep) -> dict:
+        """Only the surviving rows of every column, decoded: ``keep`` is a
+        bool[m] mask (an engine keep mask) or an index tensor; an encoded
+        column decodes just the gathered codes."""
+        keep = torch.as_tensor(keep)
+        idx = (torch.nonzero(keep).flatten() if keep.dtype == torch.bool
+               else keep)
+        return {k: as_column(v).take(idx) for k, v in self.cols.items()}
 
 
 def make_uservisits(m: int, seed: int = 0, num_ips: int | None = None,

@@ -15,7 +15,12 @@ from repro_torch import core as T
 
 D, W = 64, 4
 PARAMS = {"topn_rand": dict(d=D, w=W, seed=3),
-          "distinct": dict(d=D, w=W, policy="fifo", seed=3)}
+          "distinct": dict(d=D, w=W, policy="fifo", seed=3),
+          "distinct_lru": dict(d=D, w=W, seed=3)}   # policy="lru": default
+
+
+def _algo(name):
+    return "distinct" if name.startswith("distinct") else name
 
 
 def _stream(algo, m, seed=0):
@@ -33,12 +38,13 @@ def _eq(t, j):
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
-@pytest.mark.parametrize("algo", ["topn_rand", "distinct"])
+@pytest.mark.parametrize("name", ["topn_rand", "distinct", "distinct_lru"])
 @pytest.mark.parametrize("mode", ["scan", "sharded", "two_pass"])
 @pytest.mark.parametrize("m", [2048, 2051])
-def test_engine_matches_jax(algo, mode, m):
+def test_engine_matches_jax(name, mode, m):
+    algo = _algo(name)
     x = _stream(algo, m, seed=m)
-    p = PARAMS[algo]
+    p = PARAMS[name]
     want = _jax(algo, x, mode=mode, shards=8, **p)
     got = T.engine_prune(algo, torch.from_numpy(x), mode=mode, shards=8, **p)
     _eq(got.keep, want.keep)
@@ -52,11 +58,12 @@ def test_engine_matches_jax(algo, mode, m):
             _eq(getattr(got.state, f), getattr(want.state, f))
 
 
-@pytest.mark.parametrize("algo", ["topn_rand", "distinct"])
+@pytest.mark.parametrize("name", ["topn_rand", "distinct", "distinct_lru"])
 @pytest.mark.parametrize("shards", [None, 1, 3])
-def test_engine_shard_counts(algo, shards):
+def test_engine_shard_counts(name, shards):
+    algo = _algo(name)
     x = _stream(algo, 1001, seed=11)
-    p = PARAMS[algo]
+    p = PARAMS[name]
     want = _jax(algo, x, mode="two_pass", shards=shards, **p)
     got = T.engine_prune(algo, torch.from_numpy(x), mode="two_pass",
                          shards=shards, **p)
@@ -190,9 +197,6 @@ def test_sizing_helpers_match():
 X = torch.zeros(64)
 F = torch.zeros(64, dtype=torch.int32).view(torch.uint32)
 NOT_PORTED = [
-    ("topn_det", X, dict(N=4)),
-    ("distinct", F, dict(d=8, w=2)),                  # policy="lru" default
-    ("distinct", F, dict(d=8, w=2, policy="lru")),
     ("topn_rand", X, dict(d=8, w=2, mode="mesh")),
     ("topn_rand", X, dict(d=8, w=2, mesh=object())),
     ("topn_rand", X, dict(d=8, w=2, mode="two_pass", shards="auto")),
@@ -201,7 +205,6 @@ NOT_PORTED = [
     ("topn_rand", X, dict(d=8, w=2, options=object())),
     ("topn_rand", X, dict(d=8, w=2, tune="race")),
     ("topn_rand", X, dict(d=8, w=2, obs="counters")),
-    ("topn_rand", X, dict(d=8, w=2, encoding=object())),
     ("groupby", X, dict(d=8, w=2, state=None)),
     ("skyline", X[:, None], dict(w=2, state=None)),
     ("having", F, dict(threshold=1, state=None)),

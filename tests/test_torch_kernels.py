@@ -229,8 +229,13 @@ def test_launch_counts_reset():
                                       nbits=256), torch.zeros(64))
     tcore.engine_prune("groupby", torch.arange(64, dtype=torch.int32),
                        torch.ones(64), d=4, w=2, mode="two_pass", shards=2)
+    tcore.engine_prune("topn_det", torch.rand(64), N=4, mode="two_pass",
+                       shards=2)
+    tcore.engine_prune("distinct", torch.arange(64, dtype=torch.int32).view(
+        torch.uint32), d=4, w=2, mode="two_pass", shards=2)
+    tops.rle_topn_prune(torch.rand(8), torch.ones(8, dtype=torch.int32), N=2)
     assert [k.launches for k in tpar.KERNELS] == [0] * len(tpar.KERNELS)
-    assert len({k.name for k in tpar.KERNELS}) == 11
+    assert len({k.name for k in tpar.KERNELS}) == 14
 
 
 def test_apply_shape_checks():

@@ -31,9 +31,11 @@ def test_make_rankings_columns_equal():
 
 TOPN = ("topn", ("ad_revenue",), dict(d=64, w=4, N=25))
 DISTINCT = ("distinct", ("source_ip",), dict(d=64, w=4, policy="fifo"))
+TOPN_DET = ("topn", ("ad_revenue",), dict(mode="det", N=25, w=8))
+DISTINCT_LRU = ("distinct", ("source_ip",), dict(d=64, w=4))  # lru default
 
 
-@pytest.mark.parametrize("spec", [TOPN, DISTINCT])
+@pytest.mark.parametrize("spec", [TOPN, DISTINCT, TOPN_DET, DISTINCT_LRU])
 @pytest.mark.parametrize("seed", [None, 11])
 def test_run_query_matches_jax(spec, seed):
     kind, cols, params = spec
@@ -73,12 +75,9 @@ def test_run_query_on_a_converted_table():
 
 
 @pytest.mark.parametrize("kind,cols,params,kw", [
-    ("topn", ("ad_revenue",), dict(N=5, mode="det"), {}),
-    ("distinct", ("source_ip",), dict(d=8, w=2), {}),      # lru default
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(mesh=object())),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(tune="race")),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(options=object())),
-    ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(decode="eager")),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(obs="trace")),
     ("skyline", ("ad_revenue", "duration"), dict(w=2), dict(mesh=object())),
     ("groupby", ("source_ip", "ad_revenue"), dict(d=8, w=2),
