@@ -15,7 +15,14 @@ Phases, one line each, and a non-zero exit on any failure:
            the ``topn_det`` ladder scan (negative values, N above a shard,
            w = 4 and 8), LRU DISTINCT (small caches with hits at every
            slot) and the RLE run scan (ragged R, one run, all-distinct
-           runs, negative values, N above the rows).
+           runs, negative values, N above the rows); the row-parallel
+           DISTINCT and GROUP BY walks on adversarial inputs (a hot key,
+           one row, two alternating keys, d = 37 and d = 70001, float32
+           keys, invalid entries, the hot key in slot w - 1, rows of more
+           than 32 slots, which the walks keep in shared memory). Then the
+           engine's dtype handling: run_query TOP-N on an int32 column and
+           DISTINCT on an int32 and a float32 column, on the card and on a
+           CPU copy of the table.
 3. main    the main path on a 2^25-row uservisits table and a 2^20-row
            rankings table (one worker's partition of the Big Data
            benchmark): ``run_query`` TOP-N (randomized and the
@@ -37,11 +44,19 @@ Phases, one line each, and a non-zero exit on any failure:
            every shape the main path gives it (bit-identical keep, state and
            table on the whole table; the one-lane B = 1 scans on their first
            SCAN_PREFIX entries, and the S = 128 GROUP BY scan on each lane's
-           first GROUPBY_PREFIX / S, rerun on that prefix for the state),
+           first GROUPBY_PREFIX / S, rerun on that prefix for the state;
+           the plain loops on CPU copies, except those whose time the
+           kernels line reports),
            the run-level RLE scan also on two layouts that prune (shuffled
            and descending run values), its median time, its plain version's
            time and its bound, and the time of the ``lut[code]`` decode
-           gather; then the ``kernels`` JSON line.
+           gather. The row-parallel walks' bound is their longest chain on
+           this run's stream (``walk_bound``). Each phase prints its
+           seconds.
+5. witness the row-parallel walks against the serial kernels they
+           replaced, bit for bit, over the whole 2^25-entry column at S = 1
+           (DISTINCT FIFO and LRU, GROUP BY SUM and COUNT); then the
+           ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,6 +64,7 @@ Needs one CUDA card; exits non-zero without one. The last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +107,30 @@ TOPN_DET = dict(N=100, w=8)    # README batch example: mode="det", w=8
 RLE_RUN_LEN = 64
 RLE_TOPN = dict(N=250, w=8)
 RLE_DISTINCT = dict(d=256, w=4)
+FADD_CYCLES = 4                # latency of one dependent f32 add (a fold)
+REG_STEP_CYCLES = 4            # floor of a walk step on registers: one
+                               # dependent compare-and-select
+# the adversarial inputs of the row-parallel walks: (stream, d, w), at
+# S = 1, 8 and 128 lanes of ROWPAR_LANE[S] entries
+ROWPAR_LANE = {1: 2053, 8: 257, 128: 33}
+ROWPAR_DISTINCT = (("hot key", 16, 4), ("one row", 1, 4),
+                   ("alternating", 1, 2), ("uniform", 37, 3),
+                   ("uniform", 70001, 2), ("float32", 8, 2),
+                   ("uniform", 1, 40), ("hot key", 3, 64))
+# (stream, d, w, aggregates); w = 1 keeps the hot key in slot w - 1
+ROWPAR_GROUPBY = (("hot key", 16, 4, ("sum", "count", "min", "max")),
+                  ("hot key", 2, 1, ("sum", "count", "min", "max")),
+                  ("one row", 1, 4, ("sum", "count")),
+                  ("alternating", 1, 2, ("sum", "count")),
+                  ("uniform", 37, 3, ("sum", "count")),
+                  ("uniform", 70001, 2, ("sum", "count")),
+                  ("uniform", 1, 40, ("sum", "count", "min", "max")),
+                  ("hot key", 2, 33, ("sum", "count")))
+# f32 values of the float32 DISTINCT case: conversions the JAX package's
+# uint32 slots see (negatives, NaN, +-inf, non-integers, 2^32 and above)
+FLOAT_KEYS = (-3.0, -0.0, 0.0, 4.5, float("nan"), float("inf"),
+              -float("inf"), 2.0 ** 32, 5e9, 2.0 ** 31, 4.0, 7.0, 3.5)
+DTYPE_ROWS = 1 << 14           # rows of the A2 card case's tables
 
 FAILURES: list[str] = []
 
@@ -142,6 +182,32 @@ def sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def to_card(x):
+    """x with every tensor in it moved to the card."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cuda()
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_card(y) for y in x)
+    return x
+
+
+def on_host(fn, *args):
+    """(fn(*args) on CPU copies of its tensors, with its tensors moved back
+    to the card; fn's wall seconds). The plain loops take one step an entry
+    or a block, of tensors of a few hundred elements: an operation costs a
+    few us on the host and a launch on the card, so a loop runs 4-10 times
+    faster on the host. Used for every plain run whose time is not the one
+    the kernels line reports."""
+    import torch
+
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    t0 = time.perf_counter()
+    out = fn(*cpu)
+    return to_card(out), time.perf_counter() - t0
 
 
 def event_ms(fn, reps: int, warm: bool = True) -> float:
@@ -282,6 +348,7 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_bloom(torch, g)
     phase_kernels_groupby(torch, g)
     phase_kernels_ladder(torch, g)
+    phase_kernels_rowpar(torch, g)
 
 
 def phase_kernels_bloom(torch, g):
@@ -414,6 +481,114 @@ def phase_kernels_ladder(torch, g):
                 O.rle_expand_mask(h, t, L, int(L.sum())), flat),
                 f"rle_topn_det {name} R={R_} N={N} w={w} block={block}")
     say("kernels", rle_topn_det=ok_r, s=round(time.perf_counter() - t0, 3))
+
+
+def rowpar_streams(torch, g, m):
+    """The streams the row-parallel walks are held to, on the card: one key
+    as 90 % of the stream, a few keys (every key in one row at d = 1), two
+    keys alternating, uniform keys, and float32 values (the JAX package's
+    conversions to uint32 slots)."""
+    hot = torch.randint(0, 300, (m,), generator=g)
+    hot[torch.rand(m, generator=g) < 0.9] = 7
+    floats = torch.tensor(FLOAT_KEYS)[torch.randint(
+        0, len(FLOAT_KEYS), (m,), generator=g)]
+    floats[::3] = torch.randint(0, 6, (floats[::3].numel(),),
+                                generator=g).float()
+    out = {"hot key": hot, "one row": torch.randint(0, 9, (m,), generator=g),
+           "alternating": torch.where(torch.arange(m) % 2 == 0, 3, 11),
+           "uniform": torch.randint(0, 300, (m,), generator=g)}
+    out = {k: v.to(torch.int32).view(torch.uint32).cuda()
+           for k, v in out.items()}
+    out["float32"] = floats.cuda()
+    return out
+
+
+def phase_kernels_rowpar(torch, g):
+    """The row-parallel DISTINCT (FIFO and LRU) and GROUP BY walks against
+    their plain versions on adversarial inputs: a hot key, every key in
+    one row, two keys alternating in one row, d not a power of two and
+    d >= 2^16 (the modulo branch of hash_mod), float32 keys, GROUP BY with
+    invalid (padding) entries and with the hot key in slot w - 1, rows of
+    more than 32 slots (the shared-memory walk), at S = 1, 8 and 128. The
+    plain versions run on the host (on_host)."""
+    from repro_torch.kernels import groupby_scan as G
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import ref as R
+
+    for S, n in ROWPAR_LANE.items():
+        t0 = time.perf_counter()
+        m = S * n
+        xs = rowpar_streams(torch, g, m)
+        vals = (torch.randn(m, generator=g) * 100).cuda()
+        valid = (torch.rand(m, generator=g) < 0.9).cuda()
+        ok_d = ok_g = True
+        for name, d, w in ROWPAR_DISTINCT:
+            x = xs[name]
+            for policy in ("fifo", "lru"):
+                out = P.distinct_shard_states_kernel(
+                    x, d=d, w=w, shards=S, block=1, seed=S, policy=policy)
+                plain = (R.distinct_lru_ref if policy == "lru" else
+                         lambda v, **kw: R.distinct_block_ref(v, block=1,
+                                                              **kw))
+                (k2, st2), _ = on_host(lambda u: plain(
+                    u, d=d, w=w, seed=S, return_state=True), x.view(S, n))
+                ok_d &= check(same(out[0], k2.reshape(-1)) and all(
+                    same(a, b) for a, b in zip(out[1:], st2)),
+                    f"distinct_pass1 row-parallel S={S} {name} d={d} w={w} "
+                    f"{policy}")
+        for name, d, w, aggs in ROWPAR_GROUPBY:
+            k = xs[name]
+            for agg in aggs:
+                for v in (None, valid):
+                    ev, st = G.groupby_pass1_kernel(k, vals, v, d=d, w=w,
+                                                    agg=agg, shards=S, seed=S)
+                    (ev2, st2), _ = on_host(
+                        lambda a, b, c: G.groupby_pass1_plain(
+                            a, b, c, d=d, w=w, agg=agg, seed=S),
+                        k.view(S, n), vals.view(S, n),
+                        None if v is None else v.view(S, n))
+                    ok_g &= check(
+                        all(same(a, b.reshape(-1)) for a, b in zip(ev, ev2))
+                        and all(same(a, b) for a, b in zip(st, st2)),
+                        f"groupby_pass1 row-parallel S={S} {name} d={d} "
+                        f"w={w} {agg} valid={v is not None}")
+        say("kernels", S=S, m=m, distinct_row_parallel=ok_d,
+            groupby_row_parallel=ok_g, s=round(time.perf_counter() - t0, 3))
+
+
+def phase_dtypes(torch, P):
+    """run_query TOP-N (randomized) on an int32 column and DISTINCT on an
+    int32 and a float32 column, on the card, against the same queries on a
+    CPU copy of the table (the plain versions): the engine hands each kernel
+    the dtype it takes."""
+    from repro_torch.query import QuerySpec, make_uservisits, run_query
+
+    tabs = {dev: make_uservisits(DTYPE_ROWS, seed=3, device=dev)
+            for dev in ("cuda", "cpu")}
+    for name, spec, kernel in (
+            ("topn_rand int32", QuerySpec("topn", ("duration",),
+                                          dict(N=TOPN_N, **TOPN)),
+             "topn_pass1"),
+            ("distinct int32", QuerySpec("distinct", ("duration",), DISTINCT),
+             "distinct_pass1_lru"),
+            ("distinct float32", QuerySpec("distinct", ("ad_revenue",),
+                                           DISTINCT), "distinct_pass1_lru")):
+        P.reset_launch_counts()
+        a = run_query(spec, tabs["cuda"])
+        launches = {k.name: k.launches for k in P.KERNELS}[kernel]
+        b = run_query(spec, tabs["cpu"])
+        out_a = a["output"] if isinstance(a["output"], tuple) else (
+            a["output"],)
+        out_b = b["output"] if isinstance(b["output"], tuple) else (
+            b["output"],)
+        ok = check(same(a["keep"].cpu(), b["keep"]) and all(
+            same(x.cpu(), y) for x, y in zip(out_a, out_b)),
+            f"run_query {name} on the card differs from the CPU")
+        check(launches > 0, f"run_query {name}: kernel {kernel} was never "
+              "launched")
+        say("dtypes", query=json.dumps(name), same_as_cpu=ok,
+            launches=launches, pruned=round(
+                1 - float(a["keep"].float().mean()), 6))
 
 
 # ------------------------------------------------------------------ phase 3
@@ -962,6 +1137,11 @@ PASS1_SHAPES = (("ops.*_prune_parallel", SHARDS, 256),
                 ("run_query / engine_prune scan", 1, 1))
 
 
+def bytes_ms(nbytes):
+    """ms to move ``nbytes`` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def pass1_bound(m, S, B, in_bytes, state_bytes, clock_hz):
     """(ms, what sets it) of the least time of one pass-1 launch.
 
@@ -1038,17 +1218,23 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
         errs = []
         for path, S, B in PASS1_SHAPES:
             keep, st = kernel(v, S, B)
+            # The first shape's plain time goes in the kernels line: it runs
+            # on the card. The others run on the host (on_host).
+            host = path != PASS1_SHAPES[0][0]
             if S == 1 and B == 1:
                 # The keep of entry i of a one-lane scan depends only on
                 # entries 0..i, so the plain scan of a prefix checks the
                 # full-size run's keep there; the final state is not
                 # compared. The plain loop takes one Python step an entry.
                 n = SCAN_PREFIX
-                (keep2, _), plain_s = sync_time(lambda: plain(v[:n], 1, 1))
+                (keep2, _), plain_s = on_host(lambda u: plain(u, 1, 1),
+                                              v[:n])
                 err = max_abs_err([(keep[:n], keep2)])
             else:
                 n = m
-                (keep2, st2), plain_s = sync_time(lambda: plain(v, S, B))
+                (keep2, st2), plain_s = (
+                    on_host(lambda u: plain(u, S, B), v) if host
+                    else sync_time(lambda: plain(v, S, B)))
                 err = max_abs_err([(keep, keep2), *zip(st, st2)])
             errs.append(err)
             check(err == 0.0, f"{name} S={S} B={B} on the 2^25-row table")
@@ -1056,15 +1242,23 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                 states[name] = (keep, st)
             if B == 256 and S > 1:
                 states[name + " ops"] = (keep, st)
-            # the run just compared was the warm-up
-            ms = event_ms(lambda: kernel(v, S, B), 2 if S == 1 else 5,
-                          warm=False)
-            bound, by = pass1_bound(m, S, B, v.numel() * v.element_size(),
-                                    state_bytes(S), clock_hz)
+            # the run just compared was the warm-up; the one-lane chains
+            # of TOP-N and SKYLINE take seconds a run
+            walk = name == "distinct_pass1" and B == 1
+            reps = 5 if walk or S > 1 or B > 1 else (
+                1 if name == "skyline_pass1" else 2)
+            ms = event_ms(lambda: kernel(v, S, B), reps, warm=False)
+            in_bytes = v.numel() * v.element_size()
+            bound, by = pass1_bound(m, S, B, in_bytes, state_bytes(S),
+                                    clock_hz)
+            if walk:
+                bound, by = walk_bound(torch, v, S, DISTINCT["d"], None,
+                                       bytes_ms(in_bytes + m + state_bytes(S)),
+                                       clock_hz)
             say("timing", kernel=name, path=json.dumps(path), S=S, B=B,
                 ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
-                bound_ms=bound, bound_by=by, chain_steps=m // (S * B),
-                max_abs_err=err)
+                plain_on="host" if host else "card", bound_ms=bound,
+                bound_by=by, chain_steps=m // (S * B), max_abs_err=err)
             if path == PASS1_SHAPES[0][0]:
                 first = (ms, plain_s * 1e3, bound, by)
         rows.append(_row(name, totals, max(errs), *first))
@@ -1115,6 +1309,7 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     rows.extend(time_cms(torch, table, totals))
     rows.extend(time_bloom(torch, table, rankings, totals))
     rows.append(time_groupby(torch, table, totals, clock_hz))
+    profile_walks(torch, table)
     rows.append(time_topn_det(torch, xs, totals))
     rows.append(time_lru(torch, P, R, fs, totals, clock_hz))
     rows.append(time_rle(torch, *rle, totals))
@@ -1155,10 +1350,10 @@ def time_lru(torch, P, R, fs, totals, clock_hz):
     the whole table, keep and lane states; at S = 1 on the first
     SCAN_PREFIX entries, as the FIFO scan is (the full-size run's keep
     there, and the kernel rerun on the prefix state and all). Bound: the
-    B = 1 chain."""
+    longest chain of the row-parallel walk on this stream (walk_bound)."""
     m, d, w = fs.numel(), DISTINCT["d"], DISTINCT["w"]
     errs, first = [], None
-    for path, S, reps in (("run_query / engine_prune scan", 1, 1),
+    for path, S, reps in (("run_query / engine_prune scan", 1, 5),
                           ("engine_prune two_pass", SHARDS, 5)):
         kw = dict(shards=S, block=1, policy="lru", **DISTINCT)
         full = P.distinct_shard_states_kernel(fs, **kw)
@@ -1171,8 +1366,8 @@ def time_lru(torch, P, R, fs, totals, clock_hz):
                      *zip(pre[1:], st2)]
         else:
             n = m
-            (k2, st2), plain_s = sync_time(lambda: R.distinct_lru_ref(
-                fs.view(S, -1), d=d, w=w, return_state=True))
+            (k2, st2), plain_s = on_host(lambda u: R.distinct_lru_ref(
+                u, d=d, w=w, return_state=True), fs.view(S, -1))
             pairs = [(full[0].view(S, -1), k2), *zip(full[1:], st2)]
         errs.append(max_abs_err(pairs))
         check(errs[-1] == 0.0, f"distinct_pass1_lru {path} on the 2^25-row "
@@ -1180,11 +1375,12 @@ def time_lru(torch, P, R, fs, totals, clock_hz):
         # the full-size run above was the warm-up
         ms = event_ms(lambda: P.distinct_shard_states_kernel(fs, **kw), reps,
                       warm=False)
-        bound, by = pass1_bound(m, S, 1, m * 4, S * (d * w * 5 + d * 4),
-                                clock_hz)
+        bound, by = walk_bound(torch, fs, S, d, None, bytes_ms(
+            m * 4 + m + S * (d * w * 5 + d * 4)), clock_hz)
         say("timing", kernel="distinct_pass1_lru", path=json.dumps(path),
             S=S, B=1, ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
-            bound_ms=bound, bound_by=by, chain_steps=m // S,
+            plain_on="card" if S == 1 else "host", bound_ms=bound,
+            bound_by=by, chain_steps=m // S,
             kept=int(full[0].sum()), max_abs_err=errs[-1])
         first = first or (ms, plain_s * 1e3, bound, by)
     return _row("distinct_pass1_lru", totals, max(errs), *first)
@@ -1450,9 +1646,10 @@ def time_groupby(torch, table, totals, clock_hz):
     depend only on the lane's entries up to i, so the plain scan of each
     lane's first GROUPBY_PREFIX / S entries (SCAN_PREFIX at S = 1) checks
     the full-size run's emissions there, and the kernel rerun on that
-    prefix is checked state and all. The COUNT scan, which differs from
-    the SUM scan only in its fold, is checked on the prefix alone (no
-    full-size run). Bound: the serial chain, m / S steps a lane."""
+    prefix is checked state and all; phase_witness holds the one-lane
+    scans against the retired serial kernel on the whole column. Bound:
+    the longest chain of the row-parallel walk on this stream (walk_bound),
+    or bytes (read keys and values, write the emissions and the caches)."""
     from repro_torch.kernels import groupby_scan as G
 
     keys, vals = table.cols["source_ip"], table.cols["ad_revenue"]
@@ -1460,36 +1657,164 @@ def time_groupby(torch, table, totals, clock_hz):
     errs, first = [], None
     for path, agg, S, reps in (
             ("engine_prune two_pass GROUP BY COUNT", "count", SHARDS, 5),
-            ("run_query GROUP BY SUM (scan)", "sum", 1, 2),
-            ("run_query GROUP BY COUNT (scan)", "count", 1, 0)):
+            ("run_query GROUP BY SUM (scan)", "sum", 1, 5),
+            ("run_query GROUP BY COUNT (scan)", "count", 1, 5)):
         kw = dict(agg=agg, **GROUPBY)
         n = (GROUPBY_PREFIX if S > 1 else SCAN_PREFIX) // S
         kp = keys.view(S, -1)[:, :n].contiguous()
         vp = vals.view(S, -1)[:, :n].contiguous()
         evp, stp = G.groupby_pass1_kernel(kp.view(-1), vp.view(-1), shards=S,
                                           **kw)
-        (ev2, st2), plain_s = sync_time(
-            lambda: G.groupby_pass1_plain(kp, vp, None, **kw))
+        # the reported (first) shape's plain loop runs on the card, the
+        # others on the host (on_host)
+        host = first is not None
+        (ev2, st2), plain_s = (
+            on_host(lambda a, b: G.groupby_pass1_plain(a, b, None, **kw),
+                    kp, vp) if host
+            else sync_time(lambda: G.groupby_pass1_plain(kp, vp, None, **kw)))
         pairs = [(a.view(S, n), b) for a, b in zip(evp, ev2)] + list(
             zip(stp, st2))
-        if reps:
-            ev, _ = G.groupby_pass1_kernel(keys, vals, shards=S, **kw)
-            pairs += [(a.view(S, -1)[:, :n], b) for a, b in zip(ev, ev2)]
+        ev, _ = G.groupby_pass1_kernel(keys, vals, shards=S, **kw)
+        pairs += [(a.view(S, -1)[:, :n], b) for a, b in zip(ev, ev2)]
         errs.append(max_abs_err(pairs))
         err = errs[-1]
         check(err == 0.0, f"groupby_pass1 {path} on the 2^25-row table")
-        if not reps:
-            continue
         # the full-size run above was the warm-up
         ms = event_ms(lambda: G.groupby_pass1_kernel(keys, vals, shards=S,
                                                      **kw), reps, warm=False)
-        bound, by = pass1_bound(m, S, 1, m * 8, S * GROUPBY["d"]
-                                * GROUPBY["w"] * 9 + m * 8, clock_hz)
+        # COUNT's running values over a run of one key are a + i, exact in
+        # f32 below 2^24 entries a row: no chain of folds
+        bound, by = walk_bound(torch, keys, S, GROUPBY["d"],
+                               None if agg == "count" else FADD_CYCLES,
+                               bytes_ms(m * 8 + m * 9 + S * GROUPBY["d"]
+                                        * GROUPBY["w"] * 9), clock_hz)
         say("timing", kernel="groupby_pass1", path=json.dumps(path), S=S,
             B=1, ms=ms, compared_entries=S * n, plain_ms=plain_s * 1e3,
-            bound_ms=bound, bound_by=by, chain_steps=m // S, max_abs_err=err)
+            plain_on="host" if host else "card", bound_ms=bound, bound_by=by,
+            chain_steps=m // S, max_abs_err=err)
         first = first or (ms, plain_s * 1e3, bound, by)
     return _row("groupby_pass1", totals, max(errs), *first)
+
+
+def walk_bound(torch, keys, S, d, fold_cycles, bytes_ms, clock_hz):
+    """(ms, what sets it) of the least time of a row-parallel walk over
+    this stream: the larger of ``bytes_ms`` and its longest dependent
+    chain. An entry touches only its own (lane, row) segment, so the chain
+    is the costliest segment's: REG_STEP_CYCLES for each entry whose key
+    differs from its segment predecessor's (the walk keeps the row in
+    registers), and for each repeat ``fold_cycles``: None where a repeat
+    needs no dependent step (DISTINCT drops it; GROUP BY COUNT's running
+    values are a + i), else one fold (GROUP BY SUM, MIN, MAX: the order of
+    the folds fixes the result's bits). The segments come from a stable
+    sort here, which is bookkeeping of this measurement, not a step of the
+    kernel."""
+    from repro_torch.core.hashing import as_u32, hash_mod
+
+    n = keys.numel() // S
+    seg = (torch.arange(S, device=keys.device).repeat_interleave(n) * d
+           + hash_mod(keys, d, 0))
+    order = torch.sort(seg, stable=True).indices
+    ss, kk = seg[order], as_u32(keys)[order]
+    new = torch.ones_like(ss, dtype=torch.bool)
+    new[1:] = (ss[1:] != ss[:-1]) | (kk[1:] != kk[:-1])
+    cost = torch.where(new, float(REG_STEP_CYCLES), float(fold_cycles or 0))
+    cycles = float(torch.bincount(ss, weights=cost.double(),
+                                  minlength=S * d).max())
+    t_chain = cycles / clock_hz * 1e3
+    say("timing", walk_chain_cycles=cycles, S=S, d=d,
+        segment_steps_max=int(torch.bincount(ss[new], minlength=S * d).max()))
+    return (bytes_ms, "bytes") if bytes_ms >= t_chain else (t_chain, "chain")
+
+
+def profile_walks(torch, table):
+    """Device time of each internal kernel of the row-parallel walks on the
+    2^25-row table (torch.profiler, one traced run after a warm-up): LRU
+    DISTINCT and GROUP BY SUM at S = 1, both at S = 128."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import groupby_scan as G
+    from repro_torch.kernels import parallel as P
+
+    fs, xs = table.cols["source_ip"], table.cols["ad_revenue"]
+    for S in (1, SHARDS):
+        for name, fn in (
+                ("distinct_pass1_lru", lambda: P.distinct_shard_states_kernel(
+                    fs, shards=S, block=1, policy="lru", **DISTINCT)),
+                ("groupby_pass1", lambda: G.groupby_pass1_kernel(
+                    fs, xs, shards=S, agg="sum", **GROUPBY))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            parts = {}
+            for e in prof.key_averages():
+                if e.device_time_total > 0:
+                    hit = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
+                    key = hit.group(1) if hit else e.key
+                    parts[key] = round(parts.get(key, 0.0)
+                                       + e.device_time_total / 1e3, 4)
+            say("timing", profile=name, S=S,
+                device_ms=json.dumps(parts, separators=(",", ":")))
+
+
+def serial_kernel(torch, name, argtypes, *args):
+    """Launch a retired serial kernel of the library by its C entry (no
+    entry point of the package reaches it); raises on a refused launch."""
+    from repro_torch.kernels.common import I32, P, library_fn
+
+    fn = library_fn(name, argtypes + [P], I32)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} failed to launch: cudaError {err}")
+
+
+def phase_witness(torch, table):
+    """The row-parallel walks against the serial kernels they replaced,
+    bit for bit, on the whole 2^25-entry source_ip column at S = 1: DISTINCT
+    FIFO and LRU (keep, slots, valid, head) and GROUP BY SUM and COUNT of
+    ad_revenue (emissions and cache). The hot row holds a quarter of the
+    stream, which is where a row-parallel walk can go wrong."""
+    from repro_torch.kernels import groupby_scan as G
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels.common import I32, P as VP, U32, ptr
+
+    fs, xs = table.cols["source_ip"], table.cols["ad_revenue"]
+    m, d, w = M_MAIN, DISTINCT["d"], DISTINCT["w"]
+    for policy in ("fifo", "lru"):
+        new = P.distinct_shard_states_kernel(fs, shards=1, block=1,
+                                             policy=policy, **DISTINCT)
+        old = (torch.empty(m, dtype=torch.bool, device="cuda"),
+               torch.empty((1, d, w), dtype=torch.uint32, device="cuda"),
+               torch.empty((1, d, w), dtype=torch.bool, device="cuda"),
+               torch.empty((1, d), dtype=torch.int32, device="cuda"))
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "distinct_pass1_serial", [VP] * 5 + [I32] * 5 + [U32],
+            *(ptr(t) for t in (fs,) + old), 1, m, d, w,
+            int(policy == "lru"), 0))
+        err = max_abs_err(zip(new, old))
+        check(err == 0.0 and all(same(a, b) for a, b in zip(new, old)),
+              f"distinct_pass1 {policy} differs from the serial "
+              "kernel on the 2^25-entry column")
+        say("witness", kernel="distinct_pass1", policy=policy, entries=m,
+            serial_s=secs, kept=int(new[0].sum()), max_abs_err=err)
+    for agg in ("sum", "count"):
+        ev, st = G.groupby_pass1_kernel(fs, xs, agg=agg, **GROUPBY)
+        old_ev = (torch.empty(m, dtype=torch.uint32, device="cuda"),
+                  torch.empty(m, dtype=torch.float32, device="cuda"),
+                  torch.empty(m, dtype=torch.bool, device="cuda"))
+        old_st = G.init_state(1, GROUPBY["d"], GROUPBY["w"], agg, "cuda")
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "groupby_pass1_serial", [VP] * 9 + [I32] * 5 + [U32],
+            ptr(fs), ptr(xs), None, *(ptr(t) for t in old_ev + old_st), 1,
+            m, GROUPBY["d"], GROUPBY["w"], G.AGGS.index(agg), 0))
+        err = max_abs_err(zip(ev + st, old_ev + old_st))
+        check(err == 0.0 and all(same(a, b) for a, b in zip(
+            ev + st, old_ev + old_st)), f"groupby_pass1 {agg} differs from "
+              "the serial "
+              "kernel on the 2^25-entry column")
+        say("witness", kernel="groupby_pass1", agg=agg, entries=m,
+            serial_s=secs, emitted=int(ev[2].sum()), max_abs_err=err)
 
 
 SOURCES = {
@@ -1576,10 +1901,20 @@ def main() -> int:
         print(f"chip_smoke: kernel build failed: {e}", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_kernels(torch, P, R, O)
-    table, rankings, pts, totals, encoded, rle = phase_main(torch, P, O)
-    rows = phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
-                        encoded, rle)
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say("phase", name=name, s=round(time.perf_counter() - t0, 3))
+        return out
+
+    timed("kernels", phase_kernels, torch, P, R, O)
+    timed("dtypes", phase_dtypes, torch, P)
+    table, rankings, pts, totals, encoded, rle = timed(
+        "main", phase_main, torch, P, O)
+    rows = timed("timing", phase_timing, torch, P, R, table, rankings, pts,
+                 totals, clock_hz, encoded, rle)
+    timed("witness", phase_witness, torch, table)
     say("done", s=round(time.perf_counter() - t_start, 3),
         failures=len(FAILURES))
     if FAILURES:

@@ -42,15 +42,17 @@ def distinct_prune(values: torch.Tensor, *, d: int, w: int,
 
     keep[i] is True iff value i was not found in its row's cache.
     ``policy`` is "lru" (the default, as in the JAX package) or "fifo".
+    Other integer streams are taken by their 32-bit lanes; a float stream
+    follows the JAX package's f32 compare (``kernels.ref.distinct_keys``).
     """
-    from ..kernels.parallel import distinct_shard_states_kernel
+    from ..kernels.parallel import distinct_form, distinct_shard_states_kernel
 
     if state is not None:
         raise NotImplementedError(
             "resuming a scan (state=) is not ported yet; see ROADMAP Queue 1 "
             "item 9 (streaming)")
     keep, slots, valid, head = distinct_shard_states_kernel(
-        values.contiguous(), d=d, w=w, shards=1, block=1, seed=seed,
+        distinct_form(values), d=d, w=w, shards=1, block=1, seed=seed,
         policy=policy)
     return PruneResult(keep=keep, state=DistinctState(slots[0], valid[0],
                                                       head[0]))
@@ -61,7 +63,9 @@ def master_complete_distinct(values: torch.Tensor,
     """Master-side completion: bool mask over the stream selecting the first
     forwarded occurrence of each distinct forwarded value."""
     m = values.shape[0]
-    v = as_u32(values)
+    # floats group by value, as the JAX package's sort does (-0.0 is 0.0,
+    # and NaN equals nothing)
+    v = values if values.is_floating_point() else as_u32(values)
     sv, order = torch.sort(v, stable=True)
     sk = keep[order]
     ski = sk.to(torch.int64)

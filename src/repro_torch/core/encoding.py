@@ -47,6 +47,16 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[idx]
 
 
+def cast_fill(fill, dtype: torch.dtype) -> torch.Tensor:
+    """A one-element CPU tensor of ``dtype`` holding ``fill`` converted as
+    numpy converts it, as the JAX package's ``jnp.asarray(fill, dtype)``
+    does: NEG into int32 is -2^31, where ``torch.full`` refuses the
+    overflow."""
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    with np.errstate(invalid="ignore", over="ignore"):
+        return torch.from_numpy(np.asarray(fill).astype(np_dtype)[None])
+
+
 @dataclasses.dataclass(frozen=True)
 class DictEncoding:
     """Sorted-dictionary encoding: ``decoded = lut[codes]``.
@@ -74,18 +84,18 @@ class DictEncoding:
         return take_rows(self.lut, by_value(codes))
 
     def with_pad(self, fill) -> "DictEncoding":
-        """An encoding with one more slot, decoding to ``fill``."""
+        """An encoding with one more slot, decoding to ``fill`` converted
+        to the dictionary's dtype (``cast_fill``)."""
         if self.pad_slot:
             return self
         lut = self.lut
+        tail = cast_fill(fill, lut.dtype)
         if lut.dtype == torch.uint32:
-            f = int(fill) & 0xFFFFFFFF
-            tail = torch.tensor([f - (1 << 32) if f >= (1 << 31) else f],
-                                dtype=torch.int32, device=lut.device)
-            lut = torch.cat([lut.view(torch.int32), tail]).view(torch.uint32)
+            lut = torch.cat([lut.view(torch.int32),
+                             tail.view(torch.int32).to(lut.device)])
+            lut = lut.view(torch.uint32)
         else:
-            tail = torch.tensor([fill], dtype=lut.dtype, device=lut.device)
-            lut = torch.cat([lut, tail])
+            lut = torch.cat([lut, tail.to(lut.device)])
         return DictEncoding(lut=lut, pad_slot=True)
 
 

@@ -161,8 +161,8 @@ def _topn_rand_pass1(lanes, p):
     (x,) = lanes
     S = x.shape[0]
     keep, vals = kpar.topn_shard_states_kernel(
-        x.reshape(-1), d=p["d"], w=p["w"], shards=S, block=1,
-        seed=p.get("seed", 0))
+        x.reshape(-1).to(torch.float32).contiguous(), d=p["d"], w=p["w"],
+        shards=S, block=1, seed=p.get("seed", 0))
     return keep.reshape(x.shape), TopNRandState(vals=vals), None
 
 
@@ -173,8 +173,9 @@ def _topn_rand_merge(st, p):
 def _topn_rand_apply(merged, lanes, keep1, p):
     del keep1
     (x,) = lanes
-    keep = kpar.topn_apply_kernel(x.reshape(-1), merged.vals, d=p["d"],
-                                  shards=x.shape[0], seed=p.get("seed", 0))
+    keep = kpar.topn_apply_kernel(
+        x.reshape(-1).to(torch.float32).contiguous(), merged.vals, d=p["d"],
+        shards=x.shape[0], seed=p.get("seed", 0))
     return keep.reshape(x.shape)
 
 
@@ -183,8 +184,8 @@ def _distinct_pass1(lanes, p):
     (x,) = lanes
     S = x.shape[0]
     keep, slots, valid, head = kpar.distinct_shard_states_kernel(
-        x.reshape(-1).contiguous(), d=p["d"], w=p["w"], shards=S, block=1,
-        seed=p.get("seed", 0), policy=p.get("policy", "lru"))
+        kpar.distinct_form(x.reshape(-1)), d=p["d"], w=p["w"], shards=S,
+        block=1, seed=p.get("seed", 0), policy=p.get("policy", "lru"))
     return keep.reshape(x.shape), DistinctState(slots, valid, head), None
 
 
@@ -196,8 +197,8 @@ def _distinct_merge(st, p):
 def _distinct_apply(merged, lanes, keep1, p):
     (x,) = lanes
     keep = kpar.distinct_apply_kernel(
-        x.reshape(-1), keep1.reshape(-1), merged.slots, merged.valid,
-        d=p["d"], shards=x.shape[0], seed=p.get("seed", 0))
+        kpar.distinct_form(x.reshape(-1)), keep1.reshape(-1), merged.slots,
+        merged.valid, d=p["d"], shards=x.shape[0], seed=p.get("seed", 0))
     return keep.reshape(x.shape)
 
 

@@ -65,24 +65,52 @@ def groupby_prune(keys: torch.Tensor, values: torch.Tensor,
 
 
 def _fold_by_key(keys: torch.Tensor, vals: torch.Tensor, agg: str) -> dict:
-    """{key: aggregate} of f64 values: sum/count by a sort and a segment
-    sum, min/max by a segment reduce; one dict built at the end."""
+    """{key: aggregate} of f64 values, in the order given: sum/count by a
+    sort and a segment sum; min/max as Python's ``min``/``max`` fold them
+    left to right (``_fold_in_order``); one dict built at the end."""
     if keys.numel() == 0:
         return {}
     keys, order = torch.sort(keys, stable=True)
     uniq, counts = torch.unique_consecutive(keys, return_counts=True)
-    out = torch.segment_reduce(vals[order], "sum" if agg == "count" else agg,
-                               lengths=counts)
+    if agg in ("sum", "count"):
+        out = torch.segment_reduce(vals[order], "sum", lengths=counts)
+    else:
+        out = _fold_in_order(vals[order], counts, agg)
     return dict(zip(uniq.tolist(), out.tolist()))
+
+
+def _fold_in_order(vals: torch.Tensor, counts: torch.Tensor,
+                   agg: str) -> torch.Tensor:
+    """Per segment, ``min`` (or ``max``) folded left to right as Python's
+    ``out = min(out, v)`` does: v replaces out only when v < out. A NaN
+    first stays (no compare with it holds); a later NaN never replaces; of
+    equal values (0.0 and -0.0) the first stays."""
+    starts = torch.cumsum(counts, 0) - counts
+    seg = torch.repeat_interleave(torch.arange(counts.shape[0],
+                                               device=vals.device), counts)
+    first = vals[starts]
+    fill = float("inf") if agg == "min" else -float("inf")
+    best = torch.segment_reduce(torch.where(vals.isnan(), fill, vals), agg,
+                                lengths=counts)
+    # the first value of the segment that equals its best one
+    pos = torch.arange(vals.shape[0], device=vals.device)
+    at = torch.where(vals == best[seg], pos, vals.shape[0])
+    firstbest = torch.full_like(counts, vals.shape[0]).scatter_reduce(
+        0, seg, at, "amin")
+    # (an all-NaN segment has none; it keeps its first value)
+    won = vals[firstbest.clamp(max=vals.shape[0] - 1)]
+    return torch.where(first.isnan(), first, won)
 
 
 def master_complete_groupby(result: PruneResult, agg: str = "sum") -> dict:
     """Fold the evicted partials and the final switch state into exact Q(D):
-    a dict {key: aggregate} of Python numbers, folded in f64 on the device.
+    a dict {key: aggregate} of Python numbers, folded in f64 on the device,
+    emissions first (in stream order), then the state.
 
     Integer-valued sums are exact in any order; for non-integer values the
     order of the f64 sum (a segment sum here, emission order in the JAX
-    package) moves the last bits.
+    package) moves the last bits. MIN and MAX fold in the reference's order
+    with its NaN rule (``_fold_in_order``).
     """
     ev_k, ev_a, ev_valid = result.emitted
     st = result.state

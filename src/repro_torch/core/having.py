@@ -11,6 +11,9 @@ then pruned (ROADMAP Queue 3); the port reproduces that bit for bit.
 """
 from __future__ import annotations
 
+import math
+import numbers
+
 import torch
 
 from ..device import resolve_device
@@ -46,7 +49,11 @@ def master_complete_having(keys, values, keep, threshold, agg: str = "sum"):
     keys whose aggregate exceeds the threshold.
 
     Forwarded values are cast to int64 before summing, as the reference
-    does (so float values are truncated toward zero).
+    does (so float values are truncated toward zero, and NaN, +-inf and
+    values beyond the int64 range become -2^63, as numpy casts them on
+    x86). The sums are exact, as the reference's Python ints are: each
+    int64 is summed as two 32-bit halves, and the compare with the
+    threshold is exact (``_exceeds``).
     """
     keys = torch.as_tensor(keys)
     keep = torch.as_tensor(keep, device=keys.device)
@@ -58,13 +65,45 @@ def master_complete_having(keys, values, keep, threshold, agg: str = "sum"):
     else:
         values = torch.as_tensor(values, device=keys.device)
         v = (as_u32(values) if values.dtype == torch.uint32
-             else values.to(torch.int64))[keep]
+             else _to_int64(values))[keep]
     uniq, inv = torch.unique(k, return_inverse=True)
-    sums = torch.zeros(uniq.shape[0], dtype=torch.int64,
-                       device=keys.device).index_add_(0, inv, v)
-    over = (sums > threshold if isinstance(threshold, int)
-            else sums.to(torch.float64) > threshold)
-    return uniq[over].tolist()
+    sums = [torch.zeros(uniq.shape[0], dtype=torch.int64,
+                        device=keys.device).index_add_(0, inv, half)
+            for half in (v >> 32, v & 0xFFFFFFFF)]
+    return uniq[_exceeds(*sums, threshold)].tolist()
+
+
+def _to_int64(values: torch.Tensor) -> torch.Tensor:
+    """numpy's ``astype(np.int64)`` on x86: floats truncate toward zero;
+    NaN, +-inf and anything outside [-2^63, 2^63) become -2^63."""
+    if not values.is_floating_point():
+        return values.to(torch.int64)
+    v = values.to(torch.float64)
+    ok = (v >= -(2.0 ** 63)) & (v < 2.0 ** 63)
+    return torch.where(ok, v, 0.0).to(torch.int64).masked_fill(
+        ~ok, -(1 << 63))
+
+
+def _exceeds(hi: torch.Tensor, lo: torch.Tensor, threshold) -> torch.Tensor:
+    """hi * 2^32 + lo > threshold, exactly, for summed halves hi (signed)
+    and lo (each term in [0, 2^32)), as Python compares an int with an int
+    or a float."""
+    if isinstance(threshold, numbers.Integral):
+        threshold = int(threshold)
+    else:
+        t = float(threshold)
+        if math.isnan(t):
+            return torch.zeros(hi.shape, dtype=torch.bool, device=hi.device)
+        if math.isinf(t):
+            return torch.full(hi.shape, t < 0, dtype=torch.bool,
+                              device=hi.device)
+        threshold = math.floor(t)  # an int s > t iff s > floor(t)
+    hi = hi + (lo >> 32)
+    lo = lo & 0xFFFFFFFF
+    limit = (1 << 63) - 1
+    t_hi = max(-limit, min(limit, threshold >> 32))
+    t_lo = threshold & 0xFFFFFFFF if -limit < threshold >> 32 < limit else 0
+    return (hi > t_hi) | ((hi == t_hi) & (lo > t_lo))
 
 
 def having_oracle(keys, values, threshold, agg: str = "sum"):

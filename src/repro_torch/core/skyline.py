@@ -13,6 +13,7 @@ The port takes ``e`` from the exponent bits and ``2^e`` exactly, where the
 JAX package calls ``floor(log2(.))`` and ``exp2``; the two agree bit for
 bit on the value ranges of the benchmark tables (below 2000, and the
 gamma law of ``ad_revenue``) and within 2 ulp elsewhere (ROADMAP Queue 3).
+A coordinate of +inf scores NaN, as ``inf / exp2(inf)`` does there.
 
 ``form`` picks the association of the APH term: ``"engine"`` is
 ``e + (m - 1)`` as the engine's ``score_aph`` computes it, ``"kernel"`` is
@@ -56,6 +57,8 @@ def aph_terms(x: torch.Tensor, form: str = "engine") -> torch.Tensor:
     e = ((bits >> 23) - 127).to(torch.float32)
     mant = ((bits & 0x7FFFFF) | 0x3F800000).view(torch.float32)
     lg = e + (mant - 1.0) if form == "engine" else (e + mant) - 1.0
+    # +inf: XLA's floor(log2(inf)) + inf / exp2(inf) - 1 is NaN
+    lg = torch.where(v == float("inf"), float("nan"), lg)
     return torch.where(v >= 1.0, lg, torch.full_like(lg, -16.0))
 
 

@@ -120,6 +120,23 @@ U32 = ctypes.c_uint32
 F32 = ctypes.c_float
 
 
+def library_fn(name: str, argtypes: list, restype):
+    """The C function ``name`` of the kernel library, typed."""
+    fn = getattr(library(), name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
+def workspace(device: torch.device, size_fn: str, *args) -> torch.Tensor:
+    """Scratch device memory of the size that the C function ``size_fn``
+    gives for the int arguments ``args`` (the row-parallel walks' partition
+    buffers); the launch carves it up."""
+    nbytes = int(library_fn(size_fn, [I32] * len(args), ctypes.c_size_t)(
+        *args))
+    return torch.empty(max(nbytes, 16), dtype=torch.uint8, device=device)
+
+
 class LaunchCount:
     """A named launch count.
 
@@ -142,16 +159,10 @@ class CudaKernel(LaunchCount):
         self.argtypes = argtypes
         self.smem_fn = smem_fn
 
-    def _fn(self, name, argtypes, restype):
-        fn = getattr(library(), name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-        return fn
-
     def smem_bytes(self, *args) -> int:
         """Dynamic shared memory the launch will ask for."""
-        return int(self._fn(self.smem_fn, [I32] * len(args),
-                            ctypes.c_size_t)(*args))
+        return int(library_fn(self.smem_fn, [I32] * len(args),
+                              ctypes.c_size_t)(*args))
 
     def launch(self, device: torch.device, *args,
                count: LaunchCount | None = None) -> None:
@@ -159,7 +170,7 @@ class CudaKernel(LaunchCount):
         current one (shared-memory attributes are set per device); raises on
         a refused launch. The launch adds one to ``count``, or to this
         entry point's own count."""
-        fn = self._fn(self.name, self.argtypes + [P], I32)
+        fn = library_fn(self.name, self.argtypes + [P], I32)
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
@@ -184,6 +195,20 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_rowpar(m: int, w: int, slot_bytes: int) -> None:
+    """Raise unless a row-parallel walk takes a stream of m entries and a
+    row of w slots of ``slot_bytes`` each: a row of more than 32 slots is
+    walked in shared memory, so it must fit there, and entry indices fit an
+    int32."""
+    if w > 32 and w * slot_bytes > MAX_SMEM:
+        raise ValueError(f"a row of {w} slots ({w * slot_bytes} bytes) does "
+                         f"not fit the {MAX_SMEM} bytes of shared memory of "
+                         "the row-parallel walk")
+    if m >= (1 << 31):
+        raise ValueError(f"the row-parallel walk indexes entries in int32; "
+                         f"got m = {m}")
 
 
 def grid_for(m: int, device: torch.device, threads: int = 256) -> int:

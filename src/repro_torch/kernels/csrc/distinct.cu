@@ -4,31 +4,58 @@
 // distinct_pass1 replaces two pallas_calls of the JAX package:
 //   distinct_prune_kernel         src/repro/kernels/distinct_prune.py:67  (S = 1)
 //   distinct_shard_states_kernel  src/repro/kernels/parallel.py:209       (S shards)
-// One CTA is one switch lane over its contiguous shard. Its d x w cache sits
-// in shared memory as uint32 slots, byte-wide valid flags and a FIFO head
-// per row (the TPU kernel's split 16-bit f32 halves are not needed: slots
-// are compared as uint32). Block semantics as in src/repro/kernels/ref.py:
-// a chunk's hits read the pre-chunk cache, and the first miss of each row
-// (a shared atomicMin of its chunk position) is inserted at head[row],
-// which then advances mod w. At B = 1 this is core.distinct.distinct_prune
-// with policy "fifo". At d = 4096, w = 4 the cache takes 112 KB, above the
-// 48 KB default, so the launch opts into dynamic shared memory.
+// and, at B = 1 with lru = 1, the lax.scan of core.distinct.distinct_prune
+// with policy "lru" (src/repro/core/distinct.py:47-58), which has no Pallas
+// kernel.
 //
-// With lru = 1, distinct_pass1 runs the serial kernel with the LRU step of
-// core.distinct._step (src/repro/core/distinct.py:47-58), which the JAX
-// package computes with lax.scan and no Pallas kernel: a hit moves its slot
-// to the front (slots 1..hitpos take slots 0..hitpos-1, hitpos the first
-// hit), a miss inserts at the front and the last slot falls out; head stays
-// 0. The Pallas DISTINCT kernels are FIFO only, so LRU exists at B = 1 only.
+// B = 1 (the engine's per-entry semantics, FIFO or LRU): the row-parallel
+// walk. An entry reads and writes only the row its key hashes to, so a lane
+// is d independent chains. After the stable partition by (lane, row) of
+// rowpar.cuh:
+//   - distinct_mark: an entry whose segment predecessor has the same key,
+//     and which can hit, hits its own key and changes nothing (FIFO: the key
+//     is cached; LRU: it is at slot 0), so it is a no-op with keep = 0; the
+//     others are flagged, and an exclusive scan of the flags places them;
+//   - distinct_compact: the flagged entries, in order, with the key the
+//     slot stores and the index (sign bit: the entry cannot hit);
+//   - distinct_walk: one warp a segment, the row's w slots in registers of
+//     every lane (templated on a bound W >= w, valid flags as a bit mask),
+//     its entries loaded through a cp.async ring seven chunks of 32 ahead
+//     and read by every lane from shared memory, a whole chunk's steps
+//     unrolled. FIFO: a miss inserts at head[row], which advances mod w. LRU: a
+//     hit moves its slot to the front (slots 1..hitpos take 0..hitpos-1), a
+//     miss inserts at the front and the last slot falls out; head stays 0.
+//     keep = miss; each row's final slots, flags and head are written, the
+//     empty ones included. Rows of w > 32 slots take distinct_walk_wide:
+//     the same steps on a row in shared memory, probed lane-strided.
+// Keys: a uint32 stream compares by value. A float32 stream (fmode = 1) is
+// the JAX package's f32 column: the row is hashed from the value's bits,
+// the slot stores the value converted toward zero with saturation (NaN to
+// 0, as XLA converts f32 to uint32) and an entry hits only a slot equal to
+// that key when the key converts back to the value (the reference compares
+// slot and value in f32).
 //
-// What bounds it: the serial chain of shard_len / B chunk steps (B = 1: one
-// thread's dependent shared-memory probes of w slots per entry; B > 1: an
-// atomicMin and two barriers per chunk), not bytes.
+// B > 1: distinct_pass1_block, block semantics as in src/repro/kernels/
+// ref.py: one CTA a lane, its d x w cache in shared memory; a chunk's hits
+// read the pre-chunk cache, and the first miss of each row (a shared
+// atomicMin of its chunk position) is inserted at head[row]. At d = 4096,
+// w = 4 the cache takes 112 KB, so the launch opts into dynamic shared
+// memory.
+//
+// distinct_pass1_serial is the kernel the walk replaced (one thread of a
+// CTA walks its lane's entries in order, the cache in shared memory). No
+// entry point of the package launches it; chip_smoke.py holds the walk
+// against it at full size.
+//
+// What bounds the walk: the longest segment's chain of survivors of the
+// collapse (one dependent step on registers each, at least a compare and
+// select), or the bytes of the partition; the block kernel: shard_len / B chunk steps of an atomicMin
+// and two barriers.
 //
 // distinct_apply replaces distinct_apply_kernel (src/repro/kernels/parallel.py:267):
 // an entry kept by pass 1 is dropped when a valid slot of its row in the
 // merged union, in the columns [0, lane * w) of the lower-ranked shards,
-// holds the same fingerprint. The union [d][S*w] stays in global memory
+// holds its key (and it can hit). The union [d][S*w] stays in global memory
 // (L2-resident at the sizes used); the kernel is bound by bytes plus these
 // probes, which only kept entries make.
 #include <cuda_runtime.h>
@@ -36,19 +63,33 @@
 #include <cstdint>
 
 #include "hash.cuh"
+#include "rowpar.cuh"
 
 namespace {
 
-// kLru selects the cache policy at compile time, so the FIFO walk is the
-// same code as without LRU.
+// The key a slot stores for an entry of bits x, and whether the entry can
+// hit a slot holding it (see the header).
+__device__ __forceinline__ uint32_t distinct_key(uint32_t x, int fmode,
+                                                 bool* hittable) {
+  if (!fmode) {
+    *hittable = true;
+    return x;
+  }
+  const float f = __uint_as_float(x);
+  const uint32_t k = __float2uint_rz(f);  // saturating, NaN to 0
+  *hittable = __uint2float_rn(k) == f;
+  return k;
+}
+
+// The kernel the row-parallel walk replaced; kLru selects the policy.
 template <bool kLru>
-__global__ void distinct_pass1_serial(const uint32_t* __restrict__ x,
-                                      uint8_t* __restrict__ keep,
-                                      uint32_t* __restrict__ slots_out,
-                                      uint8_t* __restrict__ valid_out,
-                                      int* __restrict__ head_out,
-                                      int shard_len, int d, int w,
-                                      uint32_t seed) {
+__global__ void distinct_serial_kernel(const uint32_t* __restrict__ x,
+                                       uint8_t* __restrict__ keep,
+                                       uint32_t* __restrict__ slots_out,
+                                       uint8_t* __restrict__ valid_out,
+                                       int* __restrict__ head_out,
+                                       int shard_len, int d, int w,
+                                       uint32_t seed) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* slots = reinterpret_cast<uint32_t*>(smem);
   int* head = reinterpret_cast<int*>(slots + d * w);
@@ -119,7 +160,7 @@ __global__ void distinct_pass1_block(const uint32_t* __restrict__ x,
                                      uint32_t* __restrict__ slots_out,
                                      uint8_t* __restrict__ valid_out,
                                      int* __restrict__ head_out,
-                                     int shard_len, int d, int w,
+                                     int shard_len, int d, int w, int fmode,
                                      uint32_t seed) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* slots = reinterpret_cast<uint32_t*>(smem);
@@ -140,11 +181,14 @@ __global__ void distinct_pass1_block(const uint32_t* __restrict__ x,
   __syncthreads();
   for (int c0 = 0; c0 < shard_len; c0 += block) {
     const long long i = base + c0 + t;
-    const uint32_t v = x[i];
-    const int r = cheetah_hash_mod(v, d, seed);
+    const uint32_t bits = x[i];
+    bool can;
+    const uint32_t v = distinct_key(bits, fmode, &can);
+    const int r = cheetah_hash_mod(bits, d, seed);
     const int b = r * w;
     bool hit = false;
     for (int j = 0; j < w; ++j) hit |= valid[b + j] && slots[b + j] == v;
+    hit &= can;
     keep[i] = !hit;
     if (!hit) atomicMin(&first[r], t);
     __syncthreads();
@@ -168,13 +212,264 @@ __global__ void distinct_pass1_block(const uint32_t* __restrict__ x,
     head_out[static_cast<long long>(blockIdx.x) * d + r] = head[r];
 }
 
+// Flags the entries of the partitioned stream that the walk must take, and
+// drops the rest: keep = 0 for an entry whose segment predecessor has the
+// same key and which can hit. flags has m + 1 ints; the last is set to 0.
+__global__ void distinct_mark(const uint2* __restrict__ part,
+                              int* __restrict__ flags,
+                              uint8_t* __restrict__ keep, long long m,
+                              int shard_len, int d, uint32_t seed, int fmode) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < m; j += stride) {
+    bool dup = false;
+    const uint2 e1 = part[j];
+    if (j > 0) {
+      const uint2 e0 = part[j - 1];
+      if (e1.y / shard_len == e0.y / shard_len &&
+          cheetah_hash_mod(e1.x, d, seed) == cheetah_hash_mod(e0.x, d, seed)) {
+        bool can, unused;
+        const uint32_t k1 = distinct_key(e1.x, fmode, &can);
+        dup = can && k1 == distinct_key(e0.x, fmode, &unused);
+      }
+    }
+    flags[j] = !dup;
+    if (dup) keep[e1.y] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) flags[m] = 0;
+}
+
+// The flagged entries, compacted in order: the stored key, and the index
+// with the sign bit set when the entry cannot hit. pos is the exclusive
+// scan of the flags (m + 1 ints).
+__global__ void distinct_compact(const uint2* __restrict__ part,
+                                 const int* __restrict__ pos,
+                                 uint2* __restrict__ walk, long long m,
+                                 int fmode) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < m; j += stride) {
+    const int c = pos[j];
+    if (pos[j + 1] == c) continue;
+    const uint2 e = part[j];
+    bool can;
+    const uint32_t k = distinct_key(e.x, fmode, &can);
+    walk[c] = make_uint2(k, e.y | (can ? 0u : ROWPAR_INVALID));
+  }
+}
+
+// One step of a row: the entry's key v (can: it may hit) against the w
+// slots s (valid flags vm, FIFO head); returns keep = miss.
+template <int W, bool kLru>
+__device__ __forceinline__ bool distinct_step(uint32_t (&s)[W], unsigned& vm,
+                                              int& head, uint32_t v, bool can,
+                                              int w) {
+  int hp = W;
+#pragma unroll
+  for (int i = W - 1; i >= 0; --i)
+    if (((vm >> i) & 1u) && s[i] == v) hp = i;
+  const bool hit = can && hp < W;
+  if constexpr (kLru) {
+    const int lim = hit ? hp : w - 1;
+#pragma unroll
+    for (int i = W - 1; i >= 1; --i)
+      if (i <= lim) s[i] = s[i - 1];
+    s[0] = v;
+    const unsigned low = (2u << lim) - 1u;  // bits 0..lim
+    vm = (vm & ~low) | (((vm << 1) | 1u) & low);
+  } else if (!hit) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (i == head) s[i] = v;
+    vm |= 1u << head;
+    head = head + 1 == w ? 0 : head + 1;
+  }
+  return !hit;
+}
+
+// One warp a segment g = lane * d + row over its compacted entries
+// [pos[starts[g]], pos[starts[g + 1]]), loaded through the cp.async ring
+// of rowpar.cuh. W >= w bounds the registers.
+template <int W, bool kLru>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    distinct_walk(const uint2* __restrict__ walk, const int* __restrict__ pos,
+                  const int* __restrict__ starts, uint8_t* __restrict__ keep,
+                  uint32_t* __restrict__ slots_out,
+                  uint8_t* __restrict__ valid_out, int* __restrict__ head_out,
+                  long long nseg, int w) {
+  __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseg) return;  // whole warps
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lo = pos[starts[g]];
+  const int hi = pos[starts[g + 1]];
+  const int chunks = (hi - lo + 31) >> 5;
+  auto issue = [&](int c) {
+    const int j = lo + (c << 5) + lane;
+    const bool in = c < chunks && j < hi;
+    rowpar_cp<8>(&ring[warp][c % ROWPAR_STAGES][lane], walk + (in ? j : 0),
+                 in);
+    rowpar_commit();
+  };
+  for (int c = 0; c < ROWPAR_STAGES - 1; ++c) issue(c);
+  uint32_t s[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) s[i] = 0u;
+  unsigned vm = 0u;  // valid flags, bit i for slot i
+  int head = 0;
+  for (int c = 0; c < chunks; ++c) {
+    __syncwarp();  // every lane is done with the slot this issue refills
+    issue(c + ROWPAR_STAGES - 1);
+    rowpar_wait();
+    __syncwarp();  // every lane's copy of chunk c is visible to the warp
+    const uint2* ch = ring[warp][c % ROWPAR_STAGES];
+    const int n = min(32, hi - lo - (c << 5));
+    bool mine = false;
+    if (n == 32) {  // unrolled: the broadcast reads run ahead of the chain
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const uint2 x = ch[e];
+        const bool kp = distinct_step<W, kLru>(s, vm, head, x.x,
+                                               static_cast<int>(x.y) >= 0, w);
+        if (lane == e) mine = kp;
+      }
+    } else {
+      for (int e = 0; e < n; ++e) {
+        const uint2 x = ch[e];
+        const bool kp = distinct_step<W, kLru>(s, vm, head, x.x,
+                                               static_cast<int>(x.y) >= 0, w);
+        if (lane == e) mine = kp;
+      }
+    }
+    if (lane < n) keep[ch[lane].y & 0x7FFFFFFF] = mine;
+  }
+  rowpar_wait_all();
+  const long long o = g * w;
+  for (int i = lane; i < w; i += 32) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      if (c == i) v = s[c];
+    slots_out[o + i] = v;
+    valid_out[o + i] = (vm >> i) & 1u;
+  }
+  if (lane == 0) head_out[g] = head;
+}
+
+template <int W>
+void distinct_walk_launch(const uint2* walk, const int* pos,
+                          const int* starts, uint8_t* keep, uint32_t* slots,
+                          uint8_t* valid, int* head, long long nseg, int w,
+                          int lru, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((nseg * 32 + ROWPAR_THREADS - 1) /
+                                                ROWPAR_THREADS);
+  if (lru)
+    distinct_walk<W, true><<<blocks, ROWPAR_THREADS, 0, stream>>>(
+        walk, pos, starts, keep, slots, valid, head, nseg, w);
+  else
+    distinct_walk<W, false><<<blocks, ROWPAR_THREADS, 0, stream>>>(
+        walk, pos, starts, keep, slots, valid, head, nseg, w);
+}
+
+// The walk for rows wider than a warp's registers (w > 32): one warp a
+// segment as above, the row's slots and valid flags in shared memory, its
+// entries loaded 32 at a time (one a lane) and broadcast by shuffles. A
+// step probes the row lane-strided and takes the first hit with a warp min.
+template <bool kLru>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    distinct_walk_wide(const uint2* __restrict__ walk,
+                       const int* __restrict__ pos,
+                       const int* __restrict__ starts,
+                       uint8_t* __restrict__ keep,
+                       uint32_t* __restrict__ slots_out,
+                       uint8_t* __restrict__ valid_out,
+                       int* __restrict__ head_out, long long nseg, int w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long g = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (g >= nseg) return;  // whole warps
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * w;
+  uint8_t* vb = smem + static_cast<size_t>(warps) * w * sizeof(uint32_t) +
+                static_cast<size_t>(warp) * w;
+  for (int i = lane; i < w; i += 32) {
+    s[i] = 0u;
+    vb[i] = 0;
+  }
+  __syncwarp();
+  const int lo = pos[starts[g]];
+  const int hi = pos[starts[g + 1]];
+  int head = 0;
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int n = min(32, hi - c0);
+    const uint2 en = lane < n ? walk[c0 + lane] : make_uint2(0u, 0u);
+    bool mine = false;
+    for (int e = 0; e < n; ++e) {
+      const uint32_t v = __shfl_sync(ROWPAR_FULL, en.x, e);
+      const bool can = static_cast<int>(__shfl_sync(ROWPAR_FULL, en.y, e)) >= 0;
+      const int hp = rowpar_first_hit(s, vb, w, v, lane);
+      const bool hit = can && hp < w;
+      if constexpr (kLru) {
+        const int lim = hit ? hp : w - 1;
+        rowpar_shift(s, lim, lane);
+        rowpar_shift(vb, lim, lane);
+        if (lane == 0) {
+          s[0] = v;
+          vb[0] = 1;
+        }
+      } else if (!hit) {
+        if (lane == 0) {
+          s[head] = v;
+          vb[head] = 1;
+        }
+        head = head + 1 == w ? 0 : head + 1;
+      }
+      __syncwarp();
+      if (lane == e) mine = !hit;
+    }
+    if (lane < n) keep[en.y & 0x7FFFFFFF] = mine;
+  }
+  const long long o = g * w;
+  for (int i = lane; i < w; i += 32) {
+    slots_out[o + i] = s[i];
+    valid_out[o + i] = vb[i];
+  }
+  if (lane == 0) head_out[g] = head;
+}
+
+cudaError_t distinct_walk_wide_launch(const uint2* walk, const int* pos,
+                                      const int* starts, uint8_t* keep,
+                                      uint32_t* slots, uint8_t* valid,
+                                      int* head, long long nseg, int w,
+                                      int lru, cudaStream_t stream) {
+  const size_t row = static_cast<size_t>(w) * (sizeof(uint32_t) + 1);
+  const int warps = rowpar_wide_warps(row);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = warps * row;
+  const unsigned blocks = static_cast<unsigned>((nseg + warps - 1) / warps);
+  const void* fn = lru ? reinterpret_cast<const void*>(distinct_walk_wide<true>)
+                       : reinterpret_cast<const void*>(distinct_walk_wide<false>);
+  cudaError_t err = cheetah_launch_prep(fn, smem);
+  if (err != cudaSuccess) return err;
+  if (lru)
+    distinct_walk_wide<true><<<blocks, warps * 32, smem, stream>>>(
+        walk, pos, starts, keep, slots, valid, head, nseg, w);
+  else
+    distinct_walk_wide<false><<<blocks, warps * 32, smem, stream>>>(
+        walk, pos, starts, keep, slots, valid, head, nseg, w);
+  return cudaGetLastError();
+}
+
 __global__ void distinct_apply_kernel(const uint32_t* __restrict__ x,
                                       const uint8_t* __restrict__ keep1,
                                       const uint32_t* __restrict__ mslots,
                                       const uint8_t* __restrict__ mvalid,
                                       uint8_t* __restrict__ keep, long long m,
                                       int shard_len, int d, int w, int sw,
-                                      uint32_t seed) {
+                                      uint32_t seed, int fmode) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < m; i += stride) {
@@ -182,59 +477,141 @@ __global__ void distinct_apply_kernel(const uint32_t* __restrict__ x,
       keep[i] = 0;
       continue;
     }
-    const uint32_t v = x[i];
-    const long long row = cheetah_hash_mod(v, d, seed);
+    const uint32_t bits = x[i];
+    bool can;
+    const uint32_t v = distinct_key(bits, fmode, &can);
+    const long long row = cheetah_hash_mod(bits, d, seed);
     const uint32_t* rs = mslots + row * sw;
     const uint8_t* rv = mvalid + row * sw;
-    const int ncols = static_cast<int>(i / shard_len) * w;
+    const int ncols = can ? static_cast<int>(i / shard_len) * w : 0;
     bool dup = false;
     for (int c = 0; c < ncols && !dup; ++c) dup = rv[c] && rs[c] == v;
     keep[i] = !dup;
   }
 }
 
+struct DistinctWork {
+  RowparPlan plan;
+  size_t partition, part, flags, partial, total;
+};
+
+DistinctWork distinct_work(int shards, int shard_len, int d) {
+  DistinctWork k;
+  k.plan = rowpar_plan(shards, shard_len, d);
+  const long long m = static_cast<long long>(shards) * shard_len;
+  k.partition = rowpar_partition_bytes(k.plan);
+  k.part = rowpar_align(m * sizeof(uint2));
+  k.flags = rowpar_align((m + 1) * sizeof(int));
+  k.partial = rowpar_align((rowpar_scan_blocks(m + 1) + 1) * sizeof(int));
+  // partition scratch; the partitioned stream; the flags and their scan's
+  // partials; the compacted stream
+  k.total = k.partition + 2 * k.part + k.flags + k.partial;
+  return k;
+}
+
+size_t serial_smem(int d, int w) {
+  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
+         static_cast<size_t>(d) * sizeof(int) +
+         CHEETAH_STAGE * (sizeof(uint32_t) + sizeof(int) + 1);
+}
+
 }  // namespace
 
+// Shared memory of the block kernel (B > 1); the walk needs none of it.
 extern "C" size_t distinct_pass1_smem(int d, int w, int block) {
-  const size_t cache = static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1);
-  if (block == 1)
-    return cache + static_cast<size_t>(d) * sizeof(int) +
-           CHEETAH_STAGE * (sizeof(uint32_t) + sizeof(int) + 1);
-  return cache + 2 * static_cast<size_t>(d) * sizeof(int);
+  (void)block;
+  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
+         2 * static_cast<size_t>(d) * sizeof(int);
+}
+
+extern "C" size_t distinct_pass1_workspace(int shards, int shard_len, int d,
+                                           int block) {
+  return block == 1 ? distinct_work(shards, shard_len, d).total : 0;
 }
 
 extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
                               uint8_t* valid, int* head, int shards,
                               int shard_len, int d, int w, int block, int lru,
-                              uint32_t seed, cudaStream_t stream) {
-  const size_t smem = distinct_pass1_smem(d, w, block);
-  if (block == 1) {
-    const void* fn = lru ? reinterpret_cast<const void*>(distinct_pass1_serial<true>)
-                         : reinterpret_cast<const void*>(distinct_pass1_serial<false>);
-    cudaError_t err = cheetah_launch_prep(fn, smem);
-    if (err != cudaSuccess) return err;
-    if (lru)
-      distinct_pass1_serial<true><<<shards, CHEETAH_STAGE, smem, stream>>>(
-          x, keep, slots, valid, head, shard_len, d, w, seed);
-    else
-      distinct_pass1_serial<false><<<shards, CHEETAH_STAGE, smem, stream>>>(
-          x, keep, slots, valid, head, shard_len, d, w, seed);
-  } else {
+                              int fmode, uint32_t seed, unsigned char* work,
+                              cudaStream_t stream) {
+  if (block > 1) {
     if (lru) return cudaErrorInvalidValue;  // LRU is per entry: B = 1 only
-    cudaError_t err = cheetah_launch_prep(reinterpret_cast<const void*>(distinct_pass1_block), smem);
+    const size_t smem = distinct_pass1_smem(d, w, block);
+    cudaError_t err = cheetah_launch_prep(
+        reinterpret_cast<const void*>(distinct_pass1_block), smem);
     if (err != cudaSuccess) return err;
     distinct_pass1_block<<<shards, block, smem, stream>>>(
-        x, keep, slots, valid, head, shard_len, d, w, seed);
+        x, keep, slots, valid, head, shard_len, d, w, fmode, seed);
+    return cudaGetLastError();
   }
+  if (w < 1 ||
+      (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 5) == 0))
+    return cudaErrorInvalidValue;
+  const DistinctWork k = distinct_work(shards, shard_len, d);
+  const long long m = static_cast<long long>(shards) * shard_len;
+  const long long nseg = static_cast<long long>(shards) * d;
+  unsigned char* p = work + k.partition;
+  uint2* part = reinterpret_cast<uint2*>(p);
+  uint2* walk = reinterpret_cast<uint2*>(p + k.part);
+  int* flags = reinterpret_cast<int*>(p + 2 * k.part);
+  int* partial = reinterpret_cast<int*>(p + 2 * k.part + k.flags);
+  int* starts = nullptr;
+  cudaError_t err = rowpar_partition(x, nullptr, nullptr, k.plan, seed, part,
+                                     work, &starts, stream);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(
+      min((m + ROWPAR_THREADS - 1) / ROWPAR_THREADS, 132LL * 16));
+  distinct_mark<<<grid, ROWPAR_THREADS, 0, stream>>>(part, flags, keep, m,
+                                                     shard_len, d, seed, fmode);
+  err = rowpar_scan(flags, m + 1, partial, stream);
+  if (err != cudaSuccess) return err;
+  distinct_compact<<<grid, ROWPAR_THREADS, 0, stream>>>(part, flags, walk, m,
+                                                        fmode);
+  if (w <= 4)
+    distinct_walk_launch<4>(walk, flags, starts, keep, slots, valid, head,
+                            nseg, w, lru, stream);
+  else if (w <= 8)
+    distinct_walk_launch<8>(walk, flags, starts, keep, slots, valid, head,
+                            nseg, w, lru, stream);
+  else if (w <= 16)
+    distinct_walk_launch<16>(walk, flags, starts, keep, slots, valid, head,
+                             nseg, w, lru, stream);
+  else if (w <= 32)
+    distinct_walk_launch<32>(walk, flags, starts, keep, slots, valid, head,
+                             nseg, w, lru, stream);
+  else
+    return distinct_walk_wide_launch(walk, flags, starts, keep, slots, valid,
+                                     head, nseg, w, lru, stream);
+  return cudaGetLastError();
+}
+
+// The retired one-thread walk, for holding the row-parallel walk against it
+// (uint32 keys only); launched by no entry point of the package.
+extern "C" int distinct_pass1_serial(const uint32_t* x, uint8_t* keep,
+                                     uint32_t* slots, uint8_t* valid,
+                                     int* head, int shards, int shard_len,
+                                     int d, int w, int lru, uint32_t seed,
+                                     cudaStream_t stream) {
+  const size_t smem = serial_smem(d, w);
+  const void* fn = lru ? reinterpret_cast<const void*>(distinct_serial_kernel<true>)
+                       : reinterpret_cast<const void*>(distinct_serial_kernel<false>);
+  cudaError_t err = cheetah_launch_prep(fn, smem);
+  if (err != cudaSuccess) return err;
+  if (lru)
+    distinct_serial_kernel<true><<<shards, CHEETAH_STAGE, smem, stream>>>(
+        x, keep, slots, valid, head, shard_len, d, w, seed);
+  else
+    distinct_serial_kernel<false><<<shards, CHEETAH_STAGE, smem, stream>>>(
+        x, keep, slots, valid, head, shard_len, d, w, seed);
   return cudaGetLastError();
 }
 
 extern "C" int distinct_apply(const uint32_t* x, const uint8_t* keep1,
                               const uint32_t* mslots, const uint8_t* mvalid,
                               uint8_t* keep, long long m, int shard_len, int d,
-                              int w, int sw, uint32_t seed, int grid,
-                              cudaStream_t stream) {
-  distinct_apply_kernel<<<grid, 256, 0, stream>>>(x, keep1, mslots, mvalid, keep,
-                                                  m, shard_len, d, w, sw, seed);
+                              int w, int sw, uint32_t seed, int fmode,
+                              int grid, cudaStream_t stream) {
+  distinct_apply_kernel<<<grid, 256, 0, stream>>>(
+      x, keep1, mslots, mvalid, keep, m, shard_len, d, w, sw, seed, fmode);
   return cudaGetLastError();
 }

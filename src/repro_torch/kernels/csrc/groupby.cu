@@ -2,13 +2,8 @@
 //
 // groupby_pass1 replaces the lax.scan of core.groupby.groupby_prune
 // (src/repro/core/groupby.py:80-120); the JAX package has no Pallas kernel
-// for it. One CTA is one switch lane over its contiguous shard. Its d x w
-// cache of (key, aggregate, valid) sits in shared memory as uint32 keys, f32
-// aggregates and byte-wide valid flags: 144 KB at d = 4096, w = 4, so the
-// launch opts into dynamic shared memory and refuses more than 227 KB.
-// All threads stage 256 entries (key, value, validity, hashed row); one
-// thread then walks them in order (per-entry semantics; the reference has no
-// block form):
+// for it. S lanes, one per contiguous shard, each with a d x w cache of
+// (key, f32 aggregate, valid) and per-entry semantics:
 //   - every entry emits the row's last slot as it was before the entry
 //     (key, aggregate), valid only on a miss of a valid entry that pushes a
 //     valid slot out;
@@ -21,13 +16,38 @@
 // inits +-3.4e38 are taken by their f32 bits. Every entry is absorbed:
 // keep is all-False and the emissions are the switch->master traffic.
 //
-// What bounds it: the serial chain of shard_len dependent steps, each a few
-// shared-memory round trips, not bytes.
+// The row-parallel walk: an entry reads and writes only the row its key
+// hashes to, so after the stable partition by (lane, row) of rowpar.cuh
+// (key, value bits, index with the sign bit set for an invalid entry),
+// groupby_walk takes one segment a warp, the row's w slots in registers of
+// every lane (templated on a bound W >= w and on the fold), its entries
+// loaded through a cp.async ring up to eight chunks of 32 ahead and read
+// by every lane from shared memory. An entry whose segment predecessor is
+// valid with the same key (a run entry, flagged beforehand by
+// groupby_mark, one thread an entry) is a hit in the slot that key sits
+// in, so the warp folds a stretch of run entries as one dependent chain of
+// folds with no probe (a whole chunk's values read ahead of it), and each
+// of them emits the last slot as it stands, the running aggregate when the
+// key sits there. Other entries take the full step. Emissions go back to
+// the entries' indices; each row's final state is written, the empty rows
+// included. Rows of w > 32 slots take groupby_walk_wide: every entry's full
+// step on a row in shared memory, probed lane-strided.
+//
+// groupby_serial_kernel is the kernel the walk replaced (one thread of a
+// CTA walks the lane, the cache in shared memory, 144 KB at d = 4096,
+// w = 4). No entry point of the package launches it; chip_smoke.py holds
+// the walk against it at full size.
+//
+// What bounds the walk: the longest segment's chain (a fold's latency for
+// each run entry of SUM, MIN or MAX, whose order fixes the result's bits;
+// none for COUNT's, whose running values are a + i; one step on registers
+// for each other entry), or the bytes of the partition and the emissions.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "hash.cuh"
+#include "rowpar.cuh"
 
 // POS of repro_torch.constants (+3.4e38 as float32), by its bits.
 #define CHEETAH_POS_BITS 0x7f7fc99eu
@@ -59,7 +79,7 @@ __device__ __forceinline__ float init_value(int agg) {
   return 0.0f;
 }
 
-__global__ void groupby_pass1_kernel(
+__global__ void groupby_serial_kernel(
     const uint32_t* __restrict__ keys, const float* __restrict__ vals,
     const uint8_t* __restrict__ valid, uint32_t* __restrict__ ev_k,
     float* __restrict__ ev_a, uint8_t* __restrict__ ev_valid,
@@ -143,12 +163,388 @@ __global__ void groupby_pass1_kernel(
   }
 }
 
+
+template <int kAgg>
+__device__ __forceinline__ float fold_t(float a, float v) {
+  return fold(kAgg, a, v);
+}
+
+// Marks the run entries of the partitioned stream: an entry whose
+// predecessor is in the same lane, has the same key (so the same row) and
+// is valid, as it is itself. Such an entry hits the slot that key sits in.
+// The flag goes to the entry's fourth word, which the partition left 0.
+__global__ void groupby_mark(uint4* __restrict__ part, long long m,
+                             int shard_len) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(part);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < m; j += stride) {
+    if (j == 0) continue;
+    const uint32_t k1 = words[4 * j], i1 = words[4 * j + 2];
+    const uint32_t k0 = words[4 * j - 4], i0 = words[4 * j - 2];
+    const bool run = k1 == k0 && !((i1 | i0) & ROWPAR_INVALID) &&
+                     i1 / shard_len == i0 / shard_len;
+    if (run) part[j].w = 1u;
+  }
+}
+
+// One warp a segment g = lane * d + row over [starts[g], starts[g + 1]) of
+// the partitioned stream, loaded through the cp.async ring of rowpar.cuh.
+// A chunk's run mask is read one chunk ahead, so that it is ready when the
+// chunk's chain starts. W >= w bounds the registers.
+template <int W, int kAgg>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    groupby_walk(const uint4* __restrict__ part,
+                 const int* __restrict__ starts, uint32_t* __restrict__ ev_k,
+                 float* __restrict__ ev_a, uint8_t* __restrict__ ev_valid,
+                 uint32_t* __restrict__ keys_out, float* __restrict__ aggs_out,
+                 uint8_t* __restrict__ valid_out, long long nseg, int w) {
+  __shared__ uint4 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseg) return;  // whole warps
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lo = starts[g];
+  const int hi = starts[g + 1];
+  const int chunks = (hi - lo + 31) >> 5;
+  auto issue = [&](int c) {
+    const int j = lo + (c << 5) + lane;
+    const bool in = c < chunks && j < hi;
+    rowpar_cp<16>(&ring[warp][c % ROWPAR_STAGES][lane], part + (in ? j : 0),
+                  in);
+    rowpar_commit();
+  };
+  auto size = [&](int c) { return min(32, hi - lo - (c << 5)); };
+  for (int c = 0; c < ROWPAR_STAGES; ++c) issue(c);
+  const float init = init_value(kAgg);
+  const int last = w - 1;
+  const unsigned wmask = w == 32 ? ROWPAR_FULL : (1u << w) - 1u;
+  uint32_t ks[W];
+  float as[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    ks[i] = 0u;
+    as[i] = init;
+  }
+  unsigned vm = 0u;   // valid flags, bit i for slot i
+  int at = 0;         // the slot of the last valid entry's key
+  // while whole-run chunks follow each other: the run's aggregate (as[at])
+  // and the last slot's key and aggregate, held in registers
+  bool cached = false;
+  float ra = 0.0f, rla = 0.0f;
+  uint32_t rk = 0u;
+  rowpar_wait_for<ROWPAR_STAGES - 1>();
+  __syncwarp();
+  unsigned run = __ballot_sync(
+      ROWPAR_FULL, chunks > 0 && lane < size(0) && ring[warp][0][lane].w);
+  for (int c = 0; c < chunks; ++c) {
+    const uint4* ch = ring[warp][c % ROWPAR_STAGES];
+    const int n = size(c);
+    // chunk c + 1 lands while chunk c is walked; its flag is read now and
+    // voted on after the chain
+    rowpar_wait_for<ROWPAR_STAGES - 2>();
+    __syncwarp();
+    const bool more = c + 1 < chunks;
+    const uint32_t next_flag =
+        more && lane < size(c + 1) ? ring[warp][(c + 1) % ROWPAR_STAGES][lane].w
+                                   : 0u;
+    const uint4 en = ch[lane];
+    uint32_t my_k = 0u;
+    float my_a = 0.0f;
+    bool my_v = false;
+    if (run == ROWPAR_FULL) {
+      // a whole chunk of one run, the common case of a hot row: the run's
+      // aggregate and the last slot stay in registers from chunk to chunk,
+      // and the chain is 32 dependent folds of values read ahead of it
+      if (!cached) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          if (i == at) ra = as[i];
+          if (i == last) {
+            rk = ks[i];
+            rla = as[i];
+          }
+        }
+        cached = true;
+      }
+      float xs[32];
+#pragma unroll
+      for (int f = 0; f < 32; ++f) xs[f] = __uint_as_float(ch[f].y);
+      my_k = rk;
+      my_a = rla;
+      if (at == last) {
+#pragma unroll
+        for (int f = 0; f < 32; ++f) {
+          if (lane == f) my_a = ra;
+          ra = fold_t<kAgg>(ra, xs[f]);
+        }
+      } else {
+#pragma unroll
+        for (int f = 0; f < 32; ++f) ra = fold_t<kAgg>(ra, xs[f]);
+      }
+    }
+    if (run != ROWPAR_FULL && cached) {
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        if (i == at) as[i] = ra;
+      cached = false;
+    }
+    int e = run == ROWPAR_FULL ? n : 0;
+    while (e < n) {
+      const unsigned rest = run >> e;
+      if (rest & 1u) {
+        // a stretch of run entries: hits in slot `at`, one chain of folds;
+        // each emits the last slot, the running aggregate when at is last
+        const int e2 = min(n, e + (rest == (ROWPAR_FULL >> e) ? 32 - e
+                                                              : __ffs(~rest) - 1));
+        float a = as[0], la = as[0];
+        uint32_t lk = ks[0];
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          if (i == at) a = as[i];
+          if (i == last) {
+            la = as[i];
+            lk = ks[i];
+          }
+        }
+        const bool at_last = at == last;
+        my_k = e <= lane && lane < e2 ? lk : my_k;
+        if (!at_last && e <= lane && lane < e2) my_a = la;
+        for (int f = e; f < e2; ++f) {
+          if (at_last && lane == f) my_a = a;
+          a = fold_t<kAgg>(a, __uint_as_float(ch[f].y));
+        }
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          if (i == at) as[i] = a;
+        e = e2;
+        continue;
+      }
+      const uint4 ee = ch[e];
+      const uint32_t kk = ee.x;
+      const float x = __uint_as_float(ee.y);
+      const bool oo = static_cast<int>(ee.z) >= 0;
+      int hp = W;
+      uint32_t lk = ks[0];
+      float la = as[0];
+#pragma unroll
+      for (int i = W - 1; i >= 0; --i) {
+        if (((vm >> i) & 1u) && ks[i] == kk) hp = i;
+        if (i == last) {
+          lk = ks[i];
+          la = as[i];
+        }
+      }
+      if (lane == e) {
+        my_k = lk;
+        my_a = la;
+        my_v = ((vm >> last) & 1u) && hp == W && oo;
+      }
+      if (oo) {
+        if (hp < W) {
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            if (i == hp) as[i] = fold_t<kAgg>(as[i], x);
+          at = hp;
+        } else {
+#pragma unroll
+          for (int i = W - 1; i >= 1; --i) {
+            ks[i] = ks[i - 1];
+            as[i] = as[i - 1];
+          }
+          ks[0] = kk;
+          as[0] = fold_t<kAgg>(init, x);
+          vm = ((vm << 1) | 1u) & wmask;
+          at = 0;
+        }
+      }
+      ++e;
+    }
+    if (lane < n) {
+      const int i = static_cast<int>(en.z) & 0x7FFFFFFF;
+      ev_k[i] = my_k;
+      ev_a[i] = my_a;
+      ev_valid[i] = my_v;
+    }
+    run = __ballot_sync(ROWPAR_FULL, next_flag != 0u);
+    __syncwarp();  // every lane is done with slot c before it is refilled
+    issue(c + ROWPAR_STAGES);
+  }
+  if (cached) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (i == at) as[i] = ra;
+  }
+  rowpar_wait_all();
+  const long long o = g * w;
+  for (int i = lane; i < w; i += 32) {
+    uint32_t kv = 0u;
+    float av = init;
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      if (c == i) {
+        kv = ks[c];
+        av = as[c];
+      }
+    keys_out[o + i] = kv;
+    aggs_out[o + i] = av;
+    valid_out[o + i] = (vm >> i) & 1u;
+  }
+}
+
+template <int W>
+void groupby_walk_launch(const uint4* part, const int* starts, uint32_t* ev_k,
+                         float* ev_a, uint8_t* ev_valid, uint32_t* keys_out,
+                         float* aggs_out, uint8_t* valid_out, long long nseg,
+                         int w, int agg, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((nseg * 32 + ROWPAR_THREADS - 1) /
+                                                ROWPAR_THREADS);
+#define CHEETAH_WALK(A)                                                       \
+  groupby_walk<W, A><<<blocks, ROWPAR_THREADS, 0, stream>>>(                  \
+      part, starts, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,     \
+      nseg, w)
+  switch (agg) {
+    case kSum: CHEETAH_WALK(kSum); break;
+    case kCount: CHEETAH_WALK(kCount); break;
+    case kMin: CHEETAH_WALK(kMin); break;
+    default: CHEETAH_WALK(kMax); break;
+  }
+#undef CHEETAH_WALK
+}
+
+// The walk for rows wider than a warp's registers (w > 32): one warp a
+// segment, the row's keys, aggregates and valid flags in shared memory, its
+// entries loaded 32 at a time (one a lane) and broadcast by shuffles; every
+// entry takes the full step (a probe lane-strided, the first hit by a warp
+// min), run entries included.
+template <int kAgg>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    groupby_walk_wide(const uint4* __restrict__ part,
+                      const int* __restrict__ starts,
+                      uint32_t* __restrict__ ev_k, float* __restrict__ ev_a,
+                      uint8_t* __restrict__ ev_valid,
+                      uint32_t* __restrict__ keys_out,
+                      float* __restrict__ aggs_out,
+                      uint8_t* __restrict__ valid_out, long long nseg, int w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long g = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (g >= nseg) return;  // whole warps
+  const size_t cells = static_cast<size_t>(warps) * w;
+  uint32_t* ks = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * w;
+  float* as = reinterpret_cast<float*>(smem) + cells + static_cast<size_t>(warp) * w;
+  uint8_t* vb = smem + cells * 8 + static_cast<size_t>(warp) * w;
+  const float init = init_value(kAgg);
+  for (int i = lane; i < w; i += 32) {
+    ks[i] = 0u;
+    as[i] = init;
+    vb[i] = 0;
+  }
+  __syncwarp();
+  const int last = w - 1;
+  const int lo = starts[g];
+  const int hi = starts[g + 1];
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int n = min(32, hi - c0);
+    const uint4 en = lane < n ? part[c0 + lane] : make_uint4(0u, 0u, 0u, 0u);
+    uint32_t my_k = 0u;
+    float my_a = 0.0f;
+    bool my_v = false;
+    for (int e = 0; e < n; ++e) {
+      const uint32_t kk = __shfl_sync(ROWPAR_FULL, en.x, e);
+      const float x = __uint_as_float(__shfl_sync(ROWPAR_FULL, en.y, e));
+      const bool oo = static_cast<int>(__shfl_sync(ROWPAR_FULL, en.z, e)) >= 0;
+      const int hp = rowpar_first_hit(ks, vb, w, kk, lane);
+      if (lane == e) {
+        my_k = ks[last];
+        my_a = as[last];
+        my_v = vb[last] && hp == w && oo;
+      }
+      __syncwarp();
+      if (oo) {
+        if (hp < w) {
+          if (lane == 0) as[hp] = fold_t<kAgg>(as[hp], x);
+        } else {
+          rowpar_shift(ks, last, lane);
+          rowpar_shift(as, last, lane);
+          rowpar_shift(vb, last, lane);
+          if (lane == 0) {
+            ks[0] = kk;
+            as[0] = fold_t<kAgg>(init, x);
+            vb[0] = 1;
+          }
+        }
+      }
+      __syncwarp();
+    }
+    if (lane < n) {
+      const int i = static_cast<int>(en.z) & 0x7FFFFFFF;
+      ev_k[i] = my_k;
+      ev_a[i] = my_a;
+      ev_valid[i] = my_v;
+    }
+  }
+  const long long o = g * w;
+  for (int i = lane; i < w; i += 32) {
+    keys_out[o + i] = ks[i];
+    aggs_out[o + i] = as[i];
+    valid_out[o + i] = vb[i];
+  }
+}
+
+cudaError_t groupby_walk_wide_launch(const uint4* part, const int* starts,
+                                     uint32_t* ev_k, float* ev_a,
+                                     uint8_t* ev_valid, uint32_t* keys_out,
+                                     float* aggs_out, uint8_t* valid_out,
+                                     long long nseg, int w, int agg,
+                                     cudaStream_t stream) {
+  const size_t row = static_cast<size_t>(w) * 9;
+  const int warps = rowpar_wide_warps(row);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = warps * row;
+  const unsigned blocks = static_cast<unsigned>((nseg + warps - 1) / warps);
+  const void* fns[4] = {reinterpret_cast<const void*>(groupby_walk_wide<kSum>),
+                        reinterpret_cast<const void*>(groupby_walk_wide<kCount>),
+                        reinterpret_cast<const void*>(groupby_walk_wide<kMin>),
+                        reinterpret_cast<const void*>(groupby_walk_wide<kMax>)};
+  cudaError_t err = cheetah_launch_prep(fns[agg], smem);
+  if (err != cudaSuccess) return err;
+#define CHEETAH_WALK(A)                                                       \
+  groupby_walk_wide<A><<<blocks, warps * 32, smem, stream>>>(                 \
+      part, starts, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,     \
+      nseg, w)
+  switch (agg) {
+    case kSum: CHEETAH_WALK(kSum); break;
+    case kCount: CHEETAH_WALK(kCount); break;
+    case kMin: CHEETAH_WALK(kMin); break;
+    default: CHEETAH_WALK(kMax); break;
+  }
+#undef CHEETAH_WALK
+  return cudaGetLastError();
+}
+
+struct GroupbyWork {
+  RowparPlan plan;
+  size_t partition, total;
+};
+
+GroupbyWork groupby_work(int shards, int shard_len, int d) {
+  GroupbyWork k;
+  k.plan = rowpar_plan(shards, shard_len, d);
+  const long long m = static_cast<long long>(shards) * shard_len;
+  k.partition = rowpar_partition_bytes(k.plan);
+  // partition scratch; the partitioned (key, value bits, index) stream
+  k.total = k.partition + rowpar_align(m * sizeof(uint4));
+  return k;
+}
+
 }  // namespace
 
-extern "C" size_t groupby_pass1_smem(int d, int w) {
-  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + sizeof(float) + 1) +
-         CHEETAH_STAGE * (2 * sizeof(uint32_t) + 2 * sizeof(float) +
-                          sizeof(int) + 2);
+extern "C" size_t groupby_pass1_workspace(int shards, int shard_len, int d) {
+  return groupby_work(shards, shard_len, d).total;
 }
 
 extern "C" int groupby_pass1(const uint32_t* keys, const float* vals,
@@ -156,12 +552,59 @@ extern "C" int groupby_pass1(const uint32_t* keys, const float* vals,
                              uint8_t* ev_valid, uint32_t* keys_out,
                              float* aggs_out, uint8_t* valid_out, int shards,
                              int shard_len, int d, int w, int agg,
-                             uint32_t seed, cudaStream_t stream) {
-  const size_t smem = groupby_pass1_smem(d, w);
-  cudaError_t err = cheetah_launch_prep(
-      reinterpret_cast<const void*>(groupby_pass1_kernel), smem);
+                             uint32_t seed, unsigned char* work,
+                             cudaStream_t stream) {
+  if (w < 1 || agg < kSum || agg > kMax ||
+      (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 9) == 0))
+    return cudaErrorInvalidValue;
+  const GroupbyWork k = groupby_work(shards, shard_len, d);
+  const long long nseg = static_cast<long long>(shards) * d;
+  uint4* part = reinterpret_cast<uint4*>(work + k.partition);
+  int* starts = nullptr;
+  cudaError_t err = rowpar_partition(
+      keys, reinterpret_cast<const uint32_t*>(vals), valid, k.plan, seed, part,
+      work, &starts, stream);
   if (err != cudaSuccess) return err;
-  groupby_pass1_kernel<<<shards, CHEETAH_STAGE, smem, stream>>>(
+  const long long m = static_cast<long long>(shards) * shard_len;
+  groupby_mark<<<static_cast<unsigned>(min((m + ROWPAR_THREADS - 1) /
+                                           ROWPAR_THREADS, 132LL * 16)),
+                 ROWPAR_THREADS, 0, stream>>>(part, m, shard_len);
+  if (w <= 4)
+    groupby_walk_launch<4>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                           aggs_out, valid_out, nseg, w, agg, stream);
+  else if (w <= 8)
+    groupby_walk_launch<8>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                           aggs_out, valid_out, nseg, w, agg, stream);
+  else if (w <= 16)
+    groupby_walk_launch<16>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                            aggs_out, valid_out, nseg, w, agg, stream);
+  else if (w <= 32)
+    groupby_walk_launch<32>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                            aggs_out, valid_out, nseg, w, agg, stream);
+  else
+    return groupby_walk_wide_launch(part, starts, ev_k, ev_a, ev_valid,
+                                    keys_out, aggs_out, valid_out, nseg, w,
+                                    agg, stream);
+  return cudaGetLastError();
+}
+
+// The retired one-thread walk, for holding the row-parallel walk against
+// it; launched by no entry point of the package.
+extern "C" int groupby_pass1_serial(const uint32_t* keys, const float* vals,
+                                    const uint8_t* valid, uint32_t* ev_k,
+                                    float* ev_a, uint8_t* ev_valid,
+                                    uint32_t* keys_out, float* aggs_out,
+                                    uint8_t* valid_out, int shards,
+                                    int shard_len, int d, int w, int agg,
+                                    uint32_t seed, cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(d) * w * (sizeof(uint32_t) + sizeof(float) + 1) +
+      CHEETAH_STAGE * (2 * sizeof(uint32_t) + 2 * sizeof(float) +
+                       sizeof(int) + 2);
+  cudaError_t err = cheetah_launch_prep(
+      reinterpret_cast<const void*>(groupby_serial_kernel), smem);
+  if (err != cudaSuccess) return err;
+  groupby_serial_kernel<<<shards, CHEETAH_STAGE, smem, stream>>>(
       keys, vals, valid, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,
       shard_len, d, w, agg, seed);
   return cudaGetLastError();

@@ -21,6 +21,13 @@
 // kernel. No log2f / exp2f: the plain version in core/skyline.py computes
 // the same bits.
 //
+// At B = 1 the pass is the engine's per-entry scan instead, which differs
+// from one-entry blocks only on NaN scores and scores <= NEG: an entry goes
+// to pos = #(stored scores >= its score), is pruned by a dominator stored
+// at an index below pos and is inserted at pos whenever pos < w, so a NaN
+// score (pos = 0) is always inserted (src/repro/core/skyline.py:85-95). An
+// APH coordinate of +inf scores NaN, as XLA's inf / exp2(inf) does.
+//
 // What bounds it: the serial chain of shard_len / B chunk steps. At B > 1 a
 // step is a dominance test per thread, then per round a warp-shuffle arg-max
 // of (ordered score, inverted index) keys, one partial per warp in shared
@@ -45,6 +52,7 @@ enum ScoreMode { kSum = 0, kAphEngine = 1, kAphKernel = 2 };
 
 __device__ __forceinline__ float aph_term(float v, int mode) {
   if (!(v >= 1.0f)) return -16.0f;
+  if (isinf(v)) return __int_as_float(0x7FC00000);  // XLA: inf / exp2(inf)
   const unsigned b = __float_as_uint(v);
   const float e = static_cast<float>(static_cast<int>(b >> 23) - 127);
   const float mant = __uint_as_float((b & 0x7FFFFFu) | 0x3F800000u);
@@ -121,6 +129,7 @@ __global__ void skyline_pass1_serial(const float* __restrict__ x,
   float* hs = xs + CHEETAH_STAGE * D;
   uint8_t* ks = reinterpret_cast<uint8_t*>(hs + CHEETAH_STAGE);
   const long long base = static_cast<long long>(blockIdx.x) * shard_len;
+  bool nan_stored = false;  // thread 0's: a NaN score was inserted
   store_init(pts, sc, w, D);
   for (int c0 = 0; c0 < shard_len; c0 += CHEETAH_STAGE) {
     const int n = min(CHEETAH_STAGE, shard_len - c0);
@@ -133,10 +142,30 @@ __global__ void skyline_pass1_serial(const float* __restrict__ x,
     }
     __syncthreads();
     if (threadIdx.x == 0) {
+      // the engine's scan step: pos = #(stored scores >= h); pruned by a
+      // dominator at an index below pos; inserted at pos when pos < w.
+      // Until a NaN score is stored the scores stay sorted descending, and
+      // pos = w exactly when h <= the last one: no count is needed.
       for (int t = 0; t < n; ++t) {
         const float* xt = xs + t * D;
-        ks[t] = !dominated(pts, sc, w, D, xt);
-        if (hs[t] > sc[w - 1]) store_insert(pts, sc, w, D, xt, hs[t]);
+        const float h = hs[t];
+        int pos = w;
+        if (nan_stored || !(h <= sc[w - 1])) {
+          pos = 0;
+          for (int j = 0; j < w; ++j) pos += (h <= sc[j]);
+        }
+        bool dom = false;
+        for (int j = 0; j < pos && !dom; ++j) dom = dominates(pts + j * D, xt, D);
+        ks[t] = !dom;
+        if (pos < w) {
+          for (int j = w - 1; j > pos; --j) {
+            sc[j] = sc[j - 1];
+            for (int k = 0; k < D; ++k) pts[j * D + k] = pts[(j - 1) * D + k];
+          }
+          sc[pos] = h;
+          for (int k = 0; k < D; ++k) pts[pos * D + k] = xt[k];
+          nan_stored |= h != h;
+        }
       }
     }
     __syncthreads();
@@ -176,8 +205,10 @@ __global__ void skyline_pass1_block(const float* __restrict__ x,
       keep[i] = !dominated(pts, sc, w, D, xt);
       const float h = score_of(xt, D, mode);
       hs[t] = h;
-      // adding +0 folds -0 onto +0, which compare equal: the lower index wins
-      key = (static_cast<unsigned long long>(cheetah_ordered(__fadd_rn(h, 0.0f))) << 32) |
+      // adding +0 folds -0 onto +0, which compare equal: the lower index
+      // wins; a NaN is the block's best (jnp.max), whatever its sign bit
+      const unsigned o = h != h ? 0xFFFFFFFFu : cheetah_ordered(__fadd_rn(h, 0.0f));
+      key = (static_cast<unsigned long long>(o) << 32) |
             (0xFFFFFFFFu - static_cast<unsigned>(t));
     }
     bool taken = false;
@@ -193,9 +224,11 @@ __global__ void skyline_pass1_block(const float* __restrict__ x,
       for (int j = 0; j < nwarps; ++j) best = wk[j] > best ? wk[j] : best;
       const int win = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(best));
       const bool go = best != 0ull && hs[win] > sc[w - 1];
+      // a NaN winner spends its round and inserts nothing (NaN > x is false)
+      const bool nan = best != 0ull && hs[win] != hs[win];
       __syncthreads();
-      if (!go) break;
-      if (t == 0) store_insert(pts, sc, w, D, xs + win * D, hs[win]);
+      if (!go && !nan) break;
+      if (go && t == 0) store_insert(pts, sc, w, D, xs + win * D, hs[win]);
       if (t == win) taken = true;
     }
     __syncthreads();

@@ -15,7 +15,11 @@ whose validity is False touch nothing.
 Each entry point launches the CUDA kernel for a CUDA tensor and runs the
 plain version (a loop over entries, vectorised across lanes) for a CPU
 tensor. Both are bit-identical: the folds are f32 adds, compares and
-``+ 1.0`` in entry order.
+``+ 1.0`` in entry order. The CUDA kernel is the row-parallel walk of
+``csrc/groupby.cu``: an entry touches only the row its key hashes to, so
+each (lane, row) is walked on its own, in stream order, after a stable
+partition (any d, both branches of ``hash_mod``; a row of w > 32 slots
+is walked in shared memory).
 """
 from __future__ import annotations
 
@@ -24,11 +28,12 @@ import torch
 from ..constants import NEG, POS
 from ..core.hashing import as_u32, hash_mod
 from .cms_sketch import _keys_u32, wrap_i32
-from .common import I32, MAX_SMEM, P, U32, CudaKernel, check_cuda, ptr
+from .common import (I32, P, U32, CudaKernel, check_cuda, check_rowpar, ptr,
+                     workspace)
 
 GROUPBY_PASS1 = CudaKernel(
-    "groupby_pass1", [P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, U32],
-    smem_fn="groupby_pass1_smem")
+    "groupby_pass1",
+    [P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, U32, P])
 AGGS = ("sum", "count", "min", "max")
 INIT = {"sum": 0.0, "count": 0.0, "min": float(POS), "max": float(NEG)}
 
@@ -129,18 +134,17 @@ def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
     check_cuda("values", values, torch.float32, keys.device)
     if valid is not None:
         check_cuda("valid", valid, torch.bool, keys.device)
-    need = GROUPBY_PASS1.smem_bytes(d, w)
-    if need > MAX_SMEM:
-        raise ValueError(f"groupby_pass1 needs {need} bytes of shared memory "
-                         f"at d={d}, w={w}; a Hopper block has {MAX_SMEM}")
+    check_rowpar(m, w, 9)
     dev = keys.device
     ev_k = torch.empty(m, dtype=torch.int32, device=dev).view(torch.uint32)
     ev_a = torch.empty(m, dtype=torch.float32, device=dev)
     ev_v = torch.empty(m, dtype=torch.bool, device=dev)
     st = init_state(shards, d, w, agg, dev)
     if m:
+        work = workspace(dev, "groupby_pass1_workspace", shards, n, d)
         GROUPBY_PASS1.launch(dev, ptr(k), ptr(values),
                              None if valid is None else ptr(valid), ptr(ev_k),
                              ptr(ev_a), ptr(ev_v), *(ptr(s) for s in st),
-                             shards, n, d, w, code, seed & 0xFFFFFFFF)
+                             shards, n, d, w, code, seed & 0xFFFFFFFF,
+                             ptr(work))
     return (ev_k, ev_a, ev_v), st

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import NEG, POS
+from ..core.encoding import cast_fill
 from ..core.hashing import as_u32
 from . import parallel
 from .bloom_filter import (bloom_build_kernel, bloom_query_kernel, pack_bits,
@@ -39,7 +40,8 @@ def _pad_to(x: torch.Tensor, block: int, fill,
             dim: int = 0) -> tuple[torch.Tensor, int]:
     """Tail-pad ``x`` along ``dim`` with ``fill`` to a multiple of ``block``;
     returns (padded, original length). uint32 pads through its int32 view,
-    with ``fill`` taken mod 2^32."""
+    with ``fill`` taken mod 2^32; a float fill of an integer stream is
+    converted as numpy converts it (``cast_fill``: NEG is -2^31 in int32)."""
     m = x.shape[dim]
     pad = (-m) % block
     if pad == 0:
@@ -51,6 +53,8 @@ def _pad_to(x: torch.Tensor, block: int, fill,
         return padded.view(torch.uint32), m
     shape = list(x.shape)
     shape[dim] = pad
+    if isinstance(fill, float) and not x.is_floating_point():
+        fill = cast_fill(fill, x.dtype).item()
     tail = torch.full(shape, fill, dtype=x.dtype, device=x.device)
     return torch.cat([x, tail], dim=dim), m
 

@@ -31,9 +31,9 @@ from ..core.hashing import as_u32, hash_mod
 from ..core.skyline import FORMS, SCORES
 from . import ref
 from .bloom_filter import BLOOM_BUILD, BLOOM_QUERY
-from .cms_sketch import CMS_BUILD, CMS_QUERY
+from .cms_sketch import CMS_BUILD, CMS_QUERY, wrap_i32
 from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, LaunchCount,
-                     check_cuda, grid_for, ptr)
+                     check_cuda, check_rowpar, grid_for, ptr, workspace)
 from .groupby_scan import GROUPBY_PASS1
 from .rle_scan import RLE_TOPN_DET
 from .topn_det_scan import TOPN_DET_PASS1
@@ -42,12 +42,14 @@ TOPN_PASS1 = CudaKernel("topn_pass1", [P, P, P, I32, I32, I32, I32, I32, U32],
                         smem_fn="topn_pass1_smem")
 TOPN_APPLY = CudaKernel("topn_apply", [P, P, P, I64, I32, I32, U32, I32])
 DISTINCT_PASS1 = CudaKernel(
-    "distinct_pass1", [P, P, P, P, P, I32, I32, I32, I32, I32, I32, U32],
+    "distinct_pass1",
+    [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, U32, P],
     smem_fn="distinct_pass1_smem")
-# the LRU instantiation of distinct_pass1's serial kernel, counted apart
+# the LRU policy of distinct_pass1's row-parallel walk, counted apart
 DISTINCT_PASS1_LRU = LaunchCount("distinct_pass1_lru")
 DISTINCT_APPLY = CudaKernel(
-    "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32])
+    "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32,
+                       I32])
 SKYLINE_PASS1 = CudaKernel(
     "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32],
     smem_fn="skyline_pass1_smem")
@@ -64,8 +66,14 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def _check_shape(m: int, d: int, shards: int, block: int) -> int:
-    if d >= (1 << 16):
+def _check_shape(m: int, d: int, shards: int, block: int,
+                 any_d: bool = False) -> int:
+    """``any_d``: the kernels hash with both branches of ``hash_mod``, so
+    d may reach 2^16 and above (the Pallas kernels reduce by multiply-shift
+    only)."""
+    if d < 1:
+        raise ValueError(f"a table needs d >= 1 rows, got {d}")
+    if d >= (1 << 16) and not any_d:
         raise ValueError("multiply-shift range reduction needs d < 2^16")
     return _check_shards(m, shards, block)
 
@@ -168,19 +176,45 @@ def topn_parallel_ref(values, *, d, w, shards, block, seed=0):
 
 
 # ============================================== DISTINCT (FIFO / LRU, Ex. 2)
+def distinct_form(values: torch.Tensor) -> torch.Tensor:
+    """A stream as the DISTINCT kernels take it: float32 for a float stream
+    (``ref.distinct_keys``: hashed by its bits, compared as the JAX package
+    compares an f32 value with a uint32 slot), else its 32-bit lanes as
+    uint32 (an int32 stream by its bits, as the JAX package compares it)."""
+    if values.dtype in (torch.uint32, torch.float32):
+        return values.contiguous()
+    if values.is_floating_point():
+        return values.to(torch.float32).contiguous()
+    return wrap_i32(as_u32(values)).view(torch.uint32)
+
+
+def _check_distinct_dtype(values: torch.Tensor) -> None:
+    if values.dtype not in (torch.uint32, torch.float32):
+        raise TypeError(f"values must be uint32 or float32 (see "
+                        f"distinct_form), got {values.dtype}")
+
+
 def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                                  shards: int, block: int = 256,
                                  seed: int = 0, policy: str = "fifo"):
     """Pass 1: keep bool[m] and per-shard caches (slots uint32[S, d, w],
     valid bool[S, d, w], head int32[S, d]). ``policy="lru"`` takes
-    block=1 only (head then stays 0)."""
+    block=1 only (head then stays 0). ``values`` is uint32 or float32
+    (``distinct_form``).
+
+    At block=1 the CUDA path is the row-parallel walk of ``distinct.cu``:
+    an entry reads and writes only the row its key hashes to, so each
+    (lane, row) is walked on its own, in stream order, after a stable
+    partition; at d >= 2^16 it hashes by modulo, as ``hash_mod`` does."""
     if policy not in POLICIES:
         raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
     if policy == "lru" and block != 1:
         raise ValueError(f"the LRU cache has per-entry semantics only: it "
                          f"takes block=1, got block={block}")
     m = values.shape[0]
-    shard_len = _check_shape(m, d, shards, block)
+    shard_len = _check_shape(m, d, shards, block, any_d=block == 1)
+    if w < 1:
+        raise ValueError(f"a cache needs w >= 1, got {w}")
     if not values.is_cuda:
         lanes = values.reshape(shards, shard_len)
         keep, state = (
@@ -189,8 +223,12 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
             else ref.distinct_block_ref(lanes, d=d, w=w, block=block,
                                         seed=seed, return_state=True))
         return (keep.reshape(m),) + state
-    check_cuda("values", values, torch.uint32)
-    _check_pass1(DISTINCT_PASS1, d, w, block)
+    _check_distinct_dtype(values)
+    check_cuda("values", values, values.dtype)
+    if block == 1:
+        check_rowpar(m, w, 5)
+    else:
+        _check_pass1(DISTINCT_PASS1, d, w, block)
     dev = values.device
     keep = torch.empty(m, dtype=torch.bool, device=dev)
     slots = torch.empty((shards, d, w), dtype=torch.uint32, device=dev)
@@ -198,9 +236,13 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     head = torch.empty((shards, d), dtype=torch.int32, device=dev)
     if m:
         lru = policy == "lru"
+        work = workspace(dev, "distinct_pass1_workspace", shards, shard_len,
+                         d, block)
         DISTINCT_PASS1.launch(dev, ptr(values), ptr(keep), ptr(slots),
                               ptr(valid), ptr(head), shards, shard_len, d, w,
-                              block, int(lru), seed & 0xFFFFFFFF,
+                              block, int(lru),
+                              int(values.dtype == torch.float32),
+                              seed & 0xFFFFFFFF, ptr(work),
                               count=DISTINCT_PASS1_LRU if lru else None)
     else:
         slots.view(torch.int32).zero_()
@@ -233,15 +275,16 @@ def distinct_apply_plain(values: torch.Tensor, keep1: torch.Tensor,
     cache of a lower-ranked shard. Loops over shards to bound memory."""
     m = values.shape[0]
     w = mslots.shape[1] // shards
-    x = as_u32(values).reshape(shards, -1)
-    rows = hash_mod(x, d, seed)
+    v = values.reshape(shards, -1)
+    x, hittable = ref.distinct_keys(v)
+    rows = hash_mod(v, d, seed)
     ms = as_u32(mslots)
     dup = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     for s in range(shards - 1):
         cols = slice(s * w, (s + 1) * w)
         r, xs = rows[s + 1:], x[s + 1:, :, None]
         dup[s + 1:] |= ((ms[r, cols] == xs) & mvalid[r, cols]).any(-1)
-    return keep1 & ~dup.reshape(m)
+    return keep1 & ~(dup & hittable).reshape(m)
 
 
 def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
@@ -249,7 +292,7 @@ def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
                           d: int, shards: int, seed: int = 0) -> torch.Tensor:
     """Pass 2: keep bool[m] = keep1 and not cached by a lower-ranked shard."""
     m = values.shape[0]
-    shard_len = _check_shape(m, d, shards, 1)
+    shard_len = _check_shape(m, d, shards, 1, any_d=True)
     sw = mslots.shape[-1]
     if (mslots.shape != (d, sw) or mvalid.shape != (d, sw) or sw % shards
             or keep1.shape != (m,)):
@@ -260,7 +303,8 @@ def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
     if not values.is_cuda:
         return distinct_apply_plain(values, keep1, mslots, mvalid, d=d,
                                     shards=shards, seed=seed)
-    check_cuda("values", values, torch.uint32)
+    _check_distinct_dtype(values)
+    check_cuda("values", values, values.dtype)
     check_cuda("keep1", keep1, torch.bool, values.device)
     check_cuda("mslots", mslots, torch.uint32, values.device)
     check_cuda("mvalid", mvalid, torch.bool, values.device)
@@ -269,7 +313,9 @@ def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
         DISTINCT_APPLY.launch(values.device, ptr(values), ptr(keep1),
                               ptr(mslots), ptr(mvalid), ptr(keep), m,
                               shard_len, d, sw // shards, sw,
-                              seed & 0xFFFFFFFF, grid_for(m, values.device))
+                              seed & 0xFFFFFFFF,
+                              int(values.dtype == torch.float32),
+                              grid_for(m, values.device))
     return keep
 
 

@@ -6,6 +6,14 @@ of B entries every prune decision reads the pre-block state, and each row
 takes at most one insert per block. At B = 1 they are the per-entry scans of
 ``core.topn.topn_rand_prune`` and ``core.distinct.distinct_prune(policy="fifo")``.
 ``distinct_lru_ref`` is the per-entry LRU scan (no block form).
+``skyline_block_ref`` at block=1 is the engine's per-entry SKYLINE scan
+(``skyline_scan_ref``), which inserts NaN scores as the JAX package's
+``lax.scan`` does.
+
+DISTINCT compares as the JAX package does: a uint32 stream by value; a
+float32 stream is hashed by its bits, but its slots hold the uint32
+conversion of the value and are compared with the value in f32
+(``distinct_keys``).
 
 Both take one stream ``[m]`` or S lane streams ``[S, n]`` and loop over
 blocks, vectorised across the B entries of a block and the S lanes. As in
@@ -43,21 +51,49 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     state = torch.full((S, d, w), float(NEG), dtype=torch.float32, device=dev)
     keep = torch.empty(x.shape, dtype=torch.bool, device=dev)
     idxw = torch.arange(w, device=dev)
+    # a block touches only its entries' rows: those are read, updated and
+    # written back (an entry of a row that recurs writes the same values)
     for c in range(nb):
         sl = slice(c * block, (c + 1) * block)
         xb, rows = x[:, sl], rows_all[sl]
-        row_min = state[:, :, -1]
-        keep[:, sl] = xb >= row_min[:, rows]
+        st = state[:, rows]                              # [S, B, w]
+        keep[:, sl] = xb >= st[:, :, -1]
         cand = torch.full((S, d), float(NEG), dtype=torch.float32, device=dev)
-        cand = cand.scatter_reduce(1, rows.expand(S, -1), xb, "amax")
-        do = cand > row_min
-        pos = (cand[:, :, None] <= state).sum(-1, keepdim=True)
-        shifted = torch.where(idxw > pos, state.roll(1, dims=2), state)
+        cand = cand.scatter_reduce(1, rows.expand(S, -1), xb, "amax")[:, rows]
+        do = cand > st[:, :, -1]
+        pos = (cand[:, :, None] <= st).sum(-1, keepdim=True)
+        shifted = torch.where(idxw > pos, st.roll(1, dims=2), st)
         inserted = torch.where(idxw == pos, cand[:, :, None], shifted)
-        state = torch.where(do[:, :, None], inserted, state)
+        state[:, rows] = torch.where(do[:, :, None], inserted, st)
     if one:
         keep, state = keep[0], state[0]
     return (keep, state) if return_state else keep
+
+
+_U32_MAX = 0xFFFFFFFF
+
+
+def distinct_keys(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(key int64, hittable bool) of each DISTINCT entry, same shape as x.
+
+    A slot stores ``key`` and an entry hits a valid slot holding its key
+    only when it is hittable. For a uint32 stream (or any integer stream,
+    by its 32-bit lanes) the key is the value and every entry is hittable.
+    For a float32 stream this is the JAX package's rule: the slot is a
+    uint32 array, so it stores the value converted as XLA converts (toward
+    zero, saturating, NaN to 0), and the hit test compares the slot with
+    the value in f32. Every stored key is an f32-representable integer or
+    2^32 - 1, so that compare holds exactly when the slot equals the key and
+    the key converts back to the value: non-integers, negatives, NaN, -inf
+    and values above 2^32 never hit, and 4.0 hits a slot that 4.5 filled.
+    """
+    if x.dtype != torch.float32:
+        key = as_u32(x)
+        return key, torch.ones(key.shape, dtype=torch.bool, device=x.device)
+    v = x.to(torch.float64)
+    key = torch.where(v >= 4294967296.0, float(_U32_MAX), v.trunc())
+    key = torch.where(v > 0, key, 0.0).to(torch.int64)
+    return key, key.to(torch.float32) == x
 
 
 def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
@@ -67,9 +103,9 @@ def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     when ``return_state``."""
     one = values.ndim == 1
     v, nb = _lanes(values, block)
-    x = as_u32(v)                       # int64 lanes: exact uint32 compares
+    x, hittable = distinct_keys(v)      # int64 keys: exact uint32 compares
     S, dev = x.shape[0], x.device
-    rows_all = hash_mod(x, d, seed)     # [S, nb * block]
+    rows_all = hash_mod(v, d, seed)     # [S, nb * block]
     # row d is a dump row for the entries that insert nothing, so that a
     # block's inserts are one scatter with no host synchronisation
     slots = torch.zeros((S, d + 1, w), dtype=torch.int64, device=dev)
@@ -82,13 +118,16 @@ def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
         sl = slice(c * block, (c + 1) * block)
         xb, rows = x[:, sl], rows_all[:, sl]
         hit = ((slots[lane, rows] == xb[:, :, None])
-               & valid[lane, rows]).any(-1)
+               & valid[lane, rows]).any(-1) & hittable[:, sl]
         miss = ~hit
         keep[:, sl] = miss
-        cand = torch.where(miss, iota, block)
-        first = torch.full((S, d), block, dtype=torch.int64, device=dev)
-        first = first.scatter_reduce(1, rows, cand, "amin")
-        insert = miss & (first.gather(1, rows) == iota)
+        if block == 1:      # one entry a lane: its miss is its row's first
+            insert = miss
+        else:
+            cand = torch.where(miss, iota, block)
+            first = torch.full((S, d), block, dtype=torch.int64, device=dev)
+            first = first.scatter_reduce(1, rows, cand, "amin")
+            insert = miss & (first.gather(1, rows) == iota)
         h = head.gather(1, rows)
         r = torch.where(insert, rows, d)
         col = torch.where(insert, h, 0)
@@ -112,10 +151,11 @@ def distinct_lru_ref(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
     miss inserts at the front and drops the last slot. One loop step an
     entry, vectorised across the S lanes."""
     one = values.ndim == 1
-    x = as_u32(values[None] if one else values)   # int64: exact compares
+    lanes = values[None] if one else values
+    x, hittable = distinct_keys(lanes)            # int64: exact compares
     S, n = x.shape
     dev = x.device
-    rows = hash_mod(x, d, seed)
+    rows = hash_mod(lanes, d, seed)
     slots = torch.zeros((S, d, w), dtype=torch.int64, device=dev)
     valid = torch.zeros((S, d, w), dtype=torch.bool, device=dev)
     keep = torch.empty((S, n), dtype=torch.bool, device=dev)
@@ -124,7 +164,7 @@ def distinct_lru_ref(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
     for t in range(n):
         r, v = rows[:, t], x[:, t]
         sr, vr = slots[lane, r], valid[lane, r]
-        hitvec = (sr == v[:, None]) & vr
+        hitvec = (sr == v[:, None]) & vr & hittable[:, t, None]
         hit = hitvec.any(1)
         limit = torch.where(hit, hitvec.to(torch.int8).argmax(1), w - 1)
         shift = (idx >= 1) & (idx <= limit[:, None])
@@ -156,9 +196,15 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
     block's top-w candidates, store first; that merge is what runs here.
     The scores of every entry and the top-w candidates of every block do not
     depend on the store, so they are computed once, before the block loop.
-    ``form`` is the APH association (``core.skyline``): the JAX package's
-    oracle uses the engine's, its Pallas kernel the kernel's.
+    A NaN score is the best of its block (``jnp.max``) and spends a round
+    without inserting (NaN > S[-1] is False), so NaN candidates drop out of
+    the merge. ``form`` is the APH association (``core.skyline``): the JAX
+    package's oracle uses the engine's, its Pallas kernel the kernel's.
+    At block=1 this is ``skyline_scan_ref``.
     """
+    if block == 1:
+        return skyline_scan_ref(points, w=w, score=score, form=form,
+                                return_state=return_state)
     one = points.ndim == 2
     x = (points[None] if one else points).to(torch.float32)
     S, n, D = x.shape
@@ -170,6 +216,7 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
     r = min(w, block)
     top = torch.sort(h, dim=-1, descending=True, stable=True).indices[..., :r]
     cand_s = h.gather(-1, top)
+    cand_s = torch.where(cand_s.isnan(), float(NEG), cand_s)
     cand_p = xb.gather(2, top[..., None].expand(-1, -1, -1, D))
     pts = torch.zeros((S, w, D), dtype=torch.float32, device=dev)
     scs = torch.full((S, w), float(NEG), dtype=torch.float32, device=dev)
@@ -184,6 +231,45 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
         o = torch.sort(all_s, dim=1, descending=True, stable=True).indices[:, :w]
         scs = all_s.gather(1, o)
         pts = all_p.gather(1, o[..., None].expand(-1, -1, D))
+    if one:
+        keep, pts, scs = keep[0], pts[0], scs[0]
+    return (keep, (pts, scs)) if return_state else keep
+
+
+def skyline_scan_ref(points: torch.Tensor, *, w: int, score: str = "aph",
+                     form: str = "engine", return_state: bool = False):
+    """The engine's per-entry SKYLINE scan (``core.skyline.skyline_prune``
+    of the JAX package, a ``lax.scan``), over points [m, D] or lanes
+    [S, n, D]; returns as ``skyline_block_ref``.
+
+    An entry of score h goes to pos = #(stored scores >= h); it is pruned
+    when one of the stored points at an index below pos dominates it, and
+    it is inserted at pos (the slots after pos shift right) whenever
+    pos < w. A NaN score has pos = 0: it is never pruned, always inserted,
+    and no later compare counts it, so the store stops being sorted. With
+    scores that are neither NaN nor <= NEG this is block semantics at one
+    entry a block; an entry whose score is <= NEG also counts the empty
+    slots, zero points, as stored, as the reference does.
+    """
+    one = points.ndim == 2
+    x = (points[None] if one else points).to(torch.float32)
+    S, n, D = x.shape
+    dev = x.device
+    h = skyline_score(x, score, form)
+    pts = torch.zeros((S, w, D), dtype=torch.float32, device=dev)
+    scs = torch.full((S, w), float(NEG), dtype=torch.float32, device=dev)
+    keep = torch.empty((S, n), dtype=torch.bool, device=dev)
+    idx = torch.arange(w, device=dev)
+    for t in range(n):
+        xt, ht = x[:, t, None, :], h[:, t, None]        # [S, 1, D], [S, 1]
+        pos = (ht <= scs).sum(1, keepdim=True)          # [S, 1]
+        dom = ((idx < pos) & (xt <= pts).all(-1) & (xt < pts).any(-1))
+        keep[:, t] = ~dom.any(1)
+        shift = idx > pos
+        at = idx == pos
+        scs = torch.where(at, ht, torch.where(shift, scs.roll(1, 1), scs))
+        pts = torch.where(at[..., None], xt, torch.where(
+            shift[..., None], pts.roll(1, 1), pts))
     if one:
         keep, pts, scs = keep[0], pts[0], scs[0]
     return (keep, (pts, scs)) if return_state else keep

@@ -62,9 +62,14 @@ def _code_stream(col, decode: str):
 
 
 def _unique_values(x: torch.Tensor) -> torch.Tensor:
-    """The sorted distinct values of ``x``; uint32 by value."""
+    """The sorted distinct values of ``x``, as ``np.unique`` gives them:
+    uint32 by value, and every NaN collapsed into one last entry."""
     if x.dtype == torch.uint32:
         return torch.unique(as_u32(x)).to(torch.int32).view(torch.uint32)
+    if x.is_floating_point():
+        nan = x.isnan()
+        u = torch.unique(x[~nan])
+        return torch.cat([u, x[nan][:1]]) if bool(nan.any()) else u
     return torch.unique(x)
 
 

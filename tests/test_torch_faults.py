@@ -1,0 +1,302 @@
+"""Six places where the port gave another answer than the JAX package.
+
+Each test feeds the same numpy input to both packages on the CPU, on the
+smallest input that shows the departure, and holds the port to the
+reference, faults of the reference included:
+
+- A1: an int32 column under a dictionary or RLE encoding pads with NEG,
+  which numpy converts to -2^31 (TOP-N det and rand, SKYLINE);
+- A2: the engine hands every kernel entry the dtype it takes (f32 for
+  TOP-N, uint32 or f32 for DISTINCT), whatever the column's dtype;
+- A3: DISTINCT on a float32 column hashes the value's bits, stores the
+  uint32 conversion of the value and compares the slot with the value in
+  f32, so 4.0 hits the slot 4.5 filled and a repeated 4.5 never hits;
+- A4: SKYLINE's one-entry pass inserts a NaN score, as the engine's scan
+  does, and its block pass spends a round on it without inserting, as
+  ``ref.skyline_block_ref`` does; an APH score of +inf is NaN;
+- A5: the GROUP BY MIN/MAX master folds with Python's ``min``/``max``,
+  emissions first and then the state, so a NaN after a finite partial is
+  dropped and a NaN first wins;
+- A6: the HAVING SUM master sums int64 values without wrapping.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import core as J
+from repro.kernels import ref as jref
+from repro.query import engine as jq
+from repro.query import tables as jt
+from repro_torch import core as T
+from repro_torch.kernels import parallel as tpar
+from repro_torch.kernels import ref as tref
+from repro_torch.query import engine as tq
+from repro_torch.query import tables as tt
+
+NAN, INF = float("nan"), float("inf")
+
+
+def _eq(t, j):
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def _tables(cols, encode=None):
+    jtab = jt.Table("t", {k: jnp.asarray(v) for k, v in cols.items()})
+    ttab = tt.Table.from_numpy("t", cols, device="cpu")
+    if encode:
+        jtab = jtab.encode(*encode[1], rle=encode[0] == "rle")
+        ttab = ttab.encode(*encode[1], rle=encode[0] == "rle")
+    return jtab, ttab
+
+
+def _queries(spec, cols, encode=None):
+    jtab, ttab = _tables(cols, encode)
+    a = jq.run_query(jq.QuerySpec(*spec), jtab, obs="off")
+    b = tq.run_query(tq.QuerySpec(*spec), ttab)
+    _eq(b["keep"], a["keep"])
+    return a["output"], b["output"]
+
+
+# ------------------------------------------------------------------- A1
+@pytest.mark.parametrize("kind", ["dict", "rle"])
+@pytest.mark.parametrize("spec", [
+    ("topn", ("duration",), dict(mode="det", N=1, w=4)),
+    ("topn", ("duration",), dict(mode="rand", N=1, d=4, w=2)),
+    ("skyline", ("duration", "revenue"), dict(w=2)),
+], ids=["topn_det", "topn_rand", "skyline"])
+def test_a1_int32_dictionary_pads_with_saturated_neg(spec, kind):
+    cols = {"duration": np.array([3, 5, 2], np.int32),
+            "revenue": np.array([1.0, 0.5, 4.0], np.float32)}
+    want, got = _queries(spec, cols, (kind, spec[1]))
+    if spec[0] == "topn":
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
+        assert got[0].tolist() == [5.0] and got[1].tolist() == [1]
+    else:
+        _eq(got, want)
+
+
+def test_a1_with_pad_converts_as_numpy():
+    enc = T.DictEncoding(lut=torch.tensor([3, 5], dtype=torch.int32))
+    neg = np.float32(-3.4e38)
+    assert enc.with_pad(neg).lut.tolist() == [3, 5, -(1 << 31)]
+    assert enc.with_pad(neg).lut.tolist()[-1] == int(
+        jnp.asarray(neg, jnp.int32))
+    u = T.DictEncoding(lut=torch.tensor([7], dtype=torch.int32).view(
+        torch.uint32))
+    assert u.with_pad(0).lut.view(torch.int32).tolist() == [7, 0]
+
+
+# ------------------------------------------------------------------- A2
+def _record(monkeypatch):
+    seen = []
+    for name in ("topn_shard_states_kernel", "topn_apply_kernel",
+                 "distinct_shard_states_kernel", "distinct_apply_kernel"):
+        fn = getattr(tpar, name)
+
+        def spy(values, *a, _fn=fn, _name=name, **kw):
+            seen.append((_name, values.dtype))
+            return _fn(values, *a, **kw)
+        monkeypatch.setattr(tpar, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["scan", "two_pass"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint8,
+                                   np.float64])
+def test_a2_topn_rand_hands_the_kernels_f32(monkeypatch, mode, dtype):
+    x = np.random.default_rng(2).integers(0, 200, 301).astype(dtype)
+    want = J.engine_prune("topn_rand", jnp.asarray(x), mode=mode, shards=4,
+                          d=16, w=4, obs="off")
+    seen = _record(monkeypatch)
+    got = T.engine_prune("topn_rand", torch.from_numpy(x), mode=mode,
+                         shards=4, d=16, w=4)
+    _eq(got.keep, want.keep)
+    assert seen and all(dt == torch.float32 for _, dt in seen)
+
+
+@pytest.mark.parametrize("mode", ["scan", "two_pass"])
+@pytest.mark.parametrize("dtype,form", [
+    (np.uint32, torch.uint32), (np.int32, torch.uint32),
+    (np.int16, torch.uint32), (np.float32, torch.float32)])
+def test_a2_distinct_hands_the_kernels_their_form(monkeypatch, mode, dtype,
+                                                  form):
+    x = (np.random.default_rng(3).integers(-40, 40, 401) / 2).astype(dtype)
+    want = J.engine_prune("distinct", jnp.asarray(x), mode=mode, shards=4,
+                          d=8, w=2, obs="off")
+    seen = _record(monkeypatch)
+    got = T.engine_prune("distinct", torch.from_numpy(x), mode=mode,
+                         shards=4, d=8, w=2)
+    _eq(got.keep, want.keep)
+    assert seen and all(dt == form for _, dt in seen)
+
+
+def test_a2_distinct_form():
+    x = torch.tensor([-1, 5], dtype=torch.int32)
+    assert tpar.distinct_form(x).view(torch.int32).tolist() == [-1, 5]
+    assert tpar.distinct_form(x.to(torch.int64)).dtype == torch.uint32
+    assert tpar.distinct_form(x.double()).dtype == torch.float32
+
+
+# ------------------------------------------------------------------- A3
+def test_a3_smallest_float_input():
+    """ROADMAP's input: 4.0 lands in the row of 4.5, whose slot holds 4."""
+    x = np.array([4.5, 4.0], np.float32)
+    want = J.distinct_prune(jnp.asarray(x), d=4, w=2)
+    got = T.distinct_prune(torch.from_numpy(x), d=4, w=2)
+    assert got.keep.tolist() == [True, False]
+    _eq(got.keep, want.keep)
+    _eq(got.state.slots, want.state.slots)
+    a, b = _queries(("distinct", ("v",), dict(d=4, w=2)), {"v": x})
+    _eq(b, a)
+    assert b.tolist() == [4.5]
+
+
+SPECIAL = np.array([-3.0, -0.0, 0.0, 4.5, NAN, INF, -INF, 2.0 ** 32, 5e9,
+                    2.0 ** 31, 4294967040.0, 1e-30, 0.999, 4.0, 7.0, -7.0,
+                    16777217.0, 3.5, 2.0 ** 32, 0.0], np.float32)
+
+
+def _special(dtype, m, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == np.float32:
+        return np.concatenate([rng.choice(SPECIAL, m),
+                               rng.integers(0, 6, m).astype(np.float32)])
+    if dtype == np.int32:
+        return rng.integers(-6, 6, 2 * m).astype(np.int32)
+    return rng.choice(np.array([0, 1, 2, 2 ** 31, 2 ** 32 - 1, 5],
+                               np.uint32), 2 * m)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32])
+@pytest.mark.parametrize("policy", ["lru", "fifo"])
+@pytest.mark.parametrize("d,w", [(2, 2), (3, 4), (8, 1)])
+def test_a3_distinct_conversions_match_reference(dtype, policy, d, w):
+    x = _special(dtype, 150, seed=d * 10 + w)
+    want = J.distinct_prune(jnp.asarray(x), d=d, w=w, policy=policy)
+    got = T.distinct_prune(torch.from_numpy(x), d=d, w=w, policy=policy)
+    _eq(got.keep, want.keep)
+    for f in ("slots", "valid", "head"):
+        _eq(getattr(got.state, f), getattr(want.state, f))
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32])
+@pytest.mark.parametrize("mode", ["sharded", "two_pass"])
+def test_a3_engine_and_master_match_reference(dtype, mode):
+    x = _special(dtype, 200, seed=5)
+    want = J.engine_prune("distinct", jnp.asarray(x), mode=mode, shards=4,
+                          d=4, w=2, obs="off")
+    got = T.engine_prune("distinct", torch.from_numpy(x), mode=mode,
+                         shards=4, d=4, w=2)
+    _eq(got.keep, want.keep)
+    _eq(T.master_complete_distinct(torch.from_numpy(x), got.keep),
+        J.master_complete_distinct(jnp.asarray(x), want.keep))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_a3_run_query_distinct_matches_reference(dtype):
+    x = _special(dtype, 100, seed=11)
+    a, b = _queries(("distinct", ("v",), dict(d=4, w=2)), {"v": x})
+    np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+# ------------------------------------------------------------------- A4
+@pytest.mark.parametrize("pts,score,keep", [
+    ([[NAN, 4.0], [3.0, 2.0], [2.0, 1.0]], "sum", [True, True, False]),
+    ([[5.0, INF], [3.0, 2.0]], "aph", [True, True]),
+])
+def test_a4_skyline_scan_inserts_nan_scores(pts, score, keep):
+    x = np.array(pts, np.float32)
+    want = J.skyline_prune(jnp.asarray(x), w=1, score=score)
+    got = T.skyline_prune(torch.from_numpy(x), w=1, score=score)
+    assert got.keep.tolist() == keep
+    _eq(got.keep, want.keep)
+    _eq(got.state.scores, want.state.scores)
+    _eq(got.state.points, want.state.points)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("score", ["sum", "aph"])
+@pytest.mark.parametrize("block,w", [(1, 2), (1, 4), (8, 2), (32, 4)])
+def test_a4_skyline_nan_and_inf_points_match_reference(seed, score, block, w):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 6, (256, 2)).astype(np.float32)
+    x[rng.random((256, 2)) < 0.05] = NAN
+    x[rng.random((256, 2)) < 0.05] = INF
+    x[rng.random((256, 2)) < 0.03] = -INF
+    if block == 1:
+        want = J.skyline_prune(jnp.asarray(x), w=w, score=score)
+        jkeep, jst = want.keep, (want.state.points, want.state.scores)
+    else:
+        jkeep, jst = jref.skyline_block_ref(jnp.asarray(x), w=w, block=block,
+                                            score=score, return_state=True)
+    keep, st = tref.skyline_block_ref(torch.from_numpy(x), w=w, block=block,
+                                      score=score, return_state=True)
+    _eq(keep, np.asarray(jkeep).astype(bool))
+    _eq(st[0], jst[0])
+    _eq(st[1], jst[1])
+
+
+# ------------------------------------------------------------------- A5
+@pytest.mark.parametrize("agg,vals,want", [
+    ("max", [2.0, 1.0, NAN], {5: 2.0, 6: 1.0}),
+    ("max", [NAN, 1.0, 2.0], None),
+    ("min", [2.0, 1.0, NAN], {5: 2.0, 6: 1.0}),
+    ("min", [-0.0, 1.0, 0.0], {5: -0.0, 6: 1.0}),
+])
+def test_a5_groupby_min_max_master_folds_as_python(agg, vals, want):
+    keys = np.array([5, 6, 5], np.uint32)
+    v = np.array(vals, np.float32)
+    a = J.groupby_prune(jnp.asarray(keys), jnp.asarray(v), d=1, w=1, agg=agg)
+    b = T.groupby_prune(torch.from_numpy(keys), torch.from_numpy(v), d=1,
+                        w=1, agg=agg)
+    ja = J.master_complete_groupby(a, agg)
+    tb = T.master_complete_groupby(b, agg)
+    assert sorted(tb) == sorted(ja)
+    for k in ja:
+        assert (np.isnan(tb[k]) and np.isnan(ja[k])) or (
+            tb[k] == ja[k] and np.signbit(tb[k]) == np.signbit(ja[k])), k
+    if want is not None:
+        assert tb == want
+
+
+@pytest.mark.parametrize("agg", ["min", "max"])
+@pytest.mark.parametrize("mode", ["scan", "two_pass"])
+def test_a5_groupby_master_with_nan_partials(agg, mode):
+    rng = np.random.default_rng(7)
+    keys = rng.integers(0, 12, 400).astype(np.uint32)
+    v = rng.normal(size=400).astype(np.float32)
+    v[rng.random(400) < 0.1] = NAN
+    v[rng.random(400) < 0.05] = -0.0
+    a = J.engine_prune("groupby", jnp.asarray(keys), jnp.asarray(v),
+                       mode=mode, shards=4, d=2, w=2, agg=agg, obs="off")
+    b = T.engine_prune("groupby", torch.from_numpy(keys), torch.from_numpy(v),
+                       mode=mode, shards=4, d=2, w=2, agg=agg)
+    ja = J.master_complete_groupby(a, agg)
+    tb = T.master_complete_groupby(b, agg)
+    assert sorted(tb) == sorted(ja)
+    for k in ja:
+        assert (np.isnan(tb[k]) and np.isnan(ja[k])) or (
+            tb[k] == ja[k] and np.signbit(tb[k]) == np.signbit(ja[k])), k
+
+
+# ------------------------------------------------------------------- A6
+@pytest.mark.parametrize("vals,threshold", [
+    ([INF, INF, 200.0], 100),
+    ([INF, INF, 200.0], 100.5),
+    ([9.2e18, 9.2e18, 1.0], 2 ** 64),
+    ([9.2e18, 9.2e18, 1.0], 18400000000000000000),
+    ([-9.2e18, -9.2e18, 3.0], -(2 ** 64)),
+])
+def test_a6_having_sum_master_does_not_wrap(vals, threshold):
+    keys = np.array([5, 5, 5], np.uint32)
+    v = np.array(vals, np.float32)
+    keep = np.ones(3, bool)
+    want = J.master_complete_having(keys, v, keep, threshold)
+    got = T.master_complete_having(torch.from_numpy(keys),
+                                   torch.from_numpy(v),
+                                   torch.from_numpy(keep), threshold)
+    assert got == [int(k) for k in want]
+    if vals[0] == INF:
+        assert got == []
