@@ -19,7 +19,11 @@ Phases, one line each, and a non-zero exit on any failure:
            DISTINCT and GROUP BY walks on adversarial inputs (a hot key,
            one row, two alternating keys, d = 37 and d = 70001, float32
            keys, invalid entries, the hot key in slot w - 1, rows of more
-           than 32 slots, which the walks keep in shared memory). Then the
+           than 32 slots, which the walks keep in shared memory); the B = 1
+           TOP-N walk and the SKYLINE prefix merge (B = 1 and 32) on
+           ascending, descending, all-equal and +-0 streams, NaN first,
+           mid-lane and at a chunk boundary, values and SUM scores at and
+           below NEG, d = 1, 37, 512 and w = 1 to 40. Then the
            engine's dtype handling: run_query TOP-N on an int32 column and
            DISTINCT on an int32 and a float32 column, on the card and on a
            CPU copy of the table.
@@ -51,12 +55,15 @@ Phases, one line each, and a non-zero exit on any failure:
            and descending run values), its median time, its plain version's
            time and its bound, and the time of the ``lut[code]`` decode
            gather. The row-parallel walks' bound is their longest chain on
-           this run's stream (``walk_bound``). Each phase prints its
-           seconds.
-5. witness the row-parallel walks against the serial kernels they
-           replaced, bit for bit, over the whole 2^25-entry column at S = 1
-           (DISTINCT FIFO and LRU, GROUP BY SUM and COUNT); then the
-           ``kernels`` JSON line.
+           this run's stream (``walk_bound``); the TOP-N walk's and the
+           SKYLINE prefix merge's is the most inserts one store takes on it
+           (``prefix_bound``). torch.profiler splits each redesigned
+           kernel into its internal kernels, and a stream on which every
+           entry inserts is timed. Each phase prints its seconds.
+5. witness the redesigned kernels against the serial kernels they
+           replaced, bit for bit, over the whole 2^25-entry column: at S = 1
+           DISTINCT FIFO and LRU, GROUP BY SUM and COUNT; at S = 1 and 128,
+           B = 1, TOP-N and SKYLINE; then the ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -126,6 +133,12 @@ ROWPAR_GROUPBY = (("hot key", 16, 4, ("sum", "count", "min", "max")),
                   ("uniform", 70001, 2, ("sum", "count")),
                   ("uniform", 1, 40, ("sum", "count", "min", "max")),
                   ("hot key", 2, 33, ("sum", "count")))
+# the adversarial inputs of the B = 1 TOP-N walk, (d, w), and of the
+# SKYLINE prefix merge, w (at B = 1 and B = 32), at S = 1, 8 and 128 lanes
+# of ROWPAR_LANE[S] entries (rounded down to a multiple of 32 at B = 32)
+PREFIX_TOPN = ((1, 1), (37, 8), (512, 8), (1, 33), (37, 40))
+PREFIX_SKYLINE_W = (1, 8, 33)
+PREFIX_SKYLINE_B = 32
 # f32 values of the float32 DISTINCT case: conversions the JAX package's
 # uint32 slots see (negatives, NaN, +-inf, non-integers, 2^32 and above)
 FLOAT_KEYS = (-3.0, -0.0, 0.0, 4.5, float("nan"), float("inf"),
@@ -156,6 +169,19 @@ def same(a, b) -> bool:
     if a.dtype == torch.uint32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return bool(torch.equal(a, b))
+
+
+def same_bits(a, b) -> bool:
+    """Bit-identical tensors, every NaN as one (a NaN's sign and payload
+    differ between the card and the host's plain run)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = (torch.where(t.isnan(), float("nan"), t).view(torch.int32)
+                for t in (a.cpu(), b.cpu()))
+    return same(a.cpu(), b.cpu())
 
 
 def max_abs_err(pairs) -> float:
@@ -349,6 +375,7 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_groupby(torch, g)
     phase_kernels_ladder(torch, g)
     phase_kernels_rowpar(torch, g)
+    phase_kernels_prefix(torch, g)
 
 
 def phase_kernels_bloom(torch, g):
@@ -554,6 +581,100 @@ def phase_kernels_rowpar(torch, g):
                         f"w={w} {agg} valid={v is not None}")
         say("kernels", S=S, m=m, distinct_row_parallel=ok_d,
             groupby_row_parallel=ok_g, s=round(time.perf_counter() - t0, 3))
+
+
+def prefix_streams(torch, g, S, n):
+    """The streams the B = 1 TOP-N walk and the SKYLINE prefix merge are
+    held to, S lanes of n entries on the card: TOP-N values by name, and
+    SKYLINE (points [S*n, 2], score) by name. Ascending streams insert at
+    every entry; +-0 ties keep their first-come bits; a NaN (a SUM
+    coordinate of NaN, an APH coordinate of +inf) first, mid-lane and at
+    the 256-entry chunk boundary of every lane; values and SUM scores at,
+    below and just above NEG."""
+    from repro_torch.constants import NEG
+
+    m = S * n
+    i = torch.arange(n, dtype=torch.float32).repeat(S)
+    r = torch.rand(m, generator=g) * 1000
+    zero = torch.tensor([0.0, -0.0, -1.0])
+    t = {"random": r, "ascending": i, "descending": -i,
+         "all equal": torch.full((m,), 3.0),
+         "zeros": zero[torch.randint(0, 3, (m,), generator=g)]}
+    for name, at in (("nan first", 0), ("nan mid", n // 2)):
+        v = r.clone().view(S, n)
+        v[:, at] = float("nan")
+        t[name] = v.reshape(m)
+    low = r.clone()
+    low[::3], low[1::4], low[2::5] = -float("inf"), float(NEG), -3e38
+    t["low"] = low
+    p = torch.rand(m, 2, generator=g) * 1000
+    z = zero[torch.randint(0, 2, (m, 2), generator=g)]
+    z[::5] = -1.0
+    z[::7, 0] = 1.0
+    sky = {"random aph": (p, "aph"), "random sum": (p, "sum"),
+           "ascending": (torch.stack([i + 1, i + 1], 1), "aph"),
+           "descending": (torch.stack([n - i, n - i], 1), "sum"),
+           "all equal": (torch.full((m, 2), 5.0), "aph"),
+           "zeros": (z, "sum")}
+    for name, at, val, score in (("nan first", 0, float("nan"), "sum"),
+                                 ("nan mid", n // 2, float("inf"), "aph"),
+                                 ("nan at a chunk", min(n - 1, 256),
+                                  float("nan"), "sum")):
+        q = p.clone().view(S, n, 2)
+        q[:, at, 1] = val
+        sky[name] = (q.reshape(m, 2), score)
+    q = p.clone()
+    q[::3] = torch.tensor([-3e38, -5e37])
+    q[1::5, 0] = -float("inf")
+    q[2::7] = torch.tensor([-3e38, 0.0])
+    sky["low"] = (q, "sum")
+    return ({k: v.cuda() for k, v in t.items()},
+            {k: (v.contiguous().cuda(), sc) for k, (v, sc) in sky.items()})
+
+
+def phase_kernels_prefix(torch, g):
+    """The B = 1 TOP-N walk and the SKYLINE prefix merge (B = 1, engine
+    form, and B = 32, kernel form) against their plain versions on the
+    adversarial streams of prefix_streams, at S = 1, 8 and 128: keep and
+    final state, bit for bit (same_bits). The plain versions run on the
+    host (on_host)."""
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import ref as R
+
+    B = PREFIX_SKYLINE_B
+    for S, n in ROWPAR_LANE.items():
+        t0 = time.perf_counter()
+        vals, sky = prefix_streams(torch, g, S, n)
+        ok_t = ok_s = True
+        for name, x in vals.items():
+            for d, w in PREFIX_TOPN:
+                k, st = P.topn_shard_states_kernel(x, d=d, w=w, shards=S,
+                                                   block=1, seed=S)
+                (k2, st2), _ = on_host(lambda u: R.topn_block_ref(
+                    u, d=d, w=w, block=1, seed=S, return_state=True),
+                    x.view(S, n))
+                ok_t &= check(same_bits(k, k2.reshape(-1))
+                              and same_bits(st, st2),
+                              f"topn_pass1 walk S={S} {name} d={d} w={w}")
+        for name, (x, score) in sky.items():
+            for block, form, nb in ((1, "engine", n), (B, "kernel",
+                                                       n // B * B)):
+                xb = x.view(S, n, 2)[:, :nb].contiguous()
+                for w in PREFIX_SKYLINE_W:
+                    k, pt, sc = P.skyline_shard_states_kernel(
+                        xb.view(-1, 2), w=w, shards=S, block=block,
+                        score=score, form=form)
+                    (k2, (pt2, sc2)), _ = on_host(
+                        lambda u: R.skyline_block_ref(
+                            u, w=w, block=block, score=score, form=form,
+                            return_state=True), xb)
+                    ok_s &= check(
+                        same_bits(k, k2.reshape(-1)) and same_bits(pt, pt2)
+                        and same_bits(sc, sc2),
+                        f"skyline_pass1 prefix merge S={S} {name} B={block} "
+                        f"w={w}")
+        say("kernels", S=S, n=n, topn_walk=ok_t, skyline_prefix_merge=ok_s,
+            s=round(time.perf_counter() - t0, 3))
 
 
 def phase_dtypes(torch, P):
@@ -1143,17 +1264,101 @@ def bytes_ms(nbytes):
 
 
 def pass1_bound(m, S, B, in_bytes, state_bytes, clock_hz):
-    """(ms, what sets it) of the least time of one pass-1 launch.
+    """(ms, what sets it) of the least time of one launch of a block kernel
+    (B > 1: TOP-N and DISTINCT).
 
     Bytes: read x once, write keep and the S final states. Chain: each lane
-    makes m / (S * B) dependent steps on its shared-memory state; a step
-    takes at least one shared-memory round trip at B = 1, and two round
-    trips and two block barriers at B > 1, each counted at its floor.
+    makes m / (S * B) dependent steps on its shared-memory state, each of
+    two round trips and two block barriers, counted at their floors.
     """
     t_bytes = (in_bytes + m + state_bytes) / HBM_BYTES_PER_S * 1e3
-    cycles = SMEM_CYCLES if B == 1 else 2 * (SMEM_CYCLES + BARRIER_CYCLES)
+    cycles = 2 * (SMEM_CYCLES + BARRIER_CYCLES)
     t_chain = m // (S * B) * cycles / clock_hz * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "chain")
+
+
+def running_inserts(torch, v, w):
+    """bool [G, L]: whether entry j of sequence g enters a store that keeps
+    the sequence's w best values so far, i.e. beats the w-th best before
+    it (a NaN, or a value <= NEG, never does): the inserts of a TOP-N row,
+    or of a SKYLINE store at B = 1 on its scores. Chunks of growing size;
+    in a chunk only the entries above the pre-chunk w-th best can insert,
+    and those are taken in order."""
+    from repro_torch.constants import NEG
+
+    G, L = v.shape
+    dev = v.device
+    top = torch.full((G, w), float(NEG), device=dev)
+    flags = torch.zeros((G, L), dtype=torch.bool, device=dev)
+    rows = torch.arange(G, device=dev)
+    c0, K = 0, 64
+    while c0 < L:
+        blk = v[:, c0:c0 + K]
+        k = blk.shape[1]
+        cand = blk > top[:, -1:]
+        kmax = int(cand.sum(1).max())
+        pos = torch.where(cand, torch.arange(k, device=dev), k).sort(1) \
+            .values[:, :kmax]
+        for j in range(kmax):
+            p = pos[:, j]
+            x = blk.gather(1, p.clamp(max=k - 1)[:, None])[:, 0]
+            ins = (p < k) & (x > top[:, -1])
+            flags[rows[ins], c0 + p[ins]] = True
+            new = torch.sort(torch.cat([top, x[:, None]], 1), 1,
+                             descending=True).values[:, :w]
+            top = torch.where(ins[:, None], new, top)
+        c0 += k
+        K = min(2 * K, 1 << 16)
+    return flags
+
+
+def prefix_bound(torch, name, v, S, B, io_ms, clock_hz):
+    """(ms, what sets it) of the least time of the TOP-N walk (B = 1) or the
+    SKYLINE prefix merge on this stream: the larger of ``io_ms`` and the
+    work's own chain, the most inserts one store takes, counted here
+    without the kernel (running_inserts). TOP-N: the inserts of the
+    costliest (lane, row) segment, REG_STEP_CYCLES each (the walk keeps the
+    row in registers). SKYLINE: the inserts of the lane with the most, and
+    at B > 1 its blocks whose best candidate enters the store (those after
+    the first w of each block's top-w do not count), SMEM_CYCLES +
+    BARRIER_CYCLES each (the store is in shared memory, a step ends in a
+    barrier). Every other entry only reads the store it finds."""
+    from repro_torch.core.hashing import hash_mod
+    from repro_torch.core.skyline import score as skyline_score
+
+    m = v.shape[0]
+    n = m // S
+    dev = v.device
+    if name == "topn_pass1":
+        d, w = TOPN["d"], TOPN["w"]
+        seg = (torch.arange(S, device=dev).repeat_interleave(n) * d
+               + hash_mod(torch.arange(n, device=dev).repeat(S), d, 0))
+        order = torch.sort(seg, stable=True).indices
+        ss = seg[order]
+        counts = torch.bincount(ss, minlength=S * d)
+        starts = torch.cumsum(counts, 0) - counts
+        mat = torch.full((S * d, int(counts.max())), float("nan"),
+                         device=dev)
+        mat[ss, torch.arange(m, device=dev) - starts[ss]] = v[order]
+        inserts = int(running_inserts(torch, mat, w).sum(1).max())
+        cycles = REG_STEP_CYCLES
+    else:
+        w = SKYLINE["w"]
+        h = skyline_score(v.view(S, n, -1), SKYLINE["score"],
+                          "kernel" if B > 1 else "engine")
+        if B > 1:
+            top = torch.where(h.isnan(), -float("inf"), h).view(
+                S, n // B, B).topk(min(w, B), dim=-1).values
+            fl = running_inserts(torch, top.reshape(S, -1), w).view(
+                S, n // B, -1)[..., 0]
+        else:
+            fl = running_inserts(torch, h, w)
+        inserts = int(fl.sum(1).max())
+        cycles = SMEM_CYCLES + BARRIER_CYCLES
+    t_chain = inserts * cycles / clock_hz * 1e3
+    say("timing", kernel=name, S=S, B=B, store_inserts_max=inserts,
+        chain_ms=t_chain)
+    return (io_ms, "bytes") if io_ms >= t_chain else (t_chain, "chain")
 
 
 def pass1_fns(algo, P, R):
@@ -1242,19 +1447,19 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                 states[name] = (keep, st)
             if B == 256 and S > 1:
                 states[name + " ops"] = (keep, st)
-            # the run just compared was the warm-up; the one-lane chains
-            # of TOP-N and SKYLINE take seconds a run
-            walk = name == "distinct_pass1" and B == 1
-            reps = 5 if walk or S > 1 or B > 1 else (
-                1 if name == "skyline_pass1" else 2)
-            ms = event_ms(lambda: kernel(v, S, B), reps, warm=False)
+            # the run just compared was the warm-up
+            ms = event_ms(lambda: kernel(v, S, B), 5, warm=False)
             in_bytes = v.numel() * v.element_size()
-            bound, by = pass1_bound(m, S, B, in_bytes, state_bytes(S),
-                                    clock_hz)
-            if walk:
+            io_ms = bytes_ms(in_bytes + m + state_bytes(S))
+            if name == "distinct_pass1" and B == 1:
                 bound, by = walk_bound(torch, v, S, DISTINCT["d"], None,
-                                       bytes_ms(in_bytes + m + state_bytes(S)),
-                                       clock_hz)
+                                       io_ms, clock_hz)
+            elif name == "skyline_pass1" or B == 1:
+                bound, by = prefix_bound(torch, name, v, S, B, io_ms,
+                                         clock_hz)
+            else:
+                bound, by = pass1_bound(m, S, B, in_bytes, state_bytes(S),
+                                        clock_hz)
             say("timing", kernel=name, path=json.dumps(path), S=S, B=B,
                 ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
                 plain_on="host" if host else "card", bound_ms=bound,
@@ -1309,7 +1514,8 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     rows.extend(time_cms(torch, table, totals))
     rows.extend(time_bloom(torch, table, rankings, totals))
     rows.append(time_groupby(torch, table, totals, clock_hz))
-    profile_walks(torch, table)
+    profile_walks(torch, table, pts)
+    time_ascending(torch, P)
     rows.append(time_topn_det(torch, xs, totals))
     rows.append(time_lru(torch, P, R, fs, totals, clock_hz))
     rows.append(time_rle(torch, *rle, totals))
@@ -1726,10 +1932,11 @@ def walk_bound(torch, keys, S, d, fold_cycles, bytes_ms, clock_hz):
     return (bytes_ms, "bytes") if bytes_ms >= t_chain else (t_chain, "chain")
 
 
-def profile_walks(torch, table):
-    """Device time of each internal kernel of the row-parallel walks on the
-    2^25-row table (torch.profiler, one traced run after a warm-up): LRU
-    DISTINCT and GROUP BY SUM at S = 1, both at S = 128."""
+def profile_walks(torch, table, pts):
+    """Device time of each internal kernel of the redesigned pass-1 kernels
+    on the 2^25-row table (torch.profiler, one traced run after a warm-up):
+    the row-parallel walks (LRU DISTINCT, GROUP BY SUM, TOP-N at B = 1) and
+    the SKYLINE prefix merge (B = 1 and B = 256), at S = 1 and S = 128."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import groupby_scan as G
@@ -1741,7 +1948,13 @@ def profile_walks(torch, table):
                 ("distinct_pass1_lru", lambda: P.distinct_shard_states_kernel(
                     fs, shards=S, block=1, policy="lru", **DISTINCT)),
                 ("groupby_pass1", lambda: G.groupby_pass1_kernel(
-                    fs, xs, shards=S, agg="sum", **GROUPBY))):
+                    fs, xs, shards=S, agg="sum", **GROUPBY)),
+                ("topn_pass1", lambda: P.topn_shard_states_kernel(
+                    xs, shards=S, block=1, **TOPN)),
+                ("skyline_pass1", lambda: P.skyline_shard_states_kernel(
+                    pts, shards=S, block=1, form="engine", **SKYLINE)),
+                ("skyline_pass1 B=256", lambda: P.skyline_shard_states_kernel(
+                    pts, shards=S, block=256, form="kernel", **SKYLINE))):
             fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1758,6 +1971,33 @@ def profile_walks(torch, table):
                 device_ms=json.dumps(parts, separators=(",", ":")))
 
 
+def time_ascending(torch, P):
+    """The redesigned B = 1 kernels' worst stream: ascending values, so that
+    every entry inserts (the TOP-N walk takes a step an entry, the SKYLINE
+    replay a round an entry), at S = 1 on M_MAIN entries; its time, kept
+    count, and for SKYLINE its final store (the last w points). The values
+    are the floats from 1.0 up, one ulp apart (consecutive bit patterns),
+    and SKYLINE scores them by SUM, so that no two entries tie."""
+    v = (torch.arange(M_MAIN, dtype=torch.int32, device="cuda")
+         + 0x3F800000).view(torch.float32)
+    pts = torch.stack([v, v], 1)
+    w = SKYLINE["w"]
+    for name, fn in (
+            ("topn_pass1", lambda: P.topn_shard_states_kernel(
+                v, shards=1, block=1, **TOPN)),
+            ("skyline_pass1", lambda: P.skyline_shard_states_kernel(
+                pts, shards=1, block=1, w=w, score="sum", form="engine"))):
+        out = fn()
+        ms = event_ms(fn, 1, warm=False)
+        ok = bool(out[0].all())
+        if name == "skyline_pass1":
+            ok &= bool(torch.equal(out[1][0], pts[-w:].flip(0)))
+        check(ok, f"{name} on an ascending stream: every entry is kept and "
+              "the last entries are stored")
+        say("timing", kernel=name, stream="ascending", S=1, B=1,
+            entries=M_MAIN, ms=ms, kept=int(out[0].sum()))
+
+
 def serial_kernel(torch, name, argtypes, *args):
     """Launch a retired serial kernel of the library by its C entry (no
     entry point of the package reaches it); raises on a refused launch."""
@@ -1769,12 +2009,16 @@ def serial_kernel(torch, name, argtypes, *args):
         raise RuntimeError(f"{name} failed to launch: cudaError {err}")
 
 
-def phase_witness(torch, table):
-    """The row-parallel walks against the serial kernels they replaced,
-    bit for bit, on the whole 2^25-entry source_ip column at S = 1: DISTINCT
-    FIFO and LRU (keep, slots, valid, head) and GROUP BY SUM and COUNT of
-    ad_revenue (emissions and cache). The hot row holds a quarter of the
-    stream, which is where a row-parallel walk can go wrong."""
+def phase_witness(torch, table, pts):
+    """The redesigned kernels against the serial kernels they replaced,
+    bit for bit, on the whole 2^25-entry columns. The row-parallel walks at
+    S = 1 on source_ip: DISTINCT FIFO and LRU (keep, slots, valid, head)
+    and GROUP BY SUM and COUNT of ad_revenue (emissions and cache); the hot
+    row holds a quarter of the stream, which is where a row-parallel walk
+    can go wrong. Then the B = 1 TOP-N walk on ad_revenue and the SKYLINE
+    prefix merge on (ad_revenue, duration), at S = 1 and S = 128 (keep and
+    every lane's final state): the chunk merges and replays run over the
+    whole column."""
     from repro_torch.kernels import groupby_scan as G
     from repro_torch.kernels import parallel as P
     from repro_torch.kernels.common import I32, P as VP, U32, ptr
@@ -1815,6 +2059,38 @@ def phase_witness(torch, table):
               "kernel on the 2^25-entry column")
         say("witness", kernel="groupby_pass1", agg=agg, entries=m,
             serial_s=secs, emitted=int(ev[2].sum()), max_abs_err=err)
+    d, w, D = TOPN["d"], TOPN["w"], pts.shape[1]
+    mode = P._score_mode(SKYLINE["score"], "engine")
+    for S in (1, SHARDS):
+        new = P.topn_shard_states_kernel(xs, shards=S, block=1, **TOPN)
+        old = (torch.empty(m, dtype=torch.bool, device="cuda"),
+               torch.empty((S, d, w), dtype=torch.float32, device="cuda"))
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "topn_pass1_serial", [VP] * 3 + [I32] * 4 + [U32],
+            *(ptr(t) for t in (xs,) + old), S, m // S, d, w, 0))
+        err = max_abs_err(zip(new, old))
+        check(err == 0.0 and all(same_bits(a, b) for a, b in zip(new, old)),
+              f"topn_pass1 S={S} B=1 differs from the serial kernel on the "
+              "2^25-entry column")
+        say("witness", kernel="topn_pass1", S=S, entries=m, serial_s=secs,
+            kept=int(new[0].sum()), max_abs_err=err)
+        new = P.skyline_shard_states_kernel(pts, shards=S, block=1,
+                                            form="engine", **SKYLINE)
+        old = (torch.empty(m, dtype=torch.bool, device="cuda"),
+               torch.empty((S, SKYLINE["w"], D), dtype=torch.float32,
+                           device="cuda"),
+               torch.empty((S, SKYLINE["w"]), dtype=torch.float32,
+                           device="cuda"))
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "skyline_pass1_serial", [VP] * 4 + [I32] * 5,
+            *(ptr(t) for t in (pts,) + old), S, m // S, D, SKYLINE["w"],
+            mode))
+        err = max_abs_err(zip(new, old))
+        check(err == 0.0 and all(same_bits(a, b) for a, b in zip(new, old)),
+              f"skyline_pass1 S={S} B=1 differs from the serial kernel on "
+              "the 2^25-entry column")
+        say("witness", kernel="skyline_pass1", S=S, entries=m,
+            serial_s=secs, kept=int(new[0].sum()), max_abs_err=err)
 
 
 SOURCES = {
@@ -1914,7 +2190,7 @@ def main() -> int:
         "main", phase_main, torch, P, O)
     rows = timed("timing", phase_timing, torch, P, R, table, rankings, pts,
                  totals, clock_hz, encoded, rle)
-    timed("witness", phase_witness, torch, table)
+    timed("witness", phase_witness, torch, table, pts)
     say("done", s=round(time.perf_counter() - t_start, 3),
         failures=len(FAILURES))
     if FAILURES:

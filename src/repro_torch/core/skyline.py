@@ -37,10 +37,13 @@ FORMS = ("engine", "kernel")
 
 
 def _sum_left_to_right(t: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis as XLA's reduce sums it: left to right from an
+    init of +0, so that a sum of -0s is +0 (a reduce of one element is the
+    element itself)."""
     acc = t[..., 0]
     for j in range(1, t.shape[-1]):
         acc = acc + t[..., j]
-    return acc
+    return acc + 0.0 if t.shape[-1] > 1 else acc
 
 
 def score_sum(x: torch.Tensor) -> torch.Tensor:

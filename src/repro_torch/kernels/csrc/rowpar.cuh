@@ -1,11 +1,15 @@
 // The stable partition of a stream by (lane, row), shared by the row-parallel
-// pass-1 walks of DISTINCT (distinct.cu) and GROUP BY (groupby.cu).
+// pass-1 walks of DISTINCT (distinct.cu), GROUP BY (groupby.cu) and TOP-N
+// (topn.cu).
 //
-// A per-row cache (a d x w table whose row an entry picks from its key
-// alone) makes a switch lane d independent chains: an entry reads and
-// writes only its own row, and order matters only within a row. So the
-// walks take the stream apart by segment g = lane * d + row, keeping stream
-// order within each segment, and then walk every segment on its own warp.
+// A per-row cache (a d x w table whose row an entry picks from its key, or
+// for TOP-N from its shard-local index, alone) makes a switch lane d
+// independent chains: an entry reads and writes only its own row, and order
+// matters only within a row. So the walks take the stream apart by segment
+// g = lane * d + row, keeping stream order within each segment, and then
+// walk every segment on its own warp. The row is hash_mod of the entry's
+// 32 bits, or with kIdx of its shard-local index; the entry keeps its 32
+// bits either way.
 //
 // The partition, for S lanes of shard_len entries:
 //   1. rowpar_hist: a CTA takes a tile of `tile` entries of one lane, hashes
@@ -150,7 +154,9 @@ __global__ void rowpar_scan_apply(int* __restrict__ a, long long n,
   }
 }
 
-template <bool kSmem>
+// kIdx: the row is hashed from the shard-local index t * tile + i, not
+// from the entry's bits.
+template <bool kSmem, bool kIdx>
 __global__ void rowpar_hist(const uint32_t* __restrict__ x,
                             int* __restrict__ cells, RowparPlan p,
                             uint32_t seed) {
@@ -171,7 +177,9 @@ __global__ void rowpar_hist(const uint32_t* __restrict__ x,
     const bool in = i < n;
     const unsigned active = __ballot_sync(ROWPAR_FULL, in);
     if (in) {
-      const int r = cheetah_hash_mod(x[base + i], p.d, seed);
+      const uint32_t key =
+          kIdx ? static_cast<uint32_t>(t * p.tile + i) : x[base + i];
+      const int r = cheetah_hash_mod(key, p.d, seed);
       const unsigned peers = __match_any_sync(active, r);
       if (lane == __ffs(peers) - 1) {
         if (kSmem)
@@ -212,7 +220,7 @@ __device__ __forceinline__ void rowpar_put(uint4* out, int pos, uint32_t k,
 
 // ok: validity bytes or nullptr (all valid); aux: the payload of a uint4
 // entry (E = uint2 has none).
-template <bool kSmem, typename E>
+template <bool kSmem, bool kIdx, typename E>
 __global__ void rowpar_scatter(const uint32_t* __restrict__ x,
                                const uint32_t* __restrict__ aux,
                                const uint8_t* __restrict__ ok,
@@ -242,7 +250,8 @@ __global__ void rowpar_scatter(const uint32_t* __restrict__ x,
     unsigned peers = 0;
     if (in) {
       v = x[base + i];
-      r = cheetah_hash_mod(v, p.d, seed);
+      r = cheetah_hash_mod(kIdx ? static_cast<uint32_t>(t * p.tile + i) : v,
+                           p.d, seed);
       peers = __match_any_sync(active, r);
       rank = __popc(peers & ((1u << lane) - 1u));
       leader = __ffs(peers) - 1;
@@ -359,14 +368,11 @@ static inline cudaError_t rowpar_scan(int* a, long long n, int* partial,
   return cudaGetLastError();
 }
 
-// Partition the lanes of x into segments of E entries at out; returns the
-// segment starts (S * d + 1 ints) through *starts. work holds
-// rowpar_partition_bytes(p).
-template <typename E>
-cudaError_t rowpar_partition(const uint32_t* x, const uint32_t* aux,
-                             const uint8_t* ok, const RowparPlan& p,
-                             uint32_t seed, E* out, unsigned char* work,
-                             int** starts, cudaStream_t stream) {
+template <bool kIdx, typename E>
+cudaError_t rowpar_partition_by(const uint32_t* x, const uint32_t* aux,
+                                const uint8_t* ok, const RowparPlan& p,
+                                uint32_t seed, E* out, unsigned char* work,
+                                int** starts, cudaStream_t stream) {
   int* cells = reinterpret_cast<int*>(work);
   work += rowpar_align(p.cells * sizeof(int));
   int* partial = reinterpret_cast<int*>(work);
@@ -379,20 +385,36 @@ cudaError_t rowpar_partition(const uint32_t* x, const uint32_t* aux,
   cudaError_t err = cudaMemsetAsync(cells, 0, p.cells * sizeof(int), stream);
   if (err != cudaSuccess) return err;
   if (smem)
-    rowpar_hist<true><<<tiles, ROWPAR_THREADS, bins, stream>>>(x, cells, p, seed);
+    rowpar_hist<true, kIdx><<<tiles, ROWPAR_THREADS, bins, stream>>>(x, cells, p, seed);
   else
-    rowpar_hist<false><<<tiles, ROWPAR_THREADS, 0, stream>>>(x, cells, p, seed);
+    rowpar_hist<false, kIdx><<<tiles, ROWPAR_THREADS, 0, stream>>>(x, cells, p, seed);
   err = rowpar_scan(cells, p.cells, partial, stream);
   if (err != cudaSuccess) return err;
   rowpar_starts<<<static_cast<unsigned>((nseg + 1 + 255) / 256), 256, 0, stream>>>(
       cells, *starts, nseg, p.tiles_per_lane);
   if (smem)
-    rowpar_scatter<true, E><<<tiles, ROWPAR_THREADS, bins, stream>>>(
+    rowpar_scatter<true, kIdx, E><<<tiles, ROWPAR_THREADS, bins, stream>>>(
         x, aux, ok, cells, p, seed, out);
   else
-    rowpar_scatter<false, E><<<tiles, ROWPAR_THREADS, 0, stream>>>(
+    rowpar_scatter<false, kIdx, E><<<tiles, ROWPAR_THREADS, 0, stream>>>(
         x, aux, ok, cells, p, seed, out);
   return cudaGetLastError();
+}
+
+// Partition the lanes of x into segments of E entries at out; returns the
+// segment starts (S * d + 1 ints) through *starts. work holds
+// rowpar_partition_bytes(p). by_index: the row comes from the shard-local
+// index (TOP-N), not from the entry's bits.
+template <typename E>
+cudaError_t rowpar_partition(const uint32_t* x, const uint32_t* aux,
+                             const uint8_t* ok, const RowparPlan& p,
+                             uint32_t seed, E* out, unsigned char* work,
+                             int** starts, cudaStream_t stream,
+                             bool by_index = false) {
+  return by_index ? rowpar_partition_by<true>(x, aux, ok, p, seed, out, work,
+                                              starts, stream)
+                  : rowpar_partition_by<false>(x, aux, ok, p, seed, out, work,
+                                               starts, stream);
 }
 
 }  // namespace

@@ -38,7 +38,8 @@ from .groupby_scan import GROUPBY_PASS1
 from .rle_scan import RLE_TOPN_DET
 from .topn_det_scan import TOPN_DET_PASS1
 
-TOPN_PASS1 = CudaKernel("topn_pass1", [P, P, P, I32, I32, I32, I32, I32, U32],
+TOPN_PASS1 = CudaKernel("topn_pass1",
+                        [P, P, P, I32, I32, I32, I32, I32, U32, P],
                         smem_fn="topn_pass1_smem")
 TOPN_APPLY = CudaKernel("topn_apply", [P, P, P, I64, I32, I32, U32, I32])
 DISTINCT_PASS1 = CudaKernel(
@@ -51,7 +52,7 @@ DISTINCT_APPLY = CudaKernel(
     "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32,
                        I32])
 SKYLINE_PASS1 = CudaKernel(
-    "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32],
+    "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32, P],
     smem_fn="skyline_pass1_smem")
 SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
 KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
@@ -108,7 +109,11 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
 
     ``values`` is f32[m], m a multiple of shards * block; lane s owns the
     entries [s * m/S, (s+1) * m/S) and hashes its shard-local index.
-    """
+
+    At block=1 the CUDA path is the row-parallel walk of ``topn.cu``: an
+    entry reads and writes only the row its shard-local index hashes to,
+    so each (lane, row) is walked on its own, in stream order, after a
+    stable partition by index."""
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, block)
     if not values.is_cuda:
@@ -117,13 +122,19 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
             seed=seed, return_state=True)
         return keep.reshape(m), states
     check_cuda("values", values, torch.float32)
-    _check_pass1(TOPN_PASS1, d, w, block)
-    keep = torch.empty(m, dtype=torch.bool, device=values.device)
-    states = torch.empty((shards, d, w), dtype=torch.float32,
-                         device=values.device)
+    if block == 1:
+        check_rowpar(m, w, 4)
+    else:
+        _check_pass1(TOPN_PASS1, d, w, block)
+    dev = values.device
+    keep = torch.empty(m, dtype=torch.bool, device=dev)
+    states = torch.empty((shards, d, w), dtype=torch.float32, device=dev)
     if m:
-        TOPN_PASS1.launch(values.device, ptr(values), ptr(keep), ptr(states),
-                          shards, shard_len, d, w, block, seed & 0xFFFFFFFF)
+        work = workspace(dev, "topn_pass1_workspace", shards, shard_len, d,
+                         block)
+        TOPN_PASS1.launch(dev, ptr(values), ptr(keep), ptr(states), shards,
+                          shard_len, d, w, block, seed & 0xFFFFFFFF,
+                          ptr(work))
     else:
         states.fill_(float(NEG))
     return keep, states
@@ -355,7 +366,12 @@ def skyline_shard_states_kernel(points: torch.Tensor, *, w: int, shards: int,
 
     ``points`` is f32[m, D], m a multiple of shards * block; lane s owns the
     rows [s * m/S, (s+1) * m/S).
-    """
+
+    The CUDA path runs in the phases of ``skyline.cu``: the top-w
+    candidates of each chunk of a lane, one chain of store merges a lane,
+    then every chunk's keep decisions from its start store (at block=1 the
+    engine step, replayed against the exact store; a lane's chunks from its
+    first NaN score on are replayed in order)."""
     D = _check_points("points", points)
     m = points.shape[0]
     shard_len = _check_shards(m, shards, block)
@@ -375,8 +391,10 @@ def skyline_shard_states_kernel(points: torch.Tensor, *, w: int, shards: int,
     scs = torch.full((shards, w), float(NEG), dtype=torch.float32,
                      device=dev)
     if m:
+        work = workspace(dev, "skyline_pass1_workspace", shards, shard_len,
+                         D, w, block)
         SKYLINE_PASS1.launch(dev, ptr(points), ptr(keep), ptr(pts), ptr(scs),
-                             shards, shard_len, D, w, block, mode)
+                             shards, shard_len, D, w, block, mode, ptr(work))
     return keep, pts, scs
 
 
