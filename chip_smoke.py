@@ -23,7 +23,12 @@ Phases, one line each, and a non-zero exit on any failure:
            TOP-N walk and the SKYLINE prefix merge (B = 1 and 32) on
            ascending, descending, all-equal and +-0 streams, NaN first,
            mid-lane and at a chunk boundary, values and SUM scores at and
-           below NEG, d = 1, 37, 512 and w = 1 to 40. Then the
+           below NEG, d = 1, 37, 512 and w = 1 to 40; the chunked ladder
+           on ascending, all-equal, NaN, +-inf / -0 / negative and
+           near-FLT_MAX streams, N inside a chunk, at a chunk boundary
+           +-1 and past the shard, w = 1, 8, 32; the DISTINCT block walk
+           at B = 2, 32, 256 on uniform, zipf, small-universe and float32
+           streams and on the trap stream BLOCK_TRAP. Then the
            engine's dtype handling: run_query TOP-N on an int32 column and
            DISTINCT on an int32 and a float32 column, on the card and on a
            CPU copy of the table.
@@ -57,13 +62,19 @@ Phases, one line each, and a non-zero exit on any failure:
            gather. The row-parallel walks' bound is their longest chain on
            this run's stream (``walk_bound``); the TOP-N walk's and the
            SKYLINE prefix merge's is the most inserts one store takes on it
-           (``prefix_bound``). torch.profiler splits each redesigned
-           kernel into its internal kernels, and a stream on which every
-           entry inserts is timed. Each phase prints its seconds.
+           (``prefix_bound``); the DISTINCT block walk's is the most
+           inserting (row, block) groups one segment has on it
+           (``block_walk_bound``). Both forms of DISTINCT at B = 256 are
+           timed at S = 1 and 128 (``time_block_forms``). torch.profiler
+           splits each redesigned kernel into its internal kernels, and a
+           stream on which every entry inserts is timed. Each phase prints
+           its seconds.
 5. witness the redesigned kernels against the serial kernels they
            replaced, bit for bit, over the whole 2^25-entry column: at S = 1
-           DISTINCT FIFO and LRU, GROUP BY SUM and COUNT; at S = 1 and 128,
-           B = 1, TOP-N and SKYLINE; then the ``kernels`` JSON line.
+           DISTINCT FIFO and LRU, GROUP BY SUM and COUNT; at S = 1 and 128
+           the chunked ladder, the DISTINCT block walk (against the block
+           kernel, B = 256), and at B = 1 TOP-N and SKYLINE; then the
+           ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -144,6 +155,27 @@ PREFIX_SKYLINE_B = 32
 FLOAT_KEYS = (-3.0, -0.0, 0.0, 4.5, float("nan"), float("inf"),
               -float("inf"), 2.0 ** 32, 5e9, 2.0 ** 31, 4.0, 7.0, 3.5)
 DTYPE_ROWS = 1 << 14           # rows of the A2 card case's tables
+# the chunked ladder (csrc/topn_det.cu): entries a chunk, and its
+# adversarial cases, S lanes of LADDER_LANE[S] entries (past one or more
+# chunks) under each N and w; "n + 7" is N past the shard
+LADDER_CHUNK = 4096
+LADDER_LANE = {1: 3 * LADDER_CHUNK + 5, 8: 2 * LADDER_CHUNK + 3,
+               128: LADDER_CHUNK + 1}
+LADDER_NS = (100, LADDER_CHUNK - 1, LADDER_CHUNK, LADDER_CHUNK + 1, "n + 7",
+             1 << 20)
+LADDER_WS = (1, 8, 32)
+# the DISTINCT block walk's cases, (stream, d, w) at every B of
+# BLOCK_WALK_BS, S lanes of BLOCK_WALK_LANE[S] entries; a small universe
+# fills its rows, and w = 64 takes the shared-memory walk
+BLOCK_WALK_LANE = {1: 4096, 8: 1024, 128: 256}
+BLOCK_WALK_BS = (2, 32, 256)
+BLOCK_WALK_CASES = (("uniform", 4096, 4), ("uniform", 37, 3),
+                    ("zipf", 64, 4), ("small universe", 16, 4),
+                    ("small universe", 3, 64), ("float32", 8, 2))
+# the smallest stream on which dropping every repeat of the previous key
+# is wrong under block semantics (d = 1, w = 1, B = 2): entry 4 repeats
+# entry 3, but entry 3's block inserted 9 over the 7 that entry 3 hit
+BLOCK_TRAP = ((7, 7, 9, 7, 7, 11), (True, True, True, False, True, True))
 
 FAILURES: list[str] = []
 
@@ -374,8 +406,10 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_bloom(torch, g)
     phase_kernels_groupby(torch, g)
     phase_kernels_ladder(torch, g)
+    phase_kernels_ladder_chunks(torch, g)
     phase_kernels_rowpar(torch, g)
     phase_kernels_prefix(torch, g)
+    phase_kernels_block_walk(torch, g)
 
 
 def phase_kernels_bloom(torch, g):
@@ -508,6 +542,112 @@ def phase_kernels_ladder(torch, g):
                 O.rle_expand_mask(h, t, L, int(L.sum())), flat),
                 f"rle_topn_det {name} R={R_} N={N} w={w} block={block}")
     say("kernels", rle_topn_det=ok_r, s=round(time.perf_counter() - t0, 3))
+
+
+def ladder_streams(torch, g, S, n):
+    """The streams the chunked ladder is held to, S lanes of n entries on
+    the card: ascending (every level fills), all equal, a NaN in the
+    warm-up and one after it, +-inf, -0 and negatives, and values near
+    FLT_MAX (t0 stays POS and the levels above it overflow to inf)."""
+    m = S * n
+    r = torch.rand(m, generator=g) * 1000
+    t = {"ascending": torch.arange(1, n + 1, dtype=torch.float32).repeat(S),
+         "all equal": torch.full((m,), 3.0), "random": r}
+    for name, at in (("nan in the warm-up", 50), ("nan after it", n - 9)):
+        v = r.clone().view(S, n)
+        v[:, at] = float("nan")
+        t[name] = v.reshape(m)
+    odd = torch.tensor([float("inf"), -float("inf"), -0.0, 0.0, -5.0])
+    v = r - 500.0
+    v[::7] = odd[torch.randint(0, odd.numel(), (v[::7].numel(),),
+                               generator=g)]
+    t["inf, -0, negatives"] = v
+    big = torch.rand(m, generator=g) * 2.4e38 + 1e38
+    big[::5] = 3.4028234663852886e38  # FLT_MAX
+    t["near FLT_MAX"] = big
+    return {k: v.cuda() for k, v in t.items()}
+
+
+def phase_kernels_ladder_chunks(torch, g):
+    """The chunked ladder against its plain version on adversarial streams
+    (ladder_streams) at S = 1, 8 and 128 lanes that span one to four
+    chunks, N inside the first chunk, at a chunk boundary and +-1 and past
+    the shard, w in {1, 8, 32}: keep and final state bit for bit
+    (same_bits: every NaN as one)."""
+    from repro_torch.kernels import topn_det_scan as TD
+
+    for S, n in LADDER_LANE.items():
+        t0 = time.perf_counter()
+        ok = True
+        for name, x in ladder_streams(torch, g, S, n).items():
+            for N in LADDER_NS:
+                N = n + 7 if N == "n + 7" else N
+                for w in LADDER_WS:
+                    k, st = TD.topn_det_pass1_kernel(x, N=N, w=w, shards=S)
+                    k2, st2 = TD.topn_det_pass1_plain(x.view(S, n), N=N, w=w)
+                    ok &= check(same(k, k2.reshape(-1)) and all(
+                        same_bits(a, b) for a, b in zip(st, st2)),
+                        f"topn_det_pass1 chunks S={S} {name} N={N} w={w}")
+        say("kernels", S=S, n=n, topn_det_chunks=ok,
+            s=round(time.perf_counter() - t0, 3))
+
+
+def block_walk_streams(torch, g, m):
+    """The streams of the DISTINCT block walk's cases, on the card:
+    uniform keys, zipf(1.3) keys, a small universe (60 keys, so that rows
+    fill and hits land at every slot) and float32 values (the JAX
+    package's conversions to uint32 slots)."""
+    z = (torch.rand(m, generator=g).clamp(min=1e-9) ** (-1 / 0.3)).floor()
+    out = {"uniform": torch.randint(0, 20000, (m,), generator=g),
+           "zipf": z.clamp(max=2 ** 30).long() % 5000,
+           "small universe": torch.randint(0, 60, (m,), generator=g)}
+    out = {k: v.to(torch.int32).view(torch.uint32).cuda()
+           for k, v in out.items()}
+    floats = torch.tensor(FLOAT_KEYS)[torch.randint(
+        0, len(FLOAT_KEYS), (m,), generator=g)]
+    floats[::3] = torch.randint(0, 6, (floats[::3].numel(),),
+                                generator=g).float()
+    out["float32"] = floats.cuda()
+    return out
+
+
+def phase_kernels_block_walk(torch, g):
+    """The DISTINCT block walk (distinct_block_walk_kernel, the form
+    ops.distinct_prune takes) against ref.distinct_block_ref at B in
+    BLOCK_WALK_BS and S = 1, 8 and 128, on the streams of
+    block_walk_streams and on the trap stream BLOCK_TRAP: keep, slots,
+    valid and head bit for bit. The plain versions run on the host
+    (on_host)."""
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import ref as R
+
+    for S, n in BLOCK_WALK_LANE.items():
+        t0 = time.perf_counter()
+        xs = block_walk_streams(torch, g, S * n)
+        ok = True
+        for name, d, w in BLOCK_WALK_CASES:
+            x = xs[name]
+            for B in BLOCK_WALK_BS:
+                out = P.distinct_block_walk_kernel(x, d=d, w=w, shards=S,
+                                                   block=B, seed=S)
+                (k2, st2), _ = on_host(lambda u: R.distinct_block_ref(
+                    u, d=d, w=w, block=B, seed=S, return_state=True),
+                    x.view(S, n))
+                ok &= check(same(out[0], k2.reshape(-1)) and all(
+                    same(a, b) for a, b in zip(out[1:], st2)),
+                    f"distinct block walk S={S} B={B} {name} d={d} w={w}")
+        say("kernels", S=S, n=n, distinct_block_walk=ok,
+            s=round(time.perf_counter() - t0, 3))
+    x = torch.tensor(BLOCK_TRAP[0], dtype=torch.int32).view(
+        torch.uint32).cuda()
+    out = P.distinct_block_walk_kernel(x, d=1, w=1, shards=1, block=2)
+    k2, st2 = R.distinct_block_ref(x, d=1, w=1, block=2, return_state=True)
+    ok = check(out[0].tolist() == list(BLOCK_TRAP[1])
+               and same(out[0], k2) and all(
+                   same(a[0], b) for a, b in zip(out[1:], st2)),
+               f"distinct block walk on the trap stream {BLOCK_TRAP[0]}")
+    say("kernels", distinct_block_walk_trap=ok, keep=json.dumps(
+        out[0].tolist()))
 
 
 def rowpar_streams(torch, g, m):
@@ -1075,7 +1215,7 @@ def phase_main(torch, P, O):
         "ops_distinct_prune": (
             lambda: O.distinct_prune(fs, block=256, **DISTINCT),
             lambda k: distinct_ok(k, "ops_distinct_prune"),
-            lambda k: k, ("distinct_pass1",)),
+            lambda k: k, ("distinct_pass1_block_walk",)),
         "run_query_skyline": (
             lambda: run_query(QuerySpec("skyline", SKY_COLS, SKYLINE), table),
             lambda r: skyline_ok(r["keep"], "run_query_skyline", r["output"]),
@@ -1277,6 +1417,32 @@ def pass1_bound(m, S, B, in_bytes, state_bytes, clock_hz):
     return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "chain")
 
 
+def time_block_forms(torch, P, fs):
+    """Both forms of DISTINCT's pass 1 at B = 256 on the whole column, at
+    S = 1 and S = 128: the block walk and the one-CTA-a-lane block kernel
+    (its C entry, distinct_pass1 at block 256), the times behind
+    kernels.parallel.block_walk_wins. The kernel at S = 1 takes ~0.1 s a
+    run, so it is timed once."""
+    from repro_torch.kernels.common import I32, P as VP, U32, ptr
+
+    m, d, w = M_MAIN, DISTINCT["d"], DISTINCT["w"]
+    for S, reps in ((1, 1), (SHARDS, 5)):
+        ms_walk = event_ms(lambda: P.distinct_block_walk_kernel(
+            fs, shards=S, block=256, **DISTINCT), 5)
+        out = (torch.empty(m, dtype=torch.bool, device="cuda"),
+               torch.empty((S, d, w), dtype=torch.uint32, device="cuda"),
+               torch.empty((S, d, w), dtype=torch.bool, device="cuda"),
+               torch.empty((S, d), dtype=torch.int32, device="cuda"))
+        ms_block = event_ms(lambda: serial_kernel(
+            torch, "distinct_pass1", [VP] * 5 + [I32] * 7 + [U32, VP],
+            *(ptr(t) for t in (fs,) + out), S, m // S, d, w, 256, 0, 0, 0,
+            None), reps)
+        say("timing", kernel="distinct_pass1 B=256 forms", S=S,
+            block_walk_ms=ms_walk, block_kernel_ms=ms_block,
+            dispatched="block walk" if P.block_walk_wins(
+                S, torch.device("cuda")) else "block kernel")
+
+
 def running_inserts(torch, v, w):
     """bool [G, L]: whether entry j of sequence g enters a store that keeps
     the sequence's w best values so far, i.e. beats the w-th best before
@@ -1424,8 +1590,11 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
         for path, S, B in PASS1_SHAPES:
             keep, st = kernel(v, S, B)
             # The first shape's plain time goes in the kernels line: it runs
-            # on the card. The others run on the host (on_host).
-            host = path != PASS1_SHAPES[0][0]
+            # on the card, and so does the DISTINCT block walk's (S = 1,
+            # B = 256), which has a row of its own. The others run on the
+            # host (on_host).
+            walk = name == "distinct_pass1" and S == 1 and B > 1
+            host = path != PASS1_SHAPES[0][0] and not walk
             if S == 1 and B == 1:
                 # The keep of entry i of a one-lane scan depends only on
                 # entries 0..i, so the plain scan of a prefix checks the
@@ -1454,6 +1623,9 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
             if name == "distinct_pass1" and B == 1:
                 bound, by = walk_bound(torch, v, S, DISTINCT["d"], None,
                                        io_ms, clock_hz)
+            elif walk:
+                bound, by = block_walk_bound(torch, v, keep, S, B,
+                                             DISTINCT["d"], io_ms, clock_hz)
             elif name == "skyline_pass1" or B == 1:
                 bound, by = prefix_bound(torch, name, v, S, B, io_ms,
                                          clock_hz)
@@ -1466,6 +1638,11 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                 bound_by=by, chain_steps=m // (S * B), max_abs_err=err)
             if path == PASS1_SHAPES[0][0]:
                 first = (ms, plain_s * 1e3, bound, by)
+            if walk:
+                rows.append(_row("distinct_pass1_block_walk", totals, err, ms,
+                                 plain_s * 1e3, bound, by))
+                say("timing", kernel="distinct_pass1_block_walk", S=S, B=B,
+                    kept=int(keep.sum()))
         rows.append(_row(name, totals, max(errs), *first))
 
     # pass 2 on the merged states of both two-pass callers: S = 128 after
@@ -1516,6 +1693,7 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     rows.append(time_groupby(torch, table, totals, clock_hz))
     profile_walks(torch, table, pts)
     time_ascending(torch, P)
+    time_block_forms(torch, P, fs)
     rows.append(time_topn_det(torch, xs, totals))
     rows.append(time_lru(torch, P, R, fs, totals, clock_hz))
     rows.append(time_rle(torch, *rle, totals))
@@ -1932,19 +2110,50 @@ def walk_bound(torch, keys, S, d, fold_cycles, bytes_ms, clock_hz):
     return (bytes_ms, "bytes") if bytes_ms >= t_chain else (t_chain, "chain")
 
 
+def block_walk_bound(torch, keys, keep, S, B, d, io_ms, clock_hz):
+    """(ms, what sets it) of the least time of the DISTINCT block walk on
+    this stream: the larger of ``io_ms`` and the costliest (lane, row)
+    segment's chain, REG_STEP_CYCLES for each of its groups (row, block)
+    that insert. A group inserts exactly when one of its entries is kept
+    (a kept entry missed the row as it stood before the block, and the
+    first such entry inserts), so the groups come from this run's keep
+    mask, which phase timing holds to the plain version."""
+    from repro_torch.core.hashing import hash_mod
+
+    n = keys.numel() // S
+    nb = n // B
+    idx = torch.arange(keys.numel(), device=keys.device)
+    seg = (idx // n) * d + hash_mod(keys, d, 0)
+    groups = torch.unique((seg * nb + (idx % n) // B)[keep])
+    per_seg = torch.bincount(groups // nb, minlength=S * d)
+    steps = int(per_seg.max())
+    t_chain = steps * REG_STEP_CYCLES / clock_hz * 1e3
+    say("timing", kernel="distinct_pass1_block_walk", S=S, B=B,
+        inserting_groups=int(groups.numel()), segment_inserts_max=steps,
+        chain_ms=t_chain)
+    return (io_ms, "bytes") if io_ms >= t_chain else (t_chain, "chain")
+
+
 def profile_walks(torch, table, pts):
     """Device time of each internal kernel of the redesigned pass-1 kernels
     on the 2^25-row table (torch.profiler, one traced run after a warm-up):
-    the row-parallel walks (LRU DISTINCT, GROUP BY SUM, TOP-N at B = 1) and
-    the SKYLINE prefix merge (B = 1 and B = 256), at S = 1 and S = 128."""
+    the chunked ladder, the DISTINCT block walk (B = 256), the row-parallel
+    walks (LRU DISTINCT, GROUP BY SUM, TOP-N at B = 1) and the SKYLINE
+    prefix merge (B = 1 and B = 256), at S = 1 and S = 128."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import groupby_scan as G
     from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import topn_det_scan as TD
 
     fs, xs = table.cols["source_ip"], table.cols["ad_revenue"]
     for S in (1, SHARDS):
         for name, fn in (
+                ("topn_det_pass1", lambda: TD.topn_det_pass1_kernel(
+                    xs, shards=S, **TOPN_DET)),
+                ("distinct_pass1_block_walk",
+                 lambda: P.distinct_block_walk_kernel(
+                     fs, shards=S, block=256, **DISTINCT)),
                 ("distinct_pass1_lru", lambda: P.distinct_shard_states_kernel(
                     fs, shards=S, block=1, policy="lru", **DISTINCT)),
                 ("groupby_pass1", lambda: G.groupby_pass1_kernel(
@@ -2015,12 +2224,16 @@ def phase_witness(torch, table, pts):
     S = 1 on source_ip: DISTINCT FIFO and LRU (keep, slots, valid, head)
     and GROUP BY SUM and COUNT of ad_revenue (emissions and cache); the hot
     row holds a quarter of the stream, which is where a row-parallel walk
-    can go wrong. Then the B = 1 TOP-N walk on ad_revenue and the SKYLINE
-    prefix merge on (ad_revenue, duration), at S = 1 and S = 128 (keep and
-    every lane's final state): the chunk merges and replays run over the
-    whole column."""
+    can go wrong. The chunked ladder on ad_revenue against the one-CTA-a-
+    lane ladder (topn_det_pass1_serial) and the DISTINCT block walk at
+    B = 256 on source_ip against the one-CTA-a-lane block kernel (the C
+    entry distinct_pass1), at S = 1 and S = 128. Then the B = 1 TOP-N walk
+    on ad_revenue and the SKYLINE prefix merge on (ad_revenue, duration),
+    at S = 1 and S = 128 (keep and every lane's final state): the chunk
+    merges and replays run over the whole column."""
     from repro_torch.kernels import groupby_scan as G
     from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import topn_det_scan as TD
     from repro_torch.kernels.common import I32, P as VP, U32, ptr
 
     fs, xs = table.cols["source_ip"], table.cols["ad_revenue"]
@@ -2059,6 +2272,42 @@ def phase_witness(torch, table, pts):
               "kernel on the 2^25-entry column")
         say("witness", kernel="groupby_pass1", agg=agg, entries=m,
             serial_s=secs, emitted=int(ev[2].sum()), max_abs_err=err)
+    N, wl = TOPN_DET["N"], TOPN_DET["w"]
+    for S in (1, SHARDS):
+        new = TD.topn_det_pass1_kernel(xs, shards=S, **TOPN_DET)
+        new = (new[0],) + new[1]
+        old = (torch.empty(m, dtype=torch.bool, device="cuda"),
+               torch.empty(S, dtype=torch.float32, device="cuda"),
+               torch.empty((S, wl), dtype=torch.int32, device="cuda"),
+               torch.empty(S, dtype=torch.int32, device="cuda"),
+               torch.empty(S, dtype=torch.int32, device="cuda"))
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "topn_det_pass1_serial", [VP] * 6 + [I32] * 4,
+            *(ptr(t) for t in (xs,) + old), S, m // S, N, wl))
+        err = max_abs_err(zip(new, old))
+        check(err == 0.0 and all(same_bits(a, b) for a, b in zip(new, old)),
+              f"topn_det_pass1 S={S} differs from the serial ladder on the "
+              "2^25-entry column")
+        say("witness", kernel="topn_det_pass1", S=S, entries=m,
+            serial_s=secs, kept=int(new[0].sum()), max_abs_err=err)
+    for S in (1, SHARDS):
+        new = P.distinct_block_walk_kernel(fs, shards=S, block=256,
+                                           **DISTINCT)
+        old = (torch.empty(m, dtype=torch.bool, device="cuda"),
+               torch.empty((S, d, w), dtype=torch.uint32, device="cuda"),
+               torch.empty((S, d, w), dtype=torch.bool, device="cuda"),
+               torch.empty((S, d), dtype=torch.int32, device="cuda"))
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "distinct_pass1", [VP] * 5 + [I32] * 7 + [U32, VP],
+            *(ptr(t) for t in (fs,) + old), S, m // S, d, w, 256, 0, 0, 0,
+            None))
+        err = max_abs_err(zip(new, old))
+        check(err == 0.0 and all(same(a, b) for a, b in zip(new, old)),
+              f"distinct_pass1 block walk S={S} B=256 differs from the "
+              "block kernel on the 2^25-entry column")
+        say("witness", kernel="distinct_pass1_block_walk", S=S, B=256,
+            entries=m, block_kernel_s=secs, kept=int(new[0].sum()),
+            max_abs_err=err)
     d, w, D = TOPN["d"], TOPN["w"], pts.shape[1]
     mode = P._score_mode(SKYLINE["score"], "engine")
     for S in (1, SHARDS):
@@ -2128,6 +2377,9 @@ SOURCES = {
                        "src/repro/core/topn.py:112"),
     "distinct_pass1_lru": ("src/repro_torch/kernels/csrc/distinct.cu",
                            "src/repro/core/distinct.py:47"),
+    # distinct_pass1 at B > 1 while the lanes fill less than half the SMs
+    "distinct_pass1_block_walk": ("src/repro_torch/kernels/csrc/distinct.cu",
+                                  "src/repro/kernels/distinct_prune.py:67"),
 }
 
 

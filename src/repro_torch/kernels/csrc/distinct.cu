@@ -35,22 +35,46 @@
 // that key when the key converts back to the value (the reference compares
 // slot and value in f32).
 //
-// B > 1: distinct_pass1_block, block semantics as in src/repro/kernels/
-// ref.py: one CTA a lane, its d x w cache in shared memory; a chunk's hits
-// read the pre-chunk cache, and the first miss of each row (a shared
-// atomicMin of its chunk position) is inserted at head[row]. At d = 4096,
-// w = 4 the cache takes 112 KB, so the launch opts into dynamic shared
-// memory.
+// B > 1, block semantics as in src/repro/kernels/ref.py: an entry is kept
+// when it misses its row as the row stood before its block (of B entries
+// of the lane), and of each (row, block) only the first miss inserts, at
+// head[row]. An entry still reads and writes only its own row, so the
+// dependent chain is per (lane, row) and per block, not per block of the
+// lane. Two forms, picked by the shape in kernels/parallel.py:
+//   - distinct_pass1_block_walk, the row-parallel block walk: the same
+//     partition as at B = 1; distinct_mark drops an entry whose segment
+//     predecessor has the same key, the same hit rule and the same block
+//     (it misses or hits with its predecessor and is never its group's
+//     first miss; a repeat from an earlier block is kept in the walk,
+//     since that block may have inserted over the slot it would hit);
+//     distinct_compact writes the others as (key, block id); then
+//     distinct_block_walk takes one warp a segment through the cp.async
+//     ring, 32 entries a window from the first unresolved one. Every
+//     entry of the window is probed against the row as it stands, except
+//     that an entry of the group that inserted last sees the slot that
+//     insert overwrote as it was. The first miss of a later group inserts
+//     at head, and every entry up to the end of that group in the window
+//     is resolved (keep = miss); a window with no such miss resolves all
+//     of its entries. distinct_fill gives each dropped repeat the keep of
+//     the entry it repeats. Rows of w > 32 slots take
+//     distinct_block_walk_wide, the row in shared memory.
+//   - distinct_pass1_block (one CTA a lane, its d x w cache in shared
+//     memory; a chunk's hits read the pre-chunk cache, and the first miss
+//     of each row, a shared atomicMin of its chunk position, inserts). It
+//     is the faster form when the lanes fill the card: its chain is
+//     shard_len / B steps a lane. At d = 4096, w = 4 the cache takes
+//     112 KB, so the launch opts into dynamic shared memory.
 //
-// distinct_pass1_serial is the kernel the walk replaced (one thread of a
+// distinct_pass1_serial is the kernel the B = 1 walk replaced (one thread of a
 // CTA walks its lane's entries in order, the cache in shared memory). No
 // entry point of the package launches it; chip_smoke.py holds the walk
 // against it at full size.
 //
-// What bounds the walk: the longest segment's chain of survivors of the
-// collapse (one dependent step on registers each, at least a compare and
-// select), or the bytes of the partition; the block kernel: shard_len / B chunk steps of an atomicMin
-// and two barriers.
+// What bounds the walks: the longest segment's chain (at B = 1 its
+// survivors of the collapse, one dependent step on registers each, at
+// least a compare and select; at B > 1 its groups that insert, one window
+// each), or the bytes of the partition; the block kernel: shard_len / B
+// chunk steps of an atomicMin and two barriers.
 //
 // distinct_apply replaces distinct_apply_kernel (src/repro/kernels/parallel.py:267):
 // an entry kept by pass 1 is dropped when a valid slot of its row in the
@@ -213,12 +237,16 @@ __global__ void distinct_pass1_block(const uint32_t* __restrict__ x,
 }
 
 // Flags the entries of the partitioned stream that the walk must take, and
-// drops the rest: keep = 0 for an entry whose segment predecessor has the
-// same key and which can hit. flags has m + 1 ints; the last is set to 0.
+// drops the rest: at B = 1 an entry whose segment predecessor has the same
+// key and which can hit (keep = 0); at B > 1 an entry whose segment
+// predecessor has the same key, the same hit rule and the same block (its
+// keep is filled in after the walk). flags has m + 1 ints; the last is set
+// to 0.
 __global__ void distinct_mark(const uint2* __restrict__ part,
                               int* __restrict__ flags,
                               uint8_t* __restrict__ keep, long long m,
-                              int shard_len, int d, uint32_t seed, int fmode) {
+                              int shard_len, int d, uint32_t seed, int fmode,
+                              int block) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < m; j += stride) {
@@ -228,24 +256,28 @@ __global__ void distinct_mark(const uint2* __restrict__ part,
       const uint2 e0 = part[j - 1];
       if (e1.y / shard_len == e0.y / shard_len &&
           cheetah_hash_mod(e1.x, d, seed) == cheetah_hash_mod(e0.x, d, seed)) {
-        bool can, unused;
-        const uint32_t k1 = distinct_key(e1.x, fmode, &can);
-        dup = can && k1 == distinct_key(e0.x, fmode, &unused);
+        bool can1, can0;
+        const uint32_t k1 = distinct_key(e1.x, fmode, &can1);
+        const uint32_t k0 = distinct_key(e0.x, fmode, &can0);
+        dup = block == 1 ? can1 && k1 == k0
+                         : k1 == k0 && can1 == can0 &&
+                               (e1.y % shard_len) / block ==
+                                   (e0.y % shard_len) / block;
       }
     }
     flags[j] = !dup;
-    if (dup) keep[e1.y] = 0;
+    if (dup && block == 1) keep[e1.y] = 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) flags[m] = 0;
 }
 
 // The flagged entries, compacted in order: the stored key, and the index
-// with the sign bit set when the entry cannot hit. pos is the exclusive
-// scan of the flags (m + 1 ints).
+// (B = 1) or the block id (B > 1) with the sign bit set when the entry
+// cannot hit. pos is the exclusive scan of the flags (m + 1 ints).
 __global__ void distinct_compact(const uint2* __restrict__ part,
                                  const int* __restrict__ pos,
                                  uint2* __restrict__ walk, long long m,
-                                 int fmode) {
+                                 int shard_len, int fmode, int block) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < m; j += stride) {
@@ -254,7 +286,9 @@ __global__ void distinct_compact(const uint2* __restrict__ part,
     const uint2 e = part[j];
     bool can;
     const uint32_t k = distinct_key(e.x, fmode, &can);
-    walk[c] = make_uint2(k, e.y | (can ? 0u : ROWPAR_INVALID));
+    const uint32_t tag =
+        block == 1 ? e.y : (e.y % static_cast<uint32_t>(shard_len)) / block;
+    walk[c] = make_uint2(k, tag | (can ? 0u : ROWPAR_INVALID));
   }
 }
 
@@ -463,6 +497,221 @@ cudaError_t distinct_walk_wide_launch(const uint2* walk, const int* pos,
   return cudaGetLastError();
 }
 
+// B > 1: one warp a segment g over its compacted entries [pos[starts[g]],
+// pos[starts[g + 1]]) of (key, block id), through a ring of ROWPAR_STAGES
+// chunks of 32 in shared memory, refilled by cp.async as the windows move
+// on (a window of 32 from the first unresolved entry spans at most two
+// chunks). The row's slots live in registers of every lane (W >= w).
+// ckeep gets each compacted entry's keep.
+template <int W>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    distinct_block_walk(const uint2* __restrict__ walk,
+                        const int* __restrict__ pos,
+                        const int* __restrict__ starts,
+                        uint8_t* __restrict__ ckeep,
+                        uint32_t* __restrict__ slots_out,
+                        uint8_t* __restrict__ valid_out,
+                        int* __restrict__ head_out, long long nseg, int w) {
+  constexpr int kRing = ROWPAR_STAGES * 32;
+  __shared__ uint2 ring[ROWPAR_WARPS][kRing];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseg) return;  // whole warps
+  const int lane = threadIdx.x & 31;
+  uint2* rw = ring[threadIdx.x >> 5];
+  const int lo = pos[starts[g]];
+  const int len = pos[starts[g + 1]] - lo;
+  const int chunks = (len + 31) >> 5;
+  auto issue = [&](int c) {
+    const int j = (c << 5) + lane;
+    const bool in = c < chunks && j < len;
+    rowpar_cp<8>(&rw[(c % ROWPAR_STAGES) * 32 + lane], walk + (in ? lo + j : 0),
+                 in);
+    rowpar_commit();
+  };
+  for (int c = 0; c < ROWPAR_STAGES; ++c) issue(c);
+  uint32_t s[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) s[i] = 0u;
+  unsigned vm = 0u;  // valid flags, bit i for slot i
+  int head = 0;
+  // the group that inserted last, and what its insert overwrote
+  uint32_t g_ins = 0xFFFFFFFFu;
+  int h_ins = 0;
+  uint32_t k_ins = 0u;
+  bool v_ins = false;
+  int done = 0;  // chunks consumed, their ring slots refilled
+  for (int rel = 0; rel < len;) {
+    for (; done < (rel >> 5); ++done) {
+      __syncwarp();  // every lane is done with the slot this issue refills
+      issue(done + ROWPAR_STAGES);
+    }
+    rowpar_wait_for<ROWPAR_STAGES - 2>();  // chunks up to (rel >> 5) + 1
+    __syncwarp();
+    const bool in = rel + lane < len;
+    const uint2 x = rw[(rel + lane) % kRing];
+    const uint32_t key = x.x;
+    const uint32_t blk = x.y & 0x7FFFFFFFu;
+    unsigned hb = 0u;
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (((vm >> i) & 1u) && s[i] == key) hb |= 1u << i;
+    const bool pre = blk == g_ins;
+    const bool hit =
+        static_cast<int>(x.y) >= 0 &&
+        (pre ? (hb & ~(1u << h_ins)) != 0u || (v_ins && k_ins == key)
+             : hb != 0u);
+    const unsigned cand = __ballot_sync(ROWPAR_FULL, in && !pre && !hit);
+    int n = min(32, len - rel);
+    if (cand) {
+      const int f = __ffs(cand) - 1;
+      const uint32_t gf = __shfl_sync(ROWPAR_FULL, blk, f);
+      const uint32_t kf = __shfl_sync(ROWPAR_FULL, key, f);
+      n = __popc(__ballot_sync(ROWPAR_FULL, in && blk <= gf));
+      h_ins = head;
+      v_ins = (vm >> head) & 1u;
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        if (i == head) {
+          k_ins = s[i];
+          s[i] = kf;
+        }
+      vm |= 1u << head;
+      head = head + 1 == w ? 0 : head + 1;
+      g_ins = gf;
+    }
+    if (lane < n) ckeep[lo + rel + lane] = !hit;
+    rel += n;
+  }
+  rowpar_wait_all();
+  const long long o = g * w;
+  for (int i = lane; i < w; i += 32) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      if (c == i) v = s[c];
+    slots_out[o + i] = v;
+    valid_out[o + i] = (vm >> i) & 1u;
+  }
+  if (lane == 0) head_out[g] = head;
+}
+
+template <int W>
+void distinct_block_walk_launch(const uint2* walk, const int* pos,
+                                const int* starts, uint8_t* ckeep,
+                                uint32_t* slots, uint8_t* valid, int* head,
+                                long long nseg, int w, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((nseg * 32 + ROWPAR_THREADS - 1) /
+                                                ROWPAR_THREADS);
+  distinct_block_walk<W><<<blocks, ROWPAR_THREADS, 0, stream>>>(
+      walk, pos, starts, ckeep, slots, valid, head, nseg, w);
+}
+
+// The block walk for rows wider than a warp's registers (w > 32): the
+// row's slots and valid flags in shared memory, each window loaded from
+// global memory (one entry a lane); every lane probes the whole row for
+// its own entry.
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    distinct_block_walk_wide(const uint2* __restrict__ walk,
+                             const int* __restrict__ pos,
+                             const int* __restrict__ starts,
+                             uint8_t* __restrict__ ckeep,
+                             uint32_t* __restrict__ slots_out,
+                             uint8_t* __restrict__ valid_out,
+                             int* __restrict__ head_out, long long nseg,
+                             int w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long g = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (g >= nseg) return;  // whole warps
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * w;
+  uint8_t* vb = smem + static_cast<size_t>(warps) * w * sizeof(uint32_t) +
+                static_cast<size_t>(warp) * w;
+  for (int i = lane; i < w; i += 32) {
+    s[i] = 0u;
+    vb[i] = 0;
+  }
+  __syncwarp();
+  const int lo = pos[starts[g]];
+  const int len = pos[starts[g + 1]] - lo;
+  int head = 0;
+  uint32_t g_ins = 0xFFFFFFFFu;
+  int h_ins = 0;
+  uint32_t k_ins = 0u;
+  bool v_ins = false;
+  for (int rel = 0; rel < len;) {
+    const bool in = rel + lane < len;
+    const uint2 x = in ? walk[lo + rel + lane] : make_uint2(0u, 0u);
+    const uint32_t key = x.x;
+    const uint32_t blk = x.y & 0x7FFFFFFFu;
+    const bool pre = blk == g_ins;
+    bool hit = pre && v_ins && k_ins == key;
+    for (int i = 0; i < w && !hit; ++i)
+      hit = vb[i] && s[i] == key && !(pre && i == h_ins);
+    hit = hit && static_cast<int>(x.y) >= 0;
+    const unsigned cand = __ballot_sync(ROWPAR_FULL, in && !pre && !hit);
+    int n = min(32, len - rel);
+    if (cand) {
+      const int f = __ffs(cand) - 1;
+      const uint32_t gf = __shfl_sync(ROWPAR_FULL, blk, f);
+      const uint32_t kf = __shfl_sync(ROWPAR_FULL, key, f);
+      n = __popc(__ballot_sync(ROWPAR_FULL, in && blk <= gf));
+      h_ins = head;
+      v_ins = vb[head] != 0;
+      k_ins = s[head];
+      __syncwarp();  // every lane has probed and read the slot
+      if (lane == 0) {
+        s[head] = kf;
+        vb[head] = 1;
+      }
+      __syncwarp();
+      head = head + 1 == w ? 0 : head + 1;
+      g_ins = gf;
+    }
+    if (lane < n) ckeep[lo + rel + lane] = !hit;
+    rel += n;
+  }
+  const long long o = g * w;
+  for (int i = lane; i < w; i += 32) {
+    slots_out[o + i] = s[i];
+    valid_out[o + i] = vb[i];
+  }
+  if (lane == 0) head_out[g] = head;
+}
+
+cudaError_t distinct_block_walk_wide_launch(const uint2* walk, const int* pos,
+                                            const int* starts, uint8_t* ckeep,
+                                            uint32_t* slots, uint8_t* valid,
+                                            int* head, long long nseg, int w,
+                                            cudaStream_t stream) {
+  const size_t row = static_cast<size_t>(w) * (sizeof(uint32_t) + 1);
+  const int warps = rowpar_wide_warps(row);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = warps * row;
+  const unsigned blocks = static_cast<unsigned>((nseg + warps - 1) / warps);
+  cudaError_t err = cheetah_launch_prep(
+      reinterpret_cast<const void*>(distinct_block_walk_wide), smem);
+  if (err != cudaSuccess) return err;
+  distinct_block_walk_wide<<<blocks, warps * 32, smem, stream>>>(
+      walk, pos, starts, ckeep, slots, valid, head, nseg, w);
+  return cudaGetLastError();
+}
+
+// B > 1: each entry's keep from the compacted keep of its own entry or, for
+// a dropped same-block repeat, of the entry it repeats; both are the last
+// compacted entry at or before it, pos[j + 1] - 1.
+__global__ void distinct_fill(const uint2* __restrict__ part,
+                              const int* __restrict__ pos,
+                              const uint8_t* __restrict__ ckeep,
+                              uint8_t* __restrict__ keep, long long m) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < m; j += stride)
+    keep[part[j].y] = ckeep[pos[j + 1] - 1];
+}
+
 __global__ void distinct_apply_kernel(const uint32_t* __restrict__ x,
                                       const uint8_t* __restrict__ keep1,
                                       const uint32_t* __restrict__ mslots,
@@ -492,7 +741,7 @@ __global__ void distinct_apply_kernel(const uint32_t* __restrict__ x,
 
 struct DistinctWork {
   RowparPlan plan;
-  size_t partition, part, flags, partial, total;
+  size_t partition, part, flags, partial, ckeep, total;
 };
 
 DistinctWork distinct_work(int shards, int shard_len, int d) {
@@ -503,48 +752,23 @@ DistinctWork distinct_work(int shards, int shard_len, int d) {
   k.part = rowpar_align(m * sizeof(uint2));
   k.flags = rowpar_align((m + 1) * sizeof(int));
   k.partial = rowpar_align((rowpar_scan_blocks(m + 1) + 1) * sizeof(int));
-  // partition scratch; the partitioned stream; the flags and their scan's
-  // partials; the compacted stream
-  k.total = k.partition + 2 * k.part + k.flags + k.partial;
+  k.ckeep = rowpar_align(m);
+  // partition scratch; the partitioned stream; the compacted stream; the
+  // flags and their scan's partials; the compacted keep (B > 1)
+  k.total = k.partition + 2 * k.part + k.flags + k.partial + k.ckeep;
   return k;
 }
 
-size_t serial_smem(int d, int w) {
-  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
-         static_cast<size_t>(d) * sizeof(int) +
-         CHEETAH_STAGE * (sizeof(uint32_t) + sizeof(int) + 1);
-}
-
-}  // namespace
-
-// Shared memory of the block kernel (B > 1); the walk needs none of it.
-extern "C" size_t distinct_pass1_smem(int d, int w, int block) {
-  (void)block;
-  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
-         2 * static_cast<size_t>(d) * sizeof(int);
-}
-
-extern "C" size_t distinct_pass1_workspace(int shards, int shard_len, int d,
-                                           int block) {
-  return block == 1 ? distinct_work(shards, shard_len, d).total : 0;
-}
-
-extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
-                              uint8_t* valid, int* head, int shards,
-                              int shard_len, int d, int w, int block, int lru,
-                              int fmode, uint32_t seed, unsigned char* work,
-                              cudaStream_t stream) {
-  if (block > 1) {
-    if (lru) return cudaErrorInvalidValue;  // LRU is per entry: B = 1 only
-    const size_t smem = distinct_pass1_smem(d, w, block);
-    cudaError_t err = cheetah_launch_prep(
-        reinterpret_cast<const void*>(distinct_pass1_block), smem);
-    if (err != cudaSuccess) return err;
-    distinct_pass1_block<<<shards, block, smem, stream>>>(
-        x, keep, slots, valid, head, shard_len, d, w, fmode, seed);
-    return cudaGetLastError();
-  }
-  if (w < 1 ||
+// The walks of both semantics: partition, collapse, compact, then one warp
+// a segment (B = 1: FIFO or LRU, keep written by the walk; B > 1: FIFO
+// block semantics, keep filled from the compacted keep). work holds
+// distinct_work(...).total bytes.
+cudaError_t distinct_walks(const uint32_t* x, uint8_t* keep, uint32_t* slots,
+                           uint8_t* valid, int* head, int shards,
+                           int shard_len, int d, int w, int block, int lru,
+                           int fmode, uint32_t seed, unsigned char* work,
+                           cudaStream_t stream) {
+  if (w < 1 || block < 1 ||
       (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 5) == 0))
     return cudaErrorInvalidValue;
   const DistinctWork k = distinct_work(shards, shard_len, d);
@@ -555,18 +779,41 @@ extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
   uint2* walk = reinterpret_cast<uint2*>(p + k.part);
   int* flags = reinterpret_cast<int*>(p + 2 * k.part);
   int* partial = reinterpret_cast<int*>(p + 2 * k.part + k.flags);
+  uint8_t* ckeep = p + 2 * k.part + k.flags + k.partial;
   int* starts = nullptr;
   cudaError_t err = rowpar_partition(x, nullptr, nullptr, k.plan, seed, part,
                                      work, &starts, stream);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(
       min((m + ROWPAR_THREADS - 1) / ROWPAR_THREADS, 132LL * 16));
-  distinct_mark<<<grid, ROWPAR_THREADS, 0, stream>>>(part, flags, keep, m,
-                                                     shard_len, d, seed, fmode);
+  distinct_mark<<<grid, ROWPAR_THREADS, 0, stream>>>(
+      part, flags, keep, m, shard_len, d, seed, fmode, block);
   err = rowpar_scan(flags, m + 1, partial, stream);
   if (err != cudaSuccess) return err;
   distinct_compact<<<grid, ROWPAR_THREADS, 0, stream>>>(part, flags, walk, m,
-                                                        fmode);
+                                                        shard_len, fmode,
+                                                        block);
+  if (block > 1) {
+    if (w <= 4)
+      distinct_block_walk_launch<4>(walk, flags, starts, ckeep, slots, valid,
+                                    head, nseg, w, stream);
+    else if (w <= 8)
+      distinct_block_walk_launch<8>(walk, flags, starts, ckeep, slots, valid,
+                                    head, nseg, w, stream);
+    else if (w <= 16)
+      distinct_block_walk_launch<16>(walk, flags, starts, ckeep, slots, valid,
+                                     head, nseg, w, stream);
+    else if (w <= 32)
+      distinct_block_walk_launch<32>(walk, flags, starts, ckeep, slots, valid,
+                                     head, nseg, w, stream);
+    else if ((err = distinct_block_walk_wide_launch(
+                  walk, flags, starts, ckeep, slots, valid, head, nseg, w,
+                  stream)) != cudaSuccess)
+      return err;
+    distinct_fill<<<grid, ROWPAR_THREADS, 0, stream>>>(part, flags, ckeep,
+                                                       keep, m);
+    return cudaGetLastError();
+  }
   if (w <= 4)
     distinct_walk_launch<4>(walk, flags, starts, keep, slots, valid, head,
                             nseg, w, lru, stream);
@@ -583,6 +830,60 @@ extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
     return distinct_walk_wide_launch(walk, flags, starts, keep, slots, valid,
                                      head, nseg, w, lru, stream);
   return cudaGetLastError();
+}
+
+size_t serial_smem(int d, int w) {
+  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
+         static_cast<size_t>(d) * sizeof(int) +
+         CHEETAH_STAGE * (sizeof(uint32_t) + sizeof(int) + 1);
+}
+
+}  // namespace
+
+// Shared memory of the block kernel (B > 1); the walks need none of it.
+extern "C" size_t distinct_pass1_smem(int d, int w, int block) {
+  (void)block;
+  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
+         2 * static_cast<size_t>(d) * sizeof(int);
+}
+
+// Workspace of the walks (distinct_pass1 at B = 1, and the block walk); the
+// block kernel takes none.
+extern "C" size_t distinct_pass1_workspace(int shards, int shard_len, int d) {
+  return distinct_work(shards, shard_len, d).total;
+}
+
+// B = 1: the row-parallel walk (FIFO or LRU); B > 1: the one-CTA-a-lane
+// block kernel.
+extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
+                              uint8_t* valid, int* head, int shards,
+                              int shard_len, int d, int w, int block, int lru,
+                              int fmode, uint32_t seed, unsigned char* work,
+                              cudaStream_t stream) {
+  if (block > 1) {
+    if (lru) return cudaErrorInvalidValue;  // LRU is per entry: B = 1 only
+    const size_t smem = distinct_pass1_smem(d, w, block);
+    cudaError_t err = cheetah_launch_prep(
+        reinterpret_cast<const void*>(distinct_pass1_block), smem);
+    if (err != cudaSuccess) return err;
+    distinct_pass1_block<<<shards, block, smem, stream>>>(
+        x, keep, slots, valid, head, shard_len, d, w, fmode, seed);
+    return cudaGetLastError();
+  }
+  return distinct_walks(x, keep, slots, valid, head, shards, shard_len, d, w,
+                        1, lru, fmode, seed, work, stream);
+}
+
+// The row-parallel block walk (FIFO, block semantics, B >= 1); work holds
+// distinct_pass1_workspace bytes.
+extern "C" int distinct_pass1_block_walk(const uint32_t* x, uint8_t* keep,
+                                         uint32_t* slots, uint8_t* valid,
+                                         int* head, int shards, int shard_len,
+                                         int d, int w, int block, int fmode,
+                                         uint32_t seed, unsigned char* work,
+                                         cudaStream_t stream) {
+  return distinct_walks(x, keep, slots, valid, head, shards, shard_len, d, w,
+                        block, 0, fmode, seed, work, stream);
 }
 
 // The retired one-thread walk, for holding the row-parallel walk against it

@@ -7,23 +7,44 @@
 // highest level with counts[cur] >= N. Every step is an exact f32 minimum,
 // an exact multiply by a power of two, a compare or an integer count, so
 // the ladder is a prefix computation: a min-scan over the warm-up entries
-// and one sum-scan per level. Both kernels below are such scans over
-// blocks of 256 entries (or runs), with the state carried from block to
-// block. They are bit-identical with the JAX package's lax.scan and Pallas
-// kernel as long as IEEE semantics hold: no --use_fast_math, no exp2f (the
-// levels are t0 times 2^i built from its bits), t0 = POS times 2^i
-// overflowing to inf (v >= inf is false), and the minimum propagates NaN
-// as jnp.minimum does (the fold of groupby.cu for MIN does the same).
-// counts and seen are int32: 2^25 rows do not come near 2^31.
+// and one sum-scan per level. The kernels below are bit-identical with the
+// JAX package's lax.scan and Pallas kernel as long as IEEE semantics hold:
+// no --use_fast_math, no exp2f (the levels are t0 times 2^i built from its
+// bits), t0 = POS times 2^i overflowing to inf (v >= inf is false), and the
+// minimum propagates NaN as jnp.minimum does (the fold of groupby.cu for
+// MIN does the same). Every minimum is combined in stream order, the
+// earlier operand first, so that of equal values (-0, +0) the first stays,
+// as in a serial fold. counts and seen are int32: 2^25 rows do not come
+// near 2^31.
 //
 // topn_det_pass1 replaces the lax.scan of core.topn.topn_det_prune
 // (src/repro/core/topn.py:112-137), which has no Pallas kernel; it carries
-// the engine's scan, sharded and two_pass modes. One CTA is one lane over
-// its contiguous shard. Per block: a min-scan of the warm-up candidates
-// (only while the block starts inside the first N entries of the lane),
-// then for each level an inclusive sum-scan of x >= t0 * 2^i; an entry is
-// kept while warm or when x >= t0 * 2^cur. Output: keep per entry and the
-// lane's final (t0, counts, seen, cur_level).
+// the engine's scan, sharded and two_pass modes. Each lane is cut into
+// chunks of LADDER_CHUNK entries (256 threads of 16 consecutive entries),
+// and the grid is every chunk of every lane, so that one lane fills the
+// card. After its first N entries a lane's t0 is fixed, and so are its
+// levels; a level's count is then a plain prefix count. Five launches:
+//   1. ladder_warm: the chunks that hold entries j < N of their lane each
+//      take the minimum of those entries;
+//   2. ladder_scan (min): an exclusive min-scan of those chunk minima per
+//      lane gives each warm chunk its entering t0, and the lane's final t0
+//      (its total, written to t0_out) is every later chunk's t0;
+//   3. ladder_count: each chunk counts, per level, its entries with
+//      x >= t0_j * 2^i (t0_j the running t0 inside a warm chunk);
+//   4. ladder_scan (sum): an exclusive sum-scan of those counts over the
+//      chunks of each (lane, level) gives each chunk its entering counts,
+//      and the lane's final counts (written to counts_out);
+//   5. ladder_keep: each chunk replays its entries from its entering
+//      counts (per level, an exclusive block scan of the threads' counts)
+//      and writes keep; the last chunk of a lane writes seen and cur.
+// What bounds it: the bytes (x read twice, keep written once), not a
+// chain: the only sequential work is the two scans over a lane's chunks.
+//
+// topn_det_pass1_serial is the kernel the chunked scan replaced: one CTA a
+// lane walks its shard in blocks of 256 with w + 1 block scans a block,
+// the state carried from block to block. No entry point of the package
+// launches it; chip_smoke.py holds the chunked scan against it at full
+// size.
 //
 // rle_topn_det replaces rle_topn_det_kernel (src/repro/kernels/rle_scan.py:98):
 // the closed form of _run_math (rle_scan.py:51-76) for each run (v, L).
@@ -33,11 +54,8 @@
 // sum-scan of L * ge its entering counts. A and C are computed from the
 // whole ge vector, never from a level index, because ge is not a prefix in
 // i when t0 <= 0. Pad runs are (POS, 0), and so are the threads past R.
-//
-// What bounds them: neither keeps a per-row table, so there is no chain of
-// dependent shared-memory probes; the bound is the bytes (read x once,
-// write keep once) and, in practice, the w + 1 block scans of three
-// barriers each per block of 256.
+// It is bound, like the serial ladder, by its w + 1 block scans of three
+// barriers each per block of 256 on one SM.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,6 +66,10 @@
 #define CHEETAH_POS_BITS 0x7f7fc99eu
 #define TOPN_DET_THREADS 256
 #define TOPN_DET_MAX_W 32
+#define LADDER_THREADS 256
+#define LADDER_ITEMS 16                                 // entries a thread
+#define LADDER_CHUNK (LADDER_THREADS * LADDER_ITEMS)    // entries a CTA
+#define LADDER_SCAN_ITEMS 8                             // values a thread a round
 #define RLE_BIG (1 << 30)
 
 namespace {
@@ -68,16 +90,20 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return b < a ? b : a;
 }
 
+// The ladder's two scan operators. ident() is a left identity of every
+// value a scan sees: the minima all start from POS.
 struct MinOp {
   __device__ __forceinline__ float operator()(float a, float b) const {
     return nan_min(a, b);
   }
+  __device__ __forceinline__ static float ident() { return pos_value(); }
 };
 
 struct AddOp {
   __device__ __forceinline__ int operator()(int a, int b) const {
     return a + b;
   }
+  __device__ __forceinline__ static int ident() { return 0; }
 };
 
 // Inclusive scan of one value a thread over the block (blockDim.x a
@@ -113,7 +139,326 @@ __device__ __forceinline__ T block_scan(T v, T* buf, Op op, T* total) {
   return v;
 }
 
-__global__ void topn_det_pass1_kernel(const float* __restrict__ x,
+// Exclusive scan of one value a thread over the block, in thread order (the
+// earlier operand first); ``*total`` gets the whole block's. ``buf`` is 33
+// slots of shared memory. Ends on a barrier, so ``buf`` can be reused.
+template <typename T, typename Op>
+__device__ __forceinline__ T block_exscan(T v, T* buf, Op op, T* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  T incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl = op(u, incl);
+  }
+  T ex = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) ex = Op::ident();
+  if (lane == 31) buf[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    T t = lane < nw ? buf[lane] : Op::ident();
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const T u = __shfl_up_sync(0xffffffffu, t, o);
+      if (lane >= o) t = op(u, t);
+    }
+    T e = __shfl_up_sync(0xffffffffu, t, 1);
+    if (lane == 0) e = Op::ident();
+    if (lane < nw) buf[lane] = e;
+    if (lane == nw - 1) buf[32] = t;
+  }
+  __syncthreads();
+  ex = op(buf[warp], ex);
+  *total = buf[32];
+  __syncthreads();
+  return ex;
+}
+
+// Phase 1: one CTA a warm chunk (blockIdx.x = lane * warm + chunk), the
+// minimum of the chunk's entries j < N, in stream order, from POS.
+__global__ void __launch_bounds__(LADDER_THREADS)
+    ladder_warm(const float* __restrict__ x, float* __restrict__ wmin, int n,
+                int N, int warm) {
+  __shared__ float buf[33];
+  const long long s = blockIdx.x / warm;
+  const int c = blockIdx.x % warm;
+  const float* xs = x + s * n;
+  const int j0 = c * LADDER_CHUNK + threadIdx.x * LADDER_ITEMS;
+  const int lim = min(n, N);
+  float lf = pos_value();
+  for (int k = 0; k < LADDER_ITEMS; ++k)
+    if (j0 + k < lim) lf = nan_min(lf, xs[j0 + k]);
+  float tot;
+  block_exscan(lf, buf, MinOp(), &tot);
+  if (threadIdx.x == 0) wmin[blockIdx.x] = tot;
+}
+
+// Phases 2 and 4: in place, per row of ``len`` values (blockIdx.x = row),
+// the exclusive scan in order from Op::ident(); total[row] gets the row's.
+template <typename T, typename Op>
+__global__ void __launch_bounds__(LADDER_THREADS)
+    ladder_scan(T* __restrict__ a, T* __restrict__ total, int len) {
+  __shared__ T buf[33];
+  const Op op{};
+  T* r = a + static_cast<long long>(blockIdx.x) * len;
+  T carry = Op::ident();
+  for (int b0 = 0; b0 < len; b0 += LADDER_THREADS * LADDER_SCAN_ITEMS) {
+    const int j0 = b0 + threadIdx.x * LADDER_SCAN_ITEMS;
+    T v[LADDER_SCAN_ITEMS];
+    T loc = Op::ident();
+#pragma unroll
+    for (int k = 0; k < LADDER_SCAN_ITEMS; ++k) {
+      v[k] = j0 + k < len ? r[j0 + k] : Op::ident();
+      loc = op(loc, v[k]);
+    }
+    T tot;
+    T run = op(carry, block_exscan(loc, buf, op, &tot));
+#pragma unroll
+    for (int k = 0; k < LADDER_SCAN_ITEMS; ++k) {
+      if (j0 + k < len) r[j0 + k] = run;
+      run = op(run, v[k]);
+    }
+    carry = op(carry, tot);
+  }
+  if (threadIdx.x == 0) total[blockIdx.x] = carry;
+}
+
+// The 16 entries of this thread in chunk c of a lane (xs, n entries), POS
+// past the lane's end, and the t0 of each: inside a warm chunk the running
+// minimum from the chunk's entering t0 ``t_in``, else ``t_in``, the lane's
+// final t0. The branch is uniform over the block.
+__device__ __forceinline__ void ladder_items(const float* __restrict__ xs,
+                                             int n, int N, int c, int warm,
+                                             float t_in,
+                                             float (&v)[LADDER_ITEMS],
+                                             float (&t0)[LADDER_ITEMS],
+                                             float* buf) {
+  const float pos = pos_value();
+  const int j0 = c * LADDER_CHUNK + threadIdx.x * LADDER_ITEMS;
+  if (j0 + LADDER_ITEMS <= n &&
+      (reinterpret_cast<uintptr_t>(xs + j0) & 15u) == 0) {
+    const float4* q = reinterpret_cast<const float4*>(xs + j0);
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS / 4; ++k) {
+      const float4 f = __ldg(q + k);
+      v[4 * k] = f.x;
+      v[4 * k + 1] = f.y;
+      v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS; ++k)
+      v[k] = j0 + k < n ? xs[j0 + k] : pos;
+  }
+  if (c < warm) {
+    const int lim = min(n, N);
+    float lf = pos;
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS; ++k)
+      if (j0 + k < lim) lf = nan_min(lf, v[k]);
+    float tot;
+    float run = nan_min(t_in, block_exscan(lf, buf, MinOp(), &tot));
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS; ++k) {
+      if (j0 + k < lim) run = nan_min(run, v[k]);
+      t0[k] = run;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS; ++k) t0[k] = t_in;
+  }
+}
+
+// Phase 3: one CTA a chunk (blockIdx.x = lane * chunks + chunk), per level
+// i < w the count of its entries with x >= t0_j * 2^i, to
+// cnt[(lane * w + i) * chunks + chunk]. W >= w bounds the registers.
+template <int W>
+__global__ void __launch_bounds__(LADDER_THREADS)
+    ladder_count(const float* __restrict__ x, const float* __restrict__ wpre,
+                 const float* __restrict__ tfin, int* __restrict__ cnt, int n,
+                 int N, int w, int chunks, int warm) {
+  __shared__ float buf[33];
+  __shared__ int part[LADDER_THREADS / 32][W];
+  const int s = blockIdx.x / chunks;
+  const int c = blockIdx.x % chunks;
+  const float t_in = c < warm ? wpre[static_cast<long long>(s) * warm + c]
+                              : tfin[s];
+  float v[LADDER_ITEMS], t0[LADDER_ITEMS];
+  ladder_items(x + static_cast<long long>(s) * n, n, N, c, warm, t_in, v, t0,
+               buf);
+  const int j0 = c * LADDER_CHUNK + threadIdx.x * LADDER_ITEMS;
+  int cn[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) cn[i] = 0;
+#pragma unroll
+  for (int k = 0; k < LADDER_ITEMS; ++k)
+    if (j0 + k < n) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) cn[i] += v[k] >= __fmul_rn(t0[k], pow2(i));
+    }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const unsigned r = __reduce_add_sync(0xffffffffu,
+                                         static_cast<unsigned>(cn[i]));
+    if (lane == 0) part[warp][i] = static_cast<int>(r);
+  }
+  __syncthreads();
+  if (threadIdx.x < w) {
+    int r = 0;
+    for (int q = 0; q < LADDER_THREADS / 32; ++q) r += part[q][threadIdx.x];
+    cnt[(static_cast<long long>(s) * w + threadIdx.x) * chunks + c] = r;
+  }
+}
+
+// Phase 5: one CTA a chunk, its entries replayed from the chunk's entering
+// counts (cnt after the scan): per level an exclusive scan of the threads'
+// counts gives each thread its entering counts, then each entry's cur and
+// keep. The last chunk of a lane writes seen and cur from the lane's
+// totals.
+template <int W>
+__global__ void __launch_bounds__(LADDER_THREADS)
+    ladder_keep(const float* __restrict__ x, const float* __restrict__ wpre,
+                const float* __restrict__ tfin, const int* __restrict__ cnt,
+                const int* __restrict__ totals, uint8_t* __restrict__ keep,
+                int* __restrict__ seen_out, int* __restrict__ cur_out, int n,
+                int N, int w, int chunks, int warm) {
+  __shared__ float buf[33];
+  __shared__ int part[LADDER_THREADS / 32][W];
+  const int s = blockIdx.x / chunks;
+  const int c = blockIdx.x % chunks;
+  const float t_in = c < warm ? wpre[static_cast<long long>(s) * warm + c]
+                              : tfin[s];
+  float v[LADDER_ITEMS], t0[LADDER_ITEMS];
+  ladder_items(x + static_cast<long long>(s) * n, n, N, c, warm, t_in, v, t0,
+               buf);
+  const int j0 = c * LADDER_CHUNK + threadIdx.x * LADDER_ITEMS;
+  int loc[W];  // this thread's count of each level
+#pragma unroll
+  for (int i = 0; i < W; ++i) loc[i] = 0;
+#pragma unroll
+  for (int k = 0; k < LADDER_ITEMS; ++k)
+    if (j0 + k < n) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) loc[i] += v[k] >= __fmul_rn(t0[k], pow2(i));
+    }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int run[W];  // the counts entering this thread's first entry
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    int incl = loc[i];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) part[warp][i] = incl;
+    run[i] = incl - loc[i];  // exclusive within the warp
+  }
+  __syncthreads();
+  // cur only grows (counts only grow), so when the levels reaching N are
+  // the same before and after the thread's entries, cur is one value for
+  // all of them; only a thread where a level reaches N replays level by
+  // level, at most w threads a lane.
+  int cur_first = -1, cur_last = -1;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    int e = i < w ? cnt[(static_cast<long long>(s) * w + i) * chunks + c] : 0;
+    for (int q = 0; q < warp; ++q) e += part[q][i];
+    run[i] += e;
+    if (i < w && run[i] >= N) cur_first = i;
+    if (i < w && run[i] + loc[i] >= N) cur_last = i;
+  }
+  const float neg = cheetah_neg_value();
+  uint8_t kp[LADDER_ITEMS];
+  if (cur_first == cur_last) {
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS; ++k) {
+      const float thr =
+          cur_first >= 0 ? __fmul_rn(t0[k], pow2(cur_first)) : neg;
+      kp[k] = (j0 + k < N) || (v[k] >= thr);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS; ++k) {
+      const int j = j0 + k;
+      int cur = -1;
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        run[i] += j < n && v[k] >= __fmul_rn(t0[k], pow2(i));
+        if (i < w && run[i] >= N) cur = i;
+      }
+      const float thr = cur >= 0 ? __fmul_rn(t0[k], pow2(cur)) : neg;
+      kp[k] = (j < N) || (v[k] >= thr);
+    }
+  }
+  uint8_t* kd = keep + static_cast<long long>(s) * n + j0;
+  if (j0 + LADDER_ITEMS <= n && (reinterpret_cast<uintptr_t>(kd) & 15u) == 0) {
+    unsigned q[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      q[h] = kp[4 * h] | (kp[4 * h + 1] << 8) | (kp[4 * h + 2] << 16) |
+             (static_cast<unsigned>(kp[4 * h + 3]) << 24);
+    *reinterpret_cast<uint4*>(kd) = make_uint4(q[0], q[1], q[2], q[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < LADDER_ITEMS; ++k)
+      if (j0 + k < n) kd[k] = kp[k];
+  }
+  if (c == chunks - 1 && threadIdx.x == 0) {
+    int cur = -1;
+    for (int i = 0; i < w; ++i)
+      if (totals[static_cast<long long>(s) * w + i] >= N) cur = i;
+    seen_out[s] = n;
+    cur_out[s] = cur;
+  }
+}
+
+// The chunked scan's plan for S lanes of n entries: chunks a lane, warm
+// chunks a lane (those holding entries j < N), and the workspace: the warm
+// chunks' minima [S][warm], then the level counts [S][w][chunks].
+struct LadderPlan {
+  int chunks, warm;
+  size_t wmin_bytes, total;
+};
+
+static inline size_t ladder_align(size_t b) { return (b + 255) & ~size_t(255); }
+
+static inline LadderPlan ladder_plan(int shards, int n, int N, int w) {
+  LadderPlan p;
+  p.chunks = (n + LADDER_CHUNK - 1) / LADDER_CHUNK;
+  const int lim = N < n ? N : n;
+  p.warm = lim > 0 ? (lim + LADDER_CHUNK - 1) / LADDER_CHUNK : 0;
+  p.wmin_bytes = ladder_align(static_cast<size_t>(shards) *
+                              (p.warm > 0 ? p.warm : 1) * sizeof(float));
+  p.total = p.wmin_bytes + ladder_align(static_cast<size_t>(shards) * w *
+                                        (p.chunks > 0 ? p.chunks : 1) *
+                                        sizeof(int));
+  return p;
+}
+
+template <int W>
+void ladder_levels(const float* x, uint8_t* keep, float* t0, int* counts,
+                   int* seen, int* cur, int shards, int n, int N, int w,
+                   const LadderPlan& p, float* wmin, int* cnt,
+                   cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>(shards) * p.chunks;
+  ladder_count<W><<<grid, LADDER_THREADS, 0, stream>>>(x, wmin, t0, cnt, n, N,
+                                                       w, p.chunks, p.warm);
+  ladder_scan<int, AddOp><<<static_cast<unsigned>(shards) * w,
+                            LADDER_THREADS, 0, stream>>>(cnt, counts,
+                                                         p.chunks);
+  ladder_keep<W><<<grid, LADDER_THREADS, 0, stream>>>(
+      x, wmin, t0, cnt, counts, keep, seen, cur, n, N, w, p.chunks, p.warm);
+}
+
+// The retired one-CTA-a-lane ladder (see the header).
+__global__ void topn_det_serial_kernel(const float* __restrict__ x,
                                       uint8_t* __restrict__ keep,
                                       float* __restrict__ t0_out,
                                       int* __restrict__ counts_out,
@@ -222,12 +567,44 @@ __global__ void rle_topn_det_kernel(const float* __restrict__ rv,
 
 }  // namespace
 
+extern "C" size_t topn_det_pass1_workspace(int shards, int shard_len, int N,
+                                           int w) {
+  return ladder_plan(shards, shard_len, N, w).total;
+}
+
+// The chunked scan over S lanes of shard_len > 0 entries; work holds
+// topn_det_pass1_workspace bytes.
 extern "C" int topn_det_pass1(const float* x, uint8_t* keep, float* t0,
                               int* counts, int* seen, int* cur, int shards,
-                              int shard_len, int N, int w,
+                              int shard_len, int N, int w, unsigned char* work,
                               cudaStream_t stream) {
+  if (w < 1 || w > TOPN_DET_MAX_W || shards < 1 || shard_len < 1)
+    return cudaErrorInvalidValue;
+  const LadderPlan p = ladder_plan(shards, shard_len, N, w);
+  float* wmin = reinterpret_cast<float*>(work);
+  int* cnt = reinterpret_cast<int*>(work + p.wmin_bytes);
+  if (p.warm > 0)
+    ladder_warm<<<static_cast<unsigned>(shards) * p.warm, LADDER_THREADS, 0,
+                  stream>>>(x, wmin, shard_len, N, p.warm);
+  ladder_scan<float, MinOp><<<shards, LADDER_THREADS, 0, stream>>>(wmin, t0,
+                                                                   p.warm);
+  if (w <= 8)
+    ladder_levels<8>(x, keep, t0, counts, seen, cur, shards, shard_len, N, w,
+                     p, wmin, cnt, stream);
+  else
+    ladder_levels<32>(x, keep, t0, counts, seen, cur, shards, shard_len, N, w,
+                      p, wmin, cnt, stream);
+  return cudaGetLastError();
+}
+
+// The retired one-CTA-a-lane kernel, for holding the chunked scan against
+// it; launched by no entry point of the package.
+extern "C" int topn_det_pass1_serial(const float* x, uint8_t* keep, float* t0,
+                                     int* counts, int* seen, int* cur,
+                                     int shards, int shard_len, int N, int w,
+                                     cudaStream_t stream) {
   if (w < 1 || w > TOPN_DET_MAX_W) return cudaErrorInvalidValue;
-  topn_det_pass1_kernel<<<shards, TOPN_DET_THREADS, 0, stream>>>(
+  topn_det_serial_kernel<<<shards, TOPN_DET_THREADS, 0, stream>>>(
       x, keep, t0, counts, seen, cur, shard_len, N, w);
   return cudaGetLastError();
 }

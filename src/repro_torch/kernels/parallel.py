@@ -16,7 +16,10 @@ the kernel entry points of ``ops.py`` (B = 256, S = 1 or S shards).
 SKYLINE's pass 1 also takes the APH association as ``form``: ``"kernel"``
 for ``ops.py`` (the Pallas kernels' score), ``"engine"`` for the engine.
 DISTINCT's pass 1 also takes the cache policy: FIFO at any B, LRU at B = 1
-only (the engine's default policy; the Pallas kernels are FIFO only).
+only (the engine's default policy; the Pallas kernels are FIFO only). At
+B > 1 it has two forms on the card, picked by the shape
+(``block_walk_wins``): the row-parallel block walk and the one-CTA-a-lane
+block kernel.
 ``KERNELS`` lists every CUDA kernel of the port, the Count-Min pair of
 ``cms_sketch.py``, the Bloom pair of ``bloom_filter.py``, the GROUP BY
 scan of ``groupby_scan.py``, the ``topn_det`` ladder of
@@ -48,6 +51,9 @@ DISTINCT_PASS1 = CudaKernel(
     smem_fn="distinct_pass1_smem")
 # the LRU policy of distinct_pass1's row-parallel walk, counted apart
 DISTINCT_PASS1_LRU = LaunchCount("distinct_pass1_lru")
+DISTINCT_BLOCK_WALK = CudaKernel(
+    "distinct_pass1_block_walk",
+    [P, P, P, P, P, I32, I32, I32, I32, I32, I32, U32, P])
 DISTINCT_APPLY = CudaKernel(
     "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32,
                        I32])
@@ -58,7 +64,7 @@ SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
 KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
            BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
-           RLE_TOPN_DET)
+           RLE_TOPN_DET, DISTINCT_BLOCK_WALK)
 POLICIES = ("lru", "fifo")
 
 
@@ -205,6 +211,35 @@ def _check_distinct_dtype(values: torch.Tensor) -> None:
                         f"distinct_form), got {values.dtype}")
 
 
+def block_walk_wins(shards: int, device: torch.device) -> bool:
+    """Whether DISTINCT's pass 1 at B > 1 takes the row-parallel block walk
+    on the card (else the one-CTA-a-lane block kernel): while the lanes
+    fill less than half of the SMs. The block kernel's chain is
+    shard_len / B steps a lane on one SM and needs no partition; the walk
+    spreads every lane over the card but partitions the stream first.
+    On 2^25 zipf keys, d=4096, w=4, B=256 (chip_smoke.py's
+    time_block_forms, NVIDIA H100 80GB HBM3 at 700.00 W): at S=1 the walk
+    takes 4.347 ms and the block kernel 102.84 ms; at S=128 the walk
+    3.087 ms and the block kernel 0.848 ms."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 2 * shards < sms
+
+
+def _distinct_outputs(shards: int, d: int, w: int, m: int, device):
+    """Pass-1 outputs for a kernel to fill: keep bool[m], slots
+    uint32[S, d, w], valid bool[S, d, w], head int32[S, d]; the states of
+    an empty stream (m = 0) are zeros."""
+    out = (torch.empty(m, dtype=torch.bool, device=device),
+           torch.empty((shards, d, w), dtype=torch.uint32, device=device),
+           torch.empty((shards, d, w), dtype=torch.bool, device=device),
+           torch.empty((shards, d), dtype=torch.int32, device=device))
+    if not m:
+        out[1].view(torch.int32).zero_()
+        out[2].zero_()
+        out[3].zero_()
+    return out
+
+
 def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                                  shards: int, block: int = 256,
                                  seed: int = 0, policy: str = "fifo"):
@@ -216,7 +251,9 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     At block=1 the CUDA path is the row-parallel walk of ``distinct.cu``:
     an entry reads and writes only the row its key hashes to, so each
     (lane, row) is walked on its own, in stream order, after a stable
-    partition; at d >= 2^16 it hashes by modulo, as ``hash_mod`` does."""
+    partition; at d >= 2^16 it hashes by modulo, as ``hash_mod`` does. At
+    block > 1 it is the block walk (``distinct_block_walk_kernel``) when
+    ``block_walk_wins``, else the one-CTA-a-lane block kernel."""
     if policy not in POLICIES:
         raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
     if policy == "lru" and block != 1:
@@ -234,6 +271,9 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
             else ref.distinct_block_ref(lanes, d=d, w=w, block=block,
                                         seed=seed, return_state=True))
         return (keep.reshape(m),) + state
+    if block > 1 and block_walk_wins(shards, values.device):
+        return distinct_block_walk_kernel(values, d=d, w=w, shards=shards,
+                                          block=block, seed=seed)
     _check_distinct_dtype(values)
     check_cuda("values", values, values.dtype)
     if block == 1:
@@ -241,25 +281,51 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     else:
         _check_pass1(DISTINCT_PASS1, d, w, block)
     dev = values.device
-    keep = torch.empty(m, dtype=torch.bool, device=dev)
-    slots = torch.empty((shards, d, w), dtype=torch.uint32, device=dev)
-    valid = torch.empty((shards, d, w), dtype=torch.bool, device=dev)
-    head = torch.empty((shards, d), dtype=torch.int32, device=dev)
-    if m:
-        lru = policy == "lru"
-        work = workspace(dev, "distinct_pass1_workspace", shards, shard_len,
-                         d, block)
-        DISTINCT_PASS1.launch(dev, ptr(values), ptr(keep), ptr(slots),
-                              ptr(valid), ptr(head), shards, shard_len, d, w,
-                              block, int(lru),
-                              int(values.dtype == torch.float32),
-                              seed & 0xFFFFFFFF, ptr(work),
-                              count=DISTINCT_PASS1_LRU if lru else None)
-    else:
-        slots.view(torch.int32).zero_()
-        valid.zero_()
-        head.zero_()
-    return keep, slots, valid, head
+    out = _distinct_outputs(shards, d, w, m, dev)
+    if not m:
+        return out
+    lru = policy == "lru"
+    work = (workspace(dev, "distinct_pass1_workspace", shards, shard_len, d)
+            if block == 1 else None)
+    DISTINCT_PASS1.launch(dev, ptr(values), *(ptr(t) for t in out), shards,
+                          shard_len, d, w, block, int(lru),
+                          int(values.dtype == torch.float32),
+                          seed & 0xFFFFFFFF, None if work is None else ptr(work),
+                          count=DISTINCT_PASS1_LRU if lru else None)
+    return out
+
+
+def distinct_block_walk_kernel(values: torch.Tensor, *, d: int, w: int,
+                               shards: int, block: int = 256, seed: int = 0):
+    """Pass 1 with block semantics (FIFO, any block >= 1) by the
+    row-parallel block walk of ``distinct.cu``: (keep, slots, valid, head)
+    as ``distinct_shard_states_kernel`` gives them. After the partition by
+    (lane, row), one warp walks each row's entries in stream order; an
+    entry is probed against the row as it stood before its block, and of
+    each (row, block) only the first miss inserts. A CPU tensor runs
+    ``ref.distinct_block_ref``."""
+    m = values.shape[0]
+    shard_len = _check_shape(m, d, shards, block, any_d=block == 1)
+    if w < 1:
+        raise ValueError(f"a cache needs w >= 1, got {w}")
+    if not values.is_cuda:
+        keep, state = ref.distinct_block_ref(
+            values.reshape(shards, shard_len), d=d, w=w, block=block,
+            seed=seed, return_state=True)
+        return (keep.reshape(m),) + state
+    _check_distinct_dtype(values)
+    check_cuda("values", values, values.dtype)
+    check_rowpar(m, w, 5)
+    dev = values.device
+    out = _distinct_outputs(shards, d, w, m, dev)
+    if not m:
+        return out
+    work = workspace(dev, "distinct_pass1_workspace", shards, shard_len, d)
+    DISTINCT_BLOCK_WALK.launch(dev, ptr(values), *(ptr(t) for t in out),
+                               shards, shard_len, d, w, block,
+                               int(values.dtype == torch.float32),
+                               seed & 0xFFFFFFFF, ptr(work))
+    return out
 
 
 def cols_by_shard(stacked: torch.Tensor) -> torch.Tensor:

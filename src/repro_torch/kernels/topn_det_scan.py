@@ -16,7 +16,10 @@ So the ladder is a prefix computation: a ``cummin`` and a ``cumsum`` over
 [n, w]. Every step is an exact f32 minimum (NaN-propagating, as
 ``jnp.minimum``), an exact multiply by a power of two, a compare or an
 integer count, so the plain version below is bit-identical to the scan, and
-so is the CUDA kernel (``csrc/topn_det.cu``). A CUDA tensor launches the
+so is the CUDA kernel (``csrc/topn_det.cu``): a chunked scan whose grid is
+every chunk of 4096 entries of every lane (the warm chunks' minima, a
+min-scan over them, per-level chunk counts, a sum-scan over them, and a
+replay of each chunk from its entering counts). A CUDA tensor launches the
 kernel; a CPU tensor runs the plain version.
 """
 from __future__ import annotations
@@ -24,10 +27,10 @@ from __future__ import annotations
 import torch
 
 from ..constants import NEG, POS
-from .common import I32, P, CudaKernel, check_cuda, ptr
+from .common import I32, P, CudaKernel, check_cuda, ptr, workspace
 
 TOPN_DET_PASS1 = CudaKernel("topn_det_pass1", [P, P, P, P, P, P, I32, I32,
-                                               I32, I32])
+                                               I32, I32, P])
 MAX_W = 32  # levels the kernel carries (csrc/topn_det.cu: TOPN_DET_MAX_W)
 
 
@@ -96,8 +99,14 @@ def topn_det_pass1_kernel(values: torch.Tensor, *, N: int, w: int,
     check_cuda("values", values, torch.float32)
     dev = values.device
     keep = torch.empty(m, dtype=torch.bool, device=dev)
-    st = init_state(shards, w, dev)
-    if m:
-        TOPN_DET_PASS1.launch(dev, ptr(values), ptr(keep),
-                              *(ptr(s) for s in st), shards, n, N, w)
+    if not m:
+        return keep, init_state(shards, w, dev)
+    # the kernel writes every lane's (t0, counts, seen, cur_level)
+    st = (torch.empty(shards, dtype=torch.float32, device=dev),
+          torch.empty((shards, w), dtype=torch.int32, device=dev),
+          torch.empty(shards, dtype=torch.int32, device=dev),
+          torch.empty(shards, dtype=torch.int32, device=dev))
+    work = workspace(dev, "topn_det_pass1_workspace", shards, n, N, w)
+    TOPN_DET_PASS1.launch(dev, ptr(values), ptr(keep), *(ptr(s) for s in st),
+                          shards, n, N, w, ptr(work))
     return keep, st
