@@ -28,7 +28,14 @@ Phases, one line each, and a non-zero exit on any failure:
            near-FLT_MAX streams, N inside a chunk, at a chunk boundary
            +-1 and past the shard, w = 1, 8, 32; the DISTINCT block walk
            at B = 2, 32, 256 on uniform, zipf, small-universe and float32
-           streams and on the trap stream BLOCK_TRAP. Then the
+           streams and on the trap stream BLOCK_TRAP; both B > 1 forms of
+           TOP-N (the block walk and the block kernel) at B = 2, 32, 256,
+           d = 1, 37, 512, w = 1 to 40 on random, ascending, all-equal and
+           +-0 streams, NaNs of both signs mid-block and at a block
+           boundary, and values at and around NEG; the lowest-owner
+           distinct_apply on a hot key that every shard caches, a key that
+           only the top lane holds and float32 keys, w = 4, 40 (and 80,
+           whose table is built in place). Then the
            engine's dtype handling: run_query TOP-N on an int32 column and
            DISTINCT on an int32 and a float32 column, on the card and on a
            CPU copy of the table.
@@ -48,7 +55,8 @@ Phases, one line each, and a non-zero exit on any failure:
            column. Answers must be exact (GROUP BY SUM within 1e-2 relative
            of an f64 sum, as the JAX package's own test holds it) and every
            keep mask a superset of the true survivors. Launch counts are set
-           to 0 before each path and read after it.
+           to 0 before each path and read after it; each path is then
+           called once more, for its time as a repeated query meets it.
 4. timing  on the same tables, each kernel against its plain version at
            every shape the main path gives it (bit-identical keep, state and
            table on the whole table; the one-lane B = 1 scans on their first
@@ -64,16 +72,20 @@ Phases, one line each, and a non-zero exit on any failure:
            SKYLINE prefix merge's is the most inserts one store takes on it
            (``prefix_bound``); the DISTINCT block walk's is the most
            inserting (row, block) groups one segment has on it
-           (``block_walk_bound``). Both forms of DISTINCT at B = 256 are
-           timed at S = 1 and 128 (``time_block_forms``). torch.profiler
-           splits each redesigned kernel into its internal kernels, and a
-           stream on which every entry inserts is timed. Each phase prints
-           its seconds.
+           (``block_walk_bound``), the TOP-N block walk's the most
+           inserting (row, block) groups one segment has (``prefix_bound``).
+           Both forms of DISTINCT and of TOP-N at B = 256 are timed at
+           S = 1 and 128 (``time_block_forms``). torch.profiler splits each
+           redesigned kernel into its internal kernels (distinct_apply into
+           its table build and its lookups), and a stream on which every
+           entry inserts is timed. Each phase prints its seconds.
 5. witness the redesigned kernels against the serial kernels they
            replaced, bit for bit, over the whole 2^25-entry column: at S = 1
            DISTINCT FIFO and LRU, GROUP BY SUM and COUNT; at S = 1 and 128
-           the chunked ladder, the DISTINCT block walk (against the block
-           kernel, B = 256), and at B = 1 TOP-N and SKYLINE; then the
+           the chunked ladder, the DISTINCT and TOP-N block walks (against
+           the block kernels, B = 256), and at B = 1 TOP-N and SKYLINE; at
+           S = 128 the lowest-owner distinct_apply against the scan it
+           replaced, after FIFO (B = 256 and 1) and LRU pass 1; then the
            ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
@@ -172,17 +184,30 @@ BLOCK_WALK_BS = (2, 32, 256)
 BLOCK_WALK_CASES = (("uniform", 4096, 4), ("uniform", 37, 3),
                     ("zipf", 64, 4), ("small universe", 16, 4),
                     ("small universe", 3, 64), ("float32", 8, 2))
+# the TOP-N block cases: both B > 1 forms (the block walk and the block
+# kernel) at every B of BLOCK_WALK_BS and (d, w) of TOPN_BLOCK_SHAPES, S
+# lanes of BLOCK_WALK_LANE[S] entries; d = 1 puts a whole block in one
+# group, w > 32 takes the shared-memory walk
+TOPN_BLOCK_SHAPES = ((1, 1), (1, 8), (37, 8), (512, 8), (1, 33), (37, 40))
+NEG_NAN_BITS = -4194304        # 0xFFC00000 as int32: x86's default NaN
+# distinct_apply's cases: (S, w) with S lanes of DISTINCT_APPLY_LANE
+# entries; w = 80 at S = 128 builds the lowest-owner table in place (its
+# 2^15 slots do not fit shared memory)
+DISTINCT_APPLY_LANE = {1: 4096, 8: 1024, 128: 256}
+DISTINCT_APPLY_WS = {1: (4, 40), 8: (4, 40), 128: (4, 40, 80)}
 # the smallest stream on which dropping every repeat of the previous key
 # is wrong under block semantics (d = 1, w = 1, B = 2): entry 4 repeats
 # entry 3, but entry 3's block inserted 9 over the 7 that entry 3 hit
 BLOCK_TRAP = ((7, 7, 9, 7, 7, 11), (True, True, True, False, True, True))
 
 FAILURES: list[str] = []
+T_START = time.perf_counter()
 
 
 def say(phase: str, **kw) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
-          flush=True)
+    """One line of a phase, led by the seconds since the script started."""
+    print(f"[{phase}] t={time.perf_counter() - T_START:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
 def check(ok: bool, what: str) -> bool:
@@ -410,6 +435,8 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_rowpar(torch, g)
     phase_kernels_prefix(torch, g)
     phase_kernels_block_walk(torch, g)
+    phase_kernels_topn_block(torch, g)
+    phase_kernels_distinct_apply(torch, g)
 
 
 def phase_kernels_bloom(torch, g):
@@ -648,6 +675,132 @@ def phase_kernels_block_walk(torch, g):
                f"distinct block walk on the trap stream {BLOCK_TRAP[0]}")
     say("kernels", distinct_block_walk_trap=ok, keep=json.dumps(
         out[0].tolist()))
+
+
+def topn_block_streams(torch, g, S, n, B):
+    """The streams the TOP-N block forms are held to, S lanes of n entries
+    on the card: random, ascending (every group inserts), all equal, -0 and
+    +0 mixed inside each block, a negative and a positive NaN mid-block
+    beside a value that beats the row minimum, NaNs at a block boundary,
+    and values at, just below and just above NEG (and -inf)."""
+    from repro_torch.constants import NEG
+
+    m = S * n
+    r = torch.rand(m, generator=g) * 1000
+    nneg = torch.tensor([NEG_NAN_BITS], dtype=torch.int32).view(torch.float32)
+    zero = torch.tensor([0.0, -0.0, -1.0])
+    t = {"random": r, "ascending": torch.arange(m, dtype=torch.float32),
+         "all equal": torch.full((m,), 3.0),
+         "zeros": zero[torch.randint(0, 3, (m,), generator=g)]}
+    v = r.clone()
+    mid = torch.arange(0, m, 3 * B) + B // 2
+    v[mid - 1], v[mid], v[(mid + 1) % m] = 5000.0, nneg, float("nan")
+    t["nan mid-block"] = v
+    v = r.clone()
+    v[B - 1::4 * B], v[B::4 * B] = nneg, float("nan")
+    t["nan at a block boundary"] = v
+    neg = torch.tensor(float(NEG))
+    low = torch.stack([neg, torch.nextafter(neg, torch.tensor(-float("inf"))),
+                       torch.nextafter(neg, torch.tensor(0.0)),
+                       torch.tensor(-float("inf"))])
+    v = r.clone()
+    v[::2] = low[torch.randint(0, 4, (v[::2].numel(),), generator=g)]
+    t["low"] = v
+    return {k: v.cuda() for k, v in t.items()}
+
+
+def topn_block_kernel(torch, x, S, d, w, B, seed):
+    """The one-CTA-a-lane block kernel by its C entry (topn_pass1 at
+    B > 1), whatever the dispatch would pick: (keep, states)."""
+    from repro_torch.kernels.common import I32, P as VP, U32, ptr
+
+    m = x.numel()
+    keep = torch.empty(m, dtype=torch.bool, device="cuda")
+    st = torch.empty((S, d, w), dtype=torch.float32, device="cuda")
+    serial_kernel(torch, "topn_pass1", [VP] * 3 + [I32] * 5 + [U32, VP],
+                  ptr(x), ptr(keep), ptr(st), S, m // S, d, w, B, seed, None)
+    return keep, st
+
+
+def phase_kernels_topn_block(torch, g):
+    """Both B > 1 forms of TOP-N's pass 1, the row-parallel block walk and
+    the block kernel (whatever the dispatch picks), against
+    ref.topn_block_ref at B in BLOCK_WALK_BS, (d, w) in TOPN_BLOCK_SHAPES
+    and S = 1, 8 and 128, on the streams of topn_block_streams: keep and
+    final state bit for bit (same_bits). The plain versions run on the
+    host (on_host)."""
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import ref as R
+
+    for S, n in BLOCK_WALK_LANE.items():
+        t0 = time.perf_counter()
+        ok_w = ok_b = True
+        for B in BLOCK_WALK_BS:
+            for name, x in topn_block_streams(torch, g, S, n, B).items():
+                for d, w in TOPN_BLOCK_SHAPES:
+                    (k2, st2), _ = on_host(lambda u: R.topn_block_ref(
+                        u, d=d, w=w, block=B, seed=S, return_state=True),
+                        x.view(S, n))
+                    k2 = k2.reshape(-1)
+                    k, st = P.topn_block_walk_kernel(x, d=d, w=w, shards=S,
+                                                     block=B, seed=S)
+                    ok_w &= check(same_bits(k, k2) and same_bits(st, st2),
+                                  f"topn block walk S={S} B={B} {name} "
+                                  f"d={d} w={w}")
+                    k, st = topn_block_kernel(torch, x, S, d, w, B, S)
+                    ok_b &= check(same_bits(k, k2) and same_bits(st, st2),
+                                  f"topn block kernel S={S} B={B} {name} "
+                                  f"d={d} w={w}")
+        say("kernels", S=S, n=n, topn_block_walk=ok_w, topn_block_kernel=ok_b,
+            s=round(time.perf_counter() - t0, 3))
+
+
+def distinct_apply_streams(torch, g, S, n):
+    """The streams of distinct_apply's cases, on the card: a key in 90 % of
+    every lane (every shard caches it, so the lowest owner is shard 0), a
+    key that only the top lane holds (its owner is its own lane), and
+    float32 values (FLOAT_KEYS: negatives, NaN, +-inf, non-integers and
+    values past 2^32 cannot hit)."""
+    m = S * n
+    hot = torch.randint(0, 300, (m,), generator=g)
+    hot[torch.rand(m, generator=g) < 0.9] = 7
+    top = torch.randint(0, 40, (m,), generator=g)
+    last = torch.arange(m) >= m - n
+    top[last & (torch.rand(m, generator=g) < 0.5)] = 123456
+    floats = torch.tensor(FLOAT_KEYS)[torch.randint(
+        0, len(FLOAT_KEYS), (m,), generator=g)]
+    floats[::3] = torch.randint(0, 6, (floats[::3].numel(),),
+                                generator=g).float()
+    out = {k: v.to(torch.int32).view(torch.uint32).cuda()
+           for k, v in (("hot key", hot), ("top lane only", top))}
+    out["float32"] = floats.cuda()
+    return out
+
+
+def phase_kernels_distinct_apply(torch, g):
+    """The lowest-owner distinct_apply against distinct_apply_plain at
+    S = 1, 8 and 128 and w in DISTINCT_APPLY_WS, on the streams of
+    distinct_apply_streams, after the FIFO pass 1 (B = 1) on the card:
+    keep bit for bit. The plain versions run on the host (on_host)."""
+    from repro_torch.kernels import parallel as P
+
+    d = 37
+    for S, n in DISTINCT_APPLY_LANE.items():
+        t0 = time.perf_counter()
+        ok = True
+        for name, x in distinct_apply_streams(torch, g, S, n).items():
+            for w in DISTINCT_APPLY_WS[S]:
+                keep1, sl, va, _ = P.distinct_shard_states_kernel(
+                    x, d=d, w=w, shards=S, block=1, seed=S)
+                ms, mv = P.merge_distinct_states(sl, va)
+                k = P.distinct_apply_kernel(x, keep1, ms, mv, d=d, shards=S,
+                                            seed=S)
+                k2, _ = on_host(lambda *a: P.distinct_apply_plain(
+                    *a, d=d, shards=S, seed=S), x, keep1, ms, mv)
+                ok &= check(same(k, k2), f"distinct_apply S={S} {name} "
+                            f"w={w}")
+        say("kernels", S=S, n=n, distinct_apply=ok,
+            s=round(time.perf_counter() - t0, 3))
 
 
 def rowpar_streams(torch, g, m):
@@ -1211,7 +1364,7 @@ def phase_main(torch, P, O):
         "ops_topn_prune": (
             lambda: O.topn_prune(xs, block=256, **TOPN),
             lambda k: topn_ok(k, "ops_topn_prune"),
-            lambda k: k, ("topn_pass1",)),
+            lambda k: k, ("topn_pass1_block_walk",)),
         "ops_distinct_prune": (
             lambda: O.distinct_prune(fs, block=256, **DISTINCT),
             lambda k: distinct_ok(k, "ops_distinct_prune"),
@@ -1382,7 +1535,10 @@ def phase_main(torch, P, O):
         verify(res)
         for k in needs:
             check(counts[k] > 0, f"{name}: kernel {k} was never launched")
-        say("main", path=name, s=round(secs, 4),
+        # the same call again, as a repeated query meets it: the first call
+        # of a path can pay one-time costs (allocations of new sizes)
+        _, again = sync_time(run)
+        say("main", path=name, s=round(secs, 4), s_again=round(again, 4),
             pruned=round(1 - float(keep.float().mean()), 6),
             launches=json.dumps(counts, separators=(",", ":")))
     return table, rankings, pts, totals, encoded, (rle_t, rle_l)
@@ -1417,12 +1573,13 @@ def pass1_bound(m, S, B, in_bytes, state_bytes, clock_hz):
     return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "chain")
 
 
-def time_block_forms(torch, P, fs):
-    """Both forms of DISTINCT's pass 1 at B = 256 on the whole column, at
-    S = 1 and S = 128: the block walk and the one-CTA-a-lane block kernel
-    (its C entry, distinct_pass1 at block 256), the times behind
-    kernels.parallel.block_walk_wins. The kernel at S = 1 takes ~0.1 s a
-    run, so it is timed once."""
+def time_block_forms(torch, P, fs, xs):
+    """Both forms of pass 1 at B = 256 on the whole column, at S = 1 and
+    S = 128, of DISTINCT on source_ip and of TOP-N on ad_revenue: the block
+    walk and the one-CTA-a-lane block kernel (its C entry, distinct_pass1
+    or topn_pass1 at block 256), the times behind
+    kernels.parallel.use_block_walk. The kernels at S = 1 take ~0.1 s a
+    run, so they are timed once."""
     from repro_torch.kernels.common import I32, P as VP, U32, ptr
 
     m, d, w = M_MAIN, DISTINCT["d"], DISTINCT["w"]
@@ -1437,10 +1594,18 @@ def time_block_forms(torch, P, fs):
             torch, "distinct_pass1", [VP] * 5 + [I32] * 7 + [U32, VP],
             *(ptr(t) for t in (fs,) + out), S, m // S, d, w, 256, 0, 0, 0,
             None), reps)
+        ms_twalk = event_ms(lambda: P.topn_block_walk_kernel(
+            xs, shards=S, block=256, **TOPN), 5)
+        ms_tblock = event_ms(lambda: topn_block_kernel(
+            torch, xs, S, TOPN["d"], TOPN["w"], 256, 0), reps)
+        dispatched = ("block walk" if P.use_block_walk(S, torch.device("cuda"))
+                      else "block kernel")
         say("timing", kernel="distinct_pass1 B=256 forms", S=S,
             block_walk_ms=ms_walk, block_kernel_ms=ms_block,
-            dispatched="block walk" if P.block_walk_wins(
-                S, torch.device("cuda")) else "block kernel")
+            dispatched=dispatched)
+        say("timing", kernel="topn_pass1 B=256 forms", S=S,
+            block_walk_ms=ms_twalk, block_kernel_ms=ms_tblock,
+            dispatched=dispatched)
 
 
 def running_inserts(torch, v, w):
@@ -1479,16 +1644,19 @@ def running_inserts(torch, v, w):
 
 
 def prefix_bound(torch, name, v, S, B, io_ms, clock_hz):
-    """(ms, what sets it) of the least time of the TOP-N walk (B = 1) or the
-    SKYLINE prefix merge on this stream: the larger of ``io_ms`` and the
-    work's own chain, the most inserts one store takes, counted here
-    without the kernel (running_inserts). TOP-N: the inserts of the
-    costliest (lane, row) segment, REG_STEP_CYCLES each (the walk keeps the
-    row in registers). SKYLINE: the inserts of the lane with the most, and
-    at B > 1 its blocks whose best candidate enters the store (those after
-    the first w of each block's top-w do not count), SMEM_CYCLES +
-    BARRIER_CYCLES each (the store is in shared memory, a step ends in a
-    barrier). Every other entry only reads the store it finds."""
+    """(ms, what sets it) of the least time of the TOP-N walks (B = 1, and
+    the block walk) or the SKYLINE prefix merge on this stream: the larger
+    of ``io_ms`` and the work's own chain, the most inserts one store
+    takes, counted here without the kernel (running_inserts). TOP-N: the
+    inserts of the costliest (lane, row) segment, REG_STEP_CYCLES each (the
+    walk keeps the row in registers); at B > 1 the inserting (row, block)
+    groups, whose candidates form the row's sequence. SKYLINE: the inserts
+    of the lane with the most, and at B > 1 its blocks whose best
+    candidate enters the store (those after the first w of each block's
+    top-w do not count), SMEM_CYCLES + BARRIER_CYCLES each (the store is
+    in shared memory, a step ends in a barrier). Every other entry only
+    reads the store it finds."""
+    from repro_torch.constants import NEG
     from repro_torch.core.hashing import hash_mod
     from repro_torch.core.skyline import score as skyline_score
 
@@ -1496,16 +1664,23 @@ def prefix_bound(torch, name, v, S, B, io_ms, clock_hz):
     n = m // S
     dev = v.device
     if name == "topn_pass1":
+        # a segment's (row, block) groups in stream order, each its
+        # candidate (the group's max; a NaN propagates and never inserts):
+        # at B = 1 a group is one entry
         d, w = TOPN["d"], TOPN["w"]
+        idx = torch.arange(n, device=dev).repeat(S)
         seg = (torch.arange(S, device=dev).repeat_interleave(n) * d
-               + hash_mod(torch.arange(n, device=dev).repeat(S), d, 0))
-        order = torch.sort(seg, stable=True).indices
-        ss = seg[order]
+               + hash_mod(idx, d, 0))
+        grp, inv = torch.unique(seg * (n // B) + idx // B,
+                                return_inverse=True)
+        cand = torch.full((grp.numel(),), float(NEG), device=dev) \
+            .scatter_reduce(0, inv, v, "amax")
+        ss = grp // (n // B)
         counts = torch.bincount(ss, minlength=S * d)
         starts = torch.cumsum(counts, 0) - counts
         mat = torch.full((S * d, int(counts.max())), float("nan"),
                          device=dev)
-        mat[ss, torch.arange(m, device=dev) - starts[ss]] = v[order]
+        mat[ss, torch.arange(grp.numel(), device=dev) - starts[ss]] = cand
         inserts = int(running_inserts(torch, mat, w).sum(1).max())
         cycles = REG_STEP_CYCLES
     else:
@@ -1590,11 +1765,12 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
         for path, S, B in PASS1_SHAPES:
             keep, st = kernel(v, S, B)
             # The first shape's plain time goes in the kernels line: it runs
-            # on the card, and so does the DISTINCT block walk's (S = 1,
-            # B = 256), which has a row of its own. The others run on the
-            # host (on_host).
-            walk = name == "distinct_pass1" and S == 1 and B > 1
-            host = path != PASS1_SHAPES[0][0] and not walk
+            # on the card. The others run on the host (on_host), the TOP-N
+            # and DISTINCT block walks' (S = 1, B = 256) too, whose rows of
+            # their own report it: on the card their 131,072 block steps
+            # take minutes.
+            walk = name != "skyline_pass1" and S == 1 and B > 1
+            host = path != PASS1_SHAPES[0][0]
             if S == 1 and B == 1:
                 # The keep of entry i of a one-lane scan depends only on
                 # entries 0..i, so the plain scan of a prefix checks the
@@ -1623,10 +1799,10 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
             if name == "distinct_pass1" and B == 1:
                 bound, by = walk_bound(torch, v, S, DISTINCT["d"], None,
                                        io_ms, clock_hz)
-            elif walk:
+            elif walk and name == "distinct_pass1":
                 bound, by = block_walk_bound(torch, v, keep, S, B,
                                              DISTINCT["d"], io_ms, clock_hz)
-            elif name == "skyline_pass1" or B == 1:
+            elif name == "skyline_pass1" or B == 1 or walk:
                 bound, by = prefix_bound(torch, name, v, S, B, io_ms,
                                          clock_hz)
             else:
@@ -1639,9 +1815,9 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
             if path == PASS1_SHAPES[0][0]:
                 first = (ms, plain_s * 1e3, bound, by)
             if walk:
-                rows.append(_row("distinct_pass1_block_walk", totals, err, ms,
+                rows.append(_row(name + "_block_walk", totals, err, ms,
                                  plain_s * 1e3, bound, by))
-                say("timing", kernel="distinct_pass1_block_walk", S=S, B=B,
+                say("timing", kernel=name + "_block_walk", S=S, B=B,
                     kept=int(keep.sum()))
         rows.append(_row(name, totals, max(errs), *first))
 
@@ -1685,6 +1861,10 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
             # sectors that hold one), and the union read once
             sectors = int(kd.view(-1, 8).any(1).sum())
             nbytes = m + m + sectors * 32 + mslots.numel() * 5
+            say("timing", profile="distinct_apply", S=SHARDS,
+                survivors=int(kd.sum()), device_ms=device_split(
+                    torch, lambda: P.distinct_apply_kernel(
+                        fs, kd, mslots, mvalid, d=d_d, shards=SHARDS)))
     rows.append(_row("distinct_apply", totals, max(errs), ms, plain_ms,
                      nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
     rows.append(time_skyline_apply(torch, P, pts, states, totals))
@@ -1693,7 +1873,7 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     rows.append(time_groupby(torch, table, totals, clock_hz))
     profile_walks(torch, table, pts)
     time_ascending(torch, P)
-    time_block_forms(torch, P, fs)
+    time_block_forms(torch, P, fs, xs)
     rows.append(time_topn_det(torch, xs, totals))
     rows.append(time_lru(torch, P, R, fs, totals, clock_hz))
     rows.append(time_rle(torch, *rle, totals))
@@ -2137,11 +2317,9 @@ def block_walk_bound(torch, keys, keep, S, B, d, io_ms, clock_hz):
 def profile_walks(torch, table, pts):
     """Device time of each internal kernel of the redesigned pass-1 kernels
     on the 2^25-row table (torch.profiler, one traced run after a warm-up):
-    the chunked ladder, the DISTINCT block walk (B = 256), the row-parallel
-    walks (LRU DISTINCT, GROUP BY SUM, TOP-N at B = 1) and the SKYLINE
-    prefix merge (B = 1 and B = 256), at S = 1 and S = 128."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the chunked ladder, the DISTINCT and TOP-N block walks (B = 256), the
+    row-parallel walks (LRU DISTINCT, GROUP BY SUM, TOP-N at B = 1) and the
+    SKYLINE prefix merge (B = 1 and B = 256), at S = 1 and S = 128."""
     from repro_torch.kernels import groupby_scan as G
     from repro_torch.kernels import parallel as P
     from repro_torch.kernels import topn_det_scan as TD
@@ -2160,24 +2338,33 @@ def profile_walks(torch, table, pts):
                     fs, xs, shards=S, agg="sum", **GROUPBY)),
                 ("topn_pass1", lambda: P.topn_shard_states_kernel(
                     xs, shards=S, block=1, **TOPN)),
+                ("topn_pass1_block_walk", lambda: P.topn_block_walk_kernel(
+                    xs, shards=S, block=256, **TOPN)),
                 ("skyline_pass1", lambda: P.skyline_shard_states_kernel(
                     pts, shards=S, block=1, form="engine", **SKYLINE)),
                 ("skyline_pass1 B=256", lambda: P.skyline_shard_states_kernel(
                     pts, shards=S, block=256, form="kernel", **SKYLINE))):
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            parts = {}
-            for e in prof.key_averages():
-                if e.device_time_total > 0:
-                    hit = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
-                    key = hit.group(1) if hit else e.key
-                    parts[key] = round(parts.get(key, 0.0)
-                                       + e.device_time_total / 1e3, 4)
-            say("timing", profile=name, S=S,
-                device_ms=json.dumps(parts, separators=(",", ":")))
+            say("timing", profile=name, S=S, device_ms=device_split(torch, fn))
+
+
+def device_split(torch, fn):
+    """The device ms of each internal kernel of one traced run of fn()
+    after a warm-up (torch.profiler), as a JSON object."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            hit = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
+            key = hit.group(1) if hit else e.key
+            parts[key] = round(parts.get(key, 0.0)
+                               + e.device_time_total / 1e3, 4)
+    return json.dumps(parts, separators=(",", ":"))
 
 
 def time_ascending(torch, P):
@@ -2227,14 +2414,19 @@ def phase_witness(torch, table, pts):
     can go wrong. The chunked ladder on ad_revenue against the one-CTA-a-
     lane ladder (topn_det_pass1_serial) and the DISTINCT block walk at
     B = 256 on source_ip against the one-CTA-a-lane block kernel (the C
-    entry distinct_pass1), at S = 1 and S = 128. Then the B = 1 TOP-N walk
+    entry distinct_pass1), at S = 1 and S = 128; the TOP-N block walk at
+    B = 256 on ad_revenue against its block kernel (the C entry topn_pass1)
+    at S = 1 and 128; the lowest-owner distinct_apply against the scan it
+    replaced (the C entry distinct_apply_scan) at S = 128, after FIFO
+    pass 1 at B = 256 and B = 1 and LRU pass 1. Then the B = 1 TOP-N walk
     on ad_revenue and the SKYLINE prefix merge on (ad_revenue, duration),
     at S = 1 and S = 128 (keep and every lane's final state): the chunk
     merges and replays run over the whole column."""
     from repro_torch.kernels import groupby_scan as G
     from repro_torch.kernels import parallel as P
     from repro_torch.kernels import topn_det_scan as TD
-    from repro_torch.kernels.common import I32, P as VP, U32, ptr
+    from repro_torch.kernels.common import (I32, I64, P as VP, U32, grid_for,
+                                            ptr)
 
     fs, xs = table.cols["source_ip"], table.cols["ad_revenue"]
     m, d, w = M_MAIN, DISTINCT["d"], DISTINCT["w"]
@@ -2308,6 +2500,33 @@ def phase_witness(torch, table, pts):
         say("witness", kernel="distinct_pass1_block_walk", S=S, B=256,
             entries=m, block_kernel_s=secs, kept=int(new[0].sum()),
             max_abs_err=err)
+    for S in (1, SHARDS):
+        new = P.topn_block_walk_kernel(xs, shards=S, block=256, **TOPN)
+        old, secs = sync_time(lambda: topn_block_kernel(
+            torch, xs, S, TOPN["d"], TOPN["w"], 256, 0))
+        err = max_abs_err(zip(new, old))
+        check(err == 0.0 and all(same_bits(a, b) for a, b in zip(new, old)),
+              f"topn_pass1 block walk S={S} B=256 differs from the block "
+              "kernel on the 2^25-entry column")
+        say("witness", kernel="topn_pass1_block_walk", S=S, B=256,
+            entries=m, block_kernel_s=secs, kept=int(new[0].sum()),
+            max_abs_err=err)
+    for policy, B in (("fifo", 256), ("fifo", 1), ("lru", 1)):
+        keep1, sl, va, _ = P.distinct_shard_states_kernel(
+            fs, shards=SHARDS, block=B, policy=policy, **DISTINCT)
+        ms, mv = P.merge_distinct_states(sl, va)
+        new = P.distinct_apply_kernel(fs, keep1, ms, mv, d=d, shards=SHARDS)
+        old = torch.empty(m, dtype=torch.bool, device="cuda")
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "distinct_apply_scan", [VP] * 5 + [I64] + [I32] * 4
+            + [U32, I32, I32], ptr(fs), ptr(keep1), ptr(ms), ptr(mv),
+            ptr(old), m, m // SHARDS, d, w, SHARDS * w, 0, 0,
+            grid_for(m, fs.device)))
+        check(same(new, old), f"distinct_apply after {policy} B={B} differs "
+              "from the scan it replaced on the 2^25-entry column")
+        say("witness", kernel="distinct_apply", S=SHARDS, policy=policy, B=B,
+            entries=m, scan_s=secs, survivors=int(keep1.sum()),
+            kept=int(new.sum()), max_abs_err=max_abs_err([(new, old)]))
     d, w, D = TOPN["d"], TOPN["w"], pts.shape[1]
     mode = P._score_mode(SKYLINE["score"], "engine")
     for S in (1, SHARDS):
@@ -2380,6 +2599,9 @@ SOURCES = {
     # distinct_pass1 at B > 1 while the lanes fill less than half the SMs
     "distinct_pass1_block_walk": ("src/repro_torch/kernels/csrc/distinct.cu",
                                   "src/repro/kernels/distinct_prune.py:67"),
+    # topn_pass1 at B > 1 while the lanes fill less than half the SMs
+    "topn_pass1_block_walk": ("src/repro_torch/kernels/csrc/topn.cu",
+                              "src/repro/kernels/topn_prune.py:49"),
 }
 
 

@@ -79,9 +79,20 @@
 // distinct_apply replaces distinct_apply_kernel (src/repro/kernels/parallel.py:267):
 // an entry kept by pass 1 is dropped when a valid slot of its row in the
 // merged union, in the columns [0, lane * w) of the lower-ranked shards,
-// holds its key (and it can hit). The union [d][S*w] stays in global memory
-// (L2-resident at the sizes used); the kernel is bound by bytes plus these
-// probes, which only kept entries make.
+// holds its key (and it can hit). That is one number per (row, key): the
+// lowest shard whose valid slot of the row holds the key. So
+// distinct_owner_build reduces each row of the [d][S*w] union, one CTA a
+// row, to an open-addressed table of 2^tbits >= 2 * S * w packed
+// (owner, key) slots (in shared memory, written out once; in place when
+// it does not fit), and distinct_owner_apply gives each pass-1 survivor
+// that can hit one lookup: dup = owner < lane. A thread takes 16
+// consecutive entries (keep1 and keep as 16-byte words, the lane divided
+// out once a run). At d = 4096, S * w = 512 the table holds 32 MB, inside
+// the 50 MB L2. Bound: bytes (keep1, keep, the survivors' keys, the
+// union). distinct_apply_scan is the kernel it replaced (each survivor
+// scans the lower shards' columns of its row, up to S * w - w probes);
+// no entry point of the package launches it, and chip_smoke.py holds the
+// lookup against it at full size.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -712,6 +723,136 @@ __global__ void distinct_fill(const uint2* __restrict__ part,
     keep[part[j].y] = ckeep[pos[j + 1] - 1];
 }
 
+// The lowest-owner table of distinct_apply: per row of the [d][S*w] union, an
+// open-addressed table of T = 2^tbits >= 2 * S * w slots, each the packed
+// (owner << 32 | key) of a key held in a valid slot of the row, owner the
+// lowest shard that holds it; OWNER_EMPTY marks a free slot (no shard is
+// 2^32 - 1). A key's probe starts at the top tbits of its own mix and moves
+// by one slot; at most half the slots are taken, so a probe ends.
+#define OWNER_EMPTY 0xFFFFFFFFFFFFFFFFull
+#define OWNER_SEED 0x9E3779B9u
+
+__device__ __forceinline__ unsigned owner_home(uint32_t key, int tbits) {
+  return cheetah_mix32(key, OWNER_SEED) >> (32 - tbits);
+}
+
+// One CTA a row: the row's valid columns c (owner c / w) go into the table,
+// in shared memory when kSmem (then written out once), else in place.
+template <bool kSmem>
+__global__ void distinct_owner_build(const uint32_t* __restrict__ mslots,
+                                     const uint8_t* __restrict__ mvalid,
+                                     unsigned long long* __restrict__ table,
+                                     int w, int sw, int tbits) {
+  extern __shared__ unsigned long long tsm[];
+  const int T = 1 << tbits;
+  const long long row = blockIdx.x;
+  unsigned long long* out = table + (row << tbits);
+  unsigned long long* t = kSmem ? tsm : out;
+  for (int i = threadIdx.x; i < T; i += blockDim.x) t[i] = OWNER_EMPTY;
+  __syncthreads();
+  for (int c = threadIdx.x; c < sw; c += blockDim.x) {
+    if (!mvalid[row * sw + c]) continue;
+    const uint32_t key = mslots[row * sw + c];
+    const unsigned long long e =
+        static_cast<unsigned long long>(c / w) << 32 | key;
+    for (unsigned h = owner_home(key, tbits);; h = (h + 1) & (T - 1)) {
+      const unsigned long long old = atomicCAS(&t[h], OWNER_EMPTY, e);
+      if (old == OWNER_EMPTY) break;
+      if (static_cast<uint32_t>(old) == key) {  // same key: the lower owner
+        atomicMin(&t[h], e);
+        break;
+      }
+    }
+  }
+  if (kSmem) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < T; i += blockDim.x) out[i] = t[i];
+  }
+}
+
+// The lowest shard whose valid slot of the row holds key, or 2^32 - 1.
+__device__ __forceinline__ long long owner_of(
+    const unsigned long long* __restrict__ t, uint32_t key, int tbits) {
+  const unsigned mask = (1u << tbits) - 1u;
+  for (unsigned h = owner_home(key, tbits);; h = (h + 1) & mask) {
+    const unsigned long long e = t[h];
+    if (e == OWNER_EMPTY || static_cast<uint32_t>(e) == key)
+      return static_cast<long long>(e >> 32);
+  }
+}
+
+#define OWNER_RUN 16  // entries a thread of distinct_owner_apply takes
+
+// Each thread takes OWNER_RUN consecutive entries: keep1 read and keep
+// written as 16 bytes where aligned, the lane found once for the run. A
+// pass-1 survivor that can hit makes one lookup and is dropped iff a lower
+// shard owns its key.
+__global__ void distinct_owner_apply(const uint32_t* __restrict__ x,
+                                     const uint8_t* __restrict__ keep1,
+                                     const unsigned long long* __restrict__ table,
+                                     uint8_t* __restrict__ keep, long long m,
+                                     int shard_len, int d, int tbits,
+                                     uint32_t seed, int fmode) {
+  const long long runs = (m + OWNER_RUN - 1) / OWNER_RUN;
+  const bool vec = ((reinterpret_cast<uintptr_t>(keep1) |
+                     reinterpret_cast<uintptr_t>(keep)) & 15) == 0;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       q < runs; q += stride) {
+    const long long i0 = q * OWNER_RUN;
+    const int n = static_cast<int>(min(static_cast<long long>(OWNER_RUN), m - i0));
+    const bool whole = vec && n == OWNER_RUN;
+    // the run's keep1 bytes, four to a word (constant indices throughout,
+    // so that kw stays in registers)
+    unsigned kw[4] = {0u, 0u, 0u, 0u};
+    if (whole) {
+      const uint4 kv = *reinterpret_cast<const uint4*>(keep1 + i0);
+      kw[0] = kv.x;
+      kw[1] = kv.y;
+      kw[2] = kv.z;
+      kw[3] = kv.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < OWNER_RUN; ++j)
+        if (j < n) kw[j >> 2] |= unsigned(keep1[i0 + j]) << (j & 3) * 8;
+    }
+    long long lane = i0 / shard_len;
+    long long next = (lane + 1) * shard_len;
+#pragma unroll
+    for (int j = 0; j < OWNER_RUN; ++j) {
+      if (i0 + j == next) {
+        ++lane;
+        next += shard_len;
+      }
+      const int sh = (j & 3) * 8;
+      if (!((kw[j >> 2] >> sh) & 0xFFu)) continue;
+      const uint32_t bits = x[i0 + j];
+      bool can;
+      const uint32_t v = distinct_key(bits, fmode, &can);
+      if (!can) continue;
+      const long long row = cheetah_hash_mod(bits, d, seed);
+      if (owner_of(table + (row << tbits), v, tbits) < lane)
+        kw[j >> 2] &= ~(0xFFu << sh);
+    }
+    if (whole) {
+      *reinterpret_cast<uint4*>(keep + i0) = make_uint4(kw[0], kw[1], kw[2], kw[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < OWNER_RUN; ++j)
+        if (j < n) keep[i0 + j] = (kw[j >> 2] >> (j & 3) * 8) & 0xFFu;
+    }
+  }
+}
+
+// log2 of the lowest-owner table's slots a row: a power of two >= 2 * sw.
+int owner_bits(int sw) {
+  int b = 1;
+  while ((1LL << b) < 2LL * sw) ++b;
+  return b;
+}
+
+// The kernel distinct_apply replaced: each pass-1 survivor of lane s probes
+// the columns [0, s * w) of its row in the union.
 __global__ void distinct_apply_kernel(const uint32_t* __restrict__ x,
                                       const uint8_t* __restrict__ keep1,
                                       const uint32_t* __restrict__ mslots,
@@ -907,11 +1048,47 @@ extern "C" int distinct_pass1_serial(const uint32_t* x, uint8_t* keep,
   return cudaGetLastError();
 }
 
+// Bytes of distinct_apply's lowest-owner table.
+extern "C" size_t distinct_apply_workspace(int d, int sw) {
+  return static_cast<size_t>(d) * sizeof(unsigned long long) << owner_bits(sw);
+}
+
+// Build the lowest-owner table (work holds distinct_apply_workspace bytes),
+// then apply it to every entry.
 extern "C" int distinct_apply(const uint32_t* x, const uint8_t* keep1,
                               const uint32_t* mslots, const uint8_t* mvalid,
                               uint8_t* keep, long long m, int shard_len, int d,
                               int w, int sw, uint32_t seed, int fmode,
-                              int grid, cudaStream_t stream) {
+                              int grid, unsigned char* work,
+                              cudaStream_t stream) {
+  const int tbits = owner_bits(sw);
+  const size_t smem = sizeof(unsigned long long) << tbits;
+  auto* table = reinterpret_cast<unsigned long long*>(work);
+  if (smem <= CHEETAH_MAX_SMEM) {
+    cudaError_t err = cheetah_launch_prep(
+        reinterpret_cast<const void*>(distinct_owner_build<true>), smem);
+    if (err != cudaSuccess) return err;
+    distinct_owner_build<true><<<d, 256, smem, stream>>>(mslots, mvalid, table,
+                                                         w, sw, tbits);
+  } else {
+    distinct_owner_build<false><<<d, 256, 0, stream>>>(mslots, mvalid, table,
+                                                       w, sw, tbits);
+  }
+  distinct_owner_apply<<<grid, 256, 0, stream>>>(x, keep1, table, keep, m,
+                                                 shard_len, d, tbits, seed,
+                                                 fmode);
+  return cudaGetLastError();
+}
+
+// The retired apply (a scan of the lower shards' columns by each survivor),
+// for holding the lowest-owner apply against it; launched by no entry point
+// of the package.
+extern "C" int distinct_apply_scan(const uint32_t* x, const uint8_t* keep1,
+                                   const uint32_t* mslots,
+                                   const uint8_t* mvalid, uint8_t* keep,
+                                   long long m, int shard_len, int d, int w,
+                                   int sw, uint32_t seed, int fmode, int grid,
+                                   cudaStream_t stream) {
   distinct_apply_kernel<<<grid, 256, 0, stream>>>(
       x, keep1, mslots, mvalid, keep, m, shard_len, d, w, sw, seed, fmode);
   return cudaGetLastError();

@@ -7,34 +7,51 @@
 // (src/repro/core/topn.py:38-69, a lax.scan): keep = x >= row[w - 1], and
 // the row takes a sorted insert when x > row[w - 1] (pos = #(x <= row)).
 //
-// B = 1: the row-parallel walk. An entry reads and writes only its row,
-// hash_mod(shard-local index, d, seed), so a lane is d independent chains.
-// The stable partition of rowpar.cuh, by index (each entry keeps its value's
-// 32 bits and its index), puts each segment (lane, row) in stream order;
-// then topn_walk takes one warp a segment, its entries 32 at a time through
-// the cp.async ring of rowpar.cuh, the row's w <= 32 values in registers
-// (slot j on lane j). A step is one ballot: the first entry of the 32 whose
-// value beats the row's minimum inserts; the entries before it keep iff
-// value >= minimum; the insert moves the slots after pos up by a shuffle,
-// and the step repeats from the next entry. Most steps see no insert: the
-// matrix takes about a hundred inserts a row on the main path. Walking in
-// stream order keeps the stored bits of +-0 and never stores or keeps a NaN,
-// as the scan does. Rows of w > 32 take topn_walk_wide: the same steps on a
-// row in shared memory.
-// What bounds the walk: bytes (the partition reads x twice and writes 8
-// bytes an entry; the walk reads them and scatters keep), not its chain,
-// which is the costliest segment's inserts.
+// Block semantics as in src/repro/kernels/ref.py (B = 1 is the scan):
+// every keep of a block of B entries of a lane reads the row as it stood
+// before the block, and each row takes one sorted insert per block, its
+// candidate: the scatter max of the block's entries of that row, NaN if
+// any of them is a NaN of either sign (no insert follows), else the
+// largest with +0 above -0 (topn_cand_ord: the order-preserving integer
+// image, every NaN on top). At B = 1 the candidate is the entry itself.
 //
-// B > 1: topn_pass1_block, block semantics as in src/repro/kernels/ref.py:
-// one CTA a lane, its f32[d][w] descending matrix in shared memory; every
-// keep decision of a chunk reads the pre-chunk matrix, and each row takes
-// one sorted insert per chunk, its best candidate (a per-row atomicMax on
-// the order-preserving integer image of the float). Bounded by its chain
-// of shard_len / B chunk steps: two barriers and a pass over the d rows.
+// The row-parallel walk (topn_pass1 at B = 1, topn_pass1_block_walk at any
+// B). An entry reads and writes only its row, hash_mod(shard-local index,
+// d, seed), so a lane is d independent chains, per block. The stable
+// partition of rowpar.cuh, by index (each entry keeps its value's 32 bits
+// and its index), puts each segment (lane, row) in stream order, so that
+// a block's entries of the row (a group; block id = shard-local index / B)
+// are contiguous. topn_walk then takes one warp a segment, its entries 32
+// at a time through the cp.async ring of rowpar.cuh, the row's w <= 32
+// values in registers (slot j on lane j). At B > 1 (topn_block_window), a
+// segmented max by shuffles gives every group's candidate in a window and
+// a ballot marks the group ends; a step inserts the first ending group
+// whose candidate beats the row's minimum (its slots after pos move up by
+// a shuffle), after the entries up to it keep iff value >= minimum, and
+// the step repeats past it. The window's last group stays open and
+// carries its running candidate into the next window (at d = 1 a group is
+// all B entries of a block). At B = 1 (topn_window) a step is one ballot
+// over the entries themselves, with no scan: the block window gives the
+// same bits there, but slower on the main path's column (PERF.md). Most
+// steps see no insert: the matrix takes about a hundred inserts a row on
+// the main path. Rows of w > 32 take topn_walk_wide: the same steps on a
+// row in shared memory. What bounds the walk: bytes (the partition reads
+// x twice and writes 8 bytes an entry; the walk reads them and scatters
+// keep), not its chain, the costliest segment's inserting groups.
 //
-// topn_pass1_serial is the kernel the walk replaced (one thread of a CTA
-// walks its lane's entries in order). No entry point of the package
-// launches it; chip_smoke.py holds the walk against it at full size.
+// topn_pass1 at B > 1 is topn_pass1_block, one CTA a lane with its
+// f32[d][w] matrix in shared memory: a chunk's keeps read the pre-chunk
+// matrix, and each row's candidate is a shared atomicMax on
+// topn_cand_ord. Its chain is shard_len / B steps of two barriers and a
+// pass over the d rows, on one SM a lane, so it is the faster form only
+// when the lanes fill the card (kernels/parallel.py, use_block_walk). At
+// S = 1 it is reached only through its C entry, which chip_smoke.py holds
+// the walk against at full size.
+//
+// topn_pass1_serial is the kernel the walk replaced at B = 1 (one thread
+// of a CTA walks its lane's entries in order). No entry point of the
+// package launches it; chip_smoke.py holds the walk against it at full
+// size.
 //
 // topn_apply replaces topn_apply_kernel (src/repro/kernels/parallel.py:126):
 // keep = x[i] >= rowmin[hash(i mod shard_len)], elementwise over m. It is
@@ -94,6 +111,14 @@ __global__ void topn_pass1_serial_kernel(const float* __restrict__ x,
   for (int i = threadIdx.x; i < d * w; i += blockDim.x) out[i] = st[i];
 }
 
+// The order of an entry in its block's candidate: the order-preserving
+// image of v (-0 below +0), every NaN of either sign above all, so that a
+// block holding a NaN yields a NaN and inserts nothing (ref.py's scatter max
+// propagates any NaN; cheetah_ordered puts a negative NaN at the bottom).
+__device__ __forceinline__ unsigned topn_cand_ord(float v) {
+  return v != v ? 0xFFFFFFFFu : cheetah_ordered(v);
+}
+
 // blockDim.x == block: one thread per entry of a chunk.
 __global__ void topn_pass1_block(const float* __restrict__ x,
                                  uint8_t* __restrict__ keep,
@@ -113,7 +138,7 @@ __global__ void topn_pass1_block(const float* __restrict__ x,
     const float v = x[i];
     const int row = cheetah_hash_mod(static_cast<uint32_t>(c0 + t), d, seed);
     keep[i] = v >= st[row * w + w - 1];
-    atomicMax(&cand[row], cheetah_ordered(v));
+    atomicMax(&cand[row], topn_cand_ord(v));
     __syncthreads();
     for (int r = t; r < d; r += blockDim.x) {
       const unsigned o = cand[r];
@@ -130,13 +155,138 @@ __global__ void topn_pass1_block(const float* __restrict__ x,
   for (int i = t; i < d * w; i += blockDim.x) out[i] = st[i];
 }
 
+// A walk's row in registers (w <= 32): slot j is lane j's r; rmin is slot
+// w - 1 on every lane. insert(c) is the sorted insert of c > rmin at
+// pos = #(c <= row), the slots after pos moving up by a shuffle.
+struct TopnRegRow {
+  float r, rmin;
+  __device__ __forceinline__ TopnRegRow()
+      : r(cheetah_neg_value()), rmin(cheetah_neg_value()) {}
+  __device__ __forceinline__ void insert(float c, int w, int lane) {
+    const int pos = __popc(__ballot_sync(ROWPAR_FULL, lane < w && c <= r));
+    const float up = __shfl_up_sync(ROWPAR_FULL, r, 1);
+    if (lane == pos)
+      r = c;
+    else if (lane > pos && lane < w)
+      r = up;
+    rmin = __shfl_sync(ROWPAR_FULL, r, w - 1);
+  }
+};
+
+// A walk's row in shared memory (w > 32), one warp's w slots at s: an
+// insert counts pos lane-strided and shifts the row.
+struct TopnSmemRow {
+  float* s;
+  float rmin;
+  __device__ __forceinline__ void insert(float c, int w, int lane) {
+    unsigned cnt = 0;
+    for (int i = lane; i < w; i += 32) cnt += c <= s[i];
+    const int pos = static_cast<int>(__reduce_add_sync(ROWPAR_FULL, cnt));
+    rowpar_shift(s + pos, w - 1 - pos, lane);
+    if (lane == 0) s[pos] = c;
+    __syncwarp();
+    rmin = s[w - 1];
+  }
+};
+
+// The (row, block) group of a block walk that the last window left open:
+// its block id and the order of its running candidate (topn_cand_ord).
+struct TopnGroup {
+  bool open;
+  unsigned blk, ord;
+};
+
+// Close an open group: the row takes its candidate when that beats the
+// row's minimum (a NaN never does).
+template <typename Row>
+__device__ __forceinline__ void topn_close(Row& row, TopnGroup& g, int w,
+                                           int lane) {
+  if (g.open) {
+    const float c = cheetah_unordered(g.ord);
+    if (c > row.rmin) row.insert(c, w, lane);
+    g.open = false;
+  }
+}
+
+// One window of n <= 32 entries of a B = 1 walk, entry e on lane e < n: a
+// step is one ballot; the first entry whose value beats the row's minimum
+// inserts, the entries before it keep iff value >= minimum, and the step
+// repeats from the next entry.
+template <typename Row>
+__device__ __forceinline__ void topn_window(Row& row, uint2 e, int n, int w,
+                                            int lane,
+                                            uint8_t* __restrict__ keep) {
+  const float v = __uint_as_float(e.x);
+  bool kp = false;
+  for (int done = 0;;) {
+    const bool open = lane >= done && lane < n;
+    const unsigned ins = __ballot_sync(ROWPAR_FULL, open && v > row.rmin);
+    const int first = ins ? __ffs(ins) - 1 : n;
+    if (open && lane < first) kp = v >= row.rmin;
+    if (first == n) break;
+    row.insert(__shfl_sync(ROWPAR_FULL, v, first), w, lane);
+    if (lane == first) kp = true;
+    done = first + 1;
+  }
+  if (lane < n) keep[e.y] = kp;
+}
+
+// One window of n <= 32 entries of a block walk (B > 1), entry e on lane
+// e < n. Its block id is its shard-local index / B, and a block's entries
+// are contiguous in the segment. A segmented max by shuffles gives each
+// lane the candidate of its group so far (the open group of the last
+// window folded in); a group ends at a lane whose successor has another
+// block. A step is one ballot over the group ends past the last insert:
+// every entry up to the first end whose candidate beats the row's minimum
+// keeps iff value >= minimum (the row as it stood before its group), and
+// that candidate is inserted. The window's last group stays open.
+template <typename Row>
+__device__ __forceinline__ void topn_block_window(
+    Row& row, TopnGroup& g, uint2 e, int n, int w, int lane, int shard_len,
+    int block, uint8_t* __restrict__ keep) {
+  const float v = __uint_as_float(e.x);
+  const unsigned blk = lane < n
+                           ? (e.y % static_cast<unsigned>(shard_len)) /
+                                 static_cast<unsigned>(block)
+                           : 0xFFFFFFFFu;
+  if (__shfl_sync(ROWPAR_FULL, blk, 0) != g.blk) topn_close(row, g, w, lane);
+  unsigned o = lane < n ? topn_cand_ord(v) : 0u;
+  if (g.open && blk == g.blk) o = max(o, g.ord);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned y = __shfl_up_sync(ROWPAR_FULL, o, off);
+    const unsigned b = __shfl_up_sync(ROWPAR_FULL, blk, off);
+    if (lane >= off && b == blk) o = max(o, y);
+  }
+  const unsigned next = __shfl_down_sync(ROWPAR_FULL, blk, 1);
+  const bool end = lane < n - 1 && next != blk;
+  const float c = cheetah_unordered(o);
+  bool kp = false;
+  for (int done = 0;;) {
+    const unsigned ins =
+        __ballot_sync(ROWPAR_FULL, end && lane >= done && c > row.rmin);
+    const int last = ins ? __ffs(ins) - 1 : n - 1;
+    if (lane >= done && lane <= last) kp = v >= row.rmin;
+    if (!ins) break;
+    row.insert(__shfl_sync(ROWPAR_FULL, c, last), w, lane);
+    done = last + 1;
+  }
+  if (lane < n) keep[e.y] = kp;
+  g.blk = __shfl_sync(ROWPAR_FULL, blk, n - 1);
+  g.ord = __shfl_sync(ROWPAR_FULL, o, n - 1);
+  g.open = true;
+}
+
 // One warp a segment g = lane * d + row over its entries [starts[g],
 // starts[g + 1]) of the partitioned stream (value bits, index), loaded
-// through the cp.async ring of rowpar.cuh. Slot j of the row is lane j's r.
+// through the cp.async ring of rowpar.cuh, the row in registers. kBlock:
+// block semantics (topn_block_window), else one entry at a time
+// (topn_window).
+template <bool kBlock>
 __global__ void __launch_bounds__(ROWPAR_THREADS)
     topn_walk(const uint2* __restrict__ part, const int* __restrict__ starts,
               uint8_t* __restrict__ keep, float* __restrict__ states,
-              long long nseg, int w) {
+              long long nseg, int w, int shard_len, int block) {
   __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
   const long long g =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -154,8 +304,8 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     rowpar_commit();
   };
   for (int c = 0; c < ROWPAR_STAGES - 1; ++c) issue(c);
-  float r = cheetah_neg_value();
-  float rmin = r;  // slot w - 1
+  TopnRegRow row;
+  TopnGroup grp{false, 0xFFFFFFFFu, 0u};
   for (int c = 0; c < chunks; ++c) {
     __syncwarp();  // every lane is done with the slot this issue refills
     issue(c + ROWPAR_STAGES - 1);
@@ -163,77 +313,50 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     __syncwarp();  // every lane's copy of chunk c is visible to the warp
     const uint2 e = ring[warp][c % ROWPAR_STAGES][lane];
     const int n = min(32, hi - lo - (c << 5));
-    const float v = __uint_as_float(e.x);
-    bool kp = false;
-    for (int done = 0;;) {
-      const bool open = lane >= done && lane < n;
-      const unsigned ins = __ballot_sync(ROWPAR_FULL, open && v > rmin);
-      const int first = ins ? __ffs(ins) - 1 : n;
-      if (open && lane < first) kp = v >= rmin;
-      if (first == n) break;
-      // entry `first` keeps and is inserted at pos = #(value <= slot)
-      const float cv = __shfl_sync(ROWPAR_FULL, v, first);
-      const int pos = __popc(__ballot_sync(ROWPAR_FULL, lane < w && cv <= r));
-      const float up = __shfl_up_sync(ROWPAR_FULL, r, 1);
-      if (lane == pos)
-        r = cv;
-      else if (lane > pos && lane < w)
-        r = up;
-      rmin = __shfl_sync(ROWPAR_FULL, r, w - 1);
-      if (lane == first) kp = true;
-      done = first + 1;
-    }
-    if (lane < n) keep[e.y] = kp;
+    if constexpr (kBlock)
+      topn_block_window(row, grp, e, n, w, lane, shard_len, block, keep);
+    else
+      topn_window(row, e, n, w, lane, keep);
   }
   rowpar_wait_all();
-  if (lane < w) states[g * w + lane] = r;
+  topn_close(row, grp, w, lane);
+  if (lane < w) states[g * w + lane] = row.r;
 }
 
 // The walk for rows wider than a warp's registers (w > 32): one warp a
 // segment as above, the row in shared memory, its entries loaded 32 at a
-// time (one a lane); an insert counts pos and shifts the row lane-strided.
+// time (one a lane).
+template <bool kBlock>
 __global__ void __launch_bounds__(ROWPAR_THREADS)
     topn_walk_wide(const uint2* __restrict__ part,
                    const int* __restrict__ starts, uint8_t* __restrict__ keep,
-                   float* __restrict__ states, long long nseg, int w) {
+                   float* __restrict__ states, long long nseg, int w,
+                   int shard_len, int block) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long g = static_cast<long long>(blockIdx.x) * warps + warp;
   if (g >= nseg) return;  // whole warps
-  float* s = reinterpret_cast<float*>(smem) + static_cast<size_t>(warp) * w;
-  for (int i = lane; i < w; i += 32) s[i] = cheetah_neg_value();
+  TopnSmemRow row{
+      reinterpret_cast<float*>(smem) + static_cast<size_t>(warp) * w,
+      cheetah_neg_value()};
+  for (int i = lane; i < w; i += 32) row.s[i] = cheetah_neg_value();
   __syncwarp();
+  TopnGroup grp{false, 0xFFFFFFFFu, 0u};
   const int lo = starts[g];
   const int hi = starts[g + 1];
-  float rmin = s[w - 1];
   for (int c0 = lo; c0 < hi; c0 += 32) {
     const int n = min(32, hi - c0);
     const uint2 e = lane < n ? part[c0 + lane] : make_uint2(0u, 0u);
-    const float v = __uint_as_float(e.x);
-    bool kp = false;
-    for (int done = 0;;) {
-      const bool open = lane >= done && lane < n;
-      const unsigned ins = __ballot_sync(ROWPAR_FULL, open && v > rmin);
-      const int first = ins ? __ffs(ins) - 1 : n;
-      if (open && lane < first) kp = v >= rmin;
-      if (first == n) break;
-      const float cv = __shfl_sync(ROWPAR_FULL, v, first);
-      unsigned cnt = 0;
-      for (int i = lane; i < w; i += 32) cnt += cv <= s[i];
-      const int pos = static_cast<int>(__reduce_add_sync(ROWPAR_FULL, cnt));
-      rowpar_shift(s + pos, w - 1 - pos, lane);
-      if (lane == 0) s[pos] = cv;
-      __syncwarp();
-      rmin = s[w - 1];
-      if (lane == first) kp = true;
-      done = first + 1;
-    }
-    if (lane < n) keep[e.y] = kp;
+    if constexpr (kBlock)
+      topn_block_window(row, grp, e, n, w, lane, shard_len, block, keep);
+    else
+      topn_window(row, e, n, w, lane, keep);
   }
+  topn_close(row, grp, w, lane);
   const long long o = g * w;
-  for (int i = lane; i < w; i += 32) states[o + i] = s[i];
+  for (int i = lane; i < w; i += 32) states[o + i] = row.s[i];
 }
 
 struct TopnWork {
@@ -271,6 +394,51 @@ __global__ void topn_apply_kernel(const float* __restrict__ x,
   }
 }
 
+// The row-parallel walk (any B >= 1): the partition by (lane, row), then
+// one warp a segment. work holds topn_work(...).total bytes.
+cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
+                             int shards, int shard_len, int d, int w,
+                             int block, uint32_t seed, unsigned char* work,
+                             cudaStream_t stream) {
+  if (w < 1 || block < 1 ||
+      (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 4) == 0))
+    return cudaErrorInvalidValue;
+  const TopnWork k = topn_work(shards, shard_len, d);
+  const long long nseg = static_cast<long long>(shards) * d;
+  uint2* part = reinterpret_cast<uint2*>(work + k.partition);
+  int* starts = nullptr;
+  cudaError_t err = rowpar_partition(reinterpret_cast<const uint32_t*>(x),
+                                     nullptr, nullptr, k.plan, seed, part,
+                                     work, &starts, stream, true);
+  if (err != cudaSuccess) return err;
+  if (w <= 32) {
+    const unsigned blocks = static_cast<unsigned>(
+        (nseg * 32 + ROWPAR_THREADS - 1) / ROWPAR_THREADS);
+    if (block > 1)
+      topn_walk<true><<<blocks, ROWPAR_THREADS, 0, stream>>>(
+          part, starts, keep, states, nseg, w, shard_len, block);
+    else
+      topn_walk<false><<<blocks, ROWPAR_THREADS, 0, stream>>>(
+          part, starts, keep, states, nseg, w, shard_len, block);
+    return cudaGetLastError();
+  }
+  const int warps = rowpar_wide_warps(static_cast<size_t>(w) * 4);
+  const size_t smem = static_cast<size_t>(warps) * w * sizeof(float);
+  const unsigned blocks = static_cast<unsigned>((nseg + warps - 1) / warps);
+  const void* fn = block > 1
+                       ? reinterpret_cast<const void*>(topn_walk_wide<true>)
+                       : reinterpret_cast<const void*>(topn_walk_wide<false>);
+  err = cheetah_launch_prep(fn, smem);
+  if (err != cudaSuccess) return err;
+  if (block > 1)
+    topn_walk_wide<true><<<blocks, warps * 32, smem, stream>>>(
+        part, starts, keep, states, nseg, w, shard_len, block);
+  else
+    topn_walk_wide<false><<<blocks, warps * 32, smem, stream>>>(
+        part, starts, keep, states, nseg, w, shard_len, block);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory of the block kernel (B > 1); the walk needs none of it.
@@ -280,11 +448,13 @@ extern "C" size_t topn_pass1_smem(int d, int w, int block) {
          static_cast<size_t>(d) * sizeof(unsigned);
 }
 
-extern "C" size_t topn_pass1_workspace(int shards, int shard_len, int d,
-                                       int block) {
-  return block == 1 ? topn_work(shards, shard_len, d).total : 0;
+// Workspace of the walk (topn_pass1 at B = 1, topn_pass1_block_walk); the
+// block kernel takes none.
+extern "C" size_t topn_pass1_workspace(int shards, int shard_len, int d) {
+  return topn_work(shards, shard_len, d).total;
 }
 
+// B = 1: the row-parallel walk; B > 1: the one-CTA-a-lane block kernel.
 extern "C" int topn_pass1(const float* x, uint8_t* keep, float* states,
                           int shards, int shard_len, int d, int w, int block,
                           uint32_t seed, unsigned char* work,
@@ -298,31 +468,18 @@ extern "C" int topn_pass1(const float* x, uint8_t* keep, float* states,
                                                       shard_len, d, w, seed);
     return cudaGetLastError();
   }
-  if (w < 1 || (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 4) == 0))
-    return cudaErrorInvalidValue;
-  const TopnWork k = topn_work(shards, shard_len, d);
-  const long long nseg = static_cast<long long>(shards) * d;
-  uint2* part = reinterpret_cast<uint2*>(work + k.partition);
-  int* starts = nullptr;
-  cudaError_t err = rowpar_partition(reinterpret_cast<const uint32_t*>(x),
-                                     nullptr, nullptr, k.plan, seed, part,
-                                     work, &starts, stream, true);
-  if (err != cudaSuccess) return err;
-  if (w <= 32) {
-    const unsigned blocks = static_cast<unsigned>(
-        (nseg * 32 + ROWPAR_THREADS - 1) / ROWPAR_THREADS);
-    topn_walk<<<blocks, ROWPAR_THREADS, 0, stream>>>(part, starts, keep,
-                                                     states, nseg, w);
-    return cudaGetLastError();
-  }
-  const int warps = rowpar_wide_warps(static_cast<size_t>(w) * 4);
-  const size_t smem = static_cast<size_t>(warps) * w * sizeof(float);
-  err = cheetah_launch_prep(reinterpret_cast<const void*>(topn_walk_wide), smem);
-  if (err != cudaSuccess) return err;
-  topn_walk_wide<<<static_cast<unsigned>((nseg + warps - 1) / warps),
-                   warps * 32, smem, stream>>>(part, starts, keep, states,
-                                               nseg, w);
-  return cudaGetLastError();
+  return topn_walk_launch(x, keep, states, shards, shard_len, d, w, 1, seed,
+                          work, stream);
+}
+
+// The row-parallel block walk (block semantics, B >= 1); work holds
+// topn_pass1_workspace bytes.
+extern "C" int topn_pass1_block_walk(const float* x, uint8_t* keep,
+                                     float* states, int shards, int shard_len,
+                                     int d, int w, int block, uint32_t seed,
+                                     unsigned char* work, cudaStream_t stream) {
+  return topn_walk_launch(x, keep, states, shards, shard_len, d, w, block,
+                          seed, work, stream);
 }
 
 // The retired one-thread walk, for holding the row-parallel walk against it;

@@ -17,9 +17,9 @@ SKYLINE's pass 1 also takes the APH association as ``form``: ``"kernel"``
 for ``ops.py`` (the Pallas kernels' score), ``"engine"`` for the engine.
 DISTINCT's pass 1 also takes the cache policy: FIFO at any B, LRU at B = 1
 only (the engine's default policy; the Pallas kernels are FIFO only). At
-B > 1 it has two forms on the card, picked by the shape
-(``block_walk_wins``): the row-parallel block walk and the one-CTA-a-lane
-block kernel.
+B > 1 the pass 1 of TOP-N and of DISTINCT each has two forms on the card,
+picked by the shape (``use_block_walk``): the row-parallel block walk and
+the one-CTA-a-lane block kernel.
 ``KERNELS`` lists every CUDA kernel of the port, the Count-Min pair of
 ``cms_sketch.py``, the Bloom pair of ``bloom_filter.py``, the GROUP BY
 scan of ``groupby_scan.py``, the ``topn_det`` ladder of
@@ -44,6 +44,8 @@ from .topn_det_scan import TOPN_DET_PASS1
 TOPN_PASS1 = CudaKernel("topn_pass1",
                         [P, P, P, I32, I32, I32, I32, I32, U32, P],
                         smem_fn="topn_pass1_smem")
+TOPN_BLOCK_WALK = CudaKernel("topn_pass1_block_walk",
+                             [P, P, P, I32, I32, I32, I32, I32, U32, P])
 TOPN_APPLY = CudaKernel("topn_apply", [P, P, P, I64, I32, I32, U32, I32])
 DISTINCT_PASS1 = CudaKernel(
     "distinct_pass1",
@@ -56,7 +58,7 @@ DISTINCT_BLOCK_WALK = CudaKernel(
     [P, P, P, P, P, I32, I32, I32, I32, I32, I32, U32, P])
 DISTINCT_APPLY = CudaKernel(
     "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32,
-                       I32])
+                       I32, P])
 SKYLINE_PASS1 = CudaKernel(
     "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32, P],
     smem_fn="skyline_pass1_smem")
@@ -64,7 +66,7 @@ SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
 KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
            BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
-           RLE_TOPN_DET, DISTINCT_BLOCK_WALK)
+           RLE_TOPN_DET, DISTINCT_BLOCK_WALK, TOPN_BLOCK_WALK)
 POLICIES = ("lru", "fifo")
 
 
@@ -108,6 +110,23 @@ def _check_pass1(kernel: CudaKernel, d: int, w: int, block: int) -> None:
                          f"{MAX_SMEM}")
 
 
+def use_block_walk(shards: int, device: torch.device) -> bool:
+    """Whether pass 1 at B > 1, of TOP-N and of DISTINCT alike, takes the
+    row-parallel block walk on the card (else the one-CTA-a-lane block
+    kernel): while the lanes fill less than half of the SMs. The block
+    kernel's chain is shard_len / B steps a lane on one SM and needs no
+    partition; the walk spreads every lane over the card but partitions
+    the stream first (1.1-1.6 ms on 2^25 entries). chip_smoke.py's
+    time_block_forms, NVIDIA H100 80GB HBM3 at 700.00 W, B = 256, on
+    2^25 entries: DISTINCT on zipf keys, d=4096, w=4: at S=1 the walk
+    4.463 ms and the block kernel 102.93 ms, at S=128 the walk 3.152 ms
+    and the block kernel 0.891 ms; TOP-N on gamma(2, 50) values, d=512,
+    w=8: at S=1 the walk 2.508 ms and the block kernel 101.20 ms, at
+    S=128 the walk 2.051 ms and the block kernel 1.368 ms."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 2 * shards < sms
+
+
 # ======================================================= TOP-N (rand, Ex. 7)
 def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                              shards: int, block: int = 256, seed: int = 0):
@@ -119,7 +138,9 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     At block=1 the CUDA path is the row-parallel walk of ``topn.cu``: an
     entry reads and writes only the row its shard-local index hashes to,
     so each (lane, row) is walked on its own, in stream order, after a
-    stable partition by index."""
+    stable partition by index. At block > 1 it is the block walk
+    (``topn_block_walk_kernel``) when ``use_block_walk``, else the
+    one-CTA-a-lane block kernel."""
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, block)
     if not values.is_cuda:
@@ -127,6 +148,9 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
             values.reshape(shards, shard_len), d=d, w=w, block=block,
             seed=seed, return_state=True)
         return keep.reshape(m), states
+    if block > 1 and use_block_walk(shards, values.device):
+        return topn_block_walk_kernel(values, d=d, w=w, shards=shards,
+                                      block=block, seed=seed)
     check_cuda("values", values, torch.float32)
     if block == 1:
         check_rowpar(m, w, 4)
@@ -136,11 +160,43 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     keep = torch.empty(m, dtype=torch.bool, device=dev)
     states = torch.empty((shards, d, w), dtype=torch.float32, device=dev)
     if m:
-        work = workspace(dev, "topn_pass1_workspace", shards, shard_len, d,
-                         block)
+        work = (workspace(dev, "topn_pass1_workspace", shards, shard_len, d)
+                if block == 1 else None)
         TOPN_PASS1.launch(dev, ptr(values), ptr(keep), ptr(states), shards,
                           shard_len, d, w, block, seed & 0xFFFFFFFF,
-                          ptr(work))
+                          None if work is None else ptr(work))
+    else:
+        states.fill_(float(NEG))
+    return keep, states
+
+
+def topn_block_walk_kernel(values: torch.Tensor, *, d: int, w: int,
+                           shards: int, block: int = 256, seed: int = 0):
+    """Pass 1 with block semantics (any block >= 1) by the row-parallel
+    block walk of ``topn.cu``: (keep, states) as
+    ``topn_shard_states_kernel`` gives them. After the partition by (lane,
+    row), one warp walks each row's entries in stream order, a block's
+    entries of the row being one group: every entry keeps iff its value
+    >= the row's minimum as it stood before its group, and the group's
+    candidate (``ref.topn_block_ref``) is inserted when it beats that
+    minimum. A CPU tensor runs ``ref.topn_block_ref``."""
+    m = values.shape[0]
+    shard_len = _check_shape(m, d, shards, block)
+    if not values.is_cuda:
+        keep, states = ref.topn_block_ref(
+            values.reshape(shards, shard_len), d=d, w=w, block=block,
+            seed=seed, return_state=True)
+        return keep.reshape(m), states
+    check_cuda("values", values, torch.float32)
+    check_rowpar(m, w, 4)
+    dev = values.device
+    keep = torch.empty(m, dtype=torch.bool, device=dev)
+    states = torch.empty((shards, d, w), dtype=torch.float32, device=dev)
+    if m:
+        work = workspace(dev, "topn_pass1_workspace", shards, shard_len, d)
+        TOPN_BLOCK_WALK.launch(dev, ptr(values), ptr(keep), ptr(states),
+                               shards, shard_len, d, w, block,
+                               seed & 0xFFFFFFFF, ptr(work))
     else:
         states.fill_(float(NEG))
     return keep, states
@@ -211,20 +267,6 @@ def _check_distinct_dtype(values: torch.Tensor) -> None:
                         f"distinct_form), got {values.dtype}")
 
 
-def block_walk_wins(shards: int, device: torch.device) -> bool:
-    """Whether DISTINCT's pass 1 at B > 1 takes the row-parallel block walk
-    on the card (else the one-CTA-a-lane block kernel): while the lanes
-    fill less than half of the SMs. The block kernel's chain is
-    shard_len / B steps a lane on one SM and needs no partition; the walk
-    spreads every lane over the card but partitions the stream first.
-    On 2^25 zipf keys, d=4096, w=4, B=256 (chip_smoke.py's
-    time_block_forms, NVIDIA H100 80GB HBM3 at 700.00 W): at S=1 the walk
-    takes 4.347 ms and the block kernel 102.84 ms; at S=128 the walk
-    3.087 ms and the block kernel 0.848 ms."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 2 * shards < sms
-
-
 def _distinct_outputs(shards: int, d: int, w: int, m: int, device):
     """Pass-1 outputs for a kernel to fill: keep bool[m], slots
     uint32[S, d, w], valid bool[S, d, w], head int32[S, d]; the states of
@@ -253,7 +295,7 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     (lane, row) is walked on its own, in stream order, after a stable
     partition; at d >= 2^16 it hashes by modulo, as ``hash_mod`` does. At
     block > 1 it is the block walk (``distinct_block_walk_kernel``) when
-    ``block_walk_wins``, else the one-CTA-a-lane block kernel."""
+    ``use_block_walk``, else the one-CTA-a-lane block kernel."""
     if policy not in POLICIES:
         raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
     if policy == "lru" and block != 1:
@@ -271,7 +313,7 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
             else ref.distinct_block_ref(lanes, d=d, w=w, block=block,
                                         seed=seed, return_state=True))
         return (keep.reshape(m),) + state
-    if block > 1 and block_walk_wins(shards, values.device):
+    if block > 1 and use_block_walk(shards, values.device):
         return distinct_block_walk_kernel(values, d=d, w=w, shards=shards,
                                           block=block, seed=seed)
     _check_distinct_dtype(values)
@@ -367,7 +409,12 @@ def distinct_apply_plain(values: torch.Tensor, keep1: torch.Tensor,
 def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
                           mslots: torch.Tensor, mvalid: torch.Tensor, *,
                           d: int, shards: int, seed: int = 0) -> torch.Tensor:
-    """Pass 2: keep bool[m] = keep1 and not cached by a lower-ranked shard."""
+    """Pass 2: keep bool[m] = keep1 and not cached by a lower-ranked shard.
+
+    On the card ``distinct.cu`` first reduces each row of the union to a
+    table from key to the lowest shard that holds it in a valid slot; a
+    pass-1 survivor of lane s that can hit is then dropped iff that owner
+    is below s: one lookup an entry."""
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, 1, any_d=True)
     sw = mslots.shape[-1]
@@ -385,14 +432,15 @@ def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
     check_cuda("keep1", keep1, torch.bool, values.device)
     check_cuda("mslots", mslots, torch.uint32, values.device)
     check_cuda("mvalid", mvalid, torch.bool, values.device)
-    keep = torch.empty(m, dtype=torch.bool, device=values.device)
+    dev = values.device
+    keep = torch.empty(m, dtype=torch.bool, device=dev)
     if m:
-        DISTINCT_APPLY.launch(values.device, ptr(values), ptr(keep1),
-                              ptr(mslots), ptr(mvalid), ptr(keep), m,
-                              shard_len, d, sw // shards, sw,
-                              seed & 0xFFFFFFFF,
+        table = workspace(dev, "distinct_apply_workspace", d, sw)
+        DISTINCT_APPLY.launch(dev, ptr(values), ptr(keep1), ptr(mslots),
+                              ptr(mvalid), ptr(keep), m, shard_len, d,
+                              sw // shards, sw, seed & 0xFFFFFFFF,
                               int(values.dtype == torch.float32),
-                              grid_for(m, values.device))
+                              grid_for(m, dev), ptr(table))
     return keep
 
 

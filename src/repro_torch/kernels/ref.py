@@ -40,10 +40,32 @@ def _lanes(values: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
     return lanes[:, : nb * block], nb
 
 
+_I32_MAX = 0x7FFFFFFF
+
+
+def ordered_i32(x: torch.Tensor) -> torch.Tensor:
+    """The order-preserving int32 image of f32 ``x`` (-0 below +0), with
+    every NaN, whatever its sign, mapped above every other value."""
+    i = x.view(torch.int32)
+    return torch.where(x.isnan(), _I32_MAX,
+                       torch.where(i < 0, i ^ _I32_MAX, i))
+
+
+def unordered_f32(o: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``ordered_i32`` (a NaN comes back as 0x7FFFFFFF)."""
+    return torch.where(o < 0, o ^ _I32_MAX, o).view(torch.float32)
+
+
 def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
                    seed: int = 0, return_state: bool = False):
     """Randomized TOP-N matrix, block semantics: keep bool[m] (or [S, n]),
-    plus the final f32[d, w] (or [S, d, w]) matrix when ``return_state``."""
+    plus the final f32[d, w] (or [S, d, w]) matrix when ``return_state``.
+
+    A row's candidate from a block is the reference's scatter max of the
+    block's entries of that row: NaN if any of them is NaN, whatever its
+    sign, else the largest with +0 above -0 (XLA's max), so the max of
+    ``ordered_i32``. ``scatter_reduce("amax")`` on the floats would keep
+    the first of -0 and +0."""
     one = values.ndim == 1
     x, nb = _lanes(values.to(torch.float32), block)
     S, dev = x.shape[0], x.device
@@ -51,6 +73,7 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     state = torch.full((S, d, w), float(NEG), dtype=torch.float32, device=dev)
     keep = torch.empty(x.shape, dtype=torch.bool, device=dev)
     idxw = torch.arange(w, device=dev)
+    neg = ordered_i32(torch.full((S, d), float(NEG), device=dev))
     # a block touches only its entries' rows: those are read, updated and
     # written back (an entry of a row that recurs writes the same values)
     for c in range(nb):
@@ -58,8 +81,8 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
         xb, rows = x[:, sl], rows_all[sl]
         st = state[:, rows]                              # [S, B, w]
         keep[:, sl] = xb >= st[:, :, -1]
-        cand = torch.full((S, d), float(NEG), dtype=torch.float32, device=dev)
-        cand = cand.scatter_reduce(1, rows.expand(S, -1), xb, "amax")[:, rows]
+        cand = unordered_f32(neg.scatter_reduce(
+            1, rows.expand(S, -1), ordered_i32(xb), "amax")[:, rows])
         do = cand > st[:, :, -1]
         pos = (cand[:, :, None] <= st).sum(-1, keepdim=True)
         shifted = torch.where(idxw > pos, st.roll(1, dims=2), st)

@@ -1,4 +1,4 @@
-"""Six places where the port gave another answer than the JAX package.
+"""Eight places where the port gave another answer than the JAX package.
 
 Each test feeds the same numpy input to both packages on the CPU, on the
 smallest input that shows the departure, and holds the port to the
@@ -17,7 +17,13 @@ reference, faults of the reference included:
 - A5: the GROUP BY MIN/MAX master folds with Python's ``min``/``max``,
   emissions first and then the state, so a NaN after a finite partial is
   dropped and a NaN first wins;
-- A6: the HAVING SUM master sums int64 values without wrapping.
+- A6: the HAVING SUM master sums int64 values without wrapping;
+- A8: TOP-N's block candidate is XLA's scatter max, which takes +0 over
+  -0 in either order (``scatter_reduce("amax")`` keeps the first);
+- A9: that candidate is NaN when any entry of the (row, block) group is
+  NaN, whatever its sign, so the row takes no insert (the card's block
+  kernel ordered a negative NaN below every finite value; the CPU tests
+  hold its plain version, which the card checks it against).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +35,7 @@ from repro.kernels import ref as jref
 from repro.query import engine as jq
 from repro.query import tables as jt
 from repro_torch import core as T
+from repro_torch.core.hashing import hash_mod
 from repro_torch.kernels import parallel as tpar
 from repro_torch.kernels import ref as tref
 from repro_torch.query import engine as tq
@@ -300,3 +307,103 @@ def test_a6_having_sum_master_does_not_wrap(vals, threshold):
     assert got == [int(k) for k in want]
     if vals[0] == INF:
         assert got == []
+
+
+# ------------------------------------------------------------- A8 and A9
+NEG32 = np.float32(-3.4e38)
+# x86's default NaN (sign bit set, as inf - inf gives it on the host), and
+# the positive quiet NaN
+NNAN = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+PNAN = np.array([0x7FC00000], np.uint32).view(np.float32)[0]
+# values at, just below and just above NEG, and -inf
+LOW = [NEG32, np.nextafter(NEG32, np.float32(-INF)),
+       np.nextafter(NEG32, np.float32(0)), np.float32(-INF)]
+
+
+def _topn_block_both(x, d, w, block, seed=0):
+    """(keep, state) of the reference's block oracle, then of the port's
+    plain version and of its pass-1 entry point on a CPU tensor."""
+    jk, js = jref.topn_block_ref(jnp.asarray(x), d=d, w=w, block=block,
+                                 seed=seed, return_state=True)
+    t = torch.from_numpy(x)
+    ours = [tref.topn_block_ref(t, d=d, w=w, block=block, seed=seed,
+                                return_state=True),
+            tpar.topn_shard_states_kernel(t, d=d, w=w, shards=1,
+                                          block=block, seed=seed)]
+    return (np.asarray(jk), np.asarray(js)), ours
+
+
+def _f32_bits(a):
+    """The bits of an f32 array, every NaN as one."""
+    a = np.asarray(a, np.float32)
+    return np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
+
+
+def _topn_block_matches(x, d, w, block, seed=0):
+    (jk, js), ours = _topn_block_both(x, d, w, block, seed)
+    for keep, state in ours:
+        np.testing.assert_array_equal(keep.numpy(), jk.astype(bool))
+        np.testing.assert_array_equal(_f32_bits(state.reshape(d, w)),
+                                      _f32_bits(js))
+    return js
+
+
+def _a8_stream(m, d, block, seed, rng):
+    """Negatives and values at or below NEG, and in every block that holds
+    two entries of one row, -0 then +0 at the first two of them: the tie
+    is the row's best candidate, and the row's first one inserts."""
+    x = rng.choice(np.array([-1.0, -2.5, *LOW], np.float32), m)
+    rows = hash_mod(torch.arange(m), d, seed).numpy()
+    for b in range(0, m, block):
+        r = rows[b:b + block]
+        first = {}
+        for i, row in enumerate(r.tolist()):
+            if row in first:
+                x[b + first[row]], x[b + i] = -0.0, 0.0
+                break
+            first[row] = i
+    return x.astype(np.float32)
+
+
+def _a9_stream(m, rng):
+    """NaNs of both signs beside finite values that beat the row minimum,
+    +-inf, +-0 and values at or below NEG."""
+    pool = np.array([NNAN, PNAN, 5.0, 1.0, 2.0, 3.0, -0.0, 0.0, INF, *LOW],
+                    np.float32)
+    x = rng.choice(pool, m).astype(np.float32)
+    x[::3] = rng.random(x[::3].shape[0]).astype(np.float32) * 10
+    return x
+
+
+def test_a8_smallest_input():
+    """[-0.0, 0.0], d = w = 1, B = 2: the reference stores +0
+    (0x00000000); the port's plain version stored -0 (0x80000000)."""
+    x = np.array([-0.0, 0.0], np.float32)
+    js = _topn_block_matches(x, 1, 1, 2)
+    assert _f32_bits(js).tolist() == [[0x00000000]]
+
+
+@pytest.mark.parametrize("d", [1, 3, 37])
+@pytest.mark.parametrize("block", [2, 8, 32])
+@pytest.mark.parametrize("seed", range(3))
+def test_a8_topn_block_max_takes_plus_zero(seed, block, d):
+    x = _a8_stream(512, d, block, seed,
+                   np.random.default_rng(seed * 100 + block + d))
+    _topn_block_matches(x, d, 3, block, seed)
+
+
+def test_a9_smallest_input():
+    """A negative NaN beside 5.0, which beats the row's minimum: the
+    reference's candidate is NaN and the row takes no insert; the card's
+    block kernel took 5.0 ([5.0, 3.0] instead of [3.0, NEG])."""
+    x = np.array([NNAN, 5.0, 1.0, 2.0, 3.0, 3.0, 3.0, 3.0], np.float32)
+    js = _topn_block_matches(x, 1, 2, 4)
+    assert np.asarray(js).tolist() == [[3.0, float(NEG32)]]
+
+
+@pytest.mark.parametrize("d", [1, 3, 37])
+@pytest.mark.parametrize("block", [2, 8, 32])
+@pytest.mark.parametrize("seed", range(3))
+def test_a9_topn_block_nan_of_either_sign_blocks_the_insert(seed, block, d):
+    x = _a9_stream(512, np.random.default_rng(seed * 100 + block + d))
+    _topn_block_matches(x, d, 3, block, seed)
