@@ -14,8 +14,16 @@ Phases, one line each, and a non-zero exit on any failure:
            a mask, for Bloom; all four aggregates for the GROUP BY scan;
            the ``topn_det`` ladder scan (negative values, N above a shard,
            w = 4 and 8), LRU DISTINCT (small caches with hits at every
-           slot) and the RLE run scan (ragged R, one run, all-distinct
-           runs, negative values, N above the rows); the row-parallel
+           slot) and the RLE run scan at block 64 and 256 (ragged R, one
+           run, all-distinct runs, negative values, N above the rows,
+           several chunks at w = 32, NaN of both signs, +-0, +-inf and
+           values near FLT_MAX, zero-length runs inside the column, a
+           warm-up ending at a chunk boundary and mid-chunk, and the wrap:
+           runs of 2^30 that take seen past 2^31); the Bloom cluster build
+           by its C entry, whatever route the wrapper takes for the shape
+           (JOIN F_A's shape with and without a mask, nbits 2^24 - 37 and
+           600001, m = 7 and m = 0), and the wrapper on each; the
+           row-parallel
            DISTINCT and GROUP BY walks on adversarial inputs (a hot key,
            one row, two alternating keys, d = 37 and d = 70001, float32
            keys, invalid entries, the hot key in slot w - 1, rows of more
@@ -64,9 +72,13 @@ Phases, one line each, and a non-zero exit on any failure:
            first GROUPBY_PREFIX / S, rerun on that prefix for the state;
            the plain loops on CPU copies, except those whose time the
            kernels line reports),
-           the run-level RLE scan also on two layouts that prune (shuffled
-           and descending run values), its median time, its plain version's
-           time and its bound, and the time of the ``lut[code]`` decode
+           the run-level RLE scan also on three layouts that prune
+           (shuffled, shuffled below 0, descending), its median time, its C
+           entry's time alone and queued back to back (its device time),
+           its plain version's time and its bound; the Bloom cluster build
+           beside the global-atomic kernel at JOIN's filters and over a
+           sweep of m at JOIN's filter size (the readings of the wrapper's
+           dispatch rule); and the time of the ``lut[code]`` decode
            gather. The row-parallel walks' bound is their longest chain on
            this run's stream (``walk_bound``); the TOP-N walk's and the
            SKYLINE prefix merge's is the most inserts one store takes on it
@@ -77,7 +89,9 @@ Phases, one line each, and a non-zero exit on any failure:
            Both forms of DISTINCT and of TOP-N at B = 256 are timed at
            S = 1 and 128 (``time_block_forms``). torch.profiler splits each
            redesigned kernel into its internal kernels (distinct_apply into
-           its table build and its lookups), and a stream on which every
+           its table build and its lookups, the Bloom build into its
+           zeroing and its cluster kernel),
+           and a stream on which every
            entry inserts is timed. Each phase prints its seconds.
 5. witness the redesigned kernels against the serial kernels they
            replaced, bit for bit, over the whole 2^25-entry column: at S = 1
@@ -85,8 +99,11 @@ Phases, one line each, and a non-zero exit on any failure:
            the chunked ladder, the DISTINCT and TOP-N block walks (against
            the block kernels, B = 256), and at B = 1 TOP-N and SKYLINE; at
            S = 128 the lowest-owner distinct_apply against the scan it
-           replaced, after FIFO (B = 256 and 1) and LRU pass 1; then the
-           ``kernels`` JSON line.
+           replaced, after FIFO (B = 256 and 1) and LRU pass 1; the
+           chunked RLE run scan against the one-CTA run scan on the 2^19
+           timed runs and the three pruning layouts; the cluster Bloom
+           build against the global-atomic kernel at JOIN's F_A and F_B;
+           then the ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -135,6 +152,7 @@ TOPN_DET = dict(N=100, w=8)    # README batch example: mode="det", w=8
 # bench_encoded.py's layout: 2^25 rows in runs of 64 (R = 2^19), sorted
 # draws below 4096 for TOP-N, unsorted draws below 2048 for DISTINCT
 RLE_RUN_LEN = 64
+RLE_CHUNK = 2048               # runs a chunk of the run scan (topn_det.cu)
 RLE_TOPN = dict(N=250, w=8)
 RLE_DISTINCT = dict(d=256, w=4)
 FADD_CYCLES = 4                # latency of one dependent f32 add (a fold)
@@ -313,6 +331,23 @@ def event_ms(fn, reps: int, warm: bool = True) -> float:
     return times[len(times) // 2]
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Device ms a call of fn() with ``reps`` calls queued back to back
+    between two events, after a warm-up: the card's time a call wherever
+    the host queues a call faster than the card runs it."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def card_line() -> str:
     try:
         res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -467,6 +502,40 @@ def phase_kernels_bloom(torch, g):
                           f"bloom_query m={m} {fam} nbits={nbits}")
         say("kernels", m=m, bloom_build=ok_b, bloom_query=ok_q,
             s=round(time.perf_counter() - t0, 3))
+    # the cluster build (filters above 48 KB) by its C entry, whatever the
+    # wrapper's route, and the wrapper: JOIN F_A's shape with and without a
+    # mask, an nbits that is not a multiple of 32 * K, a filter that takes
+    # clusters of 2, m smaller than a cluster's CTAs, and m = 0
+    t0 = time.perf_counter()
+    keys = torch.randint(0, M_MAIN // 5, (M_MAIN,), generator=g).to(
+        torch.int32).cuda()
+    mask = (torch.rand(M_MAIN, generator=g) < 0.5).cuda()
+    ok_c = True
+    for name, k, msk, nbits in (
+            ("F_A", keys, None, JOIN["nbits"]),
+            ("F_A masked", keys, mask, JOIN["nbits"]),
+            ("nbits 2^24 - 37", keys[:(1 << 20) + 3], None,
+             JOIN["nbits"] - 37),
+            ("nbits 600001", keys[:99991], mask[:99991], 600001),
+            ("m = 7", keys[:7], None, JOIN["nbits"]),
+            ("m = 0", keys[:0], None, JOIN["nbits"])):
+        kw = dict(nbits=nbits, num_hashes=3, seed=nbits, family="engine")
+        want = B.bloom_build_plain(k, mask=msk, **kw)
+        w = torch.empty_like(want)
+        bloom_cluster(torch, k, w, kw, msk)
+        K = bloom_plan_k(torch, nbits, 3)
+        route = B.bloom_route(nbits, 3, k.numel(), K)
+        counter = B.BLOOM_BUILD if route == "cluster" else \
+            B.BLOOM_BUILD_GLOBAL
+        before = counter.launches
+        ok_c &= check(
+            same(w, want) and same(B.bloom_build_kernel(k, mask=msk, **kw),
+                                   want)
+            and counter.launches == before + (k.numel() > 0),
+            f"bloom_build cluster {name} m={k.numel()} nbits={nbits} K={K} "
+            f"route={route}")
+    say("kernels", bloom_build_cluster=ok_c,
+        s=round(time.perf_counter() - t0, 3))
 
 
 def phase_kernels_groupby(torch, g):
@@ -549,26 +618,76 @@ def phase_kernels_ladder(torch, g):
             s=round(time.perf_counter() - t0, 3))
     t0 = time.perf_counter()
     ok_r = True
-    for name, R_, N, w in (("ragged", 1037, 250, 8), ("one run", 1, 16, 4),
-                           ("all distinct", 4101, 100, 8),
-                           ("negative", 777, 300, 4),
-                           ("N above the rows", 300, 1 << 20, 8)):
-        L = torch.randint(1, 100, (R_,), generator=g).to(torch.int32).cuda()
-        v = (torch.rand(R_, generator=g) * 100).cuda()
-        if name == "negative":
-            v = v - 50.0
-        if name == "all distinct":
-            v = torch.arange(1, R_ + 1, dtype=torch.float32, device="cuda")
-            L = torch.ones_like(L)
+    for name, v, L, N, w, expand in rle_kernel_layouts(torch, g):
         for block in (64, 256):
             h, t = O.rle_topn_prune(v, L, N=N, w=w, block=block)
             h2, t2 = RS.rle_topn_det_ref(v, L, N=N, w=w)
-            flat = TD.topn_det_pass1_plain(
-                torch.repeat_interleave(v, L)[None], N=N, w=w)[0][0]
-            ok_r &= check(same(h, h2) and same(t, t2) and same(
-                O.rle_expand_mask(h, t, L, int(L.sum())), flat),
-                f"rle_topn_det {name} R={R_} N={N} w={w} block={block}")
+            ok = same(h, h2) and same(t, t2)
+            if expand:
+                flat = TD.topn_det_pass1_plain(
+                    torch.repeat_interleave(v, L)[None], N=N, w=w)[0][0]
+                ok &= same(O.rle_expand_mask(h, t, L, int(L.sum())), flat)
+            ok_r &= check(ok, f"rle_topn_det {name} R={v.numel()} N={N} "
+                          f"w={w} block={block}")
     say("kernels", rle_topn_det=ok_r, s=round(time.perf_counter() - t0, 3))
+
+
+def rle_kernel_layouts(torch, g):
+    """(name, f32 run values, int32 lengths, N, w, whether the expanded
+    column is also checked) of the RLE run scan's cases, on the card: R from
+    1 run to several chunks of RLE_CHUNK; NaN of both signs, +-0, +-inf and
+    values near FLT_MAX; zero-length runs inside the column; a warm-up that
+    ends at a chunk boundary and one that ends mid-chunk; and the wrap, a
+    few runs of 2^30 that take seen past 2^31 so that later runs are warm
+    again (ROADMAP Queue 3 A10; head and tstar only, the column has 2^33
+    rows). The layouts with NaN runs and zero-length runs are not held to
+    the flat scan of their expanded column: there the reference's closed
+    form keeps rows that the flat scan drops (ROADMAP Queue 3 B7)."""
+    out = []
+    for name, R_, N, w in (("ragged", 1037, 250, 8), ("one run", 1, 16, 4),
+                           ("all distinct", 4101, 100, 8),
+                           ("negative", 777, 300, 4),
+                           ("N above the rows", 300, 1 << 20, 8),
+                           ("several chunks, w=32", 5 * RLE_CHUNK + 256, 900,
+                            32)):
+        L = torch.randint(1, 100, (R_,), generator=g).to(torch.int32)
+        v = torch.rand(R_, generator=g) * 100
+        if name == "negative":
+            v = v - 50.0
+        if name == "all distinct":
+            v = torch.arange(1, R_ + 1, dtype=torch.float32)
+            L = torch.ones_like(L)
+        out.append((name, v, L, N, w, True))
+    R_ = 3 * RLE_CHUNK + 100
+    pool = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                         -float("inf"), 3.4028234663852886e38, 3.0e38,
+                         -3.4028234663852886e38])
+    v = torch.rand(R_, generator=g) * 100
+    at = torch.rand(R_, generator=g) < 0.2
+    v[at] = pool[torch.randint(0, pool.numel(), (int(at.sum()),),
+                               generator=g)]
+    nan_neg = (torch.rand(R_, generator=g) < 0.02) & at
+    v = torch.where(nan_neg, torch.tensor([NEG_NAN_BITS], dtype=torch.int32)
+                    .view(torch.float32), v)
+    L = torch.randint(1, 40, (R_,), generator=g).to(torch.int32)
+    out.append(("nan of both signs, +-0, +-inf, near FLT_MAX", v, L, 2000, 8,
+                False))
+    L0 = L.clone()
+    L0[torch.rand(R_, generator=g) < 0.25] = 0
+    out.append(("zero-length runs", torch.rand(R_, generator=g) * 100, L0,
+                3000, 8, False))
+    ones = torch.ones(R_, dtype=torch.int32)
+    r = torch.rand(R_, generator=g) * 100
+    for label, N in (("at a chunk boundary", RLE_CHUNK),
+                     ("at the second chunk boundary", 2 * RLE_CHUNK),
+                     ("mid-chunk", RLE_CHUNK + 1000)):
+        out.append((f"warm-up ends {label}", r, ones, N, 8, True))
+    L = torch.randint(0, 50, (2 * RLE_CHUNK + 300,), generator=g).to(
+        torch.int32)
+    L[[5, 6, 7, 2100, 2101, 2102, 2103, 4000]] = 1 << 30
+    out.append(("wrap", torch.rand(L.numel(), generator=g) * 100, L, 1000, 8,
+                False))
+    return [(n, v.cuda(), L.cuda(), N, w, e) for n, v, L, N, w, e in out]
 
 
 def ladder_streams(torch, g, S, n):
@@ -1423,7 +1542,7 @@ def phase_main(torch, P, O):
                 rankings.cols["page_url"][:BLOOM_OPS_KEYS], **BLOOM_OPS),
                 table.cols["dest_url"], num_hashes=BLOOM_OPS["num_hashes"]),
             lambda k: bloom_ok(k, "ops_bloom"),
-            lambda k: k, ("bloom_build", "bloom_query")),
+            lambda k: k, ("bloom_build_global", "bloom_query")),
         **{f"run_query_filter_{tname}": (
             lambda tname=tname, cols=cols, f=f: run_query(
                 QuerySpec("filter", cols, dict(formula=f)), tabs[tname]),
@@ -1870,6 +1989,7 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     rows.append(time_skyline_apply(torch, P, pts, states, totals))
     rows.extend(time_cms(torch, table, totals))
     rows.extend(time_bloom(torch, table, rankings, totals))
+    time_bloom_sweep(torch, table)
     rows.append(time_groupby(torch, table, totals, clock_hz))
     profile_walks(torch, table, pts)
     time_ascending(torch, P)
@@ -1972,10 +2092,14 @@ def time_rle(torch, rv, rl, totals):
     2^19 runs (the timed shape), then on three layouts of the same runs
     that prune, each also against the flat ladder scan of its expanded
     column. Bound: bytes (read value and length, write head and tstar,
-    once a run)."""
+    once a run). Also the C entry's time without the wrapper: a call alone
+    (the card idle between calls) and queued back to back, which is its
+    device time where the host queues a call faster than the card runs
+    it (the profiler does not record the cooperative launch)."""
     from repro_torch import core
     from repro_torch.kernels import ops as O
     from repro_torch.kernels import rle_scan as RS
+    from repro_torch.kernels.common import I32, P as VP, ptr, workspace
 
     h, t = RS.rle_topn_det_kernel(rv, rl, **RLE_TOPN)
     (h2, t2), plain_s = sync_time(lambda: RS.rle_topn_det_ref(rv, rl,
@@ -1984,9 +2108,23 @@ def time_rle(torch, rv, rl, totals):
     check(errs[0] == 0.0, "rle_topn_det at 2^19 runs")
     ms = event_ms(lambda: RS.rle_topn_det_kernel(rv, rl, **RLE_TOPN), 20,
                   warm=False)
+    R_, N, w = rv.numel(), RLE_TOPN["N"], RLE_TOPN["w"]
+    work = workspace(rv.device, "rle_topn_det_workspace", R_, w)
+    hc, tc = torch.empty_like(h), torch.empty_like(t)
+
+    def c_entry():
+        """The C entry alone, without the wrapper's checks and workspace."""
+        serial_kernel(torch, "rle_topn_det", [VP] * 4 + [I32] * 3 + [VP],
+                      ptr(rv), ptr(rl), ptr(hc), ptr(tc), R_, N, w,
+                      ptr(work))
+
+    c_ms = event_ms(c_entry, 20)
+    check(same(hc, h) and same(tc, t), "rle_topn_det: the C entry differs "
+          "from the wrapper's")
     bound = rv.numel() * 16 / HBM_BYTES_PER_S * 1e3
     say("timing", kernel="rle_topn_det", layout="ascending", runs=rv.numel(),
-        ms=ms, plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
+        ms=ms, c_entry_ms=c_ms, c_entry_queued_ms=queued_ms(c_entry, 200),
+        plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
         max_abs_err=errs[0])
     branches = torch.zeros(3, dtype=torch.int64, device="cuda")
     for name, v, L in rle_pruning_layouts(torch, rv, rl):
@@ -2008,7 +2146,8 @@ def time_rle(torch, rv, rl, totals):
         say("timing", kernel="rle_topn_det", layout=json.dumps(name),
             runs=v.numel(), rows=total, pruned_rows=total - int(keep.sum()),
             tstar_1=int(n[0]), tstar_big=int(n[1]), tstar_n_minus_c=int(n[2]),
-            max_abs_err=errs[-1])
+            ms=event_ms(lambda: RS.rle_topn_det_kernel(v, L, **RLE_TOPN),
+                        10), max_abs_err=errs[-1])
     check(bool((branches > 0).all()), "rle_topn_det: the pruning layouts do "
           "not reach all three tstar branches")
     return _row("rle_topn_det", totals, max(errs), ms, plain_s * 1e3, bound,
@@ -2152,20 +2291,106 @@ def bloom_shapes(table, rankings):
              "kernel", BLOOM_OPS["nbits"], 0)]
 
 
+def bloom_global(torch, keys, words, kw, mask=None):
+    """The retired global-atomic build (the C entry bloom_build_global,
+    which the wrapper takes only for filters of 48 KB or less, staged, or
+    too large for a cluster) into ``words``, zeroed first."""
+    from repro_torch.kernels import bloom_filter as B
+    from repro_torch.kernels.common import I32, I64, P as VP, U32, grid_for, \
+        ptr
+
+    words.zero_()
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    serial_kernel(torch, "bloom_build_global", [VP] * 3 + [I64, U32, I32,
+                                                           U32, I32, I32],
+                  ptr(keys), None if mask is None else ptr(mask), ptr(words),
+                  keys.numel(), kw["nbits"], kw["num_hashes"],
+                  kw["seed"] & 0xFFFFFFFF, B.FAMILIES.index(kw["family"]),
+                  min(grid_for(keys.numel(), keys.device), 4 * sms))
+
+
+def bloom_cluster(torch, keys, words, kw, mask=None):
+    """The cluster build (the C entry bloom_build) into ``words``, zeroed
+    first, whatever route the wrapper takes for the shape; K and the
+    clusters from bloom_cluster_plan, as the wrapper takes them."""
+    from repro_torch.kernels import bloom_filter as B
+    from repro_torch.kernels.common import I32, I64, P as VP, U32, ptr
+
+    K, _, most = B.cluster_plan(keys.device, kw["nbits"], kw["num_hashes"])
+    check(K > 0, f"no cluster holds a filter of {kw['nbits']} bits")
+    words.zero_()
+    if keys.numel():
+        serial_kernel(torch, "bloom_build", [VP] * 3 + [I64, U32, I32, U32,
+                                                         I32, I32, I32],
+                      ptr(keys), None if mask is None else ptr(mask),
+                      ptr(words), keys.numel(), kw["nbits"],
+                      kw["num_hashes"], kw["seed"] & 0xFFFFFFFF,
+                      B.FAMILIES.index(kw["family"]), K, most)
+
+
+def bloom_plan_k(torch, nbits, H):
+    """The K that the wrapper routes by: 0 for a staged filter."""
+    from repro_torch.kernels import bloom_filter as B
+
+    if B.num_words(nbits) * 4 <= B.STAGED_BYTES:
+        return 0
+    return B.cluster_plan(torch.device("cuda", torch.cuda.current_device()),
+                          nbits, H)[0]
+
+
+def time_bloom_sweep(torch, table):
+    """The readings of the wrapper's dispatch rule: the cluster build
+    against the global atomics (both by their C entries, each into a zeroed
+    filter) at JOIN's filter size, over m from 2^14 to 2^23 keys of
+    dest_url, by probes a filter word; the device split of both from 2^16
+    to 2^22 keys."""
+    from repro_torch.kernels import bloom_filter as B
+
+    H, nbits = JOIN["num_hashes"], JOIN["nbits"]
+    kw = dict(nbits=nbits, num_hashes=H, seed=0, family="engine")
+    nw = B.num_words(nbits)
+    K = bloom_plan_k(torch, nbits, H)
+    a = torch.empty(nw, dtype=torch.uint32, device="cuda")
+    b = torch.empty_like(a)
+    for lg in range(14, 24):
+        k = table.cols["dest_url"][:1 << lg]
+        c_ms = event_ms(lambda: bloom_cluster(torch, k, a, kw), 10)
+        g_ms = event_ms(lambda: bloom_global(torch, k, b, kw), 10)
+        check(same(a, b), f"bloom_build sweep m=2^{lg}: the cluster build "
+              "differs from the global atomics")
+        extra = {}
+        if 16 <= lg <= 22:
+            extra = dict(
+                cluster_device_ms=device_split(
+                    torch, lambda: bloom_cluster(torch, k, a, kw)),
+                global_device_ms=device_split(
+                    torch, lambda: bloom_global(torch, k, b, kw)))
+        say("timing", sweep="bloom_build", keys=1 << lg, nbits=nbits,
+            probes_per_word=(1 << lg) * H / nw, cluster_ms=c_ms,
+            global_ms=g_ms, route=B.bloom_route(nbits, H, 1 << lg, K),
+            **extra)
+
+
 def time_bloom(torch, table, rankings, totals):
     """Both Bloom kernels against their plain versions at every main-path
-    shape; bound by bytes (keys read once, bitset or keep written once)."""
+    shape; bound by bytes (keys read once, bitset or keep written once).
+    The cluster build (JOIN's filters) also beside the global-atomic kernel
+    it replaced, with the device split of its launches; the staged kernel
+    (ops.bloom_build) has a row of its own."""
     from repro_torch.kernels import bloom_filter as B
 
     H = JOIN["num_hashes"]
     built = {}
-    errs_b, errs_q, out = [], [], {}
+    errs_b, errs_g, errs_q, out = [], [], [], {}
     for path, keys, fam, nbits, seed in bloom_shapes(table, rankings):
         kw = dict(nbits=nbits, num_hashes=H, seed=seed, family=fam)
+        K = bloom_plan_k(torch, nbits, H)
+        route = B.bloom_route(nbits, H, keys.numel(), K)
         w = B.bloom_build_kernel(keys, **kw)
         w2, plain_s = sync_time(lambda: B.bloom_build_plain(keys, **kw))
-        errs_b.append(max_abs_err([(w, w2)]))
-        check(errs_b[-1] == 0.0, f"bloom_build {path}")
+        (errs_b if route == "cluster" else errs_g).append(
+            max_abs_err([(w, w2)]))
+        check(max_abs_err([(w, w2)]) == 0.0, f"bloom_build {path}")
         built[path] = (w, kw)
         ms = event_ms(lambda: B.bloom_build_kernel(keys, **kw), 10)
         bound = (keys.numel() * 4 + w.numel() * 4) / HBM_BYTES_PER_S * 1e3
@@ -2175,11 +2400,27 @@ def time_bloom(torch, table, rankings, totals):
         bits = torch.zeros(nbits, dtype=torch.bool, device="cuda")
         one = torch.ones((), dtype=torch.bool, device="cuda")
         put_ms = event_ms(lambda: bits.index_put_((idx,), one), 10)
+        extra = {}
+        if K:
+            scratch = torch.empty_like(w)
+            _, sl, most = B.cluster_plan(keys.device, nbits, H)
+            extra = dict(
+                K=K, slice_bytes=sl * 4, max_clusters=most,
+                cluster_ms=event_ms(lambda: bloom_cluster(torch, keys,
+                                                          scratch, kw), 10),
+                global_ms=event_ms(lambda: bloom_global(torch, keys, scratch,
+                                                        kw), 10))
         say("timing", kernel="bloom_build", path=json.dumps(path),
-            keys=keys.numel(), nbits=nbits, family=fam, ms=ms,
+            route=route, keys=keys.numel(), nbits=nbits, family=fam, ms=ms,
             plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
-            index_put_on_hashed_bits_ms=put_ms, max_abs_err=errs_b[-1])
-        out.setdefault("build", (ms, plain_s * 1e3, bound))
+            index_put_on_hashed_bits_ms=put_ms, max_abs_err=errs_b[-1]
+            if route == "cluster" else errs_g[-1], **extra)
+        if K:
+            say("timing", profile="bloom_build", path=json.dumps(path),
+                route=route, device_ms=device_split(
+                    torch, lambda: B.bloom_build_kernel(keys, **kw)))
+        out.setdefault("build" if route == "cluster" else "build_global",
+                       (ms, plain_s * 1e3, bound))
     (fa, kwa), (fb, kwb), (fo, kwo) = built.values()
     dest, page = table.cols["dest_url"], rankings.cols["page_url"]
     for path, words, keys, kw in (
@@ -2200,6 +2441,8 @@ def time_bloom(torch, table, rankings, totals):
             max_abs_err=errs_q[-1])
         out.setdefault("query", (ms, plain_s * 1e3, bound))
     return [_row("bloom_build", totals, max(errs_b), *out["build"], "bytes"),
+            _row("bloom_build_global", totals, max(errs_g),
+                 *out["build_global"], "bytes"),
             _row("bloom_query", totals, max(errs_q), *out["query"], "bytes")]
 
 
@@ -2347,23 +2590,41 @@ def profile_walks(torch, table, pts):
             say("timing", profile=name, S=S, device_ms=device_split(torch, fn))
 
 
-def device_split(torch, fn):
-    """The device ms of each internal kernel of one traced run of fn()
-    after a warm-up (torch.profiler), as a JSON object."""
-    from torch.profiler import ProfilerActivity, profile
+def device_split(torch, fn, runs=5, tries=3):
+    """The device ms of each internal kernel of one run of fn(), traced by
+    torch.profiler after a warm-up, as a JSON object. The profiler drops
+    records of short runs: traced as its first step, a run lost its first
+    launches, and now and then a whole trace came back empty. So its
+    warm-up step is discarded, the traced step holds ``runs`` runs (a
+    kernel's time a run is its mean time a launch times its launches a
+    run, the count rounded, so that a lost record does not bias it), and
+    an empty trace is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     parts = {}
-    for e in prof.key_averages():
-        if e.device_time_total > 0:
-            hit = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
-            key = hit.group(1) if hit else e.key
-            parts[key] = round(parts.get(key, 0.0)
-                               + e.device_time_total / 1e3, 4)
+
+    def read(prof):
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                hit = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
+                key = hit.group(1) if hit else e.key
+                per_run = (e.device_time_total / e.count / 1e3
+                           * max(1, round(e.count / runs)))
+                parts[key] = round(parts.get(key, 0.0) + per_run, 4)
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=read) as prof:
+            for step in range(2):
+                for _ in range(runs if step else 1):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if parts:
+            break
     return json.dumps(parts, separators=(",", ":"))
 
 
@@ -2395,8 +2656,10 @@ def time_ascending(torch, P):
 
 
 def serial_kernel(torch, name, argtypes, *args):
-    """Launch a retired serial kernel of the library by its C entry (no
-    entry point of the package reaches it); raises on a refused launch."""
+    """Launch a kernel of the library by its C entry, outside its wrapper,
+    so that its launch count does not move: a retired serial kernel (no
+    entry point of the package reaches it), or a kernel at a shape its
+    wrapper routes elsewhere; raises on a refused launch."""
     from repro_torch.kernels.common import I32, P, library_fn
 
     fn = library_fn(name, argtypes + [P], I32)
@@ -2405,7 +2668,7 @@ def serial_kernel(torch, name, argtypes, *args):
         raise RuntimeError(f"{name} failed to launch: cudaError {err}")
 
 
-def phase_witness(torch, table, pts):
+def phase_witness(torch, table, rankings, pts, rle):
     """The redesigned kernels against the serial kernels they replaced,
     bit for bit, on the whole 2^25-entry columns. The row-parallel walks at
     S = 1 on source_ip: DISTINCT FIFO and LRU (keep, slots, valid, head)
@@ -2421,7 +2684,11 @@ def phase_witness(torch, table, pts):
     pass 1 at B = 256 and B = 1 and LRU pass 1. Then the B = 1 TOP-N walk
     on ad_revenue and the SKYLINE prefix merge on (ad_revenue, duration),
     at S = 1 and S = 128 (keep and every lane's final state): the chunk
-    merges and replays run over the whole column."""
+    merges and replays run over the whole column. Then the chunked RLE run
+    scan against the one-CTA run scan (rle_topn_det_serial) on the 2^19
+    timed runs and the three pruning layouts, and the cluster Bloom build
+    against the global-atomic kernel (bloom_build_global) at JOIN's F_A and
+    F_B."""
     from repro_torch.kernels import groupby_scan as G
     from repro_torch.kernels import parallel as P
     from repro_torch.kernels import topn_det_scan as TD
@@ -2559,6 +2826,51 @@ def phase_witness(torch, table, pts):
               "the 2^25-entry column")
         say("witness", kernel="skyline_pass1", S=S, entries=m,
             serial_s=secs, kept=int(new[0].sum()), max_abs_err=err)
+    witness_rle_bloom(torch, table, rankings, rle)
+
+
+def witness_rle_bloom(torch, table, rankings, rle):
+    """The chunked RLE run scan against rle_topn_det_serial, and the cluster
+    Bloom build (by its C entry, whatever the wrapper's route) and the
+    wrapper against bloom_build_global, bit for bit at full size."""
+    from repro_torch.kernels import bloom_filter as B
+    from repro_torch.kernels import rle_scan as RS
+    from repro_torch.kernels.common import I32, P as VP, ptr
+
+    rv, rl = rle
+    N, w = RLE_TOPN["N"], RLE_TOPN["w"]
+    for name, v, L in (("ascending", rv, rl),
+                       *rle_pruning_layouts(torch, rv, rl)):
+        new = RS.rle_topn_det_kernel(v, L, N=N, w=w)
+        old = (torch.empty_like(new[0]), torch.empty_like(new[1]))
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "rle_topn_det_serial", [VP] * 4 + [I32] * 3,
+            ptr(v), ptr(L), ptr(old[0]), ptr(old[1]), v.numel(), N, w))
+        err = max_abs_err(zip(new, old))
+        check(err == 0.0 and all(same(a, b) for a, b in zip(new, old)),
+              f"rle_topn_det {name} differs from the one-CTA run scan at "
+              "2^19 runs")
+        say("witness", kernel="rle_topn_det", layout=json.dumps(name),
+            runs=v.numel(), serial_s=secs, max_abs_err=err)
+    for path, keys, fam, nbits, seed in bloom_shapes(table, rankings)[:2]:
+        kw = dict(nbits=nbits, num_hashes=JOIN["num_hashes"], seed=seed,
+                  family=fam)
+        new = torch.empty(B.num_words(nbits), dtype=torch.uint32,
+                          device="cuda")
+        bloom_cluster(torch, keys, new, kw)
+        old = torch.empty_like(new)
+        _, secs = sync_time(lambda: bloom_global(torch, keys, old, kw))
+        err = max_abs_err([(new, old)])
+        check(err == 0.0 and same(new, old)
+              and same(B.bloom_build_kernel(keys, **kw), old),
+              f"bloom_build {path}: the cluster build or the wrapper differs "
+              "from the global-atomic kernel")
+        K = bloom_plan_k(torch, nbits, kw["num_hashes"])
+        say("witness", kernel="bloom_build", path=json.dumps(path),
+            route=B.bloom_route(nbits, kw["num_hashes"], keys.numel(), K),
+            keys=keys.numel(),
+            global_s=secs,
+            bits_set=int(B.unpack_bits(new, nbits).sum()), max_abs_err=err)
 
 
 SOURCES = {
@@ -2585,6 +2897,10 @@ SOURCES = {
                     "src/repro/kernels/bloom_filter.py:39"),
     "bloom_query": ("src/repro_torch/kernels/csrc/bloom.cu",
                     "src/repro/kernels/bloom_filter.py:71"),
+    # bloom_build for filters of 48 KB or less (staged) and filters too
+    # large for a cluster
+    "bloom_build_global": ("src/repro_torch/kernels/csrc/bloom.cu",
+                           "src/repro/kernels/bloom_filter.py:39"),
     # no pallas_call: the lax.scan of core.groupby.groupby_prune
     "groupby_pass1": ("src/repro_torch/kernels/csrc/groupby.cu",
                       "src/repro/core/groupby.py:80"),
@@ -2664,7 +2980,7 @@ def main() -> int:
         "main", phase_main, torch, P, O)
     rows = timed("timing", phase_timing, torch, P, R, table, rankings, pts,
                  totals, clock_hz, encoded, rle)
-    timed("witness", phase_witness, torch, table, pts)
+    timed("witness", phase_witness, torch, table, rankings, pts, rle)
     say("done", s=round(time.perf_counter() - t_start, 3),
         failures=len(FAILURES))
     if FAILURES:

@@ -15,20 +15,45 @@ i % 32 of word i // 32. ``unpack_bits`` gives the bool[nbits] view
 f32 0/1 view of the Pallas kernel is ``unpack_bits(...).float()``. Keys are
 32-bit lanes (uint32, int32, or float32 hashed by its bits).
 
-Each entry point launches the CUDA kernel for a CUDA tensor and runs the
+Each entry point launches a CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor. Both are exact: OR is idempotent, so the
 bitset is the same in any order of inserts.
+
+The build is bound by its bit sets, not its bytes: JOIN's filters take
+3 * 2^25 and 3 * 2^20 sets of a 2 MiB bitset. As global atomics (the C
+entry ``bloom_build_global``, the kernel of the first port) F_A's took
+1.78 ms on an H100, against 0.04 ms to read its keys. So a filter that is
+larger than 48 KB and fits a thread-block cluster is built by ``bloom_build``
+(``csrc/bloom.cu``) in the cluster's shared memory: CTA r of a cluster of
+K owns one slice of the words; each round a CTA bins its probes by owning
+CTA, ships each bin to its owner's inbox in distributed shared memory, and
+every CTA ORs its inbox into its slice with local atomics; each cluster
+then ORs its copy into the filter (a global atomic a non-zero word). The
+layout (K, the slice, the clusters the card holds) is ``csrc/bloom.cu``'s
+alone, which ``cluster_plan`` asks. ``bloom_route`` is the dispatch rule: a
+filter of 48 KB or less is staged whole in each CTA's shared memory by
+``bloom_build_global`` (the ops form); a larger one goes to the cluster
+build where a cluster holds it and the keys set at least
+CLUSTER_MIN_PROBES probes a filter word, and else takes
+``bloom_build_global``'s global atomics, as do filters too large for a
+cluster of 16. A cluster launch that the card refuses raises.
 """
 from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
 
 import torch
 
 from ..core.hashing import as_u32, hash_mod, multi_hash
 from .cms_sketch import _keys_u32
-from .common import I32, I64, P, U32, CudaKernel, check_cuda, grid_for, ptr
+from .common import (I32, I64, P, U32, CudaKernel, check_cuda, grid_for,
+                     library_fn, ptr)
 
-BLOOM_BUILD = CudaKernel("bloom_build",
-                         [P, P, P, I64, U32, I32, U32, I32, I32])
+BLOOM_BUILD = CudaKernel("bloom_build", [P, P, P, I64, U32, I32, U32, I32,
+                                         I32, I32])
+BLOOM_BUILD_GLOBAL = CudaKernel("bloom_build_global",
+                                [P, P, P, I64, U32, I32, U32, I32, I32])
 BLOOM_QUERY = CudaKernel("bloom_query",
                          [P, P, P, I64, U32, I32, U32, I32, I32])
 FAMILIES = ("kernel", "engine")
@@ -44,6 +69,52 @@ def _family(family: str, nbits: int) -> int:
 
 def num_words(nbits: int) -> int:
     return -(-nbits // 32)
+
+
+STAGED_BYTES = 48 * 1024  # a filter staged whole in each CTA
+# Probes a filter word (m * H / words) from which the cluster build takes
+# less device time than the global atomics: below it, zeroing and flushing
+# each cluster's copy of the filter costs more than the atomics it saves.
+# On an H100 at JOIN's filter size (``chip_smoke.time_bloom_sweep``) the
+# cluster build's device time is the higher at 1.5 probes a word and the
+# lower from 3 on; PERF.md gives the readings.
+CLUSTER_MIN_PROBES = 3
+
+
+@lru_cache(maxsize=None)
+def cluster_plan(device: torch.device, nbits: int,
+                 num_hashes: int) -> tuple[int, int, int]:
+    """(K, slice words, clusters the card holds at once) of the cluster
+    build of a filter of nbits, as ``csrc/bloom.cu`` lays it out
+    (``bloom_cluster_plan``); K = 0 where no cluster of at most 16 CTAs
+    holds it. Raises where the card holds no cluster of K."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = library_fn("bloom_cluster_plan",
+                         [U32, I32, ctypes.POINTER(ctypes.c_int)], I32)(
+            nbits, num_hashes, out)
+    if err:
+        raise RuntimeError(f"bloom_cluster_plan failed: cudaError {err}")
+    K, sl, n = out
+    if K and n < 1:
+        raise RuntimeError(f"the card holds no cluster of {K} CTAs with "
+                           f"{sl * 4} bytes of filter each")
+    return K, sl, n
+
+
+def bloom_route(nbits: int, num_hashes: int, m: int, K: int) -> str:
+    """Which kernel builds the filter of m keys into nbits on the card, K
+    being ``cluster_plan``'s: "staged" (48 KB or less: ``bloom_build_global``
+    with a copy in each CTA), "cluster" (``bloom_build`` in a cluster's
+    shared memory, where a cluster holds the filter and the keys set at
+    least CLUSTER_MIN_PROBES probes a word) or "global"
+    (``bloom_build_global``'s global atomics)."""
+    nw = num_words(nbits)
+    if nw * 4 <= STAGED_BYTES:
+        return "staged"
+    if K and m * num_hashes >= CLUSTER_MIN_PROBES * nw:
+        return "cluster"
+    return "global"
 
 
 def probe_bits(keys: torch.Tensor, nbits: int, num_hashes: int, seed: int,
@@ -107,15 +178,23 @@ def bloom_build_kernel(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
     check_cuda("keys", k, torch.uint32)
     if mask is not None:
         check_cuda("mask", mask, torch.bool, keys.device)
-    words = torch.zeros(num_words(nbits), dtype=torch.int32,
-                        device=keys.device).view(torch.uint32)
-    if m:
-        sms = torch.cuda.get_device_properties(
-            keys.device).multi_processor_count
-        BLOOM_BUILD.launch(keys.device, ptr(k),
-                           None if mask is None else ptr(mask), ptr(words), m,
-                           nbits, num_hashes, seed & 0xFFFFFFFF, fam,
-                           min(grid_for(m, keys.device), 4 * sms))
+    dev = keys.device
+    nw = num_words(nbits)
+    words = torch.zeros(nw, dtype=torch.int32, device=dev).view(torch.uint32)
+    K = 0 if nw * 4 <= STAGED_BYTES else cluster_plan(dev, nbits,
+                                                      num_hashes)[0]
+    if m and bloom_route(nbits, num_hashes, m, K) == "cluster":
+        BLOOM_BUILD.launch(dev, ptr(k), None if mask is None else ptr(mask),
+                           ptr(words), m, nbits, num_hashes,
+                           seed & 0xFFFFFFFF, fam, K,
+                           cluster_plan(dev, nbits, num_hashes)[2])
+    elif m:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        BLOOM_BUILD_GLOBAL.launch(dev, ptr(k),
+                                  None if mask is None else ptr(mask),
+                                  ptr(words), m, nbits, num_hashes,
+                                  seed & 0xFFFFFFFF, fam,
+                                  min(grid_for(m, dev), 4 * sms))
     return words
 
 

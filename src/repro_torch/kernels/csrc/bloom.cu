@@ -4,29 +4,67 @@
 // and builds the engine's JOIN filters (core.sketches.bloom_build, an XLA
 // scatter in the JAX package). The filter is a packed uint32 bitset (bit i
 // is bit i % 32 of word i / 32), not the TPU kernel's f32[nbits] 0/1 vector.
-// Every key sets its H probed bits with atomicOr; OR is idempotent, so the
-// build is exact in any order. Each CTA ORs into a partial bitset in shared
-// memory when it fits the default 48 KB (the ops form: nbits < 2^16, at most
-// 8 KB), then flushes its non-zero words with global atomicOr; a larger
-// filter (the engine's JOIN filter at 2^24 bits, 2 MB, L2-resident) takes
-// global atomics directly. An optional byte mask drops entries (mask= of
-// core.sketches.bloom_build).
+// Every key sets its H probed bits with an atomic OR; OR is idempotent, so
+// the build is exact in any order. An optional byte mask drops entries
+// (mask= of core.sketches.bloom_build).
+//
+// What bounds it: the bit sets, not the bytes. JOIN's F_A sets 3 * 2^25
+// bits of a 2^24-bit (2 MiB) filter; as global atomics that is 10^8 L2
+// atomics, some 40x the time to read the keys. bloom_build holds the
+// filter in the shared memory of a thread-block cluster instead: each of
+// the cluster's K CTAs (K <= 16; 2 MiB takes 16 slices of 128 KiB) owns
+// one contiguous slice of the words, of bloom_cluster_slice(nwords, K)
+// words (a multiple of 4). One atomic OR into another CTA's shared memory
+// a probe was tried first and was no faster than the L2 atomics, so the
+// probes travel in bulk: a CTA bins each round's probes by owning CTA in
+// its own shared memory, copies each bin with 16-byte stores into the
+// owner's inbox (distributed shared memory), and after a cluster barrier
+// each CTA ORs its inbox into its slice with local atomics (see
+// bloom_cluster_kernel). What bounds this form is those local atomics, the
+// barrier a round and the hashing: 10^8 probes over the 7 clusters of 16
+// CTAs that an H100 holds at once. Then each cluster ORs its copy into
+// ``words`` with a global atomicOr a non-zero word (coalesced; writing
+// each cluster's copy out and ORing the copies in a second launch was
+// tried and was no faster). bloom_cluster_plan gives the layout: K, the
+// slice, and the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters); the layout lives here alone. The grid
+// is that many clusters, but no more than give each cluster a round of
+// keys; a launch the card refuses returns its error, and the wrapper
+// raises.
+//
+// bloom_build_global is the kernel the cluster build replaced: each CTA
+// ORs into a partial bitset in its shared memory when the filter fits the
+// default 48 KB (the ops form: nbits < 2^16, at most 8 KB) and flushes its
+// non-zero words with global atomicOr; a larger filter takes global
+// atomics directly. The wrapper (kernels/bloom_filter.py, bloom_route)
+// takes it for filters of 48 KB or less, for those no cluster of 16 holds,
+// and where the keys set fewer probes a filter word (3 on an H100) than
+// the cluster build needs to pay for zeroing and flushing its copies.
+// Where the cluster build serves, it is a witness only: chip_smoke.py holds
+// the cluster build against it at JOIN's two filters.
 //
 // bloom_query replaces bloom_query_kernel (src/repro/kernels/bloom_filter.py:71):
 // per key, the AND over its H probed bits, with an exit at the first zero.
+// Bound by bytes: the keys read once, the keep mask written once; the H
+// gathers are random 4-byte reads of a filter that stays in L2.
 //
 // Hash family at run time: family 0 is the Pallas kernels'
 // hash_mod(key, nbits, seed + 101 h), family 1 the engine's
 // multi_hash(key, nbits, H, seed) (modulo, no 2^16 cap).
-//
-// What bounds them: bytes (read the keys once, write the bits or the keep
-// mask once); the query's H gathers are random 4-byte reads of a filter
-// that stays in L2.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "hash.cuh"
+
+namespace cg = cooperative_groups;
+
+#define BLOOM_CLUSTER_THREADS 1024
+#define BLOOM_MAX_CLUSTER 16
+#define BLOOM_KPT 2    // keys a thread a round
+#define BLOOM_MAX_H 4  // hashes the cluster build takes (the probes of a
+                       // round are held in registers)
 
 namespace {
 
@@ -37,6 +75,200 @@ __device__ __forceinline__ uint32_t bloom_bit(uint32_t key, int h,
       family == 0
           ? cheetah_hash_mod(key, nbits, seed + 101u * static_cast<uint32_t>(h))
           : cheetah_multi_hash(key, nbits, static_cast<uint32_t>(h), seed));
+}
+
+// Words a CTA of a cluster of K owns: ceil(nwords / K), rounded up to a
+// multiple of 4 so that every slice starts on 16 bytes.
+static inline int bloom_cluster_slice(int nwords, int K) {
+  const int s = (nwords + K - 1) / K;
+  return (s + 3) & ~3;
+}
+
+// Probes a bin holds a round: the mean (BLOOM_CLUSTER_THREADS * BLOOM_KPT
+// * H / K a CTA and owner) and a sixth more, a multiple of 4; the rare
+// probe past it goes to its owner directly.
+static inline int bloom_cluster_cap(int K, int H) {
+  const int mean = (BLOOM_CLUSTER_THREADS * BLOOM_KPT * H + K - 1) / K;
+  return (mean + mean / 6 + 3) & ~3;
+}
+
+// Shared memory of a CTA of the cluster build: the slice, the bins, the two
+// inboxes, the counts and the warps' counters.
+static inline size_t bloom_cluster_smem(int slice, int K, int H) {
+  return (static_cast<size_t>(slice) + 3 * static_cast<size_t>(K) *
+                                           bloom_cluster_cap(K, H) +
+          (3 + BLOOM_CLUSTER_THREADS / 32) * static_cast<size_t>(K)) * 4;
+}
+
+// The cluster barrier in two halves, so that a CTA can work between its
+// arrival and its wait (barrier.cluster, sm_90).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The probes of one round of a thread: its BLOOM_KPT keys' first H hashes
+// (H <= BLOOM_MAX_H), each with its owning CTA (-1: none), its place among
+// its warp's probes for that owner, and its payload (local word << 5 | bit).
+struct BloomProbes {
+  int own[BLOOM_KPT * BLOOM_MAX_H];
+  int off[BLOOM_KPT * BLOOM_MAX_H];
+  uint32_t pay[BLOOM_KPT * BLOOM_MAX_H];
+};
+
+// One cluster of K CTAs holds the filter, CTA r the words
+// [r * slice, (r + 1) * slice). Cluster q takes the q-th of ``clusters``
+// contiguous ranges of the keys, in rounds of BLOOM_KPT keys a thread. A
+// round: (1) each probe counts itself among its warp's probes for its
+// owning CTA (a shared atomic on a row of counters of the warp's own); a
+// scan over the warps' rows gives each warp its offsets, and each probe is
+// stored at its place in the local bin of its owner; (2) each bin is
+// copied with 16-byte stores into the owner's inbox for this CTA, with its
+// count; (3) a cluster barrier, whose wait the next round's hashing
+// overlaps; (4) each CTA ORs the probes of its inbox into its slice with
+// local atomics. The inboxes are double-buffered, so one barrier a round
+// suffices: a CTA writes an inbox again only two rounds later, after the
+// owner has passed the barrier that follows its reading it; after the last
+// round no CTA touches another's shared memory. A probe that finds its bin
+// full (more than ``cap`` a round) is ORed into the owner's slice directly.
+// Shared memory: the slice, the bins [K][cap], the inboxes [2][K][cap], the
+// bin totals [K], the inbox counts [2][K] and the warps' counters [32][K].
+__device__ __forceinline__ void bloom_hash_round(
+    const uint32_t* __restrict__ keys, const uint8_t* __restrict__ mask,
+    long long i0, long long hi, uint32_t nbits, int H, uint32_t seed,
+    int family, int slice, bool slice_p2, int slice_sh, bool nbits_p2,
+    int* wrow, BloomProbes& p) {
+#pragma unroll
+  for (int k = 0; k < BLOOM_KPT; ++k) {
+    const long long i = i0 + static_cast<long long>(k) * blockDim.x;
+    const bool in = i < hi && (mask == nullptr || mask[i] != 0);
+    const uint32_t key = in ? __ldg(keys + i) : 0u;
+#pragma unroll
+    for (int h = 0; h < BLOOM_MAX_H; ++h) {
+      const int j = k * BLOOM_MAX_H + h;
+      p.own[j] = -1;
+      if (!in || h >= H) continue;
+      const uint32_t b =
+          nbits_p2 ? cheetah_mix32(key, static_cast<uint32_t>(h) *
+                                            0x9E3779B9u + seed) &
+                         (nbits - 1u)
+                   : bloom_bit(key, h, nbits, seed, family);
+      const uint32_t word = b >> 5;
+      const uint32_t r =
+          slice_p2 ? word >> slice_sh : word / static_cast<uint32_t>(slice);
+      p.own[j] = static_cast<int>(r);
+      p.off[j] = atomicAdd(wrow + r, 1);
+      p.pay[j] = ((word - r * static_cast<uint32_t>(slice)) << 5) | (b & 31u);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BLOOM_CLUSTER_THREADS, 1)
+    bloom_cluster_kernel(const uint32_t* __restrict__ keys,
+                         const uint8_t* __restrict__ mask,
+                         uint32_t* __restrict__ words, long long m,
+                         uint32_t nbits, int H, uint32_t seed, int family,
+                         int slice, int cap, int clusters) {
+  extern __shared__ __align__(16) uint32_t part[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = static_cast<int>(cluster.dim_blocks().x);
+  const int rank = static_cast<int>(cluster.block_rank());
+  uint32_t* bins = part + slice;
+  uint32_t* inbox = bins + K * cap;
+  int* bincount = reinterpret_cast<int*>(inbox + 2 * K * cap);
+  int* incount = bincount + K;
+  int* wcnt = incount + 2 * K;  // [warp][K]: counts, then offsets
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int i = tid; i < slice; i += blockDim.x) part[i] = 0u;
+  for (int i = tid; i < nwarps * K; i += blockDim.x) wcnt[i] = 0;
+  // slice and nbits are powers of two for the JOIN filter: shift and mask
+  const bool slice_p2 = (slice & (slice - 1)) == 0;
+  const int slice_sh = __ffs(slice) - 1;
+  const bool nbits_p2 = family == 1 && (nbits & (nbits - 1)) == 0;
+  const long long q = blockIdx.x / K;
+  const long long lo = m * q / clusters;
+  const long long hi = m * (q + 1) / clusters;
+  const long long per_round =
+      static_cast<long long>(K) * blockDim.x * BLOOM_KPT;
+  const long long rounds = (hi - lo + per_round - 1) / per_round;
+  const long long mine = lo + static_cast<long long>(rank) * blockDim.x *
+                                  BLOOM_KPT + tid;
+  cluster.sync();
+  BloomProbes p;
+  if (rounds > 0)
+    bloom_hash_round(keys, mask, mine, hi, nbits, H, seed, family, slice,
+                     slice_p2, slice_sh, nbits_p2, wcnt + warp * K, p);
+  int buf = 0;
+  for (long long rd = 0; rd < rounds; ++rd) {
+    __syncthreads();
+    // warp r turns column r of the counters into offsets, in warp order
+    for (int r = warp; r < K; r += nwarps) {
+      const int c = lane < nwarps ? wcnt[lane * K + r] : 0;
+      int incl = c;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      if (lane < nwarps) wcnt[lane * K + r] = incl - c;
+      if (lane == 31) bincount[r] = incl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BLOOM_KPT * BLOOM_MAX_H; ++j) {
+      if (p.own[j] < 0) continue;
+      const int pos = wcnt[warp * K + p.own[j]] + p.off[j];
+      if (pos < cap)
+        bins[p.own[j] * cap + pos] = p.pay[j];
+      else
+        atomicOr(cluster.map_shared_rank(part, p.own[j]) + (p.pay[j] >> 5),
+                 1u << (p.pay[j] & 31u));
+    }
+    __syncthreads();
+    for (int r = warp; r < K; r += nwarps) {
+      const int n = min(bincount[r], cap);
+      uint4* dst = reinterpret_cast<uint4*>(cluster.map_shared_rank(
+          inbox + (buf * K + rank) * cap, r));
+      const uint4* src = reinterpret_cast<const uint4*>(bins + r * cap);
+      for (int v = lane; v < (n + 3) / 4; v += 32) dst[v] = src[v];
+      if (lane == 0)
+        *cluster.map_shared_rank(incount + buf * K + rank, r) = n;
+    }
+    cluster_arrive();
+    // the next round's hashing, while the cluster gathers at the barrier
+    for (int v = tid; v < nwarps * K; v += blockDim.x) wcnt[v] = 0;
+    __syncthreads();
+    if (rd + 1 < rounds)
+      bloom_hash_round(keys, mask, mine + (rd + 1) * per_round, hi, nbits, H,
+                       seed, family, slice, slice_p2, slice_sh, nbits_p2,
+                       wcnt + warp * K, p);
+    cluster_wait();
+    // K sources, blockDim.x / K threads each
+    const int per = blockDim.x / K;
+    const int s = tid / per;
+    if (s < K) {
+      const int n = incount[buf * K + s];
+      const uint32_t* box = inbox + (buf * K + s) * cap;
+      for (int v = tid - s * per; v < n; v += per) {
+        const uint32_t pb = box[v];
+        atomicOr(part + (pb >> 5), 1u << (pb & 31u));
+      }
+    }
+    buf ^= 1;
+  }
+  __syncthreads();
+  // this cluster's copy, ORed into ``words`` a non-zero word at a time
+  const int nwords = static_cast<int>((nbits + 31u) / 32u);
+  const int base = rank * slice;
+  const int own = nwords - base < slice ? nwords - base : slice;
+  for (int i = tid; i < own; i += blockDim.x)
+    if (part[i]) atomicOr(words + base + i, part[i]);
 }
 
 __global__ void bloom_build_kernel(const uint32_t* __restrict__ keys,
@@ -89,15 +321,105 @@ __global__ void bloom_query_kernel(const uint32_t* __restrict__ words,
 
 }  // namespace
 
-extern "C" int bloom_build(const uint32_t* keys, const uint8_t* mask,
-                           uint32_t* words, long long m, uint32_t nbits, int H,
-                           uint32_t seed, int family, int grid,
-                           cudaStream_t stream) {
+// The retired build: staged in each CTA's shared memory when the filter
+// fits 48 KB, else global atomics (see the header).
+extern "C" int bloom_build_global(const uint32_t* keys, const uint8_t* mask,
+                                  uint32_t* words, long long m,
+                                  uint32_t nbits, int H, uint32_t seed,
+                                  int family, int grid, cudaStream_t stream) {
   const size_t bytes = static_cast<size_t>((nbits + 31u) / 32u) * 4;
   const int staged = bytes <= 48 * 1024;
   bloom_build_kernel<<<grid, 256, staged ? bytes : 0, stream>>>(
       keys, mask, words, m, nbits, H, seed, family, staged);
   return cudaGetLastError();
+}
+
+// Opt the cluster kernel into ``smem`` bytes of shared memory a CTA and
+// into clusters of more than 8 CTAs.
+static cudaError_t bloom_cluster_prep(size_t smem) {
+  cudaError_t e = cheetah_launch_prep(
+      reinterpret_cast<const void*>(bloom_cluster_kernel), smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(bloom_cluster_kernel),
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+static cudaLaunchConfig_t bloom_cluster_config(int clusters, int K,
+                                               size_t smem,
+                                               cudaLaunchAttribute* attr,
+                                               cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters) * K);
+  cfg.blockDim = dim3(BLOOM_CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster build's layout for a filter of nbits and H hashes on the
+// current device, into out[3]: K, the fewest CTAs a cluster (2, 4, 8 or 16)
+// whose shared memory holds the slices, bins and inboxes (0: none does, or
+// H > BLOOM_MAX_H); the words of a slice; and the clusters of K that the
+// card holds at once (cudaOccupancyMaxActiveClusters; 0: none). Returns 0
+// or a CUDA error.
+extern "C" int bloom_cluster_plan(uint32_t nbits, int H, int* out) {
+  out[0] = out[1] = out[2] = 0;
+  if (H < 1 || H > BLOOM_MAX_H) return cudaSuccess;
+  const int nwords = static_cast<int>((nbits + 31u) / 32u);
+  for (int K = 2; K <= BLOOM_MAX_CLUSTER; K *= 2) {
+    const int slice = bloom_cluster_slice(nwords, K);
+    const size_t smem = bloom_cluster_smem(slice, K, H);
+    if (smem > CHEETAH_MAX_SMEM) continue;
+    cudaError_t e = bloom_cluster_prep(smem);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = bloom_cluster_config(1, K, smem, attr, 0);
+    e = cudaOccupancyMaxActiveClusters(
+        &out[2], reinterpret_cast<const void*>(bloom_cluster_kernel), &cfg);
+    if (e != cudaSuccess) return e;
+    out[0] = K;
+    out[1] = slice;
+    return cudaSuccess;
+  }
+  return cudaSuccess;
+}
+
+// The cluster build in clusters of K CTAs (K from bloom_cluster_plan), each
+// CTA a slice of bloom_cluster_slice(nwords, K) words, on at most
+// ``clusters`` clusters and no more than give each cluster a round of keys
+// (BLOOM_KPT a thread), since each also zeroes and flushes a whole copy;
+// ``words`` starts zeroed.
+extern "C" int bloom_build(const uint32_t* keys, const uint8_t* mask,
+                           uint32_t* words, long long m, uint32_t nbits,
+                           int H, uint32_t seed, int family, int K,
+                           int clusters, cudaStream_t stream) {
+  if (K < 1 || K > BLOOM_MAX_CLUSTER || clusters < 1 || H < 1 ||
+      H > BLOOM_MAX_H || m < 1)
+    return cudaErrorInvalidValue;
+  const long long per = static_cast<long long>(K) * BLOOM_CLUSTER_THREADS *
+                        BLOOM_KPT;
+  if ((m + per - 1) / per < clusters)
+    clusters = static_cast<int>((m + per - 1) / per);
+  const int nwords = static_cast<int>((nbits + 31u) / 32u);
+  const int slice = bloom_cluster_slice(nwords, K);
+  const size_t smem = bloom_cluster_smem(slice, K, H);
+  cudaError_t e = bloom_cluster_prep(smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      bloom_cluster_config(clusters, K, smem, attr, stream);
+  e = cudaLaunchKernelEx(&cfg, bloom_cluster_kernel, keys, mask, words, m,
+                         nbits, H, seed, family, slice,
+                         bloom_cluster_cap(K, H), clusters);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 extern "C" int bloom_query(const uint32_t* words, const uint32_t* keys,

@@ -47,20 +47,52 @@
 // size.
 //
 // rle_topn_det replaces rle_topn_det_kernel (src/repro/kernels/rle_scan.py:98):
-// the closed form of _run_math (rle_scan.py:51-76) for each run (v, L).
-// One CTA walks all runs in blocks of 256, as the TPU's sequential grid
-// does: an exclusive sum-scan of L gives each run's entering seen, a
-// min-scan of the warm candidates its t0, and per level an exclusive
-// sum-scan of L * ge its entering counts. A and C are computed from the
-// whole ge vector, never from a level index, because ge is not a prefix in
-// i when t0 <= 0. Pad runs are (POS, 0), and so are the threads past R.
-// It is bound, like the serial ladder, by its w + 1 block scans of three
-// barriers each per block of 256 on one SM.
+// the closed form of _run_math (rle_scan.py:51-76) for each run (v, L),
+// which is a prefix computation in three chained stages: seen (a sum of the
+// lengths), t0 (a minimum of the warm runs' values) and the level counts (a
+// sum of L * ge per level, ge depending on t0). The sums are the JAX
+// package's int32 ones, which wrap past 2^31 (ROADMAP Queue 3 A10): here
+// they are uint32 sums read as int32, so the bits are the same and the wrap
+// is well defined. Under the wrap the warm runs (seen_start < N) are not a
+// prefix of the runs, so every stage runs over every chunk. The runs are
+// cut into chunks of RLE_CHUNK (256 threads of 8 runs, so 2^19 runs give
+// 256 chunks), and each stage is a card-wide scan over the chunks, as in
+// the ladder, in one cooperative launch (rle_scan_kernel) with a grid
+// barrier between steps:
+//   1. each chunk's length sum, then a scan of the sums (uint32 add) gives
+//      each chunk its entering seen;
+//   2. each chunk's minimum of its warm candidates, then a scan of the
+//      minima (min, stream order) gives each chunk its entering t0;
+//   3. each chunk's per-level sum of L * ge, ge against the running t0 of
+//      each run, then a scan a level gives each chunk its entering counts;
+//   4. each chunk replays its runs from its entering state (three block
+//      scans) and writes head and tstar. A and C come from the whole ge
+//      vector, never from a level index, because ge is not a prefix in i
+//      when t0 <= 0.
+// Every operator is associative as used (uint32 add; a minimum that keeps
+// the first of equals and the first NaN), so any cut into chunks gives the
+// JAX package's bits. Pad runs are (POS, 0), and so are the slots past R.
+// What bounds it: latency, not bytes. Each stage reads the runs (about 18
+// MiB in all with head and tstar at 2^19 runs, L2-resident after the
+// first read), and the grid barriers and the one-CTA scans between them
+// set the device time; the call as a whole is bound by host time. One
+// launch costs less host time than the seven (four stages, three scans)
+// that the same stages take as separate kernels, which is why the run
+// scan is cooperative (PERF.md gives the times). The grid is as many CTAs
+// as the card holds at once, at most one a chunk.
+//
+// rle_topn_det_serial is the kernel the chunked scan replaced: one CTA
+// walks all runs in blocks of 256 with w + 2 block scans a block. It sums
+// in uint32 too. No entry point of the package launches it; chip_smoke.py
+// holds the chunked scan against it at full size.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "hash.cuh"
+
+namespace cg = cooperative_groups;
 
 // POS of repro_torch.constants (+3.4e38 as float32), by its bits.
 #define CHEETAH_POS_BITS 0x7f7fc99eu
@@ -71,6 +103,9 @@
 #define LADDER_CHUNK (LADDER_THREADS * LADDER_ITEMS)    // entries a CTA
 #define LADDER_SCAN_ITEMS 8                             // values a thread a round
 #define RLE_BIG (1 << 30)
+#define RLE_THREADS 256
+#define RLE_ITEMS 8                                     // runs a thread
+#define RLE_CHUNK (RLE_THREADS * RLE_ITEMS)             // runs a CTA
 
 namespace {
 
@@ -105,6 +140,20 @@ struct AddOp {
   }
   __device__ __forceinline__ static int ident() { return 0; }
 };
+
+// The run scan's sums: uint32, which wraps as the JAX package's int32 does.
+struct UAddOp {
+  __device__ __forceinline__ unsigned operator()(unsigned a,
+                                                 unsigned b) const {
+    return a + b;
+  }
+  __device__ __forceinline__ static unsigned ident() { return 0u; }
+};
+
+// The int32 that a uint32 sum stands for (two's complement).
+__device__ __forceinline__ int as_i32(unsigned u) {
+  return static_cast<int>(u);
+}
 
 // Inclusive scan of one value a thread over the block (blockDim.x a
 // multiple of 32, at most 1024): warp shuffles, then a scan of the warp
@@ -195,14 +244,15 @@ __global__ void __launch_bounds__(LADDER_THREADS)
   if (threadIdx.x == 0) wmin[blockIdx.x] = tot;
 }
 
-// Phases 2 and 4: in place, per row of ``len`` values (blockIdx.x = row),
-// the exclusive scan in order from Op::ident(); total[row] gets the row's.
+// The exclusive scan in order from Op::ident() of row ``row`` of ``len``
+// values of ``a``, in place; total[row] gets the row's. ``buf`` is 33
+// slots of shared memory; ends on a barrier.
 template <typename T, typename Op>
-__global__ void __launch_bounds__(LADDER_THREADS)
-    ladder_scan(T* __restrict__ a, T* __restrict__ total, int len) {
-  __shared__ T buf[33];
+__device__ __forceinline__ void scan_row(T* __restrict__ a,
+                                         T* __restrict__ total, int len,
+                                         int row, T* buf) {
   const Op op{};
-  T* r = a + static_cast<long long>(blockIdx.x) * len;
+  T* r = a + static_cast<long long>(row) * len;
   T carry = Op::ident();
   for (int b0 = 0; b0 < len; b0 += LADDER_THREADS * LADDER_SCAN_ITEMS) {
     const int j0 = b0 + threadIdx.x * LADDER_SCAN_ITEMS;
@@ -222,7 +272,16 @@ __global__ void __launch_bounds__(LADDER_THREADS)
     }
     carry = op(carry, tot);
   }
-  if (threadIdx.x == 0) total[blockIdx.x] = carry;
+  if (threadIdx.x == 0) total[row] = carry;
+}
+
+// Phases 2 and 4 of the ladder, and the run scan's three scans: one CTA a
+// row of ``len`` values (blockIdx.x = row).
+template <typename T, typename Op>
+__global__ void __launch_bounds__(LADDER_THREADS)
+    ladder_scan(T* __restrict__ a, T* __restrict__ total, int len) {
+  __shared__ T buf[33];
+  scan_row<T, Op>(a, total, len, blockIdx.x, buf);
 }
 
 // The 16 entries of this thread in chunk c of a lane (xs, n entries), POS
@@ -512,57 +571,409 @@ __global__ void topn_det_serial_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void rle_topn_det_kernel(const float* __restrict__ rv,
-                                    const int* __restrict__ rl,
-                                    int* __restrict__ head,
-                                    int* __restrict__ tstar, int R, int N,
-                                    int w) {
+// ---------------------------------------------------------------- RLE runs
+// The shared memory of one CTA of the run scan.
+template <int W>
+struct RleSmem {
+  unsigned ubuf[33];
+  float fbuf[33];
+  unsigned part[RLE_THREADS / 32][W];
+};
+
+// This thread's RLE_ITEMS runs of chunk c: values and lengths, (POS, 0)
+// past R. 16-byte loads where the runs are whole and aligned.
+__device__ __forceinline__ void rle_load(const float* __restrict__ rv,
+                                         const int* __restrict__ rl, int R,
+                                         int c, float (&v)[RLE_ITEMS],
+                                         unsigned (&L)[RLE_ITEMS]) {
+  const int j0 = c * RLE_CHUNK + threadIdx.x * RLE_ITEMS;
+  if (j0 + RLE_ITEMS <= R &&
+      ((reinterpret_cast<uintptr_t>(rv + j0) |
+        reinterpret_cast<uintptr_t>(rl + j0)) & 15u) == 0) {
+#pragma unroll
+    for (int k = 0; k < RLE_ITEMS / 4; ++k) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(rv + j0) + k);
+      const int4 l = __ldg(reinterpret_cast<const int4*>(rl + j0) + k);
+      v[4 * k] = f.x;
+      v[4 * k + 1] = f.y;
+      v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+      L[4 * k] = l.x;
+      L[4 * k + 1] = l.y;
+      L[4 * k + 2] = l.z;
+      L[4 * k + 3] = l.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < RLE_ITEMS; ++k) {
+      v[k] = j0 + k < R ? rv[j0 + k] : pos_value();
+      L[k] = j0 + k < R ? static_cast<unsigned>(rl[j0 + k]) : 0u;
+    }
+  }
+}
+
+// Each run's seen_start, from the chunk's entering seen ``seen_in``.
+__device__ __forceinline__ void rle_seen(const unsigned (&L)[RLE_ITEMS],
+                                         unsigned seen_in,
+                                         unsigned (&ss)[RLE_ITEMS],
+                                         unsigned* ubuf) {
+  unsigned loc = 0u;
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k) loc += L[k];
+  unsigned tot;
+  unsigned run = seen_in + block_exscan(loc, ubuf, UAddOp(), &tot);
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k) {
+    ss[k] = run;
+    run += L[k];
+  }
+}
+
+// Each run's t0 (the running minimum of the warm runs' values from the
+// chunk's entering t0 ``t_in``); returns the chunk's own minimum of its
+// warm runs, in stream order, from POS.
+__device__ __forceinline__ float rle_t0(const float (&v)[RLE_ITEMS],
+                                        const unsigned (&ss)[RLE_ITEMS],
+                                        int N, float t_in,
+                                        float (&t0)[RLE_ITEMS], float* fbuf) {
+  float lf = pos_value();
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k)
+    if (as_i32(ss[k]) < N) lf = nan_min(lf, v[k]);
+  float tot;
+  float run = nan_min(t_in, block_exscan(lf, fbuf, MinOp(), &tot));
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k) {
+    if (as_i32(ss[k]) < N) run = nan_min(run, v[k]);
+    t0[k] = run;
+  }
+  return tot;
+}
+
+// Stage 1: the chunk's length sum, to lsum[c].
+__device__ __forceinline__ void rle_len_sum_body(const int* __restrict__ rl,
+                                                 unsigned* __restrict__ lsum,
+                                                 int R, int c,
+                                                 unsigned* ubuf) {
+  const int j0 = c * RLE_CHUNK + threadIdx.x * RLE_ITEMS;
+  unsigned loc = 0u;
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k)
+    if (j0 + k < R) loc += static_cast<unsigned>(rl[j0 + k]);
+  unsigned tot;
+  block_exscan(loc, ubuf, UAddOp(), &tot);
+  if (threadIdx.x == 0) lsum[c] = tot;
+}
+
+// Stage 2: the chunk's minimum of its warm candidates, to cmin[c]; seen_in
+// is lsum after its scan.
+__device__ __forceinline__ void rle_cand_min_body(
+    const float* __restrict__ rv, const int* __restrict__ rl,
+    const unsigned* __restrict__ seen_in, float* __restrict__ cmin, int R,
+    int N, int c, unsigned* ubuf, float* fbuf) {
+  float v[RLE_ITEMS], t0[RLE_ITEMS];
+  unsigned L[RLE_ITEMS], ss[RLE_ITEMS];
+  rle_load(rv, rl, R, c, v, L);
+  rle_seen(L, seen_in[c], ss, ubuf);
+  const float tot = rle_t0(v, ss, N, pos_value(), t0, fbuf);
+  if (threadIdx.x == 0) cmin[c] = tot;
+}
+
+// This thread's runs of chunk c with their seen_start and t0, from the
+// chunk's entering seen and t0 (seen_in and t0_in after their scans).
+__device__ __forceinline__ void rle_state(
+    const float* __restrict__ rv, const int* __restrict__ rl,
+    const unsigned* __restrict__ seen_in, const float* __restrict__ t0_in,
+    int R, int N, int c, float (&v)[RLE_ITEMS], unsigned (&L)[RLE_ITEMS],
+    unsigned (&ss)[RLE_ITEMS], float (&t0)[RLE_ITEMS], unsigned* ubuf,
+    float* fbuf) {
+  rle_load(rv, rl, R, c, v, L);
+  rle_seen(L, seen_in[c], ss, ubuf);
+  rle_t0(v, ss, N, t0_in[c], t0, fbuf);
+}
+
+// Stage 3: the chunk's per-level sums of L * ge, to lev[i * chunks + c].
+template <int W>
+__device__ __forceinline__ void rle_level_sum_body(
+    const float* __restrict__ rv, const int* __restrict__ rl,
+    const unsigned* __restrict__ seen_in, const float* __restrict__ t0_in,
+    unsigned* __restrict__ lev, int R, int N, int w, int chunks, int c,
+    RleSmem<W>& sm) {
+  float v[RLE_ITEMS], t0[RLE_ITEMS];
+  unsigned L[RLE_ITEMS], ss[RLE_ITEMS];
+  rle_state(rv, rl, seen_in, t0_in, R, N, c, v, L, ss, t0, sm.ubuf, sm.fbuf);
+  unsigned cn[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) cn[i] = 0u;
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      cn[i] += v[k] >= __fmul_rn(t0[k], pow2(i)) ? L[k] : 0u;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const unsigned r = __reduce_add_sync(0xffffffffu, cn[i]);
+    if (lane == 0) sm.part[warp][i] = r;
+  }
+  __syncthreads();
+  if (threadIdx.x < w) {
+    unsigned r = 0u;
+    for (int q = 0; q < RLE_THREADS / 32; ++q) r += sm.part[q][threadIdx.x];
+    lev[static_cast<long long>(threadIdx.x) * chunks + c] = r;
+  }
+  __syncthreads();
+}
+
+// Stage 4: chunk c's runs replayed from its entering state (lev after its
+// scan holds the entering counts): head and tstar of each run.
+template <int W>
+__device__ __forceinline__ void rle_replay_body(
+    const float* __restrict__ rv, const int* __restrict__ rl,
+    const unsigned* __restrict__ seen_in, const float* __restrict__ t0_in,
+    const unsigned* __restrict__ lev, int* __restrict__ head,
+    int* __restrict__ tstar, int R, int N, int w, int chunks, int c,
+    RleSmem<W>& sm) {
+  float v[RLE_ITEMS], t0[RLE_ITEMS];
+  unsigned L[RLE_ITEMS], ss[RLE_ITEMS];
+  rle_state(rv, rl, seen_in, t0_in, R, N, c, v, L, ss, t0, sm.ubuf, sm.fbuf);
+  unsigned loc[W];  // this thread's sum of L * ge per level
+#pragma unroll
+  for (int i = 0; i < W; ++i) loc[i] = 0u;
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      loc[i] += v[k] >= __fmul_rn(t0[k], pow2(i)) ? L[k] : 0u;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned run[W];  // the counts entering this thread's first run
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    unsigned incl = loc[i];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) sm.part[warp][i] = incl;
+    run[i] = incl - loc[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    unsigned e = i < w ? lev[static_cast<long long>(i) * chunks + c] : 0u;
+    for (int q = 0; q < warp; ++q) e += sm.part[q][i];
+    run[i] += e;
+  }
+  __syncthreads();
+  const unsigned uN = static_cast<unsigned>(N);
+  int hd[RLE_ITEMS], ts[RLE_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k) {
+    unsigned ge = 0u;
+    int A = -1;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const bool g = i < w && v[k] >= __fmul_rn(t0[k], pow2(i));
+      ge |= static_cast<unsigned>(g) << i;
+      if (i < w && !g && as_i32(run[i]) >= N) A = i;
+    }
+    int C = -1;
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (i > A && ((ge >> i) & 1u) && as_i32(run[i]) > C) C = as_i32(run[i]);
+#pragma unroll
+    for (int i = 0; i < W; ++i) run[i] += ((ge >> i) & 1u) ? L[k] : 0u;
+    int h = as_i32(uN - ss[k]);
+    h = h < 0 ? 0 : h;
+    hd[k] = h > as_i32(L[k]) ? as_i32(L[k]) : h;
+    ts[k] = A < 0 ? 1
+                  : (C >= 0 ? as_i32(uN - static_cast<unsigned>(C)) : RLE_BIG);
+  }
+  const int j0 = c * RLE_CHUNK + threadIdx.x * RLE_ITEMS;
+  if (j0 + RLE_ITEMS <= R &&
+      ((reinterpret_cast<uintptr_t>(head + j0) |
+        reinterpret_cast<uintptr_t>(tstar + j0)) & 15u) == 0) {
+#pragma unroll
+    for (int k = 0; k < RLE_ITEMS / 4; ++k) {
+      reinterpret_cast<int4*>(head + j0)[k] =
+          make_int4(hd[4 * k], hd[4 * k + 1], hd[4 * k + 2], hd[4 * k + 3]);
+      reinterpret_cast<int4*>(tstar + j0)[k] =
+          make_int4(ts[4 * k], ts[4 * k + 1], ts[4 * k + 2], ts[4 * k + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < RLE_ITEMS; ++k)
+      if (j0 + k < R) {
+        head[j0 + k] = hd[k];
+        tstar[j0 + k] = ts[k];
+      }
+  }
+}
+
+// The four stages and three scans in one cooperative launch: each CTA
+// takes chunks blockIdx.x, blockIdx.x + gridDim.x, ..., and a grid barrier
+// separates the steps. The scans of the chunk totals are one CTA's (the
+// levels' one CTA a level), as in ladder_scan.
+template <int W>
+__global__ void __launch_bounds__(RLE_THREADS)
+    rle_scan_kernel(const float* __restrict__ rv, const int* __restrict__ rl,
+             unsigned* __restrict__ lsum, float* __restrict__ cmin,
+             unsigned* __restrict__ lev, unsigned* __restrict__ utot,
+             float* __restrict__ ftot, int* __restrict__ head,
+             int* __restrict__ tstar, int R, int N, int w, int chunks) {
+  __shared__ RleSmem<W> sm;
+  cg::grid_group grid = cg::this_grid();
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x)
+    rle_len_sum_body(rl, lsum, R, c, sm.ubuf);
+  grid.sync();
+  if (blockIdx.x == 0) scan_row<unsigned, UAddOp>(lsum, utot, chunks, 0,
+                                                  sm.ubuf);
+  grid.sync();
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x)
+    rle_cand_min_body(rv, rl, lsum, cmin, R, N, c, sm.ubuf, sm.fbuf);
+  grid.sync();
+  if (blockIdx.x == 0) scan_row<float, MinOp>(cmin, ftot, chunks, 0,
+                                              sm.fbuf);
+  grid.sync();
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x)
+    rle_level_sum_body<W>(rv, rl, lsum, cmin, lev, R, N, w, chunks, c, sm);
+  grid.sync();
+  for (int i = blockIdx.x; i < w; i += gridDim.x)
+    scan_row<unsigned, UAddOp>(lev, utot + 1, chunks, i, sm.ubuf);
+  grid.sync();
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x)
+    rle_replay_body<W>(rv, rl, lsum, cmin, lev, head, tstar, R, N, w, chunks,
+                       c, sm);
+}
+
+// The retired one-CTA run scan (see the header), its sums in uint32.
+__global__ void rle_topn_det_serial_kernel(const float* __restrict__ rv,
+                                           const int* __restrict__ rl,
+                                           int* __restrict__ head,
+                                           int* __restrict__ tstar, int R,
+                                           int N, int w) {
   __shared__ float fbuf[32];
-  __shared__ int ibuf[32];
-  __shared__ int counts[TOPN_DET_MAX_W];
+  __shared__ unsigned ibuf[32];
+  __shared__ unsigned counts[TOPN_DET_MAX_W];
   const float pos = pos_value();
-  for (int i = threadIdx.x; i < w; i += blockDim.x) counts[i] = 0;
+  const unsigned uN = static_cast<unsigned>(N);
+  for (int i = threadIdx.x; i < w; i += blockDim.x) counts[i] = 0u;
   __syncthreads();
   float t0c = pos;  // entering state of the block, in every thread
-  int seen = 0;
+  unsigned seen = 0u;
   for (int b0 = 0; b0 < R; b0 += blockDim.x) {
     const int j = b0 + threadIdx.x;
     const bool in = j < R;
     const float v = in ? rv[j] : pos;
-    const int L = in ? rl[j] : 0;
-    int total_len;
-    const int seen_start =
-        seen + block_scan(L, ibuf, AddOp(), &total_len) - L;
+    const unsigned L = in ? static_cast<unsigned>(rl[j]) : 0u;
+    unsigned total_len;
+    const unsigned seen_start =
+        seen + block_scan(L, ibuf, UAddOp(), &total_len) - L;
     float tot;
     const float t0 = nan_min(
-        t0c, block_scan(seen_start < N ? v : pos, fbuf, MinOp(), &tot));
-    int cin[TOPN_DET_MAX_W];  // counts entering the run
+        t0c, block_scan(as_i32(seen_start) < N ? v : pos, fbuf, MinOp(),
+                        &tot));
+    unsigned cin[TOPN_DET_MAX_W];  // counts entering the run
     unsigned ge_bits = 0u;
     for (int i = 0; i < w; ++i) {
-      const int c = counts[i];
+      const unsigned c = counts[i];
       const bool ge = v >= __fmul_rn(t0, pow2(i));
-      const int dl = ge ? L : 0;
-      int level_total;
-      cin[i] = c + block_scan(dl, ibuf, AddOp(), &level_total) - dl;
+      const unsigned dl = ge ? L : 0u;
+      unsigned level_total;
+      cin[i] = c + block_scan(dl, ibuf, UAddOp(), &level_total) - dl;
       if (ge) ge_bits |= 1u << i;
       if (threadIdx.x == 0) counts[i] = c + level_total;
     }
     int A = -1;
     for (int i = 0; i < w; ++i)
-      if (!((ge_bits >> i) & 1u) && cin[i] >= N) A = i;
+      if (!((ge_bits >> i) & 1u) && as_i32(cin[i]) >= N) A = i;
     int C = -1;
     for (int i = A + 1; i < w; ++i)
-      if (((ge_bits >> i) & 1u) && cin[i] > C) C = cin[i];
+      if (((ge_bits >> i) & 1u) && as_i32(cin[i]) > C) C = as_i32(cin[i]);
     if (in) {
-      int h = N - seen_start;
+      int h = as_i32(uN - seen_start);
       h = h < 0 ? 0 : h;
-      head[j] = h > L ? L : h;
-      tstar[j] = A < 0 ? 1 : (C >= 0 ? N - C : RLE_BIG);
+      head[j] = h > as_i32(L) ? as_i32(L) : h;
+      tstar[j] = A < 0 ? 1
+                       : (C >= 0 ? as_i32(uN - static_cast<unsigned>(C))
+                                 : RLE_BIG);
     }
     t0c = nan_min(t0c, tot);
     seen += total_len;
     __syncthreads();
   }
+}
+
+// The run scan's plan for R runs and w levels: chunks, and the workspace:
+// the chunk length sums [chunks], the chunk minima [chunks], the level sums
+// [w][chunks], then the scans' totals (seen, the levels) and t0's total.
+struct RlePlan {
+  int chunks;
+  size_t cmin_off, lev_off, utot_off, ftot_off, total;
+};
+
+static inline RlePlan rle_plan(int R, int w) {
+  RlePlan p;
+  p.chunks = (R + RLE_CHUNK - 1) / RLE_CHUNK;
+  const size_t k = p.chunks > 0 ? p.chunks : 1;
+  p.cmin_off = ladder_align(k * sizeof(unsigned));
+  p.lev_off = p.cmin_off + ladder_align(k * sizeof(float));
+  p.utot_off = p.lev_off + ladder_align(static_cast<size_t>(w) * k *
+                                        sizeof(unsigned));
+  p.ftot_off = p.utot_off + ladder_align((1 + w) * sizeof(unsigned));
+  p.total = p.ftot_off + ladder_align(sizeof(float));
+  return p;
+}
+
+// The co-resident CTAs of the run scan on the current device: the grid of
+// its cooperative launch, found once a device and kept.
+template <int W>
+cudaError_t rle_grid_cap(int* cap) {
+  static int caps[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && caps[dev] > 0) {
+    *cap = caps[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rle_scan_kernel<W>, RLE_THREADS, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *cap = per_sm * sms;
+  if (dev < 64) caps[dev] = *cap;
+  return cudaSuccess;
+}
+
+template <int W>
+cudaError_t rle_launch(const float* rv, const int* rl, int* head, int* tstar,
+                       int R, int N, int w, unsigned char* work,
+                       cudaStream_t stream) {
+  const RlePlan p = rle_plan(R, w);
+  unsigned* lsum = reinterpret_cast<unsigned*>(work);
+  float* cmin = reinterpret_cast<float*>(work + p.cmin_off);
+  unsigned* lev = reinterpret_cast<unsigned*>(work + p.lev_off);
+  unsigned* utot = reinterpret_cast<unsigned*>(work + p.utot_off);
+  float* ftot = reinterpret_cast<float*>(work + p.ftot_off);
+  int chunks = p.chunks;
+  int cap = 0;
+  const cudaError_t e = rle_grid_cap<W>(&cap);
+  if (e != cudaSuccess) return e;
+  const int grid = chunks < cap ? chunks : cap;
+  void* args[] = {&rv, &rl, &lsum, &cmin, &lev, &utot, &ftot,
+                  &head, &tstar, &R, &N, &w, &chunks};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(rle_scan_kernel<W>), dim3(grid),
+      dim3(RLE_THREADS), args, 0, stream);
 }
 
 }  // namespace
@@ -609,11 +1020,29 @@ extern "C" int topn_det_pass1_serial(const float* x, uint8_t* keep, float* t0,
   return cudaGetLastError();
 }
 
+extern "C" size_t rle_topn_det_workspace(int R, int w) {
+  return rle_plan(R, w).total;
+}
+
+// The chunked run scan over R > 0 runs, one cooperative launch; work holds
+// rle_topn_det_workspace bytes.
 extern "C" int rle_topn_det(const float* rv, const int* rl, int* head,
                             int* tstar, int R, int N, int w,
-                            cudaStream_t stream) {
+                            unsigned char* work, cudaStream_t stream) {
+  if (w < 1 || w > TOPN_DET_MAX_W || R < 1) return cudaErrorInvalidValue;
+  const cudaError_t e =
+      w <= 8 ? rle_launch<8>(rv, rl, head, tstar, R, N, w, work, stream)
+             : rle_launch<32>(rv, rl, head, tstar, R, N, w, work, stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The retired one-CTA run scan, for holding the chunked scan against it;
+// launched by no entry point of the package.
+extern "C" int rle_topn_det_serial(const float* rv, const int* rl, int* head,
+                                   int* tstar, int R, int N, int w,
+                                   cudaStream_t stream) {
   if (w < 1 || w > TOPN_DET_MAX_W) return cudaErrorInvalidValue;
-  rle_topn_det_kernel<<<1, TOPN_DET_THREADS, 0, stream>>>(rv, rl, head, tstar,
-                                                          R, N, w);
+  rle_topn_det_serial_kernel<<<1, TOPN_DET_THREADS, 0, stream>>>(
+      rv, rl, head, tstar, R, N, w);
   return cudaGetLastError();
 }

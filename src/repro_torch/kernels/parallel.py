@@ -33,7 +33,7 @@ from ..constants import NEG
 from ..core.hashing import as_u32, hash_mod
 from ..core.skyline import FORMS, SCORES
 from . import ref
-from .bloom_filter import BLOOM_BUILD, BLOOM_QUERY
+from .bloom_filter import BLOOM_BUILD, BLOOM_BUILD_GLOBAL, BLOOM_QUERY
 from .cms_sketch import CMS_BUILD, CMS_QUERY, wrap_i32
 from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, LaunchCount,
                      check_cuda, check_rowpar, grid_for, ptr, workspace)
@@ -66,7 +66,8 @@ SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
 KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
            BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
-           RLE_TOPN_DET, DISTINCT_BLOCK_WALK, TOPN_BLOCK_WALK)
+           RLE_TOPN_DET, DISTINCT_BLOCK_WALK, TOPN_BLOCK_WALK,
+           BLOOM_BUILD_GLOBAL)
 POLICIES = ("lru", "fifo")
 
 

@@ -1,4 +1,4 @@
-"""Eight places where the port gave another answer than the JAX package.
+"""Nine places where the port gave another answer than the JAX package.
 
 Each test feeds the same numpy input to both packages on the CPU, on the
 smallest input that shows the departure, and holds the port to the
@@ -23,7 +23,10 @@ reference, faults of the reference included:
 - A9: that candidate is NaN when any entry of the (row, block) group is
   NaN, whatever its sign, so the row takes no insert (the card's block
   kernel ordered a negative NaN below every finite value; the CPU tests
-  hold its plain version, which the card checks it against).
+  hold its plain version, which the card checks it against);
+- A10: RLE TOP-N's sums (seen, the level counts, N - seen, N - C) are
+  int32 and wrap past 2^31, so runs after the wrap count as warm again
+  (the port's plain version summed in int64).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -31,13 +34,17 @@ import pytest
 import torch
 
 from repro import core as J
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import rle_scan as jrle
 from repro.query import engine as jq
 from repro.query import tables as jt
 from repro_torch import core as T
 from repro_torch.core.hashing import hash_mod
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import parallel as tpar
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rle_scan as trle
 from repro_torch.query import engine as tq
 from repro_torch.query import tables as tt
 
@@ -407,3 +414,58 @@ def test_a9_smallest_input():
 def test_a9_topn_block_nan_of_either_sign_blocks_the_insert(seed, block, d):
     x = _a9_stream(512, np.random.default_rng(seed * 100 + block + d))
     _topn_block_matches(x, d, 3, block, seed)
+
+
+# ------------------------------------------------------------------ A10
+def _rle_matches(v, L, N, w, block=8):
+    """(head, tstar) of the reference's scan and of its Pallas kernel (in
+    interpret mode), against the port's plain version and its
+    ``rle_topn_prune`` on CPU tensors, bit for bit."""
+    jv, jL = jnp.asarray(v), jnp.asarray(L)
+    want = [np.asarray(a) for a in jrle.rle_topn_det_ref(jv, jL, N=N, w=w)]
+    pallas = jops.rle_topn_prune(jv, jL, N=N, w=w, block=block)
+    tv, tL = torch.from_numpy(v), torch.from_numpy(L)
+    for got in (pallas, trle.rle_topn_det_ref(tv, tL, N=N, w=w),
+                tops.rle_topn_prune(tv, tL, N=N, w=w, block=block)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a), b)
+    return want
+
+
+def _a10_runs(seed, crossings, delta, N):
+    """Runs whose lengths sum past 2^31 ``crossings`` times before a target
+    run, whose seen_start wraps to N + delta: short runs, then 4 runs near
+    2^30 a crossing with two short runs after each, the last one cut so that
+    the target lands where it should, the target and five short runs."""
+    rng = np.random.default_rng(seed)
+    L = list(rng.integers(1, 50, 5))
+    for _ in range(4 * crossings):
+        L += [(1 << 30) + int(rng.integers(-5000, 5000))]
+        L += list(rng.integers(0, 50, 2))
+    target = crossings * (1 << 32) + N + delta
+    L[-3] += target - sum(int(x) for x in L)
+    assert 0 <= L[-3] < (1 << 31)
+    L += list(rng.integers(1, 50, 6))
+    v = (rng.random(len(L)) * 120 - 20).astype(np.float32)
+    return v, np.array(L, np.int32)
+
+
+def test_a10_smallest_input():
+    """Three runs of 2^30 take seen past 2^31: the reference's int32 seen
+    wraps negative, so the runs after them are warm again (head [.., 7, 3],
+    tstar 1); the port summed in int64 (head [.., 0, 0])."""
+    v = np.array([5, 4, 3, 9, 1], np.float32)
+    L = np.array([1 << 30] * 3 + [7, 3], np.int32)
+    head, tstar = _rle_matches(v, L, 100, 4)
+    assert head.tolist() == [100, 0, 0, 7, 3]
+    assert tstar.tolist() == [1, 1 << 30, 1, 1, 1]
+
+
+@pytest.mark.parametrize("w", [1, 4, 8])
+@pytest.mark.parametrize("N", [1, 100, 5000])
+@pytest.mark.parametrize("delta", [-1, 1], ids=["below_N", "above_N"])
+@pytest.mark.parametrize("crossings", [1, 2])
+@pytest.mark.parametrize("seed", range(2))
+def test_a10_rle_lengths_wrap_as_int32(seed, crossings, delta, N, w):
+    v, L = _a10_runs(seed * 10 + crossings, crossings, delta, N)
+    _rle_matches(v, L, N, w)
