@@ -46,7 +46,10 @@ Phases, one line each, and a non-zero exit on any failure:
            whose table is built in place). Then the
            engine's dtype handling: run_query TOP-N on an int32 column and
            DISTINCT on an int32 and a float32 column, on the card and on a
-           CPU copy of the table.
+           CPU copy of the table; and int32 keys of both signs through
+           ``kernels.ops``' Bloom and Count-Min entry points (the Pallas
+           kernels' signed hash, ROADMAP Queue 3 A11) at widths 64, 4096
+           and 2^24, against their plain versions.
 3. main    the main path on a 2^25-row uservisits table and a 2^20-row
            rankings table (one worker's partition of the Big Data
            benchmark): ``run_query`` TOP-N (randomized and the
@@ -92,7 +95,12 @@ Phases, one line each, and a non-zero exit on any failure:
            its table build and its lookups, the Bloom build into its
            zeroing and its cluster kernel),
            and a stream on which every
-           entry inserts is timed. Each phase prints its seconds.
+           entry inserts is timed. The Count-Min build prints the atomic
+           instructions its compiled code uses and its layout (CTAs a
+           lane, the int32 shadow's limit); the SKYLINE apply prints k, the
+           merged points its compaction keeps, and the retired scan's time;
+           both print their internal kernels' device times. Each phase
+           prints its seconds.
 5. witness the redesigned kernels against the serial kernels they
            replaced, bit for bit, over the whole 2^25-entry column: at S = 1
            DISTINCT FIFO and LRU, GROUP BY SUM and COUNT; at S = 1 and 128
@@ -103,7 +111,11 @@ Phases, one line each, and a non-zero exit on any failure:
            chunked RLE run scan against the one-CTA run scan on the 2^19
            timed runs and the three pruning layouts; the cluster Bloom
            build against the global-atomic kernel at JOIN's F_A and F_B;
-           then the ``kernels`` JSON line.
+           the partial-table Count-Min build against the atomic build it
+           replaced (cms_build_atomic) at its four main-path shapes; the
+           compacted SKYLINE apply against the slot-order scan
+           (skyline_apply_scan) on both merged sets; then the ``kernels``
+           JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -1122,6 +1134,107 @@ def phase_dtypes(torch, P):
         say("dtypes", query=json.dumps(name), same_as_cpu=ok,
             launches=launches, pruned=round(
                 1 - float(a["keep"].float().mean()), 6))
+    dtypes_int32_sketches(torch, P)
+    dtypes_f16_table(torch, P)
+
+
+def dtypes_f16_table(torch, P):
+    """A float16 HAVING SUM table (core.sketches.cms_build, the engine's
+    family) on the card, held to its rule: it adds in f32 and rounds once,
+    so it equals the plain build (f16 adds in entry order, run on a CPU
+    copy) while every sum stays below 2^11, and above that the f32 sum
+    rounded once. ROADMAP Queue 3 A20 is the departure: 3000 unit weights
+    on one key read 3000 on the card, 2048 in the reference."""
+    from repro_torch import core
+    from repro_torch.kernels import cms_sketch as C
+
+    g = torch.Generator().manual_seed(22)
+    keys = torch.randint(0, 1 << 31, (1 << 20,), generator=g,
+                         dtype=torch.int64).to(torch.uint32)
+    wts = torch.randint(0, 4, (keys.numel(),), generator=g).half()
+    hot = torch.full((3000,), 7, dtype=torch.uint32)
+    for name, k, w in (("sums below 2^11", keys, wts),
+                       ("3000 unit weights on one key", hot,
+                        torch.ones(3000, dtype=torch.float16))):
+        P.reset_launch_counts()
+        got = core.sketches.cms_build(k.cuda(), w.cuda(), 3, 4096).table.cpu()
+        launches = P.CMS_BUILD.launches
+        kw = dict(rows=3, width=4096, family="engine")
+        plain = C.cms_build_plain(k, w, **kw)[0]
+        once = C.cms_build_plain(k, w.float(), **kw)[0].half()
+        what = f"f16 Count-Min table, {name}"
+        ok = check(same_bits(got, once), f"{what}: the card differs from "
+                   "the f32 sum rounded once")
+        if name.startswith("sums"):
+            ok &= check(same_bits(got, plain), f"{what}: the card differs "
+                        "from the plain build")
+        check(launches > 0, f"{what}: cms_build was never launched")
+        say("dtypes", query=json.dumps(what), as_rule=ok,
+            same_as_plain=same_bits(got, plain),
+            card_max=float(got.float().max()),
+            plain_max=float(plain.float().max()), launches=launches)
+
+
+def dtypes_int32_sketches(torch, P):
+    """int32 keys of both signs through ops.bloom_* and ops.cms_* on the
+    card, against the plain versions on the same keys (ROADMAP Queue 3
+    A11: the Pallas kernels hash an int32 key in signed arithmetic). The
+    widths at and above 2^15 hold keys whose probe is -1 and is dropped."""
+    from repro_torch.kernels import bloom_filter as B
+    from repro_torch.kernels import cms_sketch as C
+    from repro_torch.kernels import ops as O
+
+    g = torch.Generator().manual_seed(21)
+    keys = torch.randint(-(1 << 31), 1 << 31, (1 << 20,), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    # keys whose signed multiply-shift is -1 at width 40000, seed 0
+    bad = torch.tensor([-2040099539, -2010473350, -2006560011],
+                       dtype=torch.int32)
+    keys = torch.cat([bad, keys]).to("cuda")
+    wts = torch.randint(0, 5, (keys.numel(),), generator=g).float().cuda()
+    for width in (64, 4096, 40000):
+        P.reset_launch_counts()
+        bits = O.bloom_build(keys, nbits=width)
+        q = O.bloom_query(bits, keys[::3].contiguous())
+        tb = O.cms_build(keys, wts, rows=3, width=width)
+        est = O.cms_query(tb, keys)
+        launches = {k.name: k.launches for k in P.KERNELS}
+        pb = B.unpack_bits(B.bloom_build_plain(keys, nbits=width),
+                           width).float()
+        ok = check(same(bits, pb) and same(q, B.bloom_query_plain(
+            B.pack_bits(pb > 0.5), keys[::3], nbits=width)),
+            f"ops.bloom_* int32 keys width={width} differ from the plain "
+            "versions")
+        pt = C.cms_build_plain(keys, wts, rows=3, width=width)[0]
+        ok &= check(same(tb, pt) and same(est, C.cms_query_plain(pt, keys)),
+                    f"ops.cms_* int32 keys width={width} differ from the "
+                    "plain versions")
+        check(all(launches[k] > 0 for k in ("bloom_build_global",
+                                            "bloom_query", "cms_build",
+                                            "cms_query")),
+              f"int32 sketches width={width}: a kernel was never launched")
+        say("dtypes", query=json.dumps(f"int32 keys, bloom and cms, width "
+                                       f"{width}"), same_as_plain=ok,
+            launches=json.dumps({k: launches[k] for k in (
+                "bloom_build_global", "bloom_query", "cms_build",
+                "cms_query")}),
+            bits_set=int(bits.sum()), upper_half_empty=bool(
+                width < (1 << 15) and not bits[width // 2:].any()))
+    # a width of 2^24: the modulo branch, the query only (the Pallas build
+    # takes widths below 2^16)
+    table = torch.randint(0, 9, (3, 1 << 24), generator=g).float().cuda()
+    P.reset_launch_counts()
+    est = O.cms_query(table, keys)
+    fbits = (torch.rand(1 << 24, generator=g) < 0.5).float().cuda()
+    q = O.bloom_query(fbits, keys)
+    ok = check(same(est, C.cms_query_plain(table, keys)) and same(
+        q, B.bloom_query_plain(B.pack_bits(fbits > 0.5), keys,
+                               nbits=1 << 24)),
+        "ops.cms_query / ops.bloom_query int32 keys at width 2^24 differ "
+        "from the plain versions")
+    say("dtypes", query=json.dumps("int32 keys, queries, width 2^24"),
+        same_as_plain=ok, cms_query=P.CMS_QUERY.launches,
+        bloom_query=P.BLOOM_QUERY.launches)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -2190,23 +2303,110 @@ def time_skyline_apply(torch, P, pts, states, totals):
                                                                  msc))
         errs.append(max_abs_err([(keep, keep2)]))
         check(errs[-1] == 0.0, f"skyline_apply after {key} at 2^25 rows")
+        # views that start 8 and 24 bytes into the column (no float4 load)
+        for lo, hi in ((1, m), (3, 1001)):
+            check(same(P.skyline_apply_kernel(pts[lo:hi], mp, msc),
+                       keep2[lo:hi]), f"skyline_apply after {key} on the "
+                  f"view pts[{lo}:{hi}] differs from the plain apply")
         ms = event_ms(lambda: P.skyline_apply_kernel(pts, mp, msc), 10)
         # the least work this run's data needs: a dominated entry one
-        # dominator's D comparisons, a survivor one comparison against
-        # every valid merged point; the full scan is m * S*w * D
+        # dominator's D comparisons, a survivor D comparisons against each
+        # of the k points of the compacted set; the full scan is m * S*w * D
         sw, valid, kept = msc.numel(), int((msc > NEG).sum()), int(keep.sum())
-        compares = (m - kept) * D + kept * valid
+        k = P.skyline_compact_plain(mp, msc)[0].shape[0]
+        compares = (m - kept) * D + kept * k * D
         t_ops = compares / FP32_OPS_PER_S * 1e3
         t_bytes = (m * D * 4 + m + sw * (D + 1) * 4) / HBM_BYTES_PER_S * 1e3
         bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "ops")
+        old = torch.empty(m, dtype=torch.bool, device="cuda")
+        scan_ms = event_ms(lambda: skyline_scan(torch, pts, mp, msc, old), 10)
+        check(same(old, keep), f"skyline_apply after {key}: the retired "
+              "scan differs")
         say("timing", kernel="skyline_apply", after=json.dumps(key), ms=ms,
-            plain_ms=plain_s * 1e3, bound_ms=bound, bound_by=by,
-            compares_needed=compares, compares_full=m * sw * D,
+            device_ms=device_split(torch, lambda: P.skyline_apply_kernel(
+                pts, mp, msc)),
+            plain_ms=plain_s * 1e3, bound_ms=bound, bound_by=by, k=k,
+            valid_points=valid, compares_needed=compares,
+            compares_full=m * sw * D,
+            retired_scan_ms=scan_ms,
             full_scan_ms=m * sw * D / FP32_OPS_PER_S * 1e3, survivors=kept,
             max_abs_err=errs[-1])
         if key.endswith("ops"):
             first = (ms, plain_s * 1e3, bound, by)
     return _row("skyline_apply", totals, max(errs), *first)
+
+
+def skyline_scan(torch, pts, mp, msc, keep):
+    """The retired SKYLINE apply (C entry skyline_apply_scan) into keep."""
+    from repro_torch.kernels.common import I32, I64, P as VP, grid_for, ptr
+
+    m, D = pts.shape
+    serial_kernel(torch, "skyline_apply_scan", [VP] * 4 + [I64] + [I32] * 3,
+                  ptr(pts), ptr(mp), ptr(msc), ptr(keep), m, D, msc.numel(),
+                  grid_for(m, pts.device))
+    return keep
+
+
+def merged_skyline_sets(torch, P, pts):
+    """(name, points, scores) of the two merged sets the main path's SKYLINE
+    apply takes: the ops union of S = 128 stores at B = 256 (unsorted) and
+    the engine's union of B = 1 stores, sorted by score."""
+    from repro_torch import core
+
+    _, sp, ss = P.skyline_shard_states_kernel(pts, shards=SHARDS, block=256,
+                                              form="kernel", **SKYLINE)
+    mp, msc = P.merge_skyline_states(sp, ss)
+    _, ep, es = P.skyline_shard_states_kernel(pts, shards=SHARDS, block=1,
+                                              form="engine", **SKYLINE)
+    merged = core.merge_states("skyline", core.SkylineState(ep, es),
+                               **SKYLINE)
+    return [("ops union", mp, msc),
+            ("engine union", merged.points, merged.scores)]
+
+
+def cms_atomic(torch, keys, wts, rows, width, family, lanes):
+    """The retired Count-Min build (C entry cms_build_atomic) into a zeroed
+    table, with the CTAs a lane its wrapper gave it."""
+    from repro_torch.kernels import cms_sketch as C
+    from repro_torch.kernels.common import I32, U32, P as VP, ptr
+
+    n = keys.numel() // lanes
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    ctas = max(1, min(-(-n // 256), -(-4 * sms // lanes)))
+    w, is_int = C._kernel_weights(wts)
+    out = torch.zeros((lanes, rows, width), device=keys.device,
+                      dtype=torch.int32 if is_int else torch.float32)
+    serial_kernel(torch, "cms_build_atomic", [VP] * 3 + [I32] * 4 + [U32]
+                  + [I32] * 3, ptr(C._keys_u32(keys)),
+                  None if w is None else ptr(w), ptr(out), lanes, n, rows,
+                  width, 0, C._family(family, keys), is_int, ctas)
+    return out
+
+
+def sass_atomics(torch):
+    """{kernel: {atomic instruction: count}} of the Count-Min builds in the
+    built library, read with cuobjdump: whether an f32 shared add is one
+    ATOMS.ADD or a compare-and-swap loop."""
+    import os
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from repro_torch.kernels import common
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(common.build())],
+                         capture_output=True, text=True)
+    out, fn = {}, None
+    for line in res.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1) if "cms_build" in head.group(1) else None
+            continue
+        ins = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9._]+)", line)
+        if fn and ins:
+            per = out.setdefault(fn, {})
+            per[ins.group(1)] = per.get(ins.group(1), 0) + 1
+    return out or {"cuobjdump_rc": res.returncode}
 
 
 def cms_shapes(table):
@@ -2264,9 +2464,14 @@ def time_cms(torch, table, totals):
                  if wts is None else wts.float().repeat_interleave(rows_))
         acc = torch.zeros(rows_ * width, dtype=torch.float32, device="cuda")
         scatter_ms = event_ms(lambda: acc.index_add_(0, cells, w_rep), 10)
+        ctas, shadow, _ = C.build_plan(keys.device, lanes, m // lanes, rows_,
+                                       width, int(tb.dtype != torch.float32))
         say("timing", kernel="cms_build", path=json.dumps(path), lanes=lanes,
             width=width, dtype=str(tb.dtype), ms=ms_b,
             plain_ms=plain_b * 1e3, bound_ms=bound_b, bound_by="bytes",
+            ctas=ctas, shadow_limit=shadow,
+            device_ms=device_split(torch, lambda: C.cms_build_kernel(
+                keys, wts, **kw)),
             index_add_on_hashed_cells_ms=scatter_ms,
             max_abs_err=errs_b[-1])
         say("timing", kernel="cms_query", path=json.dumps(path),
@@ -2275,6 +2480,8 @@ def time_cms(torch, table, totals):
         if not out:
             out = [(ms_b, plain_b * 1e3, bound_b), (ms_q, plain_q * 1e3,
                                                     bound_q)]
+    say("timing", kernel="cms_build", sass_atomics=json.dumps(
+        sass_atomics(torch)))
     return [_row("cms_build", totals, max(errs_b), *out[0], "bytes"),
             _row("cms_query", totals, max(errs_q), *out[1], "bytes")]
 
@@ -2305,7 +2512,8 @@ def bloom_global(torch, keys, words, kw, mask=None):
                                                            U32, I32, I32],
                   ptr(keys), None if mask is None else ptr(mask), ptr(words),
                   keys.numel(), kw["nbits"], kw["num_hashes"],
-                  kw["seed"] & 0xFFFFFFFF, B.FAMILIES.index(kw["family"]),
+                  kw["seed"] & 0xFFFFFFFF,
+                  B._family(kw["family"], kw["nbits"], keys),
                   min(grid_for(keys.numel(), keys.device), 4 * sms))
 
 
@@ -2325,7 +2533,7 @@ def bloom_cluster(torch, keys, words, kw, mask=None):
                       ptr(keys), None if mask is None else ptr(mask),
                       ptr(words), keys.numel(), kw["nbits"],
                       kw["num_hashes"], kw["seed"] & 0xFFFFFFFF,
-                      B.FAMILIES.index(kw["family"]), K, most)
+                      B._family(kw["family"], kw["nbits"], keys), K, most)
 
 
 def bloom_plan_k(torch, nbits, H):
@@ -2827,6 +3035,38 @@ def phase_witness(torch, table, rankings, pts, rle):
         say("witness", kernel="skyline_pass1", S=S, entries=m,
             serial_s=secs, kept=int(new[0].sum()), max_abs_err=err)
     witness_rle_bloom(torch, table, rankings, rle)
+    witness_cms_skyline(torch, table, pts)
+
+
+def witness_cms_skyline(torch, table, pts):
+    """The partial-table Count-Min build against the atomic build it replaced
+    (cms_build_atomic) at its four main-path shapes, and the compacted
+    SKYLINE apply against the slot-order scan (skyline_apply_scan) on both
+    merged sets, bit for bit over the 2^25 entries."""
+    from repro_torch.kernels import cms_sketch as C
+    from repro_torch.kernels import parallel as P
+
+    for path, keys, wts, fam, rows_, width, lanes, _ in cms_shapes(table):
+        new = C.cms_build_kernel(keys, wts, rows=rows_, width=width,
+                                 family=fam, shards=lanes)
+        old, secs = sync_time(lambda: cms_atomic(torch, keys, wts, rows_,
+                                                 width, fam, lanes))
+        err = max_abs_err([(new, old)])
+        check(err == 0.0 and same_bits(new, old), f"cms_build {path} "
+              "differs from the atomic build it replaced")
+        say("witness", kernel="cms_build", path=json.dumps(path),
+            lanes=lanes, keys=keys.numel(), atomic_s=secs, max_abs_err=err)
+    m = pts.shape[0]
+    for name, mp, msc in merged_skyline_sets(torch, P, pts):
+        new = P.skyline_apply_kernel(pts, mp, msc)
+        old = torch.empty(m, dtype=torch.bool, device="cuda")
+        _, secs = sync_time(lambda: skyline_scan(torch, pts, mp, msc, old))
+        check(same(new, old), f"skyline_apply on the {name} differs from "
+              "the scan it replaced on the 2^25-entry column")
+        say("witness", kernel="skyline_apply", merged=json.dumps(name),
+            entries=m, k=P.skyline_compact_plain(mp, msc)[0].shape[0],
+            scan_s=secs, kept=int(new.sum()),
+            max_abs_err=max_abs_err([(new, old)]))
 
 
 def witness_rle_bloom(torch, table, rankings, rle):

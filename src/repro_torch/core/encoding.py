@@ -57,6 +57,19 @@ def cast_fill(fill, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.asarray(fill).astype(np_dtype)[None])
 
 
+def as_x32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as ``jnp.asarray`` gives it to the JAX package (x64 off): int64
+    and uint64 wrap into int32 and uint32, float64 rounds to float32; every
+    other dtype stays."""
+    if x.dtype == torch.int64:
+        return x.to(torch.int32)
+    if x.dtype == torch.uint64:
+        return x.view(torch.int64).to(torch.int32).view(torch.uint32)
+    if x.dtype == torch.float64:
+        return x.to(torch.float32)
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class DictEncoding:
     """Sorted-dictionary encoding: ``decoded = lut[codes]``.
@@ -115,7 +128,29 @@ def dict_encode(values) -> tuple[torch.Tensor, DictEncoding]:
     codes = torch.empty(flat.shape, dtype=torch.int32, device=v.device)
     codes[order] = gid.to(torch.int32)
     lut = take_rows(flat, order[new])
+    if ambiguous_floats(flat):
+        # which zero and which NaN stand for their class is np.unique's
+        # pick (its sort's, which varies with the host's SIMD): take it
+        lut = torch.from_numpy(np.unique(flat.cpu().numpy())).to(v.device)
     return codes.view(torch.uint32).reshape(v.shape), DictEncoding(lut=lut)
+
+
+_SAME_SIZE_INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def ambiguous_floats(x: torch.Tensor) -> bool:
+    """Whether a float ``x`` holds both -0.0 and +0.0, or NaNs of two bit
+    patterns: values that ``np.unique`` collapses into one, choosing the
+    one that stands for them by its own sort."""
+    if not x.is_floating_point() or x.numel() == 0:
+        return False
+    zero = x == 0
+    neg = torch.signbit(x)
+    nan_bits = x[x.isnan()].view(_SAME_SIZE_INT[x.element_size()])
+    ambiguous = (zero & neg).any() & (zero & ~neg).any()
+    if nan_bits.numel():
+        ambiguous |= nan_bits.amin() != nan_bits.amax()
+    return bool(ambiguous)
 
 
 def rle_encode(values) -> tuple[torch.Tensor, torch.Tensor]:

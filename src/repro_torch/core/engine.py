@@ -49,12 +49,13 @@ import torch
 
 from ..constants import NEG
 from ..kernels import parallel as kpar
-from ..kernels.cms_sketch import cms_build_kernel, cms_query_kernel, wrap_i32
+from ..kernels.cms_sketch import (INT_TABLES, by_value_i64, cms_build_kernel,
+                                  cms_query_kernel, wrap_to)
 from ..kernels.groupby_scan import groupby_pass1_kernel
 from ..kernels.ops import _pad_to, first_value
 from ..kernels.topn_det_scan import pow2, topn_det_pass1_kernel
 from .distinct import DistinctState
-from .encoding import normalize_encodings
+from .encoding import as_x32, normalize_encodings
 from .groupby import GroupByState
 from .hashing import by_value
 from .pruning import PruneResult
@@ -253,10 +254,15 @@ def _having_pass1(lanes, p):
 
 
 def _having_merge(st, p):
-    # sketch addition: the summed table equals one build over all lanes
+    # sketch addition: the summed table equals one build over all lanes.
+    # jnp.sum keeps int32 and uint32 (wrapping) and sums a narrower integer
+    # table in the 32-bit integer of its signedness
     t = st.table
-    summed = (wrap_i32(t.sum(0, dtype=torch.int64)) if t.dtype == torch.int32
-              else t.sum(0))
+    if t.dtype in INT_TABLES:
+        kind = torch.int32 if t.dtype.is_signed else torch.uint32
+        summed = wrap_to(by_value_i64(t).sum(0), kind)
+    else:
+        summed = t.sum(0)
     return CountMin(table=summed, seed=st.seed)
 
 
@@ -518,7 +524,8 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
         raise ValueError(
             f"pass2={pass2!r} only applies to mode='mesh' (got {mode!r})")
     spec = _spec(algo, params)
-    streams = tuple(s for s in streams if s is not None)
+    # 64-bit columns as jnp.asarray hands them to the reference
+    streams = tuple(as_x32(s) for s in streams if s is not None)
     encs = normalize_encodings(encoding, len(streams))
     if decode == "eager":
         streams = _decode_streams(streams, encs)

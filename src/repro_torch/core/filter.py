@@ -13,8 +13,11 @@ vector and look the verdict up in a 2^n table. No kernel: elementwise work
 and one gather.
 
 torch compares no ``uint32`` tensors on the CPU, so a uint32 column is
-compared by value in int64. A ``like`` predicate's callable receives the
-column tensor as it is.
+compared by value in int64. A Python number is a weakly typed literal, as
+in the JAX package (``_operands``): an int outside int32 raises
+OverflowError, an int wraps into an integer column's dtype, and a float
+compares in f32 with an integer column. A ``like`` predicate's callable
+receives the column tensor as it is.
 """
 from __future__ import annotations
 
@@ -42,13 +45,42 @@ class Pred:
         raw = cols[self.column]
         if self.op == "like":
             return self.value(raw)  # host-side callable
-        c = by_value(raw)
+        c, v = _operands(raw, self.value)
         fn: dict[str, Callable] = {
-            "gt": lambda: c > self.value, "ge": lambda: c >= self.value,
-            "lt": lambda: c < self.value, "le": lambda: c <= self.value,
-            "eq": lambda: c == self.value, "ne": lambda: c != self.value,
+            "gt": lambda: c > v, "ge": lambda: c >= v,
+            "lt": lambda: c < v, "le": lambda: c <= v,
+            "eq": lambda: c == v, "ne": lambda: c != v,
         }
         return fn[self.op]()
+
+
+def _operands(col: torch.Tensor, value):
+    """(column, literal) to compare, as JAX compares an array with a weakly
+    typed Python literal (x64 off): an int is converted to int32 first, so
+    one outside int32 raises OverflowError; it then wraps into an integer
+    column's dtype (-1 against uint32 is 2^32 - 1) and rounds into a float
+    column's; a float literal compares with an integer column in f32. A
+    bool column compares by value. Any other literal compares by value."""
+    if isinstance(value, bool):
+        value = int(value)
+    if isinstance(value, int):
+        if not -(1 << 31) <= value < (1 << 31):
+            raise OverflowError(f"Python int {value} too large to convert to "
+                                "int32")
+        if col.is_floating_point():
+            return col, torch.tensor(value, dtype=col.dtype)
+        if col.dtype != torch.bool:
+            bits = torch.iinfo(col.dtype).bits
+            value &= (1 << bits) - 1
+            if col.dtype.is_signed and value >= 1 << (bits - 1):
+                value -= 1 << bits
+        return by_value(col), value
+    if isinstance(value, float):
+        if col.is_floating_point():
+            return col, torch.tensor(value, dtype=col.dtype)
+        return (by_value(col).to(torch.float32),
+                torch.tensor(value, dtype=torch.float32))
+    return by_value(col), value
 
 
 @dataclasses.dataclass(frozen=True)

@@ -53,9 +53,16 @@ def master_complete_join(keys_a, vals_a, keep_a, keys_b, vals_b, keep_b):
 
     A sort-merge join: B's kept keys sorted once, each kept A key finds its
     run of matches by ``searchsorted``, and ``repeat_interleave`` expands
-    the runs; three stable sorts give the lexicographic order.
+    the runs; three stable sorts give the lexicographic order. A NaN key
+    joins nothing (the reference's dict of keys matches by ``==``), so NaN
+    keys leave both sides before the merge.
     """
-    ka, kb = by_value(keys_a)[keep_a], by_value(keys_b)[keep_b]
+    ka, kb = by_value(keys_a), by_value(keys_b)
+    if ka.is_floating_point():
+        keep_a = keep_a & ~ka.isnan()
+    if kb.is_floating_point():
+        keep_b = keep_b & ~kb.isnan()
+    ka, kb = ka[keep_a], kb[keep_b]
     va, vb = by_value(vals_a)[keep_a], by_value(vals_b)[keep_b]
     if ka.dtype != kb.dtype:  # an integer and a float key column
         ka, kb = ka.to(torch.float64), kb.to(torch.float64)

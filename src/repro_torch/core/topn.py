@@ -131,10 +131,15 @@ def opt_keep_topn(values, N: int) -> torch.Tensor:
 def master_complete_topn(values: torch.Tensor, keep: torch.Tensor, N: int):
     """Exact top-N among forwarded entries (master side): (values, indices).
 
-    Ties go to the lower index, as ``lax.top_k`` breaks them: a stable
-    descending sort keeps equal values in stream order.
+    The order is ``lax.top_k``'s: XLA's total order of floats, in which a
+    NaN with its sign set lies below -inf, -0 below +0 and +NaN on top, and
+    ties go to the lower index. A stable descending sort of the bits' total-
+    order int32 image (the low 31 bits flipped where the sign is set) gives
+    both.
     """
     masked = torch.where(keep, values.to(torch.float32),
                          torch.tensor(float(NEG), device=values.device))
-    srt = torch.sort(masked, descending=True, stable=True)
-    return srt.values[:N], srt.indices[:N]
+    bits = masked.view(torch.int32)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(order, descending=True, stable=True).indices[:N]
+    return masked[idx], idx

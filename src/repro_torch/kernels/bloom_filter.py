@@ -13,7 +13,9 @@ The filter is a packed bitset, uint32[ceil(nbits / 32)], bit i in bit
 i % 32 of word i // 32. ``unpack_bits`` gives the bool[nbits] view
 (``BloomFilter.bits`` of the JAX package) and ``pack_bits`` the inverse; the
 f32 0/1 view of the Pallas kernel is ``unpack_bits(...).float()``. Keys are
-32-bit lanes (uint32, int32, or float32 hashed by its bits).
+32-bit lanes (uint32, int32, or float32 hashed by its bits); the kernels'
+family hashes an int32 key in the Pallas kernels' signed arithmetic, as
+``cms_sketch`` does (a probe of -1 sets nothing and reads as unset).
 
 Each entry point launches a CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor. Both are exact: OR is idempotent, so the
@@ -46,6 +48,7 @@ from functools import lru_cache
 import torch
 
 from ..core.hashing import as_u32, hash_mod, multi_hash
+from .cms_sketch import _family as cms_family
 from .cms_sketch import _keys_u32
 from .common import (I32, I64, P, U32, CudaKernel, check_cuda, grid_for,
                      library_fn, ptr)
@@ -56,15 +59,12 @@ BLOOM_BUILD_GLOBAL = CudaKernel("bloom_build_global",
                                 [P, P, P, I64, U32, I32, U32, I32, I32])
 BLOOM_QUERY = CudaKernel("bloom_query",
                          [P, P, P, I64, U32, I32, U32, I32, I32])
-FAMILIES = ("kernel", "engine")
-
-
-def _family(family: str, nbits: int) -> int:
-    if family not in FAMILIES:
-        raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+def _family(family: str, nbits: int,
+            keys: torch.Tensor | None = None) -> int:
+    """The C hash family (``cms_sketch._family``)."""
     if nbits < 1 or nbits >= (1 << 32):
         raise ValueError(f"nbits must be in [1, 2^32), got {nbits}")
-    return FAMILIES.index(family)
+    return cms_family(family, keys)
 
 
 def num_words(nbits: int) -> int:
@@ -122,7 +122,9 @@ def probe_bits(keys: torch.Tensor, nbits: int, num_hashes: int, seed: int,
     """int64 [m, H]: the bit each of the H hashes of each key probes."""
     if _family(family, nbits) == 1:
         return multi_hash(keys, nbits, num_hashes, seed)
-    return torch.stack([hash_mod(keys, nbits, (seed + 101 * h) & 0xFFFFFFFF)
+    signed = keys.dtype == torch.int32
+    return torch.stack([hash_mod(keys, nbits, (seed + 101 * h) & 0xFFFFFFFF,
+                                 signed=signed)
                         for h in range(num_hashes)], -1)
 
 
@@ -153,8 +155,9 @@ def bloom_build_plain(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
     idx = probe_bits(keys, nbits, num_hashes, seed, family)
     if mask is not None:
         idx = idx[mask]
+    idx = idx.reshape(-1)
     bits = torch.zeros(nbits, dtype=torch.bool, device=keys.device)
-    bits[idx.reshape(-1)] = True
+    bits[idx[idx >= 0]] = True
     return pack_bits(bits)
 
 
@@ -164,8 +167,8 @@ def bloom_build_kernel(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
     """uint32 packed words of the filter of ``keys`` (entries with a False
     ``mask`` left out). The kernels' family takes nbits < 2^16, as the Pallas
     kernel asserts."""
-    fam = _family(family, nbits)
-    if fam == 0 and nbits >= (1 << 16):
+    fam = _family(family, nbits, keys)
+    if fam != 1 and nbits >= (1 << 16):
         raise ValueError("the kernels' hash family needs nbits < 2^16")
     m = keys.shape[0]
     if mask is not None and (mask.shape != (m,) or mask.dtype != torch.bool):
@@ -203,15 +206,15 @@ def bloom_query_plain(words: torch.Tensor, keys: torch.Tensor, *, nbits: int,
                       family: str = "kernel") -> torch.Tensor:
     """Plain query: bool[m], True where all H probed bits are set."""
     idx = probe_bits(keys, nbits, num_hashes, seed, family)
-    got = (as_u32(words)[idx >> 5] >> (idx & 31)) & 1
-    return got.to(torch.bool).all(-1)
+    got = (as_u32(words)[idx.clamp(min=0) >> 5] >> (idx & 31)) & 1
+    return (got.to(torch.bool) & (idx >= 0)).all(-1)
 
 
 def bloom_query_kernel(words: torch.Tensor, keys: torch.Tensor, *, nbits: int,
                        num_hashes: int = 3, seed: int = 0,
                        family: str = "kernel") -> torch.Tensor:
     """bool[m] membership of each key in the packed filter ``words``."""
-    fam = _family(family, nbits)
+    fam = _family(family, nbits, keys)
     if words.shape != (num_words(nbits),) or words.dtype != torch.uint32:
         raise ValueError(f"words must be uint32[{num_words(nbits)}], got "
                          f"{words.dtype} {tuple(words.shape)}")

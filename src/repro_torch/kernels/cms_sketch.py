@@ -6,41 +6,67 @@ their plain versions.
 ``cms_query_kernel`` (``:72``); both also carry the engine's HAVING sketch
 (``core.sketches``). Two hash families: ``"kernel"`` is the Pallas kernels'
 ``hash_mod(key, width, seed + 101 r)``, ``"engine"`` the engine's
-``multi_hash(key, width, rows, seed)``.
+``multi_hash(key, width, rows, seed)``. The Pallas kernels hash in the key's
+own dtype, so the kernel family hashes an int32 key in signed arithmetic
+(``core.hashing``, ``signed=True``; the C family 2), and drops its probes
+of -1; every other key by its 32-bit lanes.
 
-The table takes the weights' dtype: int32 (unit weights when ``weights`` is
-None, as COUNT has; integer SUM), which wraps mod 2^32 as the reference's
-int32 table does, or float32. Keys are 32-bit lanes (uint32, int32, or
+The table takes the weights' dtype, as the reference's does: int32 (unit
+weights when ``weights`` is None, as COUNT has; integer SUM), which wraps
+mod 2^32; uint32, int16, int8, uint16 and uint8, which wrap mod 2^32, 2^16
+or 2^8 (built as int32 and wrapped into the dtype); float32; float16, whose
+plain build adds in f16 in entry order, as XLA's scatter-add does, and whose
+CUDA build adds in f32 and rounds once: equal for integer-valued weights
+whose sums stay below 2^11, and past that a departure from the reference
+(ROADMAP Queue 3 A20: 3000 unit weights on one key read 3000 on the card,
+2048 in the reference). Keys are 32-bit lanes (uint32, int32, or
 float32 hashed by its bits).
 
 Each entry point launches the CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor. Integer tables are exact in any order; f32
-tables built by the kernel's atomics equal the plain sequential sums only
-for integer-valued weights whose sums stay below 2^24.
+tables equal the plain sequential sums for integer-valued weights whose
+sums stay below 2^24 (``csrc/cms.cu`` says what a non-integer weight gives).
+
+The CUDA build (``csrc/cms.cu``) builds each lane with a few persistent
+CTAs whose partial tables, in shared memory, are written with plain stores
+and summed in a fixed order by a second kernel; an f32 table adds its
+integer-valued weights into an int32 shadow partial, since an f32 shared
+add is a compare-and-swap loop on Hopper. The layout is the C side's
+alone; ``build_plan`` asks it. ``cms_build_atomic`` is the kernel it
+replaced, kept for ``chip_smoke.py``'s witness.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+from functools import lru_cache
 
 import torch
 
 from ..core.hashing import hash_mod, multi_hash
 from .common import (F32, I32, I64, P, U32, CudaKernel, check_cuda,
-                     grid_for, ptr)
+                     grid_for, library_fn, ptr)
 
-CMS_BUILD = CudaKernel("cms_build",
-                       [P, P, P, I32, I32, I32, I32, U32, I32, I32, I32])
+CMS_BUILD = CudaKernel("cms_build", [P, P, P, P, I32, I64, I32, I32, U32,
+                                     I32, I32])
 CMS_QUERY = CudaKernel(
     "cms_query", [P, P, P, P, I64, I32, I32, U32, I32, I32, I64, F32, I32])
 FAMILIES = ("kernel", "engine")
-DTYPES = (torch.int32, torch.float32)
+INT_TABLES = (torch.int32, torch.uint32, torch.int16, torch.int8,
+              torch.uint16, torch.uint8)
+DTYPES = INT_TABLES + (torch.float32, torch.float16)
 _I64_MAX = (1 << 63) - 1
+MAX_SMEM = 232448  # a table staged in one CTA's shared memory (227 KB)
 
 
-def _family(family: str) -> int:
+def _family(family: str, keys: torch.Tensor | None = None) -> int:
+    """The C hash family: 0 the kernels' on 32-bit lanes, 1 the engine's, 2
+    the kernels' on an int32 key (signed arithmetic)."""
     if family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
-    return FAMILIES.index(family)
+    if family == "engine":
+        return 1
+    return 2 if keys is not None and keys.dtype == torch.int32 else 0
 
 
 def _keys_u32(keys: torch.Tensor) -> torch.Tensor:
@@ -54,17 +80,40 @@ def _keys_u32(keys: torch.Tensor) -> torch.Tensor:
 
 def row_hashes(keys: torch.Tensor, rows: int, width: int, seed: int,
                family: str) -> torch.Tensor:
-    """int64 [m, rows]: the counter column of each key in each row."""
+    """int64 [m, rows]: the counter column of each key in each row (-1: the
+    probe is dropped, which only the kernels' family gives an int32 key)."""
     if _family(family) == 1:
         return multi_hash(keys, width, rows, seed)
-    return torch.stack([hash_mod(keys, width, (seed + 101 * r) & 0xFFFFFFFF)
-                        for r in range(rows)], -1)
+    signed = keys.dtype == torch.int32
+    return torch.stack([hash_mod(keys, width, (seed + 101 * r) & 0xFFFFFFFF,
+                                 signed=signed) for r in range(rows)], -1)
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 mod 2^32 (two's complement)."""
     x = x & 0xFFFFFFFF
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def wrap_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Integers (int64 or int32) wrapped into the integer ``dtype``, mod
+    2^bits, as an integer scatter-add of that dtype wraps."""
+    if dtype == torch.uint32:
+        return wrap_i32(x.to(torch.int64)).view(torch.uint32)
+    if dtype == torch.int32:
+        return wrap_i32(x.to(torch.int64))
+    bits = torch.iinfo(dtype).bits
+    x = x.to(torch.int64) & ((1 << bits) - 1)
+    if dtype.is_signed:
+        x = torch.where(x >= (1 << (bits - 1)), x - (1 << bits), x)
+    return x.to(dtype)
+
+
+def by_value_i64(x: torch.Tensor) -> torch.Tensor:
+    """An integer tensor by value in int64 (uint32 by its value)."""
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return x.to(torch.int64)
 
 
 def cms_build_plain(keys: torch.Tensor, weights: torch.Tensor | None, *,
@@ -76,34 +125,61 @@ def cms_build_plain(keys: torch.Tensor, weights: torch.Tensor | None, *,
     dev = keys.device
     dtype = torch.int32 if weights is None else weights.dtype
     lane = torch.arange(shards, device=dev).repeat_interleave(m // shards)
+    col = row_hashes(keys, rows, width, seed, family)
+    hit = (col >= 0).reshape(-1)
     cell = ((lane[:, None] * rows + torch.arange(rows, device=dev)) * width
-            + row_hashes(keys, rows, width, seed, family)).reshape(-1)
+            + col).reshape(-1)[hit]
     size = shards * rows * width
-    if dtype == torch.int32:
+    if dtype in INT_TABLES:
         w = (torch.ones(m, dtype=torch.int64, device=dev) if weights is None
-             else weights.to(torch.int64))
+             else by_value_i64(weights))
         acc = torch.zeros(size, dtype=torch.int64, device=dev)
-        acc.index_add_(0, cell, w.repeat_interleave(rows))
-        table = wrap_i32(acc)
+        acc.index_add_(0, cell, w.repeat_interleave(rows)[hit])
+        table = wrap_to(acc, dtype)
     else:
-        table = torch.zeros(size, dtype=torch.float32, device=dev)
-        table.index_add_(0, cell, weights.repeat_interleave(rows))
+        table = torch.zeros(size, dtype=dtype, device=dev)
+        table.index_add_(0, cell, weights.repeat_interleave(rows)[hit])
     return table.reshape(shards, rows, width)
 
 
-def _ctas_per_lane(shard_len: int, shards: int, dev: torch.device) -> int:
-    """Enough CTAs to fill the card (four per SM), at least 256 entries each."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-shard_len // 256), -(-4 * sms // shards)))
+@lru_cache(maxsize=None)
+def build_plan(device: torch.device, lanes: int, shard_len: int, rows: int,
+               width: int, is_int: int) -> tuple[int, int, int]:
+    """(CTAs a lane, the int32 shadow's limit, workspace bytes) of the CUDA
+    build on ``device``, as ``csrc/cms.cu`` lays it out (``cms_build_plan``;
+    the build takes the same plan itself)."""
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device):
+        err = library_fn("cms_build_plan",
+                         [I32, I64, I32, I32, I32,
+                          ctypes.POINTER(ctypes.c_longlong)], I32)(
+            lanes, shard_len, rows, width, is_int, out)
+    if err:
+        raise RuntimeError(f"cms_build_plan failed: cudaError {err}")
+    return tuple(int(v) for v in out)
+
+
+def _kernel_weights(weights: torch.Tensor | None):
+    """(weights as the C build takes them, is_int): an integer table is
+    built as int32 from weights by value mod 2^32, a float one as f32."""
+    if weights is None:
+        return None, 1
+    if weights.dtype in INT_TABLES:
+        w = (weights.view(torch.int32) if weights.dtype == torch.uint32
+             else weights.to(torch.int32))
+        return w.contiguous(), 1
+    return weights.to(torch.float32).contiguous(), 0
 
 
 def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
                      rows: int, width: int, seed: int = 0,
-                     family: str = "kernel", shards: int = 1) -> torch.Tensor:
+                     family: str = "kernel",
+                     shards: int = 1) -> torch.Tensor:
     """Count-Min tables [shards, rows, width] of the weights' dtype, lane s
-    over the contiguous keys [s * m/S, (s+1) * m/S)."""
+    over the contiguous keys [s * m/S, (s+1) * m/S). The C build lays
+    itself out (``build_plan``)."""
     m = keys.shape[0]
-    fam = _family(family)
+    fam = _family(family, keys)
     if rows < 1 or width < 1:
         raise ValueError(f"a sketch needs rows, width >= 1, got {rows}, "
                          f"{width}")
@@ -111,7 +187,7 @@ def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
         raise ValueError(f"{m} keys are not a multiple of shards={shards}")
     if weights is not None and (weights.shape != (m,)
                                 or weights.dtype not in DTYPES):
-        raise ValueError(f"weights must be int32 or float32 [{m}], got "
+        raise ValueError(f"weights must be [{m}] of one of {DTYPES}, got "
                          f"{weights.dtype} {tuple(weights.shape)}")
     if not keys.is_cuda:
         return cms_build_plain(keys, weights, rows=rows, width=width,
@@ -123,20 +199,47 @@ def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
     if shards > 65535:
         raise ValueError(f"the CUDA build takes at most 65535 lanes, got "
                          f"{shards}")
+    dev = keys.device
     dtype = torch.int32 if weights is None else weights.dtype
-    table = torch.zeros((shards, rows, width), dtype=dtype,
-                        device=keys.device)
+    w, is_int = _kernel_weights(weights)
+    staged = rows * width * 4 <= MAX_SMEM
+    n = m // shards
+    shape = (shards, rows, width)
+    table = (torch.empty if staged else torch.zeros)(
+        shape, dtype=torch.int32 if is_int else torch.float32, device=dev)
     if m:
-        CMS_BUILD.launch(keys.device, ptr(k),
-                         None if weights is None else ptr(weights),
-                         ptr(table), shards, m // shards, rows, width,
-                         seed & 0xFFFFFFFF, fam, int(dtype == torch.int32),
-                         _ctas_per_lane(m // shards, shards, keys.device))
-    return table
+        nbytes = build_plan(dev, shards, n, rows, width, is_int)[2]
+        work = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=dev)
+        CMS_BUILD.launch(dev, ptr(k), None if w is None else ptr(w),
+                         ptr(table), ptr(work), shards, n, rows, width,
+                         seed & 0xFFFFFFFF, fam, is_int)
+    else:
+        table.zero_()
+    return kernel_table(table, dtype)
 
 
-def _int_threshold(threshold) -> int:
-    """An int table compares est > floor(threshold) in integers."""
+def kernel_table(table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The C build's int32 or f32 table as a table of ``dtype`` (integers
+    wrapped into it, f16 rounded once)."""
+    if dtype == torch.uint32:
+        return table.view(torch.uint32)
+    if table.dtype == torch.int32:
+        return table if dtype == torch.int32 else wrap_to(table, dtype)
+    return table.to(dtype)
+
+
+def _int_threshold(threshold, dtype: torch.dtype) -> int:
+    """An integer table compares est > threshold in integers. A Python int
+    is weakly typed, as JAX compares an array with it (x64 off): outside
+    int32 it raises OverflowError, else it wraps into the table's dtype;
+    any other number compares as its floor."""
+    if isinstance(threshold, int):
+        if not -(1 << 31) <= threshold < (1 << 31):
+            raise OverflowError(f"Python int {threshold} too large to "
+                                "convert to int32")
+        bits = torch.iinfo(dtype).bits
+        t = threshold & ((1 << bits) - 1)
+        return t - (1 << bits) if dtype.is_signed and t >> (bits - 1) else t
     t = math.floor(threshold)
     return max(-_I64_MAX - 1, min(_I64_MAX, t))
 
@@ -144,16 +247,21 @@ def _int_threshold(threshold) -> int:
 def cms_query_plain(table: torch.Tensor, keys: torch.Tensor, *,
                     seed: int = 0, family: str = "kernel",
                     threshold=None) -> torch.Tensor:
-    """Plain query: est[m] = min over rows of table[r, hash_r(key)], or
-    keep bool[m] = est > threshold when a threshold is given."""
+    """Plain query: est[m] = min over rows of table[r, hash_r(key)] (a
+    dropped probe reads 0), or keep bool[m] = est > threshold when a
+    threshold is given."""
     rows, width = table.shape
     idx = row_hashes(keys, rows, width, seed, family)
-    est = table[torch.arange(rows, device=table.device), idx].amin(-1)
+    is_int = table.dtype in INT_TABLES
+    t = by_value_i64(table) if is_int else table
+    got = t[torch.arange(rows, device=table.device), idx.clamp(min=0)]
+    est = torch.where(idx < 0, torch.zeros((), dtype=t.dtype,
+                                           device=t.device), got).amin(-1)
     if threshold is None:
-        return est
-    if table.dtype == torch.int32:
-        return est.to(torch.int64) > _int_threshold(threshold)
-    return est > torch.tensor(threshold, dtype=torch.float32)
+        return wrap_to(est, table.dtype) if is_int else est
+    if is_int:
+        return est > _int_threshold(threshold, table.dtype)
+    return est > torch.tensor(threshold, dtype=table.dtype)
 
 
 def cms_query_kernel(table: torch.Tensor, keys: torch.Tensor, *,
@@ -161,10 +269,10 @@ def cms_query_kernel(table: torch.Tensor, keys: torch.Tensor, *,
                      threshold=None) -> torch.Tensor:
     """est[m] (the table's dtype) = min over rows of the hashed counters;
     with ``threshold``, the fused keep bool[m] = est > threshold instead."""
-    fam = _family(family)
+    fam = _family(family, keys)
     if table.ndim != 2 or table.dtype not in DTYPES:
-        raise ValueError(f"table must be int32 or float32 [rows, width], got "
-                         f"{table.dtype} {tuple(table.shape)}")
+        raise ValueError(f"table must be [rows, width] of one of {DTYPES}, "
+                         f"got {table.dtype} {tuple(table.shape)}")
     if not keys.is_cuda:
         return cms_query_plain(table, keys, seed=seed, family=family,
                                threshold=threshold)
@@ -173,19 +281,31 @@ def cms_query_kernel(table: torch.Tensor, keys: torch.Tensor, *,
     k = _keys_u32(keys)
     check_cuda("keys", k, torch.uint32)
     check_cuda("table", table, table.dtype, keys.device)
-    is_int = table.dtype == torch.int32
+    dtype = table.dtype
+    # the C query takes f32, int32 or uint32 tables: narrower integers by
+    # value in int32, f16 in f32 (est converted back, exactly)
+    if dtype == torch.uint32:
+        ttype = 2
+    elif dtype in INT_TABLES:
+        ttype, table = 1, table.to(torch.int32)
+    else:
+        ttype, table = 0, table.to(torch.float32)
     est = keep = None
+    thr_i, thr_f = 0, 0.0
     if threshold is None:
         est = torch.empty(m, dtype=table.dtype, device=keys.device)
-        thr_i, thr_f = 0, 0.0
     else:
         keep = torch.empty(m, dtype=torch.bool, device=keys.device)
-        thr_i = _int_threshold(threshold) if is_int else 0
-        thr_f = 0.0 if is_int else float(threshold)
+        if ttype:
+            thr_i = _int_threshold(threshold, dtype)
+        else:  # the threshold rounded into the table's dtype, as JAX does
+            thr_f = float(torch.tensor(threshold, dtype=dtype))
     if m:
-        CMS_QUERY.launch(keys.device, ptr(table), ptr(k),
+        CMS_QUERY.launch(keys.device, ptr(table.contiguous()), ptr(k),
                          None if est is None else ptr(est),
                          None if keep is None else ptr(keep), m, rows, width,
-                         seed & 0xFFFFFFFF, fam, int(is_int), thr_i, thr_f,
+                         seed & 0xFFFFFFFF, fam, ttype, thr_i, thr_f,
                          grid_for(m, keys.device))
-    return est if threshold is None else keep
+    if threshold is not None:
+        return keep
+    return est.view(torch.uint32) if ttype == 2 else est.to(dtype)

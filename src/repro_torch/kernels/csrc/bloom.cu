@@ -49,7 +49,9 @@
 // gathers are random 4-byte reads of a filter that stays in L2.
 //
 // Hash family at run time: family 0 is the Pallas kernels'
-// hash_mod(key, nbits, seed + 101 h), family 1 the engine's
+// hash_mod(key, nbits, seed + 101 h), family 2 the same on an int32 key in
+// the Pallas kernels' signed arithmetic (hash.cuh; its probe of -1,
+// BLOOM_NONE, sets nothing and reads as unset), family 1 the engine's
 // multi_hash(key, nbits, H, seed) (modulo, no 2^16 cap).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -68,13 +70,17 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+#define BLOOM_NONE 0xFFFFFFFFu  // a dropped probe of family 2
+
 __device__ __forceinline__ uint32_t bloom_bit(uint32_t key, int h,
                                               uint32_t nbits, uint32_t seed,
                                               int family) {
-  return static_cast<uint32_t>(
-      family == 0
-          ? cheetah_hash_mod(key, nbits, seed + 101u * static_cast<uint32_t>(h))
-          : cheetah_multi_hash(key, nbits, static_cast<uint32_t>(h), seed));
+  const uint32_t s = seed + 101u * static_cast<uint32_t>(h);
+  if (family == 1)
+    return static_cast<uint32_t>(
+        cheetah_multi_hash(key, nbits, static_cast<uint32_t>(h), seed));
+  return static_cast<uint32_t>(family == 2 ? cheetah_hash_mod_i32(key, nbits, s)
+                                           : cheetah_hash_mod(key, nbits, s));
 }
 
 // Words a CTA of a cluster of K owns: ceil(nwords / K), rounded up to a
@@ -156,6 +162,7 @@ __device__ __forceinline__ void bloom_hash_round(
                                             0x9E3779B9u + seed) &
                          (nbits - 1u)
                    : bloom_bit(key, h, nbits, seed, family);
+      if (b == BLOOM_NONE) continue;
       const uint32_t word = b >> 5;
       const uint32_t r =
           slice_p2 ? word >> slice_sh : word / static_cast<uint32_t>(slice);
@@ -291,7 +298,7 @@ __global__ void bloom_build_kernel(const uint32_t* __restrict__ keys,
     const uint32_t key = keys[i];
     for (int h = 0; h < H; ++h) {
       const uint32_t b = bloom_bit(key, h, nbits, seed, family);
-      atomicOr(dst + (b >> 5), 1u << (b & 31u));
+      if (b != BLOOM_NONE) atomicOr(dst + (b >> 5), 1u << (b & 31u));
     }
   }
   if (staged) {
@@ -313,7 +320,7 @@ __global__ void bloom_query_kernel(const uint32_t* __restrict__ words,
     uint8_t ok = 1;
     for (int h = 0; h < H && ok; ++h) {
       const uint32_t b = bloom_bit(key, h, nbits, seed, family);
-      ok = (__ldg(words + (b >> 5)) >> (b & 31u)) & 1u;
+      ok = b != BLOOM_NONE && ((__ldg(words + (b >> 5)) >> (b & 31u)) & 1u);
     }
     keep[i] = ok;
   }

@@ -33,6 +33,16 @@
 // included. Rows of w > 32 slots take groupby_walk_wide: every entry's full
 // step on a row in shared memory, probed lane-strided.
 //
+// Float keys (the reference's rule, src/repro/core/groupby.py:63-90): the
+// row is hashed from one key (a float32 key's bits, a float16 key's value
+// converted to uint32), the slot stores another (the key converted to
+// uint32 as XLA converts), and an entry hits only when its compare with the
+// slot holds in the key's float type, which some entries never can
+// (non-integers, negatives, NaN). The wrapper then passes ``skey``, the
+// stored key of each entry, and ``nohit``, 1 for an entry that hits no
+// slot; the partition carries the hashed key, and the walks read both by
+// the entry's index. Both are null for integer keys.
+//
 // groupby_serial_kernel is the kernel the walk replaced (one thread of a
 // CTA walks the lane, the cache in shared memory, 144 KB at d = 4096,
 // w = 4). No entry point of the package launches it; chip_smoke.py holds
@@ -174,7 +184,7 @@ __device__ __forceinline__ float fold_t(float a, float v) {
 // is valid, as it is itself. Such an entry hits the slot that key sits in.
 // The flag goes to the entry's fourth word, which the partition left 0.
 __global__ void groupby_mark(uint4* __restrict__ part, long long m,
-                             int shard_len) {
+                             int shard_len, const uint8_t* __restrict__ nohit) {
   const uint32_t* words = reinterpret_cast<const uint32_t*>(part);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -183,7 +193,8 @@ __global__ void groupby_mark(uint4* __restrict__ part, long long m,
     const uint32_t k1 = words[4 * j], i1 = words[4 * j + 2];
     const uint32_t k0 = words[4 * j - 4], i0 = words[4 * j - 2];
     const bool run = k1 == k0 && !((i1 | i0) & ROWPAR_INVALID) &&
-                     i1 / shard_len == i0 / shard_len;
+                     i1 / shard_len == i0 / shard_len &&
+                     !(nohit && nohit[i1]);
     if (run) part[j].w = 1u;
   }
 }
@@ -198,7 +209,9 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
                  const int* __restrict__ starts, uint32_t* __restrict__ ev_k,
                  float* __restrict__ ev_a, uint8_t* __restrict__ ev_valid,
                  uint32_t* __restrict__ keys_out, float* __restrict__ aggs_out,
-                 uint8_t* __restrict__ valid_out, long long nseg, int w) {
+                 uint8_t* __restrict__ valid_out, long long nseg, int w,
+                 const uint32_t* __restrict__ skey,
+                 const uint8_t* __restrict__ nohit) {
   __shared__ uint4 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
   const long long g =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -322,7 +335,9 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
         continue;
       }
       const uint4 ee = ch[e];
-      const uint32_t kk = ee.x;
+      const uint32_t ei = ee.z & 0x7FFFFFFFu;
+      const uint32_t kk = skey ? skey[ei] : ee.x;
+      const bool can = !(nohit && nohit[ei]);
       const float x = __uint_as_float(ee.y);
       const bool oo = static_cast<int>(ee.z) >= 0;
       int hp = W;
@@ -330,7 +345,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
       float la = as[0];
 #pragma unroll
       for (int i = W - 1; i >= 0; --i) {
-        if (((vm >> i) & 1u) && ks[i] == kk) hp = i;
+        if (((vm >> i) & 1u) && ks[i] == kk && can) hp = i;
         if (i == last) {
           lk = ks[i];
           la = as[i];
@@ -397,13 +412,14 @@ template <int W>
 void groupby_walk_launch(const uint4* part, const int* starts, uint32_t* ev_k,
                          float* ev_a, uint8_t* ev_valid, uint32_t* keys_out,
                          float* aggs_out, uint8_t* valid_out, long long nseg,
-                         int w, int agg, cudaStream_t stream) {
+                         int w, int agg, const uint32_t* skey,
+                         const uint8_t* nohit, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((nseg * 32 + ROWPAR_THREADS - 1) /
                                                 ROWPAR_THREADS);
 #define CHEETAH_WALK(A)                                                       \
   groupby_walk<W, A><<<blocks, ROWPAR_THREADS, 0, stream>>>(                  \
       part, starts, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,     \
-      nseg, w)
+      nseg, w, skey, nohit)
   switch (agg) {
     case kSum: CHEETAH_WALK(kSum); break;
     case kCount: CHEETAH_WALK(kCount); break;
@@ -426,7 +442,9 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
                       uint8_t* __restrict__ ev_valid,
                       uint32_t* __restrict__ keys_out,
                       float* __restrict__ aggs_out,
-                      uint8_t* __restrict__ valid_out, long long nseg, int w) {
+                      uint8_t* __restrict__ valid_out, long long nseg, int w,
+                      const uint32_t* __restrict__ skey,
+                      const uint8_t* __restrict__ nohit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -454,10 +472,12 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     float my_a = 0.0f;
     bool my_v = false;
     for (int e = 0; e < n; ++e) {
-      const uint32_t kk = __shfl_sync(ROWPAR_FULL, en.x, e);
+      const uint32_t ez = __shfl_sync(ROWPAR_FULL, en.z, e);
+      const uint32_t ei = ez & 0x7FFFFFFFu;
+      const uint32_t kk = skey ? skey[ei] : __shfl_sync(ROWPAR_FULL, en.x, e);
       const float x = __uint_as_float(__shfl_sync(ROWPAR_FULL, en.y, e));
-      const bool oo = static_cast<int>(__shfl_sync(ROWPAR_FULL, en.z, e)) >= 0;
-      const int hp = rowpar_first_hit(ks, vb, w, kk, lane);
+      const bool oo = static_cast<int>(ez) >= 0;
+      const int hp = nohit && nohit[ei] ? w : rowpar_first_hit(ks, vb, w, kk, lane);
       if (lane == e) {
         my_k = ks[last];
         my_a = as[last];
@@ -500,6 +520,8 @@ cudaError_t groupby_walk_wide_launch(const uint4* part, const int* starts,
                                      uint8_t* ev_valid, uint32_t* keys_out,
                                      float* aggs_out, uint8_t* valid_out,
                                      long long nseg, int w, int agg,
+                                     const uint32_t* skey,
+                                     const uint8_t* nohit,
                                      cudaStream_t stream) {
   const size_t row = static_cast<size_t>(w) * 9;
   const int warps = rowpar_wide_warps(row);
@@ -515,7 +537,7 @@ cudaError_t groupby_walk_wide_launch(const uint4* part, const int* starts,
 #define CHEETAH_WALK(A)                                                       \
   groupby_walk_wide<A><<<blocks, warps * 32, smem, stream>>>(                 \
       part, starts, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,     \
-      nseg, w)
+      nseg, w, skey, nohit)
   switch (agg) {
     case kSum: CHEETAH_WALK(kSum); break;
     case kCount: CHEETAH_WALK(kCount); break;
@@ -552,7 +574,8 @@ extern "C" int groupby_pass1(const uint32_t* keys, const float* vals,
                              uint8_t* ev_valid, uint32_t* keys_out,
                              float* aggs_out, uint8_t* valid_out, int shards,
                              int shard_len, int d, int w, int agg,
-                             uint32_t seed, unsigned char* work,
+                             uint32_t seed, const uint32_t* skey,
+                             const uint8_t* nohit, unsigned char* work,
                              cudaStream_t stream) {
   if (w < 1 || agg < kSum || agg > kMax ||
       (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 9) == 0))
@@ -568,23 +591,27 @@ extern "C" int groupby_pass1(const uint32_t* keys, const float* vals,
   const long long m = static_cast<long long>(shards) * shard_len;
   groupby_mark<<<static_cast<unsigned>(min((m + ROWPAR_THREADS - 1) /
                                            ROWPAR_THREADS, 132LL * 16)),
-                 ROWPAR_THREADS, 0, stream>>>(part, m, shard_len);
+                 ROWPAR_THREADS, 0, stream>>>(part, m, shard_len, nohit);
   if (w <= 4)
     groupby_walk_launch<4>(part, starts, ev_k, ev_a, ev_valid, keys_out,
-                           aggs_out, valid_out, nseg, w, agg, stream);
+                           aggs_out, valid_out, nseg, w, agg, skey, nohit,
+                           stream);
   else if (w <= 8)
     groupby_walk_launch<8>(part, starts, ev_k, ev_a, ev_valid, keys_out,
-                           aggs_out, valid_out, nseg, w, agg, stream);
+                           aggs_out, valid_out, nseg, w, agg, skey, nohit,
+                           stream);
   else if (w <= 16)
     groupby_walk_launch<16>(part, starts, ev_k, ev_a, ev_valid, keys_out,
-                            aggs_out, valid_out, nseg, w, agg, stream);
+                            aggs_out, valid_out, nseg, w, agg, skey, nohit,
+                           stream);
   else if (w <= 32)
     groupby_walk_launch<32>(part, starts, ev_k, ev_a, ev_valid, keys_out,
-                            aggs_out, valid_out, nseg, w, agg, stream);
+                            aggs_out, valid_out, nseg, w, agg, skey, nohit,
+                           stream);
   else
     return groupby_walk_wide_launch(part, starts, ev_k, ev_a, ev_valid,
                                     keys_out, aggs_out, valid_out, nseg, w,
-                                    agg, stream);
+                                    agg, skey, nohit, stream);
   return cudaGetLastError();
 }
 

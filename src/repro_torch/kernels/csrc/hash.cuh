@@ -6,7 +6,8 @@
 // repro_torch.core.hashing: murmur3 fmix32 with a seed, then a 16-bit split
 // multiply-shift range reduction below 2^16 rows (modulo above); multi_hash
 // derives hash j's seed as j * 0x9E3779B9 + seed and always reduces by
-// modulo. All arithmetic is uint32 and wraps exactly as on the host side.
+// modulo. All arithmetic is uint32 and wraps exactly as on the host side,
+// except the signed variant of the Pallas kernels for an int32 key below.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,6 +38,42 @@ __device__ __forceinline__ int cheetah_hash_mod(uint32_t x, uint32_t mod,
     return static_cast<int>(t >> 16);
   }
   return static_cast<int>(h % mod);
+}
+
+// mix32 / hash_mod as the Pallas kernels compute them on an int32 key (the
+// key's own dtype): every >> arithmetic, every product wrapped as int32, the
+// range reduction and its modulo signed. The mixed hash is always below 2^31
+// (its last step xors the sign with itself), so a width below 2^16 is
+// filled only in its lower half; at widths of 2^15 or more the multiply-shift
+// gives -1 for about one key in 2^16, a probe that matches no column of the
+// Pallas kernels' one-hot: callers drop it (a build adds nothing, a query
+// reads 0).
+__device__ __forceinline__ uint32_t cheetah_mix32_i32(uint32_t x,
+                                                      uint32_t seed) {
+  int h = static_cast<int>(x ^ seed);
+  h ^= h >> 16;
+  h = static_cast<int>(static_cast<uint32_t>(h) * 0x85EBCA6Bu);
+  h ^= h >> 13;
+  h = static_cast<int>(static_cast<uint32_t>(h) * 0xC2B2AE35u);
+  h ^= h >> 16;
+  return static_cast<uint32_t>(h);
+}
+
+__device__ __forceinline__ int cheetah_hash_mod_i32(uint32_t x, uint32_t mod,
+                                                    uint32_t seed) {
+  const int h = static_cast<int>(cheetah_mix32_i32(x, seed));
+  if (mod < 65536u) {
+    const int lo = h & 0xFFFF;
+    const int hi = h >> 16;
+    const int t = static_cast<int>(
+        static_cast<uint32_t>(hi) * mod +
+        static_cast<uint32_t>(static_cast<int>(static_cast<uint32_t>(lo) * mod) >>
+                              16));
+    return t >> 16;
+  }
+  const int m = static_cast<int>(mod);
+  const int r = h % m;
+  return r != 0 && ((r < 0) != (m < 0)) ? r + m : r;
 }
 
 // Hash j of multi_hash: one of ``num`` independent hashes of x.

@@ -72,9 +72,37 @@
 //
 // skyline_apply replaces skyline_apply_kernel (src/repro/kernels/parallel.py:398)
 // and is the engine's pass 2: keep iff none of the S*w merged points with
-// score > NEG dominates the entry. The merged set is staged in shared
-// memory; a thread stops at the first dominator, which leaves the mask
-// unchanged. Bounded by the m * S*w * D comparisons more than by bytes.
+// score > NEG dominates the entry. It runs in two steps:
+//   1. sky_compact_flags and sky_compact_order, one warp a merged point
+//      (sw * D * sw compares at most, spread over sw warps): keep a set of
+//      the merged points that gives the same mask, k points. It drops the slots whose score is not
+//      > NEG (NaN scores too), the points with a NaN coordinate (dominates
+//      can never hold for them), every point that another valid point
+//      dominates, and every point equal to a valid point of a lower index
+//      (all coordinates ==, so -0 and +0 are equal); it orders the rest by
+//      score, descending, ties to the lowest index, so that a dominator
+//      comes early. Why the mask stays the same: on floats with no NaN
+//      coordinate, <= and < are transitive and -0, +0 compare equal both
+//      ways, so dominance is a strict partial order on the valid points. If
+//      a valid y dominates an entry x, follow dominators up from y to a
+//      maximal z (the set is finite): z dominates x (z >= y >= x in every
+//      dimension, and y > x in one, so z > x there), and z, or the equal
+//      point of lowest index that stands for it, is kept.
+//   2. sky_apply_compact: the k points go into shared memory as a
+//      structure of arrays; each thread takes two consecutive entries (for
+//      D = 2 one float4 load), tests both against the points in order,
+//      stops when both are dominated, and writes two keep bytes. The grid
+//      is sized to the SMs. (Loading two pairs before testing the first was
+//      no faster on an H100.)
+// What bounds it: the larger of the bytes (the entries read once, the mask
+// written once) and the compares the data needs, (m - kept) * D for the
+// entries a point dominates early plus kept * k * D for the survivors.
+//
+// skyline_apply_scan is the apply this replaced: every thread walks all
+// S*w merged slots in slot order until its first dominator, empty slots
+// included, so an unsorted set and every survivor pay the full walk. No
+// entry point of the package launches it; chip_smoke.py holds the new
+// apply against it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -612,6 +640,193 @@ cudaError_t apply_launch(const float* x, const float* mp, const float* ms,
   return cudaGetLastError();
 }
 
+#define SKY_COMPACT_WARPS 8  // points a CTA of the compaction takes
+
+// The compaction's workspace: the count k (16 bytes), the keep flags
+// int[sw], then the kept points as f32[D][sw] and their scores f32[sw].
+struct SkyCompactWork {
+  int* count;
+  int* flag;
+  float* pts;
+  float* scs;
+};
+
+SkyCompactWork sky_compact_work(unsigned char* work, int sw, int D) {
+  SkyCompactWork w;
+  w.count = reinterpret_cast<int*>(work);
+  w.flag = reinterpret_cast<int*>(work + 16);
+  w.pts = reinterpret_cast<float*>(w.flag + sw);
+  w.scs = w.pts + static_cast<size_t>(D) * sw;
+  return w;
+}
+
+size_t sky_compact_bytes(int sw, int D) {
+  return 16 + static_cast<size_t>(sw) * (1 + D + 1) * 4;
+}
+
+// Step 1a of the apply (see the header): one warp a merged point j, its
+// lanes over the other points i in strides of 32. flag[j] = j is valid and
+// no valid i dominates it or equals it at a lower index.
+__global__ void __launch_bounds__(SKY_COMPACT_WARPS * 32)
+    sky_compact_flags(const float* __restrict__ mp,
+                      const float* __restrict__ ms, int sw, int D,
+                      int* __restrict__ flag) {
+  const int j = blockIdx.x * SKY_COMPACT_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (j >= sw) return;  // whole warps
+  const float neg = cheetah_neg_value();
+  const float* pj = mp + static_cast<size_t>(j) * D;
+  bool ok = ms[j] > neg;
+  for (int d = 0; d < D; ++d) ok = ok && !isnan(pj[d]);
+  bool beaten = false;
+  if (ok) {
+#pragma unroll 4
+    for (int i = lane; i < sw; i += 32) {
+      if (i == j || !(ms[i] > neg)) continue;
+      const float* pi = mp + static_cast<size_t>(i) * D;
+      bool valid = true, ge = true, gt = false, eq = true;
+      for (int d = 0; d < D; ++d) {
+        const float a = pi[d], b = pj[d];
+        valid &= !isnan(a);
+        ge &= b <= a;
+        gt |= b < a;
+        eq &= a == b;
+      }
+      beaten |= valid && ((ge && gt) || (eq && i < j));
+    }
+  }
+  beaten = __any_sync(0xFFFFFFFFu, beaten);
+  if (lane == 0) flag[j] = ok && !beaten;
+}
+
+// Step 1b: one warp a flagged point j: its rank among the flagged points
+// by score descending, ties to the lowest index, is its slot in the
+// compacted set; the warp of point 0 also writes the count k.
+__global__ void __launch_bounds__(SKY_COMPACT_WARPS * 32)
+    sky_compact_order(const float* __restrict__ mp,
+                      const float* __restrict__ ms, int sw, int D,
+                      const int* __restrict__ flag, int* __restrict__ count,
+                      float* __restrict__ pts, float* __restrict__ scs) {
+  const int j = blockIdx.x * SKY_COMPACT_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (j >= sw || !(flag[j] || j == 0)) return;  // whole warps
+  const float sj = ms[j];
+  int rank = 0, total = 0;
+  for (int i = lane; i < sw; i += 32) {
+    const bool f = flag[i] != 0;
+    rank += f && (ms[i] > sj || (ms[i] == sj && i < j));
+    total += f;
+  }
+  rank = __reduce_add_sync(0xFFFFFFFFu, rank);
+  total = __reduce_add_sync(0xFFFFFFFFu, total);
+  if (j == 0 && lane == 0) *count = total;
+  if (!flag[j]) return;
+  for (int d = lane; d < D; d += 32)
+    pts[static_cast<size_t>(d) * sw + rank] = mp[static_cast<size_t>(j) * D + d];
+  if (lane == 0) scs[rank] = sj;
+}
+
+template <int D>
+__device__ __forceinline__ bool sky_dom(const float* p, const float* x) {
+  bool ge = true, gt = false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    ge &= x[d] <= p[d];
+    gt |= x[d] < p[d];
+  }
+  return ge && gt;
+}
+
+// Step 2 of the apply (see the header): ``pts`` holds the k kept points as
+// f32[D][ld]; staged in shared memory as f32[D][k] when ``staged``. ``vec``:
+// x lies on 16 bytes and keep on 2, so that D = 2 reads a pair of entries
+// with one float4 and writes their keep bytes with one uchar2 (a view that
+// starts at an odd entry takes the scalar loads and stores).
+template <int D>
+__global__ void sky_apply_compact(const float* __restrict__ x,
+                                  const float* __restrict__ pts,
+                                  const int* __restrict__ count, int ld,
+                                  uint8_t* __restrict__ keep, long long m,
+                                  int staged, int vec) {
+  extern __shared__ __align__(16) float sky_pts[];
+  const int k = *count;
+  const float* P = pts;
+  int stride_d = ld;
+  if (staged) {
+    for (int i = threadIdx.x; i < D * k; i += blockDim.x)
+      sky_pts[i] = pts[static_cast<size_t>(i / k) * ld + i % k];
+    __syncthreads();
+    P = sky_pts;
+    stride_d = k;
+  }
+  const long long pairs = (m + 1) / 2;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       q < pairs; q += step) {
+    const long long i0 = 2 * q;
+    const bool two = i0 + 1 < m;
+    float a[D], b[D];
+    if (D == 2 && two && vec) {
+      const float4 v = reinterpret_cast<const float4*>(x)[q];
+      a[0] = v.x;
+      a[D - 1] = v.y;
+      b[0] = v.z;
+      b[D - 1] = v.w;
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        a[d] = x[i0 * D + d];
+        b[d] = two ? x[(i0 + 1) * D + d] : 0.0f;
+      }
+    }
+    bool da = false, db = !two;
+    for (int j = 0; j < k && !(da && db); ++j) {
+      float p[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) p[d] = P[static_cast<size_t>(d) * stride_d + j];
+      da = da || sky_dom<D>(p, a);
+      db = db || sky_dom<D>(p, b);
+    }
+    if (two && vec) {
+      reinterpret_cast<uchar2*>(keep)[q] = make_uchar2(!da, !db);
+    } else {
+      keep[i0] = !da;
+      if (two) keep[i0 + 1] = !db;
+    }
+  }
+}
+
+cudaError_t compact_launch(const float* mp, const float* ms, int sw, int D,
+                           SkyCompactWork w, cudaStream_t stream) {
+  const unsigned grid = (sw + SKY_COMPACT_WARPS - 1) / SKY_COMPACT_WARPS;
+  sky_compact_flags<<<grid, SKY_COMPACT_WARPS * 32, 0, stream>>>(mp, ms, sw,
+                                                                 D, w.flag);
+  sky_compact_order<<<grid, SKY_COMPACT_WARPS * 32, 0, stream>>>(
+      mp, ms, sw, D, w.flag, w.count, w.pts, w.scs);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t compact_apply_launch(const float* x, const float* mp,
+                                 const float* ms, uint8_t* keep, long long m,
+                                 int sw, int grid, unsigned char* work,
+                                 cudaStream_t stream) {
+  const SkyCompactWork w = sky_compact_work(work, sw, D);
+  cudaError_t err = compact_launch(mp, ms, sw, D, w, stream);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = static_cast<size_t>(sw) * D * sizeof(float);
+  const int staged = bytes <= CHEETAH_MAX_SMEM;
+  const size_t smem = staged ? bytes : 0;
+  err = cheetah_launch_prep(
+      reinterpret_cast<const void*>(sky_apply_compact<D>), smem);
+  if (err != cudaSuccess) return err;
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(keep) % 2 == 0;
+  sky_apply_compact<D><<<grid, 256, smem, stream>>>(x, w.pts, w.count, sw,
+                                                    keep, m, staged, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory of the largest phase: the summary's or the chain's (the
@@ -685,9 +900,37 @@ extern "C" int skyline_pass1_serial(const float* x, uint8_t* keep,
   return cudaGetLastError();
 }
 
+extern "C" size_t skyline_apply_workspace(int sw, int D) {
+  return sky_compact_bytes(sw, D);
+}
+
 extern "C" int skyline_apply(const float* x, const float* mp, const float* ms,
                              uint8_t* keep, long long m, int D, int sw,
-                             int grid, cudaStream_t stream) {
+                             int grid, unsigned char* work,
+                             cudaStream_t stream) {
+#define SKY_CASE(N)                                                         \
+  case N:                                                                   \
+    return compact_apply_launch<N>(x, mp, ms, keep, m, sw, grid, work, stream)
+  switch (D) {
+    SKY_CASE(1);
+    SKY_CASE(2);
+    SKY_CASE(3);
+    SKY_CASE(4);
+    SKY_CASE(5);
+    SKY_CASE(6);
+    SKY_CASE(7);
+    SKY_CASE(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef SKY_CASE
+}
+
+// The retired apply (the slot-order scan), for holding the compacted apply
+// against it; launched by no entry point of the package.
+extern "C" int skyline_apply_scan(const float* x, const float* mp,
+                                  const float* ms, uint8_t* keep, long long m,
+                                  int D, int sw, int grid,
+                                  cudaStream_t stream) {
   switch (D) {
     case 1: return apply_launch<1>(x, mp, ms, keep, m, sw, grid, stream);
     case 2: return apply_launch<2>(x, mp, ms, keep, m, sw, grid, stream);

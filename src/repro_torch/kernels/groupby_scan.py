@@ -20,6 +20,12 @@ tensor. Both are bit-identical: the folds are f32 adds, compares and
 each (lane, row) is walked on its own, in stream order, after a stable
 partition (any d, both branches of ``hash_mod``; a row of w > 32 slots
 is walked in shared memory).
+
+Keys follow the JAX package's rule (``core/groupby.py:63-90``, ``key_form``):
+the slot is uint32 and holds the key converted as XLA converts it; an
+integer or bool key converts by value (mod 2^32) and is hashed so; a float
+key hits a slot only where the float compare ``slot == key`` holds, and is
+hashed by its bits (float32) or by its converted value (float16).
 """
 from __future__ import annotations
 
@@ -27,13 +33,14 @@ import torch
 
 from ..constants import NEG, POS
 from ..core.hashing import as_u32, hash_mod
-from .cms_sketch import _keys_u32, wrap_i32
+from .cms_sketch import wrap_i32
+from .ref import distinct_keys
 from .common import (I32, P, U32, CudaKernel, check_cuda, check_rowpar, ptr,
                      workspace)
 
 GROUPBY_PASS1 = CudaKernel(
     "groupby_pass1",
-    [P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, U32, P])
+    [P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, U32, P, P, P])
 AGGS = ("sum", "count", "min", "max")
 INIT = {"sum": 0.0, "count": 0.0, "min": float(POS), "max": float(NEG)}
 
@@ -64,6 +71,28 @@ def init_state(shards: int, d: int, w: int, agg: str,
             torch.zeros(shape, dtype=torch.bool, device=device))
 
 
+def key_form(keys: torch.Tensor):
+    """(hashed uint32 lanes, stored key int64 by value, hittable bool) of
+    each GROUP BY key, as the JAX package treats a key of that dtype: an
+    integer or bool key by its value mod 2^32 for all three; a float32 key
+    hashed by its bits, a float16 one by its converted value, stored
+    converted (toward zero, saturating, NaN and negatives to 0) and hitting
+    only where the slot converts back to it in the key's type (float16's
+    +inf does: 2^32 - 1 rounds to +inf there)."""
+    if not keys.is_floating_point():
+        k = as_u32(keys)
+        return (wrap_i32(k).view(torch.uint32), k,
+                torch.ones(k.shape, dtype=torch.bool, device=keys.device))
+    f = keys.to(torch.float32)
+    key, hit = distinct_keys(f)
+    if keys.dtype == torch.float32:
+        return keys.view(torch.uint32), key, hit
+    if keys.dtype != torch.float16:
+        raise TypeError(f"GROUP BY keys of {keys.dtype} are not taken")
+    return (wrap_i32(key).view(torch.uint32), key,
+            key.to(torch.float16) == keys)
+
+
 def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
                         valid: torch.Tensor | None, *, d: int, w: int,
                         agg: str = "sum", seed: int = 0):
@@ -72,11 +101,11 @@ def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
     _agg(agg)
     S, n = keys.shape
     dev = keys.device
-    k64 = as_u32(keys)
+    hkey, k64, hittable = key_form(keys)
     vals = values.to(torch.float32)
     ok = (torch.ones((S, n), dtype=torch.bool, device=dev) if valid is None
           else valid)
-    rows = hash_mod(keys, d, seed)
+    rows = hash_mod(hkey, d, seed)
     st_k, st_a, st_v = init_state(S, d, w, agg, dev)
     st_k = as_u32(st_k)
     ev_k = torch.empty((S, n), dtype=torch.int64, device=dev)
@@ -87,7 +116,7 @@ def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
     for t in range(n):
         r, k, v, o = rows[:, t], k64[:, t], vals[:, t], ok[:, t]
         kr, ar, vr = st_k[lane, r], st_a[lane, r], st_v[lane, r]
-        hitvec = (kr == k[:, None]) & vr
+        hitvec = (kr == k[:, None]) & vr & hittable[:, t, None]
         hit = hitvec.any(1)
         pos = hitvec.to(torch.int8).argmax(1)
         ev_k[:, t] = kr[:, -1]
@@ -109,7 +138,7 @@ def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
 def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
                          valid: torch.Tensor | None = None, *, d: int, w: int,
                          agg: str = "sum", seed: int = 0, shards: int = 1):
-    """Pass 1 of S lanes over a stream of m keys (32-bit lanes) and values:
+    """Pass 1 of S lanes over a stream of m keys (``key_form``) and values:
     ((ev_k uint32, ev_a f32, ev_valid bool) each [m], (keys uint32, aggs f32,
     valid bool) each [shards, d, w]). Lane s owns the entries
     [s * m/S, (s+1) * m/S)."""
@@ -125,11 +154,15 @@ def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
     n = m // shards
     if not keys.is_cuda:
         ev, st = groupby_pass1_plain(
-            _keys_u32(keys).reshape(shards, n), values.reshape(shards, n),
+            keys.reshape(shards, n), values.reshape(shards, n),
             None if valid is None else valid.reshape(shards, n), d=d, w=w,
             agg=agg, seed=seed)
         return tuple(e.reshape(m) for e in ev), st
-    k = _keys_u32(keys)
+    k, skey, hittable = key_form(keys)
+    # a float key stores another key than it is hashed by, and may hit no
+    # slot: the walk reads both by the entry's index
+    skey, nohit = ((wrap_i32(skey).view(torch.uint32), ~hittable)
+                   if keys.is_floating_point() else (None, None))
     check_cuda("keys", k, torch.uint32)
     check_cuda("values", values, torch.float32, keys.device)
     if valid is not None:
@@ -146,5 +179,7 @@ def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
                              None if valid is None else ptr(valid), ptr(ev_k),
                              ptr(ev_a), ptr(ev_v), *(ptr(s) for s in st),
                              shards, n, d, w, code, seed & 0xFFFFFFFF,
+                             None if skey is None else ptr(skey),
+                             None if nohit is None else ptr(nohit),
                              ptr(work))
     return (ev_k, ev_a, ev_v), st

@@ -29,8 +29,9 @@ from ..core.hashing import as_u32
 from . import parallel
 from .bloom_filter import (bloom_build_kernel, bloom_query_kernel, pack_bits,
                            unpack_bits)
-from .cms_sketch import cms_build_kernel, cms_query_kernel
+from .cms_sketch import cms_build_kernel, cms_query_kernel, wrap_i32
 from .distinct_prune import distinct_prune_kernel
+from .ref import distinct_keys
 from .rle_scan import rle_topn_det_kernel
 from .skyline_prune import skyline_prune_kernel
 from .topn_prune import topn_prune_kernel
@@ -40,8 +41,9 @@ def _pad_to(x: torch.Tensor, block: int, fill,
             dim: int = 0) -> tuple[torch.Tensor, int]:
     """Tail-pad ``x`` along ``dim`` with ``fill`` to a multiple of ``block``;
     returns (padded, original length). uint32 pads through its int32 view,
-    with ``fill`` taken mod 2^32; a float fill of an integer stream is
-    converted as numpy converts it (``cast_fill``: NEG is -2^31 in int32)."""
+    with ``fill`` taken mod 2^32; a float fill is converted as numpy
+    converts it (``cast_fill``: NEG is -2^31 in int32 and -inf in float16,
+    as ``jnp.full`` gives it)."""
     m = x.shape[dim]
     pad = (-m) % block
     if pad == 0:
@@ -53,7 +55,7 @@ def _pad_to(x: torch.Tensor, block: int, fill,
         return padded.view(torch.uint32), m
     shape = list(x.shape)
     shape[dim] = pad
-    if isinstance(fill, float) and not x.is_floating_point():
+    if isinstance(fill, float):
         fill = cast_fill(fill, x.dtype).item()
     tail = torch.full(shape, fill, dtype=x.dtype, device=x.device)
     return torch.cat([x, tail], dim=dim), m
@@ -190,8 +192,10 @@ def rle_topn_prune(run_values: torch.Tensor, run_lengths: torch.Tensor, *,
 
 def rle_distinct_prune(run_values: torch.Tensor, *, d: int, w: int,
                        policy: str = "lru", seed: int = 0) -> torch.Tensor:
-    """Run-level DISTINCT over uint32 run values: bool[R] keep mask over the
-    run heads.
+    """Run-level DISTINCT over run values converted to uint32 as the JAX
+    package converts them (``jnp.asarray(run_values, jnp.uint32)``: a float
+    by value, toward zero, saturating, NaN and negatives to 0; an integer
+    by its 32-bit lanes): bool[R] keep mask over the run heads.
 
     Every entry of a run after its first hits the cache and leaves it as it
     was (FIFO skips the insert; LRU moves the front slot to the front), so
@@ -201,8 +205,11 @@ def rle_distinct_prune(run_values: torch.Tensor, *, d: int, w: int,
     """
     from ..core.distinct import distinct_prune as seq_distinct
 
-    return seq_distinct(run_values.contiguous(), d=d, w=w, policy=policy,
-                        seed=seed).keep
+    vals = run_values.contiguous()
+    if vals.is_floating_point():
+        vals = wrap_i32(distinct_keys(vals.to(torch.float32))[0]).view(
+            torch.uint32)
+    return seq_distinct(vals, d=d, w=w, policy=policy, seed=seed).keep
 
 
 def rle_expand_mask(head: torch.Tensor, tstar: torch.Tensor | None,

@@ -62,7 +62,8 @@ DISTINCT_APPLY = CudaKernel(
 SKYLINE_PASS1 = CudaKernel(
     "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32, P],
     smem_fn="skyline_pass1_smem")
-SKYLINE_APPLY = CudaKernel("skyline_apply", [P, P, P, P, I64, I32, I32, I32])
+SKYLINE_APPLY = CudaKernel("skyline_apply",
+                           [P, P, P, P, I64, I32, I32, I32, P])
 KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
            BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
@@ -536,9 +537,33 @@ def skyline_apply_plain(points: torch.Tensor, mpoints: torch.Tensor,
     return keep
 
 
+def skyline_compact_plain(mpoints: torch.Tensor, mscores: torch.Tensor):
+    """The compacted merged set that ``csrc/skyline.cu``'s apply tests
+    against: (points f32[k, D], scores f32[k]). It keeps the valid points
+    (score > NEG, no NaN coordinate) that no other valid point dominates,
+    one of each group of equal points (the lowest index), ordered by score
+    descending, ties to the lowest index. ``skyline_apply_plain`` against
+    it gives the mask it gives against the whole set (the argument is in
+    the kernel's comment)."""
+    p = mpoints.to(torch.float32)
+    valid = (mscores > NEG) & ~p.isnan().any(-1)
+    a, b = p[:, None, :], p[None, :, :]          # a = dominator i, b = j
+    dom = (b <= a).all(-1) & (b < a).any(-1)
+    idx = torch.arange(p.shape[0], device=p.device)
+    equal_lower = (a == b).all(-1) & (idx[:, None] < idx[None, :])
+    beaten = ((dom | equal_lower) & valid[:, None]).any(0)
+    kept = torch.nonzero(valid & ~beaten).flatten()
+    order = torch.sort(-mscores[kept], stable=True).indices
+    kept = kept[order]
+    return p[kept], mscores[kept]
+
+
 def skyline_apply_kernel(points: torch.Tensor, mpoints: torch.Tensor,
                          mscores: torch.Tensor) -> torch.Tensor:
-    """Pass 2: keep bool[m] iff no merged stored point dominates the entry."""
+    """Pass 2: keep bool[m] iff no merged stored point dominates the entry.
+    On the card: a compaction of the merged set, then the apply against
+    the k points kept (``skyline_compact_plain``; one launch of the C
+    entry)."""
     D = _check_points("points", points)
     m = points.shape[0]
     sw = mscores.shape[0]
@@ -555,9 +580,12 @@ def skyline_apply_kernel(points: torch.Tensor, mpoints: torch.Tensor,
         raise ValueError(f"the CUDA skyline apply takes D <= {SKYLINE_MAX_D}, "
                          f"got {D}")
     keep = torch.empty(m, dtype=torch.bool, device=points.device)
-    if m:
+    if m and sw:
+        work = workspace(points.device, "skyline_apply_workspace", sw, D)
         SKYLINE_APPLY.launch(points.device, ptr(points), ptr(mpoints),
                              ptr(mscores), ptr(keep), m, D, sw,
-                             grid_for(m, points.device))
+                             grid_for(m, points.device), ptr(work))
+    elif m:
+        keep.fill_(True)
     return keep
 

@@ -29,11 +29,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from .. import core
 from ..constants import NEG
-from ..core.encoding import take_rows
+from ..core.encoding import ambiguous_floats, take_rows
 from ..core.hashing import as_u32, by_value
 from .tables import DictColumn, Table
 
@@ -63,7 +64,11 @@ def _code_stream(col, decode: str):
 
 def _unique_values(x: torch.Tensor) -> torch.Tensor:
     """The sorted distinct values of ``x``, as ``np.unique`` gives them:
-    uint32 by value, and every NaN collapsed into one last entry."""
+    uint32 by value, and every NaN collapsed into one last entry; where
+    np.unique's pick of a zero or a NaN is open (``ambiguous_floats``), its
+    own answer on a host copy."""
+    if ambiguous_floats(x):
+        return torch.from_numpy(np.unique(x.cpu().numpy())).to(x.device)
     if x.dtype == torch.uint32:
         return torch.unique(as_u32(x)).to(torch.int32).view(torch.uint32)
     if x.is_floating_point():
@@ -71,6 +76,22 @@ def _unique_values(x: torch.Tensor) -> torch.Tensor:
         u = torch.unique(x[~nan])
         return torch.cat([u, x[nan][:1]]) if bool(nan.any()) else u
     return torch.unique(x)
+
+
+def _stack_points(vals: list) -> torch.Tensor:
+    """[m, D] points of the columns, in the common type that ``jnp.stack``
+    gives with x64 off: f32 as soon as one is a float; uint32 with a signed
+    integer is int32, a uint32 of 2^31 or more wrapping negative (int64
+    narrowed to int32); uint32 alone by value (torch compares no uint32)."""
+    signed = any(not v.is_floating_point() and v.dtype.is_signed
+                 for v in vals)
+    if signed and any(v.dtype == torch.uint32 for v in vals) and not any(
+            v.is_floating_point() for v in vals):
+        return torch.stack([v.view(torch.int32) if v.dtype == torch.uint32
+                            else v.to(torch.int32) for v in vals], dim=-1)
+    vals = [as_u32(v) if v.dtype == torch.uint32 else v for v in vals]
+    dtype = functools.reduce(torch.promote_types, [v.dtype for v in vals])
+    return torch.stack([v.to(dtype) for v in vals], dim=-1)
 
 
 def _seeded(params: dict, p: dict) -> dict:
@@ -153,13 +174,7 @@ def _prepare(spec: QuerySpec, table: Table, decode: str = "auto"):
             pts = torch.stack([by_value(c.codes) for c in cols], dim=-1)
             enc = encs[0]
         else:
-            # uint32 columns by value (torch promotes no uint32), then the
-            # common type, as jnp.stack promotes: f32 as soon as one is f32
-            vals = [c.decoded() for c in cols]
-            vals = [as_u32(v) if v.dtype == torch.uint32 else v for v in vals]
-            dtype = functools.reduce(torch.promote_types,
-                                     [c.dtype for c in vals])
-            pts, enc = torch.stack([c.to(dtype) for c in vals], dim=-1), None
+            pts, enc = _stack_points([c.decoded() for c in cols]), None
         params = dict(w=p["w"], score=p.get("score", "aph"))
 
         def complete(r):

@@ -24,8 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.encoding import (DictEncoding, dict_encode, rle_encode,
-                             rle_expand, take_rows)
+from ..core.encoding import (DictEncoding, as_x32, dict_encode,
+                             rle_encode, rle_expand, take_rows)
 from ..device import resolve_device
 
 
@@ -113,7 +113,7 @@ def as_column(v) -> Column:
     """Wrap a raw tensor as PlainColumn; pass typed columns through."""
     if isinstance(v, (PlainColumn, DictColumn, RLEColumn)):
         return v
-    return PlainColumn(values=v)
+    return PlainColumn(values=as_x32(v))
 
 
 def dict_column(values) -> DictColumn:
@@ -140,8 +140,9 @@ class Table:
     def from_numpy(cls, name: str, cols: dict, device=None) -> "Table":
         """A table of numpy columns moved to ``device`` (None: the card)."""
         dev = resolve_device(device)
-        return cls(name, {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                          for k, v in cols.items()})
+        return cls(name, {
+            k: as_x32(torch.from_numpy(np.ascontiguousarray(v))).to(dev)
+            for k, v in cols.items()})
 
     @property
     def num_rows(self) -> int:

@@ -63,6 +63,7 @@ def cluster_build(keys, mask, *, nbits, seed, family, K, clusters):
     for q in range(clusters):
         b = idx[bounds[q]:bounds[q + 1]][keep[bounds[q]:bounds[q + 1]]]
         b = b.reshape(-1)
+        b = b[b >= 0]  # a dropped probe of the kernels' family sets nothing
         rank, local = owner(b, nw, K)
         copies[q, rank, local * 32 + (b & 31)] = True
     words = B.pack_bits(copies.any(0).reshape(-1))            # [K * sl]
@@ -87,10 +88,9 @@ def reference(nbits, m, family, masked):
         return np.asarray(f.bits)
     if m == 0:
         return np.zeros(nbits, bool)
-    # uint32 keys: the Pallas hash takes an int32 key with signed shifts,
-    # where the port hashes its bits (ROADMAP Queue 3 A11)
-    bits = jbf.bloom_build_kernel(jnp.asarray(keys.view(np.uint32)),
-                                  nbits=nbits,
+    # int32 keys: the Pallas hash takes them with signed shifts, as the
+    # port's kernel family does for an int32 key
+    bits = jbf.bloom_build_kernel(jnp.asarray(keys), nbits=nbits,
                                   num_hashes=H, block=m, seed=0,
                                   interpret=True)
     return np.asarray(bits) > 0.5

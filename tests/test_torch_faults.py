@@ -1,4 +1,4 @@
-"""Nine places where the port gave another answer than the JAX package.
+"""Places where the port gave another answer than the JAX package.
 
 Each test feeds the same numpy input to both packages on the CPU, on the
 smallest input that shows the departure, and holds the port to the
@@ -26,7 +26,25 @@ reference, faults of the reference included:
   hold its plain version, which the card checks it against);
 - A10: RLE TOP-N's sums (seen, the level counts, N - seen, N - C) are
   int32 and wrap past 2^31, so runs after the wrap count as warm again
-  (the port's plain version summed in int64).
+  (the port's plain version summed in int64);
+- A18: JOIN's master joins no NaN key (the reference matches keys by ==);
+- A11: the Pallas Bloom and Count-Min kernels hash an int32 key in signed
+  int32 arithmetic (every shift arithmetic), which fills only the lower
+  half of a width below 2^16 and drops a probe of -1;
+- A13: 64-bit columns are narrowed as ``jnp.asarray`` narrows them, the
+  HAVING table takes the values' dtype and wraps in it, GROUP BY takes
+  keys of any integer, bool or float dtype, and a float16 stream pads with
+  -inf;
+- A14: GROUP BY on float keys stores the key converted to uint32 and hits
+  on the float compare, as DISTINCT does (A3);
+- A19: TOP-N's master orders as ``lax.top_k``: -0 below +0, a NaN with its
+  sign set below -inf;
+- A12: the dictionary's entry for the zeros and for NaN is np.unique's;
+- A15: SKYLINE stacks uint32 with int32 as int32;
+- A16: FILTER compares with a weakly typed Python literal, which wraps into
+  the column's dtype and raises OverflowError outside int32;
+- A17: ``ops.rle_distinct_prune`` converts float run values to uint32 by
+  value.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +52,7 @@ import pytest
 import torch
 
 from repro import core as J
+from repro.kernels import cms_sketch as jcms
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import rle_scan as jrle
@@ -41,6 +60,7 @@ from repro.query import engine as jq
 from repro.query import tables as jt
 from repro_torch import core as T
 from repro_torch.core.hashing import hash_mod
+from repro_torch.kernels import cms_sketch as tcms
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import parallel as tpar
 from repro_torch.kernels import ref as tref
@@ -469,3 +489,395 @@ def test_a10_smallest_input():
 def test_a10_rle_lengths_wrap_as_int32(seed, crossings, delta, N, w):
     v, L = _a10_runs(seed * 10 + crossings, crossings, delta, N)
     _rle_matches(v, L, N, w)
+
+
+# ------------------------------------------------------------------ A18
+def _join(a, b, nbits=64):
+    spec = ("join", ("k", "k"), dict(nbits=nbits))
+    fa, fb = np.array(a, np.float32), np.array(b, np.float32)
+    want = jq.run_query(jq.QuerySpec(*spec),
+                        (jt.Table("a", {"k": jnp.asarray(fa)}),
+                         jt.Table("b", {"k": jnp.asarray(fb)})), obs="off")
+    got = tq.run_query(tq.QuerySpec(*spec),
+                       (tt.Table.from_numpy("a", {"k": fa}, device="cpu"),
+                        tt.Table.from_numpy("b", {"k": fb}, device="cpu")))
+    _eq(got["keep"], want["keep"])
+    return list(zip(*(c.tolist() for c in got["output"]))), want["output"]
+
+
+@pytest.mark.parametrize("a,b,rows", [
+    ([1.0, NAN], [1.0, NAN], [(1.0, 1.0, 1.0)]),
+    ([1.0, 2.0, NAN], [2.0, 1.0, NAN], [(1.0, 1.0, 1.0), (2.0, 2.0, 2.0)]),
+])
+def test_a18_smallest_inputs(a, b, rows):
+    got, want = _join(a, b)
+    assert got == want == rows
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_a18_join_with_nan_keys_matches_reference(seed):
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, 1.0, 2.5, -3.0, NAN, NNAN, INF], np.float32)
+    got, want = _join(rng.choice(pool, 23), rng.choice(pool, 17), nbits=256)
+    assert got == want
+
+
+# ------------------------------------------------------------------ A11
+def test_a11_smallest_bloom_input():
+    k = np.array([0], np.int32)
+    want = np.asarray(jops.bloom_build(jnp.asarray(k), nbits=64, block=1))
+    got = tops.bloom_build(torch.from_numpy(k), nbits=64, block=1)
+    assert torch.nonzero(got).flatten().tolist() == [0, 25, 29]
+    _eq(got, want)
+
+
+def test_a11_smallest_cms_input():
+    k = np.arange(4096, dtype=np.int32)
+    w = np.ones(4096, np.float32)
+    want = jops.cms_build(jnp.asarray(k), jnp.asarray(w), rows=3, width=4096)
+    got = tops.cms_build(torch.from_numpy(k), torch.from_numpy(w), rows=3,
+                         width=4096)
+    _eq(got, want)
+    # the reference fills only the lower half of the width
+    assert not bool(got[:, 2048:].any())
+
+
+def _signed_keys(m, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-(2 ** 31), 2 ** 31, m).astype(np.int32)
+
+
+@pytest.mark.parametrize("nbits", [64, 4096, 1 << 24])
+@pytest.mark.parametrize("seed", range(2))
+def test_a11_bloom_query_int32_keys(nbits, seed):
+    rng = np.random.default_rng(seed)
+    k = _signed_keys(512, seed)
+    bits = (rng.random(nbits) < 0.5).astype(np.float32)
+    want = jops.bloom_query(jnp.asarray(bits), jnp.asarray(k),
+                            use_ref=nbits >= (1 << 16))
+    got = tops.bloom_query(torch.from_numpy(bits), torch.from_numpy(k))
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("width", [64, 4096, 1 << 24])
+@pytest.mark.parametrize("seed", range(2))
+def test_a11_cms_query_int32_keys(width, seed):
+    rng = np.random.default_rng(seed)
+    k = _signed_keys(512, seed)
+    table = rng.integers(0, 9, (3, width)).astype(np.float32)
+    want = jops.cms_query(jnp.asarray(table), jnp.asarray(k),
+                          use_ref=width >= (1 << 16))
+    got = tops.cms_query(torch.from_numpy(table), torch.from_numpy(k))
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("width", [64, 4096])
+@pytest.mark.parametrize("seed", range(2))
+def test_a11_cms_plain_int32_keys_match_pallas(width, seed):
+    """The plain build and query of the kernels' family, int32 keys of both
+    signs, against the JAX Count-Min kernels in interpret mode."""
+    k = _signed_keys(1024, seed)
+    w = np.random.default_rng(seed).integers(0, 5, 1024).astype(np.float32)
+    want = jcms.cms_build_kernel(jnp.asarray(k), jnp.asarray(w), rows=3,
+                                 width=width, block=256)
+    got = tcms.cms_build_plain(torch.from_numpy(k), torch.from_numpy(w),
+                               rows=3, width=width)[0]
+    _eq(got, want)
+    _eq(tcms.cms_query_plain(got, torch.from_numpy(k)),
+        jcms.cms_query_kernel(want, jnp.asarray(k), block=256))
+    _eq(tops.bloom_build(torch.from_numpy(k), nbits=width),
+        jops.bloom_build(jnp.asarray(k), nbits=width))
+
+
+def test_a11_probe_of_minus_one_is_dropped():
+    """At widths of 2^15 or more the signed multiply-shift gives -1 for some
+    keys (these three at width 40000, seed 0): the Pallas kernels' one-hot
+    matches no column, so the build adds nothing and the query reads 0."""
+    bad = np.array([-2040099539, -2010473350, -2006560011], np.int32)
+    k = np.concatenate([bad, _signed_keys(253, 5)]).astype(np.int32)
+    w = np.ones(256, np.float32)
+    want = jops.cms_build(jnp.asarray(k), jnp.asarray(w), rows=1,
+                          width=40000)
+    got = tops.cms_build(torch.from_numpy(k), torch.from_numpy(w), rows=1,
+                         width=40000)
+    _eq(got, want)
+    assert float(got.sum()) == 253.0
+    _eq(tops.cms_query(got, torch.from_numpy(k)),
+        jops.cms_query(want, jnp.asarray(k)))
+    bits = np.ones(40000, np.float32)
+    q = tops.bloom_query(torch.from_numpy(bits), torch.from_numpy(bad),
+                         num_hashes=1)
+    assert q.tolist() == [False] * 3
+    _eq(q, jops.bloom_query(jnp.asarray(bits), jnp.asarray(bad),
+                            num_hashes=1))
+
+
+# ------------------------------------------------------------------ A13
+def test_a13_having_sum_over_uint32_values():
+    cols = {"k": np.array([5, 5, 6], np.uint32),
+            "v": np.array([1, 2, 3], np.uint32)}
+    a, b = _queries(("having", ("k", "v"),
+                     dict(threshold=2, rows=1, width=4, agg="sum")), cols)
+    assert b == [int(x) for x in a] == [5, 6]
+
+
+def test_a13_groupby_over_int64_keys():
+    k = np.array([5, 5, 6], np.int64)
+    v = np.array([1, 2, 3], np.float32)
+    want = J.master_complete_groupby(J.engine_prune(
+        "groupby", jnp.asarray(k), jnp.asarray(v), d=1, w=2, obs="off"))
+    got = T.master_complete_groupby(T.engine_prune(
+        "groupby", torch.from_numpy(k), torch.from_numpy(v), d=1, w=2))
+    assert got == want == {5: 3.0, 6: 3.0}
+
+
+def test_a13_uservisits_having_sum_of_lang():
+    spec = ("having", ("source_ip", "lang"),
+            dict(threshold=300, width=64, agg="sum"))
+    want = jq.run_query(jq.QuerySpec(*spec), jt.make_uservisits(1000),
+                        obs="off")
+    got = tq.run_query(tq.QuerySpec(*spec),
+                       tt.make_uservisits(1000, device="cpu"))
+    _eq(got["keep"], want["keep"])
+    assert got["forwarded"] == want["forwarded"] == 750
+    assert got["output"] == [int(x) for x in want["output"]]
+
+
+def test_a13_float16_topn_det_pads_with_minus_inf():
+    x = np.arange(5).astype(np.float16)
+    want = J.engine_prune("topn_det", jnp.asarray(x), mode="two_pass",
+                          shards=4, N=1, w=1, obs="off")
+    got = T.engine_prune("topn_det", torch.from_numpy(x), mode="two_pass",
+                         shards=4, N=1, w=1)
+    _eq(got.keep, want.keep)
+
+
+NARROW = [np.int8, np.int16, np.int64, np.uint8, np.uint16, np.uint64,
+          np.float16, np.float64]
+
+
+@pytest.mark.parametrize("mode", ["scan", "sharded", "two_pass"])
+@pytest.mark.parametrize("dtype", NARROW + [np.uint32])
+def test_a13_having_sum_values_of_other_dtypes(dtype, mode):
+    rng = np.random.default_rng(7)
+    k = rng.integers(0, 6, 203).astype(np.uint32)
+    v = rng.integers(0, 120, 203).astype(dtype)
+    kw = dict(threshold=700, rows=2, width=8, agg="sum", mode=mode, shards=4)
+    want = J.engine_prune("having", jnp.asarray(k), jnp.asarray(v),
+                          obs="off", **kw)
+    got = T.engine_prune("having", torch.from_numpy(k), torch.from_numpy(v),
+                         **kw)
+    _eq(got.keep, want.keep)
+    table = np.asarray(want.state.table)
+    assert got.state.table.dtype == torch.from_numpy(table).dtype
+    _eq(got.state.table, table)
+
+
+@pytest.mark.parametrize("dtype,vals,threshold", [
+    (np.uint8, [200, 100, 3], 250),
+    (np.int8, [100, 100, 3], 300),
+    (np.int8, [100, 100, 3], 2.5),
+    (np.uint32, [2 ** 31 + 5, 2 ** 31, 3], -1),
+])
+def test_a13_having_table_wraps_in_the_values_dtype(dtype, vals, threshold):
+    k = np.array([5, 5, 6], np.uint32)
+    v = np.array(vals, dtype)
+    kw = dict(threshold=threshold, rows=1, width=4, agg="sum")
+    want = J.engine_prune("having", jnp.asarray(k), jnp.asarray(v),
+                          obs="off", **kw)
+    got = T.engine_prune("having", torch.from_numpy(k), torch.from_numpy(v),
+                         **kw)
+    _eq(got.keep, want.keep)
+    _eq(got.state.table, want.state.table)
+
+
+@pytest.mark.parametrize("mode", ["scan", "sharded", "two_pass"])
+@pytest.mark.parametrize("dtype", NARROW + [np.bool_])
+def test_a13_groupby_keys_of_other_dtypes(dtype, mode):
+    rng = np.random.default_rng(11)
+    raw = rng.integers(-9, 9, 157)
+    k = (raw > 0) if dtype == np.bool_ else (raw / 2).astype(dtype) \
+        if np.dtype(dtype).kind == "f" else raw.astype(dtype)
+    v = rng.integers(0, 50, 157).astype(np.float32)
+    kw = dict(d=3, w=2, agg="sum", mode=mode, shards=4)
+    want = J.engine_prune("groupby", jnp.asarray(k), jnp.asarray(v),
+                          obs="off", **kw)
+    got = T.engine_prune("groupby", torch.from_numpy(k), torch.from_numpy(v),
+                         **kw)
+    for g, w in zip(got.emitted, want.emitted):
+        _eq(g, w)
+    _eq(got.state.keys, want.state.keys)
+    assert (T.master_complete_groupby(got, "sum")
+            == J.master_complete_groupby(want, "sum"))
+
+
+# ------------------------------------------------------------------ A14
+def _groupby_both(keys, d=1, w=1, mode="scan", shards=2, agg="sum",
+                  vals=None):
+    k = np.array(keys, np.float32)
+    v = np.ones(k.shape, np.float32) if vals is None else vals
+    kw = dict(d=d, w=w, agg=agg, mode=mode, shards=shards)
+    want = J.engine_prune("groupby", jnp.asarray(k), jnp.asarray(v),
+                          obs="off", **kw)
+    got = T.engine_prune("groupby", torch.from_numpy(k), torch.from_numpy(v),
+                         **kw)
+    for g, wv in zip(got.emitted, want.emitted):
+        _eq(g, wv)
+    _eq(got.state.keys, want.state.keys)
+    return (T.master_complete_groupby(got, agg),
+            J.master_complete_groupby(want, agg))
+
+
+@pytest.mark.parametrize("keys,answer", [
+    ([7.5], {7: 1.0}),
+    ([7.0, 7.5], {7: 2.0}),
+    ([-0.0, 0.0], {0: 2.0}),
+])
+def test_a14_smallest_inputs(keys, answer):
+    got, want = _groupby_both(keys)
+    assert got == want == answer
+
+
+@pytest.mark.parametrize("mode", ["scan", "sharded", "two_pass"])
+@pytest.mark.parametrize("d,w", [(1, 2), (3, 2), (4, 40)])
+@pytest.mark.parametrize("seed", range(2))
+def test_a14_groupby_float_keys_match_reference(seed, d, w, mode):
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(SPECIAL, 211)
+    vals = rng.integers(0, 9, 211).astype(np.float32)
+    got, want = _groupby_both(keys, d=d, w=w, mode=mode, shards=4,
+                              vals=vals)
+    assert got == want
+
+
+# ------------------------------------------------------------------ A19
+@pytest.mark.parametrize("vals,row", [([-0.0, 0.0], 1), ([NNAN, 1.0], 1)])
+def test_a19_smallest_inputs(vals, row):
+    x = np.array(vals, np.float32)
+    keep = np.ones(2, bool)
+    wv, wi = J.master_complete_topn(jnp.asarray(x), jnp.asarray(keep), 1)
+    gv, gi = T.master_complete_topn(torch.from_numpy(x),
+                                    torch.from_numpy(keep), 1)
+    assert gi.tolist() == np.asarray(wi).tolist() == [row]
+    assert _bits(gv.numpy()) == _bits(wv)
+
+
+@pytest.mark.parametrize("N", [1, 5, 17])
+@pytest.mark.parametrize("seed", range(3))
+def test_a19_topn_master_orders_as_top_k(seed, N):
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([SPECIAL, [NNAN, PNAN, -INF, NEG32]]).astype(
+        np.float32)
+    x = rng.choice(pool, 41)
+    keep = rng.random(41) < 0.8
+    wv, wi = J.master_complete_topn(jnp.asarray(x), jnp.asarray(keep), N)
+    gv, gi = T.master_complete_topn(torch.from_numpy(x),
+                                    torch.from_numpy(keep), N)
+    _eq(gi, wi)
+    assert _bits(gv.numpy()) == _bits(wv)
+
+
+# ------------------------------------------------------------------ A12
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32).tolist()
+
+
+def test_a12_dictionary_is_np_unique():
+    x = np.array([1, 1, 0.0, -0.0], np.float32)
+    _, enc = T.dict_encode(torch.from_numpy(x))
+    _, jenc = J.dict_encode(x)
+    assert _bits(enc.lut) == _bits(np.unique(x)) == _bits(jenc.lut)
+    a, b = _queries(("topn", ("v",), dict(mode="det", N=4)), {"v": x},
+                    encode=("dict", ("v",)))
+    assert _bits(b[0]) == _bits(a[0])
+    a, b = _queries(("distinct", ("v",), dict(d=4, w=2)), {"v": x},
+                    encode=("dict", ("v",)))
+    assert _bits(b) == _bits(a) == _bits(np.unique(x))
+
+
+def test_a12_dict_distinct_lru_keep():
+    x = np.array([3.0, 5.0, -0.0, 0.0, 3.0], np.float32)
+    _queries(("distinct", ("v",), dict(d=3, w=1)), {"v": x},
+             encode=("dict", ("v",)))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_a12_nan_patterns_and_zeros(seed):
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([np.array([0x7FC00000, 0xFFC00001, 0x7FC00123],
+                                    np.uint32).view(np.float32),
+                           [0.0, -0.0, 1.0, 2.0]]).astype(np.float32)
+    x = rng.choice(pool, 29)
+    _, enc = T.dict_encode(torch.from_numpy(x))
+    assert _bits(enc.lut) == _bits(np.unique(x))
+    a, b = _queries(("distinct", ("v",), dict(d=8, w=4)), {"v": x})
+    assert _bits(b) == _bits(a)
+
+
+# ------------------------------------------------------------------ A15
+def test_a15_skyline_stacks_uint32_with_int32_as_int32():
+    cols = {"a": np.array([2 ** 31, 5], np.uint32),
+            "b": np.array([1, 2], np.int32)}
+    a, b = _queries(("skyline", ("a", "b"), dict(w=4, score="sum")), cols)
+    assert b.tolist() == np.asarray(a).tolist() == [False, True]
+
+
+# ------------------------------------------------------------------ A16
+U32_COL = np.array([0, 5, 2 ** 31, 2 ** 32 - 1, 16777217], np.uint32)
+
+
+@pytest.mark.parametrize("op,rows", [("gt", []), ("eq", [3])])
+def test_a16_smallest_inputs(op, rows):
+    pred = (op, -1)
+    want = J.Pred("c", *pred).evaluate({"c": jnp.asarray(U32_COL)})
+    got = T.Pred("c", *pred).evaluate({"c": torch.from_numpy(U32_COL)})
+    _eq(got, want)
+    assert torch.nonzero(got).flatten().tolist() == rows
+
+
+LITERALS = [-1, 0, 5, 2 ** 31 - 1, -(2 ** 31), 300, -129, 256, 1.5, -1.5,
+            1e10, True, 16777217]
+
+
+@pytest.mark.parametrize("op", ["gt", "ge", "lt", "le", "eq", "ne"])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32, np.uint8,
+                                   np.int8, np.int16, np.float16])
+def test_a16_weakly_typed_literals(dtype, op):
+    col = np.array([0, 5, 2 ** 31, 2 ** 32 - 1, 16777217, 300, 44, 255,
+                    127, 1], np.int64).astype(dtype)
+    if np.dtype(dtype).kind == "f":
+        col[:3] = np.array([-1.5, 1.5, -0.0], dtype)
+    for lit in LITERALS:
+        want = J.Pred("c", op, lit).evaluate({"c": jnp.asarray(col)})
+        got = T.Pred("c", op, lit).evaluate({"c": torch.from_numpy(col)})
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("lit", [2 ** 31, -(2 ** 31) - 1, 2 ** 32 - 1])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32])
+def test_a16_int_outside_int32_raises(dtype, lit):
+    col = np.array([1, 2], dtype)
+    with pytest.raises(OverflowError):
+        J.Pred("c", "gt", lit).evaluate({"c": jnp.asarray(col)})
+    with pytest.raises(OverflowError):
+        T.Pred("c", "gt", lit).evaluate({"c": torch.from_numpy(col)})
+
+
+# ------------------------------------------------------------------ A17
+@pytest.mark.parametrize("policy", ["lru", "fifo"])
+def test_a17_smallest_input(policy):
+    rv = np.array([1.0, 1.5], np.float32)
+    want = jops.rle_distinct_prune(jnp.asarray(rv), d=1, w=2, policy=policy)
+    got = tops.rle_distinct_prune(torch.from_numpy(rv), d=1, w=2,
+                                  policy=policy)
+    assert got.tolist() == np.asarray(want).tolist() == [True, False]
+
+
+@pytest.mark.parametrize("policy", ["lru", "fifo"])
+@pytest.mark.parametrize("seed", range(3))
+def test_a17_float_run_values_convert_by_value(seed, policy):
+    rv = np.random.default_rng(seed).choice(SPECIAL, 97)
+    want = jops.rle_distinct_prune(jnp.asarray(rv), d=4, w=2, policy=policy)
+    got = tops.rle_distinct_prune(torch.from_numpy(rv), d=4, w=2,
+                                  policy=policy)
+    _eq(got, want)
