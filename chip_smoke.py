@@ -40,7 +40,15 @@ Phases, one line each, and a non-zero exit on any failure:
            TOP-N (the block walk and the block kernel) at B = 2, 32, 256,
            d = 1, 37, 512, w = 1 to 40 on random, ascending, all-equal and
            +-0 streams, NaNs of both signs mid-block and at a block
-           boundary, and values at and around NEG; the lowest-owner
+           boundary, and values at and around NEG; the DISTINCT block kernel
+           beside its block walk on the walk's streams; the staged block
+           kernels of TOP-N and DISTINCT (their C entries, and pass 1 as
+           dispatched) at B = 256, S = 8 and 128, lanes of one chunk and of
+           37 (not a whole number of stages), on the main-path columns, a
+           stream on which every entry inserts, all-equal values among +-0
+           and NaNs of both signs, float32 DISTINCT keys, d = 1, w = 64 for
+           TOP-N, and the columns as views 1 and 3 entries into their
+           storage; the lowest-owner
            distinct_apply on a hot key that every shard caches, a key that
            only the top lane holds and float32 keys, w = 4, 40 (and 80,
            whose table is built in place). Then the
@@ -49,7 +57,10 @@ Phases, one line each, and a non-zero exit on any failure:
            CPU copy of the table; and int32 keys of both signs through
            ``kernels.ops``' Bloom and Count-Min entry points (the Pallas
            kernels' signed hash, ROADMAP Queue 3 A11) at widths 64, 4096
-           and 2^24, against their plain versions.
+           and 2^24, against their plain versions; float16 Count-Min tables
+           (both hash families) bit for bit against the plain build, which
+           adds in f16 in entry order (Queue 3 A20: 3000 unit weights on one
+           key read 2048), with each build's time and bound.
 3. main    the main path on a 2^25-row uservisits table and a 2^20-row
            rankings table (one worker's partition of the Big Data
            benchmark): ``run_query`` TOP-N (randomized and the
@@ -90,7 +101,8 @@ Phases, one line each, and a non-zero exit on any failure:
            (``block_walk_bound``), the TOP-N block walk's the most
            inserting (row, block) groups one segment has (``prefix_bound``).
            Both forms of DISTINCT and of TOP-N at B = 256 are timed at
-           S = 1 and 128 (``time_block_forms``). torch.profiler splits each
+           S = 1, 8, 16, 32, 64 and 128 (``time_block_forms``); each pass-1
+           shape prints its time per chain step. torch.profiler splits each
            redesigned kernel into its internal kernels (distinct_apply into
            its table build and its lookups, the Bloom build into its
            zeroing and its cluster kernel),
@@ -105,7 +117,10 @@ Phases, one line each, and a non-zero exit on any failure:
            replaced, bit for bit, over the whole 2^25-entry column: at S = 1
            DISTINCT FIFO and LRU, GROUP BY SUM and COUNT; at S = 1 and 128
            the chunked ladder, the DISTINCT and TOP-N block walks (against
-           the block kernels, B = 256), and at B = 1 TOP-N and SKYLINE; at
+           the block kernels, B = 256), the staged block kernels against the
+           unstaged ones they replaced (topn_pass1_block_unstaged,
+           distinct_pass1_block_unstaged, B = 256), and at B = 1 TOP-N and
+           SKYLINE; at
            S = 128 the lowest-owner distinct_apply against the scan it
            replaced, after FIFO (B = 256 and 1) and LRU pass 1; the
            chunked RLE run scan against the one-CTA run scan on the 2^19
@@ -197,6 +212,7 @@ PREFIX_SKYLINE_B = 32
 FLOAT_KEYS = (-3.0, -0.0, 0.0, 4.5, float("nan"), float("inf"),
               -float("inf"), 2.0 ** 32, 5e9, 2.0 ** 31, 4.0, 7.0, 3.5)
 DTYPE_ROWS = 1 << 14           # rows of the A2 card case's tables
+F16_KEYS = 300                 # keys of the f16 Count-Min case (A20)
 # the chunked ladder (csrc/topn_det.cu): entries a chunk, and its
 # adversarial cases, S lanes of LADDER_LANE[S] entries (past one or more
 # chunks) under each N and w; "n + 7" is N past the shard
@@ -229,6 +245,14 @@ DISTINCT_APPLY_WS = {1: (4, 40), 8: (4, 40), 128: (4, 40, 80)}
 # is wrong under block semantics (d = 1, w = 1, B = 2): entry 4 repeats
 # entry 3, but entry 3's block inserted 9 over the 7 that entry 3 hit
 BLOCK_TRAP = ((7, 7, 9, 7, 7, 11), (True, True, True, False, True, True))
+# the staged block kernels' cases at B = 256 (phase_kernels_block_staged):
+# S lanes of one chunk and of STAGED_CHUNKS chunks (two stages of 16 chunks
+# and 5 more: not a whole number of stages), TOP-N at (d, w) in STAGED_TOPN
+# and DISTINCT at STAGED_DISTINCT, the main-path shape first
+STAGED_LANES = (8, 128)
+STAGED_CHUNKS = 37
+STAGED_TOPN = ((512, 8), (1, 8), (37, 64))
+STAGED_DISTINCT = ((4096, 4), (1, 4), (37, 3))
 
 FAILURES: list[str] = []
 T_START = time.perf_counter()
@@ -483,6 +507,7 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_prefix(torch, g)
     phase_kernels_block_walk(torch, g)
     phase_kernels_topn_block(torch, g)
+    phase_kernels_block_staged(torch, g)
     phase_kernels_distinct_apply(torch, g)
 
 
@@ -770,19 +795,20 @@ def block_walk_streams(torch, g, m):
 
 
 def phase_kernels_block_walk(torch, g):
-    """The DISTINCT block walk (distinct_block_walk_kernel, the form
-    ops.distinct_prune takes) against ref.distinct_block_ref at B in
-    BLOCK_WALK_BS and S = 1, 8 and 128, on the streams of
-    block_walk_streams and on the trap stream BLOCK_TRAP: keep, slots,
-    valid and head bit for bit. The plain versions run on the host
-    (on_host)."""
+    """Both B > 1 forms of DISTINCT's pass 1, the block walk
+    (distinct_block_walk_kernel, the form ops.distinct_prune takes) and the
+    staged block kernel (by its C entry, whatever the dispatch picks),
+    against ref.distinct_block_ref at B in BLOCK_WALK_BS and S = 1, 8 and
+    128, on the streams of block_walk_streams, and the walk on the trap
+    stream BLOCK_TRAP: keep, slots, valid and head bit for bit. The plain
+    versions run on the host (on_host)."""
     from repro_torch.kernels import parallel as P
     from repro_torch.kernels import ref as R
 
     for S, n in BLOCK_WALK_LANE.items():
         t0 = time.perf_counter()
         xs = block_walk_streams(torch, g, S * n)
-        ok = True
+        ok = ok_b = True
         for name, d, w in BLOCK_WALK_CASES:
             x = xs[name]
             for B in BLOCK_WALK_BS:
@@ -791,11 +817,16 @@ def phase_kernels_block_walk(torch, g):
                 (k2, st2), _ = on_host(lambda u: R.distinct_block_ref(
                     u, d=d, w=w, block=B, seed=S, return_state=True),
                     x.view(S, n))
-                ok &= check(same(out[0], k2.reshape(-1)) and all(
-                    same(a, b) for a, b in zip(out[1:], st2)),
-                    f"distinct block walk S={S} B={B} {name} d={d} w={w}")
+                want = (k2.reshape(-1),) + tuple(st2)
+                ok &= check(all(same(a, b) for a, b in zip(out, want)),
+                            f"distinct block walk S={S} B={B} {name} d={d} "
+                            f"w={w}")
+                out = distinct_block_kernel(torch, x, S, d, w, B, S)
+                ok_b &= check(all(same(a, b) for a, b in zip(out, want)),
+                              f"distinct block kernel S={S} B={B} {name} "
+                              f"d={d} w={w}")
         say("kernels", S=S, n=n, distinct_block_walk=ok,
-            s=round(time.perf_counter() - t0, 3))
+            distinct_block_kernel=ok_b, s=round(time.perf_counter() - t0, 3))
     x = torch.tensor(BLOCK_TRAP[0], dtype=torch.int32).view(
         torch.uint32).cuda()
     out = P.distinct_block_walk_kernel(x, d=1, w=1, shards=1, block=2)
@@ -840,17 +871,45 @@ def topn_block_streams(torch, g, S, n, B):
     return {k: v.cuda() for k, v in t.items()}
 
 
-def topn_block_kernel(torch, x, S, d, w, B, seed):
-    """The one-CTA-a-lane block kernel by its C entry (topn_pass1 at
-    B > 1), whatever the dispatch would pick: (keep, states)."""
+def topn_block_kernel(torch, x, S, d, w, B, seed, entry="topn_pass1"):
+    """The one-CTA-a-lane block kernel by its C entry, whatever the dispatch
+    would pick: topn_pass1 at B > 1 (the staged kernel) or
+    topn_pass1_block_unstaged (the kernel it replaced): (keep, states)."""
     from repro_torch.kernels.common import I32, P as VP, U32, ptr
 
     m = x.numel()
     keep = torch.empty(m, dtype=torch.bool, device="cuda")
     st = torch.empty((S, d, w), dtype=torch.float32, device="cuda")
-    serial_kernel(torch, "topn_pass1", [VP] * 3 + [I32] * 5 + [U32, VP],
-                  ptr(x), ptr(keep), ptr(st), S, m // S, d, w, B, seed, None)
+    args = (ptr(x), ptr(keep), ptr(st), S, m // S, d, w, B, seed)
+    if entry == "topn_pass1":
+        serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32, VP], *args,
+                      None)
+    else:
+        serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32], *args)
     return keep, st
+
+
+def distinct_block_kernel(torch, x, S, d, w, B, seed,
+                          entry="distinct_pass1"):
+    """DISTINCT's one-CTA-a-lane block kernel by its C entry, whatever the
+    dispatch would pick: distinct_pass1 at B > 1 (the staged kernel) or
+    distinct_pass1_block_unstaged: (keep, slots, valid, head)."""
+    from repro_torch.kernels.common import I32, P as VP, U32, ptr
+
+    m = x.numel()
+    out = (torch.empty(m, dtype=torch.bool, device="cuda"),
+           torch.empty((S, d, w), dtype=torch.uint32, device="cuda"),
+           torch.empty((S, d, w), dtype=torch.bool, device="cuda"),
+           torch.empty((S, d), dtype=torch.int32, device="cuda"))
+    fmode = int(x.dtype == torch.float32)
+    ptrs = [ptr(t) for t in (x,) + out]
+    if entry == "distinct_pass1":
+        serial_kernel(torch, entry, [VP] * 5 + [I32] * 7 + [U32, VP], *ptrs,
+                      S, m // S, d, w, B, 0, fmode, seed, None)
+    else:
+        serial_kernel(torch, entry, [VP] * 5 + [I32] * 6 + [U32], *ptrs, S,
+                      m // S, d, w, B, fmode, seed)
+    return out
 
 
 def phase_kernels_topn_block(torch, g):
@@ -884,6 +943,101 @@ def phase_kernels_topn_block(torch, g):
                                   f"d={d} w={w}")
         say("kernels", S=S, n=n, topn_block_walk=ok_w, topn_block_kernel=ok_b,
             s=round(time.perf_counter() - t0, 3))
+
+
+def staged_streams(torch, g, S, n):
+    """The streams the staged block kernels are held to, S lanes of n
+    entries on the card, (name, TOP-N values, DISTINCT keys): the main
+    path's columns (a uservisits table of S * n rows: ad_revenue and
+    source_ip); a stream on which every entry inserts or misses (ascending
+    values, all-distinct keys); all-equal values among +-0 and NaNs of
+    both signs, and float32 DISTINCT keys (FLOAT_KEYS)."""
+    from repro_torch.query import make_uservisits
+
+    m = S * n
+    uv = make_uservisits(m, seed=S + n, device="cuda")
+    pick = torch.tensor([3.0, 3.0, 3.0, 0.0, -0.0, float("nan"), 0.0])
+    pick[-1:] = torch.tensor([NEG_NAN_BITS], dtype=torch.int32).view(
+        torch.float32)
+    floats = torch.tensor(FLOAT_KEYS)[torch.randint(
+        0, len(FLOAT_KEYS), (m,), generator=g)]
+    floats[::3] = torch.randint(0, 6, (floats[::3].numel(),),
+                                generator=g).float()
+    return (("main-path columns", uv.cols["ad_revenue"],
+             uv.cols["source_ip"]),
+            ("every entry inserts", torch.arange(m, dtype=torch.float32)
+             .cuda(), torch.arange(m, dtype=torch.int32).view(torch.uint32)
+             .cuda()),
+            ("all equal, +-0 and NaNs / float32 keys",
+             pick[torch.randint(0, len(pick), (m,), generator=g)].cuda(),
+             floats.cuda()))
+
+
+def view_at(torch, x, off):
+    """A copy of x as the view [off : off + len(x)] of a longer tensor: a
+    stream that starts off entries (4 * off bytes) into its storage."""
+    big = torch.zeros(x.numel() + 8, dtype=x.dtype, device=x.device)
+    big[off:off + x.numel()] = x
+    return big[off:off + x.numel()]
+
+
+def phase_kernels_block_staged(torch, g):
+    """The staged block kernels (topn_pass1_block, distinct_pass1_block) by
+    their C entries, and pass 1 as dispatched (topn_shard_states_kernel,
+    distinct_shard_states_kernel), against ref.topn_block_ref and
+    ref.distinct_block_ref at B = 256, S in STAGED_LANES: keep and every
+    lane's state bit for bit, on the streams of staged_streams, at the
+    (d, w) of STAGED_TOPN and STAGED_DISTINCT (d = 1, w = 64 for TOP-N), on
+    lanes of one chunk and of STAGED_CHUNKS chunks (not a whole number of
+    stages), and on the main-path columns as views starting 1 and 3
+    entries into their storage. The plain versions run on the host."""
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import ref as R
+
+    B = 256
+    for S in STAGED_LANES:
+        for n in (B, B * STAGED_CHUNKS):
+            t0 = time.perf_counter()
+            ok_t = ok_d = True
+            streams = staged_streams(torch, g, S, n)
+            cases = [(name, 0, v, f) for name, v, f in streams]
+            cases += [(streams[0][0], off, view_at(torch, streams[0][1], off),
+                       view_at(torch, streams[0][2], off)) for off in (1, 3)]
+            for name, off, v, f in cases:
+                what = f"S={S} n={n} {name}" + (f" at x[{off}:]" if off
+                                                  else "")
+                for d, w in STAGED_TOPN if not off else STAGED_TOPN[:1]:
+                    (k2, st2), _ = on_host(lambda u: R.topn_block_ref(
+                        u, d=d, w=w, block=B, seed=S, return_state=True),
+                        v.view(S, n))
+                    k2 = k2.reshape(-1)
+                    for form, (k, st) in (
+                            ("C entry", topn_block_kernel(torch, v, S, d, w,
+                                                          B, S)),
+                            ("dispatched", P.topn_shard_states_kernel(
+                                v, d=d, w=w, shards=S, block=B, seed=S))):
+                        ok_t &= check(same_bits(k, k2) and same_bits(st, st2),
+                                      f"topn_pass1_block {form} {what} d={d} "
+                                      f"w={w}")
+                for d, w in STAGED_DISTINCT if not off else \
+                        STAGED_DISTINCT[:1]:
+                    (k2, st2), _ = on_host(lambda u: R.distinct_block_ref(
+                        u, d=d, w=w, block=B, seed=S, return_state=True),
+                        f.view(S, n))
+                    want = (k2.reshape(-1),) + tuple(st2)
+                    for form, out in (
+                            ("C entry", distinct_block_kernel(
+                                torch, f, S, d, w, B, S)),
+                            ("dispatched", P.distinct_shard_states_kernel(
+                                f, d=d, w=w, shards=S, block=B, seed=S))):
+                        ok_d &= check(all(same(a, b) for a, b in zip(
+                            out, want)), f"distinct_pass1_block {form} {what} "
+                            f"d={d} w={w}")
+            say("kernels", S=S, n=n, block=B,
+                dispatched=json.dumps("block walk" if P.use_block_walk(
+                    S, torch.device("cuda")) else "block kernel"),
+                topn_pass1_block=ok_t, distinct_pass1_block=ok_d,
+                s=round(time.perf_counter() - t0, 3))
 
 
 def distinct_apply_streams(torch, g, S, n):
@@ -1139,40 +1293,62 @@ def phase_dtypes(torch, P):
 
 
 def dtypes_f16_table(torch, P):
-    """A float16 HAVING SUM table (core.sketches.cms_build, the engine's
-    family) on the card, held to its rule: it adds in f32 and rounds once,
-    so it equals the plain build (f16 adds in entry order, run on a CPU
-    copy) while every sum stays below 2^11, and above that the f32 sum
-    rounded once. ROADMAP Queue 3 A20 is the departure: 3000 unit weights
-    on one key read 3000 on the card, 2048 in the reference."""
+    """Float16 Count-Min tables on the card against the plain build (f16
+    adds in entry order, as the reference's scatter-add; run on a CPU copy),
+    bit for bit with every NaN as one, in both hash families: the engine's
+    through core.sketches.cms_build (HAVING SUM on an f16 column) and
+    cms_build_kernel, the kernels' through cms_build_kernel. Inputs: 3000
+    unit weights on one key (every counter of the key reads 2048, where an
+    f32 sum rounded once reads 3000: ROADMAP Queue 3 A20), random f16
+    weights of both signs on F16_KEYS keys whose counters pass 2^11, and
+    the same in 128 lanes. Each build's time beside its bound: the larger of
+    its bytes and its chain, the hottest counter's entries at FADD_CYCLES
+    each (f16 adds do not associate, so a counter's adds are one chain)."""
     from repro_torch import core
     from repro_torch.kernels import cms_sketch as C
 
     g = torch.Generator().manual_seed(22)
-    keys = torch.randint(0, 1 << 31, (1 << 20,), generator=g,
-                         dtype=torch.int64).to(torch.uint32)
-    wts = torch.randint(0, 4, (keys.numel(),), generator=g).half()
+    keys = torch.randint(0, F16_KEYS, (1 << 20,), generator=g).to(
+        torch.int32).view(torch.uint32)
+    wts = (torch.rand(keys.numel(), generator=g) * 24 - 6).half()
     hot = torch.full((3000,), 7, dtype=torch.uint32)
-    for name, k, w in (("sums below 2^11", keys, wts),
-                       ("3000 unit weights on one key", hot,
-                        torch.ones(3000, dtype=torch.float16))):
-        P.reset_launch_counts()
-        got = core.sketches.cms_build(k.cuda(), w.cuda(), 3, 4096).table.cpu()
-        launches = P.CMS_BUILD.launches
-        kw = dict(rows=3, width=4096, family="engine")
-        plain = C.cms_build_plain(k, w, **kw)[0]
-        once = C.cms_build_plain(k, w.float(), **kw)[0].half()
-        what = f"f16 Count-Min table, {name}"
-        ok = check(same_bits(got, once), f"{what}: the card differs from "
-                   "the f32 sum rounded once")
-        if name.startswith("sums"):
-            ok &= check(same_bits(got, plain), f"{what}: the card differs "
-                        "from the plain build")
-        check(launches > 0, f"{what}: cms_build was never launched")
-        say("dtypes", query=json.dumps(what), as_rule=ok,
-            same_as_plain=same_bits(got, plain),
-            card_max=float(got.float().max()),
-            plain_max=float(plain.float().max()), launches=launches)
+    clock_hz = max_clock_hz()
+    rows, width = 3, 4096
+    for name, k, w, lanes in (
+            ("3000 unit weights on one key", hot,
+             torch.ones(3000, dtype=torch.float16), 1),
+            ("sums past 2^11, weights of both signs", keys, wts, 1),
+            ("sums past 2^11, 128 lanes", keys, wts, 128)):
+        kc, wc = k.cuda(), w.cuda()
+        for fam in ("engine", "kernel"):
+            kw = dict(rows=rows, width=width, family=fam, shards=lanes)
+            P.reset_launch_counts()
+            if fam == "engine" and lanes == 1:
+                got = core.sketches.cms_build(kc, wc, rows, width).table[None]
+            else:
+                got = C.cms_build_kernel(kc, wc, **kw)
+            launches = P.CMS_BUILD.launches
+            plain = C.cms_build_plain(k, w, **kw)
+            what = f"f16 Count-Min table, {name}, {fam} family"
+            ok = check(same_bits(got.cpu(), plain), f"{what}: the card "
+                       "differs from the plain build")
+            if lanes == 1 and k is hot:
+                ok &= check(float(got.float().max()) == 2048.0,
+                            f"{what}: the hot key's counters do not read "
+                            "2048")
+            check(launches > 0, f"{what}: cms_build was never launched")
+            ms = event_ms(lambda: C.cms_build_kernel(kc, wc, **kw), 3)
+            col = C.row_hashes(k, rows, width, 0, fam)
+            lane = torch.arange(k.numel()) // (k.numel() // lanes)
+            cell = (lane[:, None] * rows + torch.arange(rows)) * width + col
+            hottest = int(torch.bincount(cell[col >= 0]).max())
+            io_ms = bytes_ms(k.numel() * 6 + lanes * rows * width * 2)
+            chain_ms = hottest * FADD_CYCLES / clock_hz * 1e3
+            say("dtypes", query=json.dumps(what), same_as_plain=ok,
+                card_max=float(got.float().max()),
+                plain_max=float(plain.float().max()), launches=launches,
+                ms=ms, hottest_counter=hottest, bound_ms=max(io_ms, chain_ms),
+                bound_by="bytes" if io_ms >= chain_ms else "chain")
 
 
 def dtypes_int32_sketches(torch, P):
@@ -1333,6 +1509,18 @@ def filter_formulas(core, page_rank_cut):
              lambda t: t["page_rank"] > page_rank_cut),
             ("uservisits", ("lang", "duration", "ad_revenue", "source_ip"),
              uv, uv_truth)]
+
+
+def block_form(name, S):
+    """The launch count that pass 1 of TOP-N or DISTINCT (``name``) at
+    B > 1 and S lanes goes to, as use_block_walk dispatches it: the block
+    walk or the staged block kernel."""
+    import torch
+
+    from repro_torch.kernels import parallel as P
+
+    walk = P.use_block_walk(S, torch.device("cuda"))
+    return name + ("_block_walk" if walk else "_block")
 
 
 def phase_main(torch, P, O):
@@ -1587,20 +1775,21 @@ def phase_main(torch, P, O):
             lambda: O.topn_prune_parallel(xs, shards=SHARDS, block=256,
                                           **TOPN),
             lambda k: topn_ok(k, "ops_topn_prune_parallel"),
-            lambda k: k, ("topn_pass1", "topn_apply")),
+            lambda k: k, (block_form("topn_pass1", SHARDS), "topn_apply")),
         "ops_distinct_prune_parallel": (
             lambda: O.distinct_prune_parallel(fs, shards=SHARDS, block=256,
                                               **DISTINCT),
             lambda k: distinct_ok(k, "ops_distinct_prune_parallel"),
-            lambda k: k, ("distinct_pass1", "distinct_apply")),
+            lambda k: k, (block_form("distinct_pass1", SHARDS),
+                          "distinct_apply")),
         "ops_topn_prune": (
             lambda: O.topn_prune(xs, block=256, **TOPN),
             lambda k: topn_ok(k, "ops_topn_prune"),
-            lambda k: k, ("topn_pass1_block_walk",)),
+            lambda k: k, (block_form("topn_pass1", 1),)),
         "ops_distinct_prune": (
             lambda: O.distinct_prune(fs, block=256, **DISTINCT),
             lambda k: distinct_ok(k, "ops_distinct_prune"),
-            lambda k: k, ("distinct_pass1_block_walk",)),
+            lambda k: k, (block_form("distinct_pass1", 1),)),
         "run_query_skyline": (
             lambda: run_query(QuerySpec("skyline", SKY_COLS, SKYLINE), table),
             lambda r: skyline_ok(r["keep"], "run_query_skyline", r["output"]),
@@ -1777,6 +1966,8 @@ def phase_main(torch, P, O):
 
 
 # ------------------------------------------------------------------ phase 4
+# lane counts at which time_block_forms times both B > 1 forms
+BLOCK_FORM_LANES = (1, 8, 16, 32, 64, SHARDS)
 # (path, S, B) of every pass-1 launch on the main path. The first is the
 # shape the kernels line reports; the S = 1, B = 1 scan is compared on a
 # prefix (see phase_timing).
@@ -1806,38 +1997,31 @@ def pass1_bound(m, S, B, in_bytes, state_bytes, clock_hz):
 
 
 def time_block_forms(torch, P, fs, xs):
-    """Both forms of pass 1 at B = 256 on the whole column, at S = 1 and
-    S = 128, of DISTINCT on source_ip and of TOP-N on ad_revenue: the block
-    walk and the one-CTA-a-lane block kernel (its C entry, distinct_pass1
-    or topn_pass1 at block 256), the times behind
-    kernels.parallel.use_block_walk. The kernels at S = 1 take ~0.1 s a
-    run, so they are timed once."""
-    from repro_torch.kernels.common import I32, P as VP, U32, ptr
-
-    m, d, w = M_MAIN, DISTINCT["d"], DISTINCT["w"]
-    for S, reps in ((1, 1), (SHARDS, 5)):
-        ms_walk = event_ms(lambda: P.distinct_block_walk_kernel(
-            fs, shards=S, block=256, **DISTINCT), 5)
-        out = (torch.empty(m, dtype=torch.bool, device="cuda"),
-               torch.empty((S, d, w), dtype=torch.uint32, device="cuda"),
-               torch.empty((S, d, w), dtype=torch.bool, device="cuda"),
-               torch.empty((S, d), dtype=torch.int32, device="cuda"))
-        ms_block = event_ms(lambda: serial_kernel(
-            torch, "distinct_pass1", [VP] * 5 + [I32] * 7 + [U32, VP],
-            *(ptr(t) for t in (fs,) + out), S, m // S, d, w, 256, 0, 0, 0,
-            None), reps)
-        ms_twalk = event_ms(lambda: P.topn_block_walk_kernel(
-            xs, shards=S, block=256, **TOPN), 5)
-        ms_tblock = event_ms(lambda: topn_block_kernel(
-            torch, xs, S, TOPN["d"], TOPN["w"], 256, 0), reps)
+    """Both forms of pass 1 at B = 256 on the whole column, at S in
+    BLOCK_FORM_LANES, of DISTINCT on source_ip and of TOP-N on ad_revenue:
+    the block walk and the staged one-CTA-a-lane block kernel (its C entry,
+    distinct_pass1 or topn_pass1 at block 256), the times behind
+    kernels.parallel.use_block_walk, and the form it dispatches to. At
+    S = 1 each form is timed on 3 runs."""
+    for S in BLOCK_FORM_LANES:
+        reps = 3 if S == 1 else 5
         dispatched = ("block walk" if P.use_block_walk(S, torch.device("cuda"))
                       else "block kernel")
-        say("timing", kernel="distinct_pass1 B=256 forms", S=S,
-            block_walk_ms=ms_walk, block_kernel_ms=ms_block,
-            dispatched=dispatched)
-        say("timing", kernel="topn_pass1 B=256 forms", S=S,
-            block_walk_ms=ms_twalk, block_kernel_ms=ms_tblock,
-            dispatched=dispatched)
+        for name, walk, kernel in (
+                ("distinct_pass1", lambda: P.distinct_block_walk_kernel(
+                    fs, shards=S, block=256, **DISTINCT),
+                 lambda: distinct_block_kernel(
+                     torch, fs, S, DISTINCT["d"], DISTINCT["w"], 256, 0)),
+                ("topn_pass1", lambda: P.topn_block_walk_kernel(
+                    xs, shards=S, block=256, **TOPN),
+                 lambda: topn_block_kernel(torch, xs, S, TOPN["d"],
+                                           TOPN["w"], 256, 0))):
+            ms_walk = event_ms(walk, reps)
+            ms_block = event_ms(kernel, reps)
+            faster = "block walk" if ms_walk < ms_block else "block kernel"
+            say("timing", kernel=f"{name} B=256 forms", S=S,
+                block_walk_ms=ms_walk, block_kernel_ms=ms_block,
+                faster=json.dumps(faster), dispatched=json.dumps(dispatched))
 
 
 def running_inserts(torch, v, w):
@@ -1993,15 +2177,21 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
             ("skyline_pass1", pts,
              lambda S: S * SKYLINE["w"] * (pts.shape[1] + 1) * 4)]:
         kernel, plain = pass1_fns(name, P, R)
-        errs = []
+        errs, firsts = {}, {}
         for path, S, B in PASS1_SHAPES:
             keep, st = kernel(v, S, B)
-            # The first shape's plain time goes in the kernels line: it runs
-            # on the card. The others run on the host (on_host), the TOP-N
-            # and DISTINCT block walks' (S = 1, B = 256) too, whose rows of
-            # their own report it: on the card their 131,072 block steps
-            # take minutes.
-            walk = name != "skyline_pass1" and S == 1 and B > 1
+            # The kernels line has a row for each kernel: TOP-N's and
+            # DISTINCT's at B > 1 are the block kernel and the block walk,
+            # as use_block_walk dispatches, each reported at its first
+            # shape. The first shape's plain version runs on the card; the
+            # others run on the host (on_host), the block walks' (S = 1,
+            # B = 256) too: on the card their 131,072 block steps take
+            # minutes.
+            row = name
+            if name != "skyline_pass1" and B > 1:
+                row += ("_block_walk" if P.use_block_walk(S, v.device)
+                        else "_block")
+            walk = row.endswith("_block_walk")
             host = path != PASS1_SHAPES[0][0]
             if S == 1 and B == 1:
                 # The keep of entry i of a one-lane scan depends only on
@@ -2018,7 +2208,7 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                     on_host(lambda u: plain(u, S, B), v) if host
                     else sync_time(lambda: plain(v, S, B)))
                 err = max_abs_err([(keep, keep2), *zip(st, st2)])
-            errs.append(err)
+            errs.setdefault(row, []).append(err)
             check(err == 0.0, f"{name} S={S} B={B} on the 2^25-row table")
             if B == 1 and S > 1:
                 states[name] = (keep, st)
@@ -2040,18 +2230,15 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
             else:
                 bound, by = pass1_bound(m, S, B, in_bytes, state_bytes(S),
                                         clock_hz)
-            say("timing", kernel=name, path=json.dumps(path), S=S, B=B,
+            steps = m // (S * B)
+            say("timing", kernel=row, path=json.dumps(path), S=S, B=B,
                 ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
                 plain_on="host" if host else "card", bound_ms=bound,
-                bound_by=by, chain_steps=m // (S * B), max_abs_err=err)
-            if path == PASS1_SHAPES[0][0]:
-                first = (ms, plain_s * 1e3, bound, by)
-            if walk:
-                rows.append(_row(name + "_block_walk", totals, err, ms,
-                                 plain_s * 1e3, bound, by))
-                say("timing", kernel=name + "_block_walk", S=S, B=B,
-                    kept=int(keep.sum()))
-        rows.append(_row(name, totals, max(errs), *first))
+                bound_by=by, chain_steps=steps, step_us=ms * 1e3 / steps,
+                kept=int(keep.sum()), max_abs_err=err)
+            firsts.setdefault(row, (ms, plain_s * 1e3, bound, by))
+        for row, first in firsts.items():
+            rows.append(_row(row, totals, max(errs[row]), *first))
 
     # pass 2 on the merged states of both two-pass callers: S = 128 after
     # B = 256 (ops.*_prune_parallel, the timed shape) and after B = 1
@@ -2887,7 +3074,10 @@ def phase_witness(torch, table, rankings, pts, rle):
     B = 256 on source_ip against the one-CTA-a-lane block kernel (the C
     entry distinct_pass1), at S = 1 and S = 128; the TOP-N block walk at
     B = 256 on ad_revenue against its block kernel (the C entry topn_pass1)
-    at S = 1 and 128; the lowest-owner distinct_apply against the scan it
+    at S = 1 and 128; the staged block kernels (the C entries topn_pass1
+    and distinct_pass1 at B = 256) against the unstaged block kernels they
+    replaced (topn_pass1_block_unstaged, distinct_pass1_block_unstaged) at
+    S = 1 and 128; the lowest-owner distinct_apply against the scan it
     replaced (the C entry distinct_apply_scan) at S = 128, after FIFO
     pass 1 at B = 256 and B = 1 and LRU pass 1. Then the B = 1 TOP-N walk
     on ad_revenue and the SKYLINE prefix merge on (ad_revenue, duration),
@@ -2960,14 +3150,8 @@ def phase_witness(torch, table, rankings, pts, rle):
     for S in (1, SHARDS):
         new = P.distinct_block_walk_kernel(fs, shards=S, block=256,
                                            **DISTINCT)
-        old = (torch.empty(m, dtype=torch.bool, device="cuda"),
-               torch.empty((S, d, w), dtype=torch.uint32, device="cuda"),
-               torch.empty((S, d, w), dtype=torch.bool, device="cuda"),
-               torch.empty((S, d), dtype=torch.int32, device="cuda"))
-        _, secs = sync_time(lambda: serial_kernel(
-            torch, "distinct_pass1", [VP] * 5 + [I32] * 7 + [U32, VP],
-            *(ptr(t) for t in (fs,) + old), S, m // S, d, w, 256, 0, 0, 0,
-            None))
+        old, secs = sync_time(lambda: distinct_block_kernel(
+            torch, fs, S, d, w, 256, 0))
         err = max_abs_err(zip(new, old))
         check(err == 0.0 and all(same(a, b) for a, b in zip(new, old)),
               f"distinct_pass1 block walk S={S} B=256 differs from the "
@@ -2986,6 +3170,21 @@ def phase_witness(torch, table, rankings, pts, rle):
         say("witness", kernel="topn_pass1_block_walk", S=S, B=256,
             entries=m, block_kernel_s=secs, kept=int(new[0].sum()),
             max_abs_err=err)
+    for S in (1, SHARDS):
+        for name, fn in (("topn_pass1_block", lambda entry: topn_block_kernel(
+                torch, xs, S, TOPN["d"], TOPN["w"], 256, 0, entry)),
+                         ("distinct_pass1_block",
+                          lambda entry: distinct_block_kernel(
+                              torch, fs, S, d, w, 256, 0, entry))):
+            new, new_s = sync_time(lambda: fn(name.split("_block")[0]))
+            old, secs = sync_time(lambda: fn(name + "_unstaged"))
+            err = max_abs_err(zip(new, old))
+            check(err == 0.0 and all(same_bits(a, b)
+                                     for a, b in zip(new, old)),
+                  f"{name} S={S} B=256 differs from the unstaged block "
+                  "kernel it replaced on the 2^25-entry column")
+            say("witness", kernel=name, S=S, B=256, entries=m, staged_s=new_s,
+                unstaged_s=secs, kept=int(new[0].sum()), max_abs_err=err)
     for policy, B in (("fifo", 256), ("fifo", 1), ("lru", 1)):
         keep1, sl, va, _ = P.distinct_shard_states_kernel(
             fs, shards=SHARDS, block=B, policy=policy, **DISTINCT)
@@ -3114,14 +3313,21 @@ def witness_rle_bloom(torch, table, rankings, rle):
 
 
 SOURCES = {
+    # B = 1: the row-parallel walks (the engine's scan and two_pass)
     "topn_pass1": ("src/repro_torch/kernels/csrc/topn.cu",
                    "src/repro/kernels/topn_prune.py:49, "
                    "src/repro/kernels/parallel.py:86"),
+    # topn_pass1 at B > 1 once the lanes fill the card: the staged kernel
+    "topn_pass1_block": ("src/repro_torch/kernels/csrc/topn.cu",
+                         "src/repro/kernels/parallel.py:86"),
     "topn_apply": ("src/repro_torch/kernels/csrc/topn.cu",
                    "src/repro/kernels/parallel.py:126"),
     "distinct_pass1": ("src/repro_torch/kernels/csrc/distinct.cu",
                        "src/repro/kernels/distinct_prune.py:67, "
                        "src/repro/kernels/parallel.py:209"),
+    # distinct_pass1 at B > 1 once the lanes fill the card: the staged kernel
+    "distinct_pass1_block": ("src/repro_torch/kernels/csrc/distinct.cu",
+                             "src/repro/kernels/parallel.py:209"),
     "distinct_apply": ("src/repro_torch/kernels/csrc/distinct.cu",
                        "src/repro/kernels/parallel.py:267"),
     "skyline_pass1": ("src/repro_torch/kernels/csrc/skyline.cu",
@@ -3152,10 +3358,10 @@ SOURCES = {
                        "src/repro/core/topn.py:112"),
     "distinct_pass1_lru": ("src/repro_torch/kernels/csrc/distinct.cu",
                            "src/repro/core/distinct.py:47"),
-    # distinct_pass1 at B > 1 while the lanes fill less than half the SMs
+    # distinct_pass1 at B > 1 while the lanes fill few SMs (use_block_walk)
     "distinct_pass1_block_walk": ("src/repro_torch/kernels/csrc/distinct.cu",
                                   "src/repro/kernels/distinct_prune.py:67"),
-    # topn_pass1 at B > 1 while the lanes fill less than half the SMs
+    # topn_pass1 at B > 1 while the lanes fill few SMs (use_block_walk)
     "topn_pass1_block_walk": ("src/repro_torch/kernels/csrc/topn.cu",
                               "src/repro/kernels/topn_prune.py:49"),
 }

@@ -14,13 +14,11 @@ of -1; every other key by its 32-bit lanes.
 The table takes the weights' dtype, as the reference's does: int32 (unit
 weights when ``weights`` is None, as COUNT has; integer SUM), which wraps
 mod 2^32; uint32, int16, int8, uint16 and uint8, which wrap mod 2^32, 2^16
-or 2^8 (built as int32 and wrapped into the dtype); float32; float16, whose
-plain build adds in f16 in entry order, as XLA's scatter-add does, and whose
-CUDA build adds in f32 and rounds once: equal for integer-valued weights
-whose sums stay below 2^11, and past that a departure from the reference
-(ROADMAP Queue 3 A20: 3000 unit weights on one key read 3000 on the card,
-2048 in the reference). Keys are 32-bit lanes (uint32, int32, or
-float32 hashed by its bits).
+or 2^8 (built as int32 and wrapped into the dtype); float32; float16, which
+adds in f16 in entry order, as XLA's scatter-add does, on the card as in
+the plain build (the CUDA build walks each counter's entries in order, so
+3000 unit weights on one key read 2048 in both). Keys are 32-bit lanes
+(uint32, int32, or float32 hashed by its bits).
 
 Each entry point launches the CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor. Integer tables are exact in any order; f32
@@ -33,7 +31,10 @@ and summed in a fixed order by a second kernel; an f32 table adds its
 integer-valued weights into an int32 shadow partial, since an f32 shared
 add is a compare-and-swap loop on Hopper. The layout is the C side's
 alone; ``build_plan`` asks it. ``cms_build_atomic`` is the kernel it
-replaced, kept for ``chip_smoke.py``'s witness.
+replaced, kept for ``chip_smoke.py``'s witness. A float16 table takes a
+kernel of its own, a walk (``cms_build_f16``: each (row, lane) on one CTA,
+each chunk of keys sorted by column in shared memory, each column's run
+added in entry order), since f16 adds do not associate.
 """
 from __future__ import annotations
 
@@ -57,6 +58,8 @@ INT_TABLES = (torch.int32, torch.uint32, torch.int16, torch.int8,
 DTYPES = INT_TABLES + (torch.float32, torch.float16)
 _I64_MAX = (1 << 63) - 1
 MAX_SMEM = 232448  # a table staged in one CTA's shared memory (227 KB)
+# the C build's table dtype by its ttype: f32, int32, f16
+_C_TABLES = (torch.float32, torch.int32, torch.float16)
 
 
 def _family(family: str, keys: torch.Tensor | None = None) -> int:
@@ -160,14 +163,17 @@ def build_plan(device: torch.device, lanes: int, shard_len: int, rows: int,
 
 
 def _kernel_weights(weights: torch.Tensor | None):
-    """(weights as the C build takes them, is_int): an integer table is
-    built as int32 from weights by value mod 2^32, a float one as f32."""
+    """(weights as the C build takes them, the C table type): an integer
+    table is built as int32 (1) from weights by value mod 2^32, an f32 one
+    as f32 (0), an f16 one in f16 (2)."""
     if weights is None:
         return None, 1
     if weights.dtype in INT_TABLES:
         w = (weights.view(torch.int32) if weights.dtype == torch.uint32
              else weights.to(torch.int32))
         return w.contiguous(), 1
+    if weights.dtype == torch.float16:
+        return weights.contiguous(), 2
     return weights.to(torch.float32).contiguous(), 0
 
 
@@ -201,31 +207,33 @@ def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
                          f"{shards}")
     dev = keys.device
     dtype = torch.int32 if weights is None else weights.dtype
-    w, is_int = _kernel_weights(weights)
-    staged = rows * width * 4 <= MAX_SMEM
+    w, ttype = _kernel_weights(weights)
+    # a table the build does not write whole is zeroed first: the f16 build
+    # lays its rows out itself
+    staged = ttype < 2 and rows * width * 4 <= MAX_SMEM
     n = m // shards
-    shape = (shards, rows, width)
     table = (torch.empty if staged else torch.zeros)(
-        shape, dtype=torch.int32 if is_int else torch.float32, device=dev)
+        (shards, rows, width), dtype=_C_TABLES[ttype], device=dev)
     if m:
-        nbytes = build_plan(dev, shards, n, rows, width, is_int)[2]
+        nbytes = (build_plan(dev, shards, n, rows, width, ttype)[2]
+                  if ttype < 2 else 0)
         work = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=dev)
         CMS_BUILD.launch(dev, ptr(k), None if w is None else ptr(w),
                          ptr(table), ptr(work), shards, n, rows, width,
-                         seed & 0xFFFFFFFF, fam, is_int)
+                         seed & 0xFFFFFFFF, fam, ttype)
     else:
         table.zero_()
     return kernel_table(table, dtype)
 
 
 def kernel_table(table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The C build's int32 or f32 table as a table of ``dtype`` (integers
-    wrapped into it, f16 rounded once)."""
+    """The C build's int32, f32 or f16 table as a table of ``dtype``
+    (integers wrapped into it)."""
     if dtype == torch.uint32:
         return table.view(torch.uint32)
-    if table.dtype == torch.int32:
-        return table if dtype == torch.int32 else wrap_to(table, dtype)
-    return table.to(dtype)
+    if table.dtype == torch.int32 and dtype != torch.int32:
+        return wrap_to(table, dtype)
+    return table
 
 
 def _int_threshold(threshold, dtype: torch.dtype) -> int:

@@ -47,8 +47,23 @@
 // to run. A non-integer f32 weight gives a sum in another order than the
 // sequential one: the shared atomics in whatever order the warps of a CTA
 // reach them, then a CTA's integer part, then the partials in CTA order
-// (the last two steps are fixed, the first is not). A float16 table is
-// built in f32 and rounded once (ROADMAP Queue 3 A20).
+// (the last two steps are fixed, the first is not).
+//
+// A float16 table is the reference's f16 scatter-add: each counter takes
+// its entries' weights in index order, rounded to f16 after every add.
+// XLA adds two f16 values as their f32 sum rounded to f16; the f32 sum is
+// itself a rounding of the exact sum, but 24 >= 2 * 11 + 2 bits make that
+// double rounding innocuous (Figueroa's bound for + in binary formats), so
+// it equals the correctly rounded f16 sum, which is what __hadd gives. The
+// adds do not associate, so cms_build_f16 is a walk and not a reduction:
+// one CTA a (row, lane) takes the lane's keys in chunks of CMS_F16_CHUNK,
+// sorts each chunk in shared memory by (column, position) with a bitonic
+// network (the position in the key keeps equal columns in entry order),
+// and then the first thread of each column's run adds the run in order into
+// the row, kept in shared memory when it fits and in the output otherwise.
+// Each counter has one writer a chunk and the chunks go in order, so no
+// atomics are needed. Its chain is the hottest counter's entries, one
+// dependent f16 add each.
 //
 // Hash family at run time: 0 is the Pallas kernels'
 // hash_mod(key, width, seed + 101 r) on uint32 lanes, 2 the same on an int32
@@ -60,6 +75,7 @@
 // or the estimates or the mask, once). The build takes 2-4x its bytes at
 // every main-path shape, most likely in its hashing: rows mixes and range
 // reductions a key in 32-bit integer arithmetic.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -69,6 +85,8 @@
 
 #define CMS_THREADS 512
 #define CMS_UNROLL 8
+#define CMS_F16_CHUNK 1024  // keys a chunk of the f16 build
+#define CMS_F16_THREADS 512
 
 namespace {
 
@@ -227,6 +245,76 @@ __global__ void cms_reduce(const T* __restrict__ work, T* __restrict__ table,
     for (int q = 0; q < ctas; ++q) s = cms_add(s, p[static_cast<long long>(q) * cells]);
     table[j] = s;
   }
+}
+
+// The f16 build (see the header): grid (rows, lanes), CMS_F16_THREADS
+// threads. ``staged``: the row is built in shared memory and written out
+// once; else it is built in the output, which the caller has zeroed.
+__global__ void __launch_bounds__(CMS_F16_THREADS)
+    cms_build_f16(const uint32_t* __restrict__ keys,
+                  const __half* __restrict__ weights, __half* __restrict__ table,
+                  long long shard_len, int rows, int width, uint32_t seed,
+                  int family, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* sk = reinterpret_cast<unsigned long long*>(smem);  // (col << 32) | i
+  __half* sw = reinterpret_cast<__half*>(sk + CMS_F16_CHUNK);
+  __half* st = sw + CMS_F16_CHUNK;
+  const int r = blockIdx.x;
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.y) * shard_len;
+  __half* out = table + (static_cast<long long>(blockIdx.y) * rows + r) * width;
+  __half* row = staged ? st : out;
+  if (staged)
+    for (int c = t; c < width; c += CMS_F16_THREADS) row[c] = __float2half(0.0f);
+  const uint32_t wmask = (width & (width - 1)) == 0 ? width - 1 : 0u;
+  const unsigned long long none = ~0ull;  // padding and dropped probes
+  for (long long c0 = 0; c0 < shard_len; c0 += CMS_F16_CHUNK) {
+    const int n = static_cast<int>(min(static_cast<long long>(CMS_F16_CHUNK),
+                                       shard_len - c0));
+    __syncthreads();  // the last chunk's walk is done with sk, sw and row
+    for (int i = t; i < CMS_F16_CHUNK; i += CMS_F16_THREADS) {
+      unsigned long long k = none;
+      if (i < n) {
+        const int col = cms_hash_build(keys[base + c0 + i], r, width, wmask,
+                                       seed, family);
+        sw[i] = weights[base + c0 + i];
+        if (col >= 0)
+          k = (static_cast<unsigned long long>(col) << 32) |
+              static_cast<unsigned>(i);
+      }
+      sk[i] = k;
+    }
+    __syncthreads();
+    // bitonic sort of the chunk's keys, ascending
+    for (int k = 2; k <= CMS_F16_CHUNK; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = t; i < CMS_F16_CHUNK / 2; i += CMS_F16_THREADS) {
+          const int lo = 2 * i - (i & (j - 1));
+          const int hi = lo + j;
+          const unsigned long long a = sk[lo];
+          const unsigned long long b = sk[hi];
+          if ((a > b) == ((lo & k) == 0)) {
+            sk[lo] = b;
+            sk[hi] = a;
+          }
+        }
+        __syncthreads();
+      }
+    // the first entry of each column's run adds the run, in entry order
+    for (int i = t; i < n; i += CMS_F16_THREADS) {
+      const unsigned long long k = sk[i];
+      if (k == none) continue;
+      const unsigned col = static_cast<unsigned>(k >> 32);
+      if (i > 0 && static_cast<unsigned>(sk[i - 1] >> 32) == col) continue;
+      __half acc = row[col];
+      for (int j = i; j < n && static_cast<unsigned>(sk[j] >> 32) == col; ++j)
+        acc = __hadd(acc, sw[static_cast<unsigned>(sk[j])]);
+      row[col] = acc;
+    }
+  }
+  if (!staged) return;
+  __syncthreads();
+  for (int c = t; c < width; c += CMS_F16_THREADS) out[c] = row[c];
 }
 
 // T is the query's type: float, int (a signed minimum) or unsigned.
@@ -398,6 +486,29 @@ cudaError_t build_launch(const uint32_t* keys, const void* weights,
                               rows, width, seed, family, plan, stream);
 }
 
+// Shared memory of the f16 build: the chunk's sort keys and weights, and
+// the row when it fits beside them (else 0 for the row).
+size_t cms_f16_smem(int width, bool* staged) {
+  const size_t chunk = CMS_F16_CHUNK * (sizeof(unsigned long long) + 2);
+  *staged = chunk + static_cast<size_t>(width) * 2 <= CHEETAH_MAX_SMEM;
+  return chunk + (*staged ? static_cast<size_t>(width) * 2 : 0);
+}
+
+cudaError_t f16_launch(const uint32_t* keys, const void* weights, void* table,
+                       int lanes, long long shard_len, int rows, int width,
+                       uint32_t seed, int family, cudaStream_t stream) {
+  if (!weights) return cudaErrorInvalidValue;
+  bool staged;
+  const size_t smem = cms_f16_smem(width, &staged);
+  cudaError_t err = cheetah_launch_prep(
+      reinterpret_cast<const void*>(cms_build_f16), smem);
+  if (err != cudaSuccess) return err;
+  cms_build_f16<<<dim3(rows, lanes), CMS_F16_THREADS, smem, stream>>>(
+      keys, static_cast<const __half*>(weights), static_cast<__half*>(table),
+      shard_len, rows, width, seed, family, staged);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The build's layout on the current device: out = {CTAs a lane, the int32
@@ -416,12 +527,17 @@ extern "C" int cms_build_plan(int lanes, long long shard_len, int rows,
 
 // The output table: written whole where the table is staged in shared
 // memory, else added into (the caller zeroes it first). ``work`` holds
-// cms_build_plan's workspace bytes.
+// cms_build_plan's workspace bytes. ttype: 0 f32, 1 int32, 2 f16 (the f16
+// build, which takes no workspace).
 extern "C" int cms_build(const uint32_t* keys, const void* weights,
                          void* table, void* work, int lanes,
                          long long shard_len, int rows, int width,
-                         uint32_t seed, int family, int is_int,
+                         uint32_t seed, int family, int ttype,
                          cudaStream_t stream) {
+  if (ttype == 2)
+    return f16_launch(keys, weights, table, lanes, shard_len, rows, width,
+                      seed, family, stream);
+  const int is_int = ttype;
   CmsPlan plan;
   const cudaError_t err = cms_plan(lanes, shard_len, rows, width, is_int,
                                    &plan);

@@ -62,8 +62,15 @@
 //     memory; a chunk's hits read the pre-chunk cache, and the first miss
 //     of each row, a shared atomicMin of its chunk position, inserts). It
 //     is the faster form when the lanes fill the card: its chain is
-//     shard_len / B steps a lane. At d = 4096, w = 4 the cache takes
-//     112 KB, so the launch opts into dynamic shared memory.
+//     shard_len / B steps a lane. The stream comes through the cp.async
+//     ring of staged.cuh, stages ahead of the chain and fetched two chunks
+//     ahead; the next chunk's key, hit rule and row are computed while the
+//     step's probe is in flight. At d = 4096, w = 4 the cache takes 80 KB
+//     and the ring 64 KB, so the launch opts into dynamic shared memory.
+//     distinct_pass1_block_unstaged is the block kernel it replaced (each
+//     step loaded its entry from device memory, and probed w slots and w
+//     valid flags one by one); no entry point of the package launches it,
+//     and chip_smoke.py holds the staged kernel against it.
 //
 // distinct_pass1_serial is the kernel the B = 1 walk replaced (one thread of a
 // CTA walks its lane's entries in order, the cache in shared memory). No
@@ -99,6 +106,7 @@
 
 #include "hash.cuh"
 #include "rowpar.cuh"
+#include "staged.cuh"
 
 namespace {
 
@@ -189,14 +197,12 @@ __global__ void distinct_serial_kernel(const uint32_t* __restrict__ x,
     head_out[static_cast<long long>(blockIdx.x) * d + r] = head[r];
 }
 
-// blockDim.x == block: one thread per entry of a chunk.
-__global__ void distinct_pass1_block(const uint32_t* __restrict__ x,
-                                     uint8_t* __restrict__ keep,
-                                     uint32_t* __restrict__ slots_out,
-                                     uint8_t* __restrict__ valid_out,
-                                     int* __restrict__ head_out,
-                                     int shard_len, int d, int w, int fmode,
-                                     uint32_t seed) {
+// The retired block kernel (see the header); blockDim.x == block.
+__global__ void distinct_pass1_block_unstaged_kernel(
+    const uint32_t* __restrict__ x, uint8_t* __restrict__ keep,
+    uint32_t* __restrict__ slots_out, uint8_t* __restrict__ valid_out,
+    int* __restrict__ head_out, int shard_len, int d, int w, int fmode,
+    uint32_t seed) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* slots = reinterpret_cast<uint32_t*>(smem);
   int* head = reinterpret_cast<int*>(slots + d * w);
@@ -245,6 +251,109 @@ __global__ void distinct_pass1_block(const uint32_t* __restrict__ x,
   }
   for (int r = t; r < d; r += block)
     head_out[static_cast<long long>(blockIdx.x) * d + r] = head[r];
+}
+
+// The row state of the staged block kernel: its head, and whether it has
+// filled (every slot valid; until then its valid slots are the first head).
+#define DISTINCT_FULL (1 << 30)
+
+// The block kernel (B > 1), one CTA a lane, blockDim.x == block: thread t
+// takes entry t of every chunk of B entries. Its d x w slots are in shared
+// memory beside an int a row, head | DISTINCT_FULL once the row has filled:
+// a FIFO row fills in slot order, so its valid slots are a prefix, and a
+// probe reads the slots (16 bytes at a time when w % 4 == 0) and that int
+// instead of w valid flags. Its stream comes through the ring of
+// staged.cuh, fetched two chunks ahead. A step (one chunk): the entry
+// probes its row as it stood before the chunk (keep = miss, a byte stored
+// straight to keep); a miss takes a shared atomicMin of t into first[row];
+// the next chunk's key, hit rule and row (all of the entry alone) are
+// computed while the probe is in flight; a barrier; the row's first miss
+// inserts at head and re-arms first[row]; a barrier. A step's time is the
+// instructions and shared-memory operations of its B entries on one SM.
+__global__ void __launch_bounds__(1024)
+    distinct_pass1_block(const uint32_t* __restrict__ x,
+                         uint8_t* __restrict__ keep,
+                         uint32_t* __restrict__ slots_out,
+                         uint8_t* __restrict__ valid_out,
+                         int* __restrict__ head_out, int shard_len, int d,
+                         int w, int fmode, uint32_t seed, int cps, int stages,
+                         int ring_off, int slot) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* slots = reinterpret_cast<uint32_t*>(smem);
+  int* hf = reinterpret_cast<int*>(slots + d * w);  // head | DISTINCT_FULL
+  int* first = hf + d;
+  const int B = blockDim.x;
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * shard_len;
+  const int nchunks = shard_len / B;
+  StagedRing ring{x + base, reinterpret_cast<uint32_t*>(smem + ring_off), t,
+                  B, cps, stages, nchunks, static_cast<size_t>(slot)};
+  for (int i = t; i < d * w; i += B) slots[i] = 0u;
+  for (int r = t; r < d; r += B) {
+    hf[r] = 0;
+    first[r] = B;
+  }
+  ring.start();
+  __syncthreads();
+  bool can;
+  const uint32_t bits = ring.first();
+  uint32_t v = distinct_key(bits, fmode, &can);
+  int r = cheetah_hash_mod(bits, d, seed);
+  uint32_t bits1 = nchunks > 1 ? ring.next() : 0u;
+  __syncthreads();
+  const bool quads = (w & 3) == 0;
+  for (int c = 0; c < nchunks; ++c) {
+    const int b = r * w;
+    // the row's state and its slots, loaded together; n masks the slots
+    const int st = hf[r];
+    bool hit = false;
+    if (quads) {
+      const uint4* q = reinterpret_cast<const uint4*>(slots + b);
+      const int n = (st & DISTINCT_FULL) ? w : st;  // the valid slots
+      for (int j = 0; j < w; j += 4) {
+        const uint4 u = q[j >> 2];
+        hit |= (u.x == v && j < n) | (u.y == v && j + 1 < n) |
+               (u.z == v && j + 2 < n) | (u.w == v && j + 3 < n);
+      }
+    } else {
+      const int n = (st & DISTINCT_FULL) ? w : st;
+      for (int j = 0; j < n; ++j) hit |= slots[b + j] == v;
+    }
+    hit &= can;
+    // the next chunk's key, hit rule and row (of its entry alone), and the
+    // entry of the one after it
+    bool can1;
+    const uint32_t v1 = distinct_key(bits1, fmode, &can1);
+    const int r1 = cheetah_hash_mod(bits1, d, seed);
+    const uint32_t bits2 = c + 2 < nchunks ? ring.next() : 0u;
+    keep[base + static_cast<long long>(c) * B + t] = !hit;
+    if (!hit) atomicMin(&first[r], t);
+    __syncthreads();
+    // The row's first miss inserts and re-arms first[r]; any other miss of
+    // the row reads either its winner or the re-armed value, never its own
+    // t. Only the owner writes hf[r] in a step, so st is still its value.
+    if (!hit && first[r] == t) {
+      const int h = st & ~DISTINCT_FULL;
+      slots[b + h] = v;
+      hf[r] = h + 1 == w ? DISTINCT_FULL : (st & DISTINCT_FULL) | (h + 1);
+      first[r] = B;
+    }
+    __syncthreads();
+    v = v1;
+    can = can1;
+    r = r1;
+    bits1 = bits2;
+  }
+  rowpar_wait_all();
+  const long long so = static_cast<long long>(blockIdx.x) * d * w;
+  for (int k = t; k < d * w; k += B) {
+    const int st = hf[k / w];
+    slots_out[so + k] = slots[k];
+    valid_out[so + k] = (st & DISTINCT_FULL) || k % w < st;
+  }
+  for (int k = t; k < d; k += B)
+    head_out[static_cast<long long>(blockIdx.x) * d + k] =
+        hf[k] & ~DISTINCT_FULL;
 }
 
 // Flags the entries of the partitioned stream that the walk must take, and
@@ -979,13 +1088,19 @@ size_t serial_smem(int d, int w) {
          CHEETAH_STAGE * (sizeof(uint32_t) + sizeof(int) + 1);
 }
 
+// The block kernel's layout: the slots, the row states and first, the ring.
+StagedPlan distinct_block_plan(int d, int w, int block) {
+  return staged_plan(static_cast<size_t>(d) * w * sizeof(uint32_t) +
+                         2 * static_cast<size_t>(d) * sizeof(int),
+                     block);
+}
+
 }  // namespace
 
-// Shared memory of the block kernel (B > 1); the walks need none of it.
+// Shared memory of the block kernel (B > 1), its ring included; the walks
+// need none of it.
 extern "C" size_t distinct_pass1_smem(int d, int w, int block) {
-  (void)block;
-  return static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
-         2 * static_cast<size_t>(d) * sizeof(int);
+  return distinct_block_plan(d, w, block).total;
 }
 
 // Workspace of the walks (distinct_pass1 at B = 1, and the block walk); the
@@ -1003,12 +1118,14 @@ extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
                               cudaStream_t stream) {
   if (block > 1) {
     if (lru) return cudaErrorInvalidValue;  // LRU is per entry: B = 1 only
-    const size_t smem = distinct_pass1_smem(d, w, block);
+    if (block > 1024 || shard_len % block) return cudaErrorInvalidValue;
+    const StagedPlan p = distinct_block_plan(d, w, block);
     cudaError_t err = cheetah_launch_prep(
-        reinterpret_cast<const void*>(distinct_pass1_block), smem);
+        reinterpret_cast<const void*>(distinct_pass1_block), p.total);
     if (err != cudaSuccess) return err;
-    distinct_pass1_block<<<shards, block, smem, stream>>>(
-        x, keep, slots, valid, head, shard_len, d, w, fmode, seed);
+    distinct_pass1_block<<<shards, block, p.total, stream>>>(
+        x, keep, slots, valid, head, shard_len, d, w, fmode, seed, p.cps,
+        p.stages, static_cast<int>(p.ring), static_cast<int>(p.slot));
     return cudaGetLastError();
   }
   return distinct_walks(x, keep, slots, valid, head, shards, shard_len, d, w,
@@ -1025,6 +1142,26 @@ extern "C" int distinct_pass1_block_walk(const uint32_t* x, uint8_t* keep,
                                          cudaStream_t stream) {
   return distinct_walks(x, keep, slots, valid, head, shards, shard_len, d, w,
                         block, 0, fmode, seed, work, stream);
+}
+
+// The retired block kernel (FIFO, B > 1), for holding the staged block
+// kernel against it; launched by no entry point of the package.
+extern "C" int distinct_pass1_block_unstaged(const uint32_t* x, uint8_t* keep,
+                                             uint32_t* slots, uint8_t* valid,
+                                             int* head, int shards,
+                                             int shard_len, int d, int w,
+                                             int block, int fmode,
+                                             uint32_t seed,
+                                             cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(d) * w * (sizeof(uint32_t) + 1) +
+                      2 * static_cast<size_t>(d) * sizeof(int);
+  cudaError_t err = cheetah_launch_prep(
+      reinterpret_cast<const void*>(distinct_pass1_block_unstaged_kernel),
+      smem);
+  if (err != cudaSuccess) return err;
+  distinct_pass1_block_unstaged_kernel<<<shards, block, smem, stream>>>(
+      x, keep, slots, valid, head, shard_len, d, w, fmode, seed);
+  return cudaGetLastError();
 }
 
 // The retired one-thread walk, for holding the row-parallel walk against it

@@ -41,12 +41,27 @@
 //
 // topn_pass1 at B > 1 is topn_pass1_block, one CTA a lane with its
 // f32[d][w] matrix in shared memory: a chunk's keeps read the pre-chunk
-// matrix, and each row's candidate is a shared atomicMax on
-// topn_cand_ord. Its chain is shard_len / B steps of two barriers and a
-// pass over the d rows, on one SM a lane, so it is the faster form only
-// when the lanes fill the card (kernels/parallel.py, use_block_walk). At
-// S = 1 it is reached only through its C entry, which chip_smoke.py holds
-// the walk against at full size.
+// matrix, and each row's candidate is a shared atomicMax on topn_cand_ord
+// by the entries that can matter (above the row minimum, or NaN), whose
+// owner (a compare-and-swap of the candidate back to 0) does the sorted
+// insert; no pass over the d rows. The stream comes through the cp.async
+// ring of staged.cuh, stages ahead of the chain, and is fetched two chunks
+// ahead; the next chunk's row (a hash of the shard-local index alone) is
+// computed while the step's loads are in flight. Its chain is shard_len / B
+// steps of two barriers, on one SM a lane, so it is the faster form only
+// when the lanes fill enough of the card (kernels/parallel.py,
+// use_block_walk). At S = 1 it is reached only through its C entry, which
+// chip_smoke.py holds the walk against at full size. What a step costs:
+// the B entries' instructions and shared-memory operations on one SM of 8
+// warps, and on the main path's lanes the owners' inserts, which come
+// almost every step; not device memory, which the ring keeps off the
+// chain (PERF.md).
+//
+// topn_pass1_block_unstaged is the block kernel it replaced (each step
+// loaded its entry from device memory, bid every entry's order into a
+// candidate and passed over all d rows for the inserts). No entry point of
+// the package launches it; chip_smoke.py holds the staged kernel against
+// it at full size.
 //
 // topn_pass1_serial is the kernel the walk replaced at B = 1 (one thread
 // of a CTA walks its lane's entries in order). No entry point of the
@@ -62,6 +77,7 @@
 
 #include "hash.cuh"
 #include "rowpar.cuh"
+#include "staged.cuh"
 
 namespace {
 
@@ -119,11 +135,10 @@ __device__ __forceinline__ unsigned topn_cand_ord(float v) {
   return v != v ? 0xFFFFFFFFu : cheetah_ordered(v);
 }
 
-// blockDim.x == block: one thread per entry of a chunk.
-__global__ void topn_pass1_block(const float* __restrict__ x,
-                                 uint8_t* __restrict__ keep,
-                                 float* __restrict__ states, int shard_len,
-                                 int d, int w, uint32_t seed) {
+// The retired block kernel (see the header); blockDim.x == block.
+__global__ void topn_pass1_block_unstaged_kernel(
+    const float* __restrict__ x, uint8_t* __restrict__ keep,
+    float* __restrict__ states, int shard_len, int d, int w, uint32_t seed) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* st = reinterpret_cast<float*>(smem);
   unsigned* cand = reinterpret_cast<unsigned*>(st + d * w);
@@ -153,6 +168,119 @@ __global__ void topn_pass1_block(const float* __restrict__ x,
   }
   float* out = states + static_cast<long long>(blockIdx.x) * d * w;
   for (int i = t; i < d * w; i += blockDim.x) out[i] = st[i];
+}
+
+// The quad of slots i .. i+3 of a row after the sorted insert of c at pos:
+// slots before pos stay, slot pos takes c, the later ones take the slot
+// before them (``before``: slot i - 1 as it was).
+__device__ __forceinline__ float4 insert_quad(float4 a, float before, int i,
+                                              int pos, float c) {
+  float4 o;
+  o.x = i < pos ? a.x : (i == pos ? c : before);
+  o.y = i + 1 < pos ? a.y : (i + 1 == pos ? c : a.x);
+  o.z = i + 2 < pos ? a.z : (i + 2 == pos ? c : a.y);
+  o.w = i + 3 < pos ? a.w : (i + 3 == pos ? c : a.z);
+  return o;
+}
+
+__device__ __forceinline__ int quad_le(float c, float4 a) {
+  return (c <= a.x) + (c <= a.y) + (c <= a.z) + (c <= a.w);
+}
+
+// Sorted insert as insert_sorted, 16 bytes at a time: w % 4 == 0 and the
+// row 16-byte aligned. A row of 8 (the main path's) is loaded once, both
+// quads at a time, and written back from registers: the insert is on the
+// step's chain almost every step there (PERF.md has the block kernel's time
+// with and without this path). A wider row takes a pass over the quads for
+// pos and one over the quads from pos on.
+__device__ __forceinline__ void insert_sorted4(float* row, int w, float c) {
+  float4* q = reinterpret_cast<float4*>(row);
+  if (w == 8) {
+    const float4 a = q[0];
+    const float4 b = q[1];
+    const int pos = quad_le(c, a) + quad_le(c, b);
+    q[0] = insert_quad(a, c, 0, pos, c);
+    q[1] = insert_quad(b, a.w, 4, pos, c);
+    return;
+  }
+  const int nq = w >> 2;
+  int pos = 0;
+  for (int k = 0; k < nq; ++k) pos += quad_le(c, q[k]);
+  float before = c;
+  for (int k = pos >> 2; k < nq; ++k) {
+    const float4 a = q[k];
+    q[k] = insert_quad(a, before, k << 2, pos, c);
+    before = a.w;
+  }
+}
+
+// The block kernel (B > 1), one CTA a lane, blockDim.x == block: thread t
+// takes entry t of every chunk of B entries. Its f32[d][w] matrix and a
+// candidate a row are in shared memory; its stream comes through the ring
+// of staged.cuh, fetched two chunks ahead. A step (one chunk): the entry
+// keeps against the row minimum as it stood before the chunk (a byte
+// stored straight to keep, 32 consecutive bytes a warp); an entry above
+// that minimum, or a NaN, bids a shared atomicMax of topn_cand_ord into
+// the row's candidate (the block's maximum of a row is a bid whenever it
+// beats the minimum or is a NaN, the only cases that matter); the row of
+// the next chunk (a hash of the shard-local index alone) and the value of
+// the one after it are fetched while that runs; a barrier; the bidder whose
+// compare-and-swap takes the row's candidate back to 0 owns the row (one of
+// equal bidders, whose values have equal bits) and inserts its value when
+// it beats the minimum it read (a NaN never does); a barrier. Once the rows
+// have filled few entries bid: a step is then the keep's shared load of
+// the row minimum, and the B entries' shared-memory traffic on one SM, not
+// one entry's latency, sets its time.
+__global__ void __launch_bounds__(1024)
+    topn_pass1_block(const float* __restrict__ x, uint8_t* __restrict__ keep,
+                     float* __restrict__ states, int shard_len, int d, int w,
+                     uint32_t seed, int cps, int stages, int ring_off,
+                     int slot) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* st = reinterpret_cast<float*>(smem);
+  unsigned* cand = reinterpret_cast<unsigned*>(st + d * w);
+  const int B = blockDim.x;
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * shard_len;
+  const int nchunks = shard_len / B;
+  StagedRing ring{reinterpret_cast<const uint32_t*>(x) + base,
+                  reinterpret_cast<uint32_t*>(smem + ring_off),
+                  t, B, cps, stages, nchunks, static_cast<size_t>(slot)};
+  for (int i = t; i < d * w; i += B) st[i] = cheetah_neg_value();
+  for (int r = t; r < d; r += B) cand[r] = 0u;  // below every entry's order
+  ring.start();
+  const bool quads = (w & 3) == 0;
+  int row = cheetah_hash_mod(static_cast<uint32_t>(t), d, seed);
+  __syncthreads();
+  float v = __uint_as_float(ring.first());
+  float v1 = nchunks > 1 ? __uint_as_float(ring.next()) : 0.0f;
+  __syncthreads();
+  for (int c = 0; c < nchunks; ++c) {
+    float* rowp = st + row * w;
+    const float rmin = rowp[w - 1];
+    const int row1 =
+        cheetah_hash_mod(static_cast<uint32_t>((c + 1) * B + t), d, seed);
+    const float v2 = c + 2 < nchunks ? __uint_as_float(ring.next()) : 0.0f;
+    keep[base + static_cast<long long>(c) * B + t] = v >= rmin;
+    const bool bid = !(v <= rmin);
+    const unsigned o = topn_cand_ord(v);
+    if (bid) atomicMax(&cand[row], o);
+    __syncthreads();
+    // a bidder below the candidate, or after the owner's swap, swaps nothing
+    if (bid && atomicCAS(&cand[row], o, 0u) == o && v > rmin) {
+      if (quads)
+        insert_sorted4(rowp, w, v);
+      else
+        insert_sorted(rowp, w, v);
+    }
+    __syncthreads();
+    v = v1;
+    v1 = v2;
+    row = row1;
+  }
+  rowpar_wait_all();
+  float* out = states + static_cast<long long>(blockIdx.x) * d * w;
+  for (int i = t; i < d * w; i += B) out[i] = st[i];
 }
 
 // A walk's row in registers (w <= 32): slot j is lane j's r; rmin is slot
@@ -439,13 +567,19 @@ cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
   return cudaGetLastError();
 }
 
+// The block kernel's layout: the matrix, the candidates, the ring.
+StagedPlan topn_block_plan(int d, int w, int block) {
+  return staged_plan(static_cast<size_t>(d) * w * sizeof(float) +
+                         static_cast<size_t>(d) * sizeof(unsigned),
+                     block);
+}
+
 }  // namespace
 
-// Shared memory of the block kernel (B > 1); the walk needs none of it.
+// Shared memory of the block kernel (B > 1), its ring included; the walk
+// needs none of it.
 extern "C" size_t topn_pass1_smem(int d, int w, int block) {
-  (void)block;
-  return static_cast<size_t>(d) * w * sizeof(float) +
-         static_cast<size_t>(d) * sizeof(unsigned);
+  return topn_block_plan(d, w, block).total;
 }
 
 // Workspace of the walk (topn_pass1 at B = 1, topn_pass1_block_walk); the
@@ -460,16 +594,35 @@ extern "C" int topn_pass1(const float* x, uint8_t* keep, float* states,
                           uint32_t seed, unsigned char* work,
                           cudaStream_t stream) {
   if (block > 1) {
-    const size_t smem = topn_pass1_smem(d, w, block);
+    if (block > 1024 || shard_len % block) return cudaErrorInvalidValue;
+    const StagedPlan p = topn_block_plan(d, w, block);
     cudaError_t err = cheetah_launch_prep(
-        reinterpret_cast<const void*>(topn_pass1_block), smem);
+        reinterpret_cast<const void*>(topn_pass1_block), p.total);
     if (err != cudaSuccess) return err;
-    topn_pass1_block<<<shards, block, smem, stream>>>(x, keep, states,
-                                                      shard_len, d, w, seed);
+    topn_pass1_block<<<shards, block, p.total, stream>>>(
+        x, keep, states, shard_len, d, w, seed, p.cps, p.stages,
+        static_cast<int>(p.ring), static_cast<int>(p.slot));
     return cudaGetLastError();
   }
   return topn_walk_launch(x, keep, states, shards, shard_len, d, w, 1, seed,
                           work, stream);
+}
+
+// The retired block kernel (B > 1), for holding the staged block kernel
+// against it; launched by no entry point of the package.
+extern "C" int topn_pass1_block_unstaged(const float* x, uint8_t* keep,
+                                         float* states, int shards,
+                                         int shard_len, int d, int w,
+                                         int block, uint32_t seed,
+                                         cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(d) * w * sizeof(float) +
+                      static_cast<size_t>(d) * sizeof(unsigned);
+  cudaError_t err = cheetah_launch_prep(
+      reinterpret_cast<const void*>(topn_pass1_block_unstaged_kernel), smem);
+  if (err != cudaSuccess) return err;
+  topn_pass1_block_unstaged_kernel<<<shards, block, smem, stream>>>(
+      x, keep, states, shard_len, d, w, seed);
+  return cudaGetLastError();
 }
 
 // The row-parallel block walk (block semantics, B >= 1); work holds

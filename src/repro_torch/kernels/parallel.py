@@ -53,6 +53,10 @@ DISTINCT_PASS1 = CudaKernel(
     smem_fn="distinct_pass1_smem")
 # the LRU policy of distinct_pass1's row-parallel walk, counted apart
 DISTINCT_PASS1_LRU = LaunchCount("distinct_pass1_lru")
+# the one-CTA-a-lane block kernels of topn_pass1 and distinct_pass1 (B > 1),
+# counted apart from their row-parallel walks (B = 1)
+TOPN_PASS1_BLOCK = LaunchCount("topn_pass1_block")
+DISTINCT_PASS1_BLOCK = LaunchCount("distinct_pass1_block")
 DISTINCT_BLOCK_WALK = CudaKernel(
     "distinct_pass1_block_walk",
     [P, P, P, P, P, I32, I32, I32, I32, I32, I32, U32, P])
@@ -68,7 +72,7 @@ KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
            BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
            RLE_TOPN_DET, DISTINCT_BLOCK_WALK, TOPN_BLOCK_WALK,
-           BLOOM_BUILD_GLOBAL)
+           BLOOM_BUILD_GLOBAL, TOPN_PASS1_BLOCK, DISTINCT_PASS1_BLOCK)
 POLICIES = ("lru", "fifo")
 
 
@@ -114,19 +118,22 @@ def _check_pass1(kernel: CudaKernel, d: int, w: int, block: int) -> None:
 
 def use_block_walk(shards: int, device: torch.device) -> bool:
     """Whether pass 1 at B > 1, of TOP-N and of DISTINCT alike, takes the
-    row-parallel block walk on the card (else the one-CTA-a-lane block
-    kernel): while the lanes fill less than half of the SMs. The block
+    row-parallel block walk on the card (else the staged one-CTA-a-lane
+    block kernel): while the lanes fill fewer than one SM in six. The block
     kernel's chain is shard_len / B steps a lane on one SM and needs no
-    partition; the walk spreads every lane over the card but partitions
-    the stream first (1.1-1.6 ms on 2^25 entries). chip_smoke.py's
-    time_block_forms, NVIDIA H100 80GB HBM3 at 700.00 W, B = 256, on
-    2^25 entries: DISTINCT on zipf keys, d=4096, w=4: at S=1 the walk
-    4.463 ms and the block kernel 102.93 ms, at S=128 the walk 3.152 ms
-    and the block kernel 0.891 ms; TOP-N on gamma(2, 50) values, d=512,
-    w=8: at S=1 the walk 2.508 ms and the block kernel 101.20 ms, at
-    S=128 the walk 2.051 ms and the block kernel 1.368 ms."""
+    partition; the walk spreads every lane over the card but partitions the
+    stream first. chip_smoke.py's time_block_forms, NVIDIA H100 80GB HBM3 at
+    700.00 W, B = 256, on 2^25 entries, walk / block kernel in ms: DISTINCT
+    on zipf keys, d=4096, w=4: S=1 4.535 / 52.33, S=8 3.204 / 6.595, S=16
+    3.219 / 3.401, S=32 3.122 / 1.707, S=64 3.190 / 0.938, S=128 3.038 /
+    0.461; TOP-N on gamma(2, 50) values, d=512, w=8: S=1 2.434 / 34.20,
+    S=8 2.078 / 5.232, S=16 2.050 / 2.934, S=32 2.063 / 1.626, S=64 1.988 /
+    0.877, S=128 2.040 / 0.496. The block kernel's time goes as 1/S (about
+    54 / S ms for DISTINCT, 47 / S for TOP-N) and the walk's stays, so the
+    forms cross near S = 17 and S = 23: the threshold sits between, the
+    block kernel from 22 lanes on 132 SMs."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 2 * shards < sms
+    return 6 * shards < sms
 
 
 # ======================================================= TOP-N (rand, Ex. 7)
@@ -166,7 +173,8 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                 if block == 1 else None)
         TOPN_PASS1.launch(dev, ptr(values), ptr(keep), ptr(states), shards,
                           shard_len, d, w, block, seed & 0xFFFFFFFF,
-                          None if work is None else ptr(work))
+                          None if work is None else ptr(work),
+                          count=TOPN_PASS1_BLOCK if block > 1 else None)
     else:
         states.fill_(float(NEG))
     return keep, states
@@ -335,7 +343,8 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                           shard_len, d, w, block, int(lru),
                           int(values.dtype == torch.float32),
                           seed & 0xFFFFFFFF, None if work is None else ptr(work),
-                          count=DISTINCT_PASS1_LRU if lru else None)
+                          count=DISTINCT_PASS1_LRU if lru
+                          else DISTINCT_PASS1_BLOCK if block > 1 else None)
     return out
 
 

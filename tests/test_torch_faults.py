@@ -44,7 +44,10 @@ reference, faults of the reference included:
 - A16: FILTER compares with a weakly typed Python literal, which wraps into
   the column's dtype and raises OverflowError outside int32;
 - A17: ``ops.rle_distinct_prune`` converts float run values to uint32 by
-  value.
+  value;
+- A20: a float16 HAVING table adds in f16 in entry order, as the
+  reference's scatter-add does (3000 unit weights on one key read 2048;
+  the card's build had added in f32 and rounded once).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +55,7 @@ import pytest
 import torch
 
 from repro import core as J
+from repro.core import sketches as jsk
 from repro.kernels import cms_sketch as jcms
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -880,4 +884,64 @@ def test_a17_float_run_values_convert_by_value(seed, policy):
     want = jops.rle_distinct_prune(jnp.asarray(rv), d=4, w=2, policy=policy)
     got = tops.rle_distinct_prune(torch.from_numpy(rv), d=4, w=2,
                                   policy=policy)
+    _eq(got, want)
+
+
+# ------------------------------------------------------------------ A20
+def _f16_sums(seed, m=4000, keys=5):
+    """Keys of a small universe and f16 weights of both signs whose sums
+    pass 2^11, where an f16 add in entry order parts from an f32 sum."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, keys, m).astype(np.uint32)
+    w = (rng.random(m) * 24 - 6).astype(np.float16)
+    return k, w
+
+
+def test_a20_smallest_input():
+    k = np.full(3000, 7, np.uint32)
+    w = np.ones(3000, np.float16)
+    want = np.asarray(jsk.cms_build(jnp.asarray(k), jnp.asarray(w), 3,
+                                    4096).table)
+    got = T.cms_build(torch.from_numpy(k), torch.from_numpy(w), 3,
+                      4096).table
+    assert got.dtype == torch.float16
+    _eq(got, want)
+    assert float(got.max()) == float(want.max()) == 2048.0
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_a20_sums_past_2_11_in_entry_order(seed):
+    k, w = _f16_sums(seed)
+    want = np.asarray(jsk.cms_build(jnp.asarray(k), jnp.asarray(w), 2,
+                                    8).table)
+    got = T.cms_build(torch.from_numpy(k), torch.from_numpy(w), 2, 8).table
+    assert np.abs(want.astype(np.float32)).max() > 2048
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("mode", ["scan", "two_pass"])
+@pytest.mark.parametrize("seed", range(2))
+def test_a20_having_sum_over_float16_values(seed, mode):
+    k, w = _f16_sums(seed, m=4003)
+    kw = dict(threshold=5000.0, rows=2, width=8, agg="sum", mode=mode,
+              shards=4)
+    want = J.engine_prune("having", jnp.asarray(k), jnp.asarray(w),
+                          obs="off", **kw)
+    got = T.engine_prune("having", torch.from_numpy(k), torch.from_numpy(w),
+                         **kw)
+    _eq(got.keep, want.keep)
+    table = np.asarray(want.state.table)
+    assert got.state.table.dtype == torch.float16
+    _eq(got.state.table, table)
+
+
+def test_a20_ops_cms_build_over_float16_weights():
+    # the kernels' entry point builds in f32, as the Pallas kernel does, so
+    # integer weights of both signs sum past 2^11 exactly on both sides
+    k, w = _f16_sums(3, m=2000)
+    w = np.floor(w)
+    want = jops.cms_build(jnp.asarray(k), jnp.asarray(w), rows=2, width=64)
+    got = tops.cms_build(torch.from_numpy(k), torch.from_numpy(w), rows=2,
+                         width=64)
+    assert got.dtype == torch.float32 and float(got.max()) > 2048
     _eq(got, want)

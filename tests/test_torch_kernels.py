@@ -127,6 +127,98 @@ def test_shard_states_match_pallas(shards, block):
     assert head.shape == (shards, D)
 
 
+# The streams the staged block kernels are held to on the card
+# (chip_smoke.phase_kernels_block_staged), here through the plain versions
+# against the Pallas kernels at B = 256: (stream, d, w, lanes of n
+# entries); n = 256 is a lane of one chunk, 19 chunks are one stage of 16
+# and 3 more.
+STAGED_TOPN = [("gamma", D, W, 256 * 3), ("ascending", D, W, 256 * 3),
+               ("equal, +-0 and NaNs", D, W, 256 * 3), ("gamma", 1, W, 256),
+               ("gamma", 8, 64, 256), ("gamma", D, W, 256 * 19),
+               ("view at 1", D, W, 256 * 2), ("view at 3", D, W, 256 * 2)]
+STAGED_DISTINCT = [("universe 300", D, W, 256 * 3),
+                   ("all distinct", D, W, 256 * 3),
+                   ("universe 300", 1, W, 256),
+                   ("float32 integers", D, W, 256 * 3),
+                   ("universe 300", D, W, 256 * 19),
+                   ("view at 1", D, W, 256 * 2), ("view at 3", D, W, 256 * 2)]
+
+
+def _view_at(x, off):
+    """x as the view [off : off + len(x)] of a longer tensor."""
+    big = torch.zeros(x.numel() + 8, dtype=x.dtype)
+    big[off:off + x.numel()] = x
+    return big[off:off + x.numel()]
+
+
+def _staged_stream(name, m, rng, topn):
+    """(port tensor, JAX array) of one stream of the staged cases."""
+    if name in ("gamma", "universe 300") or name.startswith("view"):
+        v, f = _data(m, int(rng.integers(100)))
+        x = v if topn else f
+    elif name == "ascending":
+        x = np.arange(m, dtype=np.float32)
+    elif name == "all distinct":
+        x = np.arange(m, dtype=np.uint32)
+    elif name == "equal, +-0 and NaNs":
+        pick = np.array([3.0, 3.0, 3.0, 0.0, -0.0, np.nan, 0.0], np.float32)
+        pick.view(np.int32)[-1] = -4194304  # a NaN with its sign set
+        x = pick[rng.integers(0, len(pick), m)]
+    else:  # float32 integers: the port hashes the bits and stores the value
+        x = rng.integers(0, 300, m).astype(np.float32)
+    t = torch.from_numpy(x)
+    if name.startswith("view"):
+        t = _view_at(t, int(name[-1]))
+    return t, x
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("name,d,w,n", STAGED_TOPN,
+                         ids=[f"{c[0]}-d{c[1]}-w{c[2]}-n{c[3]}"
+                              for c in STAGED_TOPN])
+def test_topn_block_streams_match_pallas(name, d, w, n, shards):
+    rng = np.random.default_rng(n + d)
+    t, x = _staged_stream(name, shards * n, rng, topn=True)
+    keep, states = tpar.topn_shard_states_kernel(t, d=d, w=w, shards=shards,
+                                                 block=256, seed=5)
+    jkeep, jstates = jpar.topn_shard_states_kernel(
+        jnp.asarray(x), d=d, w=w, shards=shards, block=256, seed=5)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep).astype(bool))
+    np.testing.assert_array_equal(states.numpy(), np.asarray(jstates))
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("name,d,w,n", STAGED_DISTINCT,
+                         ids=[f"{c[0]}-d{c[1]}-w{c[2]}-n{c[3]}"
+                              for c in STAGED_DISTINCT])
+def test_distinct_block_streams_match_pallas(name, d, w, n, shards):
+    """float32 integers below 2^24: the port hashes the value's bits and
+    stores the value, so the Pallas kernel on the bits as uint32 keys gives
+    the same keep, valid and head, and slots that hold the bits."""
+    rng = np.random.default_rng(n + d)
+    t, x = _staged_stream(name, shards * n, rng, topn=False)
+    fl = x.dtype == np.float32
+    keep, slots, valid, head = tpar.distinct_shard_states_kernel(
+        t, d=d, w=w, shards=shards, block=256, seed=5)
+    jkeep, lo, hi, jvalid = jpar.distinct_shard_states_kernel(
+        jnp.asarray(x.view(np.uint32)), d=d, w=w, shards=shards, block=256,
+        seed=5)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep).astype(bool))
+    jslots, jv = convert.distinct_kernel_state_from_numpy(
+        np.asarray(lo), np.asarray(hi), np.asarray(jvalid), device="cpu")
+    if fl:  # a valid slot holds the value's bits there, the value here
+        jslots = torch.where(jv, jslots.view(torch.float32).to(torch.int64),
+                             0).to(torch.int32).view(torch.uint32)
+    np.testing.assert_array_equal(slots.numpy(), jslots.numpy())
+    np.testing.assert_array_equal(valid.numpy(), jv.numpy())
+    # the Pallas kernel keeps head to itself; until a row fills, its head is
+    # its count of valid slots
+    filled = valid.sum(-1)
+    assert head.shape == (shards, d)
+    np.testing.assert_array_equal(head[filled < w].numpy(),
+                                  filled[filled < w].numpy())
+
+
 def test_s1_identities():
     """ops' sequential kernel is the pass-1 keep of one shard, and at B = 1
     the block semantics are the engine's per-entry scans."""
@@ -235,7 +327,7 @@ def test_launch_counts_reset():
         torch.uint32), d=4, w=2, mode="two_pass", shards=2)
     tops.rle_topn_prune(torch.rand(8), torch.ones(8, dtype=torch.int32), N=2)
     assert [k.launches for k in tpar.KERNELS] == [0] * len(tpar.KERNELS)
-    assert len({k.name for k in tpar.KERNELS}) == 17
+    assert len({k.name for k in tpar.KERNELS}) == 19
 
 
 def test_apply_shape_checks():
