@@ -23,6 +23,13 @@ Phases, one line each, and a non-zero exit on any failure:
            by its C entry, whatever route the wrapper takes for the shape
            (JOIN F_A's shape with and without a mask, nbits 2^24 - 37 and
            600001, m = 7 and m = 0), and the wrapper on each; the
+           persistent Count-Min and Bloom queries (every table dtype and
+           hash family, no threshold and an int and a float one, tables
+           and filters on both sides of the shared-memory route, m = 0, 1,
+           3, 4097 and 2^20 + 3, keys as views 1 and 3 entries into their
+           storage, tables with NaN, +-inf, -0, FLT_MAX and subnormal
+           counters and bit vectors with a NaN or an infinity: Queue 3
+           A21-A24, A24's table also through the retired query); the
            row-parallel
            DISTINCT and GROUP BY walks on adversarial inputs (a hot key,
            one row, two alternating keys, d = 37 and d = 70001, float32
@@ -86,6 +93,11 @@ Phases, one line each, and a non-zero exit on any failure:
            first GROUPBY_PREFIX / S, rerun on that prefix for the state;
            the plain loops on CPU copies, except those whose time the
            kernels line reports),
+           each Count-Min and Bloom query's device time, route, SASS
+           instructions a key of its key loop and the issue floor they
+           imply, host time a call, and a torch gather of the pre-hashed
+           cells or words (a yardstick, not the same function; at JOIN's
+           filters the card's L2 gather rate),
            the run-level RLE scan also on three layouts that prune
            (shuffled, shuffled below 0, descending), its median time, its C
            entry's time alone and queued back to back (its device time),
@@ -129,8 +141,10 @@ Phases, one line each, and a non-zero exit on any failure:
            the partial-table Count-Min build against the atomic build it
            replaced (cms_build_atomic) at its four main-path shapes; the
            compacted SKYLINE apply against the slot-order scan
-           (skyline_apply_scan) on both merged sets; then the ``kernels``
-           JSON line.
+           (skyline_apply_scan) on both merged sets; the persistent
+           Count-Min and Bloom queries against the grid-stride queries they
+           replaced (cms_query_grid, bloom_query_grid) at every main-path
+           shape; then the ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -500,6 +514,7 @@ def phase_kernels(torch, P, R, O):
                 skyline_pass1=ok_s, skyline_apply=ok_sa, cms_build=ok_c,
                 cms_query=ok_q, s=round(time.perf_counter() - t0, 3))
     phase_kernels_bloom(torch, g)
+    phase_kernels_queries(torch, g)
     phase_kernels_groupby(torch, g)
     phase_kernels_ladder(torch, g)
     phase_kernels_ladder_chunks(torch, g)
@@ -509,6 +524,175 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_topn_block(torch, g)
     phase_kernels_block_staged(torch, g)
     phase_kernels_distinct_apply(torch, g)
+
+
+# the Count-Min tables of the query cases: (rows, width); the first four
+# fit a CTA's shared memory (the staged query), the last three do not
+QUERY_TABLES = ((3, 4096), (3, 1000), (5, 64), (3, 1 << 14), (4, 1 << 14),
+                (2, 40000), (3, 1 << 16))
+QUERY_MS = (1, 3, 4097, (1 << 20) + 3)
+QUERY_VIEWS = (0, 1, 3)        # entries into their storage the keys start
+# the Bloom filters of the query cases: (nbits, family); 600001 and 2^24
+# bits are above the staged query's 48 KB
+QUERY_FILTERS = ((1 << 15, "kernel"), (1000, "kernel"), (40000, "kernel"),
+                 (12345, "engine"), (600001, "engine"), (1 << 24, "engine"))
+
+
+def same_out(a, b) -> bool:
+    """same_bits, a float16 output by its f32 values (every NaN as one)."""
+    import torch
+
+    if a.dtype == b.dtype == torch.float16:
+        a, b = a.float(), b.float()
+    return same_bits(a, b)
+
+
+def query_keys(torch, g, m, off, dtype):
+    """m random 32-bit keys of ``dtype`` on the card, as a view ``off``
+    entries into their storage (``view_at``)."""
+    k = torch.randint(-(1 << 31), 1 << 31, (m,), generator=g,
+                      dtype=torch.int64).to(torch.int32).cuda()
+    return view_at(torch, k, off).view(dtype) if off else k.view(dtype)
+
+
+def odd_table(torch, g, rows, width, kind):
+    """An f32 table of small integer counters: "finite"; "specials", NaN,
+    +-inf, -0, FLT_MAX and subnormals dropped in; "nan row 1", a NaN
+    counter below row 0 (A24); "-0" and "max", the whole table of -0 or
+    FLT_MAX (A21, A22)."""
+    t = torch.randint(0, 50, (rows, width), generator=g).float()
+    if kind == "specials":
+        for v in (float("nan"), float("inf"), -float("inf"), -0.0,
+                  float(torch.finfo(torch.float32).max), 1e-40, -1e-40):
+            t[int(torch.randint(rows, (1,), generator=g)),
+              int(torch.randint(width, (1,), generator=g))] = v
+    elif kind == "nan row 1":
+        t[min(1, rows - 1), int(torch.randint(width, (1,), generator=g))] = \
+            float("nan")
+    elif kind == "-0":
+        t[:] = -0.0
+    elif kind == "max":
+        t[:] = float(torch.finfo(torch.float32).max)
+    return t.cuda()
+
+
+def phase_kernels_queries(torch, g):
+    """The persistent Count-Min and Bloom queries against their plain
+    versions, bit for bit (every NaN as one): every table dtype (f32, int32,
+    uint32, f16, int8), both hash families (the kernels' on uint32 and on
+    int32 keys), no threshold and an int and a float one, tables on both
+    sides of the shared-memory route (QUERY_TABLES: power-of-two widths,
+    which the query reduces with a shift or a mask, and others), m = 0, 1,
+    3, 4097 and 2^20 + 3, keys as views 0, 1 and 3 entries into their
+    storage; tables with NaN, +-inf, -0, FLT_MAX and subnormal counters in
+    both families (A21, A22, and A24: a NaN below row 0); the Bloom query
+    on each route (QUERY_FILTERS), 1, 3 and 5 hashes, and on f32 bit
+    vectors with a NaN, an inf, a -inf or two infinities (A23), in both
+    families."""
+    from repro_torch.kernels import bloom_filter as B
+    from repro_torch.kernels import cms_sketch as C
+    from repro_torch.kernels.common import (F32, I32, I64, P as VP, U32,
+                                            grid_for, ptr)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for rows, width in QUERY_TABLES:
+        t0 = time.perf_counter()
+        ok = True
+        for dt in (torch.float32, torch.int32, torch.uint32, torch.float16,
+                   torch.int8):
+            base = torch.randint(0, 50, (rows, width), generator=g).cuda()
+            tab = base.to(torch.int32).view(torch.uint32) \
+                if dt == torch.uint32 else base.to(dt)
+            for fam in ("kernel", "engine"):
+                for thr in (None, 20, 20.5):
+                    if thr == 20.5 and not dt.is_floating_point:
+                        continue
+                    for m in (0,) + QUERY_MS:
+                        for off in QUERY_VIEWS:
+                            kd = torch.int32 if off == 1 else torch.uint32
+                            k = query_keys(torch, g, m, off, kd)
+                            kw = dict(seed=m + off, family=fam,
+                                      threshold=thr)
+                            ok &= check(same_out(
+                                C.cms_query_kernel(tab, k, **kw),
+                                C.cms_query_plain(tab, k, **kw)),
+                                f"cms_query {rows}x{width} {dt} {fam} "
+                                f"threshold={thr} m={m} view={off} "
+                                f"keys={kd}")
+        staged = C.query_plan(dev, rows, width, 0, 1)[0]
+        say("kernels", cms_query=ok, rows=rows, width=width,
+            route="staged" if staged else "global",
+            s=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    ok = True
+    for rows, width in ((3, 4096), (1, 64), (2, 40000)):
+        for kind in ("specials", "nan row 1", "-0", "max"):
+            tab = odd_table(torch, g, rows, width, kind)
+            for fam in ("kernel", "engine"):
+                for thr in (None, 20.5, 0.0):
+                    for m in QUERY_MS[2:]:
+                        for off in QUERY_VIEWS:
+                            kd = torch.int32 if off == 1 else torch.uint32
+                            k = query_keys(torch, g, m, off, kd)
+                            kw = dict(seed=off, family=fam, threshold=thr)
+                            ok &= check(same_out(
+                                C.cms_query_kernel(tab, k, **kw),
+                                C.cms_query_plain(tab, k, **kw)),
+                                f"cms_query {kind} {rows}x{width} {fam} "
+                                f"threshold={thr} m={m} view={off}")
+    say("kernels", cms_query_odd_tables=ok,
+        s=round(time.perf_counter() - t0, 3))
+    # A24 on its smallest table: a NaN row below row 0. The retired query
+    # (cms_query_grid) folded from row 0 with < and so read the row 0
+    # counter; the persistent query takes the NaN, as the plain version
+    tab = torch.ones(3, 4096, device="cuda")
+    tab[1] = float("nan")
+    k = query_keys(torch, g, 4097, 0, torch.uint32)
+    for fam in ("kernel", "engine"):
+        new = C.cms_query_kernel(tab, k, family=fam, threshold=0.5)
+        plain = C.cms_query_plain(tab, k, family=fam, threshold=0.5)
+        old = torch.empty_like(new)
+        serial_kernel(torch, "cms_query_grid", [VP] * 4 + [
+            I64, I32, I32, U32, I32, I32, I64, F32, I32], ptr(tab),
+            ptr(k), None, ptr(old), k.numel(), 3, 4096, 0,
+            C._family(fam, k), 0, 0, 0.5, grid_for(k.numel(), k.device))
+        check(same(new, plain), f"cms_query A24 {fam}: a NaN below row 0")
+        say("kernels", a24=fam, kept_plain=int(plain.sum()),
+            kept_persistent=int(new.sum()), kept_retired=int(old.sum()))
+    for nbits, fam in QUERY_FILTERS:
+        t0 = time.perf_counter()
+        ok = True
+        for H in (1, 3, 5):
+            src = query_keys(torch, g, 1 << 14, 0, torch.int32)
+            kw = dict(nbits=nbits, num_hashes=H, seed=H, family=fam)
+            words = B.bloom_build_plain(src, **kw)
+            bits = B.unpack_bits(words, nbits).float()
+            for case in ("finite", "inf", "nan", "-inf", "two"):
+                info, w = None, words
+                if case != "finite":
+                    b = bits.clone()
+                    p = int(torch.randint(nbits, (1,), generator=g))
+                    b[p] = {"inf": float("inf"), "nan": float("nan"),
+                            "-inf": -float("inf"),
+                            "two": float("inf")}[case]
+                    if case == "two":
+                        b[(p + 5) % nbits] = -float("inf")
+                    w, info = B.pack_bits(b > 0.5), B.nonfinite_bits(b)
+                for m in (0,) + QUERY_MS:
+                    for off in QUERY_VIEWS:
+                        kd = torch.int32 if off == 1 else torch.uint32
+                        k = query_keys(torch, g, m, off, kd)
+                        n = min(m // 2, src.numel())
+                        k[:n] = src[:n].view(kd)  # members
+                        ok &= check(same(
+                            B.bloom_query_kernel(w, k, nonfinite=info, **kw),
+                            B.bloom_query_plain(w, k, nonfinite=info, **kw)),
+                            f"bloom_query nbits={nbits} {fam} H={H} {case} "
+                            f"m={m} view={off} keys={kd}")
+        staged = B.query_plan(dev, nbits, 3, 1)[0]
+        say("kernels", bloom_query=ok, nbits=nbits, family=fam,
+            route="staged" if staged else "global",
+            s=round(time.perf_counter() - t0, 3))
 
 
 def phase_kernels_bloom(torch, g):
@@ -2287,8 +2471,8 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     rows.append(_row("distinct_apply", totals, max(errs), ms, plain_ms,
                      nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
     rows.append(time_skyline_apply(torch, P, pts, states, totals))
-    rows.extend(time_cms(torch, table, totals))
-    rows.extend(time_bloom(torch, table, rankings, totals))
+    rows.extend(time_cms(torch, table, totals, clock_hz))
+    rows.extend(time_bloom(torch, table, rankings, totals, clock_hz))
     time_bloom_sweep(torch, table)
     rows.append(time_groupby(torch, table, totals, clock_hz))
     profile_walks(torch, table, pts)
@@ -2570,30 +2754,99 @@ def cms_atomic(torch, keys, wts, rows, width, family, lanes):
     return out
 
 
-def sass_atomics(torch):
-    """{kernel: {atomic instruction: count}} of the Count-Min builds in the
-    built library, read with cuobjdump: whether an f32 shared add is one
-    ATOMS.ADD or a compare-and-swap loop."""
+_SASS = {}
+
+
+def sass_functions(torch):
+    """{mangled kernel name: its SASS lines} of the built library, read once
+    with cuobjdump -sass."""
     import os
 
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import common
 
-    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
-    res = subprocess.run([tool, "-sass", str(common.build())],
-                         capture_output=True, text=True)
-    out, fn = {}, None
-    for line in res.stdout.splitlines():
-        head = re.search(r"Function : (\S+)", line)
-        if head:
-            fn = head.group(1) if "cms_build" in head.group(1) else None
+    if "funcs" not in _SASS:
+        tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin",
+                            "cuobjdump")
+        res = subprocess.run([tool, "-sass", str(common.build())],
+                             capture_output=True, text=True)
+        funcs, fn = {}, None
+        for line in res.stdout.splitlines():
+            head = re.search(r"Function : (\S+)", line)
+            if head:
+                fn = head.group(1)
+                funcs[fn] = []
+            elif fn:
+                funcs[fn].append(line)
+        _SASS["funcs"], _SASS["rc"] = funcs, res.returncode
+    return _SASS["funcs"]
+
+
+def sass_atomics(torch):
+    """{kernel: {atomic instruction: count}} of the Count-Min builds in the
+    built library, read with cuobjdump: whether an f32 shared add is one
+    ATOMS.ADD or a compare-and-swap loop."""
+    out = {}
+    for fn, lines in sass_functions(torch).items():
+        if "cms_build" not in fn:
             continue
-        ins = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9._]+)", line)
-        if fn and ins:
-            per = out.setdefault(fn, {})
-            per[ins.group(1)] = per.get(ins.group(1), 0) + 1
-    return out or {"cuobjdump_rc": res.returncode}
+        for line in lines:
+            ins = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9._]+)", line)
+            if ins:
+                per = out.setdefault(fn, {})
+                per[ins.group(1)] = per.get(ins.group(1), 0) + 1
+    return out or {"cuobjdump_rc": _SASS.get("rc")}
+
+
+def key_loop(torch, pattern, keys):
+    """SASS instructions a key of the persistent query whose mangled name
+    holds ``pattern``: the instructions of its key loop, the smallest loop
+    (a backward branch to a label) that loads 16 bytes of keys and stores to
+    global memory, over the ``keys`` a thread takes in it. A static count:
+    every probe or row, whatever a key's early exit. None where no such
+    loop is found."""
+    name = next((n for n in sass_functions(torch) if pattern in n), None)
+    if name is None:
+        return None
+    ins, labels, at = [], {}, {}
+    for line in sass_functions(torch)[name]:
+        lab = re.match(r"\s*\.?(L_x_\d+):", line)
+        if lab:
+            labels[lab.group(1)] = len(ins)
+            continue
+        op = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if op:
+            at[int(op.group(1), 16)] = len(ins)
+            ins.append(op.group(2).strip())
+    sizes = []
+    for i, t in enumerate(ins):
+        b = re.search(r"\bBRA(?:\.\S+)?\s+(?:`\(\.?(L_x_\d+)\)|(0x[0-9a-f]+))",
+                      t)
+        if not b:
+            continue
+        top = (labels.get(b.group(1)) if b.group(1)
+               else at.get(int(b.group(2), 16)))
+        if top is None or top > i:
+            continue
+        body = [x for x in ins[top:i + 1] if not x.endswith("NOP")]
+        if (any(re.search(r"LDG\.E\S*\.128", x) for x in body)
+                and any(re.search(r"\bSTG", x) for x in body)):
+            sizes.append(len(body))
+    return min(sizes) / keys if sizes else None
+
+
+def host_call_us(torch, fn, reps=200):
+    """Host microseconds a call of fn(), from calls queued back to back on
+    a card that runs each faster than the host issues it (a few keys)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def cms_shapes(table):
@@ -2615,10 +2868,47 @@ def cms_shapes(table):
              cnt["rows"], cnt["width"], SHARDS, cnt["threshold"])]
 
 
-def time_cms(torch, table, totals):
+def cms_query_profile(torch, C, table_q, keys, qkw, clock_hz):
+    """What phase timing prints of a persistent Count-Min query beside its
+    call time: its device time (calls queued back to back), its route and
+    CTAs, the SASS instructions a key of its key loop and the issue floor
+    they imply (4 warp instructions a cycle an SM at the maximum clock),
+    the host time of a call (on 4096 keys), and a yardstick that is not the
+    same function: a torch gather of the counters at cells hashed before
+    the timed call (table.view(-1)[cells], every row of every key)."""
+    fn = lambda: C.cms_query_kernel(table_q, keys, **qkw)  # noqa: E731
+    rows_, width = table_q.shape
+    ttype = (0 if table_q.dtype.is_floating_point
+             else 2 if table_q.dtype == torch.uint32 else 1)
+    fam = C._family(qkw["family"], keys)
+    route, ctas, _ = C.query_plan(keys.device, rows_, width, ttype, fam)
+    unrolled = 3 if route and rows_ == 3 else 0
+    pow2 = int(width & (width - 1) == 0)
+    per_key = key_loop(torch, f"cms_query_persistentI{'fij'[ttype]}Li{fam}"
+                       f"ELi{unrolled}ELb{route}ELb{pow2}EE", 8)
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    cells = (C.row_hashes(keys, rows_, width, 0, qkw["family"])
+             + torch.arange(rows_, device="cuda") * width).reshape(-1)
+    flat = table_q.reshape(-1)
+    small = keys[:4096]
+    return dict(
+        device_ms=queued_ms(fn, 20), route="staged" if route else "global",
+        ctas=ctas, sass_per_key=per_key,
+        issue_floor_ms=None if per_key is None
+        else per_key * keys.numel() / (sms * 128 * clock_hz) * 1e3,
+        host_us=host_call_us(torch, lambda: C.cms_query_kernel(
+            table_q, small, **qkw)),
+        gather_hashed_cells_ms=event_ms(lambda: flat[cells], 10),
+        # what each call paid when the wrapper asked the SM count itself
+        device_properties_us=host_call_us(
+            torch, lambda: torch.cuda.get_device_properties(keys.device)))
+
+
+def time_cms(torch, table, totals, clock_hz):
     """Both Count-Min kernels against their plain versions at every
     main-path shape; bound by bytes. The query of the two-pass path reads
-    the merged table of its S = 128 lane tables."""
+    the merged table of its S = 128 lane tables; its profile is
+    ``cms_query_profile``'s."""
     from repro_torch import core
     from repro_torch.kernels import cms_sketch as C
 
@@ -2643,6 +2933,8 @@ def time_cms(torch, table, totals):
         ms_q = event_ms(lambda: C.cms_query_kernel(table_q, keys, **qkw), 10)
         bound_q = ((m * 4 + table_q.numel() * 4
                     + m * est.element_size()) / HBM_BYTES_PER_S * 1e3)
+        query_extra = cms_query_profile(torch, C, table_q, keys, qkw,
+                                        clock_hz)
         # a yardstick, not the same function: index_add_ of the weights on
         # cells whose hashes are computed before the timed call
         cells = (C.row_hashes(keys, rows_, width, 0, fam)
@@ -2663,7 +2955,8 @@ def time_cms(torch, table, totals):
             max_abs_err=errs_b[-1])
         say("timing", kernel="cms_query", path=json.dumps(path),
             fused_threshold=thr is not None, ms=ms_q, plain_ms=plain_q * 1e3,
-            bound_ms=bound_q, bound_by="bytes", max_abs_err=errs_q[-1])
+            bound_ms=bound_q, bound_by="bytes", max_abs_err=errs_q[-1],
+            **query_extra)
         if not out:
             out = [(ms_b, plain_b * 1e3, bound_b), (ms_q, plain_q * 1e3,
                                                     bound_q)]
@@ -2766,7 +3059,43 @@ def time_bloom_sweep(torch, table):
             **extra)
 
 
-def time_bloom(torch, table, rankings, totals):
+def bloom_query_profile(torch, B, words, keys, kw, clock_hz):
+    """What phase timing prints of a persistent Bloom query beside its call
+    time, as ``cms_query_profile``: device time, route and CTAs, SASS
+    instructions a key and the issue floor, host time, the probes a key
+    takes (each key stops at its first unset bit), and a yardstick that is
+    not the same function: a torch gather of the words at the probes
+    hashed before the timed call (words[idx >> 5], every probe of every
+    key), with the rate of its 32-byte sectors (a random word read moves
+    one sector), which for a JOIN filter is the card's L2 gather rate."""
+    fn = lambda: B.bloom_query_kernel(words, keys, **kw)  # noqa: E731
+    H, nbits = kw["num_hashes"], kw["nbits"]
+    fam = B._family(kw["family"], nbits, keys)
+    route, ctas = B.query_plan(keys.device, nbits, H, fam)
+    pow2 = int(nbits & (nbits - 1) == 0)
+    per_key = key_loop(torch, f"bloom_query_persistentILi{fam}ELi"
+                       f"{3 if H == 3 else 0}ELb{route}ELb{pow2}EE", 8)
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    idx = B.probe_bits(keys, **kw)
+    w32 = words.view(torch.int32)
+    got = (w32[idx >> 5] >> (idx & 31)) & 1
+    # probes taken: the first, and each next while every earlier was set
+    probes = float(got.cumprod(1)[:, :-1].sum() + keys.numel()) \
+        / keys.numel()
+    flat = (idx >> 5).reshape(-1)
+    gather = event_ms(lambda: w32[flat], 10)
+    return dict(
+        device_ms=queued_ms(fn, 20), route="staged" if route else "global",
+        ctas=ctas, sass_per_key=per_key,
+        issue_floor_ms=None if per_key is None
+        else per_key * keys.numel() / (sms * 128 * clock_hz) * 1e3,
+        host_us=host_call_us(torch, lambda: B.bloom_query_kernel(
+            words, keys[:4096], **kw)),
+        probes_per_key=probes, gather_hashed_words_ms=gather,
+        gather_sectors_per_s=flat.numel() / (gather * 1e-3))
+
+
+def time_bloom(torch, table, rankings, totals, clock_hz):
     """Both Bloom kernels against their plain versions at every main-path
     shape; bound by bytes (keys read once, bitset or keep written once).
     The cluster build (JOIN's filters) also beside the global-atomic kernel
@@ -2833,7 +3162,8 @@ def time_bloom(torch, table, rankings, totals):
         say("timing", kernel="bloom_query", path=json.dumps(path),
             keys=keys.numel(), positives=int(keep.sum()), ms=ms,
             plain_ms=plain_s * 1e3, bound_ms=bound, bound_by="bytes",
-            max_abs_err=errs_q[-1])
+            max_abs_err=errs_q[-1],
+            **bloom_query_profile(torch, B, words, keys, kw, clock_hz))
         out.setdefault("query", (ms, plain_s * 1e3, bound))
     return [_row("bloom_build", totals, max(errs_b), *out["build"], "bytes"),
             _row("bloom_build_global", totals, max(errs_g),
@@ -3235,6 +3565,7 @@ def phase_witness(torch, table, rankings, pts, rle):
             serial_s=secs, kept=int(new[0].sum()), max_abs_err=err)
     witness_rle_bloom(torch, table, rankings, rle)
     witness_cms_skyline(torch, table, pts)
+    witness_queries(torch, table, rankings)
 
 
 def witness_cms_skyline(torch, table, pts):
@@ -3266,6 +3597,72 @@ def witness_cms_skyline(torch, table, pts):
             entries=m, k=P.skyline_compact_plain(mp, msc)[0].shape[0],
             scan_s=secs, kept=int(new.sum()),
             max_abs_err=max_abs_err([(new, old)]))
+
+
+def witness_queries(torch, table, rankings):
+    """The persistent Count-Min and Bloom queries against the grid-stride
+    queries they replaced (C entries cms_query_grid, bloom_query_grid), bit
+    for bit over the whole 2^25-entry column, at every main-path shape:
+    ops.cms_query (f32, estimates), HAVING COUNT and SUM and the two-pass
+    COUNT on its merged table (fused thresholds); JOIN's keep_a and keep_b
+    and ops.bloom_query. The tables and filters are finite, where the
+    retired queries are right."""
+    from repro_torch import core
+    from repro_torch.kernels import bloom_filter as B
+    from repro_torch.kernels import cms_sketch as C
+    from repro_torch.kernels.common import (F32, I32, I64, P as VP, U32,
+                                            grid_for, ptr)
+
+    for path, keys, wts, fam, rows_, width, lanes, thr in cms_shapes(table):
+        tb = C.cms_build_kernel(keys, wts, rows=rows_, width=width,
+                                family=fam, shards=lanes)
+        tq = core.merge_states("having", core.CountMin(tb)).table
+        new = C.cms_query_kernel(tq, keys, family=fam, threshold=thr)
+        old = torch.empty_like(new)
+        ttype = 0 if tq.dtype == torch.float32 else 1
+        thr_i = 0 if thr is None or ttype == 0 else C._int_threshold(
+            thr, tq.dtype)
+        thr_f = 0.0 if thr is None or ttype else float(thr)
+        m = keys.numel()
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "cms_query_grid", [VP] * 4 + [I64, I32, I32, U32, I32,
+                                                  I32, I64, F32, I32],
+            ptr(tq), ptr(C._keys_u32(keys)),
+            None if thr is not None else ptr(old),
+            ptr(old) if thr is not None else None, m, rows_, width, 0,
+            C._family(fam, keys), ttype, thr_i, thr_f,
+            grid_for(m, keys.device)))
+        err = max_abs_err([(new, old)])
+        check(err == 0.0 and same_bits(new, old), f"cms_query {path} "
+              "differs from the grid-stride query it replaced")
+        say("witness", kernel="cms_query", path=json.dumps(path),
+            keys=m, grid_s=secs, max_abs_err=err)
+    H = JOIN["num_hashes"]
+    built = [(B.bloom_build_kernel(k, nbits=nb, num_hashes=H, seed=seed,
+                                   family=fam), dict(nbits=nb, num_hashes=H,
+                                                     seed=seed, family=fam))
+             for _, k, fam, nb, seed in bloom_shapes(table, rankings)]
+    (fa, kwa), (fb, kwb), (fo, kwo) = built
+    dest, page = table.cols["dest_url"], rankings.cols["page_url"]
+    for path, words, keys, kw in (
+            ("run_query JOIN keep_a (F_B on dest_url)", fb, dest, kwb),
+            ("run_query JOIN keep_b (F_A on page_url)", fa, page, kwa),
+            ("ops.bloom_query (dest_url)", fo, dest, kwo)):
+        new = B.bloom_query_kernel(words, keys, **kw)
+        old = torch.empty_like(new)
+        m = keys.numel()
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "bloom_query_grid", [VP] * 3 + [I64, U32, I32, U32, I32,
+                                                   I32],
+            ptr(words), ptr(C._keys_u32(keys)), ptr(old), m, kw["nbits"],
+            kw["num_hashes"], kw["seed"] & 0xFFFFFFFF,
+            B._family(kw["family"], kw["nbits"], keys),
+            grid_for(m, keys.device)))
+        err = max_abs_err([(new, old)])
+        check(err == 0.0 and same(new, old), f"bloom_query {path} differs "
+              "from the grid-stride query it replaced")
+        say("witness", kernel="bloom_query", path=json.dumps(path), keys=m,
+            positives=int(new.sum()), grid_s=secs, max_abs_err=err)
 
 
 def witness_rle_bloom(torch, table, rankings, rle):

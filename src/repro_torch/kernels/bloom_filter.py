@@ -39,6 +39,17 @@ build where a cluster holds it and the keys set at least
 CLUSTER_MIN_PROBES probes a filter word, and else takes
 ``bloom_build_global``'s global atomics, as do filters too large for a
 cluster of 16. A cluster launch that the card refuses raises.
+
+The CUDA query (``bloom_query``) is persistent, 8 keys a thread a step by
+16-byte loads: a filter of 48 KB or less is staged in each CTA's shared
+memory, a larger one read from global memory (L2), each probe's word
+loads issued for all of a thread's keys before it tests any, the next
+probe's loads only for the keys still alive (staged, every probe is
+taken). ``query_plan`` asks the C side for
+the route and the grid once a device and shape. ``ops.bloom_query`` hands
+it ``nonfinite_bits`` of its f32 bits, so that it reads them as the
+Pallas query's one-hot product does. ``bloom_query_grid`` is the query it
+replaced, kept for ``chip_smoke.py``'s witness.
 """
 from __future__ import annotations
 
@@ -51,14 +62,16 @@ from ..core.hashing import as_u32, hash_mod, multi_hash
 from .cms_sketch import _family as cms_family
 from .cms_sketch import _keys_u32
 from .common import (I32, I64, P, U32, CudaKernel, check_cuda, grid_for,
-                     library_fn, ptr)
+                     library_fn, ptr, query_out, sm_count)
 
 BLOOM_BUILD = CudaKernel("bloom_build", [P, P, P, I64, U32, I32, U32, I32,
                                          I32, I32])
 BLOOM_BUILD_GLOBAL = CudaKernel("bloom_build_global",
                                 [P, P, P, I64, U32, I32, U32, I32, I32])
 BLOOM_QUERY = CudaKernel("bloom_query",
-                         [P, P, P, I64, U32, I32, U32, I32, I32])
+                         [P, P, P, I64, U32, I32, U32, I32, P, I32])
+
+
 def _family(family: str, nbits: int,
             keys: torch.Tensor | None = None) -> int:
     """The C hash family (``cms_sketch._family``)."""
@@ -192,28 +205,51 @@ def bloom_build_kernel(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
                            seed & 0xFFFFFFFF, fam, K,
                            cluster_plan(dev, nbits, num_hashes)[2])
     elif m:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         BLOOM_BUILD_GLOBAL.launch(dev, ptr(k),
                                   None if mask is None else ptr(mask),
                                   ptr(words), m, nbits, num_hashes,
                                   seed & 0xFFFFFFFF, fam,
-                                  min(grid_for(m, dev), 4 * sms))
+                                  min(grid_for(m, dev), 4 * sm_count(dev)))
     return words
+
+
+def nonfinite_bits(bits: torch.Tensor) -> torch.Tensor:
+    """int32 [2] on the bits' device, with no host synchronisation: how many
+    entries of an f32 bit vector are not finite (2 for two or more) and the
+    first one's position (0 when there is none)."""
+    bad = ~torch.isfinite(bits)
+    return torch.stack([bad.sum().clamp(max=2),
+                        bad.to(torch.uint8).argmax()]).to(torch.int32)
 
 
 def bloom_query_plain(words: torch.Tensor, keys: torch.Tensor, *, nbits: int,
                       num_hashes: int = 3, seed: int = 0,
-                      family: str = "kernel") -> torch.Tensor:
-    """Plain query: bool[m], True where all H probed bits are set."""
+                      family: str = "kernel",
+                      nonfinite: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain query: bool[m], True where all H probed bits are set.
+
+    ``nonfinite`` (``nonfinite_bits`` of the f32 bits that ``words`` packs
+    as ``bits > 0.5``) reads the bits as the Pallas query does, by one-hot
+    products (``cms_sketch.onehot_reads``): with one non-finite bit, a probe
+    elsewhere reads NaN, so only a key whose every probe hits that bit, set
+    (+inf), is kept; with two or more, or a NaN, no key is."""
     idx = probe_bits(keys, nbits, num_hashes, seed, family)
     got = (as_u32(words)[idx.clamp(min=0) >> 5] >> (idx & 31)) & 1
-    return (got.to(torch.bool) & (idx >= 0)).all(-1)
+    keep = (got.to(torch.bool) & (idx >= 0)).all(-1)
+    if nonfinite is None or num_hashes < 1:
+        return keep
+    count, pos = nonfinite[0], nonfinite[1].to(torch.int64)
+    at_inf = ((as_u32(words)[pos >> 5] >> (pos & 31)) & 1).to(torch.bool)
+    only = (idx == pos).all(-1)
+    return torch.where(count == 0, keep, (count == 1) & at_inf & only)
 
 
 def bloom_query_kernel(words: torch.Tensor, keys: torch.Tensor, *, nbits: int,
                        num_hashes: int = 3, seed: int = 0,
-                       family: str = "kernel") -> torch.Tensor:
-    """bool[m] membership of each key in the packed filter ``words``."""
+                       family: str = "kernel",
+                       nonfinite: torch.Tensor | None = None) -> torch.Tensor:
+    """bool[m] membership of each key in the packed filter ``words``
+    (``nonfinite``: as ``bloom_query_plain`` takes it)."""
     fam = _family(family, nbits, keys)
     if words.shape != (num_words(nbits),) or words.dtype != torch.uint32:
         raise ValueError(f"words must be uint32[{num_words(nbits)}], got "
@@ -221,14 +257,36 @@ def bloom_query_kernel(words: torch.Tensor, keys: torch.Tensor, *, nbits: int,
     if not keys.is_cuda:
         return bloom_query_plain(words, keys, nbits=nbits,
                                  num_hashes=num_hashes, seed=seed,
-                                 family=family)
+                                 family=family, nonfinite=nonfinite)
     m = keys.shape[0]
     k = _keys_u32(keys)
     check_cuda("keys", k, torch.uint32)
     check_cuda("words", words, torch.uint32, keys.device)
-    keep = torch.empty(m, dtype=torch.bool, device=keys.device)
+    dev = keys.device
+    if nonfinite is not None:
+        check_cuda("nonfinite", nonfinite, torch.int32, dev)
+    keep = query_out(k, m, torch.bool)
     if m:
-        BLOOM_QUERY.launch(keys.device, ptr(words), ptr(k), ptr(keep), m,
-                           nbits, num_hashes, seed & 0xFFFFFFFF, fam,
-                           grid_for(m, keys.device))
+        BLOOM_QUERY.launch(dev, ptr(words), ptr(k), ptr(keep), m, nbits,
+                           num_hashes, seed & 0xFFFFFFFF, fam,
+                           None if nonfinite is None or num_hashes < 1
+                           else ptr(nonfinite),
+                           query_plan(dev, nbits, num_hashes, fam)[1])
     return keep
+
+
+@lru_cache(maxsize=None)
+def query_plan(device: torch.device, nbits: int, num_hashes: int,
+               fam: int) -> tuple[int, int]:
+    """(route: 1 the words staged in shared memory, 0 read from global
+    memory; the persistent grid's CTAs) of the CUDA query on ``device``, as
+    ``csrc/bloom.cu`` plans it (``bloom_query_plan``), asked once a device
+    and shape."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = library_fn("bloom_query_plan",
+                         [U32, I32, I32, ctypes.POINTER(ctypes.c_int)], I32)(
+            nbits, num_hashes, fam, out)
+    if err:
+        raise RuntimeError(f"bloom_query_plan failed: cudaError {err}")
+    return int(out[0]), int(out[1])

@@ -35,6 +35,17 @@ replaced, kept for ``chip_smoke.py``'s witness. A float16 table takes a
 kernel of its own, a walk (``cms_build_f16``: each (row, lane) on one CTA,
 each chunk of keys sorted by column in shared memory, each column's run
 added in entry order), since f16 adds do not associate.
+
+The CUDA query (``cms_query``) is persistent: as many CTAs as the SMs
+hold, each with the table staged in its shared memory (a table above the
+budget is gathered from global memory), 8 keys a thread a step by 16-byte
+loads and one vector store a unit of 4 keys (the output is allocated at
+the keys' offset mod 16, ``common.query_out``). ``query_plan`` asks the C
+side for the route and the grid once a device and shape. A float table is
+read as the reference reads it (``cms_query_plain``): the kernels' family
+as the Pallas query's one-hot product, capped at float32(3.4e38); the
+engine's as ``jnp.min``. ``cms_query_grid`` is the query it replaced, kept
+for ``chip_smoke.py``'s witness.
 """
 from __future__ import annotations
 
@@ -44,19 +55,21 @@ from functools import lru_cache
 
 import torch
 
+from ..constants import POS
 from ..core.hashing import hash_mod, multi_hash
 from .common import (F32, I32, I64, P, U32, CudaKernel, check_cuda,
-                     grid_for, library_fn, ptr)
+                     library_fn, ptr, query_out)
 
 CMS_BUILD = CudaKernel("cms_build", [P, P, P, P, I32, I64, I32, I32, U32,
                                      I32, I32])
 CMS_QUERY = CudaKernel(
-    "cms_query", [P, P, P, P, I64, I32, I32, U32, I32, I32, I64, F32, I32])
+    "cms_query", [P, P, P, P, I64, I32, I32, U32, I32, I32, I64, F32, I32, P])
 FAMILIES = ("kernel", "engine")
 INT_TABLES = (torch.int32, torch.uint32, torch.int16, torch.int8,
               torch.uint16, torch.uint8)
 DTYPES = INT_TABLES + (torch.float32, torch.float16)
 _I64_MAX = (1 << 63) - 1
+FLT_MIN = 1.1754943508222875e-38  # the least normal float32
 MAX_SMEM = 232448  # a table staged in one CTA's shared memory (227 KB)
 # the C build's table dtype by its ttype: f32, int32, f16
 _C_TABLES = (torch.float32, torch.int32, torch.float16)
@@ -252,31 +265,104 @@ def _int_threshold(threshold, dtype: torch.dtype) -> int:
     return max(-_I64_MAX - 1, min(_I64_MAX, t))
 
 
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """f32 subnormals as a zero of their sign, as XLA flushes them in every
+    add, minimum and compare (on the CPU as on the TPU); a copy keeps them."""
+    return torch.where(x.abs() < FLT_MIN, x * 0, x)
+
+
+def min_rows(reads: torch.Tensor) -> torch.Tensor:
+    """f32 [m, rows] -> [m]: the rows' minimum as XLA's takes it, row by row
+    as the card's kernel folds it: a NaN of any row wins, and -0 is below
+    +0."""
+    e = reads[:, 0]
+    for r in range(1, reads.shape[1]):
+        v = reads[:, r]
+        e = torch.where((v < e) | v.isnan() | ((v == e) & v.signbit()), v, e)
+    return e
+
+
+def onehot_reads(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """f32 [m, rows]: what the Pallas query reads of an f32 table, the
+    one-hot product sum_c onehot[c] * T[r, c] (``gather_rows``). Row r's
+    read of column c is NaN when another counter of row r is not finite
+    (0 * inf) or T[r, c] is NaN, else T[r, c] + 0.0, subnormals flushed: -0
+    reads +0. A dropped probe (c = -1) reads +0, or NaN in a row that holds
+    a non-finite counter."""
+    nonfinite = (~torch.isfinite(t)).sum(1)
+    got = flush_subnormals(t[torch.arange(t.shape[0], device=t.device),
+                             idx.clamp(min=0)])
+    hit = idx >= 0
+    ok = (nonfinite == 0) | ((nonfinite == 1) & got.isinf() & hit)
+    read = torch.where(hit, got + 0.0, 0.0)
+    return torch.where(ok, read, float("nan"))
+
+
 def cms_query_plain(table: torch.Tensor, keys: torch.Tensor, *,
                     seed: int = 0, family: str = "kernel",
                     threshold=None) -> torch.Tensor:
     """Plain query: est[m] = min over rows of table[r, hash_r(key)] (a
     dropped probe reads 0), or keep bool[m] = est > threshold when a
-    threshold is given."""
+    threshold is given.
+
+    A float table (f16 by its f32 values, which XLA's f16 arithmetic takes)
+    is read as the reference reads it. The kernels' family is the Pallas
+    query: the one-hot reads (``onehot_reads``), their minimum with the
+    start value float32(3.4e38), NaN-propagating, so an estimate is at most
+    3.4e38. The engine's family is ``jnp.min`` of the gathered counters
+    (``min_rows``, subnormals flushed), a plain copy of the one counter
+    when rows == 1. The threshold compares with subnormals flushed."""
     rows, width = table.shape
     idx = row_hashes(keys, rows, width, seed, family)
-    is_int = table.dtype in INT_TABLES
-    t = by_value_i64(table) if is_int else table
-    got = t[torch.arange(rows, device=table.device), idx.clamp(min=0)]
-    est = torch.where(idx < 0, torch.zeros((), dtype=t.dtype,
-                                           device=t.device), got).amin(-1)
-    if threshold is None:
-        return wrap_to(est, table.dtype) if is_int else est
-    if is_int:
+    if table.dtype in INT_TABLES:
+        got = by_value_i64(table)[torch.arange(rows, device=table.device),
+                                  idx.clamp(min=0)]
+        est = torch.where(idx < 0, 0, got).amin(-1)
+        if threshold is None:
+            return wrap_to(est, table.dtype)
         return est > _int_threshold(threshold, table.dtype)
-    return est > torch.tensor(threshold, dtype=table.dtype)
+    t = table.to(torch.float32)
+    if _family(family) != 1:
+        est = min_rows(onehot_reads(t, idx)).clamp(max=float(POS))
+    else:
+        got = t[torch.arange(rows, device=t.device), idx]
+        est = got[:, 0] if rows == 1 else min_rows(flush_subnormals(got))
+    if threshold is None:
+        return est.to(table.dtype)
+    thr = torch.tensor(threshold, dtype=table.dtype).to(torch.float32)
+    return flush_subnormals(est) > flush_subnormals(thr)
+
+
+@lru_cache(maxsize=None)
+def query_plan(device: torch.device, rows: int, width: int, ttype: int,
+               fam: int) -> tuple[int, int, int]:
+    """(route: 1 the table staged in shared memory, 0 gathered from global
+    memory; the persistent grid's CTAs; workspace bytes) of the CUDA query
+    on ``device``, as ``csrc/cms.cu`` plans it (``cms_query_plan``), asked
+    once a device and shape."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = library_fn("cms_query_plan",
+                         [I32, I32, I32, I32, ctypes.POINTER(ctypes.c_int)],
+                         I32)(rows, width, ttype, fam, out)
+    if err:
+        raise RuntimeError(f"cms_query_plan failed: cudaError {err}")
+    return tuple(int(v) for v in out)
+
+
+def _float_threshold(threshold, dtype: torch.dtype) -> float:
+    """The threshold rounded into the table's float dtype, as JAX rounds a
+    weakly typed one, and flushed as XLA compares a subnormal."""
+    t = float(torch.tensor(threshold, dtype=dtype))
+    return math.copysign(0.0, t) if abs(t) < FLT_MIN else t
 
 
 def cms_query_kernel(table: torch.Tensor, keys: torch.Tensor, *,
                      seed: int = 0, family: str = "kernel",
                      threshold=None) -> torch.Tensor:
     """est[m] (the table's dtype) = min over rows of the hashed counters;
-    with ``threshold``, the fused keep bool[m] = est > threshold instead."""
+    with ``threshold``, the fused keep bool[m] = est > threshold instead.
+    Read as ``cms_query_plain`` says."""
     fam = _family(family, keys)
     if table.ndim != 2 or table.dtype not in DTYPES:
         raise ValueError(f"table must be [rows, width] of one of {DTYPES}, "
@@ -298,22 +384,26 @@ def cms_query_kernel(table: torch.Tensor, keys: torch.Tensor, *,
         ttype, table = 1, table.to(torch.int32)
     else:
         ttype, table = 0, table.to(torch.float32)
+    dev = keys.device
     est = keep = None
     thr_i, thr_f = 0, 0.0
     if threshold is None:
-        est = torch.empty(m, dtype=table.dtype, device=keys.device)
+        est = query_out(k, m, table.dtype)
     else:
-        keep = torch.empty(m, dtype=torch.bool, device=keys.device)
+        keep = query_out(k, m, torch.bool)
         if ttype:
             thr_i = _int_threshold(threshold, dtype)
-        else:  # the threshold rounded into the table's dtype, as JAX does
-            thr_f = float(torch.tensor(threshold, dtype=dtype))
+        else:
+            thr_f = _float_threshold(threshold, dtype)
     if m:
-        CMS_QUERY.launch(keys.device, ptr(table.contiguous()), ptr(k),
+        _, ctas, nbytes = query_plan(dev, rows, width, ttype, fam)
+        work = torch.empty(nbytes // 4, dtype=torch.int32, device=dev) \
+            if nbytes else None
+        CMS_QUERY.launch(dev, ptr(table), ptr(k),
                          None if est is None else ptr(est),
                          None if keep is None else ptr(keep), m, rows, width,
-                         seed & 0xFFFFFFFF, fam, ttype, thr_i, thr_f,
-                         grid_for(m, keys.device))
+                         seed & 0xFFFFFFFF, fam, ttype, thr_i, thr_f, ctas,
+                         None if work is None else ptr(work))
     if threshold is not None:
         return keep
     return est.view(torch.uint32) if ttype == 2 else est.to(dtype)

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from functools import lru_cache
 from pathlib import Path
 
 import torch
@@ -158,6 +159,7 @@ class CudaKernel(LaunchCount):
         super().__init__(name)
         self.argtypes = argtypes
         self.smem_fn = smem_fn
+        self._fn = None  # the typed C function, once the library is loaded
 
     def smem_bytes(self, *args) -> int:
         """Dynamic shared memory the launch will ask for."""
@@ -170,9 +172,14 @@ class CudaKernel(LaunchCount):
         current one (shared-memory attributes are set per device); raises on
         a refused launch. The launch adds one to ``count``, or to this
         entry point's own count."""
-        fn = library_fn(self.name, self.argtypes + [P], I32)
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if self._fn is None:
+            self._fn = library_fn(self.name, self.argtypes + [P], I32)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if device.index in (None, torch.cuda.current_device()):
+            err = self._fn(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
@@ -211,10 +218,24 @@ def check_rowpar(m: int, w: int, slot_bytes: int) -> None:
                          f"got m = {m}")
 
 
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of ``device``, asked once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def grid_for(m: int, device: torch.device, threads: int = 256) -> int:
     """Blocks for a grid-stride elementwise kernel over m entries."""
-    props = torch.cuda.get_device_properties(device)
-    return max(1, min(-(-m // threads), props.multi_processor_count * 16))
+    return max(1, min(-(-m // threads), sm_count(device) * 16))
+
+
+def query_out(keys: torch.Tensor, m: int, dtype: torch.dtype) -> torch.Tensor:
+    """An empty output of m entries whose entry i sits at key i's offset
+    mod 16 (in keys), so that a persistent query (``csrc/query.cuh``) stores
+    each unit of 4 keys' entries with one vector store, whatever 4-byte
+    offset the keys start at; a view into a buffer of m + 3."""
+    off = (keys.data_ptr() >> 2) & 3
+    return torch.empty(m + 3, dtype=dtype, device=keys.device)[off:off + m]
 
 
 MAX_SMEM = 232448  # bytes a Hopper block can opt into (227 KB)

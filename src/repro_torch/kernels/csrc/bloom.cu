@@ -45,8 +45,21 @@
 //
 // bloom_query replaces bloom_query_kernel (src/repro/kernels/bloom_filter.py:71):
 // per key, the AND over its H probed bits, with an exit at the first zero.
-// Bound by bytes: the keys read once, the keep mask written once; the H
-// gathers are random 4-byte reads of a filter that stays in L2.
+// It is a persistent query (bloom_query_persistent, query.cuh), 8 keys a
+// thread a step by 16-byte loads, one vector store of keep bytes a unit of
+// 4 keys: a filter of 48 KB or less (the ops form) is staged in each CTA's
+// shared memory; a larger one (JOIN's 2 MiB filters) is read from global
+// memory, where it stays in L2, each probe's loads issued for all 8 keys
+// before any is tested and the next probe only for the keys still alive
+// (the staged form takes every probe).
+// bloom_query_plan gives the route and the grid. A filter held across a
+// 16-CTA cluster's distributed shared memory, as the build holds it, was
+// not tried for the query (the build found one atomic a probe into another
+// CTA's shared memory no faster than an L2 atomic). bloom_query_grid is the
+// grid-stride query it
+// replaced, kept for chip_smoke.py's witness. The bytes bound (the keys
+// read once, the keep mask written once) is not the one that holds at
+// JOIN's keep_a: each live probe reads a random 32-byte L2 sector.
 //
 // Hash family at run time: family 0 is the Pallas kernels'
 // hash_mod(key, nbits, seed + 101 h), family 2 the same on an int32 key in
@@ -59,6 +72,7 @@
 #include <cstdint>
 
 #include "hash.cuh"
+#include "query.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -326,6 +340,227 @@ __global__ void bloom_query_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// The persistent query (see the header; the scaffolding is query.cuh's):
+// grid of query_ctas CTAs of QUERY_THREADS threads, 8 keys a thread a step.
+// kStaged: the words are copied into each CTA's shared memory first (a
+// filter of BLOOM_QUERY_STAGED_BYTES or less, the ops form); else they are
+// read from global memory, where a 2 MiB JOIN filter stays in L2. Either
+// way a thread hashes a probe of its 8 keys and issues all 8 word loads
+// before it tests any. From global memory the next probe loads only the
+// words of the keys still alive, so a key stops at its first unset bit and
+// a thread once all 8 have; staged, every probe of every key is taken,
+// with no branch (a dead key stays dead). H > 0 unrolls the
+// probes (the main path's 3); 0 takes ``hashes`` at run time. kPow2: an
+// nbits that is a power of two (query.cuh).
+//
+// ``nonfinite`` (ops.bloom_query; null otherwise) holds what the f32 bits
+// the words were packed from imply for the Pallas query's one-hot reads:
+// the count of their non-finite entries (2: two or more) and the first
+// one's position. With none, the query is the one above. With one, set in
+// the words (it was +inf), a probe of any other bit reads NaN, so a key is
+// kept only when every probe hits that bit; otherwise no key is kept.
+#define BLOOM_QUERY_STAGED_BYTES (48 * 1024)
+#define BQ_KEYS (4 * QUERY_UNITS)  // keys a thread a step
+
+template <bool kStaged>
+__device__ __forceinline__ uint32_t bq_word(const uint32_t* w, uint32_t i) {
+  if constexpr (kStaged)
+    return w[i];
+  else
+    return __ldg(w + i);
+}
+
+// Probe h of N keys: bit 0 of acc[j] is whether key j is still alive, and
+// the probe ANDs it with its bit, the word shifted right by the bit's place.
+// It hashes every key and loads the word of every key alive (a predicated
+// load, no branch a key; staged, every key's: a dead key stays dead), all
+// before it tests any. Only family 2 without a power of two can probe -1,
+// which reads as unset.
+template <int FAM, bool kPow2, bool kStaged, int N>
+__device__ __forceinline__ void bq_probe(const uint32_t (&k)[N],
+                                         uint32_t (&acc)[N],
+                                         const uint32_t* w, int h,
+                                         uint32_t seed, const QueryHash& q) {
+  constexpr bool kNone = FAM == 2 && !kPow2;
+  uint32_t b[N], v[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    b[j] = query_column<FAM, kPow2>(k[j], query_seed<FAM>(seed, h), q);
+    const bool load =
+        (kStaged || (acc[j] & 1u)) && (!kNone || b[j] != BLOOM_NONE);
+    v[j] = load ? bq_word<kStaged>(w, b[j] >> 5) : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j] &= v[j] >> (b[j] & 31u);
+}
+
+// The keys of N alive (bit j of alive) after all probes. The global form
+// stops once none is, for that saves L2 sectors; the staged form probes on.
+template <int FAM, int H, bool kPow2, bool kStaged, int N>
+__device__ __forceinline__ uint32_t bq_alive(const uint32_t (&k)[N],
+                                             uint32_t alive,
+                                             const uint32_t* w, int hashes,
+                                             uint32_t seed,
+                                             const QueryHash& q) {
+  uint32_t acc[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j] = (alive >> j) & 1u;
+  auto any = [&]() {
+    uint32_t a = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) a |= acc[j];
+    return (a & 1u) != 0;
+  };
+  if constexpr (H > 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      if (kStaged || any())
+        bq_probe<FAM, kPow2, kStaged, N>(k, acc, w, h, seed, q);
+  } else {
+    for (int h = 0; h < hashes && (kStaged || any()); ++h)
+      bq_probe<FAM, kPow2, kStaged, N>(k, acc, w, h, seed, q);
+  }
+  uint32_t out = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) out |= (acc[j] & 1u) << j;
+  return out;
+}
+
+// The same under a non-finite bit (count, at pos, set or not in the words).
+template <int FAM, int H, bool kPow2, int N>
+__device__ __forceinline__ uint32_t bq_alive_nonfinite(
+    const uint32_t (&k)[N], uint32_t alive, int hashes, uint32_t seed,
+    const QueryHash& q, int count, uint32_t pos, bool pos_set) {
+  if (count != 1 || !pos_set) return 0u;
+  const int HH = H > 0 ? H : hashes;
+  for (int h = 0; h < HH; ++h) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (query_column<FAM, kPow2>(k[j], query_seed<FAM>(seed, h), q) != pos)
+        alive &= ~(1u << j);
+  }
+  return alive;
+}
+
+template <int FAM, int H, bool kStaged, bool kPow2>
+__global__ void __launch_bounds__(QUERY_THREADS)
+    bloom_query_persistent(const uint32_t* __restrict__ words,
+                           const uint32_t* __restrict__ keys,
+                           uint8_t* __restrict__ keep, long long m,
+                           int nwords, int hashes, uint32_t seed,
+                           QueryHash q, const int* __restrict__ nonfinite,
+                           int vec_out) {
+  extern __shared__ __align__(16) uint32_t sw[];
+  if (kStaged) {
+    int vec = 0;
+    if ((reinterpret_cast<uintptr_t>(words) & 15) == 0) {
+      vec = nwords >> 2;
+      const uint4* src = reinterpret_cast<const uint4*>(words);
+      for (int v = threadIdx.x; v < vec; v += blockDim.x)
+        reinterpret_cast<uint4*>(sw)[v] = __ldg(src + v);
+      vec *= 4;
+    }
+    for (int i = vec + threadIdx.x; i < nwords; i += blockDim.x)
+      sw[i] = __ldg(words + i);
+    __syncthreads();
+  }
+  const uint32_t* w = kStaged ? sw : words;
+  int count = 0;
+  uint32_t pos = 0;
+  bool pos_set = false;
+  if (nonfinite) {
+    count = __ldg(nonfinite);
+    pos = static_cast<uint32_t>(__ldg(nonfinite + 1));
+    pos_set = (bq_word<kStaged>(w, pos >> 5) >> (pos & 31u)) & 1u;
+  }
+  const QuerySpan sp = query_span(keys, m);
+  const long long g =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the head and the tail (at most 3 keys each), a key a thread
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const long long i = part == 0 ? (g < sp.head ? g : m) : sp.body_end + g;
+    if (i >= m) continue;
+    const uint32_t k[1] = {__ldg(keys + i)};
+    keep[i] = count ? bq_alive_nonfinite<FAM, H, kPow2, 1>(
+                          k, 1u, hashes, seed, q, count, pos, pos_set)
+                    : bq_alive<FAM, H, kPow2, kStaged, 1>(k, 1u, w, hashes,
+                                                          seed, q);
+  }
+  const uint4* kv = reinterpret_cast<const uint4*>(keys + sp.head);
+  const long long step =
+      static_cast<long long>(gridDim.x) * blockDim.x * QUERY_UNITS;
+  for (long long u0 = static_cast<long long>(blockIdx.x) * blockDim.x *
+                          QUERY_UNITS + threadIdx.x;
+       u0 < sp.units; u0 += step) {
+    uint32_t k[BQ_KEYS];
+    uint32_t alive = 0;
+#pragma unroll
+    for (int j = 0; j < QUERY_UNITS; ++j) {
+      const long long u = u0 + static_cast<long long>(j) * blockDim.x;
+      const uint4 x = u < sp.units ? __ldcs(kv + u) : make_uint4(0, 0, 0, 0);
+      k[4 * j] = x.x;
+      k[4 * j + 1] = x.y;
+      k[4 * j + 2] = x.z;
+      k[4 * j + 3] = x.w;
+      if (u < sp.units) alive |= 0xFu << (4 * j);
+    }
+    const uint32_t in = alive;
+    alive = count ? bq_alive_nonfinite<FAM, H, kPow2, BQ_KEYS>(
+                        k, alive, hashes, seed, q, count, pos, pos_set)
+                  : bq_alive<FAM, H, kPow2, kStaged, BQ_KEYS>(
+                        k, alive, w, hashes, seed, q);
+#pragma unroll
+    for (int j = 0; j < QUERY_UNITS; ++j) {
+      if (!((in >> (4 * j)) & 1u)) break;
+      const long long u = u0 + static_cast<long long>(j) * blockDim.x;
+      const uint32_t a = (alive >> (4 * j)) & 0xFu;
+      if (vec_out) {
+        // bytes 0/1 of the 4 keys, little-endian
+        const uint32_t b = (a & 1u) | ((a & 2u) << 7) | ((a & 4u) << 14) |
+                           ((a & 8u) << 21);
+        __stcs(reinterpret_cast<unsigned*>(keep + sp.head) + u, b);
+      } else {
+        const long long i = sp.head + 4 * u;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) keep[i + t] = (a >> t) & 1u;
+      }
+    }
+  }
+}
+
+// The instantiations: the main path's 3 hashes unrolled or any number at
+// run time, staged or not, a power-of-two nbits or not.
+template <int FAM, bool kStaged, bool kPow2>
+const void* bq_kernel_h(int H) {
+  return H == 3 ? reinterpret_cast<const void*>(
+                      bloom_query_persistent<FAM, 3, kStaged, kPow2>)
+                : reinterpret_cast<const void*>(
+                      bloom_query_persistent<FAM, 0, kStaged, kPow2>);
+}
+
+template <int FAM>
+const void* bq_kernel(int H, bool staged, bool pow2) {
+  if (staged)
+    return pow2 ? bq_kernel_h<FAM, true, true>(H)
+                : bq_kernel_h<FAM, true, false>(H);
+  return pow2 ? bq_kernel_h<FAM, false, true>(H)
+              : bq_kernel_h<FAM, false, false>(H);
+}
+
+const void* bq_pick(int family, int H, bool staged, bool pow2) {
+  if (family == 1) return bq_kernel<1>(H, staged, pow2);
+  if (family == 2) return bq_kernel<2>(H, staged, pow2);
+  return bq_kernel<0>(H, staged, pow2);
+}
+
+// The route, here alone: a filter of BLOOM_QUERY_STAGED_BYTES or less is
+// staged in each CTA's shared memory.
+size_t bq_smem(uint32_t nbits) {
+  const size_t bytes = static_cast<size_t>((nbits + 31u) / 32u) * 4;
+  return bytes <= BLOOM_QUERY_STAGED_BYTES ? bytes : 0;
+}
+
 }  // namespace
 
 // The retired build: staged in each CTA's shared memory when the filter
@@ -429,11 +664,46 @@ extern "C" int bloom_build(const uint32_t* keys, const uint8_t* mask,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-extern "C" int bloom_query(const uint32_t* words, const uint32_t* keys,
-                           uint8_t* keep, long long m, uint32_t nbits, int H,
-                           uint32_t seed, int family, int grid,
-                           cudaStream_t stream) {
+// The retired query (bloom_query_kernel: a grid-stride loop, a key a
+// thread an iteration, its probes one after another), for holding the
+// persistent query against it; launched by no entry point of the package.
+extern "C" int bloom_query_grid(const uint32_t* words, const uint32_t* keys,
+                                uint8_t* keep, long long m, uint32_t nbits,
+                                int H, uint32_t seed, int family, int grid,
+                                cudaStream_t stream) {
   bloom_query_kernel<<<grid, 256, 0, stream>>>(words, keys, keep, m, nbits, H,
                                                seed, family);
   return cudaGetLastError();
+}
+
+// The query's plan on the current device, into out[2]: the route (1: the
+// words staged in each CTA's shared memory, 0: read from global memory)
+// and the persistent grid's CTAs.
+extern "C" int bloom_query_plan(uint32_t nbits, int H, int family, int* out) {
+  const size_t smem = bq_smem(nbits);
+  out[0] = smem > 0;
+  const QueryHash q = query_hash(nbits, family);
+  return query_ctas(bq_pick(family, H, smem > 0, q.pow2), smem, &out[1]);
+}
+
+// The persistent query: keep[m] of the keys against the packed words of
+// nbits; ``nonfinite`` (int32[2] on the device, or null) as
+// bloom_query_persistent takes it; ``ctas`` from bloom_query_plan.
+extern "C" int bloom_query(const uint32_t* words, const uint32_t* keys,
+                           uint8_t* keep, long long m, uint32_t nbits, int H,
+                           uint32_t seed, int family, const int* nonfinite,
+                           int ctas, cudaStream_t stream) {
+  if (m < 1) return cudaSuccess;
+  const size_t smem = bq_smem(nbits);
+  QueryHash q = query_hash(nbits, family);
+  const void* fn = bq_pick(family, H, smem > 0, q.pow2);
+  cudaError_t e = cheetah_launch_prep(fn, smem);
+  if (e != cudaSuccess) return e;
+  int nwords = static_cast<int>((nbits + 31u) / 32u);
+  int vec_out = query_vector_out(keep, 1, keys, m);
+  void* args[] = {&words, &keys, &keep, &m, &nwords, &H,
+                  &seed,  &q,    &nonfinite, &vec_out};
+  e = cudaLaunchKernel(fn, dim3(query_grid(ctas, keys, m)),
+                       dim3(QUERY_THREADS), args, smem, stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }

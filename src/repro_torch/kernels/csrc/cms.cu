@@ -37,7 +37,20 @@
 //
 // cms_query replaces cms_query_kernel (src/repro/kernels/cms_sketch.py:72):
 // per key, the minimum over rows of table[r][hash_r(key)]; the engine's
-// form fuses "estimate > threshold" and writes the keep mask instead.
+// form fuses "estimate > threshold" and writes the keep mask instead. It is
+// a persistent, table-resident query (cms_query_persistent): as many CTAs
+// as the SMs hold, each of which copies the table into its shared memory
+// once (16-byte copies) and then takes 8 keys a thread a step by two
+// 16-byte loads, gathers the rows' counters from shared memory and writes
+// one vector store of estimates or keep bytes a unit of 4 keys
+// (query.cuh). A power-of-two width takes a shift or a mask for the range
+// reduction. A table above the shared-memory budget is gathered from
+// global memory by the same kernel; cms_query_plan gives the route and the
+// grid. What held the grid-stride query it replaced back (cms_query_grid,
+// kept for chip_smoke.py's witness): one dependent chain a key, its
+// gathers global loads, the engine family's modulo by a run-time width.
+// Its reads are the reference's: the Pallas query's one-hot product for
+// the kernels' family, jnp.min for the engine's (see the query below).
 //
 // Tables: int32 (COUNT and integer SUM, and every narrower integer table,
 // which the wrapper wraps from it) wraps mod 2^32 in any order of adds;
@@ -74,14 +87,18 @@
 // What bounds them: bytes (read the keys and weights once, write the table,
 // or the estimates or the mask, once). The build takes 2-4x its bytes at
 // every main-path shape, most likely in its hashing: rows mixes and range
-// reductions a key in 32-bit integer arithmetic.
+// reductions a key in 32-bit integer arithmetic. The query's hashing is
+// about as many instructions a key as its bytes allow (PERF.md gives its
+// SASS count and the issue floor it implies).
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 #include "hash.cuh"
+#include "query.cuh"
 
 #define CMS_THREADS 512
 #define CMS_UNROLL 8
@@ -373,6 +390,312 @@ void query_launch(const void* table, const uint32_t* keys, void* est,
         t, keys, e, keep, m, rows, width, seed, family, thr_i, thr_f);
 }
 
+// The persistent query (see the header; the scaffolding is query.cuh's):
+// grid of query_ctas CTAs of QUERY_THREADS threads. kStaged: the table is
+// copied into shared memory once a CTA, with 16-byte copies where it is
+// 16-byte aligned, and gathered from there; else gathered from global
+// memory (a table above the shared-memory budget). ROWS > 0 unrolls the
+// rows (the main path's 3); 0 takes ``rows`` at run time. kPow2: a width
+// that is a power of two (query.cuh).
+//
+// Reads (T float): the kernels' family (FAM 0, 2) reads as the Pallas
+// query's one-hot product sum_c onehot[c] * T[r][c] (kOnehot): row r's read
+// of column c is NaN when another counter of row r is not finite (0 * inf)
+// or T[r][c] is NaN, else T[r][c] + 0.0 with subnormals flushed, so -0
+// reads +0; a dropped probe reads +0, or NaN in a row with a non-finite
+// counter. The estimate is the NaN-propagating minimum of float32(3.4e38),
+// the reference's start value, and the reads. ``nf`` counts each row's
+// non-finite counters: the staged form counts them as it copies the table,
+// the global one is handed them (cms_row_nonfinite); while no row has one,
+// each read is only the flush. The engine's family reads the counters as
+// jnp.min takes them: subnormals flushed (not with one row, which XLA
+// reads as a copy), a NaN of any row wins, -0 below +0. A threshold
+// compares the flushed estimate with the flushed threshold (the wrapper
+// flushes it). Integer tables: the signed or unsigned minimum, a dropped
+// probe reading 0.
+// e folded with v as XLA's minimum: v wins when lower, when NaN, or as a
+// -0 against a +0; a NaN e stays.
+__device__ __forceinline__ float cms_min(float e, float v) {
+  return (v < e || v != v || (v == e && signbit(v))) ? v : e;
+}
+
+// The same where no -0 comes in (the one-hot reads): one min.NaN, whose NaN
+// wins.
+__device__ __forceinline__ float cms_min_nan(float e, float v) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(e), "f"(v));
+  return r;
+}
+
+// v + 0.0 with subnormals flushed (one add.ftz): -0 and the subnormals of
+// either sign read +0.
+__device__ __forceinline__ float cms_plus_zero(float v) {
+  float r;
+  asm("add.ftz.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+template <typename T, bool kStaged>
+__device__ __forceinline__ T cms_load(const T* tab, int i) {
+  if constexpr (kStaged)
+    return tab[i];
+  else
+    return __ldg(tab + i);
+}
+
+// Row r of a key folded into its estimate e (R rows in all).
+template <typename T, int FAM, bool kPow2, bool kStaged, bool kRule>
+__device__ __forceinline__ void cms_fold(T& e, uint32_t key, int r,
+                                         const T* tab, const int* nf, int R,
+                                         int width, uint32_t seed,
+                                         const QueryHash& q) {
+  const int c =
+      static_cast<int>(query_column<FAM, kPow2>(key, query_seed<FAM>(seed, r),
+                                                q));
+  const T v = FAM != 2 || c >= 0 ? cms_load<T, kStaged>(tab, r * width + c)
+                                 : T(0);
+  if constexpr (std::is_same<T, float>::value && FAM != 1) {
+    float rd = cms_plus_zero(v);
+    if (kRule) {
+      const int n = nf[r];
+      if (!(n == 0 || (n == 1 && c >= 0 && isinf(v))))
+        rd = __int_as_float(0x7FC00000);
+    }
+    e = cms_min_nan(e, rd);
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float rd = R > 1 ? query_ftz(v) : v;
+    e = r == 0 ? rd : cms_min(e, rd);
+  } else {
+    e = r == 0 || v < e ? v : e;
+  }
+}
+
+template <typename T, int FAM, int ROWS, bool kPow2, bool kStaged,
+          bool kRule>
+__device__ __forceinline__ T cms_estimate(uint32_t key, const T* tab,
+                                          const int* nf, int rows, int width,
+                                          uint32_t seed, const QueryHash& q) {
+  T e = T(0);
+  if constexpr (std::is_same<T, float>::value && FAM != 1)
+    e = __uint_as_float(0x7F7FC99Eu);  // float32(3.4e38)
+  if constexpr (ROWS > 0) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      cms_fold<T, FAM, kPow2, kStaged, kRule>(e, key, r, tab, nf, ROWS,
+                                              width, seed, q);
+  } else {
+    for (int r = 0; r < rows; ++r)
+      cms_fold<T, FAM, kPow2, kStaged, kRule>(e, key, r, tab, nf, rows,
+                                              width, seed, q);
+  }
+  return e;
+}
+
+template <typename T>
+__device__ __forceinline__ uint8_t cms_keep(T e, long long thr_i,
+                                            float thr_f) {
+  if constexpr (std::is_same<T, float>::value)
+    return query_ftz(e) > thr_f;
+  else
+    return static_cast<long long>(e) > thr_i;
+}
+
+template <typename T, int FAM, int ROWS, bool kPow2, bool kStaged,
+          bool kRule>
+__device__ __forceinline__ void cms_query_loop(
+    const uint32_t* __restrict__ keys, T* __restrict__ est,
+    uint8_t* __restrict__ keep, long long m, const T* tab, const int* nf,
+    int rows, int width, uint32_t seed, const QueryHash& q, long long thr_i,
+    float thr_f, int vec_out) {
+  using V = typename std::conditional<std::is_same<T, float>::value, float4,
+                                      uint4>::type;
+  const QuerySpan sp = query_span(keys, m);
+  const long long g =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the head and the tail (at most 3 keys each), a key a thread
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const long long i = part == 0 ? (g < sp.head ? g : m) : sp.body_end + g;
+    if (i >= m) continue;
+    const T e = cms_estimate<T, FAM, ROWS, kPow2, kStaged, kRule>(
+        __ldg(keys + i), tab, nf, rows, width, seed, q);
+    if (est) est[i] = e;
+    if (keep) keep[i] = cms_keep(e, thr_i, thr_f);
+  }
+  const uint4* kv = reinterpret_cast<const uint4*>(keys + sp.head);
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x *
+                         QUERY_UNITS;
+  for (long long u0 = static_cast<long long>(blockIdx.x) * blockDim.x *
+                          QUERY_UNITS + threadIdx.x;
+       u0 < sp.units; u0 += step) {
+    uint4 k[QUERY_UNITS];
+#pragma unroll
+    for (int j = 0; j < QUERY_UNITS; ++j) {
+      const long long u = u0 + static_cast<long long>(j) * blockDim.x;
+      k[j] = u < sp.units ? __ldcs(kv + u) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < QUERY_UNITS; ++j) {
+      const long long u = u0 + static_cast<long long>(j) * blockDim.x;
+      if (u >= sp.units) break;
+      T e[4];
+      e[0] = cms_estimate<T, FAM, ROWS, kPow2, kStaged, kRule>(k[j].x, tab, nf, rows,
+                                                       width, seed, q);
+      e[1] = cms_estimate<T, FAM, ROWS, kPow2, kStaged, kRule>(k[j].y, tab, nf, rows,
+                                                       width, seed, q);
+      e[2] = cms_estimate<T, FAM, ROWS, kPow2, kStaged, kRule>(k[j].z, tab, nf, rows,
+                                                       width, seed, q);
+      e[3] = cms_estimate<T, FAM, ROWS, kPow2, kStaged, kRule>(k[j].w, tab, nf, rows,
+                                                       width, seed, q);
+      const long long i = sp.head + 4 * u;
+      if (est) {
+        if (vec_out) {
+          V v;
+          memcpy(&v, e, 16);
+          __stcs(reinterpret_cast<V*>(est + sp.head) + u, v);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) est[i + t] = e[t];
+        }
+      }
+      if (keep) {
+        uint8_t b[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) b[t] = cms_keep(e[t], thr_i, thr_f);
+        if (vec_out) {
+          uint32_t w;
+          memcpy(&w, b, 4);
+          __stcs(reinterpret_cast<unsigned*>(keep + sp.head) + u, w);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) keep[i + t] = b[t];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int FAM, int ROWS, bool kStaged, bool kPow2>
+__global__ void __launch_bounds__(QUERY_THREADS)
+    cms_query_persistent(const T* __restrict__ table,
+                         const uint32_t* __restrict__ keys,
+                         T* __restrict__ est, uint8_t* __restrict__ keep,
+                         long long m, int rows, int width, uint32_t seed,
+                         QueryHash q, long long thr_i, float thr_f,
+                         const int* __restrict__ nf_rows, int vec_out) {
+  constexpr bool kOnehot = std::is_same<T, float>::value && FAM != 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* nf = reinterpret_cast<int*>(smem);  // [rows]: non-finite counters
+  T* st = reinterpret_cast<T*>(smem + ((rows * 4 + 15) & ~15));
+  const int tid = threadIdx.x;
+  if (kOnehot)
+    for (int r = tid; r < rows; r += blockDim.x)
+      nf[r] = kStaged ? 0 : nf_rows[r];
+  if (kStaged) {
+    __syncthreads();
+    const int cells = rows * width;
+    int vec = 0;
+    if ((reinterpret_cast<uintptr_t>(table) & 15) == 0) {
+      vec = cells >> 2;
+      const uint4* src = reinterpret_cast<const uint4*>(table);
+      uint4* dst = reinterpret_cast<uint4*>(st);
+      for (int v = tid; v < vec; v += blockDim.x) {
+        const uint4 x = __ldg(src + v);
+        dst[v] = x;
+        if (kOnehot) {
+          const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (!isfinite(__uint_as_float(w[t])))
+              atomicAdd(nf + (4 * v + t) / width, 1);
+        }
+      }
+      vec *= 4;
+    }
+    for (int c = vec + tid; c < cells; c += blockDim.x) {
+      const T x = __ldg(table + c);
+      st[c] = x;
+      if (kOnehot && !isfinite(static_cast<float>(x))) atomicAdd(nf + c / width, 1);
+    }
+  }
+  __syncthreads();
+  const T* tab = kStaged ? st : table;
+  bool rule = false;
+  if (kOnehot)
+    for (int r = 0; r < rows; ++r) rule |= nf[r] != 0;
+  if (rule)
+    cms_query_loop<T, FAM, ROWS, kPow2, kStaged, true>(keys, est, keep, m, tab, nf,
+                                                rows, width, seed, q, thr_i,
+                                                thr_f, vec_out);
+  else
+    cms_query_loop<T, FAM, ROWS, kPow2, kStaged, false>(keys, est, keep, m, tab, nf,
+                                                 rows, width, seed, q, thr_i,
+                                                 thr_f, vec_out);
+}
+
+// nf[r] = the non-finite counters of row r of an f32 table: one CTA a row,
+// before the global form's query of the kernels' family.
+__global__ void cms_row_nonfinite(const float* __restrict__ table, int width,
+                                  int* __restrict__ nf) {
+  __shared__ int count;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  const float* row = table + static_cast<long long>(blockIdx.x) * width;
+  int n = 0;
+  for (int c = threadIdx.x; c < width; c += blockDim.x)
+    n += !isfinite(__ldg(row + c));
+  if (n) atomicAdd(&count, n);
+  __syncthreads();
+  if (threadIdx.x == 0) nf[blockIdx.x] = count;
+}
+
+// Shared memory of the staged query: the rows' counts and the table.
+size_t cmsq_smem(int rows, int width) {
+  return ((static_cast<size_t>(rows) * 4 + 15) & ~size_t(15)) +
+         static_cast<size_t>(rows) * width * 4;
+}
+
+// The route, here alone: a table whose staged form fits a CTA's shared
+// memory is staged.
+bool cmsq_staged(int rows, int width) {
+  return cmsq_smem(rows, width) <= CHEETAH_MAX_SMEM;
+}
+
+// The instantiations: staged with the main path's 3 rows unrolled or any
+// rows at run time, or gathered from global memory; a power-of-two width
+// or not.
+template <typename T, int FAM, bool kPow2>
+const void* cmsq_kernel(int rows, bool staged) {
+  if (!staged)
+    return reinterpret_cast<const void*>(
+        cms_query_persistent<T, FAM, 0, false, kPow2>);
+  if (rows == 3)
+    return reinterpret_cast<const void*>(
+        cms_query_persistent<T, FAM, 3, true, kPow2>);
+  return reinterpret_cast<const void*>(
+      cms_query_persistent<T, FAM, 0, true, kPow2>);
+}
+
+template <typename T>
+const void* cmsq_kernel_t(int family, int rows, bool staged, bool pow2) {
+  if (family == 1)
+    return pow2 ? cmsq_kernel<T, 1, true>(rows, staged)
+                : cmsq_kernel<T, 1, false>(rows, staged);
+  if (family == 2)
+    return pow2 ? cmsq_kernel<T, 2, true>(rows, staged)
+                : cmsq_kernel<T, 2, false>(rows, staged);
+  return pow2 ? cmsq_kernel<T, 0, true>(rows, staged)
+              : cmsq_kernel<T, 0, false>(rows, staged);
+}
+
+// The instantiation a query launches: ttype 0 f32, 1 int32, 2 uint32.
+const void* cmsq_pick(int ttype, int family, int rows, bool staged,
+                      bool pow2) {
+  if (ttype == 1) return cmsq_kernel_t<int>(family, rows, staged, pow2);
+  if (ttype == 2) return cmsq_kernel_t<unsigned>(family, rows, staged, pow2);
+  return cmsq_kernel_t<float>(family, rows, staged, pow2);
+}
+
 size_t cms_table_bytes(int rows, int width) {
   return static_cast<size_t>(rows) * width * 4;
 }
@@ -564,12 +887,16 @@ extern "C" int cms_build_atomic(const uint32_t* keys, const void* weights,
                               width, seed, family, ctas_per_lane, stream);
 }
 
-// ttype: 0 f32, 1 int32, 2 uint32 (unsigned minima).
-extern "C" int cms_query(const void* table, const uint32_t* keys, void* est,
-                         uint8_t* keep, long long m, int rows, int width,
-                         uint32_t seed, int family, int ttype,
-                         long long thr_i, float thr_f, int grid,
-                         cudaStream_t stream) {
+// The retired query (cms_query_kernel: a grid-stride loop, a key a thread
+// an iteration, the counters gathered from global memory, the minimum from
+// row 0 on with <), for holding the persistent query against it on finite
+// tables; launched by no entry point of the package. ttype: 0 f32, 1 int32,
+// 2 uint32 (unsigned minima).
+extern "C" int cms_query_grid(const void* table, const uint32_t* keys,
+                              void* est, uint8_t* keep, long long m, int rows,
+                              int width, uint32_t seed, int family, int ttype,
+                              long long thr_i, float thr_f, int grid,
+                              cudaStream_t stream) {
   if (ttype == 1)
     query_launch<int>(table, keys, est, keep, m, rows, width, seed, family,
                       thr_i, thr_f, grid, stream);
@@ -580,4 +907,67 @@ extern "C" int cms_query(const void* table, const uint32_t* keys, void* est,
     query_launch<float>(table, keys, est, keep, m, rows, width, seed, family,
                         thr_i, thr_f, grid, stream);
   return cudaGetLastError();
+}
+
+// Shared memory of a query launch: the rows' counts, and the table when it
+// is staged.
+static size_t cmsq_launch_smem(int rows, int width) {
+  return cmsq_staged(rows, width) ? cmsq_smem(rows, width)
+                                  : cmsq_smem(rows, 0);
+}
+
+// Whether the query first counts each row's non-finite counters into the
+// workspace: the global form, an f32 table, the kernels' family.
+static bool cmsq_counts_first(int rows, int width, int ttype, int family) {
+  return !cmsq_staged(rows, width) && ttype == 0 && family != 1;
+}
+
+// The query's plan on the current device, into out[3]: the route (1: the
+// table staged in each CTA's shared memory, 0: gathered from global
+// memory), the persistent grid's CTAs, and the workspace's bytes.
+extern "C" int cms_query_plan(int rows, int width, int ttype, int family,
+                              int* out) {
+  const bool staged = cmsq_staged(rows, width);
+  int ctas = 0;
+  const QueryHash q = query_hash(static_cast<uint32_t>(width), family);
+  const cudaError_t e =
+      query_ctas(cmsq_pick(ttype, family, rows, staged, q.pow2),
+                 cmsq_launch_smem(rows, width), &ctas);
+  out[0] = staged;
+  out[1] = ctas;
+  out[2] = cmsq_counts_first(rows, width, ttype, family) ? rows * 4 : 0;
+  return e;
+}
+
+// The persistent query: est[m] (T, or null) and keep[m] (est > threshold,
+// or null) of the keys against table[rows][width]; ttype 0 f32, 1 int32,
+// 2 uint32; ``ctas`` from cms_query_plan; ``work`` its workspace.
+extern "C" int cms_query(const void* table, const uint32_t* keys, void* est,
+                         uint8_t* keep, long long m, int rows, int width,
+                         uint32_t seed, int family, int ttype,
+                         long long thr_i, float thr_f, int ctas, int* work,
+                         cudaStream_t stream) {
+  if (m < 1) return cudaSuccess;
+  const bool staged = cmsq_staged(rows, width);
+  const size_t smem = cmsq_launch_smem(rows, width);
+  QueryHash q = query_hash(static_cast<uint32_t>(width), family);
+  const void* fn = cmsq_pick(ttype, family, rows, staged, q.pow2);
+  cudaError_t e = cheetah_launch_prep(fn, smem);
+  if (e != cudaSuccess) return e;
+  const int* nf = nullptr;
+  if (cmsq_counts_first(rows, width, ttype, family)) {
+    if (!work) return cudaErrorInvalidValue;
+    cms_row_nonfinite<<<rows, 256, 0, stream>>>(
+        static_cast<const float*>(table), width, work);
+    nf = work;
+  }
+  int vec_out = est ? query_vector_out(est, 4, keys, m)
+                    : query_vector_out(keep, 1, keys, m);
+  if (est && keep)
+    vec_out = vec_out && query_vector_out(keep, 1, keys, m);
+  void* args[] = {&table, &keys, &est,  &keep,  &m,  &rows,   &width,
+                  &seed,  &q,    &thr_i, &thr_f, &nf, &vec_out};
+  e = cudaLaunchKernel(fn, dim3(query_grid(ctas, keys, m)),
+                       dim3(QUERY_THREADS), args, smem, stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }

@@ -28,9 +28,8 @@ __device__ __forceinline__ uint32_t cheetah_mix32(uint32_t x, uint32_t seed) {
   return h;
 }
 
-__device__ __forceinline__ int cheetah_hash_mod(uint32_t x, uint32_t mod,
-                                                uint32_t seed) {
-  const uint32_t h = cheetah_mix32(x, seed);
+// hash_mod's range reduction of a mixed hash h.
+__device__ __forceinline__ int cheetah_reduce(uint32_t h, uint32_t mod) {
   if (mod < 65536u) {
     const uint32_t lo = h & 0xFFFFu;
     const uint32_t hi = h >> 16;
@@ -38,6 +37,11 @@ __device__ __forceinline__ int cheetah_hash_mod(uint32_t x, uint32_t mod,
     return static_cast<int>(t >> 16);
   }
   return static_cast<int>(h % mod);
+}
+
+__device__ __forceinline__ int cheetah_hash_mod(uint32_t x, uint32_t mod,
+                                                uint32_t seed) {
+  return cheetah_reduce(cheetah_mix32(x, seed), mod);
 }
 
 // mix32 / hash_mod as the Pallas kernels compute them on an int32 key (the
@@ -59,9 +63,9 @@ __device__ __forceinline__ uint32_t cheetah_mix32_i32(uint32_t x,
   return static_cast<uint32_t>(h);
 }
 
-__device__ __forceinline__ int cheetah_hash_mod_i32(uint32_t x, uint32_t mod,
-                                                    uint32_t seed) {
-  const int h = static_cast<int>(cheetah_mix32_i32(x, seed));
+// The same range reduction in the Pallas kernels' int32 arithmetic.
+__device__ __forceinline__ int cheetah_reduce_i32(uint32_t hu, uint32_t mod) {
+  const int h = static_cast<int>(hu);
   if (mod < 65536u) {
     const int lo = h & 0xFFFF;
     const int hi = h >> 16;
@@ -74,6 +78,11 @@ __device__ __forceinline__ int cheetah_hash_mod_i32(uint32_t x, uint32_t mod,
   const int m = static_cast<int>(mod);
   const int r = h % m;
   return r != 0 && ((r < 0) != (m < 0)) ? r + m : r;
+}
+
+__device__ __forceinline__ int cheetah_hash_mod_i32(uint32_t x, uint32_t mod,
+                                                    uint32_t seed) {
+  return cheetah_reduce_i32(cheetah_mix32_i32(x, seed), mod);
 }
 
 // Hash j of multi_hash: one of ``num`` independent hashes of x.

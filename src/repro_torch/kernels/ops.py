@@ -27,8 +27,8 @@ from ..constants import NEG, POS
 from ..core.encoding import cast_fill
 from ..core.hashing import as_u32
 from . import parallel
-from .bloom_filter import (bloom_build_kernel, bloom_query_kernel, pack_bits,
-                           unpack_bits)
+from .bloom_filter import (bloom_build_kernel, bloom_query_kernel,
+                           nonfinite_bits, pack_bits, unpack_bits)
 from .cms_sketch import cms_build_kernel, cms_query_kernel, wrap_i32
 from .distinct_prune import distinct_prune_kernel
 from .ref import distinct_keys
@@ -164,13 +164,16 @@ def bloom_build(keys: torch.Tensor, *, nbits: int, num_hashes: int = 3,
 def bloom_query(bits: torch.Tensor, keys: torch.Tensor, *,
                 num_hashes: int = 3, block: int = 256,
                 seed: int = 0) -> torch.Tensor:
-    """bool[m]: True where all H probed bits of ``bits`` (f32 0/1) are set.
-    Pads with key 0 to whole blocks and cuts the answer back to m."""
+    """bool[m]: True where all H probed bits of ``bits`` (f32 0/1) are set,
+    read as the Pallas query reads them (a non-finite bit makes the other
+    bits read NaN: ``bloom_filter.bloom_query_plain``). Pads with key 0 to
+    whole blocks and cuts the answer back to m."""
     k, m = _pad_to(keys.contiguous(), block, 0)
     words = pack_bits(bits > 0.5)
     return bloom_query_kernel(words, k, nbits=bits.shape[0],
                               num_hashes=num_hashes, seed=seed,
-                              family="kernel")[:m]
+                              family="kernel",
+                              nonfinite=nonfinite_bits(bits))[:m]
 
 
 def rle_topn_prune(run_values: torch.Tensor, run_lengths: torch.Tensor, *,

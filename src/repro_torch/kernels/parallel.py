@@ -36,7 +36,8 @@ from . import ref
 from .bloom_filter import BLOOM_BUILD, BLOOM_BUILD_GLOBAL, BLOOM_QUERY
 from .cms_sketch import CMS_BUILD, CMS_QUERY, wrap_i32
 from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, LaunchCount,
-                     check_cuda, check_rowpar, grid_for, ptr, workspace)
+                     check_cuda, check_rowpar, grid_for, ptr, sm_count,
+                     workspace)
 from .groupby_scan import GROUPBY_PASS1
 from .rle_scan import RLE_TOPN_DET
 from .topn_det_scan import TOPN_DET_PASS1
@@ -132,8 +133,7 @@ def use_block_walk(shards: int, device: torch.device) -> bool:
     54 / S ms for DISTINCT, 47 / S for TOP-N) and the walk's stays, so the
     forms cross near S = 17 and S = 23: the threshold sits between, the
     block kernel from 22 lanes on 132 SMs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 6 * shards < sms
+    return 6 * shards < sm_count(device)
 
 
 # ======================================================= TOP-N (rand, Ex. 7)

@@ -945,3 +945,98 @@ def test_a20_ops_cms_build_over_float16_weights():
                          width=64)
     assert got.dtype == torch.float32 and float(got.max()) > 2048
     _eq(got, want)
+
+
+# ------------------------------------------------------------ A21 - A24
+# The Pallas Count-Min and Bloom queries read a row by a one-hot product
+# (``gather_rows``): a NaN anywhere in the row, or an infinity away from the
+# key's column, reads NaN (0 * inf), -0 reads +0 and subnormals flush; the
+# estimate is capped at its start value float32(3.4e38). The port's
+# ``ops.cms_query`` and ``ops.bloom_query`` had read the counter itself.
+def _cms_keys():
+    return np.arange(300, dtype=np.uint32) * np.uint32(2654435761)
+
+
+def _f32_same(t, j):
+    a = t.numpy()
+    b = np.asarray(j)
+    assert a.shape == b.shape and a.dtype == b.dtype
+    nan = np.float32("nan")
+    np.testing.assert_array_equal(np.where(np.isnan(a), nan, a).view(np.int32),
+                                  np.where(np.isnan(b), nan, b).view(np.int32))
+
+
+@pytest.mark.parametrize("where, value", [((2, 5), NAN), ((0, 3), -INF)])
+def test_a21_nonfinite_counter_reads_nan_across_its_row(where, value):
+    table = np.ones((3, 64), np.float32)
+    table[where] = value
+    k = _cms_keys()
+    want = jops.cms_query(jnp.asarray(table), jnp.asarray(k))
+    got = tops.cms_query(torch.from_numpy(table), torch.from_numpy(k))
+    # every key but those at the -inf's own column reads NaN
+    assert np.isnan(np.asarray(want)).mean() > 0.9
+    _f32_same(got, want)
+
+
+def test_a21_minus_zero_reads_plus_zero():
+    table = np.full((3, 64), -0.0, np.float32)
+    k = _cms_keys()
+    want = jops.cms_query(jnp.asarray(table), jnp.asarray(k))
+    got = tops.cms_query(torch.from_numpy(table), torch.from_numpy(k))
+    assert not np.signbit(np.asarray(want)).any()
+    _f32_same(got, want)
+
+
+def test_a21_inf_at_the_keys_column_is_read():
+    # +inf only reaches the keys that hash to its column, and loses the
+    # minimum to the other rows' 1.0; every other key reads NaN in row 0
+    table = np.ones((3, 64), np.float32)
+    table[0, 3] = INF
+    k = _cms_keys()
+    want = np.asarray(jops.cms_query(jnp.asarray(table), jnp.asarray(k)))
+    got = tops.cms_query(torch.from_numpy(table), torch.from_numpy(k))
+    assert (want == 1.0).any() and np.isnan(want).any()
+    _f32_same(got, want)
+
+
+def test_a22_estimate_capped_at_3_4e38():
+    table = np.full((3, 64), np.finfo(np.float32).max, np.float32)
+    k = _cms_keys()
+    want = jops.cms_query(jnp.asarray(table), jnp.asarray(k))
+    got = tops.cms_query(torch.from_numpy(table), torch.from_numpy(k))
+    assert (np.asarray(want).view(np.int32) == 0x7F7FC99E).all()
+    _f32_same(got, want)
+
+
+def _bloom_case():
+    rng = np.random.default_rng(23)
+    k = rng.integers(0, 2 ** 32, 1000, dtype=np.uint64).astype(np.uint32)
+    bits = np.asarray(jops.bloom_build(jnp.asarray(k[:300]), nbits=4096))
+    return k, bits
+
+
+@pytest.mark.parametrize("value", [NAN, INF])
+def test_a23_nonfinite_bit_reads_nan_elsewhere(value):
+    k, bits = _bloom_case()
+    bits = bits.copy()
+    bits[17] = value
+    want = np.asarray(jops.bloom_query(jnp.asarray(bits), jnp.asarray(k)))
+    got = tops.bloom_query(torch.from_numpy(bits), torch.from_numpy(k))
+    assert not want.any()
+    _eq(got, want)
+
+
+def test_a24_plain_minimum_takes_a_nan_from_any_row():
+    # the card's minimum had skipped a NaN below row 0; the plain version,
+    # which the card is held to, takes it as jnp.min does
+    table = np.full((3, 16), 5.0, np.float32)
+    table[1, :] = NAN
+    k = _cms_keys()
+    want = np.asarray(J.cms_query(jsk.CountMin(jnp.asarray(table)),
+                                  jnp.asarray(k)))
+    got = T.cms_query(T.CountMin(torch.from_numpy(table)), torch.from_numpy(k))
+    assert np.isnan(want).all()
+    _f32_same(got, want)
+    keep = T.cms_query(T.CountMin(torch.from_numpy(table)),
+                       torch.from_numpy(k), 1.0)
+    assert not keep.any()
