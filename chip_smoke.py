@@ -58,7 +58,13 @@ Phases, one line each, and a non-zero exit on any failure:
            storage; the lowest-owner
            distinct_apply on a hot key that every shard caches, a key that
            only the top lane holds and float32 keys, w = 4, 40 (and 80,
-           whose table is built in place). Then the
+           whose table is built in place); topn_apply in both families
+           (the kernels' one-hot read, the engine's direct read) on shards
+           of L % 4 = 0, 1, 2, 3 entries, views 1, 2 and 3 entries into
+           their storage, merged matrices of w = 1 and 8 read in place, d
+           up to 60000 (its minima read from global memory), and merged
+           columns holding +inf, -inf, NaN, two infinities, +-0 and
+           subnormals. Then the
            engine's dtype handling: run_query TOP-N on an int32 column and
            DISTINCT on an int32 and a float32 column, on the card and on a
            CPU copy of the table; and int32 keys of both signs through
@@ -86,13 +92,23 @@ Phases, one line each, and a non-zero exit on any failure:
            keep mask a superset of the true survivors. Launch counts are set
            to 0 before each path and read after it; each path is then
            called once more, for its time as a repeated query meets it.
-4. timing  on the same tables, each kernel against its plain version at
+4. subnormals
+           every kernel that computes on f32 values (TOP-N, DISTINCT on
+           float32 keys and SKYLINE pass 1 at S = 1 and 128, B = 1 and
+           256, their applies, the GROUP BY scan in its four aggregates,
+           the ladder, the RLE run scan, the f32 Count-Min build in both
+           families) on columns with 1 entry in 16 replaced by +-k * 1e-40
+           and 1 in 32 by +-0, bit for bit against its plain version
+           (ROADMAP Queue 3 A25: XLA flushes f32 subnormals in compute and
+           keeps them in copies).
+5. timing  on the same tables, each kernel against its plain version at
            every shape the main path gives it (bit-identical keep, state and
-           table on the whole table; the one-lane B = 1 scans on their first
-           SCAN_PREFIX entries, and the S = 128 GROUP BY scan on each lane's
-           first GROUPBY_PREFIX / S, rerun on that prefix for the state;
-           the plain loops on CPU copies, except those whose time the
-           kernels line reports),
+           table on the whole table; the one-lane B = 1 scans on their
+           first SCAN_PREFIX entries, and the S = 128 GROUP BY scan on each
+           lane's first GROUPBY_PREFIX / S, rerun on that prefix for the
+           state; the plain loops on CPU copies, except those whose time
+           the kernels line reports, the pass-1 loops in HOST_WORKERS
+           processes started before phase kernels),
            each Count-Min and Bloom query's device time, route, SASS
            instructions a key of its key loop and the issue floor they
            imply, host time a call, and a torch gather of the pre-hashed
@@ -125,7 +141,10 @@ Phases, one line each, and a non-zero exit on any failure:
            merged points its compaction keeps, and the retired scan's time;
            both print their internal kernels' device times. Each phase
            prints its seconds.
-5. witness the redesigned kernels against the serial kernels they
+           topn_apply prints its call and device time in both families and
+           a yardstick (one torch.ge of the column against a precomputed
+           vector of row minima).
+6. witness the redesigned kernels against the serial kernels they
            replaced, bit for bit, over the whole 2^25-entry column: at S = 1
            DISTINCT FIFO and LRU, GROUP BY SUM and COUNT; at S = 1 and 128
            the chunked ladder, the DISTINCT and TOP-N block walks (against
@@ -144,7 +163,9 @@ Phases, one line each, and a non-zero exit on any failure:
            (skyline_apply_scan) on both merged sets; the persistent
            Count-Min and Bloom queries against the grid-stride queries they
            replaced (cms_query_grid, bloom_query_grid) at every main-path
-           shape; then the ``kernels`` JSON line.
+           shape; topn_apply against the apply it replaced
+           (topn_apply_grid) at S = 128 after B = 1 and 256 pass 1; then
+           the ``kernels`` JSON line.
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -188,6 +209,8 @@ BLOOM_OPS = dict(nbits=1 << 15, num_hashes=3)  # ops.bloom_* on page_url[:4096]
 BLOOM_OPS_KEYS = 4096
 GROUPBY = dict(d=4096, w=4)    # Query 2: GROUP BY source_ip, 144 KB a lane
 GROUPBY_PREFIX = 1 << 21       # entries of the S = 128 GROUP BY scan compared
+HOST_WORKERS = 4               # processes that run phase timing's plain
+                               # pass-1 loops on the host (HostPlain)
 FP32_OPS_PER_S = 33.5e12       # H100 SXM FP32 instructions/s without FMA
 TOPN_DET = dict(N=100, w=8)    # README batch example: mode="det", w=8
 # bench_encoded.py's layout: 2^25 rows in runs of 64 (R = 2^19), sorted
@@ -361,6 +384,113 @@ def on_host(fn, *args):
     return to_card(out), time.perf_counter() - t0
 
 
+def _to_numpy(x):
+    """x with every tensor in it as a numpy array (uint32 through its int32
+    view, tagged), to cross a process boundary by value."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.uint32:
+            return ("u32", x.view(torch.int32).numpy())
+        return x.numpy()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_numpy(y) for y in x)
+    return x
+
+
+def _from_numpy(x):
+    """The inverse of ``_to_numpy``, its tensors on the card."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x).cuda()
+    if isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str):
+        return torch.from_numpy(x[1]).cuda().view(torch.uint32)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_from_numpy(y) for y in x)
+    return x
+
+
+_HOST_JOBS: dict = {}   # HostPlain's jobs, read by the forked workers
+
+
+def _host_worker_init():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _host_job(key):
+    """One HostPlain job in a worker: (its result as numpy, its seconds)."""
+    fn, args = _HOST_JOBS[key]
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return _to_numpy(out), time.perf_counter() - t0
+
+
+class HostPlain:
+    """The plain pass-1 loops of phase timing that run on the host, on the
+    whole 2^25-entry column (the one-lane B = 1 scans on their first
+    SCAN_PREFIX entries), each in one of HOST_WORKERS processes forked
+    once the kernels are built, on CPU copies of the main path's columns
+    made from the same seed, so that they run beside phase kernels, which
+    times nothing, and not beside the call times of phase timing; ``get``
+    waits for one. The loops take one Python step a block (an entry at
+    B = 1) and minutes each in a row; the workers do no CUDA work, each
+    runs on one thread, and they are stopped by ``close``. The seconds
+    returned are each loop's own, in its worker."""
+
+    def __init__(self, torch, P, R):
+        import multiprocessing
+
+        from repro_torch.query import make_uservisits
+
+        table = make_uservisits(M_MAIN, seed=0)
+        cols = {"topn_pass1": table.cols["ad_revenue"].cpu(),
+                "distinct_pass1": table.cols["source_ip"].cpu(),
+                "skyline_pass1": torch.stack(
+                    [table.cols[c].float() for c in SKY_COLS], -1).cpu()}
+        del table
+        self.cols = cols
+        jobs = {}
+        for name, v in cols.items():
+            plain = pass1_fns(name, P, R)[1]
+            for _, S, B in PASS1_SHAPES[1:]:
+                u = v[:SCAN_PREFIX] if S == 1 and B == 1 else v
+                jobs[(name, S, B)] = (
+                    lambda z, S=S, B=B, plain=plain: plain(z, S, B), (u,))
+        fs = cols["distinct_pass1"]
+        jobs[("distinct_pass1_lru", SHARDS, 1)] = (
+            lambda z: R.distinct_lru_ref(z, d=DISTINCT["d"],
+                                         w=DISTINCT["w"], return_state=True),
+            (fs.view(SHARDS, -1),))
+        _HOST_JOBS.clear()
+        _HOST_JOBS.update(jobs)
+        # the longest loops first (the walks at S = 128, then the block
+        # walks, then the prefix scans), so that they end near together
+        order = sorted(jobs, key=lambda k: (k[2] == 1 and k[1] == 1, k[1] == 1,
+                                            k[0] != "topn_pass1"))
+        sys.stdout.flush()
+        sys.stderr.flush()
+        self.pool = multiprocessing.get_context("fork").Pool(
+            HOST_WORKERS, initializer=_host_worker_init)
+        self.results = {k: self.pool.apply_async(_host_job, (k,))
+                        for k in order}
+
+    def done(self) -> bool:
+        return all(r.ready() for r in self.results.values())
+
+    def get(self, key):
+        """(the plain result, its tensors on the card; its seconds)."""
+        out, secs = self.results[key].get()
+        return _from_numpy(out), secs
+
+    def close(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
 def event_ms(fn, reps: int, warm: bool = True) -> float:
     """Median device time of fn() in ms over ``reps`` runs, after a warm-up
     (``warm=False``: the caller has just run fn)."""
@@ -524,6 +654,7 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_topn_block(torch, g)
     phase_kernels_block_staged(torch, g)
     phase_kernels_distinct_apply(torch, g)
+    phase_kernels_topn_apply(torch, g)
 
 
 # the Count-Min tables of the query cases: (rows, width); the first four
@@ -1439,6 +1570,242 @@ def phase_kernels_prefix(torch, g):
             s=round(time.perf_counter() - t0, 3))
 
 
+# the TOP-N apply's layouts on the card: (S, L, view offset in entries, d, w);
+# L % 4 in {0, 1, 2, 3}, views 1 and 3 entries into their storage, and
+# d = 60000, whose minima do not fit shared memory (read from global memory)
+APPLY_SHAPES = ((8, 1024, 0, 512, 8), (8, 1025, 1, 512, 8),
+                (8, 1026, 0, 37, 1), (8, 1027, 3, 512, 8),
+                (128, 4099, 0, 512, 8), (3, 7, 2, 1, 1),
+                (16, 2048, 1, 60000, 8),
+                # two columns staged above 48 KB, large, small, large: the
+                # third launch reuses the first's cached plan after the
+                # second lowered the kernel's shared-memory limit
+                (8, 1024, 0, 50000, 8), (8, 1024, 0, 20000, 8),
+                (8, 1024, 0, 50000, 8))
+# merged columns of the apply's cases: a special row minimum or two
+APPLY_COLUMNS = ("finite", "+inf", "-inf", "nan", "zeros and subnormals",
+                 "two infs")
+SUBNORMAL_M = 1 << 20          # entries of phase subnormals' columns
+SUBNORMAL_PREFIX = 1 << 12     # entries of its one-lane B = 1 scans
+
+
+def apply_column(torch, g, name, d):
+    """The [d] row minima of one case (APPLY_COLUMNS), on the host."""
+    col = torch.randn(d, generator=g)
+    rows = torch.randperm(d, generator=g)[:2]
+    if name == "zeros and subnormals":
+        pick = torch.randint(0, 4, (d,), generator=g)
+        col = torch.tensor([0.0, -0.0, 1e-40, -1e-40])[pick]
+    elif name in ("+inf", "-inf", "nan"):
+        col[rows[0]] = float(name)
+    elif name == "two infs" and d > 1:
+        col[rows[0]], col[rows[1]] = float("inf"), -float("inf")
+    return col
+
+
+def phase_kernels_topn_apply(torch, g):
+    """topn_apply in both families against its plain version on the card:
+    every layout of APPLY_SHAPES (shards off 16 bytes, views, strided
+    merged matrices of w = 1 and 8, the global-memory route) under every
+    merged column of APPLY_COLUMNS (A24's pattern: +inf, NaN, +-0, and
+    subnormals), on values salted with +-0 and +-1e-40."""
+    from repro_torch.kernels import parallel as P
+
+    for S, L, off, d, w in APPLY_SHAPES:
+        m = S * L
+        v = salt_subnormals(torch, g, torch.randn(m + off, generator=g))
+        x = v.to("cuda")[off:]
+        ok = True
+        for name in APPLY_COLUMNS:
+            wide = torch.full((d, w + 3), 9.0)
+            wide[:, w - 1] = apply_column(torch, g, name, d)
+            merged = wide.to("cuda")[:, :w]
+            for fam in P.FAMILIES:
+                k = P.topn_apply_kernel(x, merged, d=d, shards=S, seed=5,
+                                        family=fam)
+                k2 = P.topn_apply_plain(x, merged[:, -1], d=d, shards=S,
+                                        seed=5, family=fam)
+                ok &= check(same(k, k2), f"topn_apply {fam} S={S} L={L} "
+                            f"view={off} d={d} w={w} column {name}")
+        say("kernels", kernel="topn_apply", S=S, L=L, view=off, d=d, w=w,
+            families=json.dumps(P.FAMILIES), ok=ok)
+
+
+def salt_subnormals(torch, g, x):
+    """x (f32, on g's device) with 1 entry in 16 replaced by +-k * 1e-40, k
+    from 1 to 100 drawn from g, of both signs, and 1 in 32 by +-0."""
+    kw = dict(generator=g, device=x.device)
+    u = torch.rand(x.shape, **kw)
+    k = torch.randint(1, 101, x.shape, **kw).float()
+    sign = torch.where(torch.rand(x.shape, **kw) < 0.5, -1.0, 1.0)
+    x = torch.where(u < 1 / 16, sign * k * 1e-40, x)
+    return torch.where((u >= 1 / 16) & (u < 3 / 32), sign * 0.0, x)
+
+
+def phase_subnormals(torch, P, R, table):
+    """Every kernel that computes on f32 values, on the card, on columns
+    salted with subnormals (salt_subnormals: XLA flushes them in every add,
+    minimum, maximum and compare and keeps them in a copy, ROADMAP Queue 3
+    A25), held bit for bit, masks and states, every NaN as one, against its
+    plain version on a CPU copy: at the main path's shapes on the first
+    SUBNORMAL_M entries of its columns (the one-lane B = 1 scans on their
+    first SUBNORMAL_PREFIX; the applies, the ladder and the Count-Min
+    build against the plain version on the card), and the TOP-N apply
+    also on the whole 2^25-entry column."""
+    from repro_torch.kernels import cms_sketch as C
+    from repro_torch.kernels import groupby_scan as G
+    from repro_torch.kernels import rle_scan as RL
+    from repro_torch.kernels import topn_det_scan as TD
+
+    g = torch.Generator().manual_seed(2025)
+    n = SUBNORMAL_M
+    xs = salt_subnormals(torch, g, table.cols["ad_revenue"][:n].cpu())
+    dur = salt_subnormals(torch, g, table.cols["duration"][:n].cpu().float())
+    keys = table.cols["source_ip"][:n]
+    # DISTINCT on f32 keys: small integers (hits) among the subnormals
+    fk = salt_subnormals(torch, g, (keys.view(torch.int32) % 4096).float()
+                         .cpu())
+    pts = torch.stack([xs, dur], 1)
+
+    def held(name, kernel, plain, *args, card=False):
+        """kernel against plain, the plain version on a CPU copy (on the
+        card when ``card``: its loop is over blocks of entries, not over
+        entries)."""
+        t0 = time.perf_counter()
+        got = kernel(*(to_card(a) for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        want, plain_s = (sync_time(lambda: plain(*to_card(args))) if card
+                         else on_host(plain, *args))
+        want = want if isinstance(want, tuple) else (want,)
+        ok = check(len(got) == len(want) and all(
+            same_bits(a, b) for a, b in zip(got, want)),
+            f"subnormals: {name} differs from its plain version")
+        say("subnormals", kernel=json.dumps(name), ok=ok,
+            entries=args[0].shape[0], plain_s=round(plain_s, 3),
+            s=round(time.perf_counter() - t0, 3))
+        return got
+
+    cases = [(1, 1, SUBNORMAL_PREFIX), (SHARDS, 1, n), (1, 256, n),
+             (SHARDS, 256, n)]
+    merged = {}
+    for S, B, m in cases:
+        st = held(f"topn_pass1 S={S} B={B}",
+                  lambda v: P.topn_shard_states_kernel(
+                      v, shards=S, block=B, **TOPN),
+                  lambda v: tuple(t.reshape(-1) if i == 0 else t
+                                  for i, t in enumerate(R.topn_block_ref(
+                                      v.reshape(S, -1), block=B,
+                                      return_state=True, **TOPN))),
+                  xs[:m])
+        if S > 1:
+            merged[B] = P.merge_topn_states(st[1], TOPN["w"])
+        for policy in (("fifo", "lru") if B == 1 else ("fifo",)):
+            out = held(f"distinct_pass1 {policy} S={S} B={B} float32",
+                       lambda v: P.distinct_shard_states_kernel(
+                           v, shards=S, block=B, policy=policy, **DISTINCT),
+                       lambda v: distinct_plain(R, v, S, B, policy),
+                       fk[:m])
+            if S > 1:
+                ms, mv = P.merge_distinct_states(out[1], out[2])
+                held(f"distinct_apply after {policy} S={S} B={B} float32",
+                     lambda v, k1: P.distinct_apply_kernel(
+                         v, k1, ms, mv, d=DISTINCT["d"], shards=S),
+                     lambda v, k1: P.distinct_apply_plain(
+                         v, k1, ms, mv, d=DISTINCT["d"], shards=S),
+                     fk[:m], out[0], card=True)
+        for score in ("aph", "sum"):
+            form = "kernel" if B > 1 else "engine"
+            out = held(f"skyline_pass1 {score} S={S} B={B}",
+                       lambda p: P.skyline_shard_states_kernel(
+                           p, w=SKYLINE["w"], shards=S, block=B, score=score,
+                           form=form),
+                       lambda p: skyline_plain(R, p, S, B, score, form),
+                       pts[:m])
+            if S > 1:
+                mp, msc = P.merge_skyline_states(out[1], out[2])
+                held(f"skyline_apply {score} S={S} B={B}",
+                     lambda p: P.skyline_apply_kernel(p, mp, msc),
+                     lambda p: P.skyline_apply_plain(p, mp, msc), pts[:m],
+                     card=True)
+    for B, mg in merged.items():
+        for fam in P.FAMILIES:
+            held(f"topn_apply {fam} after B={B}",
+                 lambda v: P.topn_apply_kernel(v, mg, d=TOPN["d"],
+                                               shards=SHARDS, family=fam),
+                 lambda v: P.topn_apply_plain(v, mg[:, -1], d=TOPN["d"],
+                                              shards=SHARDS, family=fam),
+                 xs, card=True)
+    # COUNT folds + 1.0 and reads no value
+    for S, m in ((1, SUBNORMAL_PREFIX), (SHARDS, n)):
+        for agg in ("sum", "min", "max"):
+            held(f"groupby_pass1 {agg} S={S}",
+                 lambda k, v: flat(G.groupby_pass1_kernel(
+                     k, v, d=GROUPBY["d"], w=GROUPBY["w"], agg=agg,
+                     shards=S)),
+                 lambda k, v: flat(G.groupby_pass1_kernel(
+                     k, v, d=GROUPBY["d"], w=GROUPBY["w"], agg=agg,
+                     shards=S)), keys[:m].cpu(), xs[:m])
+    xc = xs.to("cuda")
+    for S in (1, SHARDS):
+        a = TD.topn_det_pass1_kernel(xc, shards=S, **TOPN_DET)
+        b = TD.topn_det_pass1_plain(xc.reshape(S, -1), **TOPN_DET)
+        ok = check(same(a[0], b[0].reshape(-1)) and all(
+            same_bits(u, v) for u, v in zip(a[1], b[1])),
+            f"subnormals: topn_det_pass1 S={S} differs from its plain version")
+        say("subnormals", kernel="topn_det_pass1", S=S, entries=n, ok=ok)
+    runs = 1 << 16
+    rv = salt_subnormals(torch, g, torch.rand(runs, generator=g) * 100)
+    rl = torch.randint(0, 65, (runs,), generator=g, dtype=torch.int32)
+    held("rle_topn_det", lambda v, ln: RL.rle_topn_det_kernel(
+        v, ln, **RLE_TOPN), lambda v, ln: RL.rle_topn_det_ref(
+        v, ln, **RLE_TOPN), rv, rl)
+    # integer weights below 16 among the subnormals: every sum is exact in
+    # any order, so the plain build on the card (atomics) is its reference
+    wts = salt_subnormals(torch, g, (table.cols["duration"][:n].cpu() % 16)
+                          .float()).to("cuda")
+    for fam, S in (("kernel", 1), ("engine", SHARDS)):
+        a = C.cms_build_kernel(keys, wts, family=fam, shards=S, **CMS_OPS)
+        b = C.cms_build_plain(keys, wts, family=fam, shards=S, **CMS_OPS)
+        ok = check(same_bits(a, b), f"subnormals: cms_build {fam} S={S} "
+                   "differs from its plain version")
+        say("subnormals", kernel="cms_build", family=fam, S=S, entries=n,
+            ok=ok)
+    # the apply on the whole column, salted on the card
+    gc = torch.Generator(device="cuda").manual_seed(2025)
+    xc = salt_subnormals(torch, gc, table.cols["ad_revenue"])
+    ok = True
+    for B in merged:
+        for fam in P.FAMILIES:
+            mg = merged[B]
+            a = P.topn_apply_kernel(xc, mg, d=TOPN["d"], shards=SHARDS,
+                                    family=fam)
+            b = P.topn_apply_plain(xc, mg[:, -1], d=TOPN["d"], shards=SHARDS,
+                                   family=fam)
+            ok &= check(same(a, b), f"subnormals: topn_apply {fam} after "
+                        f"B={B} differs from its plain version on the "
+                        "2^25-entry column")
+    say("subnormals", kernel="topn_apply", entries=M_MAIN, ok=ok)
+
+
+def flat(out):
+    """A GROUP BY pass 1's (emissions, state) as one tuple."""
+    return tuple(out[0]) + tuple(out[1])
+
+
+def distinct_plain(R, v, S, B, policy):
+    ref = R.distinct_lru_ref if policy == "lru" else (
+        lambda u, **kw: R.distinct_block_ref(u, block=B, **kw))
+    keep, st = ref(v.reshape(S, -1), return_state=True, **DISTINCT)
+    return (keep.reshape(-1),) + tuple(st)
+
+
+def skyline_plain(R, p, S, B, score, form):
+    keep, (pts, scs) = R.skyline_block_ref(
+        p.reshape(S, -1, p.shape[1]), w=SKYLINE["w"], block=B, score=score,
+        form=form, return_state=True)
+    return keep.reshape(-1), pts, scs
+
+
 def phase_dtypes(torch, P):
     """run_query TOP-N (randomized) on an int32 column and DISTINCT on an
     int32 and a float32 column, on the card, against the same queries on a
@@ -2346,13 +2713,21 @@ def pass1_fns(algo, P, R):
 
 
 def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
-                 encoded, rle):
+                 encoded, rle, host):
     """Each kernel against its plain version at every main-path shape on the
-    2^25-row table, its median time, and its bound."""
+    2^25-row table, its median time, and its bound. The plain pass-1 loops
+    that run on the host come from ``host`` (HostPlain), started before
+    phase kernels, on columns checked here to be the main path's; their
+    comparisons are made last, so that a loop still running does not hold
+    up the phase's other work."""
     xs = table.cols["ad_revenue"]
     fs = table.cols["source_ip"]
     m = M_MAIN
-    rows, states = [], {}
+    rows, states, pending = [], {}, []
+    for name, v in (("topn_pass1", xs), ("distinct_pass1", fs),
+                    ("skyline_pass1", pts)):
+        check(same(host.cols[name].cuda(), v),
+              f"{name}: the host loops' column is the main path's")
     for name, v, state_bytes in [
             ("topn_pass1", xs, lambda S: S * TOPN["d"] * TOPN["w"] * 4),
             ("distinct_pass1", fs,
@@ -2361,14 +2736,13 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
             ("skyline_pass1", pts,
              lambda S: S * SKYLINE["w"] * (pts.shape[1] + 1) * 4)]:
         kernel, plain = pass1_fns(name, P, R)
-        errs, firsts = {}, {}
         for path, S, B in PASS1_SHAPES:
             keep, st = kernel(v, S, B)
             # The kernels line has a row for each kernel: TOP-N's and
             # DISTINCT's at B > 1 are the block kernel and the block walk,
             # as use_block_walk dispatches, each reported at its first
             # shape. The first shape's plain version runs on the card; the
-            # others run on the host (on_host), the block walks' (S = 1,
+            # others run on the host (HostPlain), the block walks' (S = 1,
             # B = 256) too: on the card their 131,072 block steps take
             # minutes.
             row = name
@@ -2376,29 +2750,29 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                 row += ("_block_walk" if P.use_block_walk(S, v.device)
                         else "_block")
             walk = row.endswith("_block_walk")
-            host = path != PASS1_SHAPES[0][0]
-            if S == 1 and B == 1:
+            host_side = path != PASS1_SHAPES[0][0]
+            if host_side and S == 1 and B == 1:
                 # The keep of entry i of a one-lane scan depends only on
                 # entries 0..i, so the plain scan of a prefix checks the
-                # full-size run's keep there; the final state is not
-                # compared. The plain loop takes one Python step an entry.
+                # full-size run's keep there, and the kernel rerun on the
+                # prefix its state. The plain loop takes one Python step
+                # an entry.
                 n = SCAN_PREFIX
-                (keep2, _), plain_s = on_host(lambda u: plain(u, 1, 1),
-                                              v[:n])
-                err = max_abs_err([(keep[:n], keep2)])
+                keep_p, st_p = kernel(v[:n], S, B)
+                pairs = [(keep[:n], None), (keep_p, None),
+                         *((a, i) for i, a in enumerate(st_p))]
+            elif host_side:
+                n = m
+                pairs = [(keep, None), *((a, i) for i, a in enumerate(st))]
             else:
                 n = m
-                (keep2, st2), plain_s = (
-                    on_host(lambda u: plain(u, S, B), v) if host
-                    else sync_time(lambda: plain(v, S, B)))
-                err = max_abs_err([(keep, keep2), *zip(st, st2)])
-            errs.setdefault(row, []).append(err)
-            check(err == 0.0, f"{name} S={S} B={B} on the 2^25-row table")
+                (keep2, st2), plain_s = sync_time(lambda: plain(v, S, B))
+                pairs = [(keep, keep2), *zip(st, st2)]
             if B == 1 and S > 1:
                 states[name] = (keep, st)
             if B == 256 and S > 1:
                 states[name + " ops"] = (keep, st)
-            # the run just compared was the warm-up
+            # the full-size run above was the warm-up
             ms = event_ms(lambda: kernel(v, S, B), 5, warm=False)
             in_bytes = v.numel() * v.element_size()
             io_ms = bytes_ms(in_bytes + m + state_bytes(S))
@@ -2415,35 +2789,18 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                 bound, by = pass1_bound(m, S, B, in_bytes, state_bytes(S),
                                         clock_hz)
             steps = m // (S * B)
-            say("timing", kernel=row, path=json.dumps(path), S=S, B=B,
-                ms=ms, compared_entries=n, plain_ms=plain_s * 1e3,
-                plain_on="host" if host else "card", bound_ms=bound,
-                bound_by=by, chain_steps=steps, step_us=ms * 1e3 / steps,
-                kept=int(keep.sum()), max_abs_err=err)
-            firsts.setdefault(row, (ms, plain_s * 1e3, bound, by))
-        for row, first in firsts.items():
-            rows.append(_row(row, totals, max(errs[row]), *first))
+            line = dict(kernel=row, path=json.dumps(path), S=S, B=B, ms=ms,
+                        compared_entries=n, bound_ms=bound, bound_by=by,
+                        chain_steps=steps, step_us=ms * 1e3 / steps,
+                        kept=int(keep.sum()))
+            pending.append((name, row, S, B, pairs, line,
+                            None if host_side else plain_s))
 
     # pass 2 on the merged states of both two-pass callers: S = 128 after
     # B = 256 (ops.*_prune_parallel, the timed shape) and after B = 1
     # (engine_prune two_pass)
     d_t, d_d = TOPN["d"], DISTINCT["d"]
-    errs = []
-    for key in ("topn_pass1 ops", "topn_pass1"):
-        merged = P.merge_topn_states(states[key][1][0], TOPN["w"])
-        ka = P.topn_apply_kernel(xs, merged, d=d_t, shards=SHARDS)
-        ka2 = P.topn_apply_plain(xs, merged[:, -1], d=d_t, shards=SHARDS)
-        errs.append(max_abs_err([(ka, ka2)]))
-        check(errs[-1] == 0.0, f"topn_apply after {key} at 2^25 rows")
-        if key.endswith("ops"):
-            ms = event_ms(lambda: P.topn_apply_kernel(
-                xs, merged, d=d_t, shards=SHARDS), 20)
-            plain_ms = event_ms(lambda: P.topn_apply_plain(
-                xs, merged[:, -1], d=d_t, shards=SHARDS), 5)
-    # bytes: read x, write keep, read the d row minima
-    nbytes = m * 4 + m + d_t * 4
-    rows.append(_row("topn_apply", totals, max(errs), ms, plain_ms,
-                     nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    rows.append(time_topn_apply(torch, P, xs, states, totals))
 
     errs = []
     for key in ("distinct_pass1 ops", "distinct_pass1"):
@@ -2479,10 +2836,116 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     time_ascending(torch, P)
     time_block_forms(torch, P, fs, xs)
     rows.append(time_topn_det(torch, xs, totals))
-    rows.append(time_lru(torch, P, R, fs, totals, clock_hz))
-    rows.append(time_rle(torch, *rle, totals))
+    lru = time_lru(torch, P, R, fs, totals, clock_hz, host)
+    rle_row = time_rle(torch, *rle, totals)
     time_decode(torch, encoded)
-    return rows
+    return pass1_rows(pending, totals, host) + rows + [lru, rle_row]
+
+
+def pass1_rows(pending, totals, host):
+    """The pass-1 comparisons of phase timing, made once their plain
+    versions have run: bit-identical keep and state, each shape's line, and
+    a kernels-line row a kernel, at its first shape."""
+    errs, firsts = {}, {}
+    for name, row, S, B, pairs, line, plain_s in pending:
+        plain_on = "card" if plain_s is not None else "host"
+        if plain_s is None:
+            (keep2, st2), plain_s = host.get((name, S, B))
+            got = (keep2, *st2)
+            pairs = [(a, got[0] if i is None else got[i + 1])
+                     for a, i in pairs]
+        err = max_abs_err(pairs)
+        errs.setdefault(row, []).append(err)
+        check(err == 0.0, f"{name} S={S} B={B} on the 2^25-row table")
+        say("timing", **line, plain_ms=plain_s * 1e3, plain_on=plain_on,
+            max_abs_err=err)
+        firsts.setdefault(row, (line["ms"], plain_s * 1e3, line["bound_ms"],
+                                line["bound_by"]))
+    return [_row(row, totals, max(errs[row]), *first)
+            for row, first in firsts.items()]
+
+
+def time_topn_apply(torch, P, xs, states, totals):
+    """topn_apply on the merged states of both two-pass callers, in the
+    family each takes: ops.topn_prune_parallel (S = 128 after B = 256, the
+    kernels' family) and engine_prune two_pass (after B = 1, the engine's),
+    each against its plain version on the card, with its call time (event
+    medians of whole calls), its device time (calls queued back to back),
+    the plain version's time, and a yardstick: one torch.ge of x viewed as
+    [S, L] against a precomputed [L] vector of the entries' row minima, a
+    PyTorch call over the same bytes (not the same function: the rows and
+    their reads are computed beforehand). The shifted body (shards off 16
+    bytes) is timed and checked at the same aligned shape (apply_shifted),
+    and the apply it replaced (the C entry topn_apply_grid) beside it,
+    after B = 1."""
+    from repro_torch.core.hashing import hash_mod
+    from repro_torch.kernels.common import (I32, I64, P as VP, U32,
+                                            grid_for, ptr)
+
+    d, m = TOPN["d"], M_MAIN
+    errs, out = [], {}
+    for key, fam in (("topn_pass1 ops", "kernel"), ("topn_pass1", "engine")):
+        merged = P.merge_topn_states(states[key][1][0], TOPN["w"])
+        call = (lambda: P.topn_apply_kernel(xs, merged, d=d, shards=SHARDS,
+                                            family=fam))
+        ka = call()
+        ka2, plain_s = sync_time(lambda: P.topn_apply_plain(
+            xs, merged[:, -1], d=d, shards=SHARDS, family=fam))
+        errs.append(max_abs_err([(ka, ka2)]))
+        check(errs[-1] == 0.0, f"topn_apply {fam} after {key} at 2^25 rows")
+        rowmin = merged[:, -1].contiguous()
+        reads = rowmin[hash_mod(torch.arange(m // SHARDS, device="cuda"), d,
+                                0)]
+        xv = xs.view(SHARDS, -1)
+        shifted, ks = apply_shifted(torch, P, xs, merged, fam)
+        shifted()
+        check(same(ks, ka), f"topn_apply {fam}: the shifted body on aligned "
+              "shards")
+        out[fam] = dict(ms=event_ms(call, 20), device_ms=queued_ms(call, 50),
+                        shifted_device_ms=queued_ms(shifted, 50),
+                        plain_ms=event_ms(lambda: P.topn_apply_plain(
+                            xs, merged[:, -1], d=d, shards=SHARDS,
+                            family=fam), 5),
+                        yardstick_ms=event_ms(lambda: torch.ge(xv, reads),
+                                              20),
+                        host_us=host_call_us(torch, call),
+                        kept=int(ka.sum()))
+        say("timing", kernel="topn_apply", family=fam, after=json.dumps(key),
+            plan=json.dumps(P.apply_plan(xs.device, SHARDS, m // SHARDS, d,
+                                         True)), **out[fam])
+    old = torch.empty(m, dtype=torch.bool, device="cuda")
+
+    def grid():
+        serial_kernel(torch, "topn_apply_grid", [VP] * 3 + [I64, I32, I32,
+                                                           U32, I32],
+                      ptr(xs), ptr(rowmin), ptr(old), m, m // SHARDS, d, 0,
+                      grid_for(m, xs.device))
+    say("timing", kernel="topn_apply_grid", after=json.dumps("topn_pass1"),
+        ms=event_ms(grid, 20), device_ms=queued_ms(grid, 50))
+    # bytes: read x, write keep, read the d row minima
+    bound = (m * 4 + m + d * 4) / HBM_BYTES_PER_S * 1e3
+    k = out["kernel"]
+    return _row("topn_apply", totals, max(errs), k["ms"], k["plain_ms"],
+                bound, "bytes")
+
+
+def apply_shifted(torch, P, xs, merged, fam):
+    """(a launch of topn_apply's shifted body, the body for shards off 16
+    bytes, at the main path's aligned shape; its keep mask): the C entry
+    called with aligned = 0, which the wrapper never passes there. Phase
+    timing times it beside the aligned body that the main path runs."""
+    from repro_torch.kernels.common import ptr
+
+    d, L = TOPN["d"], M_MAIN // SHARDS
+    gx, groups, smem = P.apply_plan(xs.device, SHARDS, L, d, False)
+    keep = torch.empty(M_MAIN, dtype=torch.bool, device="cuda")
+    col = merged.data_ptr() + (merged.shape[1] - 1) * merged.stride(1) * 4
+
+    def launch():
+        P.TOPN_APPLY.launch(xs.device, ptr(xs), col, merged.stride(0),
+                            ptr(keep), SHARDS, L, d, 0,
+                            int(fam == "kernel"), 0, gx, groups, smem, None)
+    return launch, keep
 
 
 def time_topn_det(torch, xs, totals):
@@ -2512,13 +2975,14 @@ def time_topn_det(torch, xs, totals):
     return _row("topn_det_pass1", totals, max(errs), *first)
 
 
-def time_lru(torch, P, R, fs, totals, clock_hz):
+def time_lru(torch, P, R, fs, totals, clock_hz, host):
     """LRU pass 1 against its plain version at S = 1 (run_query, engine
     scan: the reported shape) and S = 128 (engine two_pass). At S = 128 on
-    the whole table, keep and lane states; at S = 1 on the first
-    SCAN_PREFIX entries, as the FIFO scan is (the full-size run's keep
-    there, and the kernel rerun on the prefix state and all). Bound: the
-    longest chain of the row-parallel walk on this stream (walk_bound)."""
+    the whole table, keep and lane states (its plain loop run on the host
+    by HostPlain); at S = 1 on the first SCAN_PREFIX entries, as the FIFO
+    scan is (the full-size run's keep there, and the kernel rerun on the
+    prefix state and all). Bound: the longest chain of the row-parallel
+    walk on this stream (walk_bound)."""
     m, d, w = fs.numel(), DISTINCT["d"], DISTINCT["w"]
     errs, first = [], None
     for path, S, reps in (("run_query / engine_prune scan", 1, 5),
@@ -2534,8 +2998,7 @@ def time_lru(torch, P, R, fs, totals, clock_hz):
                      *zip(pre[1:], st2)]
         else:
             n = m
-            (k2, st2), plain_s = on_host(lambda u: R.distinct_lru_ref(
-                u, d=d, w=w, return_state=True), fs.view(S, -1))
+            (k2, st2), plain_s = host.get(("distinct_pass1_lru", S, 1))
             pairs = [(full[0].view(S, -1), k2), *zip(full[1:], st2)]
         errs.append(max_abs_err(pairs))
         check(errs[-1] == 0.0, f"distinct_pass1_lru {path} on the 2^25-row "
@@ -3531,6 +3994,7 @@ def phase_witness(torch, table, rankings, pts, rle):
         say("witness", kernel="distinct_apply", S=SHARDS, policy=policy, B=B,
             entries=m, scan_s=secs, survivors=int(keep1.sum()),
             kept=int(new.sum()), max_abs_err=max_abs_err([(new, old)]))
+    witness_topn_apply(torch, xs)
     d, w, D = TOPN["d"], TOPN["w"], pts.shape[1]
     mode = P._score_mode(SKYLINE["score"], "engine")
     for S in (1, SHARDS):
@@ -3566,6 +4030,38 @@ def phase_witness(torch, table, rankings, pts, rle):
     witness_rle_bloom(torch, table, rankings, rle)
     witness_cms_skyline(torch, table, pts)
     witness_queries(torch, table, rankings)
+
+
+def witness_topn_apply(torch, xs):
+    """topn_apply against the apply it replaced (the C entry
+    topn_apply_grid, which reads a contiguous copy of the column as the
+    engine's family does, without the flush), bit for bit on the whole
+    2^25-entry column at S = 128, in the engine's family after B = 1 and
+    B = 256 pass 1; the main path's column holds no subnormal and its
+    merged minima no non-finite value, where the two families and the
+    flush agree, so the kernels' family is held to it too."""
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels.common import (I32, I64, P as VP, U32,
+                                            grid_for, ptr)
+
+    m, d = M_MAIN, TOPN["d"]
+    for B in (1, 256):
+        _, st = P.topn_shard_states_kernel(xs, shards=SHARDS, block=B, **TOPN)
+        merged = P.merge_topn_states(st, TOPN["w"])
+        rowmin = merged[:, -1].contiguous()
+        old = torch.empty(m, dtype=torch.bool, device="cuda")
+        _, secs = sync_time(lambda: serial_kernel(
+            torch, "topn_apply_grid", [VP] * 3 + [I64, I32, I32, U32, I32],
+            ptr(xs), ptr(rowmin), ptr(old), m, m // SHARDS, d, 0,
+            grid_for(m, xs.device)))
+        for fam in P.FAMILIES:
+            new = P.topn_apply_kernel(xs, merged, d=d, shards=SHARDS,
+                                      family=fam)
+            check(same(new, old), f"topn_apply {fam} after B={B} differs "
+                  "from the apply it replaced on the 2^25-entry column")
+            say("witness", kernel="topn_apply", family=fam, S=SHARDS, B=B,
+                entries=m, grid_s=secs, kept=int(new.sum()),
+                max_abs_err=max_abs_err([(new, old)]))
 
 
 def witness_cms_skyline(torch, table, pts):
@@ -3817,12 +4313,20 @@ def main() -> int:
         say("phase", name=name, s=round(time.perf_counter() - t0, 3))
         return out
 
-    timed("kernels", phase_kernels, torch, P, R, O)
-    timed("dtypes", phase_dtypes, torch, P)
-    table, rankings, pts, totals, encoded, rle = timed(
-        "main", phase_main, torch, P, O)
-    rows = timed("timing", phase_timing, torch, P, R, table, rankings, pts,
-                 totals, clock_hz, encoded, rle)
+    # the host-side plain loops of phase timing start now, beside phase
+    # kernels; they are stopped however the phases end
+    host = HostPlain(torch, P, R)
+    try:
+        timed("kernels", phase_kernels, torch, P, R, O)
+        timed("dtypes", phase_dtypes, torch, P)
+        say("host", plain_loops_done=host.done())
+        table, rankings, pts, totals, encoded, rle = timed(
+            "main", phase_main, torch, P, O)
+        timed("subnormals", phase_subnormals, torch, P, R, table)
+        rows = timed("timing", phase_timing, torch, P, R, table, rankings,
+                     pts, totals, clock_hz, encoded, rle, host)
+    finally:
+        host.close()
     timed("witness", phase_witness, torch, table, rankings, pts, rle)
     say("done", s=round(time.perf_counter() - t_start, 3),
         failures=len(FAILURES))

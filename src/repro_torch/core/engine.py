@@ -51,6 +51,7 @@ from ..constants import NEG
 from ..kernels import parallel as kpar
 from ..kernels.cms_sketch import (INT_TABLES, by_value_i64, cms_build_kernel,
                                   cms_query_kernel, wrap_to)
+from ..kernels.common import amax_f32, flush_subnormals
 from ..kernels.groupby_scan import groupby_pass1_kernel
 from ..kernels.ops import _pad_to, first_value
 from ..kernels.topn_det_scan import pow2, topn_det_pass1_kernel
@@ -149,12 +150,14 @@ def _topn_det_merge(st, p):
                       st.t0 * pow2(p.get("w", 4), st.t0.device)[
                           st.cur_level.clamp(min=0)],
                       torch.tensor(float(NEG), device=st.t0.device))
-    return TopNDetMerged(threshold=thr.max())
+    # jnp.max: +0 above -0, subnormals flushed (A25)
+    return TopNDetMerged(threshold=amax_f32(thr))
 
 
 def _topn_det_apply(merged, lanes, keep1, p):
     del keep1
-    return lanes[0].to(torch.float32) >= merged.threshold
+    return (flush_subnormals(lanes[0].to(torch.float32))
+            >= flush_subnormals(merged.threshold))
 
 
 # TOP-N randomized (d x w rolling matrix, Ex. 7) --------------------------
@@ -176,7 +179,7 @@ def _topn_rand_apply(merged, lanes, keep1, p):
     (x,) = lanes
     keep = kpar.topn_apply_kernel(
         x.reshape(-1).to(torch.float32).contiguous(), merged.vals, d=p["d"],
-        shards=x.shape[0], seed=p.get("seed", 0))
+        shards=x.shape[0], seed=p.get("seed", 0), family="engine")
     return keep.reshape(x.shape)
 
 
@@ -222,7 +225,8 @@ def _skyline_merge(st, p):
     S, w, D = st.points.shape
     pts = st.points.reshape(S * w, D)
     scs = st.scores.reshape(S * w)
-    order = torch.argsort(-scs, stable=True)  # keep the descending invariant
+    # keep the descending invariant (XLA's compares flush subnormals)
+    order = torch.argsort(-flush_subnormals(scs), stable=True)
     return SkylineState(points=pts[order], scores=scs[order])
 
 

@@ -27,6 +27,7 @@ from typing import Callable
 
 import torch
 
+from ..kernels.common import flush_subnormals
 from .hashing import by_value
 from .pruning import PruneResult
 
@@ -46,6 +47,12 @@ class Pred:
         if self.op == "like":
             return self.value(raw)  # host-side callable
         c, v = _operands(raw, self.value)
+        if c.dtype == torch.float32:
+            # XLA compares f32 with subnormals flushed (A25); a literal
+            # that _operands passes on as it is (a numpy scalar) converts
+            # to the column's dtype first, as JAX converts it
+            v = torch.as_tensor(v, dtype=c.dtype, device=c.device)
+            c, v = flush_subnormals(c), flush_subnormals(v)
         fn: dict[str, Callable] = {
             "gt": lambda: c > v, "ge": lambda: c >= v,
             "lt": lambda: c < v, "le": lambda: c <= v,

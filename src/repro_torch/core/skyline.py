@@ -38,11 +38,13 @@ FORMS = ("engine", "kernel")
 
 def _sum_left_to_right(t: torch.Tensor) -> torch.Tensor:
     """Σ over the last axis as XLA's reduce sums it: left to right from an
-    init of +0, so that a sum of -0s is +0 (a reduce of one element is the
-    element itself)."""
+    init of +0, so that a sum of -0s is +0, every add flushing f32
+    subnormals (A25; a reduce of one element is the element itself)."""
+    from ..kernels.common import ftz_add
+
     acc = t[..., 0]
     for j in range(1, t.shape[-1]):
-        acc = acc + t[..., j]
+        acc = ftz_add(acc, t[..., j])
     return acc + 0.0 if t.shape[-1] > 1 else acc
 
 

@@ -57,8 +57,8 @@ import torch
 
 from ..constants import POS
 from ..core.hashing import hash_mod, multi_hash
-from .common import (F32, I32, I64, P, U32, CudaKernel, check_cuda,
-                     library_fn, ptr, query_out)
+from .common import (F32, FLT_MIN, I32, I64, P, U32, CudaKernel, check_cuda,
+                     flush_subnormals, library_fn, ptr, query_out)
 
 CMS_BUILD = CudaKernel("cms_build", [P, P, P, P, I32, I64, I32, I32, U32,
                                      I32, I32])
@@ -69,7 +69,6 @@ INT_TABLES = (torch.int32, torch.uint32, torch.int16, torch.int8,
               torch.uint16, torch.uint8)
 DTYPES = INT_TABLES + (torch.float32, torch.float16)
 _I64_MAX = (1 << 63) - 1
-FLT_MIN = 1.1754943508222875e-38  # the least normal float32
 MAX_SMEM = 232448  # a table staged in one CTA's shared memory (227 KB)
 # the C build's table dtype by its ttype: f32, int32, f16
 _C_TABLES = (torch.float32, torch.int32, torch.float16)
@@ -152,6 +151,17 @@ def cms_build_plain(keys: torch.Tensor, weights: torch.Tensor | None, *,
         acc = torch.zeros(size, dtype=torch.int64, device=dev)
         acc.index_add_(0, cell, w.repeat_interleave(rows)[hit])
         table = wrap_to(acc, dtype)
+    elif dtype == torch.float32:
+        # XLA's f32 scatter-add flushes subnormal weights and sums (A25).
+        # Here the sums are flushed once, at the end; XLA flushes after
+        # each add, as the card does (--ftz), so a cell whose partial sum
+        # of normal weights of both signs passes below FLT_MIN departs
+        # (ROADMAP Queue 3 A28: [1.5, -1, 1] * FLT_MIN on one key gives
+        # 1.5 * FLT_MIN here, FLT_MIN there)
+        table = torch.zeros(size, dtype=dtype, device=dev)
+        table.index_add_(0, cell,
+                         flush_subnormals(weights).repeat_interleave(rows)[hit])
+        table = flush_subnormals(table)
     else:
         table = torch.zeros(size, dtype=dtype, device=dev)
         table.index_add_(0, cell, weights.repeat_interleave(rows)[hit])
@@ -263,12 +273,6 @@ def _int_threshold(threshold, dtype: torch.dtype) -> int:
         return t - (1 << bits) if dtype.is_signed and t >> (bits - 1) else t
     t = math.floor(threshold)
     return max(-_I64_MAX - 1, min(_I64_MAX, t))
-
-
-def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
-    """f32 subnormals as a zero of their sign, as XLA flushes them in every
-    add, minimum and compare (on the CPU as on the TPU); a copy keeps them."""
-    return torch.where(x.abs() < FLT_MIN, x * 0, x)
 
 
 def min_rows(reads: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 The kernels are CUDA C++ for Hopper (``csrc/*.cu``) with a plain C
 interface. On first use on a card, every source is compiled with ``nvcc``
-for ``sm_90a`` (one process per source, all started together), linked into
+for ``sm_90a`` and ``--ftz=true`` (one process per source, all started
+together; f32 subnormals flush in every add, minimum, maximum and compare,
+as XLA's do, ``flush_subnormals``), linked into
 one shared library under ``_build/<hash of the sources>/`` beside this file,
 and loaded with ``ctypes``. A change to any source changes the hash and so
 triggers a rebuild. Nothing here runs when the module is imported.
@@ -27,6 +29,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# every source computes f32 with subnormals flushed to a zero of their sign
+# (add.ftz, min.ftz, setp.*.ftz), as XLA computes: ROADMAP Queue 3 A25
+FTZ_FLAGS = ("--ftz=true",)
 LIB_NAME = "libcheetah_kernels.so"
 
 _lib: ctypes.CDLL | None = None
@@ -41,7 +46,7 @@ def _source_hash() -> str:
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + FTZ_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -76,8 +81,8 @@ def build(verbose: bool = False) -> Path:
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-                  "-fPIC", f"-I{CSRC}"]
+        common = [nvcc, *ARCH_FLAGS, *FTZ_FLAGS, "-std=c++17", "-O3",
+                  "-Xcompiler", "-fPIC", f"-I{CSRC}"]
         if verbose:
             common.append("-Xptxas=-v")
         procs = []
@@ -239,3 +244,66 @@ def query_out(keys: torch.Tensor, m: int, dtype: torch.dtype) -> torch.Tensor:
 
 
 MAX_SMEM = 232448  # bytes a Hopper block can opt into (227 KB)
+FLT_MIN = 1.1754943508222875e-38  # the least normal float32
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """f32 subnormals as a zero of their sign, as XLA flushes them in every
+    add, minimum, maximum and compare (on the CPU as on the TPU); a copy, a
+    select or a gather keeps them. The plain versions flush the operands of
+    each such operation with this, and the kernels compute with ``.ftz``
+    (``build``)."""
+    return torch.where(x.abs() < FLT_MIN, x * 0, x)
+
+
+def ftz_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An f32 add as XLA takes it: operands and result flushed."""
+    return flush_subnormals(flush_subnormals(a) + flush_subnormals(b))
+
+
+def xla_minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum`` of f32 tensors: subnormals flushed, a NaN wins, and
+    -0 is below +0 (``torch.minimum`` may take +0 of the two zeros)."""
+    a, b = flush_subnormals(a), flush_subnormals(b)
+    zeros = (a == 0) & (b == 0)
+    return torch.where(zeros, torch.where(a.signbit(), a, b),
+                       torch.minimum(a, b))
+
+
+def xla_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum`` of f32 tensors: subnormals flushed, a NaN wins, and
+    +0 is above -0."""
+    a, b = flush_subnormals(a), flush_subnormals(b)
+    zeros = (a == 0) & (b == 0)
+    return torch.where(zeros, torch.where(a.signbit(), b, a),
+                       torch.maximum(a, b))
+
+
+_I32_MAX = 0x7FFFFFFF
+
+
+def ordered_i32(x: torch.Tensor) -> torch.Tensor:
+    """The order-preserving int32 image of f32 ``x`` (-0 below +0), with
+    every NaN, whatever its sign, mapped above every other value."""
+    i = x.view(torch.int32)
+    return torch.where(x.isnan(), _I32_MAX,
+                       torch.where(i < 0, i ^ _I32_MAX, i))
+
+
+def unordered_f32(o: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``ordered_i32`` (a NaN comes back as 0x7FFFFFFF)."""
+    return torch.where(o < 0, o ^ _I32_MAX, o).view(torch.float32)
+
+
+def amax_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.max`` of an f32 tensor: subnormals flushed, a NaN wins, and +0
+    is above -0 (a maximum of the order-preserving int32 image)."""
+    return unordered_f32(ordered_i32(flush_subnormals(x)).amax())
+
+
+def cummin_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The running ``jnp.minimum`` along ``dim`` of flushed f32 ``x``: a
+    NaN wins from where it stands on, and -0 is below +0 (a ``cummin`` of
+    the order-preserving int32 image, every NaN put at the bottom)."""
+    o = torch.where(x.isnan(), -_I32_MAX - 1, ordered_i32(x))
+    return unordered_f32(torch.cummin(o, dim).values)

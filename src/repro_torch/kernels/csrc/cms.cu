@@ -463,7 +463,7 @@ __device__ __forceinline__ void cms_fold(T& e, uint32_t key, int r,
     }
     e = cms_min_nan(e, rd);
   } else if constexpr (std::is_same<T, float>::value) {
-    const float rd = R > 1 ? query_ftz(v) : v;
+    const float rd = R > 1 ? cheetah_ftz(v) : v;
     e = r == 0 ? rd : cms_min(e, rd);
   } else {
     e = r == 0 || v < e ? v : e;
@@ -495,7 +495,7 @@ template <typename T>
 __device__ __forceinline__ uint8_t cms_keep(T e, long long thr_i,
                                             float thr_f) {
   if constexpr (std::is_same<T, float>::value)
-    return query_ftz(e) > thr_f;
+    return cheetah_ftz(e) > thr_f;
   else
     return static_cast<long long>(e) > thr_i;
 }

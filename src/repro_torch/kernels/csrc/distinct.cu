@@ -120,7 +120,7 @@ __device__ __forceinline__ uint32_t distinct_key(uint32_t x, int fmode,
   }
   const float f = __uint_as_float(x);
   const uint32_t k = __float2uint_rz(f);  // saturating, NaN to 0
-  *hittable = __uint2float_rn(k) == f;
+  *hittable = __uint2float_rn(k) == cheetah_ftz(f);  // XLA flushes (A25)
   return k;
 }
 

@@ -12,8 +12,11 @@
 //     in slot 0;
 //   - an entry whose validity is 0 touches nothing.
 // The fold is sum (__fadd_rn, so nvcc cannot contract or reorder it), count
-// (a + 1), min or max (NaN-propagating, as torch.minimum / maximum). The
-// inits +-3.4e38 are taken by their f32 bits. Every entry is absorbed:
+// (a + 1), min or max (cheetah_min / cheetah_max: jnp.minimum and
+// jnp.maximum, a NaN wins and -0 is below +0), every one with f32 subnormals
+// flushed as XLA flushes them (--ftz=true); a miss's SUM is the value
+// itself, as XLA simplifies 0.0 + v (fold_init). The inits +-3.4e38 are
+// taken by their f32 bits. Every entry is absorbed:
 // keep is all-False and the emissions are the switch->master traffic.
 //
 // The row-parallel walk: an entry reads and writes only the row its key
@@ -73,14 +76,16 @@ __device__ __forceinline__ float fold(int agg, float a, float v) {
     case kCount:
       return __fadd_rn(a, 1.0f);
     case kMin:
-      if (a != a) return a;
-      if (v != v) return v;
-      return v < a ? v : a;
+      return cheetah_min(a, v);
     default:
-      if (a != a) return a;
-      if (v != v) return v;
-      return a < v ? v : a;
+      return cheetah_max(a, v);
   }
+}
+
+// A miss's aggregate, fold(init, v): for SUM the value itself, bits and
+// all, as XLA simplifies 0.0 + v to v (-0 and subnormals stay).
+__device__ __forceinline__ float fold_init(int agg, float init, float v) {
+  return agg == kSum ? v : fold(agg, init, v);
 }
 
 __device__ __forceinline__ float init_value(int agg) {
@@ -151,7 +156,7 @@ __global__ void groupby_serial_kernel(
             svalid[b + j] = svalid[b + j - 1];
           }
           skeys[b] = k;
-          saggs[b] = fold(agg, init, xv[t]);
+          saggs[b] = fold_init(agg, init, xv[t]);
           svalid[b] = 1;
         }
       }
@@ -369,7 +374,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
             as[i] = as[i - 1];
           }
           ks[0] = kk;
-          as[0] = fold_t<kAgg>(init, x);
+          as[0] = fold_init(kAgg, init, x);
           vm = ((vm << 1) | 1u) & wmask;
           at = 0;
         }
@@ -493,7 +498,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
           rowpar_shift(vb, last, lane);
           if (lane == 0) {
             ks[0] = kk;
-            as[0] = fold_t<kAgg>(init, x);
+            as[0] = fold_init(kAgg, init, x);
             vb[0] = 1;
           }
         }

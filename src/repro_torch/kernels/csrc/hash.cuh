@@ -108,6 +108,36 @@ __device__ __forceinline__ float cheetah_unordered(unsigned o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
 }
 
+// XLA flushes f32 subnormals to a zero of their sign in every add, minimum,
+// maximum and compare, on the CPU as on a TPU, and keeps them in a copy, a
+// select or a gather. Every source is compiled with --ftz=true
+// (kernels/common.py), so the kernels' f32 adds, minima, maxima and compares
+// flush as XLA's do. cheetah_ftz flushes a value by its bits (no float
+// operation, which the compiler could fold), where it goes on to an integer
+// image or through a select that stands for a computed minimum or maximum.
+__device__ __forceinline__ float cheetah_ftz(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x7F800000u) ? v : __uint_as_float(u & 0x80000000u);
+}
+
+// jnp.minimum and jnp.maximum of f32: a NaN wins, -0 is below +0, and the
+// result is flushed.
+__device__ __forceinline__ float cheetah_min(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  a = cheetah_ftz(a);
+  b = cheetah_ftz(b);
+  return (b < a || (b == a && (__float_as_uint(b) >> 31))) ? b : a;
+}
+
+__device__ __forceinline__ float cheetah_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  a = cheetah_ftz(a);
+  b = cheetah_ftz(b);
+  return (a < b || (b == a && !(__float_as_uint(b) >> 31))) ? b : a;
+}
+
 // Opt a kernel into ``smem`` bytes of dynamic shared memory when it needs
 // more than the default 48 KB; refuses more than a Hopper block can have.
 static inline cudaError_t cheetah_launch_prep(const void* fn, size_t smem) {

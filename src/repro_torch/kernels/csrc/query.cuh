@@ -78,11 +78,6 @@ __device__ __forceinline__ uint32_t query_column(uint32_t key, uint32_t s,
   return static_cast<uint32_t>(cheetah_reduce_i32(h, q.mod));
 }
 
-// f32 subnormals flushed to a zero of their sign, as XLA flushes them.
-__device__ __forceinline__ float query_ftz(float v) {
-  return fabsf(v) < 1.17549435e-38f ? copysignf(0.0f, v) : v;
-}
-
 // The keys' head (4-byte loads up to the first 16-byte boundary), whole
 // units of 4 keys after it, and where those end.
 struct QuerySpan {

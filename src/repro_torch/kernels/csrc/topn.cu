@@ -14,6 +14,10 @@
 // any of them is a NaN of either sign (no insert follows), else the
 // largest with +0 above -0 (topn_cand_ord: the order-preserving integer
 // image, every NaN on top). At B = 1 the candidate is the entry itself.
+// Compares flush f32 subnormals, as XLA's do (--ftz=true, hash.cuh); at
+// B > 1 so does the candidate, XLA's maximum, whose integer image is taken
+// of the flushed value, while at B = 1 the row takes the entry's bits, as
+// the scan's select does (ROADMAP Queue 3 A25).
 //
 // The row-parallel walk (topn_pass1 at B = 1, topn_pass1_block_walk at any
 // B). An entry reads and writes only its row, hash_mod(shard-local index,
@@ -69,10 +73,34 @@
 // size.
 //
 // topn_apply replaces topn_apply_kernel (src/repro/kernels/parallel.py:126):
-// keep = x[i] >= rowmin[hash(i mod shard_len)], elementwise over m. It is
-// bound by bytes (read x, write keep); rowmin is staged in shared memory.
+// keep[s * L + j] = x[s * L + j] >= read(rowmin, hash_mod(j, d, seed)) over
+// the S shards of L entries, rowmin being column w - 1 of the merged [d, w]
+// matrix, read in place by its row stride, and the compare setp.ge.ftz.f32
+// (A25). Two families of read (A26): the kernels' (ops.topn_prune_parallel)
+// is the Pallas kernel's one-hot product, so a row reads NaN when another
+// row's minimum is not finite or its own is NaN (ROADMAP B15), else its
+// minimum; the engine's (two_pass) reads the minimum itself. It is bound by
+// bytes: 4 read and 1 written an entry. The row depends on j alone, the
+// same in every shard, so a thread owns 4 consecutive j, hashes them and
+// reads their minima once (from shared memory, where each CTA stages the
+// column and counts its non-finite minima), then walks its group of shards
+// with one 16-byte load of x and one 4-byte store of keep a shard: the hash
+// and the modulo are paid once for S entries, not once an entry. The keep
+// mask lies at x's offset mod 16 (kernels/common.py, query_out), so a quad
+// of x on 16 bytes is a word of keep. Shards that start off 16 bytes
+// (L % 4 != 0, or x a view at any 4-byte offset) shift each thread's quad
+// to the shard's 16-byte grid (7 minima a thread), with the head and the
+// tail scalar. The grid is one wave of resident CTAs (topn_apply_plan):
+// the quads of a shard across blockIdx.x, groups of shards across
+// blockIdx.y.
+//
+// topn_apply_grid is the apply it replaced (one thread an entry in a
+// grid-stride loop, a 64-bit modulo and a hash an entry, the engine's read
+// of a contiguous copy of the column). No entry point of the package
+// launches it; chip_smoke.py holds the new apply against it at full size.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "hash.cuh"
@@ -261,6 +289,7 @@ __global__ void __launch_bounds__(1024)
     const int row1 =
         cheetah_hash_mod(static_cast<uint32_t>((c + 1) * B + t), d, seed);
     const float v2 = c + 2 < nchunks ? __uint_as_float(ring.next()) : 0.0f;
+    v = cheetah_ftz(v);  // XLA's maximum flushes the candidate
     keep[base + static_cast<long long>(c) * B + t] = v >= rmin;
     const bool bid = !(v <= rmin);
     const unsigned o = topn_cand_ord(v);
@@ -378,7 +407,7 @@ __device__ __forceinline__ void topn_block_window(
                                  static_cast<unsigned>(block)
                            : 0xFFFFFFFFu;
   if (__shfl_sync(ROWPAR_FULL, blk, 0) != g.blk) topn_close(row, g, w, lane);
-  unsigned o = lane < n ? topn_cand_ord(v) : 0u;
+  unsigned o = lane < n ? topn_cand_ord(cheetah_ftz(v)) : 0u;
   if (g.open && blk == g.blk) o = max(o, g.ord);
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -501,11 +530,12 @@ TopnWork topn_work(int shards, int shard_len, int d) {
   return k;
 }
 
-__global__ void topn_apply_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ rowmin,
-                                  uint8_t* __restrict__ keep, long long m,
-                                  int shard_len, int d, uint32_t seed,
-                                  int staged) {
+// The retired apply (see the header).
+__global__ void topn_apply_grid_kernel(const float* __restrict__ x,
+                                       const float* __restrict__ rowmin,
+                                       uint8_t* __restrict__ keep, long long m,
+                                       int shard_len, int d, uint32_t seed,
+                                       int staged) {
   extern __shared__ __align__(16) unsigned char smem[];
   const float* rm = rowmin;
   if (staged) {
@@ -520,6 +550,183 @@ __global__ void topn_apply_kernel(const float* __restrict__ x,
     const int row = cheetah_hash_mod(static_cast<uint32_t>(i % shard_len), d, seed);
     keep[i] = x[i] >= rm[row];
   }
+}
+
+#define APPLY_THREADS 256
+#define APPLY_UNROLL 4  // shards a thread has in flight
+
+// The read of a row minimum v: the kernels' family (kfam) reads NaN when
+// another row's minimum is not finite (nf counts them) or v is NaN.
+__device__ __forceinline__ float apply_read(float v, int nf, int kfam) {
+  const bool own = !isfinite(v);
+  return kfam && (nf > static_cast<int>(own) || v != v)
+             ? __int_as_float(0x7FC00000)
+             : v;
+}
+
+// x >= r with f32 subnormals flushed, as XLA compares: 1 or 0.
+__device__ __forceinline__ unsigned apply_ge(float x, float r) {
+  unsigned k;
+  asm("{\n\t.reg .pred p;\n\tsetp.ge.ftz.f32 p, %1, %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(k)
+      : "f"(x), "f"(r));
+  return k;
+}
+
+// Four keeps as one word, entry 0 in the low byte.
+__device__ __forceinline__ unsigned apply_quad(float4 v, float r0, float r1,
+                                               float r2, float r3) {
+  return apply_ge(v.x, r0) | apply_ge(v.y, r1) << 8 | apply_ge(v.z, r2) << 16 |
+         apply_ge(v.w, r3) << 24;
+}
+
+// Of a thread's 7 reads r[0..6] (entries 4q .. 4q + 6), read t of a shard
+// whose quads start h entries in: r[h + t], by selects.
+__device__ __forceinline__ float apply_pick(const float (&r)[7], int i) {
+  float o = r[0];
+#pragma unroll
+  for (int k = 1; k < 7; ++k) o = i == k ? r[k] : o;
+  return o;
+}
+
+// Stages the column in shared memory (kernels' family: with its count of
+// non-finite minima), or reads the count a pre-pass left (global reads).
+__device__ __forceinline__ int apply_stage(const float* __restrict__ col,
+                                           long long rstride, int d,
+                                           float* s, int* cnt, int staged,
+                                           const int* __restrict__ nf_global,
+                                           int kfam) {
+  if (!staged) return kfam ? *nf_global : 0;
+  if (threadIdx.x == 0) *cnt = 0;
+  __syncthreads();
+  int c = 0;
+  for (int r = threadIdx.x; r < d; r += blockDim.x) {
+    const float v = col[r * rstride];
+    s[r] = v;
+    c += !isfinite(v);
+  }
+  if (c) atomicAdd(cnt, c);
+  __syncthreads();
+  return *cnt;
+}
+
+__device__ __forceinline__ float apply_min(const float* __restrict__ col,
+                                           long long rstride, const float* s,
+                                           int staged, int row) {
+  return staged ? s[row] : col[row * rstride];
+}
+
+// The apply on aligned shards (x on 16 bytes, L % 4 == 0): thread q of
+// blockIdx.x owns entries 4q .. 4q + 3 of every shard of its group.
+__global__ void __launch_bounds__(APPLY_THREADS, 4)
+    topn_apply_aligned(const float* __restrict__ x,
+                       const float* __restrict__ col, long long rstride,
+                       uint8_t* __restrict__ keep, int shards, int L, int d,
+                       uint32_t seed, int kfam, int per_group, int staged,
+                       const int* __restrict__ nf_global) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s = reinterpret_cast<float*>(smem);
+  const int nf = apply_stage(col, rstride, d, s, reinterpret_cast<int*>(s + d),
+                             staged, nf_global, kfam);
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (L >> 2)) return;
+  const int j = q << 2;
+  float r[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    r[t] = apply_read(
+        apply_min(col, rstride, s, staged,
+                  cheetah_hash_mod(static_cast<uint32_t>(j + t), d, seed)),
+        nf, kfam);
+  const int s0 = blockIdx.y * per_group;
+  const int s1 = min(shards, s0 + per_group);
+  for (int sh = s0; sh < s1; sh += APPLY_UNROLL) {
+    float4 v[APPLY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < APPLY_UNROLL; ++u)
+      if (sh + u < s1)
+        v[u] = __ldcs(reinterpret_cast<const float4*>(
+            x + static_cast<long long>(sh + u) * L + j));
+#pragma unroll
+    for (int u = 0; u < APPLY_UNROLL; ++u)
+      if (sh + u < s1)
+        __stcs(reinterpret_cast<unsigned*>(
+                   keep + static_cast<long long>(sh + u) * L + j),
+               apply_quad(v[u], r[0], r[1], r[2], r[3]));
+  }
+}
+
+// The apply on shards at any 4-byte offset: a shard's quads sit on its
+// 16-byte grid, h = (4 - (xoff + s * L) % 4) % 4 entries in (xoff: x's
+// offset in floats mod 4), so thread q takes entries h + 4q .. h + 4q + 3
+// of it while they are whole, and holds the reads of entries 4q .. 4q + 6;
+// thread 0 takes the head (entries below h) and the thread past the last
+// whole quad the tail, both by single loads and stores.
+__global__ void __launch_bounds__(APPLY_THREADS, 4)
+    topn_apply_shifted(const float* __restrict__ x,
+                       const float* __restrict__ col, long long rstride,
+                       uint8_t* __restrict__ keep, int shards, int L, int d,
+                       uint32_t seed, int kfam, int per_group, int staged,
+                       const int* __restrict__ nf_global) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s = reinterpret_cast<float*>(smem);
+  const int nf = apply_stage(col, rstride, d, s, reinterpret_cast<int*>(s + d),
+                             staged, nf_global, kfam);
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q > (L >> 2)) return;
+  const int j = q << 2;
+  float r[7];
+#pragma unroll
+  for (int t = 0; t < 7; ++t)
+    r[t] = j + t < L
+               ? apply_read(apply_min(col, rstride, s, staged,
+                                      cheetah_hash_mod(
+                                          static_cast<uint32_t>(j + t), d,
+                                          seed)),
+                            nf, kfam)
+               : 0.0f;
+  const int xoff = static_cast<int>((reinterpret_cast<uintptr_t>(x) >> 2) & 3);
+  const int s0 = blockIdx.y * per_group;
+  const int s1 = min(shards, s0 + per_group);
+  for (int sh = s0; sh < s1; ++sh) {
+    const long long base = static_cast<long long>(sh) * L;
+    const int h = (4 - static_cast<int>((xoff + base) & 3)) & 3;
+    const int nq = (L - h) >> 2;  // whole quads of the shard
+    if (q < nq) {
+      const int e = h + j;
+      const float4 v =
+          __ldcs(reinterpret_cast<const float4*>(x + base + e));
+      __stcs(reinterpret_cast<unsigned*>(keep + base + e),
+             apply_quad(v, apply_pick(r, h), apply_pick(r, h + 1),
+                        apply_pick(r, h + 2), apply_pick(r, h + 3)));
+    }
+    if (q == nq)  // the tail: entries h + 4 nq .. L - 1
+      for (int e = h + j; e < L; ++e)
+        keep[base + e] = apply_ge(x[base + e], apply_pick(r, e - j));
+    if (q == 0)  // the head: entries 0 .. h - 1
+      for (int e = 0; e < min(h, L); ++e)
+        keep[base + e] = apply_ge(x[base + e], apply_pick(r, e));
+  }
+}
+
+// The kernels' family without staging (a column above the shared memory):
+// the count of non-finite minima, into work[0] (zeroed first).
+__global__ void topn_apply_count(const float* __restrict__ col,
+                                 long long rstride, int d,
+                                 int* __restrict__ work) {
+  int c = 0;
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < d;
+       r += gridDim.x * blockDim.x)
+    c += !isfinite(col[r * rstride]);
+  if (c) atomicAdd(work, c);
+}
+
+// Dynamic shared memory of the apply: the staged column and its count, or
+// 0 when it does not fit (the minima are then read from global memory).
+size_t topn_apply_smem(int d) {
+  const size_t b = static_cast<size_t>(d) * sizeof(float) + 16;
+  return b <= CHEETAH_MAX_SMEM ? b : 0;
 }
 
 // The row-parallel walk (any B >= 1): the partition by (lane, row), then
@@ -650,12 +857,79 @@ extern "C" int topn_pass1_serial(const float* x, uint8_t* keep, float* states,
   return cudaGetLastError();
 }
 
-extern "C" int topn_apply(const float* x, const float* rowmin, uint8_t* keep,
-                          long long m, int shard_len, int d, uint32_t seed,
-                          int grid, cudaStream_t stream) {
+// The apply's grid on the current device: out = (CTAs over a shard's quads,
+// groups of shards, dynamic shared memory). One wave: as many CTAs as the
+// SMs hold at once, the shards split into as many groups as that allows.
+extern "C" int topn_apply_plan(int shards, int shard_len, int d, int aligned,
+                               int* out) {
+  const size_t smem = topn_apply_smem(d);
+  const void* fn = aligned ? reinterpret_cast<const void*>(topn_apply_aligned)
+                           : reinterpret_cast<const void*>(topn_apply_shifted);
+  cudaError_t err = cheetah_launch_prep(fn, smem);
+  if (err != cudaSuccess) return err;
+  int occ = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, APPLY_THREADS,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long quads = (shard_len >> 2) + (aligned ? 0 : 1);
+  const long long gx = (quads + APPLY_THREADS - 1) / APPLY_THREADS;
+  const long long fit = static_cast<long long>(sms) * std::max(occ, 1) / gx;
+  out[0] = static_cast<int>(gx);
+  out[1] = static_cast<int>(std::max(
+      1ll, std::min(static_cast<long long>(std::min(shards, 65535)), fit)));
+  out[2] = static_cast<int>(smem);
+  return cudaSuccess;
+}
+
+// work: one int, for the kernels' family when the column is not staged
+// (smem == 0).
+extern "C" int topn_apply(const float* x, const float* col, long long rstride,
+                          uint8_t* keep, int shards, int shard_len, int d,
+                          uint32_t seed, int kfam, int aligned, int gx,
+                          int groups, int smem, int* work,
+                          cudaStream_t stream) {
+  if (shards < 1 || shard_len < 1 || d < 1 || gx < 1 || groups < 1)
+    return cudaErrorInvalidValue;
+  const int staged = smem > 0;
+  if (!staged && kfam) {
+    const cudaError_t err = cudaMemsetAsync(work, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return err;
+    topn_apply_count<<<std::min(d / 256 + 1, 64), 256, 0, stream>>>(
+        col, rstride, d, work);
+  }
+  // The shared-memory limit is a function's, set to the last value asked:
+  // another shape's plan may have lowered it since this shape's was made.
+  cudaError_t err = cheetah_launch_prep(
+      aligned ? reinterpret_cast<const void*>(topn_apply_aligned)
+              : reinterpret_cast<const void*>(topn_apply_shifted),
+      static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  const int per_group = (shards + groups - 1) / groups;
+  const dim3 grid(gx, (shards + per_group - 1) / per_group);
+  if (aligned)
+    topn_apply_aligned<<<grid, APPLY_THREADS, smem, stream>>>(
+        x, col, rstride, keep, shards, shard_len, d, seed, kfam, per_group,
+        staged, work);
+  else
+    topn_apply_shifted<<<grid, APPLY_THREADS, smem, stream>>>(
+        x, col, rstride, keep, shards, shard_len, d, seed, kfam, per_group,
+        staged, work);
+  return cudaGetLastError();
+}
+
+// The retired apply, for holding the apply against it; launched by no entry
+// point of the package. rowmin: the column as a contiguous [d].
+extern "C" int topn_apply_grid(const float* x, const float* rowmin,
+                               uint8_t* keep, long long m, int shard_len,
+                               int d, uint32_t seed, int grid,
+                               cudaStream_t stream) {
   const int staged = static_cast<size_t>(d) * sizeof(float) <= 48 * 1024;
   const size_t smem = staged ? static_cast<size_t>(d) * sizeof(float) : 0;
-  topn_apply_kernel<<<grid, 256, smem, stream>>>(x, rowmin, keep, m, shard_len,
-                                                 d, seed, staged);
+  topn_apply_grid_kernel<<<grid, 256, smem, stream>>>(
+      x, rowmin, keep, m, shard_len, d, seed, staged);
   return cudaGetLastError();
 }

@@ -118,11 +118,9 @@ __device__ __forceinline__ float pow2(int i) {
   return __int_as_float((127 + i) << 23);
 }
 
-// jnp.minimum: a NaN operand wins.
+// jnp.minimum: a NaN operand wins, -0 is below +0, subnormals flush.
 __device__ __forceinline__ float nan_min(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b < a ? b : a;
+  return cheetah_min(a, b);
 }
 
 // The ladder's two scan operators. ident() is a left identity of every

@@ -35,8 +35,8 @@ from ..constants import NEG, POS
 from ..core.hashing import as_u32, hash_mod
 from .cms_sketch import wrap_i32
 from .ref import distinct_keys
-from .common import (I32, P, U32, CudaKernel, check_cuda, check_rowpar, ptr,
-                     workspace)
+from .common import (I32, P, U32, CudaKernel, check_cuda, check_rowpar,
+                     ftz_add, ptr, workspace, xla_maximum, xla_minimum)
 
 GROUPBY_PASS1 = CudaKernel(
     "groupby_pass1",
@@ -52,12 +52,21 @@ def _agg(agg: str) -> int:
 
 
 def fold(agg: str, a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The switch's f32 fold of an aggregate ``a`` with a value ``v``."""
-    if agg == "sum":
-        return a + v
+    """The switch's f32 fold of an aggregate ``a`` with a value ``v``, its
+    operands and result flushed as XLA flushes f32 subnormals (A25); MIN
+    and MAX as ``jnp.minimum`` / ``jnp.maximum`` (-0 below +0)."""
     if agg == "count":
         return a + 1.0
-    return torch.minimum(a, v) if agg == "min" else torch.maximum(a, v)
+    if agg == "sum":
+        return ftz_add(a, v)
+    return xla_minimum(a, v) if agg == "min" else xla_maximum(a, v)
+
+
+def fold_init(agg: str, init: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A miss's aggregate, fold(init, v): for SUM the value itself, bits
+    and all, since XLA simplifies ``0.0 + v`` to ``v`` (-0 and subnormals
+    stay)."""
+    return v if agg == "sum" else fold(agg, init, v)
 
 
 def init_state(shards: int, d: int, w: int, agg: str,
@@ -125,7 +134,7 @@ def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
         a_hit = ar.clone()
         a_hit[lane, pos] = fold(agg, ar[lane, pos], v)
         k_miss = torch.cat([k[:, None], kr[:, :-1]], 1)
-        a_miss = torch.cat([fold(agg, init, v)[:, None], ar[:, :-1]], 1)
+        a_miss = torch.cat([fold_init(agg, init, v)[:, None], ar[:, :-1]], 1)
         v_miss = torch.cat([torch.ones_like(vr[:, :1]), vr[:, :-1]], 1)
         h, o2 = hit[:, None], o[:, None]
         st_k[lane, r] = torch.where(o2 & ~h, k_miss, kr)

@@ -27,6 +27,9 @@ scan of ``groupby_scan.py``, the ``topn_det`` ladder of
 """
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
+
 import torch
 
 from ..constants import NEG
@@ -34,10 +37,11 @@ from ..core.hashing import as_u32, hash_mod
 from ..core.skyline import FORMS, SCORES
 from . import ref
 from .bloom_filter import BLOOM_BUILD, BLOOM_BUILD_GLOBAL, BLOOM_QUERY
-from .cms_sketch import CMS_BUILD, CMS_QUERY, wrap_i32
+from .cms_sketch import CMS_BUILD, CMS_QUERY, onehot_reads, wrap_i32
 from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, LaunchCount,
-                     check_cuda, check_rowpar, grid_for, ptr, sm_count,
-                     workspace)
+                     check_cuda, check_rowpar, grid_for, library_fn, ptr,
+                     query_out, sm_count, workspace)
+from .common import flush_subnormals as ftz
 from .groupby_scan import GROUPBY_PASS1
 from .rle_scan import RLE_TOPN_DET
 from .topn_det_scan import TOPN_DET_PASS1
@@ -47,7 +51,9 @@ TOPN_PASS1 = CudaKernel("topn_pass1",
                         smem_fn="topn_pass1_smem")
 TOPN_BLOCK_WALK = CudaKernel("topn_pass1_block_walk",
                              [P, P, P, I32, I32, I32, I32, I32, U32, P])
-TOPN_APPLY = CudaKernel("topn_apply", [P, P, P, I64, I32, I32, U32, I32])
+TOPN_APPLY = CudaKernel("topn_apply", [P, P, I64, P, I32, I32, I32, U32,
+                                       I32, I32, I32, I32, I32, P])
+FAMILIES = ("kernel", "engine")  # topn_apply's reads of the row minimum
 DISTINCT_PASS1 = CudaKernel(
     "distinct_pass1",
     [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, U32, P],
@@ -213,38 +219,98 @@ def topn_block_walk_kernel(values: torch.Tensor, *, d: int, w: int,
 
 
 def merge_topn_states(states: torch.Tensor, w: int) -> torch.Tensor:
-    """[S, d, w] shard matrices -> [d, w] per-row top-w of the union."""
+    """[S, d, w] shard matrices -> [d, w] per-row top-w of the union, as
+    the reference's stable sort (``-jnp.sort(-cols)``) orders it: its
+    compares flush f32 subnormals (A25), so the values that compare equal
+    keep their column order, and every value keeps its bits."""
     S, d, _ = states.shape
     cols = states.movedim(0, 1).reshape(d, -1)
-    return torch.sort(cols, dim=1, descending=True, stable=True).values[:, :w]
+    order = torch.sort(ftz(cols), dim=1, descending=True,
+                       stable=True).indices[:, :w]
+    return cols.gather(1, order)
 
 
 def topn_apply_plain(values: torch.Tensor, rowmin: torch.Tensor, *, d: int,
-                     shards: int, seed: int = 0) -> torch.Tensor:
-    """Plain pass 2: keep = x >= rowmin[hash(shard-local index)]."""
+                     shards: int, seed: int = 0,
+                     family: str = "kernel") -> torch.Tensor:
+    """Plain pass 2: keep = x >= read(rowmin, hash(shard-local index)),
+    compared with f32 subnormals flushed (A25). ``read`` is the family's
+    (``topn_apply_kernel``)."""
     m = values.shape[0]
     idx = torch.arange(m // shards, device=values.device)
     rows = hash_mod(idx, d, seed)
-    return (values.reshape(shards, -1) >= rowmin[rows]).reshape(m)
+    if _apply_family(family):
+        got = onehot_reads(rowmin.to(torch.float32)[None], rows[:, None])[:, 0]
+    else:
+        got = rowmin[rows]
+    return (ftz(values.reshape(shards, -1)) >= ftz(got)).reshape(m)
+
+
+def _apply_family(family: str) -> int:
+    """The C family of the TOP-N apply: 1 the kernels', 0 the engine's."""
+    if family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+    return int(family == "kernel")
+
+
+@lru_cache(maxsize=None)
+def apply_plan(device: torch.device, shards: int, shard_len: int, d: int,
+               aligned: bool) -> tuple[int, int, int]:
+    """(CTAs over the shard-local quads, shard groups, dynamic shared
+    memory) of the CUDA apply on ``device``, as ``csrc/topn.cu`` plans it
+    (``topn_apply_plan``: one wave of resident CTAs), asked once a device
+    and shape."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = library_fn("topn_apply_plan",
+                         [I32, I32, I32, I32, ctypes.POINTER(ctypes.c_int)],
+                         I32)(shards, shard_len, d, int(aligned), out)
+    if err:
+        raise RuntimeError(f"topn_apply_plan failed: cudaError {err}")
+    return tuple(int(v) for v in out)
 
 
 def topn_apply_kernel(values: torch.Tensor, merged: torch.Tensor, *, d: int,
-                      shards: int, seed: int = 0) -> torch.Tensor:
-    """Pass 2: keep bool[m] = value >= the merged row minimum."""
+                      shards: int, seed: int = 0,
+                      family: str = "kernel") -> torch.Tensor:
+    """Pass 2: keep bool[m] = value >= the read of its row's merged minimum
+    (column w - 1 of ``merged`` [d, w]), compared with f32 subnormals
+    flushed. Two families (A26): ``"kernel"`` for ``ops.topn_prune_parallel``
+    reads as the Pallas kernel's one-hot product does (``onehot_reads``: NaN
+    when another row's minimum is not finite or its own is NaN, B15), and
+    ``"engine"`` for the engine's two_pass reads the minimum itself, as its
+    ``jnp`` body does.
+
+    On the card (``csrc/topn.cu``, ``topn_apply``) a thread hashes 4
+    consecutive shard-local indices once and walks its group of the S shards
+    with one 16-byte load and one 4-byte store each; the column is read in
+    place (no copy) and the keep mask is allocated at the values' offset mod
+    16 (``common.query_out``)."""
+    fam = _apply_family(family)
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, 1)
-    if merged.ndim != 2 or merged.shape[0] != d:
+    if merged.ndim != 2 or merged.shape[0] != d or merged.shape[1] < 1:
         raise ValueError(f"merged must be [d={d}, w], got {tuple(merged.shape)}")
-    rowmin = merged[:, -1].contiguous()
     if not values.is_cuda:
-        return topn_apply_plain(values, rowmin, d=d, shards=shards, seed=seed)
+        return topn_apply_plain(values, merged[:, -1], d=d, shards=shards,
+                                seed=seed, family=family)
     check_cuda("values", values, torch.float32)
-    check_cuda("merged", rowmin, torch.float32, values.device)
-    keep = torch.empty(m, dtype=torch.bool, device=values.device)
+    if not merged.is_cuda or merged.device != values.device \
+            or merged.dtype != torch.float32:
+        raise ValueError("merged must be a float32 CUDA tensor on the "
+                         "values' device")
+    dev = values.device
+    keep = query_out(values, m, torch.bool)
     if m:
-        TOPN_APPLY.launch(values.device, ptr(values), ptr(rowmin), ptr(keep),
-                          m, shard_len, d, seed & 0xFFFFFFFF,
-                          grid_for(m, values.device))
+        aligned = shard_len % 4 == 0 and values.data_ptr() % 16 == 0
+        gx, groups, smem = apply_plan(dev, shards, shard_len, d, aligned)
+        work = (None if smem else
+                torch.empty(1, dtype=torch.int32, device=dev))
+        col = merged.data_ptr() + (merged.shape[1] - 1) * merged.stride(1) * 4
+        TOPN_APPLY.launch(dev, ptr(values), col, merged.stride(0), ptr(keep),
+                          shards, shard_len, d, seed & 0xFFFFFFFF, fam,
+                          int(aligned), gx, groups, smem,
+                          None if work is None else ptr(work))
     return keep
 
 
@@ -534,7 +600,8 @@ def skyline_apply_plain(points: torch.Tensor, mpoints: torch.Tensor,
     """Plain pass 2: keep iff no merged point with score > NEG dominates
     the entry. Loops over blocks of entries to bound memory."""
     m, D = points.shape
-    x = points.to(torch.float32)
+    x = ftz(points.to(torch.float32))
+    mpoints = ftz(mpoints)
     valid = mscores > NEG
     keep = torch.empty(m, dtype=torch.bool, device=points.device)
     step = max(1, (1 << 24) // max(1, mpoints.shape[0] * D))
@@ -556,13 +623,14 @@ def skyline_compact_plain(mpoints: torch.Tensor, mscores: torch.Tensor):
     the kernel's comment)."""
     p = mpoints.to(torch.float32)
     valid = (mscores > NEG) & ~p.isnan().any(-1)
-    a, b = p[:, None, :], p[None, :, :]          # a = dominator i, b = j
+    pf = ftz(p)                                  # compares flush (A25)
+    a, b = pf[:, None, :], pf[None, :, :]        # a = dominator i, b = j
     dom = (b <= a).all(-1) & (b < a).any(-1)
     idx = torch.arange(p.shape[0], device=p.device)
     equal_lower = (a == b).all(-1) & (idx[:, None] < idx[None, :])
     beaten = ((dom | equal_lower) & valid[:, None]).any(0)
     kept = torch.nonzero(valid & ~beaten).flatten()
-    order = torch.sort(-mscores[kept], stable=True).indices
+    order = torch.sort(-ftz(mscores[kept]), stable=True).indices
     kept = kept[order]
     return p[kept], mscores[kept]
 

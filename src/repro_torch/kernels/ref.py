@@ -32,28 +32,14 @@ from ..core.hashing import as_u32, hash_mod
 from ..core.skyline import score as skyline_score
 from .bloom_filter import (bloom_build_plain, bloom_query_plain, pack_bits,
                            unpack_bits)
+from .common import flush_subnormals as ftz
+from .common import ordered_i32, unordered_f32
 
 
 def _lanes(values: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
     lanes = values if values.ndim == 2 else values[None]
     nb = lanes.shape[1] // block
     return lanes[:, : nb * block], nb
-
-
-_I32_MAX = 0x7FFFFFFF
-
-
-def ordered_i32(x: torch.Tensor) -> torch.Tensor:
-    """The order-preserving int32 image of f32 ``x`` (-0 below +0), with
-    every NaN, whatever its sign, mapped above every other value."""
-    i = x.view(torch.int32)
-    return torch.where(x.isnan(), _I32_MAX,
-                       torch.where(i < 0, i ^ _I32_MAX, i))
-
-
-def unordered_f32(o: torch.Tensor) -> torch.Tensor:
-    """The inverse of ``ordered_i32`` (a NaN comes back as 0x7FFFFFFF)."""
-    return torch.where(o < 0, o ^ _I32_MAX, o).view(torch.float32)
 
 
 def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
@@ -65,9 +51,14 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     block's entries of that row: NaN if any of them is NaN, whatever its
     sign, else the largest with +0 above -0 (XLA's max), so the max of
     ``ordered_i32``. ``scatter_reduce("amax")`` on the floats would keep
-    the first of -0 and +0."""
+    the first of -0 and +0.
+
+    Every compare flushes f32 subnormals (A25). At B > 1 the candidate is
+    that maximum, which XLA flushes too; at B = 1 it is the entry, which
+    the engine's scan inserts as it is (a select keeps the bits)."""
     one = values.ndim == 1
     x, nb = _lanes(values.to(torch.float32), block)
+    xf = ftz(x)
     S, dev = x.shape[0], x.device
     rows_all = hash_mod(torch.arange(nb * block, device=dev), d, seed)
     state = torch.full((S, d, w), float(NEG), dtype=torch.float32, device=dev)
@@ -78,13 +69,15 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     # written back (an entry of a row that recurs writes the same values)
     for c in range(nb):
         sl = slice(c * block, (c + 1) * block)
-        xb, rows = x[:, sl], rows_all[sl]
+        xb, rows = (x if block == 1 else xf)[:, sl], rows_all[sl]
         st = state[:, rows]                              # [S, B, w]
-        keep[:, sl] = xb >= st[:, :, -1]
+        stf = ftz(st)
+        keep[:, sl] = xf[:, sl] >= stf[:, :, -1]
         cand = unordered_f32(neg.scatter_reduce(
             1, rows.expand(S, -1), ordered_i32(xb), "amax")[:, rows])
-        do = cand > st[:, :, -1]
-        pos = (cand[:, :, None] <= st).sum(-1, keepdim=True)
+        candf = ftz(cand)
+        do = candf > stf[:, :, -1]
+        pos = (candf[:, :, None] <= stf).sum(-1, keepdim=True)
         shifted = torch.where(idxw > pos, st.roll(1, dims=2), st)
         inserted = torch.where(idxw == pos, cand[:, :, None], shifted)
         state[:, rows] = torch.where(do[:, :, None], inserted, st)
@@ -109,6 +102,7 @@ def distinct_keys(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     2^32 - 1, so that compare holds exactly when the slot equals the key and
     the key converts back to the value: non-integers, negatives, NaN, -inf
     and values above 2^32 never hit, and 4.0 hits a slot that 4.5 filled.
+    The compare flushes f32 subnormals (A25), so +-1e-40 hits the slot 0.
     """
     if x.dtype != torch.float32:
         key = as_u32(x)
@@ -116,7 +110,7 @@ def distinct_keys(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     v = x.to(torch.float64)
     key = torch.where(v >= 4294967296.0, float(_U32_MAX), v.trunc())
     key = torch.where(v > 0, key, 0.0).to(torch.int64)
-    return key, key.to(torch.float32) == x
+    return key, key.to(torch.float32) == ftz(x)
 
 
 def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
@@ -237,7 +231,8 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
     h = skyline_score(x, score, form).reshape(S, nb, block)
     xb = x.reshape(S, nb, block, D)
     r = min(w, block)
-    top = torch.sort(h, dim=-1, descending=True, stable=True).indices[..., :r]
+    top = torch.sort(ftz(h), dim=-1, descending=True,
+                     stable=True).indices[..., :r]
     cand_s = h.gather(-1, top)
     cand_s = torch.where(cand_s.isnan(), float(NEG), cand_s)
     cand_p = xb.gather(2, top[..., None].expand(-1, -1, -1, D))
@@ -245,13 +240,15 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
     scs = torch.full((S, w), float(NEG), dtype=torch.float32, device=dev)
     keep = torch.empty((S, nb * block), dtype=torch.bool, device=dev)
     for c in range(nb):
-        xc = xb[:, c, :, None, :]                       # [S, B, 1, D]
-        dom = ((xc <= pts[:, None]).all(-1) & (xc < pts[:, None]).any(-1)
+        xc = ftz(xb[:, c, :, None, :])                  # [S, B, 1, D]
+        pf = ftz(pts[:, None])
+        dom = ((xc <= pf).all(-1) & (xc < pf).any(-1)
                & (scs > NEG)[:, None, :]).any(-1)
         keep[:, c * block:(c + 1) * block] = ~dom
         all_s = torch.cat([scs, cand_s[:, c]], 1)
         all_p = torch.cat([pts, cand_p[:, c]], 1)
-        o = torch.sort(all_s, dim=1, descending=True, stable=True).indices[:, :w]
+        o = torch.sort(ftz(all_s), dim=1, descending=True,
+                       stable=True).indices[:, :w]
         scs = all_s.gather(1, o)
         pts = all_p.gather(1, o[..., None].expand(-1, -1, D))
     if one:
@@ -285,8 +282,9 @@ def skyline_scan_ref(points: torch.Tensor, *, w: int, score: str = "aph",
     idx = torch.arange(w, device=dev)
     for t in range(n):
         xt, ht = x[:, t, None, :], h[:, t, None]        # [S, 1, D], [S, 1]
-        pos = (ht <= scs).sum(1, keepdim=True)          # [S, 1]
-        dom = ((idx < pos) & (xt <= pts).all(-1) & (xt < pts).any(-1))
+        pos = (ftz(ht) <= ftz(scs)).sum(1, keepdim=True)  # [S, 1]
+        xf, pf = ftz(xt), ftz(pts)
+        dom = ((idx < pos) & (xf <= pf).all(-1) & (xf < pf).any(-1))
         keep[:, t] = ~dom.any(1)
         shift = idx > pos
         at = idx == pos

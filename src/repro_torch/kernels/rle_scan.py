@@ -51,7 +51,8 @@ from __future__ import annotations
 import torch
 
 from ..constants import POS
-from .common import I32, P, CudaKernel, check_cuda, ptr, workspace
+from .common import (I32, P, CudaKernel, check_cuda, cummin_f32,
+                     flush_subnormals, ptr, workspace)
 from .topn_det_scan import check_levels, pow2
 
 RLE_TOPN_DET = CudaKernel("rle_topn_det", [P, P, P, P, I32, I32, I32, P])
@@ -81,12 +82,13 @@ def rle_topn_det_ref(run_values: torch.Tensor, run_lengths: torch.Tensor, *,
     if R == 0:
         e = torch.zeros(0, dtype=torch.int32, device=dev)
         return e, e.clone()
-    v = run_values.to(torch.float32)
+    # minima and compares, with subnormals flushed (A25)
+    v = flush_subnormals(run_values.to(torch.float32))
     L = _i32(run_lengths.to(torch.int64))
     seen_start = _i32(torch.cumsum(L, 0) - L)
     pos = torch.tensor(float(POS), dtype=torch.float32, device=dev)
     cand = torch.where(seen_start < N, v, pos)
-    t0 = torch.minimum(torch.cummin(cand, 0).values, pos)
+    t0 = torch.minimum(cummin_f32(cand, 0), pos)
     ge = v[:, None] >= t0[:, None] * pow2(w, dev)               # [R, w]
     dL = L[:, None] * ge
     counts_in = _i32(torch.cumsum(dL, 0) - dL)

@@ -15,7 +15,8 @@ modes. S lanes, one per contiguous shard, each with a fresh ladder
 So the ladder is a prefix computation: a ``cummin`` and a ``cumsum`` over
 [n, w]. Every step is an exact f32 minimum (NaN-propagating, as
 ``jnp.minimum``), an exact multiply by a power of two, a compare or an
-integer count, so the plain version below is bit-identical to the scan, and
+integer count, all with f32 subnormals flushed as XLA flushes them (A25),
+so the plain version below is bit-identical to the scan, and
 so is the CUDA kernel (``csrc/topn_det.cu``): a chunked scan whose grid is
 every chunk of 4096 entries of every lane (the warm chunks' minima, a
 min-scan over them, per-level chunk counts, a sum-scan over them, and a
@@ -27,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..constants import NEG, POS
-from .common import I32, P, CudaKernel, check_cuda, ptr, workspace
+from .common import (I32, P, CudaKernel, check_cuda, cummin_f32,
+                     flush_subnormals, ptr, workspace)
 
 TOPN_DET_PASS1 = CudaKernel("topn_det_pass1", [P, P, P, P, P, P, I32, I32,
                                                I32, I32, P])
@@ -64,11 +66,13 @@ def topn_det_pass1_plain(x: torch.Tensor, *, N: int, w: int):
     if n == 0:
         return torch.zeros((S, 0), dtype=torch.bool, device=dev), \
             init_state(S, w, dev)
-    x = x.to(torch.float32)
+    # every use of a value is a minimum or a compare, which XLA computes
+    # with f32 subnormals flushed (A25)
+    x = flush_subnormals(x.to(torch.float32))
     warm = torch.arange(n, device=dev) < N
     pos = torch.tensor(float(POS), dtype=torch.float32, device=dev)
     cand = torch.where(warm, x, pos)
-    t0 = torch.minimum(torch.cummin(cand, 1).values, pos)      # [S, n]
+    t0 = torch.minimum(cummin_f32(cand, 1), pos)                # [S, n]
     p2 = pow2(w, dev)
     ge = x[..., None] >= t0[..., None] * p2                      # [S, n, w]
     counts = torch.cumsum(ge, 1, dtype=torch.int32)

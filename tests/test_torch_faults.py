@@ -47,8 +47,17 @@ reference, faults of the reference included:
   value;
 - A20: a float16 HAVING table adds in f16 in entry order, as the
   reference's scatter-add does (3000 unit weights on one key read 2048;
-  the card's build had added in f32 and rounded once).
+  the card's build had added in f32 and rounded once);
+- A25: XLA flushes f32 subnormals to a zero of their sign in every add,
+  minimum, maximum and compare, and keeps them in copies, selects, gathers
+  and a sort's payload; its minimum takes -0 below +0 and its maximum +0
+  above -0, and it simplifies ``0.0 + v`` to ``v``;
+- A26: the Pallas TOP-N apply reads a row minimum by a one-hot product, so
+  a non-finite minimum spoils the other rows' reads (B15); the engine's
+  two_pass reads the minimum itself.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,6 +67,7 @@ from repro import core as J
 from repro.core import sketches as jsk
 from repro.kernels import cms_sketch as jcms
 from repro.kernels import ops as jops
+from repro.kernels import parallel as jpar
 from repro.kernels import ref as jref
 from repro.kernels import rle_scan as jrle
 from repro.query import engine as jq
@@ -1040,3 +1050,237 @@ def test_a24_plain_minimum_takes_a_nan_from_any_row():
     keep = T.cms_query(T.CountMin(torch.from_numpy(table)),
                        torch.from_numpy(k), 1.0)
     assert not keep.any()
+
+
+# ------------------------------------------------------------- A25 - A26
+# XLA flushes an f32 subnormal to a zero of its sign in every add, minimum,
+# maximum and compare, on the CPU as on a TPU, and keeps it in a copy, a
+# select, a gather or a sort's payload (A25): the port's plain versions and
+# kernels do the same. Keep masks and states are held bit for bit, every
+# NaN as one.
+SUB = 1e-40
+
+
+def _leaves(x):
+    if x is None:
+        return []
+    if isinstance(x, (tuple, list)):
+        return [leaf for e in x for leaf in _leaves(e)]
+    if dataclasses.is_dataclass(x):
+        return [leaf for f in dataclasses.fields(x)
+                for leaf in _leaves(getattr(x, f.name))]
+    return [x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)]
+
+
+def _tree_bits(a):
+    if a.dtype.kind == "f":
+        a = np.where(np.isnan(a), np.float32("nan"), a).astype(a.dtype)
+        return a.view(np.int32 if a.itemsize == 4 else np.int16)
+    return a
+
+
+def _same_tree(got, want):
+    g, w = _leaves(got), _leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(_tree_bits(a), _tree_bits(b))
+
+
+def _salted():
+    """[0, s, 0, s, -s, 0, s, 2s] * 8 with s = 1e-40."""
+    return np.tile(np.array([0, 1, 0, 1, -1, 0, 1, 2], np.float32)
+                   * np.float32(SUB), 8)
+
+
+def _engine_case(algo, streams, **kw):
+    def run():
+        want = J.engine_prune(algo, *map(jnp.asarray, streams), **kw)
+        got = T.engine_prune(algo, *map(torch.from_numpy, streams), **kw)
+        _same_tree(got.keep, want.keep)
+        if algo != "distinct" or kw.get("mode") != "two_pass":
+            _same_tree(got.state, want.state)
+        else:  # the merged union (the reference also carries owner ranks)
+            _same_tree((got.state.slots, got.state.valid),
+                       (want.state.slots, want.state.valid))
+        _same_tree(got.emitted, want.emitted)
+    return run
+
+
+def _ops_case(name, *arrays, **kw):
+    def run():
+        want = getattr(jops, name)(*map(jnp.asarray, arrays), **kw)
+        got = getattr(tops, name)(*map(torch.from_numpy, arrays), **kw)
+        _same_tree(got, want)
+    return run
+
+
+def _call_case(jf, tf, *arrays):
+    def run():
+        _same_tree(tf(*map(torch.from_numpy, arrays)),
+                   jf(*map(jnp.asarray, arrays)))
+    return run
+
+
+def _pair(v):
+    return np.ascontiguousarray(np.stack([v, v[::-1]], 1))
+
+
+def _gb_keys():
+    return np.tile(np.array([1, 2, 3, 1], np.uint32), 16)
+
+
+def _filter_case(op, literal=0.0):
+    def run():
+        x = np.array([SUB, -SUB, 0.0, -0.0, 1.0], np.float32)
+        want = np.asarray(J.Pred("x", op, literal).evaluate(
+            {"x": jnp.asarray(x)}))
+        got = T.Pred("x", op, literal).evaluate({"x": torch.from_numpy(x)})
+        _eq(got, want)
+    return run
+
+
+def _cms_case():
+    want = jsk.cms_build(jnp.asarray(np.array([7], np.uint32)),
+                         jnp.asarray(np.array([SUB], np.float32)),
+                         rows=1, width=4)
+    got = T.cms_build(torch.tensor([7], dtype=torch.uint32),
+                      torch.tensor([SUB], dtype=torch.float32), rows=1,
+                      width=4)
+    assert np.asarray(got.table).view(np.int32).tolist() == [[0, 0, 0, 0]]
+    _same_tree(got.table, want.table)
+
+
+def _merge_case():
+    s = np.array([[[0.0, -0.0]], [[SUB, 0.0]]], np.float32)
+    _same_tree(tpar.merge_topn_states(torch.from_numpy(s), 2),
+               jpar.merge_topn_states(jnp.asarray(s), 2))
+
+
+def _rle_case():
+    rv = np.array([SUB, 0.0, -SUB, 2.0, -0.0, SUB, 1.0, 0.0], np.float32)
+    rl = np.array([2, 1, 3, 1, 2, 1, 4, 2], np.int32)
+    _same_tree(tops.rle_topn_prune(torch.from_numpy(rv), torch.from_numpy(rl),
+                                   N=2, w=2),
+               jops.rle_topn_prune(jnp.asarray(rv), jnp.asarray(rl), N=2,
+                                   w=2))
+
+
+def _a25_cases():
+    v = _salted()
+    tp = dict(mode="two_pass", shards=2)
+    yield "topn_rand_scan", _engine_case(
+        "topn_rand", [np.array([0.0, -SUB], np.float32)], d=1, w=1,
+        mode="scan")
+    yield "topn_rand_two_pass", _engine_case(
+        "topn_rand", [np.tile(np.array([0.0, -SUB], np.float32), 4)], d=1,
+        w=1, **tp)
+    yield "topn_det_scan", _engine_case(
+        "topn_det", [np.array([SUB, 0.0, 0.0], np.float32)], N=1, w=1,
+        mode="scan")
+    yield "topn_det_two_pass", _engine_case(
+        "topn_det", [np.tile(np.array([SUB, 0.0, 0.0], np.float32), 2)],
+        N=1, w=1, **tp)
+    for policy in ("lru", "fifo"):
+        yield f"distinct_{policy}_scan", _engine_case(
+            "distinct", [np.array([0.0, SUB], np.float32)], d=1, w=2,
+            policy=policy, mode="scan")
+    yield "distinct_two_pass", _engine_case(
+        "distinct", [np.tile(np.array([0.0, SUB], np.float32), 4)], d=1,
+        w=2, **tp)
+    for mode in ("scan", "two_pass"):
+        kw = tp if mode == "two_pass" else dict(mode=mode)
+        yield f"skyline_sum_{mode}", _engine_case(
+            "skyline", [_pair(v)], w=2, score="sum", **kw)
+        yield f"groupby_sum_{mode}", _engine_case(
+            "groupby", [_gb_keys(), v], d=2, w=1, **kw)
+    yield "having_sum_f32_scan", _engine_case(
+        "having", [_gb_keys(), v], threshold=0.0, mode="scan")
+    yield "skyline_aph_scan", _engine_case(
+        "skyline", [_pair(v)], w=2, score="aph", mode="scan")
+    for agg in ("min", "max"):
+        yield f"groupby_{agg}_scan", _engine_case(
+            "groupby", [_gb_keys(), v], d=2, w=1, agg=agg, mode="scan")
+    yield "score_sum", _call_case(J.score_sum, T.score_sum, _pair(v))
+    yield "core_cms_build", _cms_case
+    yield "merge_topn_states", _merge_case
+    yield "ops_topn_prune", _ops_case("topn_prune", v * 8, d=4, w=2,
+                                      block=8)
+    yield "ops_topn_prune_parallel", _ops_case(
+        "topn_prune_parallel", v * 8, d=4, w=2, shards=2, block=8)
+    yield "ops_skyline_prune", _ops_case("skyline_prune", _pair(v * 8), w=2,
+                                         block=8)
+    yield "ops_skyline_prune_parallel", _ops_case(
+        "skyline_prune_parallel", _pair(v * 8), w=2, shards=2, block=8)
+    yield "ops_cms_build", _ops_case(
+        "cms_build", np.arange(64, dtype=np.uint32) % 5, v * 8, rows=2,
+        width=8)
+    yield "ops_rle_topn_prune", _rle_case
+    for op in ("gt", "ge", "lt", "le", "eq", "ne"):
+        yield f"filter_{op}", _filter_case(op)
+    # a literal that is not a Python number compares by value, flushed too
+    yield "filter_ge_numpy_float32", _filter_case("ge", np.float32(SUB))
+
+
+A25 = dict(_a25_cases())
+
+
+@pytest.mark.parametrize("case", list(A25))
+def test_a25_subnormals_flush_in_compute_and_stay_in_copies(case):
+    A25[case]()
+
+
+def test_f16_build_and_aph_score_need_no_flush():
+    # an f16 subnormal is an f32 normal, so the f16 Count-Min build (adds
+    # in f32, rounded to f16) has nothing to flush; APH scores below 1
+    # are -16 whatever the coordinate
+    k = np.tile(np.array([3, 9, 3], np.uint32), 20)
+    w = np.tile(np.array([6e-8, -3e-6, 1e-5], np.float16), 20)
+    want = jsk.cms_build(jnp.asarray(k), jnp.asarray(w), rows=2, width=8)
+    got = T.cms_build(torch.from_numpy(k), torch.from_numpy(w), rows=2,
+                      width=8)
+    assert got.table.dtype == torch.float16
+    _same_tree(got.table, want.table)
+    p = _pair(_salted())
+    _same_tree(T.score_aph(torch.from_numpy(p)), J.score_aph(jnp.asarray(p)))
+
+
+# A26: the Pallas TOP-N apply reads the row minimum by a one-hot product
+# (B15): a row reads NaN when another row's minimum is not finite or its
+# own is NaN. ops.topn_prune_parallel reads so; the engine's two_pass reads
+# the minimum itself, as its jnp body does.
+def _normals(m, seed=0):
+    return np.random.default_rng(seed).standard_normal(m).astype(np.float32)
+
+
+def test_a26_ops_topn_prune_parallel_with_an_inf():
+    x = _normals(256)
+    x[3] = INF
+    kw = dict(d=4, w=1, shards=2, block=8)
+    want = np.asarray(jops.topn_prune_parallel(jnp.asarray(x), **kw))
+    got = tops.topn_prune_parallel(torch.from_numpy(x), **kw)
+    assert want.sum() == 1
+    _eq(got, want)
+
+
+def test_a26_topn_apply_kernel_with_a_nan_row_minimum():
+    v = _normals(64)
+    merged = np.stack([np.full(4, 9.0, np.float32),
+                       np.array([NAN, 0.5, 0.1, -0.2], np.float32)], 1)
+    want = np.asarray(jpar.topn_apply_kernel(jnp.asarray(v),
+                                             jnp.asarray(merged), d=4,
+                                             shards=2, block=8))
+    got = tpar.topn_apply_kernel(torch.from_numpy(v),
+                                 torch.from_numpy(merged), d=4, shards=2)
+    assert not want.any()
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("value", [INF, NAN, -INF])
+def test_a26_engine_two_pass_reads_the_minimum_itself(value):
+    x = _normals(64, seed=1)
+    x[5] = value
+    kw = dict(d=4, w=1, mode="two_pass", shards=2)
+    want = J.engine_prune("topn_rand", jnp.asarray(x), **kw)
+    got = T.engine_prune("topn_rand", torch.from_numpy(x), **kw)
+    _eq(got.keep, want.keep)
