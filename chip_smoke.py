@@ -73,7 +73,14 @@ Phases, one line each, and a non-zero exit on any failure:
            and 2^24, against their plain versions; float16 Count-Min tables
            (both hash families) bit for bit against the plain build, which
            adds in f16 in entry order (Queue 3 A20: 3000 unit weights on one
-           key read 2048), with each build's time and bound.
+           key read 2048), with each build's time and bound; and ROADMAP
+           Queue 3 A27 (phase_kernels_a27): TOP-N pass 1 in the kernels'
+           family keeps as the Pallas one-hot read of the row minimum does
+           (the smallest input; both B > 1 forms and B = 1 on streams
+           salted with +inf and NaN, against the plain version; the salted
+           2^25-entry column at S = 128 against the plain version on the
+           card, and the fix-up, topn_onehot_fixup, against ref.onehot_keep
+           at S = 1 and 128, with its time).
 3. main    the main path on a 2^25-row uservisits table and a 2^20-row
            rankings table (one worker's partition of the Big Data
            benchmark): ``run_query`` TOP-N (randomized and the
@@ -92,6 +99,17 @@ Phases, one line each, and a non-zero exit on any failure:
            keep mask a superset of the true survivors. Launch counts are set
            to 0 before each path and read after it; each path is then
            called once more, for its time as a repeated query meets it.
+   planner each section-5 engine call's merge cost and one lane's state
+           bytes measured on the card (calibrate_merge_cost), the lane count
+           shards="auto" resolves at 2^25 entries, the two_pass call at
+           that count bit-identical to the same call with the count given,
+           and its time beside the 128-lane call's; options= against the
+           keyword arguments.
+   obs     every run_query and engine_prune path of phase main at the obs
+           levels off, counters and trace: masks identical, counters equal
+           to the masks and states they count, a Chrome trace written to a
+           temporary file and parsed, and each call's wall time at off and
+           at counters.
 4. subnormals
            every kernel that computes on f32 values (TOP-N, DISTINCT on
            float32 keys and SKYLINE pass 1 at S = 1 and 128, B = 1 and
@@ -100,7 +118,10 @@ Phases, one line each, and a non-zero exit on any failure:
            families) on columns with 1 entry in 16 replaced by +-k * 1e-40
            and 1 in 32 by +-0, bit for bit against its plain version
            (ROADMAP Queue 3 A25: XLA flushes f32 subnormals in compute and
-           keeps them in copies).
+           keeps them in copies); and A28 (subnormals_a28): f32 Count-Min
+           tables whose weights take both signs add in entry order with a
+           flush after each add, bit for bit against the plain build, with
+           the time of each route.
 5. timing  on the same tables, each kernel against its plain version at
            every shape the main path gives it (bit-identical keep, state and
            table on the whole table; the one-lane B = 1 scans on their
@@ -130,7 +151,8 @@ Phases, one line each, and a non-zero exit on any failure:
            inserting (row, block) groups one segment has (``prefix_bound``).
            Both forms of DISTINCT and of TOP-N at B = 256 are timed at
            S = 1, 8, 16, 32, 64 and 128 (``time_block_forms``); each pass-1
-           shape prints its time per chain step. torch.profiler splits each
+           shape prints its time per chain step and its device time
+           (``queued_ms``). torch.profiler splits each
            redesigned kernel into its internal kernels (distinct_apply into
            its table build and its lookups, the Bloom build into its
            zeroing and its cluster kernel),
@@ -165,7 +187,9 @@ Phases, one line each, and a non-zero exit on any failure:
            replaced (cms_query_grid, bloom_query_grid) at every main-path
            shape; topn_apply against the apply it replaced
            (topn_apply_grid) at S = 128 after B = 1 and 256 pass 1; then
-           the ``kernels`` JSON line.
+           the ``kernels`` JSON line (phase timing adds the fix-up's row,
+           and holds the salted column at S = 1, B = 256 against its plain
+           loop from a HostPlain worker).
 
 Needs one CUDA card; exits non-zero without one. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -460,6 +484,10 @@ class HostPlain:
                 u = v[:SCAN_PREFIX] if S == 1 and B == 1 else v
                 jobs[(name, S, B)] = (
                     lambda z, S=S, B=B, plain=plain: plain(z, S, B), (u,))
+        jobs[("topn_pass1_a27", 1, 256)] = (
+            lambda z: R.topn_block_ref(z[None], block=256, return_state=True,
+                                       onehot=True, **TOPN),
+            (a27_salt(torch, cols["topn_pass1"], 1),))
         fs = cols["distinct_pass1"]
         jobs[("distinct_pass1_lru", SHARDS, 1)] = (
             lambda z: R.distinct_lru_ref(z, d=DISTINCT["d"],
@@ -557,7 +585,7 @@ def kernel_cases():
             (128, 256, (1 << 20) + 3)]
 
 
-def phase_kernels(torch, P, R, O):
+def phase_kernels(torch, P, R, O, host):
     from repro_torch.constants import NEG
     from repro_torch.kernels import cms_sketch as C
 
@@ -655,6 +683,7 @@ def phase_kernels(torch, P, R, O):
     phase_kernels_block_staged(torch, g)
     phase_kernels_distinct_apply(torch, g)
     phase_kernels_topn_apply(torch, g)
+    phase_kernels_a27(torch, P, R, O, host)
 
 
 # the Count-Min tables of the query cases: (rows, width); the first four
@@ -1197,8 +1226,8 @@ def topn_block_kernel(torch, x, S, d, w, B, seed, entry="topn_pass1"):
     st = torch.empty((S, d, w), dtype=torch.float32, device="cuda")
     args = (ptr(x), ptr(keep), ptr(st), S, m // S, d, w, B, seed)
     if entry == "topn_pass1":
-        serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32, VP], *args,
-                      None)
+        serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32, VP, VP],
+                      *args, None, None)
     else:
         serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32], *args)
     return keep, st
@@ -1631,6 +1660,144 @@ def phase_kernels_topn_apply(torch, g):
             families=json.dumps(P.FAMILIES), ok=ok)
 
 
+# ROADMAP Queue 3 A27: the kernels' family of TOP-N pass 1 keeps as the
+# Pallas kernels' one-hot read of the row minimum does. (S, B, d, w, lane
+# entries) of the small cases, each under every salt share of A27_SHARES
+A27_CASES = ((1, 256, 512, 8, 1 << 16), (8, 256, 37, 8, 4096),
+             (128, 256, 512, 8, 2048), (1, 2, 3, 1, 512), (8, 32, 1, 4, 1024),
+             (1, 1, 5, 2, 999), (8, 1, 3, 2, 64))
+A27_SHARES = (0.0, 1e-3, 0.05, 0.3)
+# 1 entry in A27_SALT[S] of the salted column is +inf, 1 in 4 A27_SALT[S]
+# NaN: about 16 +inf entries a row of every lane (d = 512, w = 8), so that
+# rows' minima turn +inf
+A27_SALT = {1: 1 << 12, SHARDS: 1 << 5}
+
+
+def a27_salt(torch, x, S, seed=27):
+    """x (a copy) with 1 entry in A27_SALT[S] set to +inf and 1 in 4
+    A27_SALT[S] to NaN, at positions drawn by numpy from ``seed``: the same
+    column on the host and on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    m, salt = x.numel(), A27_SALT[S]
+    inf_at = torch.from_numpy(rng.integers(0, m, m // salt))
+    nan_at = torch.from_numpy(rng.integers(0, m, m // (4 * salt)))
+    x = x.clone()
+    x[inf_at.to(x.device)] = float("inf")
+    x[nan_at.to(x.device)] = float("nan")
+    return x
+
+
+def topn_pass1_tinf(torch, P, x, S, B):
+    """Pass 1 of the kernels' family by its C entry, before the fix-up, in
+    the form the wrapper picks: (the direct read's keep, the matrices, tinf,
+    the block of each row's last insert)."""
+    from repro_torch.kernels.common import ptr, workspace
+
+    m, d, w = x.numel(), TOPN["d"], TOPN["w"]
+    n = m // S
+    keep = torch.empty(m, dtype=torch.bool, device="cuda")
+    st = torch.empty((S, d, w), dtype=torch.float32, device="cuda")
+    tinf = P._tinf(S, d, x.device)
+    walk = B == 1 or P.use_block_walk(S, x.device)
+    work = workspace(x.device, "topn_pass1_workspace", S, n, d) if walk \
+        else None
+    entry = P.TOPN_BLOCK_WALK if walk and B > 1 else P.TOPN_PASS1
+    entry.launch(x.device, ptr(x), ptr(keep), ptr(st), S, n, d, w, B, 0,
+                 None if work is None else ptr(work), ptr(tinf))
+    return keep, st, tinf
+
+
+def phase_kernels_a27(torch, P, R, O, host):
+    """Queue 3 A27 on the card: the smallest input; both families of TOP-N
+    pass 1 (the kernels' one-hot keep with its fix-up, the engine's direct
+    read) in both B > 1 forms and at B = 1, on streams salted with +inf and
+    NaN, against the plain versions on a CPU copy; and the salted 2^25-entry
+    column (a27_salt) at S = 128, B = 256 against the plain version on the
+    card (S = 1 is compared in phase timing, its plain loop in a HostPlain
+    worker), with the fix-up alone against ref.onehot_keep at both shapes
+    and its time."""
+    inf, nan = float("inf"), float("nan")
+    k = O.topn_prune(torch.full((4,), inf, device="cuda"), d=2, w=1, block=2)
+    check(k.tolist() == [True, True, True, False],
+          "A27: ops.topn_prune([inf] * 4, d=2, w=1, block=2) keeps "
+          f"{k.tolist()}, the reference [1, 1, 1, 0]")
+    g = torch.Generator().manual_seed(27)
+    real = P.use_block_walk
+    try:
+        for form in ("block walk", "block kernel"):
+            P.use_block_walk = lambda s, dev, f=form: f == "block walk"
+            for S, B, d, w, n in A27_CASES:
+                if B == 1 and form != "block walk":
+                    continue
+                ok = True
+                for share in A27_SHARES:
+                    v = torch.randn(S * n, generator=g)
+                    u = torch.rand(S * n, generator=g)
+                    v[u < share] = inf
+                    v[(u >= share) & (u < 1.2 * share)] = nan
+                    kw = dict(d=d, w=w, shards=S, block=B)
+                    kc, sc = P.topn_shard_states_kernel(v.cuda(), **kw)
+                    kp, sp = P.topn_shard_states_kernel(v, **kw)
+                    ke, se = P.topn_shard_states_kernel(v.cuda(),
+                                                        family="engine", **kw)
+                    kd, sd = R.topn_block_ref(v.reshape(S, -1), d=d, w=w,
+                                              block=B, return_state=True)
+                    ok &= check(same(kc.cpu(), kp) and same_bits(sc, sp)
+                                and same(ke.cpu(), kd.reshape(-1))
+                                and same_bits(se, sd),
+                                f"A27 {form} S={S} B={B} d={d} w={w} "
+                                f"salt={share}")
+                say("kernels", case="A27", form=json.dumps(form), S=S, B=B,
+                    d=d, w=w, shares=json.dumps(A27_SHARES), ok=ok)
+    finally:
+        P.use_block_walk = real
+    for S in (SHARDS, 1):
+        xs = a27_salt(torch, host.cols["topn_pass1"].cuda(), S)
+        keep, st = P.topn_shard_states_kernel(xs, shards=S, block=256,
+                                              **TOPN)
+        plain_s = None
+        if S > 1:
+            (k2, st2), plain_s = sync_time(lambda: R.topn_block_ref(
+                xs.reshape(S, -1), block=256, return_state=True, onehot=True,
+                **TOPN))
+            check(same(keep, k2.reshape(-1)) and same_bits(st, st2),
+                  f"A27 salted 2^25 S={S} B=256 differs from the plain "
+                  "version")
+        direct, st3, tinf = topn_pass1_tinf(torch, P, xs, S, 256)
+        want = R.onehot_keep(direct.view(S, -1), st3, tinf.view(S, -1).to(
+            torch.int64), d=TOPN["d"], block=256).reshape(-1)
+        fixed = direct.clone()
+        P.topn_onehot_fixup(fixed, st3, tinf, shards=S, d=TOPN["d"],
+                            block=256)
+        check(same(fixed, want) and same(fixed, keep),
+              f"A27 salted 2^25 S={S}: topn_onehot_fixup differs from "
+              "ref.onehot_keep")
+        fix_ms = event_ms(lambda: P.topn_onehot_fixup(
+            fixed, st3, tinf, shards=S, d=TOPN["d"], block=256), 10)
+        say("kernels", case="A27 salted column", S=S, B=256, entries=M_MAIN,
+            inf_rows=int((st[..., -1] == inf).sum()),
+            kept=int(keep.sum()), kept_direct=int(direct.sum()),
+            plain_on=json.dumps("card" if S > 1 else "host, phase timing"),
+            plain_s=json.dumps(plain_s),
+            fixup_ms=fix_ms, pass1_ms=event_ms(
+                lambda: P.topn_shard_states_kernel(xs, shards=S, block=256,
+                                                   **TOPN), 5))
+
+
+def a27_host_check(torch, P, host):
+    """The salted 2^25-entry column at S = 1, B = 256 (the block walk and its
+    fix-up) against the plain version's run in a HostPlain worker."""
+    xs = a27_salt(torch, host.cols["topn_pass1"].cuda(), 1)
+    keep, st = P.topn_shard_states_kernel(xs, shards=1, block=256, **TOPN)
+    (k2, st2), plain_s = host.get(("topn_pass1_a27", 1, 256))
+    ok = check(same(keep, k2.reshape(-1)) and same_bits(st, st2),
+               "A27 salted 2^25 S=1 B=256 differs from the plain version")
+    say("timing", case="A27 salted column", S=1, B=256, ok=ok,
+        kept=int(keep.sum()), plain_s=round(plain_s, 3))
+
+
 def salt_subnormals(torch, g, x):
     """x (f32, on g's device) with 1 entry in 16 replaced by +-k * 1e-40, k
     from 1 to 100 drawn from g, of both signs, and 1 in 32 by +-0."""
@@ -1785,6 +1952,233 @@ def phase_subnormals(torch, P, R, table):
                         f"B={B} differs from its plain version on the "
                         "2^25-entry column")
     say("subnormals", kernel="topn_apply", entries=M_MAIN, ok=ok)
+    subnormals_a28(torch, table)
+
+
+# ROADMAP Queue 3 A28: (family, rows, width, lanes) of the mixed-sign f32
+# Count-Min builds, on A28_M keys; 70000 columns do not fit the walk's row
+# in shared memory, nor the partial build's table
+A28_SHAPES = (("engine", 3, 1024, 1), ("engine", 3, 4096, 8),
+              ("kernel", 3, 4096, 1), ("engine", 2, 70000, 2))
+A28_M = 1 << 20
+
+
+def subnormals_a28(torch, table):
+    """Queue 3 A28 on the card: an f32 Count-Min table whose weights take
+    both signs adds in entry order, a flush after each add (the partial
+    build flags the signs, and the f32 walk rebuilds the table): the
+    smallest input reads FLT_MIN, and weights of both signs in units of
+    FLT_MIN / 8 (only the flushes decide the counters) equal the plain
+    build on a CPU copy bit for bit at every shape of A28_SHAPES; weights of
+    one sign keep the partial build. Prints each route's time, and the
+    walk's on the main path's Count-Min shape."""
+    from repro_torch import core
+    from repro_torch.kernels import cms_sketch as C
+
+    fm = C.FLT_MIN
+    t = core.cms_build(torch.tensor([7, 7, 7], dtype=torch.uint32,
+                                    device="cuda"),
+                       torch.tensor([1.5, -1.0, 1.0], device="cuda") * fm,
+                       1, 4).table
+    check(t[0, 0].item() == torch.tensor(fm).item(),
+          f"A28: the smallest input's cell reads {t[0, 0].item()}, the "
+          "reference FLT_MIN")
+    g = torch.Generator().manual_seed(28)
+    keys = torch.randint(0, 5000, (A28_M,), generator=g).to(torch.uint32)
+    units = torch.tensor([-2, -1.5, -1, -0.5, 0.5, 1, 1.5, 2])
+    w = units[torch.randint(0, 8, (A28_M,), generator=g)] * fm
+    w[torch.rand(A28_M, generator=g) < 0.1] *= 3.25
+    kc, wc = keys.cuda(), w.cuda()
+    for fam, rows, width, lanes in A28_SHAPES:
+        kw = dict(rows=rows, width=width, family=fam, shards=lanes)
+        ok = True
+        for name, wts in (("both signs", w), ("one sign", w.abs())):
+            got = C.cms_build_kernel(kc, wts.cuda(), **kw)
+            want, plain_s = on_host(lambda: C.cms_build_plain(keys, wts,
+                                                              **kw))
+            ok &= check(same_bits(got, want), f"A28 {name} {fam} "
+                        f"{rows}x{width} lanes={lanes} differs from the "
+                        "plain build")
+            say("subnormals", case="A28", weights=json.dumps(name),
+                family=fam, rows=rows, width=width, lanes=lanes, keys=A28_M,
+                ms=event_ms(lambda: C.cms_build_kernel(kc, wts.cuda(), **kw),
+                            3), plain_s=round(plain_s, 3), ok=ok)
+    src = table.cols["source_ip"]
+    mixed = table.cols["duration"].float()
+    mixed[::7] *= -1
+    _, secs = sync_time(lambda: C.cms_build_kernel(src, mixed, **CMS_OPS))
+    say("subnormals", case="A28 walk at the main Count-Min shape",
+        keys=M_MAIN, ms=event_ms(lambda: C.cms_build_kernel(
+            src, mixed, **CMS_OPS), 2), first_s=round(secs, 3))
+
+
+# the engine calls of PERF.md section 5: (name, algo, streams of the
+# uservisits table, params), at SHARDS lanes in phase main
+ENGINE_CALLS = (
+    ("topn_rand", "topn_rand", ("ad_revenue",), TOPN),
+    ("topn_det", "topn_det", ("ad_revenue",), TOPN_DET),
+    ("distinct fifo", "distinct", ("source_ip",),
+     dict(policy="fifo", **DISTINCT)),
+    ("distinct lru", "distinct", ("source_ip",), DISTINCT),
+    ("skyline", "skyline", SKY_COLS, SKYLINE),
+    ("having count", "having", HAVING_COUNT[:2], HAVING_COUNT[2]),
+    ("groupby count", "groupby", ("source_ip", "ad_revenue"),
+     dict(agg="count", **GROUPBY)),
+)
+
+
+def engine_streams(torch, table, algo, cols):
+    if algo == "skyline":
+        return (torch.stack([table.cols[c].float() for c in cols], -1),)
+    return tuple(table.cols[c] for c in cols)
+
+
+def phase_planner(torch, table):
+    """The analytic planner on the card: each section-5 engine call's merge
+    cost c and one lane's state bytes measured by calibrate_merge_cost on
+    the card (planner.MEASURED_MERGE_COSTS), the lane count shards="auto"
+    resolves at 2^25 entries, engine_prune(mode="two_pass", shards="auto")
+    bit-identical to the same call at that S, and its time beside the
+    S = 128 call's (each the faster of two calls); then options= against
+    the keyword arguments. Returns {algo: one lane's state bytes}."""
+    from repro_torch import ExecOptions, core
+    from repro_torch.query import QuerySpec, run_query
+
+    sbytes = {}
+    for name, algo, cols, params in ENGINE_CALLS:
+        streams = engine_streams(torch, table, algo, cols)
+        (c, sb), cal_s = sync_time(lambda: core.calibrate_merge_cost(
+            algo, streams, params))
+        sbytes[algo] = sb
+        want = min(core.optimal_shards(M_MAIN, sb, merge_byte_cost=c),
+                   M_MAIN)
+        auto = core.engine_prune(algo, *streams, mode="two_pass",
+                                 shards="auto", **params)
+        S = auto.report.meta["shards"]
+        fixed = core.engine_prune(algo, *streams, mode="two_pass", shards=S,
+                                  **params)
+        check(S == want and same(auto.keep, fixed.keep),
+              f"planner: {name} shards='auto' (S={S}, the model's {want}) "
+              "differs from the same call at that S")
+        times = {}
+        for lanes in ("auto", SHARDS):
+            times[lanes] = min(sync_time(lambda: core.engine_prune(
+                algo, *streams, mode="two_pass", shards=lanes,
+                **params))[1] for _ in range(2))
+        say("planner", call=json.dumps(name), c=c, state_bytes=sb,
+            auto_shards=S, calibrate_s=round(cal_s, 4),
+            two_pass_auto_s=round(times["auto"], 4),
+            two_pass_128_s=round(times[SHARDS], 4),
+            kept_auto=int(auto.keep.sum()))
+    say("planner", measured_merge_costs=json.dumps(
+        core.MEASURED_MERGE_COSTS))
+    for name, algo, cols, params in ENGINE_CALLS[:4]:
+        streams = engine_streams(torch, table, algo, cols)
+        a = core.engine_prune(algo, *streams, options=ExecOptions(
+            mode="two_pass", shards=SHARDS, obs="off"), **params)
+        b = core.engine_prune(algo, *streams, mode="two_pass", shards=SHARDS,
+                              obs="off", **params)
+        check(same(a.keep, b.keep) and a.report is None,
+              f"planner: {name} options= differs from the keywords")
+    spec = QuerySpec("distinct", ("source_ip",), DISTINCT)
+    enc = table.encode("source_ip")
+    a = run_query(spec, enc, options=ExecOptions(decode="eager"))
+    b = run_query(spec, enc, decode="eager")
+    check(same(a["keep"], b["keep"]), "planner: run_query options= differs "
+          "from the keywords")
+    say("planner", options_checked=5)
+    return sbytes
+
+
+OBS_SPANS = {"engine_prune.scan", "engine_prune.pass1",
+             "engine_prune.gather_merge", "engine_prune.pass2_apply"}
+
+
+def phase_obs(torch, paths, sbytes):
+    """Every run_query and engine_prune path of phase main at the three obs
+    levels (the process default, set for each call): keep masks identical;
+    no report at "off" nor for JOIN and FILTER; at "counters" and "trace"
+    the report's entries_scanned is the stream's length, entries_kept the
+    engine mask's survivors (GROUP BY's engine mask keeps none),
+    decode_skipped_ratio 1 - kept / scanned for encoded streams, and a
+    two_pass call's state_bytes_shipped S times one lane's state bytes
+    (phase planner), with one merge collective; the trace written to a
+    temporary file and parsed. Prints each call's wall time at "off" and at
+    "counters" (and once more for calls under a second)."""
+    import tempfile
+
+    from repro_torch import obs
+
+    names = [n for n in paths if n.startswith(("run_query", "engine"))]
+    obs.TRACER.reset()
+    spans = 0
+    try:
+        for name in names:
+            run, _, keep_of, _ = paths[name]
+            res, secs = {}, {}
+            for lvl in obs.OBS_MODES:
+                obs.set_default_level(lvl)
+                res[lvl], secs[lvl] = sync_time(run)
+            again = {}
+            if secs["off"] < 1.0:
+                for lvl in ("off", "counters"):
+                    obs.set_default_level(lvl)
+                    again[lvl] = round(sync_time(run)[1], 4)
+            obs.set_default_level("counters")
+            keeps = {lvl: keep_of(r) for lvl, r in res.items()}
+            ok = check(all(same(keeps["off"], k) for k in keeps.values()),
+                       f"obs: {name}: the keep mask differs between levels")
+            reps = {lvl: r["report"] if isinstance(r, dict) else r.report
+                    for lvl, r in res.items()}
+            if name.startswith(("run_query_join", "run_query_filter")) \
+                    or reps["off"] is not None:
+                # JOIN and FILTER have their own bodies and no report
+                ok &= check(name.startswith(("run_query_join",
+                                             "run_query_filter"))
+                            and all(r is None for r in reps.values()),
+                            f"obs: {name}: a report where there is none")
+            else:
+                for lvl in ("counters", "trace"):
+                    rep = reps[lvl]
+                    m = rep.meta["m"]
+                    keep = keeps[lvl]
+                    kept = (0 if name.startswith("run_query_groupby")
+                            else int(keep.sum()))
+                    ok &= check(rep.entries_scanned == m
+                                and (keep.numel() != m
+                                     or rep.entries_kept == kept),
+                                f"obs: {name} {lvl}: counters differ from "
+                                "the mask")
+                    if rep.meta["encoded"]:
+                        ok &= check(rep.counters["decode_skipped_ratio"]
+                                    == 1.0 - rep.entries_kept / m,
+                                    f"obs: {name}: decode_skipped_ratio")
+                    if rep.meta["mode"] == "two_pass":
+                        ok &= check(rep.merge_collective_count == 1
+                                    and rep.state_bytes_shipped
+                                    == rep.meta["shards"]
+                                    * sbytes[rep.meta["algo"]],
+                                    f"obs: {name}: state_bytes_shipped")
+                names_ = {e["name"] for e in reps["trace"].spans}
+                spans += len(reps["trace"].spans)
+                ok &= check(names_ and names_ <= OBS_SPANS
+                            and not reps["counters"].spans,
+                            f"obs: {name}: spans {sorted(names_)}")
+            say("obs", path=name, ok=ok, s_off=round(secs["off"], 4),
+                s_counters=round(secs["counters"], 4),
+                s_trace=round(secs["trace"], 4),
+                again=json.dumps(again) if again else "null")
+    finally:
+        obs.set_default_level("counters")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        obs.TRACER.write(path)
+        doc = json.loads(path.read_text())
+    evs = doc["traceEvents"]
+    check(len(evs) == spans and all(e["ph"] == "X" and e["dur"] >= 0
+                                    for e in evs),
+          "obs: the written trace differs from the reports' spans")
+    say("obs", trace_events=len(evs), trace_bytes=len(json.dumps(doc)))
 
 
 def flat(out):
@@ -2336,7 +2730,7 @@ def phase_main(torch, P, O):
         "ops_topn_prune": (
             lambda: O.topn_prune(xs, block=256, **TOPN),
             lambda k: topn_ok(k, "ops_topn_prune"),
-            lambda k: k, (block_form("topn_pass1", 1),)),
+            lambda k: k, (block_form("topn_pass1", 1), "topn_onehot_fixup")),
         "ops_distinct_prune": (
             lambda: O.distinct_prune(fs, block=256, **DISTINCT),
             lambda k: distinct_ok(k, "ops_distinct_prune"),
@@ -2513,7 +2907,7 @@ def phase_main(torch, P, O):
         say("main", path=name, s=round(secs, 4), s_again=round(again, 4),
             pruned=round(1 - float(keep.float().mean()), 6),
             launches=json.dumps(counts, separators=(",", ":")))
-    return table, rankings, pts, totals, encoded, (rle_t, rle_l)
+    return table, rankings, pts, totals, encoded, (rle_t, rle_l), paths
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2689,14 +3083,23 @@ def pass1_fns(algo, P, R):
             return keep.reshape(-1), st
         return kernel, plain
     if algo == "topn_pass1":
+        # the family each main-path caller takes: ops.topn_prune (S = 1,
+        # B > 1) the kernels' (the one-hot read, A27), the engine (B = 1) and
+        # ops.topn_prune_parallel (which drops pass 1's keep) the engine's
+        def family(S, B):
+            return "kernel" if S == 1 and B > 1 else "engine"
+
         def kernel(v, S, B):
             keep, st = P.topn_shard_states_kernel(v, shards=S, block=B,
+                                                  family=family(S, B),
                                                   **TOPN)
             return keep, (st,)
 
         def plain(v, S, B):
             keep, st = R.topn_block_ref(v.reshape(S, -1), block=B,
-                                        return_state=True, **TOPN)
+                                        return_state=True,
+                                        onehot=family(S, B) == "kernel",
+                                        **TOPN)
             return keep.reshape(-1), (st,)
         return kernel, plain
 
@@ -2774,6 +3177,7 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                 states[name + " ops"] = (keep, st)
             # the full-size run above was the warm-up
             ms = event_ms(lambda: kernel(v, S, B), 5, warm=False)
+            device_ms = queued_ms(lambda: kernel(v, S, B), 10)
             in_bytes = v.numel() * v.element_size()
             io_ms = bytes_ms(in_bytes + m + state_bytes(S))
             if name == "distinct_pass1" and B == 1:
@@ -2790,7 +3194,8 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
                                         clock_hz)
             steps = m // (S * B)
             line = dict(kernel=row, path=json.dumps(path), S=S, B=B, ms=ms,
-                        compared_entries=n, bound_ms=bound, bound_by=by,
+                        device_ms=device_ms, compared_entries=n,
+                        bound_ms=bound, bound_by=by,
                         chain_steps=steps, step_us=ms * 1e3 / steps,
                         kept=int(keep.sum()))
             pending.append((name, row, S, B, pairs, line,
@@ -2839,7 +3244,33 @@ def phase_timing(torch, P, R, table, rankings, pts, totals, clock_hz,
     lru = time_lru(torch, P, R, fs, totals, clock_hz, host)
     rle_row = time_rle(torch, *rle, totals)
     time_decode(torch, encoded)
+    rows.append(time_topn_fixup(torch, P, R, xs, totals))
+    a27_host_check(torch, P, host)
     return pass1_rows(pending, totals, host) + rows + [lru, rle_row]
+
+
+def time_topn_fixup(torch, P, R, xs, totals):
+    """The kernels' family's fix-up (topn_onehot_fixup) on the main path's
+    column at S = 1, B = 256 (ops.topn_prune), where no row minimum is +inf
+    and it reads each lane's d minima and returns: against ref.onehot_keep
+    on the same direct keep, matrices and tinf; bound by the bytes of the
+    minima it must read."""
+    direct, st, tinf = topn_pass1_tinf(torch, P, xs, 1, 256)
+    fixed = direct.clone()
+    P.topn_onehot_fixup(fixed, st, tinf, shards=1, d=TOPN["d"], block=256)
+    want, plain_s = sync_time(lambda: R.onehot_keep(
+        direct.view(1, -1), st, tinf.view(1, -1).to(torch.int64),
+        d=TOPN["d"], block=256).reshape(-1))
+    err = max_abs_err([(fixed, want)])
+    check(err == 0.0, "topn_onehot_fixup on the main path's column")
+    ms = event_ms(lambda: P.topn_onehot_fixup(fixed, st, tinf, shards=1,
+                                              d=TOPN["d"], block=256), 20)
+    dev = queued_ms(lambda: P.topn_onehot_fixup(fixed, st, tinf, shards=1,
+                                                d=TOPN["d"], block=256), 50)
+    say("timing", kernel="topn_onehot_fixup", S=1, B=256, ms=ms,
+        queued_ms=dev, plain_ms=plain_s * 1e3)
+    return _row("topn_onehot_fixup", totals, err, ms, plain_s * 1e3,
+                bytes_ms(TOPN["d"] * 4), "bytes")
 
 
 def pass1_rows(pending, totals, host):
@@ -4257,6 +4688,9 @@ SOURCES = {
     # topn_pass1 at B > 1 while the lanes fill few SMs (use_block_walk)
     "topn_pass1_block_walk": ("src/repro_torch/kernels/csrc/topn.cu",
                               "src/repro/kernels/topn_prune.py:49"),
+    # the kernels' family of TOP-N pass 1: the keep of the one-hot read
+    "topn_onehot_fixup": ("src/repro_torch/kernels/csrc/topn.cu",
+                          "src/repro/kernels/topn_prune.py:34"),
 }
 
 
@@ -4317,11 +4751,13 @@ def main() -> int:
     # kernels; they are stopped however the phases end
     host = HostPlain(torch, P, R)
     try:
-        timed("kernels", phase_kernels, torch, P, R, O)
+        timed("kernels", phase_kernels, torch, P, R, O, host)
         timed("dtypes", phase_dtypes, torch, P)
         say("host", plain_loops_done=host.done())
-        table, rankings, pts, totals, encoded, rle = timed(
+        table, rankings, pts, totals, encoded, rle, paths = timed(
             "main", phase_main, torch, P, O)
+        sbytes = timed("planner", phase_planner, torch, table)
+        timed("obs", phase_obs, torch, paths, sbytes)
         timed("subnormals", phase_subnormals, torch, P, R, table)
         rows = timed("timing", phase_timing, torch, P, R, table, rankings,
                      pts, totals, clock_hz, encoded, rle, host)

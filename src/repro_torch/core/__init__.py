@@ -27,8 +27,17 @@ from .having import (having_init, having_prune, master_complete_having,
                      having_oracle)
 from .encoding import (DictEncoding, dict_encode, normalize_encodings,
                        rle_encode, rle_expand)
-from .engine import (ALGORITHMS, DECODE_MODES, MODES, PASS2, DistinctMerged,
-                     TopNDetMerged, apply_merged, engine_prune, merge_states,
-                     shard_stack, unshard_mask)
+from .engine import (ALGORITHMS, MODES, PASS2, DistinctMerged,
+                     TopNDetMerged, apply_merged, calibrate_merge_cost,
+                     engine_prune, merge_states, reset_caches, shard_stack,
+                     unshard_mask)
+from .planner import (SwitchProfile, ResourceFootprint, footprint,
+                      pack_queries, rule_count, PackingPlan,
+                      MultiSwitchPlan, plan_multi_switch, optimal_shards,
+                      optimal_pass2, pass2_time, MEASURED_MERGE_COSTS,
+                      QueryBatchPlan, plan_query_batch,
+                      RESIDENT_OVERHEAD_ENTRIES, optimal_merge_interval,
+                      DEFAULT_STALENESS_RATE)
+from .options import DECODE_MODES, ExecOptions
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -36,6 +36,13 @@ one ``lut[code]`` gather at entry, and tail pads become codes that decode to
 the plain fills, so masks are bit-identical to the decoded streams'.
 ``decode="eager"`` decodes up front instead.
 
+``options=`` takes an ``ExecOptions`` bundle of the knobs, ``shards="auto"``
+sizes S by the planner's T(S) = m/S + c·S·state_bytes with the merge cost
+c measured once per algorithm and signature on the streams' device
+(``calibrate_merge_cost``), and ``obs=`` attaches an ``ExecReport`` to the
+result (counters from the materialised mask, wall-clock spans in
+``"trace"`` mode); no instrument touches a kernel's input or output.
+
 Ported so far: all six algorithms (``topn_det``, ``topn_rand``,
 ``distinct`` with ``policy="lru"`` or ``"fifo"``, ``skyline``, ``having``,
 ``groupby``) in ``scan``, ``sharded`` and ``two_pass``, plain or encoded.
@@ -43,8 +50,10 @@ Ported so far: all six algorithms (``topn_det``, ``topn_rand``,
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ..constants import NEG
@@ -55,10 +64,13 @@ from ..kernels.common import amax_f32, flush_subnormals
 from ..kernels.groupby_scan import groupby_pass1_kernel
 from ..kernels.ops import _pad_to, first_value
 from ..kernels.topn_det_scan import pow2, topn_det_pass1_kernel
+from ..obs import report as obsreport
+from . import planner
 from .distinct import DistinctState
 from .encoding import as_x32, normalize_encodings
 from .groupby import GroupByState
 from .hashing import by_value
+from .options import ExecOptions
 from .pruning import PruneResult
 from .skyline import SkylineState
 from .sketches import CountMin
@@ -68,7 +80,6 @@ MODES = ("scan", "sharded", "two_pass", "mesh")
 ALGORITHMS = ("topn_det", "topn_rand", "distinct", "skyline", "groupby",
               "having")
 PASS2 = ("master", "mesh", "auto")
-DECODE_MODES = ("auto", "late", "eager")
 
 
 @dataclasses.dataclass
@@ -166,7 +177,7 @@ def _topn_rand_pass1(lanes, p):
     S = x.shape[0]
     keep, vals = kpar.topn_shard_states_kernel(
         x.reshape(-1).to(torch.float32).contiguous(), d=p["d"], w=p["w"],
-        shards=S, block=1, seed=p.get("seed", 0))
+        shards=S, block=1, seed=p.get("seed", 0), family="engine")
     return keep.reshape(x.shape), TopNRandState(vals=vals), None
 
 
@@ -465,18 +476,157 @@ def apply_merged(algo: str, merged, shard_streams, keep1, **params):
                                      params)
 
 
-def _reject_unported(options, mesh, tune, plan_cache, obs) -> None:
-    if options is not None:
-        raise _not_ported("options= (ExecOptions)", "Queue 1 item 6")
+def _state_nbytes(state) -> int:
+    """Bytes of a state's tensor fields (its static fields, such as
+    ``CountMin.seed``, are not state), as the JAX package counts the leaves
+    of a state pytree."""
+    return sum(int(v.nbytes) for v in (getattr(state, f.name) for f in
+                                       dataclasses.fields(state))
+               if isinstance(v, torch.Tensor))
+
+
+def _obs_mask_counts(rec, keep: torch.Tensor, m: int, *,
+                     encoded: bool = False) -> None:
+    """Feed the per-call mask counters from the materialised keep mask
+    (bool[m]): one sum and one host read of the count."""
+    scanned = int(m)
+    rec.count("entries_scanned", scanned)
+    kept = int(rec.sync(keep).reshape(-1)[:m].sum())
+    rec.count("entries_kept", kept)
+    if encoded and scanned:
+        # pruning on codes: only the survivors are ever decoded
+        rec.count("decode_skipped_ratio", 1.0 - kept / scanned)
+
+
+# ------------------------------------------------------ adaptive S choice
+# (algo, stream signature, scalar params, device) -> (merge cost c, per-lane
+# state bytes). c is in the planner's units: the master's cost of folding
+# one shipped state byte, in per-entry stream work, so that
+# T(S) = m/S + c·S·state_bytes.
+_CALIBRATION: dict[tuple, tuple[float, int]] = {}
+
+_PROBE_SHARDS = 4
+_PROBE_N = 256  # entries a probe lane
+
+
+def _calibration_key(algo: str, streams, params: dict) -> tuple:
+    """The key of ``_CALIBRATION``: dtypes by their numpy names, trailing
+    shapes, the scalar params and the device."""
+    return (algo,
+            tuple((str(s.dtype).removeprefix("torch."), tuple(s.shape[1:]))
+                  for s in streams),
+            tuple(sorted((k, v) for k, v in params.items()
+                         if isinstance(v, (int, float, str, bool)))),
+            str(streams[0].device))
+
+
+def _probe_streams(streams) -> tuple:
+    """Small streams of the real dtypes and trailing shapes on the streams'
+    device, made from the shapes alone with ``np.random.default_rng(0)``, as
+    the JAX package makes its probes."""
+    rng = np.random.default_rng(0)
+    m = _PROBE_SHARDS * _PROBE_N
+    out = []
+    for s in streams:
+        shape = (m,) + tuple(s.shape[1:])
+        if s.dtype.is_floating_point:
+            a = torch.from_numpy(
+                (rng.random(shape) * 100 + 1).astype(np.float32)).to(s.dtype)
+        elif s.dtype == torch.bool:
+            a = torch.ones(shape, dtype=torch.bool)
+        else:
+            a = torch.from_numpy(rng.integers(1, 1000, shape)).to(s.dtype)
+        out.append(a.to(s.device))
+    return tuple(out)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _time_us(fn, device: torch.device) -> float:
+    """The median of three timed calls of ``fn`` after a warm one, in µs,
+    the device synchronised before each clock read."""
+    fn()
+    times = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e6)
+    return sorted(times)[1]
+
+
+def calibrate_merge_cost(algo: str, streams, params: dict
+                         ) -> tuple[float, int]:
+    """Measure the merge cost of ``algo`` once; cached per signature.
+
+    Runs pass 1 over _PROBE_SHARDS lanes of _PROBE_N probe entries on the
+    streams' device, times (a) the one-lane pass 1 over all the probe
+    entries and (b) the merge of the lanes' states, with the port's own
+    kernels, and returns (c, state_bytes): c the measured merge cost per
+    shipped state byte in per-entry units (``planner.optimal_shards``'s
+    constant), state_bytes one lane's state. The result is recorded in
+    ``planner.MEASURED_MERGE_COSTS`` too."""
+    key = _calibration_key(algo, streams, params)
+    if key in _CALIBRATION:
+        return _CALIBRATION[key]
+    spec = _spec(algo, params)
+    probes = _probe_streams(streams)
+    lanes = tuple(shard_stack(p, _PROBE_SHARDS) for p in probes)
+    _, stacked, _ = spec.pass1(lanes, params)
+    state_bytes = _state_nbytes(stacked) // _PROBE_SHARDS
+    dev = probes[0].device
+    flat = tuple(p[None] for p in probes)
+    us_scan = _time_us(lambda: spec.pass1(flat, params), dev)
+    us_merge = _time_us(lambda: spec.merge(stacked, params), dev)
+    per_entry = max(us_scan / (_PROBE_SHARDS * _PROBE_N), 1e-9)
+    c = (us_merge / max(_PROBE_SHARDS * state_bytes, 1)) / per_entry
+    _CALIBRATION[key] = (c, state_bytes)
+    planner.MEASURED_MERGE_COSTS[algo] = c
+    return c, state_bytes
+
+
+def _resolve_shards(algo: str, streams, params: dict, mode: str,
+                    shards) -> int:
+    """Turn shards=None / "auto" into a lane count for ``mode``: None is 8
+    (capped at m), "auto" is 1 for ``scan`` and else the planner's
+    ``optimal_shards`` over the calibrated merge cost, capped at m. An int
+    passes through (``engine_prune`` checks it)."""
+    m = streams[0].shape[0]
+    if isinstance(shards, int):
+        return shards
+    if shards is None:
+        return min(8, m)
+    if shards != "auto":
+        raise ValueError(
+            f"shards must be an int, None or 'auto', got {shards!r}")
+    if mode == "scan":
+        return 1
+    c, state_bytes = calibrate_merge_cost(algo, streams, params)
+    s = planner.optimal_shards(m, state_bytes, merge_byte_cost=c)
+    return max(1, min(s, m))
+
+
+def reset_caches() -> None:
+    """Forget the merge-cost calibration and the planner's mirror of it
+    (tests reset them between cases, so no plan depends on which test
+    calibrated first)."""
+    _CALIBRATION.clear()
+    planner.MEASURED_MERGE_COSTS.clear()
+
+
+def _reject_unported(mesh, tune, plan_cache) -> None:
     if mesh is not None:
         raise _not_ported("mesh=", "Queue 1 item 7: mesh mode")
-    if tune not in (None, "off") or plan_cache is not None:
+    if tune != "off" or plan_cache is not None:
         raise _not_ported("tune= / plan_cache=", "Queue 1 item 11: tuning")
-    if obs not in (None, "off"):
-        raise _not_ported(f"obs={obs!r}", "Queue 1 item 12: telemetry")
 
 
-def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
+def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
+                 mode: str | None = None,
                  shards: int | str | None = None, mesh=None,
                  mesh_axis: str = "shards", apply_block: int | None = None,
                  pass2: str | None = None, tune: str | None = None,
@@ -494,9 +644,25 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
     ``(keys[0], 0, False)`` for GROUP BY, which appends an all-True validity
     column when it was given none).
 
-    shards: lane count S (``None``: 8, capped at m). apply_block: chunk
-    size of the DISTINCT and SKYLINE pass-2 filters; the mask is the same
-    with or without it.
+    shards: lane count S (``None``: 8, capped at m; ``"auto"``: 1 for
+    ``scan``, else the planner's argmin of T(S) = m/S + c·S·state_bytes with
+    the merge cost c measured once per algorithm and signature,
+    ``calibrate_merge_cost``). apply_block: chunk size of the DISTINCT and
+    SKYLINE pass-2 filters; the mask is the same with or without it.
+
+    options: an ``ExecOptions`` bundling mode / shards / pass2 /
+    apply_block / tune / plan_cache / decode / obs; the keyword arguments
+    keep working, and a conflict warns (``options=`` wins).
+
+    obs: the telemetry level (``"off"`` / ``"counters"`` / ``"trace"``,
+    default ``repro_torch.obs.default_level()``, normally ``"counters"``).
+    Above ``"off"`` the result's ``report`` is an ``ExecReport``: entries
+    scanned and kept, the prune ratio, merge collectives and the bytes of
+    the stacked pass-1 states shipped to the master, the share of an
+    encoded stream never decoded; ``"trace"`` adds wall-clock spans (scan,
+    pass1, gather_merge, pass2_apply) to ``repro_torch.obs.TRACER``, the
+    card synchronised at each span's end. The counters read the finished
+    mask, so the mask is bit-identical at every level.
 
     Returns a PruneResult whose keep mask is over the original m entries.
     state is the final scan state (``scan``), the stacked per-shard states
@@ -509,15 +675,24 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
     codes and every body decodes them at entry, so the keep mask is
     bit-identical to pruning the decoded streams. ``decode="eager"`` decodes
     them up front; ``"auto"`` / ``"late"`` (the default) prune on codes.
+
+    Not ported yet, and refused naming their ROADMAP item: ``mode="mesh"``,
+    ``mesh=`` and ``pass2`` other than ``"master"`` (item 7), ``tune=`` and
+    ``plan_cache=`` (item 11), scan resume ``state=`` / ``index_offset=``
+    (item 9).
     """
     del mesh_axis
-    _reject_unported(options, mesh, tune, plan_cache, obs)
-    decode = "auto" if decode is None else decode
-    if decode not in DECODE_MODES:
-        raise ValueError(f"decode must be one of {DECODE_MODES}, "
-                         f"got {decode!r}")
-    mode = "scan" if mode is None else mode
-    pass2 = "master" if pass2 is None else pass2
+    opts = ExecOptions.resolve(options, mode=mode, shards=shards,
+                               pass2=pass2, apply_block=apply_block,
+                               tune=tune, plan_cache=plan_cache,
+                               decode=decode, obs=obs)
+    mode = opts.mode if opts.mode is not None else "scan"
+    shards = opts.shards
+    pass2 = opts.pass2 if opts.pass2 is not None else "master"
+    apply_block = opts.apply_block
+    decode = opts.decode if opts.decode is not None else "auto"
+    _reject_unported(mesh, opts.tune if opts.tune is not None else "off",
+                     opts.plan_cache)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "mesh":
@@ -542,24 +717,24 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
     if any(s.shape[0] != m for s in streams):
         raise ValueError(f"{algo}: streams of unequal length "
                          f"{[s.shape[0] for s in streams]}")
-    if shards == "auto":
-        raise _not_ported("shards='auto'", "Queue 1 item 6: analytic "
-                          "planner")
-    if shards is None:
-        shards = min(8, m)
-    elif not isinstance(shards, int):
-        raise ValueError(
-            f"shards must be an int, None or 'auto', got {shards!r}")
+    shards = _resolve_shards(algo, streams, params, mode, shards)
+    rec = obsreport.recorder("engine_prune", opts.obs)
+    if rec.active:
+        rec.annotate(algo=algo, mode=mode, shards=shards, m=int(m),
+                     encoded=encoded)
 
     if mode == "scan" or shards <= 1:
         if encoded:
             spec = _encoded_spec(algo, spec, _padded_encodings(
                 algo, spec, encs, streams, params))
-        keep, st, ev = spec.pass1(
-            tuple(s.contiguous()[None] for s in streams), params)
-        return PruneResult(keep=keep[0], state=_lane(st, 0),
-                           emitted=None if ev is None
-                           else tuple(e[0] for e in ev))
+        with rec.span("scan", m=int(m)):
+            keep, st, ev = spec.pass1(
+                tuple(s.contiguous()[None] for s in streams), params)
+            rec.sync(keep)
+        res = PruneResult(keep=keep[0], state=_lane(st, 0),
+                          emitted=None if ev is None
+                          else tuple(e[0] for e in ev))
+        return _finish(rec, res, m, encoded)
     if shards > m:
         raise ValueError(f"shards={shards} exceeds stream length {m}")
     if m % shards and spec.pad_validity and len(streams) < 3:
@@ -574,18 +749,38 @@ def engine_prune(algo: str, *streams, options=None, mode: str | None = None,
     fills = (spec.pads(streams, params) if m % shards
              else (0,) * len(streams))
     lanes = tuple(shard_stack(s, shards, f) for s, f in zip(streams, fills))
-    keep1, stacked, ev = spec.pass1(lanes, params)
+    with rec.span("pass1", mode=mode, shards=shards):
+        keep1, stacked, ev = spec.pass1(lanes, params)
+        rec.sync(stacked)
     # emissions are switch->master traffic, not per-entry masks: keep the
     # full padded length, since a tail pad can evict a real partial
     emitted = None if ev is None else tuple(e.reshape(-1) for e in ev)
     if mode == "sharded" and not spec.sharded_needs_merge:
-        return PruneResult(keep=_unshard(keep1, m), state=stacked,
-                           emitted=emitted)
-    merged = spec.merge(stacked, params)
-    if apply_block and spec.chunkable and apply_block < lanes[0].shape[1]:
-        keep2 = _apply_chunked(spec.apply, spec.pads, merged, lanes, keep1,
-                               params, apply_block)
-    else:
-        keep2 = spec.apply(merged, lanes, keep1, params)
-    return PruneResult(keep=_unshard(keep2, m), state=merged,
-                       emitted=emitted)
+        return _finish(rec, PruneResult(keep=_unshard(keep1, m),
+                                        state=stacked, emitted=emitted),
+                       m, encoded)
+    if rec.active:
+        # the stacked pass-1 states are what crosses the wire to the
+        # master: S lanes x one lane's state bytes
+        rec.count("merge_collective_count", 1)
+        rec.count("state_bytes_shipped", _state_nbytes(stacked))
+    with rec.span("gather_merge", shards=shards):
+        merged = rec.sync(spec.merge(stacked, params))
+    with rec.span("pass2_apply", apply_block=apply_block or 0):
+        if apply_block and spec.chunkable \
+                and apply_block < lanes[0].shape[1]:
+            keep2 = _apply_chunked(spec.apply, spec.pads, merged, lanes,
+                                   keep1, params, apply_block)
+        else:
+            keep2 = spec.apply(merged, lanes, keep1, params)
+        rec.sync(keep2)
+    return _finish(rec, PruneResult(keep=_unshard(keep2, m), state=merged,
+                                    emitted=emitted), m, encoded)
+
+
+def _finish(rec, res: PruneResult, m: int, encoded: bool) -> PruneResult:
+    """Attach the call's ExecReport (mask counters, then ``finish``)."""
+    if rec.active:
+        _obs_mask_counts(rec, res.keep, m, encoded=encoded)
+        res.report = rec.finish()
+    return res

@@ -26,6 +26,10 @@ class PruneResult:
     state: Any = None
     emitted: Any = None
 
+    # telemetry (repro_torch.obs.ExecReport), attached by the engine's entry
+    # points; a class attribute, not a field, as in the JAX package
+    report = None
+
     @property
     def pruned_fraction(self) -> torch.Tensor:
         return 1.0 - self.keep.to(torch.float32).mean()

@@ -70,8 +70,13 @@ def cms_build(keys: torch.Tensor, weights: torch.Tensor | None, rows: int,
 
     table = cms_build_kernel(keys.contiguous(), None if weights is None
                              else weights.contiguous(), rows=rows,
-                             width=width, seed=seed, family="engine")
-    return CountMin(table=table[0], seed=seed)
+                             width=width, seed=seed, family="engine")[0]
+    if table.is_floating_point():
+        # the reference adds each row's scatter into a table of +0, which
+        # reads a sum flushed to -0 as +0 (in its jitted engine XLA drops
+        # some of those adds: ROADMAP Queue 3 A29)
+        table = table + 0.0
+    return CountMin(table=table, seed=seed)
 
 
 def cms_query(s: CountMin, keys: torch.Tensor, threshold=None) -> torch.Tensor:

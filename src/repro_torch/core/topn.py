@@ -49,7 +49,7 @@ def topn_rand_prune(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
             "ROADMAP Queue 1 item 9 (streaming)")
     keep, states = topn_shard_states_kernel(
         values.to(torch.float32).contiguous(), d=d, w=w, shards=1, block=1,
-        seed=seed)
+        seed=seed, family="engine")
     return PruneResult(keep=keep, state=TopNRandState(states[0]))
 
 

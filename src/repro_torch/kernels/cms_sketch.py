@@ -32,9 +32,12 @@ integer-valued weights into an int32 shadow partial, since an f32 shared
 add is a compare-and-swap loop on Hopper. The layout is the C side's
 alone; ``build_plan`` asks it. ``cms_build_atomic`` is the kernel it
 replaced, kept for ``chip_smoke.py``'s witness. A float16 table takes a
-kernel of its own, a walk (``cms_build_f16``: each (row, lane) on one CTA,
-each chunk of keys sorted by column in shared memory, each column's run
-added in entry order), since f16 adds do not associate.
+kernel of its own, a walk (``cms_build_walk`` in f16: each (row, lane) on
+one CTA, each chunk of keys sorted by column in shared memory, each
+column's run added in entry order), since f16 adds do not associate. An
+f32 build whose weights take both signs is rebuilt by the same walk in f32
+after the partial build (which flags the signs), since its flushed sums do
+not associate either (ROADMAP Queue 3 A28; ``_f32_sums``).
 
 The CUDA query (``cms_query``) is persistent: as many CTAs as the SMs
 hold, each with the table staged in its shared memory (a table above the
@@ -152,20 +155,49 @@ def cms_build_plain(keys: torch.Tensor, weights: torch.Tensor | None, *,
         acc.index_add_(0, cell, w.repeat_interleave(rows)[hit])
         table = wrap_to(acc, dtype)
     elif dtype == torch.float32:
-        # XLA's f32 scatter-add flushes subnormal weights and sums (A25).
-        # Here the sums are flushed once, at the end; XLA flushes after
-        # each add, as the card does (--ftz), so a cell whose partial sum
-        # of normal weights of both signs passes below FLT_MIN departs
-        # (ROADMAP Queue 3 A28: [1.5, -1, 1] * FLT_MIN on one key gives
-        # 1.5 * FLT_MIN here, FLT_MIN there)
-        table = torch.zeros(size, dtype=dtype, device=dev)
-        table.index_add_(0, cell,
-                         flush_subnormals(weights).repeat_interleave(rows)[hit])
-        table = flush_subnormals(table)
+        table = _f32_sums(cell, flush_subnormals(weights).repeat_interleave(
+            rows)[hit], size)
     else:
         table = torch.zeros(size, dtype=dtype, device=dev)
         table.index_add_(0, cell, weights.repeat_interleave(rows)[hit])
     return table.reshape(shards, rows, width)
+
+
+def _f32_sums(cell: torch.Tensor, w: torch.Tensor, size: int) -> torch.Tensor:
+    """f32 counters of the flushed weights ``w`` added into cells ``cell``
+    (in entry order), as XLA's scatter-add adds them: in entry order, each
+    sum flushed when it is subnormal (A25). A cell whose weights take one
+    sign never holds a subnormal sum (a sum of normals of one sign is at
+    least each of them), so one ``index_add_`` gives it. A cell that takes
+    both signs can pass below FLT_MIN (ROADMAP Queue 3 A28: [1.5, -1, 1] *
+    FLT_MIN on one key reads FLT_MIN, not 1.5 * FLT_MIN), so its weights
+    are added one at a time in entry order, a flush after each: round k
+    adds the k-th weight of every such cell. A sum flushed below zero
+    stays -0 here; ``core.sketches.cms_build`` adds the table to +0, as the
+    reference's eager build does (its jitted build leaves that sign to
+    XLA's simplifier, ROADMAP Queue 3 A29)."""
+    dev = cell.device
+    table = torch.zeros(size, dtype=torch.float32, device=dev)
+    pos = torch.zeros(size, dtype=torch.bool, device=dev)
+    neg = torch.zeros(size, dtype=torch.bool, device=dev)
+    pos[cell[w > 0]] = True
+    neg[cell[w < 0]] = True
+    mixed = (pos & neg)[cell]
+    table.index_add_(0, cell[~mixed], w[~mixed])
+    if bool(mixed.any()):
+        mc, mw = cell[mixed], w[mixed]
+        order = torch.sort(mc, stable=True).indices
+        mc, mw = mc[order], mw[order]
+        first = torch.ones_like(mc, dtype=torch.bool)
+        first[1:] = mc[1:] != mc[:-1]
+        start = torch.cummax(torch.where(
+            first, torch.arange(mc.numel(), device=dev), 0), 0).values
+        rank = torch.arange(mc.numel(), device=dev) - start
+        for k in range(int(rank.max()) + 1):
+            at = rank == k
+            c = mc[at]
+            table[c] = flush_subnormals(table[c] + mw[at])
+    return table
 
 
 @lru_cache(maxsize=None)
@@ -238,9 +270,10 @@ def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
     table = (torch.empty if staged else torch.zeros)(
         (shards, rows, width), dtype=_C_TABLES[ttype], device=dev)
     if m:
-        nbytes = (build_plan(dev, shards, n, rows, width, ttype)[2]
-                  if ttype < 2 else 0)
-        work = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=dev)
+        # the plan's workspace, and 16 bytes for an f32 build's sign flags
+        nbytes = (-(-build_plan(dev, shards, n, rows, width, ttype)[2] // 16)
+                  * 16 + 16 if ttype < 2 else 16)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         CMS_BUILD.launch(dev, ptr(k), None if w is None else ptr(w),
                          ptr(table), ptr(work), shards, n, rows, width,
                          seed & 0xFFFFFFFF, fam, ttype)

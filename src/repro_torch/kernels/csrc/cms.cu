@@ -68,7 +68,8 @@
 // itself a rounding of the exact sum, but 24 >= 2 * 11 + 2 bits make that
 // double rounding innocuous (Figueroa's bound for + in binary formats), so
 // it equals the correctly rounded f16 sum, which is what __hadd gives. The
-// adds do not associate, so cms_build_f16 is a walk and not a reduction:
+// adds do not associate, so the f16 build is a walk (cms_build_walk<__half>)
+// and not a reduction:
 // one CTA a (row, lane) takes the lane's keys in chunks of CMS_F16_CHUNK,
 // sorts each chunk in shared memory by (column, position) with a bitonic
 // network (the position in the key keeps equal columns in entry order),
@@ -77,6 +78,15 @@
 // Each counter has one writer a chunk and the chunks go in order, so no
 // atomics are needed. Its chain is the hottest counter's entries, one
 // dependent f16 add each.
+//
+// An f32 table's adds flush (--ftz=true, as XLA's do), so they do not
+// associate either once a sum can pass below FLT_MIN, which takes weights
+// of both signs in one counter (ROADMAP Queue 3 A28). The partial build
+// flags the signs of an f32 build's weights (one vote a CTA), and the same
+// walk in f32 (cms_build_walk<float>) follows it: it returns at once unless
+// the weights take both signs, and then builds every counter in entry
+// order, a flush after each add, as the reference's scatter-add and the
+// plain build add. Weights of one sign keep the partial build.
 //
 // Hash family at run time: 0 is the Pallas kernels'
 // hash_mod(key, width, seed + 101 r) on uint32 lanes, 2 the same on an int32
@@ -192,7 +202,7 @@ __global__ void __launch_bounds__(CMS_THREADS, 2)
                       const T* __restrict__ weights, T* __restrict__ table,
                       T* __restrict__ work, long long shard_len, int rows,
                       int width, uint32_t seed, int family, int staged,
-                      float shadow) {
+                      float shadow, unsigned* __restrict__ signs) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* st = reinterpret_cast<T*>(smem);
   const int cells = rows * width;
@@ -210,6 +220,9 @@ __global__ void __launch_bounds__(CMS_THREADS, 2)
   }
   const uint32_t wmask = (width & (width - 1)) == 0 ? width - 1 : 0u;
   const long long per_round = static_cast<long long>(CMS_THREADS) * CMS_UNROLL;
+  // the signs of this thread's weights, as their least and greatest (with
+  // two bool ORs in their place the f32 build took 1.6x as long, PERF.md)
+  float wmin = 0.0f, wmax = 0.0f;
   for (long long r0 = blockIdx.x * per_round; r0 < shard_len;
        r0 += ctas * per_round) {
     uint32_t k[CMS_UNROLL];
@@ -226,6 +239,10 @@ __global__ void __launch_bounds__(CMS_THREADS, 2)
       const long long i = r0 + u * CMS_THREADS + threadIdx.x;
       if (i >= shard_len) continue;
       const T s = v[u];
+      if constexpr (!std::is_integral<T>::value) {
+        wmin = fminf(wmin, static_cast<float>(s));  // a subnormal reads 0
+        wmax = fmaxf(wmax, static_cast<float>(s));
+      }
       // an integer-valued f32 weight goes to the int32 shadow
       const bool as_int = use_shadow && static_cast<float>(s) == truncf(
           static_cast<float>(s)) && fabsf(static_cast<float>(s)) <= shadow;
@@ -238,6 +255,12 @@ __global__ void __launch_bounds__(CMS_THREADS, 2)
           atomicAdd(dst + r * width + c, s);
       }
     }
+  }
+  if (signs) {  // an f32 table's weights: which signs they take
+    const int any_neg = __syncthreads_or(wmin < 0.0f);
+    const int any_pos = __syncthreads_or(wmax > 0.0f);
+    if (threadIdx.x == 0 && (any_neg || any_pos))
+      atomicOr(signs, (any_neg ? 1u : 0u) | (any_pos ? 2u : 0u));
   }
   if (!staged) return;
   __syncthreads();
@@ -264,25 +287,37 @@ __global__ void cms_reduce(const T* __restrict__ work, T* __restrict__ table,
   }
 }
 
-// The f16 build (see the header): grid (rows, lanes), CMS_F16_THREADS
-// threads. ``staged``: the row is built in shared memory and written out
-// once; else it is built in the output, which the caller has zeroed.
+// The entry-order walk (see the header): grid (rows, lanes),
+// CMS_F16_THREADS threads. ``staged``: the row is built in shared memory
+// and written out once; else it is built in the output, which the caller
+// has zeroed (f16), or which the walk zeroes (f32, over the partial
+// build's sums). T is __half (the f16 build, each add rounded to f16) or
+// float (each add flushed, --ftz=true). ``go``: null (f16), or the sign
+// flags of an f32 build's weights (cms_build_partial): the walk runs only
+// when they take both signs (3), and the CTA returns at once otherwise.
+__device__ __forceinline__ __half walk_add(__half a, __half b) {
+  return __hadd(a, b);
+}
+__device__ __forceinline__ float walk_add(float a, float b) { return a + b; }
+
+template <typename T>
 __global__ void __launch_bounds__(CMS_F16_THREADS)
-    cms_build_f16(const uint32_t* __restrict__ keys,
-                  const __half* __restrict__ weights, __half* __restrict__ table,
-                  long long shard_len, int rows, int width, uint32_t seed,
-                  int family, int staged) {
+    cms_build_walk(const uint32_t* __restrict__ keys,
+                   const T* __restrict__ weights, T* __restrict__ table,
+                   long long shard_len, int rows, int width, uint32_t seed,
+                   int family, int staged, const unsigned* __restrict__ go) {
+  if (go && *go != 3u) return;
   extern __shared__ __align__(16) unsigned char smem[];
   auto* sk = reinterpret_cast<unsigned long long*>(smem);  // (col << 32) | i
-  __half* sw = reinterpret_cast<__half*>(sk + CMS_F16_CHUNK);
-  __half* st = sw + CMS_F16_CHUNK;
+  T* sw = reinterpret_cast<T*>(sk + CMS_F16_CHUNK);
+  T* st = sw + CMS_F16_CHUNK;
   const int r = blockIdx.x;
   const int t = threadIdx.x;
   const long long base = static_cast<long long>(blockIdx.y) * shard_len;
-  __half* out = table + (static_cast<long long>(blockIdx.y) * rows + r) * width;
-  __half* row = staged ? st : out;
-  if (staged)
-    for (int c = t; c < width; c += CMS_F16_THREADS) row[c] = __float2half(0.0f);
+  T* out = table + (static_cast<long long>(blockIdx.y) * rows + r) * width;
+  T* row = staged ? st : out;
+  if (staged || go)
+    for (int c = t; c < width; c += CMS_F16_THREADS) row[c] = T(0.0f);
   const uint32_t wmask = (width & (width - 1)) == 0 ? width - 1 : 0u;
   const unsigned long long none = ~0ull;  // padding and dropped probes
   for (long long c0 = 0; c0 < shard_len; c0 += CMS_F16_CHUNK) {
@@ -323,9 +358,9 @@ __global__ void __launch_bounds__(CMS_F16_THREADS)
       if (k == none) continue;
       const unsigned col = static_cast<unsigned>(k >> 32);
       if (i > 0 && static_cast<unsigned>(sk[i - 1] >> 32) == col) continue;
-      __half acc = row[col];
+      T acc = row[col];
       for (int j = i; j < n && static_cast<unsigned>(sk[j] >> 32) == col; ++j)
-        acc = __hadd(acc, sw[static_cast<unsigned>(sk[j])]);
+        acc = walk_add(acc, sw[static_cast<unsigned>(sk[j])]);
       row[col] = acc;
     }
   }
@@ -774,7 +809,7 @@ cudaError_t partial_launch(const uint32_t* keys, const void* weights,
                            void* table, void* work, int lanes,
                            long long shard_len, int rows, int width,
                            uint32_t seed, int family, const CmsPlan& plan,
-                           cudaStream_t stream) {
+                           unsigned* signs, cudaStream_t stream) {
   const int staged = cms_table_bytes(rows, width) <= CHEETAH_MAX_SMEM;
   cudaError_t err = cheetah_launch_prep(
       reinterpret_cast<const void*>(cms_build_partial<T, kWeights>),
@@ -784,7 +819,7 @@ cudaError_t partial_launch(const uint32_t* keys, const void* weights,
       <<<dim3(plan.ctas, lanes), CMS_THREADS, plan.smem, stream>>>(
           keys, static_cast<const T*>(weights), static_cast<T*>(table),
           static_cast<T*>(work), shard_len, rows, width, seed, family, staged,
-          plan.shadow);
+          plan.shadow, signs);
   err = cudaGetLastError();
   if (err != cudaSuccess || !staged || plan.ctas == 1) return err;
   const int cells = rows * width;
@@ -801,34 +836,38 @@ cudaError_t build_launch(const uint32_t* keys, const void* weights,
                          void* table, void* work, int lanes,
                          long long shard_len, int rows, int width,
                          uint32_t seed, int family, const CmsPlan& plan,
-                         cudaStream_t stream) {
+                         unsigned* signs, cudaStream_t stream) {
   if (weights)
     return partial_launch<T, 1>(keys, weights, table, work, lanes, shard_len,
-                                rows, width, seed, family, plan, stream);
+                                rows, width, seed, family, plan, signs,
+                                stream);
   return partial_launch<T, 0>(keys, weights, table, work, lanes, shard_len,
-                              rows, width, seed, family, plan, stream);
+                              rows, width, seed, family, plan, nullptr,
+                              stream);
 }
 
-// Shared memory of the f16 build: the chunk's sort keys and weights, and
-// the row when it fits beside them (else 0 for the row).
-size_t cms_f16_smem(int width, bool* staged) {
-  const size_t chunk = CMS_F16_CHUNK * (sizeof(unsigned long long) + 2);
-  *staged = chunk + static_cast<size_t>(width) * 2 <= CHEETAH_MAX_SMEM;
-  return chunk + (*staged ? static_cast<size_t>(width) * 2 : 0);
+// Shared memory of the entry-order walk: the chunk's sort keys and weights,
+// and the row when it fits beside them (else 0 for the row).
+size_t cms_walk_smem(int width, size_t tsize, bool* staged) {
+  const size_t chunk = CMS_F16_CHUNK * (sizeof(unsigned long long) + tsize);
+  *staged = chunk + static_cast<size_t>(width) * tsize <= CHEETAH_MAX_SMEM;
+  return chunk + (*staged ? static_cast<size_t>(width) * tsize : 0);
 }
 
-cudaError_t f16_launch(const uint32_t* keys, const void* weights, void* table,
-                       int lanes, long long shard_len, int rows, int width,
-                       uint32_t seed, int family, cudaStream_t stream) {
+template <typename T>
+cudaError_t walk_launch(const uint32_t* keys, const void* weights,
+                        void* table, int lanes, long long shard_len, int rows,
+                        int width, uint32_t seed, int family,
+                        const unsigned* go, cudaStream_t stream) {
   if (!weights) return cudaErrorInvalidValue;
   bool staged;
-  const size_t smem = cms_f16_smem(width, &staged);
+  const size_t smem = cms_walk_smem(width, sizeof(T), &staged);
   cudaError_t err = cheetah_launch_prep(
-      reinterpret_cast<const void*>(cms_build_f16), smem);
+      reinterpret_cast<const void*>(cms_build_walk<T>), smem);
   if (err != cudaSuccess) return err;
-  cms_build_f16<<<dim3(rows, lanes), CMS_F16_THREADS, smem, stream>>>(
-      keys, static_cast<const __half*>(weights), static_cast<__half*>(table),
-      shard_len, rows, width, seed, family, staged);
+  cms_build_walk<T><<<dim3(rows, lanes), CMS_F16_THREADS, smem, stream>>>(
+      keys, static_cast<const T*>(weights), static_cast<T*>(table),
+      shard_len, rows, width, seed, family, staged, go);
   return cudaGetLastError();
 }
 
@@ -850,26 +889,41 @@ extern "C" int cms_build_plan(int lanes, long long shard_len, int rows,
 
 // The output table: written whole where the table is staged in shared
 // memory, else added into (the caller zeroes it first). ``work`` holds
-// cms_build_plan's workspace bytes. ttype: 0 f32, 1 int32, 2 f16 (the f16
-// build, which takes no workspace).
+// cms_build_plan's workspace bytes rounded up to 16, and 16 bytes more for
+// an f32 build's sign flags. ttype: 0 f32, 1 int32, 2 f16 (the f16 walk,
+// which takes no workspace). An f32 build with weights runs the partial
+// build, which also flags the signs its weights take, then the f32 walk,
+// which returns at once unless they take both (ROADMAP Queue 3 A28: such a
+// cell's sums can pass below FLT_MIN, where each add flushes, so they must
+// come in entry order) and else builds the whole table in entry order.
 extern "C" int cms_build(const uint32_t* keys, const void* weights,
                          void* table, void* work, int lanes,
                          long long shard_len, int rows, int width,
                          uint32_t seed, int family, int ttype,
                          cudaStream_t stream) {
   if (ttype == 2)
-    return f16_launch(keys, weights, table, lanes, shard_len, rows, width,
-                      seed, family, stream);
+    return walk_launch<__half>(keys, weights, table, lanes, shard_len, rows,
+                               width, seed, family, nullptr, stream);
   const int is_int = ttype;
   CmsPlan plan;
-  const cudaError_t err = cms_plan(lanes, shard_len, rows, width, is_int,
-                                   &plan);
+  cudaError_t err = cms_plan(lanes, shard_len, rows, width, is_int, &plan);
   if (err != cudaSuccess) return err;
   if (is_int)
     return build_launch<int>(keys, weights, table, work, lanes, shard_len,
-                             rows, width, seed, family, plan, stream);
-  return build_launch<float>(keys, weights, table, work, lanes, shard_len,
-                             rows, width, seed, family, plan, stream);
+                             rows, width, seed, family, plan, nullptr,
+                             stream);
+  unsigned* signs = nullptr;
+  if (weights) {
+    signs = reinterpret_cast<unsigned*>(static_cast<unsigned char*>(work) +
+                                        ((plan.work + 15) & ~size_t(15)));
+    err = cudaMemsetAsync(signs, 0, sizeof(unsigned), stream);
+    if (err != cudaSuccess) return err;
+  }
+  err = build_launch<float>(keys, weights, table, work, lanes, shard_len,
+                            rows, width, seed, family, plan, signs, stream);
+  if (err != cudaSuccess || !weights) return err;
+  return walk_launch<float>(keys, weights, table, lanes, shard_len, rows,
+                            width, seed, family, signs, stream);
 }
 
 // The retired build, for holding the partial-table build against it;

@@ -61,6 +61,18 @@
 // almost every step; not device memory, which the ring keeps off the
 // chain (PERF.md).
 //
+// The kernels' family (ops.topn_prune, ops.topn_prune_parallel; the Pallas
+// kernels) reads an entry's row minimum by a one-hot product over the d
+// minima, so once a row's minimum is +inf every other row reads NaN and
+// keeps nothing, and once two rows' are, no row keeps (ROADMAP Queue 3
+// A27). Every form of pass 1 keeps by the direct read and, in that family,
+// writes tinf, the block of each row's last insert (a row whose minimum is
+// +inf took its last insert then); topn_onehot_fixup then rewrites the
+// keep of the blocks after the first such block of a lane. On a column
+// without +inf it reads each lane's d minima and returns. The engine's
+// family (B = 1, the reference's lax.scan) reads the minimum itself and
+// passes no tinf.
+//
 // topn_pass1_block_unstaged is the block kernel it replaced (each step
 // loaded its entry from device memory, bid every entry's order into a
 // candidate and passed over all d rows for the inserts). No entry point of
@@ -258,12 +270,16 @@ __device__ __forceinline__ void insert_sorted4(float* row, int w, float c) {
 // it beats the minimum it read (a NaN never does); a barrier. Once the rows
 // have filled few entries bid: a step is then the keep's shared load of
 // the row minimum, and the B entries' shared-memory traffic on one SM, not
-// one entry's latency, sets its time.
+// one entry's latency, sets its time. kTinf (the kernels' family): the
+// owner also records the chunk at which its row's minimum became +inf; a
+// template argument, since the same check made at run time on a null tinf
+// cost the engine's family 11 % on the device (PERF.md).
+template <bool kTinf>
 __global__ void __launch_bounds__(1024)
     topn_pass1_block(const float* __restrict__ x, uint8_t* __restrict__ keep,
                      float* __restrict__ states, int shard_len, int d, int w,
                      uint32_t seed, int cps, int stages, int ring_off,
-                     int slot) {
+                     int slot, unsigned* __restrict__ tinf) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* st = reinterpret_cast<float*>(smem);
   unsigned* cand = reinterpret_cast<unsigned*>(st + d * w);
@@ -301,6 +317,8 @@ __global__ void __launch_bounds__(1024)
         insert_sorted4(rowp, w, v);
       else
         insert_sorted(rowp, w, v);
+      if (kTinf && __float_as_uint(rowp[w - 1]) == 0x7F800000u)
+        tinf[static_cast<long long>(blockIdx.x) * d + row] = c;
     }
     __syncthreads();
     v = v1;
@@ -357,10 +375,13 @@ struct TopnGroup {
 // row's minimum (a NaN never does).
 template <typename Row>
 __device__ __forceinline__ void topn_close(Row& row, TopnGroup& g, int w,
-                                           int lane) {
+                                           int lane, unsigned& tl) {
   if (g.open) {
     const float c = cheetah_unordered(g.ord);
-    if (c > row.rmin) row.insert(c, w, lane);
+    if (c > row.rmin) {
+      row.insert(c, w, lane);
+      tl = g.blk;
+    }
     g.open = false;
   }
 }
@@ -368,10 +389,12 @@ __device__ __forceinline__ void topn_close(Row& row, TopnGroup& g, int w,
 // One window of n <= 32 entries of a B = 1 walk, entry e on lane e < n: a
 // step is one ballot; the first entry whose value beats the row's minimum
 // inserts, the entries before it keep iff value >= minimum, and the step
-// repeats from the next entry.
+// repeats from the next entry. tl: the block (here the shard-local index)
+// of the row's last insert.
 template <typename Row>
 __device__ __forceinline__ void topn_window(Row& row, uint2 e, int n, int w,
-                                            int lane,
+                                            int lane, int shard_len,
+                                            unsigned& tl,
                                             uint8_t* __restrict__ keep) {
   const float v = __uint_as_float(e.x);
   bool kp = false;
@@ -382,6 +405,8 @@ __device__ __forceinline__ void topn_window(Row& row, uint2 e, int n, int w,
     if (open && lane < first) kp = v >= row.rmin;
     if (first == n) break;
     row.insert(__shfl_sync(ROWPAR_FULL, v, first), w, lane);
+    tl = __shfl_sync(ROWPAR_FULL, e.y, first) %
+         static_cast<unsigned>(shard_len);
     if (lane == first) kp = true;
     done = first + 1;
   }
@@ -396,17 +421,19 @@ __device__ __forceinline__ void topn_window(Row& row, uint2 e, int n, int w,
 // block. A step is one ballot over the group ends past the last insert:
 // every entry up to the first end whose candidate beats the row's minimum
 // keeps iff value >= minimum (the row as it stood before its group), and
-// that candidate is inserted. The window's last group stays open.
+// that candidate is inserted. The window's last group stays open. tl: the
+// block of the row's last insert.
 template <typename Row>
 __device__ __forceinline__ void topn_block_window(
     Row& row, TopnGroup& g, uint2 e, int n, int w, int lane, int shard_len,
-    int block, uint8_t* __restrict__ keep) {
+    int block, unsigned& tl, uint8_t* __restrict__ keep) {
   const float v = __uint_as_float(e.x);
   const unsigned blk = lane < n
                            ? (e.y % static_cast<unsigned>(shard_len)) /
                                  static_cast<unsigned>(block)
                            : 0xFFFFFFFFu;
-  if (__shfl_sync(ROWPAR_FULL, blk, 0) != g.blk) topn_close(row, g, w, lane);
+  if (__shfl_sync(ROWPAR_FULL, blk, 0) != g.blk)
+    topn_close(row, g, w, lane, tl);
   unsigned o = lane < n ? topn_cand_ord(cheetah_ftz(v)) : 0u;
   if (g.open && blk == g.blk) o = max(o, g.ord);
 #pragma unroll
@@ -426,6 +453,7 @@ __device__ __forceinline__ void topn_block_window(
     if (lane >= done && lane <= last) kp = v >= row.rmin;
     if (!ins) break;
     row.insert(__shfl_sync(ROWPAR_FULL, c, last), w, lane);
+    tl = __shfl_sync(ROWPAR_FULL, blk, last);
     done = last + 1;
   }
   if (lane < n) keep[e.y] = kp;
@@ -438,12 +466,14 @@ __device__ __forceinline__ void topn_block_window(
 // starts[g + 1]) of the partitioned stream (value bits, index), loaded
 // through the cp.async ring of rowpar.cuh, the row in registers. kBlock:
 // block semantics (topn_block_window), else one entry at a time
-// (topn_window).
+// (topn_window). tinf (the kernels' family, else null): the block of each
+// segment's last insert, for topn_onehot_fixup.
 template <bool kBlock>
 __global__ void __launch_bounds__(ROWPAR_THREADS)
     topn_walk(const uint2* __restrict__ part, const int* __restrict__ starts,
               uint8_t* __restrict__ keep, float* __restrict__ states,
-              long long nseg, int w, int shard_len, int block) {
+              long long nseg, int w, int shard_len, int block,
+              unsigned* __restrict__ tinf) {
   __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
   const long long g =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -463,6 +493,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   for (int c = 0; c < ROWPAR_STAGES - 1; ++c) issue(c);
   TopnRegRow row;
   TopnGroup grp{false, 0xFFFFFFFFu, 0u};
+  unsigned tl = 0xFFFFFFFFu;
   for (int c = 0; c < chunks; ++c) {
     __syncwarp();  // every lane is done with the slot this issue refills
     issue(c + ROWPAR_STAGES - 1);
@@ -471,13 +502,14 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     const uint2 e = ring[warp][c % ROWPAR_STAGES][lane];
     const int n = min(32, hi - lo - (c << 5));
     if constexpr (kBlock)
-      topn_block_window(row, grp, e, n, w, lane, shard_len, block, keep);
+      topn_block_window(row, grp, e, n, w, lane, shard_len, block, tl, keep);
     else
-      topn_window(row, e, n, w, lane, keep);
+      topn_window(row, e, n, w, lane, shard_len, tl, keep);
   }
   rowpar_wait_all();
-  topn_close(row, grp, w, lane);
+  topn_close(row, grp, w, lane, tl);
   if (lane < w) states[g * w + lane] = row.r;
+  if (tinf && lane == 0) tinf[g] = tl;
 }
 
 // The walk for rows wider than a warp's registers (w > 32): one warp a
@@ -488,7 +520,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     topn_walk_wide(const uint2* __restrict__ part,
                    const int* __restrict__ starts, uint8_t* __restrict__ keep,
                    float* __restrict__ states, long long nseg, int w,
-                   int shard_len, int block) {
+                   int shard_len, int block, unsigned* __restrict__ tinf) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -501,19 +533,96 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   for (int i = lane; i < w; i += 32) row.s[i] = cheetah_neg_value();
   __syncwarp();
   TopnGroup grp{false, 0xFFFFFFFFu, 0u};
+  unsigned tl = 0xFFFFFFFFu;
   const int lo = starts[g];
   const int hi = starts[g + 1];
   for (int c0 = lo; c0 < hi; c0 += 32) {
     const int n = min(32, hi - c0);
     const uint2 e = lane < n ? part[c0 + lane] : make_uint2(0u, 0u);
     if constexpr (kBlock)
-      topn_block_window(row, grp, e, n, w, lane, shard_len, block, keep);
+      topn_block_window(row, grp, e, n, w, lane, shard_len, block, tl, keep);
     else
-      topn_window(row, e, n, w, lane, keep);
+      topn_window(row, e, n, w, lane, shard_len, tl, keep);
   }
-  topn_close(row, grp, w, lane);
+  topn_close(row, grp, w, lane, tl);
   const long long o = g * w;
   for (int i = lane; i < w; i += 32) states[o + i] = row.s[i];
+  if (tinf && lane == 0) tinf[g] = tl;
+}
+
+// The kernels' family of pass 1 (the Pallas one-hot read of the row
+// minimum, kernels/ref.py onehot_keep), after any form of pass 1 has written
+// the direct read's keep, the matrices and tinf, the block of each row's
+// last insert. A row whose final minimum is +inf became so at its last
+// insert; with t1 <= t2 the two earliest such blocks of a lane and r1 the
+// row of t1, an entry of block b keeps as written up to t1, only in row r1
+// up to t2, and never after. Grid (gx, lanes): each CTA reduces its lane's
+// d minima to (t1, r1, t2), packed as (t << 32 | r) minima, and returns
+// when no minimum is +inf (the main path: one read of d minima a CTA); else
+// it rewrites its share of the lane's entries after block t1.
+#define FIXUP_THREADS 256
+
+struct FixupMin {
+  unsigned long long first;  // (t1 << 32) | r1
+  unsigned second;           // t2
+};
+
+__device__ __forceinline__ FixupMin fixup_fold(FixupMin a, FixupMin b) {
+  FixupMin o;
+  const bool lt = a.first < b.first;
+  o.first = lt ? a.first : b.first;
+  const unsigned other =
+      static_cast<unsigned>((lt ? b.first : a.first) >> 32);
+  o.second = min(min(a.second, b.second), other);
+  return o;
+}
+
+__global__ void __launch_bounds__(FIXUP_THREADS)
+    topn_onehot_fixup_kernel(uint8_t* __restrict__ keep,
+                             const float* __restrict__ states,
+                             const unsigned* __restrict__ tinf, int shard_len,
+                             int d, int w, int block, uint32_t seed) {
+  __shared__ FixupMin part[FIXUP_THREADS / 32];
+  const int lane = blockIdx.y;
+  const int t = threadIdx.x;
+  const long long row0 = static_cast<long long>(lane) * d;
+  FixupMin acc{~0ull, 0xFFFFFFFFu};
+  for (int r = t; r < d; r += FIXUP_THREADS) {
+    if (__float_as_uint(states[(row0 + r) * w + w - 1]) != 0x7F800000u)
+      continue;
+    const FixupMin e{(static_cast<unsigned long long>(tinf[row0 + r]) << 32) |
+                         static_cast<unsigned>(r),
+                     0xFFFFFFFFu};
+    acc = fixup_fold(acc, e);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    FixupMin o;
+    o.first = __shfl_down_sync(0xFFFFFFFFu, acc.first, off);
+    o.second = __shfl_down_sync(0xFFFFFFFFu, acc.second, off);
+    acc = fixup_fold(acc, o);
+  }
+  if ((t & 31) == 0) part[t >> 5] = acc;
+  __syncthreads();
+  acc = part[0];
+  for (int i = 1; i < FIXUP_THREADS / 32; ++i) acc = fixup_fold(acc, part[i]);
+  if (acc.first == ~0ull) return;  // no row minimum is +inf
+  const unsigned t1 = static_cast<unsigned>(acc.first >> 32);
+  const int r1 = static_cast<int>(acc.first & 0xFFFFFFFFu);
+  const unsigned t2 = acc.second;
+  const long long from = (static_cast<long long>(t1) + 1) * block;
+  uint8_t* k = keep + static_cast<long long>(lane) * shard_len;
+  const long long stride = static_cast<long long>(gridDim.x) * FIXUP_THREADS;
+  for (long long j = from + static_cast<long long>(blockIdx.x) * FIXUP_THREADS
+                     + t;
+       j < shard_len; j += stride) {
+    const unsigned blk = static_cast<unsigned>(j / block);
+    if (blk > t2)
+      k[j] = 0;
+    else if (k[j] &&
+             cheetah_hash_mod(static_cast<uint32_t>(j), d, seed) != r1)
+      k[j] = 0;
+  }
 }
 
 struct TopnWork {
@@ -734,7 +843,7 @@ size_t topn_apply_smem(int d) {
 cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
                              int shards, int shard_len, int d, int w,
                              int block, uint32_t seed, unsigned char* work,
-                             cudaStream_t stream) {
+                             unsigned* tinf, cudaStream_t stream) {
   if (w < 1 || block < 1 ||
       (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 4) == 0))
     return cudaErrorInvalidValue;
@@ -751,10 +860,10 @@ cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
         (nseg * 32 + ROWPAR_THREADS - 1) / ROWPAR_THREADS);
     if (block > 1)
       topn_walk<true><<<blocks, ROWPAR_THREADS, 0, stream>>>(
-          part, starts, keep, states, nseg, w, shard_len, block);
+          part, starts, keep, states, nseg, w, shard_len, block, tinf);
     else
       topn_walk<false><<<blocks, ROWPAR_THREADS, 0, stream>>>(
-          part, starts, keep, states, nseg, w, shard_len, block);
+          part, starts, keep, states, nseg, w, shard_len, block, tinf);
     return cudaGetLastError();
   }
   const int warps = rowpar_wide_warps(static_cast<size_t>(w) * 4);
@@ -767,10 +876,10 @@ cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
   if (err != cudaSuccess) return err;
   if (block > 1)
     topn_walk_wide<true><<<blocks, warps * 32, smem, stream>>>(
-        part, starts, keep, states, nseg, w, shard_len, block);
+        part, starts, keep, states, nseg, w, shard_len, block, tinf);
   else
     topn_walk_wide<false><<<blocks, warps * 32, smem, stream>>>(
-        part, starts, keep, states, nseg, w, shard_len, block);
+        part, starts, keep, states, nseg, w, shard_len, block, tinf);
   return cudaGetLastError();
 }
 
@@ -796,23 +905,32 @@ extern "C" size_t topn_pass1_workspace(int shards, int shard_len, int d) {
 }
 
 // B = 1: the row-parallel walk; B > 1: the one-CTA-a-lane block kernel.
+// tinf (the kernels' family, else null): uint32 [shards * d], the block of
+// each row's last insert, for topn_onehot_fixup (the block kernel writes
+// only the rows whose minimum became +inf).
 extern "C" int topn_pass1(const float* x, uint8_t* keep, float* states,
                           int shards, int shard_len, int d, int w, int block,
-                          uint32_t seed, unsigned char* work,
+                          uint32_t seed, unsigned char* work, unsigned* tinf,
                           cudaStream_t stream) {
   if (block > 1) {
     if (block > 1024 || shard_len % block) return cudaErrorInvalidValue;
     const StagedPlan p = topn_block_plan(d, w, block);
-    cudaError_t err = cheetah_launch_prep(
-        reinterpret_cast<const void*>(topn_pass1_block), p.total);
+    const void* fn = tinf ? reinterpret_cast<const void*>(topn_pass1_block<true>)
+                          : reinterpret_cast<const void*>(topn_pass1_block<false>);
+    cudaError_t err = cheetah_launch_prep(fn, p.total);
     if (err != cudaSuccess) return err;
-    topn_pass1_block<<<shards, block, p.total, stream>>>(
-        x, keep, states, shard_len, d, w, seed, p.cps, p.stages,
-        static_cast<int>(p.ring), static_cast<int>(p.slot));
+    if (tinf)
+      topn_pass1_block<true><<<shards, block, p.total, stream>>>(
+          x, keep, states, shard_len, d, w, seed, p.cps, p.stages,
+          static_cast<int>(p.ring), static_cast<int>(p.slot), tinf);
+    else
+      topn_pass1_block<false><<<shards, block, p.total, stream>>>(
+          x, keep, states, shard_len, d, w, seed, p.cps, p.stages,
+          static_cast<int>(p.ring), static_cast<int>(p.slot), nullptr);
     return cudaGetLastError();
   }
   return topn_walk_launch(x, keep, states, shards, shard_len, d, w, 1, seed,
-                          work, stream);
+                          work, tinf, stream);
 }
 
 // The retired block kernel (B > 1), for holding the staged block kernel
@@ -833,13 +951,27 @@ extern "C" int topn_pass1_block_unstaged(const float* x, uint8_t* keep,
 }
 
 // The row-parallel block walk (block semantics, B >= 1); work holds
-// topn_pass1_workspace bytes.
+// topn_pass1_workspace bytes; tinf as topn_pass1's.
 extern "C" int topn_pass1_block_walk(const float* x, uint8_t* keep,
                                      float* states, int shards, int shard_len,
                                      int d, int w, int block, uint32_t seed,
-                                     unsigned char* work, cudaStream_t stream) {
+                                     unsigned char* work, unsigned* tinf,
+                                     cudaStream_t stream) {
   return topn_walk_launch(x, keep, states, shards, shard_len, d, w, block,
-                          seed, work, stream);
+                          seed, work, tinf, stream);
+}
+
+// The kernels' family of pass 1 (kernels/ref.py, onehot_keep): grid (gx,
+// shards), FIXUP_THREADS threads. keep holds the direct read's keep.
+extern "C" int topn_onehot_fixup(uint8_t* keep, const float* states,
+                                 const unsigned* tinf, int shards,
+                                 int shard_len, int d, int w, int block,
+                                 uint32_t seed, int gx, cudaStream_t stream) {
+  if (shards < 1 || shard_len < 1 || d < 1 || w < 1 || block < 1 || gx < 1)
+    return cudaErrorInvalidValue;
+  topn_onehot_fixup_kernel<<<dim3(gx, shards), FIXUP_THREADS, 0, stream>>>(
+      keep, states, tinf, shard_len, d, w, block, seed);
+  return cudaGetLastError();
 }
 
 // The retired one-thread walk, for holding the row-parallel walk against it;

@@ -100,8 +100,10 @@ def topn_prune_parallel(values: torch.Tensor, *, d: int, w: int,
     """Two-pass TOP-N: per-shard matrices + per-row top-w union + apply."""
     v, m = _pad_to(values.to(torch.float32).contiguous(), shards * block,
                    float(NEG))
+    # pass 1's keep is dropped, and its matrices are the same in both
+    # families: the engine's skips the kernels' keep fix-up (A27)
     _, states = parallel.topn_shard_states_kernel(
-        v, d=d, w=w, shards=shards, block=block, seed=seed)
+        v, d=d, w=w, shards=shards, block=block, seed=seed, family="engine")
     merged = parallel.merge_topn_states(states, w)
     keep = parallel.topn_apply_kernel(v, merged, d=d, shards=shards,
                                       seed=seed)

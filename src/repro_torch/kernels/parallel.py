@@ -47,10 +47,14 @@ from .rle_scan import RLE_TOPN_DET
 from .topn_det_scan import TOPN_DET_PASS1
 
 TOPN_PASS1 = CudaKernel("topn_pass1",
-                        [P, P, P, I32, I32, I32, I32, I32, U32, P],
+                        [P, P, P, I32, I32, I32, I32, I32, U32, P, P],
                         smem_fn="topn_pass1_smem")
 TOPN_BLOCK_WALK = CudaKernel("topn_pass1_block_walk",
-                             [P, P, P, I32, I32, I32, I32, I32, U32, P])
+                             [P, P, P, I32, I32, I32, I32, I32, U32, P, P])
+# the kernels' family of TOP-N pass 1: the keep of the Pallas one-hot read
+# (ref.onehot_keep), written over the direct read's after pass 1
+TOPN_ONEHOT_FIXUP = CudaKernel("topn_onehot_fixup",
+                               [P, P, P, I32, I32, I32, I32, I32, U32, I32])
 TOPN_APPLY = CudaKernel("topn_apply", [P, P, I64, P, I32, I32, I32, U32,
                                        I32, I32, I32, I32, I32, P])
 FAMILIES = ("kernel", "engine")  # topn_apply's reads of the row minimum
@@ -79,7 +83,8 @@ KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            SKYLINE_PASS1, SKYLINE_APPLY, CMS_BUILD, CMS_QUERY, BLOOM_BUILD,
            BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
            RLE_TOPN_DET, DISTINCT_BLOCK_WALK, TOPN_BLOCK_WALK,
-           BLOOM_BUILD_GLOBAL, TOPN_PASS1_BLOCK, DISTINCT_PASS1_BLOCK)
+           BLOOM_BUILD_GLOBAL, TOPN_PASS1_BLOCK, DISTINCT_PASS1_BLOCK,
+           TOPN_ONEHOT_FIXUP)
 POLICIES = ("lru", "fifo")
 
 
@@ -144,28 +149,39 @@ def use_block_walk(shards: int, device: torch.device) -> bool:
 
 # ======================================================= TOP-N (rand, Ex. 7)
 def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
-                             shards: int, block: int = 256, seed: int = 0):
+                             shards: int, block: int = 256, seed: int = 0,
+                             family: str = "kernel"):
     """Pass 1: keep bool[m] and per-shard matrices f32[shards, d, w].
 
     ``values`` is f32[m], m a multiple of shards * block; lane s owns the
     entries [s * m/S, (s+1) * m/S) and hashes its shard-local index.
+
+    Two families of keep, as for the apply: ``"kernel"`` (the Pallas
+    kernels', ``ops.py``) reads each entry's row minimum by the one-hot
+    product (``ref.onehot_keep``, ROADMAP Queue 3 A27), ``"engine"`` (the
+    engine's scan, two_pass and sharded modes at block=1) reads the minimum
+    itself. The matrices are the same in both.
 
     At block=1 the CUDA path is the row-parallel walk of ``topn.cu``: an
     entry reads and writes only the row its shard-local index hashes to,
     so each (lane, row) is walked on its own, in stream order, after a
     stable partition by index. At block > 1 it is the block walk
     (``topn_block_walk_kernel``) when ``use_block_walk``, else the
-    one-CTA-a-lane block kernel."""
+    one-CTA-a-lane block kernel. In the kernels' family every form records
+    the block of each row's last insert, and ``topn_onehot_fixup`` then
+    rewrites the keep of a lane whose matrix holds a row minimum of +inf
+    (it returns at once when none does)."""
+    onehot = _apply_family(family)
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, block)
     if not values.is_cuda:
         keep, states = ref.topn_block_ref(
             values.reshape(shards, shard_len), d=d, w=w, block=block,
-            seed=seed, return_state=True)
+            seed=seed, return_state=True, onehot=bool(onehot))
         return keep.reshape(m), states
     if block > 1 and use_block_walk(shards, values.device):
         return topn_block_walk_kernel(values, d=d, w=w, shards=shards,
-                                      block=block, seed=seed)
+                                      block=block, seed=seed, family=family)
     check_cuda("values", values, torch.float32)
     if block == 1:
         check_rowpar(m, w, 4)
@@ -177,31 +193,64 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     if m:
         work = (workspace(dev, "topn_pass1_workspace", shards, shard_len, d)
                 if block == 1 else None)
+        tinf = _tinf(shards, d, dev) if onehot else None
         TOPN_PASS1.launch(dev, ptr(values), ptr(keep), ptr(states), shards,
                           shard_len, d, w, block, seed & 0xFFFFFFFF,
                           None if work is None else ptr(work),
+                          None if tinf is None else ptr(tinf),
                           count=TOPN_PASS1_BLOCK if block > 1 else None)
+        if onehot:
+            topn_onehot_fixup(keep, states, tinf, shards=shards, d=d,
+                              block=block, seed=seed)
     else:
         states.fill_(float(NEG))
     return keep, states
 
 
+def _tinf(shards: int, d: int, device: torch.device) -> torch.Tensor:
+    """[shards * d] 32-bit words (uint32 block ids in int32 storage): the
+    block of each row's last insert, which the pass-1 kernels write for
+    ``topn_onehot_fixup`` (read only for rows whose final minimum is +inf)."""
+    return torch.empty(shards * d, dtype=torch.int32, device=device)
+
+
+def topn_onehot_fixup(keep: torch.Tensor, states: torch.Tensor,
+                      tinf: torch.Tensor, *, shards: int, d: int, block: int,
+                      seed: int = 0) -> None:
+    """Rewrite pass 1's keep [m] (the direct read's, in place) as the Pallas
+    one-hot read's, from the final matrices [S, d, w] and the block of each
+    row's last insert (``ref.onehot_keep``). ``csrc/topn.cu``: a grid of
+    (CTAs, lanes); each CTA reduces its lane's +inf row minima to (t1, r1,
+    t2) and returns at once when there is none, else rewrites its share of
+    the entries after block t1."""
+    m = keep.shape[0]
+    shard_len = m // shards
+    w = states.shape[2]
+    gx = max(1, min(-(-2 * sm_count(keep.device) // shards),
+                    -(-shard_len // 256)))
+    TOPN_ONEHOT_FIXUP.launch(keep.device, ptr(keep), ptr(states), ptr(tinf),
+                             shards, shard_len, d, w, block,
+                             seed & 0xFFFFFFFF, gx)
+
+
 def topn_block_walk_kernel(values: torch.Tensor, *, d: int, w: int,
-                           shards: int, block: int = 256, seed: int = 0):
+                           shards: int, block: int = 256, seed: int = 0,
+                           family: str = "kernel"):
     """Pass 1 with block semantics (any block >= 1) by the row-parallel
     block walk of ``topn.cu``: (keep, states) as
-    ``topn_shard_states_kernel`` gives them. After the partition by (lane,
-    row), one warp walks each row's entries in stream order, a block's
-    entries of the row being one group: every entry keeps iff its value
-    >= the row's minimum as it stood before its group, and the group's
-    candidate (``ref.topn_block_ref``) is inserted when it beats that
-    minimum. A CPU tensor runs ``ref.topn_block_ref``."""
+    ``topn_shard_states_kernel`` gives them, in the same two families.
+    After the partition by (lane, row), one warp walks each row's entries
+    in stream order, a block's entries of the row being one group: every
+    entry keeps iff its value >= the row's minimum as it stood before its
+    group, and the group's candidate (``ref.topn_block_ref``) is inserted
+    when it beats that minimum. A CPU tensor runs ``ref.topn_block_ref``."""
+    onehot = _apply_family(family)
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, block)
     if not values.is_cuda:
         keep, states = ref.topn_block_ref(
             values.reshape(shards, shard_len), d=d, w=w, block=block,
-            seed=seed, return_state=True)
+            seed=seed, return_state=True, onehot=bool(onehot))
         return keep.reshape(m), states
     check_cuda("values", values, torch.float32)
     check_rowpar(m, w, 4)
@@ -210,9 +259,14 @@ def topn_block_walk_kernel(values: torch.Tensor, *, d: int, w: int,
     states = torch.empty((shards, d, w), dtype=torch.float32, device=dev)
     if m:
         work = workspace(dev, "topn_pass1_workspace", shards, shard_len, d)
+        tinf = _tinf(shards, d, dev) if onehot else None
         TOPN_BLOCK_WALK.launch(dev, ptr(values), ptr(keep), ptr(states),
                                shards, shard_len, d, w, block,
-                               seed & 0xFFFFFFFF, ptr(work))
+                               seed & 0xFFFFFFFF, ptr(work),
+                               None if tinf is None else ptr(tinf))
+        if onehot:
+            topn_onehot_fixup(keep, states, tinf, shards=shards, d=d,
+                              block=block, seed=seed)
     else:
         states.fill_(float(NEG))
     return keep, states
@@ -247,7 +301,8 @@ def topn_apply_plain(values: torch.Tensor, rowmin: torch.Tensor, *, d: int,
 
 
 def _apply_family(family: str) -> int:
-    """The C family of the TOP-N apply: 1 the kernels', 0 the engine's."""
+    """The C family of the TOP-N apply and pass 1's keep: 1 the kernels',
+    0 the engine's."""
     if family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
     return int(family == "kernel")

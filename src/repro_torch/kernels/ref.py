@@ -43,7 +43,8 @@ def _lanes(values: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
 
 
 def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
-                   seed: int = 0, return_state: bool = False):
+                   seed: int = 0, return_state: bool = False,
+                   onehot: bool = False):
     """Randomized TOP-N matrix, block semantics: keep bool[m] (or [S, n]),
     plus the final f32[d, w] (or [S, d, w]) matrix when ``return_state``.
 
@@ -55,7 +56,13 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
 
     Every compare flushes f32 subnormals (A25). At B > 1 the candidate is
     that maximum, which XLA flushes too; at B = 1 it is the entry, which
-    the engine's scan inserts as it is (a select keeps the bits)."""
+    the engine's scan inserts as it is (a select keeps the bits).
+
+    ``onehot``: the keep of the Pallas kernels (``topn_prune_kernel``,
+    ``topn_shard_states_kernel``), which read an entry's row minimum by a
+    one-hot product over the d minima (``onehot_keep``); by default the
+    minimum itself, as the JAX package's ``ref.topn_block_ref`` and the
+    engine's scan read it."""
     one = values.ndim == 1
     x, nb = _lanes(values.to(torch.float32), block)
     xf = ftz(x)
@@ -65,6 +72,8 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     keep = torch.empty(x.shape, dtype=torch.bool, device=dev)
     idxw = torch.arange(w, device=dev)
     neg = ordered_i32(torch.full((S, d), float(NEG), device=dev))
+    # the block of each row's last insert (onehot_keep reads it)
+    tlast = torch.full((S, d), -1, dtype=torch.int64, device=dev)
     # a block touches only its entries' rows: those are read, updated and
     # written back (an entry of a row that recurs writes the same values)
     for c in range(nb):
@@ -81,9 +90,46 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
         shifted = torch.where(idxw > pos, st.roll(1, dims=2), st)
         inserted = torch.where(idxw == pos, cand[:, :, None], shifted)
         state[:, rows] = torch.where(do[:, :, None], inserted, st)
+        if onehot:
+            tlast[:, rows] = torch.where(do, c, tlast[:, rows])
+    if onehot:
+        keep = onehot_keep(keep, state, tlast, d=d, block=block, seed=seed)
     if one:
         keep, state = keep[0], state[0]
     return (keep, state) if return_state else keep
+
+
+def onehot_keep(keep: torch.Tensor, states: torch.Tensor,
+                tlast: torch.Tensor, *, d: int, block: int,
+                seed: int = 0) -> torch.Tensor:
+    """The Pallas TOP-N pass 1's keep (``topn_prune_kernel``,
+    ``topn_shard_states_kernel``) from the keep that reads each row minimum
+    itself: keep [S, n], the final matrices [S, d, w], and the block of each
+    row's last insert tlast [S, d].
+
+    The Pallas kernel reads an entry's minimum as the one-hot product
+    ``sum_k onehot[k] * rowmin[k]`` (ROADMAP Queue 3 B15), so once one row's
+    minimum is +inf, 0 * inf makes every other row's read NaN, and once two
+    rows' are, every read. A minimum is never NaN (a NaN candidate inserts
+    nothing) nor -inf (NEG is finite), and a row whose minimum is +inf takes
+    no insert after, so its minimum became +inf at its last insert. With
+    t1 <= t2 the two earliest such blocks of a lane and r1 the row of t1,
+    an entry of block b keeps as read directly up to block t1, only in row
+    r1 after t1 up to t2 (where the direct read is x >= +inf), and never
+    after t2. The CUDA fix-up ``topn_onehot_fixup`` (``csrc/topn.cu``) is
+    this function on the card."""
+    inf = states[..., -1] == float("inf")                  # [S, d]
+    if not bool(inf.any()):
+        return keep
+    big = torch.iinfo(torch.int64).max
+    t, order = torch.sort(torch.where(inf, tlast, big), dim=1, stable=True)
+    t1 = t[:, :1]
+    t2 = t[:, 1:2] if d > 1 else torch.full_like(t1, big)
+    n = keep.shape[1]
+    idx = torch.arange(n, device=keep.device)
+    blk = (idx // block)[None]
+    rows = hash_mod(idx, d, seed)[None]
+    return keep & (blk <= t2) & ((blk <= t1) | (rows == order[:, :1]))
 
 
 _U32_MAX = 0xFFFFFFFF

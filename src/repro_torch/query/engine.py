@@ -34,6 +34,7 @@ import torch
 
 from .. import core
 from ..constants import NEG
+from ..core.options import ExecOptions
 from ..core.encoding import ambiguous_floats, take_rows
 from ..core.hashing import as_u32, by_value
 from .tables import DictColumn, Table
@@ -47,12 +48,12 @@ class QuerySpec:
 
 
 def _engine_call(algo: str, streams: tuple, params: dict,
-                 encoding=None) -> core.PruneResult:
+                 encoding=None, obs: str | None = None) -> core.PruneResult:
     """One engine invocation per query: the sequential scan (no mesh).
     ``encoding``: a per-stream ``DictEncoding | None`` tuple; encoded
     streams carry codes and pass 1 prunes in code space."""
     return core.engine_prune(algo, *streams, mode="scan", encoding=encoding,
-                             **params)
+                             obs=obs, **params)
 
 
 def _code_stream(col, decode: str):
@@ -232,7 +233,8 @@ def _run_filter(spec: QuerySpec, table: Table, p: dict) -> dict:
 
 
 def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
-              tune: str | None = None, plan_cache=None, options=None,
+              tune: str | None = None, plan_cache=None,
+              options: ExecOptions | None = None,
               decode: str | None = None, obs: str | None = None) -> dict:
     """Execute a query with switch pruning; returns output + statistics.
 
@@ -248,30 +250,35 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     ``decode``: ``"auto"`` / ``"late"`` (the default) prune encoded columns
     in code space and decode the survivors only; ``"eager"`` decodes every
     column up front.
+
+    ``options``: an ``ExecOptions`` bundle (decode and obs apply here;
+    mode, shards, pass2 and apply_block are the mesh's at this layer and
+    are refused). ``obs``: the telemetry level (see
+    ``core.engine_prune``); the result's ``"report"`` is the engine's
+    ``ExecReport``, None for JOIN and FILTER (their own bodies) and with
+    ``obs="off"``.
     """
     del axis
+    opts = ExecOptions.resolve(options, tune=tune, plan_cache=plan_cache,
+                               decode=decode, obs=obs)
+    opts.require_unset("run_query", "mode", "shards", "pass2",
+                       "apply_block")
     if mesh is not None:
         raise NotImplementedError(
             "run_query(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
-    if tune not in (None, "off") or plan_cache is not None:
+    if opts.tune not in (None, "off") or opts.plan_cache is not None:
         raise NotImplementedError(
             "run_query(tune=) is not ported yet (ROADMAP Queue 1 item 11)")
-    if options is not None:
-        raise NotImplementedError(
-            "run_query(options=) is not ported yet (ROADMAP Queue 1 item 6)")
-    decode = "auto" if decode is None else decode
-    if decode not in core.DECODE_MODES:
-        raise ValueError(f"decode must be one of {core.DECODE_MODES}, got "
-                         f"{decode!r}")
-    if obs not in (None, "off"):
-        raise NotImplementedError(
-            "run_query(obs=) is not ported yet (ROADMAP Queue 1 item 12)")
+    decode = opts.decode if opts.decode is not None else "auto"
     if spec.kind == "join":
         return _run_join(spec, tables, dict(spec.params))
     if spec.kind == "filter":
         return _run_filter(spec, tables, dict(spec.params))
     algo, streams, encs, params, complete = _prepare(spec, tables, decode)
-    return complete(_engine_call(algo, streams, params, encoding=encs))
+    r = _engine_call(algo, streams, params, encoding=encs, obs=opts.obs)
+    out = complete(r)
+    out["report"] = r.report
+    return out
 
 
 def _result(output, keep: torch.Tensor) -> dict:

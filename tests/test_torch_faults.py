@@ -54,7 +54,15 @@ reference, faults of the reference included:
   above -0, and it simplifies ``0.0 + v`` to ``v``;
 - A26: the Pallas TOP-N apply reads a row minimum by a one-hot product, so
   a non-finite minimum spoils the other rows' reads (B15); the engine's
-  two_pass reads the minimum itself.
+  two_pass reads the minimum itself;
+- A27: the Pallas TOP-N pass 1 reads the row minimum by the same product,
+  so once one row's minimum is +inf only that row keeps (its +inf entries)
+  and once two rows' are nothing keeps; a block holding +inf and NaN in
+  one row inserts nothing (its candidate is NaN);
+- A28: XLA's f32 scatter-add adds in entry order and flushes after each
+  add, so a counter whose weights take both signs can pass below FLT_MIN
+  and flush on the way ([1.5, -1, 1] * FLT_MIN reads FLT_MIN), and a sum
+  flushed to -0 reads +0 in the table.
 """
 import dataclasses
 
@@ -363,14 +371,17 @@ LOW = [NEG32, np.nextafter(NEG32, np.float32(-INF)),
 
 def _topn_block_both(x, d, w, block, seed=0):
     """(keep, state) of the reference's block oracle, then of the port's
-    plain version and of its pass-1 entry point on a CPU tensor."""
+    plain version and of its pass-1 entry point on a CPU tensor, in the
+    family that reads the row minimum itself, as the oracle does (the
+    kernels' family reads it by the Pallas one-hot product: A27)."""
     jk, js = jref.topn_block_ref(jnp.asarray(x), d=d, w=w, block=block,
                                  seed=seed, return_state=True)
     t = torch.from_numpy(x)
     ours = [tref.topn_block_ref(t, d=d, w=w, block=block, seed=seed,
                                 return_state=True),
             tpar.topn_shard_states_kernel(t, d=d, w=w, shards=1,
-                                          block=block, seed=seed)]
+                                          block=block, seed=seed,
+                                          family="engine")]
     return (np.asarray(jk), np.asarray(js)), ours
 
 
@@ -1284,3 +1295,166 @@ def test_a26_engine_two_pass_reads_the_minimum_itself(value):
     want = J.engine_prune("topn_rand", jnp.asarray(x), **kw)
     got = T.engine_prune("topn_rand", torch.from_numpy(x), **kw)
     _eq(got.keep, want.keep)
+
+
+# ------------------------------------------------------------------- A27
+# The Pallas TOP-N pass 1 (topn_prune_kernel, topn_shard_states_kernel)
+# reads an entry's row minimum as sum_k onehot[k] * rowmin[k]: after a
+# row's minimum turns +inf, every other row reads NaN and keeps nothing,
+# that row keeps only +inf, and after a second row's turns +inf no entry
+# keeps. The port's plain block pass read the minimum itself.
+def _rows(n, d, seed=0):
+    return hash_mod(torch.arange(n), d, seed).numpy()
+
+
+def test_a27_smallest_input():
+    x = np.full(4, INF, np.float32)
+    kw = dict(d=2, w=1, block=2)
+    want = np.asarray(jops.topn_prune(jnp.asarray(x), **kw))
+    got = tops.topn_prune(torch.from_numpy(x), **kw)
+    np.testing.assert_array_equal(want, [True, True, True, False])
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_a27_shard_states_keep(shards):
+    """One +inf in the first block of each lane fills its row (w = 1):
+    every later block keeps nothing outside that row."""
+    n, d, block = 64, 4, 8
+    x = _normals(shards * n, seed=3)
+    for s in range(shards):
+        x[s * n + 2 + s] = INF
+    kw = dict(d=d, w=1, shards=shards, block=block)
+    jk, js = jpar.topn_shard_states_kernel(jnp.asarray(x), **kw)
+    tk, ts = tpar.topn_shard_states_kernel(torch.from_numpy(x), **kw)
+    jk = np.asarray(jk).astype(bool)
+    direct = tref.topn_block_ref(torch.from_numpy(x).reshape(shards, n), d=d,
+                                 w=1, block=block).reshape(-1).numpy()
+    assert (jk != direct).any() and not jk.reshape(shards, n)[:, block:].any()
+    _eq(tk, jk)
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_a27_two_rows_reach_inf(shards):
+    """Row r1's minimum turns +inf first (block 0), then a second row's
+    (at entry i2's block): from block 1 on, only r1's +inf entry i1 keeps
+    (i2, read before its own block's insert, reads NaN), and after i2's
+    block nothing does."""
+    n, d, w, block = 96, 4, 1, 8
+    rows = _rows(n, d)
+    blk = np.arange(n) // block
+    r1 = rows[0]
+    i1 = next(i for i in range(block, n) if rows[i] == r1)
+    i2 = next(i for i in range((blk[i1] + 1) * block, n) if rows[i] != r1)
+    x = _normals(shards * n, seed=4)
+    for s in range(shards):
+        x[s * n + np.array([0, i1, i2])] = INF
+    kw = dict(d=d, w=w, shards=shards, block=block)
+    jk, js = jpar.topn_shard_states_kernel(jnp.asarray(x), **kw)
+    tk, ts = tpar.topn_shard_states_kernel(torch.from_numpy(x), **kw)
+    jk = np.asarray(jk).astype(bool).reshape(shards, n)
+    assert (np.asarray(js)[:, :, -1] == INF).sum(1).tolist() == [2] * shards
+    assert jk[:, block:].sum() == shards
+    assert jk[:, i1].all() and not jk[:, i2].any()
+    assert not jk[:, (blk[i2] + 1) * block:].any()
+    _eq(tk.reshape(shards, n), jk)
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    _eq(tops.topn_prune(torch.from_numpy(x[:n]), d=d, w=w, block=block),
+        np.asarray(jops.topn_prune(jnp.asarray(x[:n]), d=d, w=w,
+                                   block=block)))
+
+
+def test_a27_inf_and_nan_in_one_block_row_insert_nothing():
+    """A block holding +inf and a NaN in one row r0 has a NaN candidate, so
+    r0 takes no insert; a later +inf fills row r1 (w = 1), after which only
+    r1's +inf entries keep. A fix-up that counted +inf entries would count
+    r0 too and keep nothing."""
+    n, d, block = 64, 2, 8
+    rows = _rows(n, d)
+    r0 = rows[0]
+    x = _normals(n, seed=5)
+    hit = np.flatnonzero(rows[:block] == r0)
+    x[hit[0]], x[hit[1]] = INF, NAN
+    i1 = next(i for i in range(block, n) if rows[i] != r0)
+    i2 = next(i for i in range((i1 // block + 1) * block, n)
+              if rows[i] == rows[i1])
+    x[i1] = x[i2] = INF
+    kw = dict(d=d, w=1, block=block)
+    want = np.asarray(jops.topn_prune(jnp.asarray(x), **kw))
+    got = tops.topn_prune(torch.from_numpy(x), **kw)
+    assert np.flatnonzero(want[(i1 // block + 1) * block:]).tolist() == \
+        [i2 - (i1 // block + 1) * block]
+    _eq(got, want)
+    st = tpar.topn_shard_states_kernel(torch.from_numpy(x), shards=1, **kw)[1]
+    assert torch.isinf(st[0, :, -1]).tolist() == [r == rows[i1]
+                                                  for r in range(d)]
+
+
+def test_a27_salted_streams():
+    """Random streams salted with +inf and NaN, every shape of the kernels'
+    family at once (S = 1 and 2, B = 1 and 8, w = 1 and 3)."""
+    rng = np.random.default_rng(6)
+    for shards, block, d, w in ((1, 8, 3, 1), (2, 8, 4, 3), (1, 1, 3, 1),
+                                (2, 1, 2, 2)):
+        for salt in (0.02, 0.2):
+            x = rng.standard_normal(shards * 128).astype(np.float32)
+            u = rng.random(x.size)
+            x[u < salt] = INF
+            x[(u >= salt) & (u < 1.3 * salt)] = NAN
+            kw = dict(d=d, w=w, shards=shards, block=block)
+            jk, js = jpar.topn_shard_states_kernel(jnp.asarray(x), **kw)
+            tk, ts = tpar.topn_shard_states_kernel(torch.from_numpy(x), **kw)
+            _eq(tk, np.asarray(jk).astype(bool))
+            np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                          np.asarray(js).view(np.int32))
+
+
+# ------------------------------------------------------------------- A28
+FLT_MIN = np.float32(1.1754943508222875e-38)
+
+
+def test_a28_smallest_input():
+    k = np.array([7, 7, 7], np.uint32)
+    w = np.array([1.5, -1.0, 1.0], np.float32) * FLT_MIN
+    want = np.asarray(jsk.cms_build(jnp.asarray(k), jnp.asarray(w), 1,
+                                    4).table)
+    got = T.cms_build(torch.from_numpy(k), torch.from_numpy(w), 1, 4).table
+    assert want[0].max() == FLT_MIN
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def _a28_case(seed, m=4096):
+    """Weights of both signs in units of FLT_MIN / 8, so that every sum is
+    exact and only the flushes decide the counters."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 50, m).astype(np.uint32)
+    w = (rng.choice(np.array([-2, -1.5, -1, -0.5, 0.5, 1, 1.5, 2],
+                             np.float32), m) * FLT_MIN).astype(np.float32)
+    w[rng.random(m) < 0.1] *= np.float32(3.25)
+    return k, w
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_a28_salted_mixed_sign(seed):
+    k, w = _a28_case(seed)
+    want = np.asarray(jsk.cms_build(jnp.asarray(k), jnp.asarray(w), 3,
+                                    64).table)
+    got = T.cms_build(torch.from_numpy(k), torch.from_numpy(w), 3, 64).table
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    kw = dict(mode="scan", threshold=0.0, rows=3, width=64)
+    jr = J.engine_prune("having", jnp.asarray(k), jnp.asarray(w), obs="off",
+                        **kw)
+    tr = T.engine_prune("having", torch.from_numpy(k), torch.from_numpy(w),
+                        obs="off", **kw)
+    _eq(tr.keep, jr.keep)
+    # by value, so -0 equals +0: in the reference's jitted build the sign of
+    # a counter flushed to zero depends on whether XLA drops the add of its
+    # row into the table of zeros (it does for rows 0 and 1; ROADMAP Queue
+    # 3 A29); every other bit is held
+    np.testing.assert_array_equal(tr.state.table.numpy(),
+                                  np.asarray(jr.state.table))

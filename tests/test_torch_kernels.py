@@ -327,7 +327,7 @@ def test_launch_counts_reset():
         torch.uint32), d=4, w=2, mode="two_pass", shards=2)
     tops.rle_topn_prune(torch.rand(8), torch.ones(8, dtype=torch.int32), N=2)
     assert [k.launches for k in tpar.KERNELS] == [0] * len(tpar.KERNELS)
-    assert len({k.name for k in tpar.KERNELS}) == 19
+    assert len({k.name for k in tpar.KERNELS}) == 20
 
 
 def test_apply_shape_checks():
