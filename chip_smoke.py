@@ -110,6 +110,19 @@ Phases, one line each, and a non-zero exit on any failure:
            to the masks and states they count, a Chrome trace written to a
            temporary file and parsed, and each call's wall time at off and
            at counters.
+   stream  streaming and scan resume: each resumed B = 1 pass-1 kernel
+           (TOP-N with its lane offset, DISTINCT FIFO and LRU, SKYLINE,
+           GROUP BY, the ladder) at S = 128 and 1 on the whole column cut
+           into 3 ragged pieces a lane, keep and state bit for bit against
+           the one-pass kernel, and on a carried state against its plain
+           version (lane 0, STREAM_PLAIN entries); PruneStream.close() over
+           micro-batches of STREAM_BATCH (one pair ragged) bit for bit
+           against one-shot two_pass on lane_view for the seven engine
+           calls at merge_every 1 and 4, live against final, the kernels
+           launched, each fold's host and device time, merge and close
+           times, entries/s against the one-shot call, window_blocks, the
+           lane states' data_ptr; the staleness slope sigma from
+           merge_every 1, 4 and 16; and the f32 HAVING merge's time.
 4. subnormals
            every kernel that computes on f32 values (TOP-N, DISTINCT on
            float32 keys and SKYLINE pass 1 at S = 1 and 128, B = 1 and
@@ -1226,8 +1239,9 @@ def topn_block_kernel(torch, x, S, d, w, B, seed, entry="topn_pass1"):
     st = torch.empty((S, d, w), dtype=torch.float32, device="cuda")
     args = (ptr(x), ptr(keep), ptr(st), S, m // S, d, w, B, seed)
     if entry == "topn_pass1":
-        serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32, VP, VP],
-                      *args, None, None)
+        serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32, VP, VP, U32,
+                                                             I32],
+                      *args, None, None, 0, 0)
     else:
         serial_kernel(torch, entry, [VP] * 3 + [I32] * 5 + [U32], *args)
     return keep, st
@@ -1248,8 +1262,8 @@ def distinct_block_kernel(torch, x, S, d, w, B, seed,
     fmode = int(x.dtype == torch.float32)
     ptrs = [ptr(t) for t in (x,) + out]
     if entry == "distinct_pass1":
-        serial_kernel(torch, entry, [VP] * 5 + [I32] * 7 + [U32, VP], *ptrs,
-                      S, m // S, d, w, B, 0, fmode, seed, None)
+        serial_kernel(torch, entry, [VP] * 5 + [I32] * 7 + [U32, VP, I32],
+                      *ptrs, S, m // S, d, w, B, 0, fmode, seed, None, 0)
     else:
         serial_kernel(torch, entry, [VP] * 5 + [I32] * 6 + [U32], *ptrs, S,
                       m // S, d, w, B, fmode, seed)
@@ -1705,7 +1719,8 @@ def topn_pass1_tinf(torch, P, x, S, B):
         else None
     entry = P.TOPN_BLOCK_WALK if walk and B > 1 else P.TOPN_PASS1
     entry.launch(x.device, ptr(x), ptr(keep), ptr(st), S, n, d, w, B, 0,
-                 None if work is None else ptr(work), ptr(tinf))
+                 None if work is None else ptr(work), ptr(tinf),
+                 *(() if entry is P.TOPN_BLOCK_WALK else (0, 0)))
     return keep, st, tinf
 
 
@@ -2910,6 +2925,344 @@ def phase_main(torch, P, O):
     return table, rankings, pts, totals, encoded, (rle_t, rle_l), paths
 
 
+# ------------------------------------------------------------- phase stream
+STREAM_BATCH = 1 << 20          # entries a micro-batch of phase stream
+STREAM_RAGGED = 77              # batch 5 is this much short, batch 6 long
+STREAM_CUTS = (0.31, 0.64)      # a lane's ragged pieces (of its length)
+STREAM_PLAIN = 1 << 15          # lane 0 entries carried, then resumed, in
+                                # the check against the plain versions
+STREAM_KS = (1, 4, 16)          # merge periods (16 for the slope only)
+# the kernels each engine call's stream must launch
+STREAM_NEEDS = {
+    "topn_rand": ("topn_pass1", "topn_apply"),
+    "topn_det": ("topn_det_pass1",),
+    "distinct fifo": ("distinct_pass1", "distinct_apply"),
+    "distinct lru": ("distinct_pass1_lru", "distinct_apply"),
+    "skyline": ("skyline_pass1", "skyline_apply"),
+    "having count": ("cms_build", "cms_query"),
+    "groupby count": ("groupby_pass1",),
+}
+
+
+def stream_sizes():
+    """Micro-batches of STREAM_BATCH entries over the 2^25-row table, one
+    of them short and the next long by STREAM_RAGGED (ragged against the
+    128 lanes)."""
+    sizes = [STREAM_BATCH] * (M_MAIN // STREAM_BATCH)
+    sizes[5] -= STREAM_RAGGED
+    sizes[6] += STREAM_RAGGED
+    return sizes
+
+
+def resumed_kernels(torch, table, pts):
+    """The B = 1 pass-1 kernels that resume, each as (name, streams [m]
+    or [m, D] tuple, run(streams, S, state, offset) -> (keep, state tuple,
+    emitted tuple or None), fresh(S, device) -> an empty stacked state)."""
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import groupby_scan as G
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels import topn_det_scan as TD
+
+    xs, fs = table.cols["ad_revenue"], table.cols["source_ip"]
+
+    def state_of(algo, params):
+        def fresh(S, dev):
+            lane = E._SPECS[algo].init((torch.zeros(1, device=dev),), params)
+            return tuple(t[None].expand((S,) + tuple(t.shape)).clone()
+                         for t in vars(lane).values()
+                         if isinstance(t, torch.Tensor))
+        return fresh
+
+    def topn(st, S, state, off):
+        k, s = P.topn_shard_states_kernel(st[0], shards=S, block=1,
+                                          family="engine", state=state[0],
+                                          index_offset=off, **TOPN)
+        return k, (s,), None
+
+    def distinct(policy):
+        def run(st, S, state, off):
+            k, *s = P.distinct_shard_states_kernel(
+                st[0], shards=S, block=1, policy=policy, state=state,
+                **DISTINCT)
+            return k, tuple(s), None
+        return run
+
+    def skyline(st, S, state, off):
+        k, p, s = P.skyline_shard_states_kernel(st[0], shards=S, block=1,
+                                                form="engine", state=state,
+                                                **SKYLINE)
+        return k, (p, s), None
+
+    def groupby(st, S, state, off):
+        ev, s = G.groupby_pass1_kernel(st[0], st[1], shards=S, agg="count",
+                                       state=state, **GROUPBY)
+        return None, tuple(s), tuple(ev)
+
+    def ladder(st, S, state, off):
+        k, s = TD.topn_det_pass1_kernel(st[0], shards=S, state=state,
+                                        **TOPN_DET)
+        return k, tuple(s), None
+
+    def fresh_groupby(S, dev):
+        return G.init_state(S, GROUPBY["d"], GROUPBY["w"], "count", dev)
+
+    def fresh_ladder(S, dev):
+        return TD.init_state(S, TOPN_DET["w"], dev)
+
+    gvals = xs.float().contiguous()
+    return (("topn_pass1", (xs,), topn, state_of("topn_rand", TOPN)),
+            ("distinct_pass1 fifo", (fs,), distinct("fifo"),
+             state_of("distinct", DISTINCT)),
+            ("distinct_pass1 lru", (fs,), distinct("lru"),
+             state_of("distinct", DISTINCT)),
+            ("skyline_pass1", (pts,), skyline,
+             lambda S, dev: tuple(t[None].expand((S,) + tuple(t.shape))
+                                  .clone() for t in vars(E._SPECS[
+                                      "skyline"].init((pts[:1],), SKYLINE))
+                                  .values()
+                                  if isinstance(t, torch.Tensor))),
+            ("groupby_pass1", (fs, gvals), groupby, fresh_groupby),
+            ("topn_det_pass1", (xs,), ladder, fresh_ladder))
+
+
+def lane_pieces(torch, streams, S, cuts):
+    """Each lane of ``streams`` cut at the same ragged points: per piece
+    (its lane start, its streams [S * n] of that piece of every lane)."""
+    L = streams[0].shape[0] // S
+    bounds = [0] + [int(c * L) + 3 for c in cuts] + [L]
+    out = []
+    for a, b in zip(bounds, bounds[1:]):
+        out.append((a, tuple(
+            s.reshape((S, L) + tuple(s.shape[1:]))[:, a:b]
+            .reshape((-1,) + tuple(s.shape[1:])).contiguous()
+            for s in streams)))
+    return out
+
+
+def stream_resume(torch, table, pts):
+    """Part (a) of phase stream: each resumed B = 1 pass-1 kernel, at
+    S = 128 and 1 on the whole 2^25-row column cut into 3 ragged pieces a
+    lane, each piece from the state the last one left (the first from an
+    empty one), with the lane offset: keep (GROUP BY's emissions) and the
+    final state bit for bit against the one-pass kernel (which phase
+    kernels holds to its plain version), and the TOP-N apply with the
+    offset against the whole apply; then each resumed kernel on lane 0's
+    entries STREAM_PLAIN..2 STREAM_PLAIN from the state of its first
+    STREAM_PLAIN (carried, not empty) against its plain version on CPU
+    copies."""
+    from repro_torch.kernels import parallel as P
+
+    for name, streams, run, fresh in resumed_kernels(torch, table, pts):
+        for S in (SHARDS, 1):
+            L = M_MAIN // S
+            (k1, st1, ev1), one_s = sync_time(
+                lambda: run(streams, S, None if name != "topn_pass1"
+                            else (None,), 0))
+            state = fresh(S, streams[0].device)
+            ptrs = [t.data_ptr() for t in state]
+            keeps, evs, secs = [], [], 0.0
+            for a, piece in lane_pieces(torch, streams, S, STREAM_CUTS):
+                (k, state, ev), s = sync_time(
+                    lambda: run(piece, S, state, a))
+                secs += s
+                n = piece[0].shape[0] // S
+                if k is not None:
+                    keeps.append(k.reshape(S, n))
+                if ev is not None:
+                    evs.append(tuple(e.reshape(S, n) for e in ev))
+            ok = all(same_bits(a_, b_) for a_, b_ in zip(state, st1))
+            ok &= [t.data_ptr() for t in state] == ptrs
+            if keeps:
+                ok &= same(torch.cat(keeps, 1), k1.reshape(S, L))
+            if evs:
+                ok &= all(same_bits(torch.cat([e[i] for e in evs], 1),
+                                    ev1[i].reshape(S, L)) for i in range(3))
+            check(ok, f"stream: resumed {name} S={S} differs from the "
+                  "one-pass kernel")
+            say("stream", resume=json.dumps(name), S=S, pieces=3,
+                one_pass_s=round(one_s, 4), resumed_s=round(secs, 4), ok=ok)
+            if name == "topn_pass1":
+                merged = P.merge_topn_states(st1[0], TOPN["w"])
+                whole = P.topn_apply_kernel(streams[0], merged, shards=S,
+                                            d=TOPN["d"], family="engine")
+                parts = [P.topn_apply_kernel(
+                    piece[0], merged, shards=S, d=TOPN["d"], family="engine",
+                    index_offset=a).reshape(S, -1)
+                    for a, piece in lane_pieces(torch, streams, S,
+                                                STREAM_CUTS)]
+                check(same(torch.cat(parts, 1), whole.reshape(S, L)),
+                      f"stream: topn_apply with offsets S={S} differs")
+        # lane 0's first 2 STREAM_PLAIN entries: the second half resumed
+        # from the first half's state, on the card and in the plain version
+        head = tuple(s[:STREAM_PLAIN] for s in streams)
+        tail = tuple(s[STREAM_PLAIN:2 * STREAM_PLAIN].contiguous()
+                     for s in streams)
+        _, carried, _ = run(head, 1, fresh(1, streams[0].device), 0)
+        got = run(tail, 1, tuple(t.clone() for t in carried), STREAM_PLAIN)
+        want, plain_s = on_host(
+            lambda *a: run(a[:len(tail)], 1, tuple(a[len(tail):]),
+                           STREAM_PLAIN), *tail, *carried)
+        ok = all(same_bits(a_, b_) for a_, b_ in
+                 zip(_flat(got), _flat(want)))
+        check(ok, f"stream: resumed {name} differs from its plain version "
+              "on a carried state")
+        say("stream", resume_plain=json.dumps(name), entries=STREAM_PLAIN,
+            carried_entries=STREAM_PLAIN, plain_s=round(plain_s, 3), ok=ok)
+
+
+def _flat(out):
+    keep, state, ev = out
+    return ((() if keep is None else (keep,)) + tuple(state)
+            + (() if ev is None else tuple(ev)))
+
+
+def stream_vs_one_shot(torch, P, table):
+    """Parts (b) to (d) of phase stream, for each engine call of section 5
+    at S = 128 over micro-batches of STREAM_BATCH (stream_sizes): close()
+    bit for bit against one-shot engine_prune(mode="two_pass") on the
+    lane-view stream at merge_every 1 and 4 (GROUP BY's emissions too);
+    live keeps what close keeps where a stale snapshot only loosens
+    (TOP-N det, HAVING, whose live mask is all True, GROUP BY), and the
+    count that close keeps but live drops elsewhere (an evicting cache can
+    give an entry back at close); the kernels the stream launched (counts
+    set to 0 before the first stream); each fold's host us and device ms,
+    the merge and the close, the stream's entries/s against the one-shot
+    two_pass, window_blocks, and whether the lane states kept their
+    data_ptr; and the live-kept fraction at merge_every 1, 4 and 16, whose
+    slope against the mean lag (K - 1) / 2 is the staleness rate sigma."""
+    from repro_torch import core
+
+    sizes = stream_sizes()
+    sigmas = {}
+    for name, algo, cols, params in ENGINE_CALLS:
+        streams = engine_streams(torch, table, algo, cols)
+        one, one_s = sync_time(lambda: core.engine_prune(
+            algo, *streams, mode="two_pass", shards=SHARDS, obs="off",
+            **params))
+        _, one_s2 = sync_time(lambda: core.engine_prune(
+            algo, *streams, mode="two_pass", shards=SHARDS, obs="off",
+            **params))
+        lv, valid, arrival = core.lane_view(algo, streams, sizes, SHARDS,
+                                            **params)
+        lone = core.engine_prune(algo, *lv, mode="two_pass", shards=SHARDS,
+                                 obs="off", **params)
+        fracs = {}
+        for K in STREAM_KS:
+            P.reset_launch_counts()
+            s = core.PruneStream(algo, shards=SHARDS, merge_every=K,
+                                 obs="off", **params)
+            host_us, dev_ms, ptrs = [], [], None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lo = 0
+            for b in sizes:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                h0 = time.perf_counter()
+                s.fold(*(x[lo:lo + b] for x in streams))
+                host_us.append((time.perf_counter() - h0) * 1e6)
+                e1.record()
+                dev_ms.append((e0, e1))
+                lo += b
+                if ptrs is None:
+                    ptrs = [t.data_ptr() for t in vars(s.lane_state)
+                            .values() if isinstance(t, torch.Tensor)]
+            res, close_s = sync_time(s.close)
+            wall = time.perf_counter() - t0
+            counts = {k.name: k.launches for k in P.KERNELS}
+            dev = sorted(a.elapsed_time(b) for a, b in dev_ms)
+            stable = ptrs == [t.data_ptr() for t in vars(s.lane_state)
+                              .values() if isinstance(t, torch.Tensor)]
+            merge_ms = event_ms(lambda: s._merge_now(), 3)
+            live, keep = res.live_keep, res.keep
+            fracs[K] = float(live.float().mean())
+            ok = stable
+            if K == 1:
+                for k in STREAM_NEEDS[name]:
+                    ok &= check(counts[k] > 0, f"stream: {name} never "
+                                f"launched {k}")
+            if K in (1, 4):
+                ok &= check(same(keep[arrival[valid]], lone.keep[valid]),
+                            f"stream: {name} K={K} close() differs from "
+                            "one-shot two_pass on the lane view")
+                if res.emitted is not None:
+                    ok &= check(stream_emitted_ok(torch, res, lone, sizes),
+                                f"stream: {name} K={K} emissions differ "
+                                "from the one-shot's")
+                if algo in ("topn_det", "having", "groupby"):
+                    ok &= check(bool(live[keep].all()), f"stream: {name} "
+                                f"K={K} live drops what close keeps")
+                if algo == "having":
+                    ok &= check(bool(live.all()), "stream: HAVING's live "
+                                "mask is not all True")
+            say("stream", call=json.dumps(name), merge_every=K,
+                batches=res.stats["batches"], merges=res.stats["merges"],
+                window_blocks=res.stats["window_blocks"],
+                fold_host_us_median=round(sorted(host_us)[len(host_us) // 2],
+                                          1),
+                fold_host_us_max=round(max(host_us), 1),
+                fold_device_ms_median=round(dev[len(dev) // 2], 4),
+                fold_device_ms_max=round(dev[-1], 4),
+                merge_ms=round(merge_ms, 4), close_ms=round(close_s * 1e3, 3),
+                stream_s=round(wall, 4),
+                stream_entries_per_s=round(M_MAIN / wall),
+                one_shot_s=round(min(one_s, one_s2), 4),
+                one_shot_entries_per_s=round(M_MAIN / min(one_s, one_s2)),
+                live_fraction=fracs[K],
+                final_fraction=float(keep.float().mean()),
+                close_not_live=int((keep & ~live).sum()),
+                data_ptr_stable=stable, ok=ok,
+                launches=json.dumps({k: n for k, n in counts.items() if n},
+                                    separators=(",", ":")))
+        lag = [(K - 1) / 2 for K in STREAM_KS]
+        mx, my = sum(lag) / len(lag), sum(fracs.values()) / len(fracs)
+        sigma = (sum((x - mx) * (fracs[K] - my) for x, K in
+                     zip(lag, STREAM_KS))
+                 / sum((x - mx) ** 2 for x in lag))
+        sigmas[name] = sigma
+        say("stream", call=json.dumps(name), sigma=sigma,
+            live_fractions=json.dumps(fracs), one_shot_kept=float(
+                one.keep.float().mean()))
+    say("stream", sigma_by_call=json.dumps(sigmas))
+
+
+def stream_emitted_ok(torch, res, lone, sizes) -> bool:
+    """GROUP BY's emissions of the stream (batch after batch, each [S, nb]
+    lane-major) against the one-shot's on the lane view (lane after lane):
+    batch t's lane j is lane j's entries from its offset on."""
+    L = lone.emitted[0].shape[0] // SHARDS
+    ok, lo, off = True, 0, 0
+    for b in sizes:
+        nb = -(-b // SHARDS)
+        for se, oe in zip(res.emitted, lone.emitted):
+            ok &= same_bits(se[lo:lo + SHARDS * nb].reshape(SHARDS, nb),
+                            oe.reshape(SHARDS, L)[:, off:off + nb])
+        lo += SHARDS * nb
+        off += nb
+    return ok
+
+
+def stream_merge_f32(torch):
+    """The f32 HAVING merge in XLA's order (A29; off the main path, whose
+    tables are integers): its time on 128 lane tables of 3 x 4096 beside
+    torch's sum over the lanes."""
+    from repro_torch.kernels.common import xla_sum_f32
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    t = torch.randn((SHARDS, 3, 4096), device="cuda", generator=g)
+    say("stream", merge_f32_lanes=SHARDS, table="3x4096",
+        xla_order_ms=round(event_ms(lambda: xla_sum_f32(t), 5), 4),
+        torch_sum_ms=round(event_ms(lambda: t.sum(0), 5), 4))
+
+
+def phase_stream(torch, P, table, pts):
+    """Streaming and scan resume (ROADMAP Queue 1 item 9)."""
+    stream_resume(torch, table, pts)
+    stream_vs_one_shot(torch, P, table)
+    stream_merge_f32(torch)
+
+
 # ------------------------------------------------------------------ phase 4
 # lane counts at which time_block_forms times both B > 1 forms
 BLOCK_FORM_LANES = (1, 8, 16, 32, 64, SHARDS)
@@ -3375,7 +3728,8 @@ def apply_shifted(torch, P, xs, merged, fam):
     def launch():
         P.TOPN_APPLY.launch(xs.device, ptr(xs), col, merged.stride(0),
                             ptr(keep), SHARDS, L, d, 0,
-                            int(fam == "kernel"), 0, gx, groups, smem, None)
+                            int(fam == "kernel"), 0, gx, groups, smem, None,
+                            0)
     return launch, keep
 
 
@@ -4758,6 +5112,7 @@ def main() -> int:
             "main", phase_main, torch, P, O)
         sbytes = timed("planner", phase_planner, torch, table)
         timed("obs", phase_obs, torch, paths, sbytes)
+        timed("stream", phase_stream, torch, P, table, pts)
         timed("subnormals", phase_subnormals, torch, P, R, table)
         rows = timed("timing", phase_timing, torch, P, R, table, rankings,
                      pts, totals, clock_hz, encoded, rle, host)

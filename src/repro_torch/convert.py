@@ -100,6 +100,15 @@ def skyline_state_from_numpy(points, scores, device=None) -> SkylineState:
                         scores=_t(scores, np.float32, dev))
 
 
+def groupby_state_from_numpy(keys, aggs, valid, device=None) -> GroupByState:
+    """A GROUP BY cache: uint32 keys, f32 aggregates and bool valid flags
+    [d, w] (or stacked [S, d, w])."""
+    dev = resolve_device(device)
+    return GroupByState(keys=_t(keys, np.uint32, dev),
+                        aggs=_t(aggs, np.float32, dev),
+                        valid=_t(valid, np.bool_, dev))
+
+
 def count_min_from_numpy(table, seed: int = 0, device=None) -> CountMin:
     """A Count-Min sketch: an int32 or f32 table [rows, width] (or stacked
     [S, rows, width]), in its own dtype."""

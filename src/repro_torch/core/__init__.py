@@ -39,5 +39,7 @@ from .planner import (SwitchProfile, ResourceFootprint, footprint,
                       RESIDENT_OVERHEAD_ENTRIES, optimal_merge_interval,
                       DEFAULT_STALENESS_RATE)
 from .options import DECODE_MODES, ExecOptions
+from .streaming import (PruneStream, StreamResult, engine_prune_stream,
+                        lane_view)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

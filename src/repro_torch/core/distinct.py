@@ -44,16 +44,17 @@ def distinct_prune(values: torch.Tensor, *, d: int, w: int,
     ``policy`` is "lru" (the default, as in the JAX package) or "fifo".
     Other integer streams are taken by their 32-bit lanes; a float stream
     follows the JAX package's f32 compare (``kernels.ref.distinct_keys``).
+    ``state`` resumes a prior scan (FIFO's head and LRU's order carried);
+    the carried state is not changed.
     """
     from ..kernels.parallel import distinct_form, distinct_shard_states_kernel
 
-    if state is not None:
-        raise NotImplementedError(
-            "resuming a scan (state=) is not ported yet; see ROADMAP Queue 1 "
-            "item 9 (streaming)")
+    carried = None if state is None else tuple(
+        t.reshape((1,) + tuple(t.shape)).clone()
+        for t in (state.slots, state.valid, state.head))
     keep, slots, valid, head = distinct_shard_states_kernel(
         distinct_form(values), d=d, w=w, shards=1, block=1, seed=seed,
-        policy=policy)
+        policy=policy, state=carried)
     return PruneResult(keep=keep, state=DistinctState(slots[0], valid[0],
                                                       head[0]))
 

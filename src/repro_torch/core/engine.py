@@ -46,6 +46,8 @@ result (counters from the materialised mask, wall-clock spans in
 Ported so far: all six algorithms (``topn_det``, ``topn_rand``,
 ``distinct`` with ``policy="lru"`` or ``"fifo"``, ``skyline``, ``having``,
 ``groupby``) in ``scan``, ``sharded`` and ``two_pass``, plain or encoded.
+Each algorithm's ``resume`` and ``init`` bodies carry the streaming fold
+(``core.streaming``): pass 1 from a carried stacked state, in place.
 """
 from __future__ import annotations
 
@@ -58,23 +60,25 @@ import torch
 
 from ..constants import NEG
 from ..kernels import parallel as kpar
-from ..kernels.cms_sketch import (INT_TABLES, by_value_i64, cms_build_kernel,
-                                  cms_query_kernel, wrap_to)
-from ..kernels.common import amax_f32, flush_subnormals
+from ..kernels.cms_sketch import (INT_TABLES, by_value_i64, cms_query_kernel,
+                                  wrap_to)
+from ..kernels.common import amax_f32, flush_subnormals, xla_sum_f32
 from ..kernels.groupby_scan import groupby_pass1_kernel
 from ..kernels.ops import _pad_to, first_value
 from ..kernels.topn_det_scan import pow2, topn_det_pass1_kernel
 from ..obs import report as obsreport
 from . import planner
 from .distinct import DistinctState
+from .distinct import init_state as distinct_init
 from .encoding import as_x32, normalize_encodings
-from .groupby import GroupByState
+from .groupby import GroupByState, groupby_init
+from .having import add_tables, batch_table, having_init
 from .hashing import by_value
 from .options import ExecOptions
 from .pruning import PruneResult
-from .skyline import SkylineState
+from .skyline import SkylineState, skyline_init
 from .sketches import CountMin
-from .topn import TopNDetState, TopNRandState
+from .topn import TopNDetState, TopNRandState, topn_det_init, topn_rand_init
 
 MODES = ("scan", "sharded", "two_pass", "mesh")
 ALGORITHMS = ("topn_det", "topn_rand", "distinct", "skyline", "groupby",
@@ -125,6 +129,15 @@ class _AlgoSpec:
     pads(streams, params)                -> tail-pad fill of each stream
     merge(stacked_state, params)         -> merged global state
     apply(merged, lanes, keep1, params)  -> keep bool[S, n]
+    resume(state, lanes, params)         -> pass1's triple, each lane's scan
+                                            resumed from the stacked carried
+                                            state, which it updates in place
+                                            (the streaming fold; keep is
+                                            None where no caller reads it)
+    init(lanes, params)                  -> one lane's empty switch state on
+                                            the lanes' device (the lanes are
+                                            examples, read for dtypes and
+                                            trailing dims)
     chunkable: the apply is elementwise over entries (no positional
     dependence), so ``apply_block`` may cut it into blocks of entries.
     sharded_needs_merge: a lane's own keep is unsafe (HAVING: a key's global
@@ -140,6 +153,8 @@ class _AlgoSpec:
     pads: Callable[[tuple, dict], tuple]
     merge: Callable[[Any, dict], Any]
     apply: Callable[[Any, tuple, torch.Tensor, dict], torch.Tensor]
+    resume: Callable[[Any, tuple, dict], tuple]
+    init: Callable[[tuple, dict], Any]
     chunkable: bool = False
     sharded_needs_merge: bool = False
     max_streams: int = 1
@@ -153,6 +168,19 @@ def _topn_det_pass1(lanes, p):
         x.reshape(-1).to(torch.float32).contiguous(), N=p["N"],
         w=p.get("w", 4), shards=x.shape[0])
     return keep.reshape(x.shape), TopNDetState(*st), None
+
+
+def _topn_det_resume(st, lanes, p):
+    (x,) = lanes
+    keep, _ = topn_det_pass1_kernel(
+        x.reshape(-1).to(torch.float32).contiguous(), N=p["N"],
+        w=p.get("w", 4), shards=x.shape[0],
+        state=(st.t0, st.counts, st.seen, st.cur_level))
+    return keep.reshape(x.shape), st, None
+
+
+def _topn_det_init(lanes, p):
+    return topn_det_init(p.get("w", 4), lanes[0].device)
 
 
 def _topn_det_merge(st, p):
@@ -181,6 +209,21 @@ def _topn_rand_pass1(lanes, p):
     return keep.reshape(x.shape), TopNRandState(vals=vals), None
 
 
+def _topn_rand_resume(st, lanes, p):
+    # the row hash is positional over the lane-local stream index, so the
+    # resumed scan takes the per-lane entry count consumed so far
+    (x,) = lanes
+    keep, _ = kpar.topn_shard_states_kernel(
+        x.reshape(-1).to(torch.float32).contiguous(), d=p["d"], w=p["w"],
+        shards=x.shape[0], block=1, seed=p.get("seed", 0), family="engine",
+        state=st.vals, index_offset=p.get("_index_offset", 0))
+    return keep.reshape(x.shape), st, None
+
+
+def _topn_rand_init(lanes, p):
+    return topn_rand_init(p["d"], p["w"], lanes[0].device)
+
+
 def _topn_rand_merge(st, p):
     return TopNRandState(vals=kpar.merge_topn_states(st.vals, p["w"]))
 
@@ -188,9 +231,11 @@ def _topn_rand_merge(st, p):
 def _topn_rand_apply(merged, lanes, keep1, p):
     del keep1
     (x,) = lanes
+    # a streamed micro-batch's lane positions start at _index_offset
     keep = kpar.topn_apply_kernel(
         x.reshape(-1).to(torch.float32).contiguous(), merged.vals, d=p["d"],
-        shards=x.shape[0], seed=p.get("seed", 0), family="engine")
+        shards=x.shape[0], seed=p.get("seed", 0), family="engine",
+        index_offset=p.get("_index_offset", 0))
     return keep.reshape(x.shape)
 
 
@@ -202,6 +247,19 @@ def _distinct_pass1(lanes, p):
         kpar.distinct_form(x.reshape(-1)), d=p["d"], w=p["w"], shards=S,
         block=1, seed=p.get("seed", 0), policy=p.get("policy", "lru"))
     return keep.reshape(x.shape), DistinctState(slots, valid, head), None
+
+
+def _distinct_resume(st, lanes, p):
+    (x,) = lanes
+    keep, *_ = kpar.distinct_shard_states_kernel(
+        kpar.distinct_form(x.reshape(-1)), d=p["d"], w=p["w"],
+        shards=x.shape[0], block=1, seed=p.get("seed", 0),
+        policy=p.get("policy", "lru"), state=(st.slots, st.valid, st.head))
+    return keep.reshape(x.shape), st, None
+
+
+def _distinct_init(lanes, p):
+    return distinct_init(p["d"], p["w"], lanes[0].device)
 
 
 def _distinct_merge(st, p):
@@ -232,6 +290,19 @@ def _skyline_pass1(lanes, p):
             None)
 
 
+def _skyline_resume(st, lanes, p):
+    (x,) = lanes
+    keep, _, _ = kpar.skyline_shard_states_kernel(
+        _skyline_points(x), w=p["w"], shards=x.shape[0], block=1,
+        score=p.get("score", "aph"), form="engine",
+        state=(st.points, st.scores))
+    return keep.reshape(x.shape[:2]), st, None
+
+
+def _skyline_init(lanes, p):
+    return skyline_init(p["w"], lanes[0].shape[-1], lanes[0].device)
+
+
 def _skyline_merge(st, p):
     S, w, D = st.points.shape
     pts = st.points.reshape(S * w, D)
@@ -251,21 +322,45 @@ def _skyline_apply(merged, lanes, keep1, p):
 
 
 # HAVING (Count-Min + threshold, Ex. 5) ----------------------------------
-def _having_pass1(lanes, p):
+def _having_tables(lanes, p):
+    """The lanes' batch tables [S, rows, width], as the jitted reference
+    builds them."""
     keys = lanes[0]
-    S = keys.shape[0]
     weights = (None if p.get("agg", "sum") == "count" or len(lanes) < 2
                else lanes[1].reshape(-1))
-    seed = p.get("seed", 0)
-    tables = cms_build_kernel(keys.reshape(-1), weights,
-                              rows=p.get("rows", 3),
-                              width=p.get("width", 1024), seed=seed,
-                              family="engine", shards=S)
-    if S > 1:  # sharded_needs_merge: a lane's own keep is never read
-        return None, CountMin(table=tables, seed=seed), None
-    keep = cms_query_kernel(tables[0], keys.reshape(-1), seed=seed,
-                            family="engine", threshold=p["threshold"])
-    return keep[None], CountMin(table=tables, seed=seed), None
+    return batch_table(keys.reshape(-1), weights, p.get("rows", 3),
+                       p.get("width", 1024), p.get("seed", 0),
+                       shards=keys.shape[0])
+
+
+def _having_keep(lanes, tables, p):
+    # sharded_needs_merge: at S > 1 a lane's own keep is never read
+    if lanes[0].shape[0] > 1:
+        return None
+    return cms_query_kernel(tables[0], lanes[0].reshape(-1),
+                            seed=p.get("seed", 0), family="engine",
+                            threshold=p["threshold"])[None]
+
+
+def _having_pass1(lanes, p):
+    tables = _having_tables(lanes, p)
+    return (_having_keep(lanes, tables, p),
+            CountMin(table=tables, seed=p.get("seed", 0)), None)
+
+
+def _having_resume(st, lanes, p):
+    # the batch's sketch from zero, added to the running one (state.table +
+    # sketch.table, as the reference adds them)
+    st.table.copy_(add_tables(st.table, _having_tables(lanes, p)))
+    return _having_keep(lanes, st.table, p), st, None
+
+
+def _having_init(lanes, p):
+    dtype = (torch.int32 if p.get("agg", "sum") == "count" or len(lanes) < 2
+             else lanes[1].dtype)
+    return having_init(rows=p.get("rows", 3), width=p.get("width", 1024),
+                       seed=p.get("seed", 0), dtype=dtype,
+                       device=lanes[0].device)
 
 
 def _having_merge(st, p):
@@ -276,6 +371,9 @@ def _having_merge(st, p):
     if t.dtype in INT_TABLES:
         kind = torch.int32 if t.dtype.is_signed else torch.uint32
         summed = wrap_to(by_value_i64(t).sum(0), kind)
+    elif t.dtype == torch.float32:
+        # in XLA's CPU order, every add flushed (A29)
+        summed = xla_sum_f32(t)
     else:
         summed = t.sum(0)
     return CountMin(table=summed, seed=st.seed)
@@ -309,6 +407,22 @@ def _groupby_pass1(lanes, p):
     return keep, GroupByState(*st), tuple(e.reshape(keys.shape) for e in ev)
 
 
+def _groupby_resume(st, lanes, p):
+    keys, vals = lanes[0], lanes[1]
+    valid = lanes[2].reshape(-1).contiguous() if len(lanes) > 2 else None
+    ev, _ = groupby_pass1_kernel(
+        keys.reshape(-1).contiguous(),
+        by_value(vals.reshape(-1)).to(torch.float32).contiguous(), valid,
+        d=p["d"], w=p["w"], agg=p.get("agg", "sum"), seed=p.get("seed", 0),
+        shards=keys.shape[0], state=(st.keys, st.aggs, st.valid))
+    keep = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    return keep, st, tuple(e.reshape(keys.shape) for e in ev)
+
+
+def _groupby_init(lanes, p):
+    return groupby_init(p["d"], p["w"], p.get("agg", "sum"), lanes[0].device)
+
+
 def _groupby_merge(st, p):
     # cache-column union: the master's fold is a commutative monoid, so
     # duplicate keys across shard columns fold exactly in completion
@@ -329,20 +443,25 @@ def _groupby_pads(streams, p):
 
 _SPECS: dict[str, _AlgoSpec] = {
     "topn_det": _AlgoSpec(_topn_det_pass1, lambda s, p: (float(NEG),),
-                          _topn_det_merge, _topn_det_apply),
+                          _topn_det_merge, _topn_det_apply, _topn_det_resume,
+                          _topn_det_init),
     "topn_rand": _AlgoSpec(_topn_rand_pass1, lambda s, p: (float(NEG),),
-                           _topn_rand_merge, _topn_rand_apply),
+                           _topn_rand_merge, _topn_rand_apply,
+                           _topn_rand_resume, _topn_rand_init),
     "distinct": _AlgoSpec(_distinct_pass1, lambda s, p: (0,),
-                          _distinct_merge, _distinct_apply, chunkable=True),
+                          _distinct_merge, _distinct_apply, _distinct_resume,
+                          _distinct_init, chunkable=True),
     # a (NEG, ..., NEG) point dominates nothing and scores below/at every
     # real point, so tail pads only (at worst) loosen the last shard
     "skyline": _AlgoSpec(_skyline_pass1, lambda s, p: (float(NEG),),
-                         _skyline_merge, _skyline_apply, chunkable=True),
+                         _skyline_merge, _skyline_apply, _skyline_resume,
+                         _skyline_init, chunkable=True),
     "having": _AlgoSpec(_having_pass1, _having_pads, _having_merge,
-                        _having_apply, sharded_needs_merge=True,
-                        max_streams=2),
+                        _having_apply, _having_resume, _having_init,
+                        sharded_needs_merge=True, max_streams=2),
     "groupby": _AlgoSpec(_groupby_pass1, _groupby_pads, _groupby_merge,
-                         _groupby_apply, max_streams=3, pad_validity=True),
+                         _groupby_apply, _groupby_resume, _groupby_init,
+                         max_streams=3, pad_validity=True),
 }
 
 
@@ -355,8 +474,13 @@ def _spec(algo: str, params: dict) -> _AlgoSpec:
         raise KeyError(algo)
     for k in ("state", "index_offset"):
         if k in params:
-            raise _not_ported(f"{k}= (scan resume)",
-                              "Queue 1 item 9: streaming")
+            # the reference's engine has no resume either
+            raise NotImplementedError(
+                f"engine_prune does not resume a scan ({k}=): fold "
+                "micro-batches through core.streaming.PruneStream, or resume "
+                "one lane with the core functions (topn_rand_prune, "
+                "topn_det_prune, distinct_prune, skyline_prune, "
+                "groupby_prune, having_prune)")
     return _SPECS[algo]
 
 
@@ -416,7 +540,8 @@ def _encoded_spec(algo: str, spec: _AlgoSpec, encs) -> _AlgoSpec:
     return dataclasses.replace(
         spec, pass1=lambda lanes, p: spec.pass1(dec(lanes), p),
         apply=lambda mg, lanes, k1, p: spec.apply(mg, dec(lanes), k1, p),
-        pads=pads)
+        resume=lambda st, lanes, p: spec.resume(st, dec(lanes), p),
+        init=lambda lanes, p: spec.init(dec(lanes), p), pads=pads)
 
 
 # ------------------------------------------------------------------ layout
@@ -678,8 +803,9 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
 
     Not ported yet, and refused naming their ROADMAP item: ``mode="mesh"``,
     ``mesh=`` and ``pass2`` other than ``"master"`` (item 7), ``tune=`` and
-    ``plan_cache=`` (item 11), scan resume ``state=`` / ``index_offset=``
-    (item 9).
+    ``plan_cache=`` (item 11). Scan resume (``state=`` / ``index_offset=``)
+    is refused as the reference refuses it: ``core.streaming.PruneStream``
+    and the core functions resume.
     """
     del mesh_axis
     opts = ExecOptions.resolve(options, mode=mode, shards=shards,

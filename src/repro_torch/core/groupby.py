@@ -49,16 +49,16 @@ def groupby_prune(keys: torch.Tensor, values: torch.Tensor,
     valid: optional bool[m] entry-validity column. Entries with valid=False
     leave the switch state untouched (no fold, insertion or eviction): the
     hook that makes the engine's tail pads inert under every aggregate,
-    COUNT included.
+    COUNT included. ``state`` resumes a prior scan from its cache (the
+    carried state is not changed).
     """
-    if state is not None:
-        raise NotImplementedError(
-            "resuming a GROUP BY cache (state=) is not ported yet; see "
-            "ROADMAP Queue 1 item 9 (streaming)")
+    carried = None if state is None else tuple(
+        t.reshape((1,) + tuple(t.shape)).clone()
+        for t in (state.keys, state.aggs, state.valid))
     ev, st = groupby_pass1_kernel(
         keys.contiguous(), by_value(values).to(torch.float32).contiguous(),
         None if valid is None else valid.contiguous(), d=d, w=w, agg=agg,
-        seed=seed)
+        seed=seed, state=carried)
     keep = torch.zeros(keys.shape[0], dtype=torch.bool, device=keys.device)
     return PruneResult(keep=keep, state=GroupByState(*(s[0] for s in st)),
                        emitted=ev)

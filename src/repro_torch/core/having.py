@@ -19,7 +19,7 @@ import torch
 from ..device import resolve_device
 from .hashing import as_u32
 from .pruning import PruneResult
-from .sketches import CountMin, cms_build, cms_query
+from .sketches import JIT_ZERO_ROWS, CountMin, cms_query, plus_zero_rows
 
 
 def having_init(rows: int = 3, width: int = 1024, seed: int = 0,
@@ -34,14 +34,49 @@ def having_init(rows: int = 3, width: int = 1024, seed: int = 0,
 def having_prune(keys: torch.Tensor, values: torch.Tensor | None, threshold,
                  *, rows: int = 3, width: int = 1024, agg: str = "sum",
                  seed: int = 0, state: CountMin | None = None) -> PruneResult:
-    """Sketch f per key; keep[i] = est(key_i) > threshold."""
-    if state is not None:
-        raise NotImplementedError(
-            "resuming a sketch (state=) is not ported yet; see ROADMAP "
-            "Queue 1 item 9 (streaming)")
+    """Sketch f per key; keep[i] = est(key_i) > threshold.
+
+    The batch's sketch is built as the reference's jitted body builds it
+    (``sketches.plus_zero_rows`` from row ``JIT_ZERO_ROWS``). ``state``: a
+    carried sketch the batch's table is added to (``add_tables``: wrapping
+    for integers, flushed for f32), and ``keep`` is judged against that
+    running estimate, which underestimates the final one (a stream must not
+    prune on it mid-stream, ``core.streaming``). The carried state is not
+    changed."""
     weights = None if agg == "count" else values
-    sketch = cms_build(keys, weights, rows, width, seed=seed)
+    table = batch_table(keys, weights, rows, width, seed)[0]
+    if state is not None:
+        table = add_tables(state.table, table)
+    sketch = CountMin(table=table, seed=seed)
     return PruneResult(keep=cms_query(sketch, keys, threshold), state=sketch)
+
+
+def batch_table(keys: torch.Tensor, weights: torch.Tensor | None, rows: int,
+                width: int, seed: int = 0, shards: int = 1) -> torch.Tensor:
+    """One batch's Count-Min tables [shards, rows, width], lane s over the
+    keys [s * m/S, (s+1) * m/S), as the reference's jitted HAVING body
+    builds them: the scatter-add of each row into a table of +0, that add
+    dropped in rows 0 and 1 (``JIT_ZERO_ROWS``)."""
+    from ..kernels.cms_sketch import cms_build_kernel
+
+    t = cms_build_kernel(keys.contiguous(), None if weights is None
+                         else weights.contiguous(), rows=rows, width=width,
+                         seed=seed, family="engine", shards=shards)
+    return plus_zero_rows(t, JIT_ZERO_ROWS)
+
+
+def add_tables(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` of two Count-Min tables as XLA adds them: an integer table
+    wraps in its dtype, an f32 one flushes operands and sum (A25), an f16
+    one rounds the sum to f16."""
+    from ..kernels.cms_sketch import INT_TABLES, by_value_i64, wrap_to
+    from ..kernels.common import ftz_add
+
+    if a.dtype in INT_TABLES:
+        return wrap_to(by_value_i64(a) + by_value_i64(b), a.dtype)
+    if a.dtype == torch.float32:
+        return ftz_add(a, b)
+    return a + b
 
 
 def master_complete_having(keys, values, keep, threshold, agg: str = "sum"):

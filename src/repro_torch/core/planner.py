@@ -362,8 +362,9 @@ def optimal_shards(m: int, state_bytes: int, max_shards: int = 4096,
 # Marginal unpruned fraction added per micro-batch of merged-state
 # staleness: with the cross-lane merge K batches old, lanes prune on a
 # looser (older) global state and ship ~σ·b extra entries per batch of
-# lag. Default is a conservative prior; no benchmark of this package
-# measures the slope yet (streaming is ROADMAP Queue 1 item 9).
+# lag. Default is a conservative prior; chip_smoke.py's phase stream
+# measures the slope on the card (PERF.md), and a planner change would
+# take it from there.
 DEFAULT_STALENESS_RATE = 2e-3
 MAX_MERGE_INTERVAL = 64
 

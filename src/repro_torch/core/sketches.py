@@ -71,12 +71,26 @@ def cms_build(keys: torch.Tensor, weights: torch.Tensor | None, rows: int,
     table = cms_build_kernel(keys.contiguous(), None if weights is None
                              else weights.contiguous(), rows=rows,
                              width=width, seed=seed, family="engine")[0]
-    if table.is_floating_point():
-        # the reference adds each row's scatter into a table of +0, which
-        # reads a sum flushed to -0 as +0 (in its jitted engine XLA drops
-        # some of those adds: ROADMAP Queue 3 A29)
-        table = table + 0.0
-    return CountMin(table=table, seed=seed)
+    return CountMin(table=plus_zero_rows(table, 0), seed=seed)
+
+
+# the rows of a jitted build from which XLA keeps the add of each row's
+# scatter into the table of +0 (ROADMAP Queue 3 A29)
+JIT_ZERO_ROWS = 2
+
+
+def plus_zero_rows(table: torch.Tensor, first: int) -> torch.Tensor:
+    """A float table [..., rows, width] as the reference leaves it after it
+    adds each row's scatter into a table of +0: rows ``first`` and up read
+    a sum flushed to -0 as +0. ``core.sketches.cms_build`` runs eagerly and
+    adds every row (first = 0); inside a jitted body (``having_prune``, the
+    engine's pass 1) XLA drops that add for rows 0 and 1 and keeps it from
+    row 2 on (``JIT_ZERO_ROWS``), on every shape tried."""
+    if not table.is_floating_point() or first >= table.shape[-2]:
+        return table
+    table = table.clone()
+    table[..., first:, :] += 0.0
+    return table
 
 
 def cms_query(s: CountMin, keys: torch.Tensor, threshold=None) -> torch.Tensor:

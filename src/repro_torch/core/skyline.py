@@ -99,16 +99,16 @@ def skyline_init(w: int, D: int, device=None) -> SkylineState:
 def skyline_prune(points: torch.Tensor, *, w: int, score: str = "aph",
                   state: SkylineState | None = None) -> PruneResult:
     """Stream points (f32/int [m, D], maximising every dimension) through
-    w stages: keep bool[m] and the final store."""
+    w stages: keep bool[m] and the final store. ``state`` resumes a prior
+    scan from its store; the carried state is not changed."""
     from ..kernels.parallel import skyline_shard_states_kernel
 
-    if state is not None:
-        raise NotImplementedError(
-            "resuming a scan (state=) is not ported yet; see ROADMAP "
-            "Queue 1 item 9 (streaming)")
+    carried = None if state is None else tuple(
+        t.to(torch.float32).reshape((1,) + tuple(t.shape)).clone()
+        for t in (state.points, state.scores))
     keep, pts, scs = skyline_shard_states_kernel(
         points.to(torch.float32).contiguous(), w=w, shards=1, block=1,
-        score=score, form="engine")
+        score=score, form="engine", state=carried)
     return PruneResult(keep=keep, state=SkylineState(pts[0], scs[0]))
 
 

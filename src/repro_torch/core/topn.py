@@ -40,16 +40,20 @@ def topn_rand_init(d: int, w: int, device) -> TopNRandState:
 def topn_rand_prune(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
                     state: TopNRandState | None = None,
                     index_offset=0) -> PruneResult:
-    """Randomized TOP-N matrix (Fig. 2) over f32[m] values (larger = better)."""
+    """Randomized TOP-N matrix (Fig. 2) over f32[m] values (larger = better).
+
+    state/index_offset resume a prior scan: the row hashes the stream
+    index, so a resumed call passes the count of entries the carried state
+    has consumed as ``index_offset`` (taken mod 2^32, as the reference's
+    uint32 add wraps). The carried state is not changed."""
     from ..kernels.parallel import topn_shard_states_kernel
 
-    if state is not None or index_offset:
-        raise NotImplementedError(
-            "resuming a scan (state=/index_offset=) is not ported yet; see "
-            "ROADMAP Queue 1 item 9 (streaming)")
+    carried = None if state is None else state.vals.to(
+        torch.float32).reshape(1, d, w).clone()
     keep, states = topn_shard_states_kernel(
         values.to(torch.float32).contiguous(), d=d, w=w, shards=1, block=1,
-        seed=seed, family="engine")
+        seed=seed, family="engine", state=carried,
+        index_offset=int(index_offset))
     return PruneResult(keep=keep, state=TopNRandState(states[0]))
 
 
@@ -74,16 +78,18 @@ def topn_det_prune(values: torch.Tensor, *, N: int, w: int = 4,
     """Deterministic threshold-ladder TOP-N (Ex. 3) over f32[m] values.
 
     During the first N entries nothing is pruned; afterwards an entry below
-    t0 * 2^cur_level is. A superset of the true top-N survives.
+    t0 * 2^cur_level is. A superset of the true top-N survives. ``state``
+    resumes a prior scan (the warm-up counter rides in it, so a resumed
+    batch never warms again); the carried state is not changed.
     """
     from ..kernels.topn_det_scan import topn_det_pass1_kernel
 
-    if state is not None:
-        raise NotImplementedError(
-            "resuming a scan (state=) is not ported yet; see ROADMAP Queue 1 "
-            "item 9 (streaming)")
+    carried = None if state is None else tuple(
+        t.reshape((1,) + tuple(t.shape)).to(dt).clone() for t, dt in (
+            (state.t0, torch.float32), (state.counts, torch.int32),
+            (state.seen, torch.int32), (state.cur_level, torch.int32)))
     keep, (t0, counts, seen, cur) = topn_det_pass1_kernel(
-        values.to(torch.float32).contiguous(), N=N, w=w)
+        values.to(torch.float32).contiguous(), N=N, w=w, state=carried)
     return PruneResult(keep=keep, state=TopNDetState(t0[0], counts[0],
                                                      seen[0], cur[0]))
 

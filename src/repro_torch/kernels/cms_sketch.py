@@ -35,9 +35,12 @@ replaced, kept for ``chip_smoke.py``'s witness. A float16 table takes a
 kernel of its own, a walk (``cms_build_walk`` in f16: each (row, lane) on
 one CTA, each chunk of keys sorted by column in shared memory, each
 column's run added in entry order), since f16 adds do not associate. An
-f32 build whose weights take both signs is rebuilt by the same walk in f32
-after the partial build (which flags the signs), since its flushed sums do
-not associate either (ROADMAP Queue 3 A28; ``_f32_sums``).
+f32 build whose weights take both signs is rebuilt after the partial build
+(which flags the signs), since its flushed sums do not associate either:
+in the engine's family by the same walk in f32, in entry order (ROADMAP
+Queue 3 A28; ``_f32_sums``), in the kernels' family by blocks of the
+Pallas build, each summed in XLA's reduction order (A29,
+``pallas_f32_build``; ``cms_build_blocks`` on the card).
 
 The CUDA query (``cms_query``) is persistent: as many CTAs as the SMs
 hold, each with the table staged in its shared memory (a table above the
@@ -64,7 +67,7 @@ from .common import (F32, FLT_MIN, I32, I64, P, U32, CudaKernel, check_cuda,
                      flush_subnormals, library_fn, ptr, query_out)
 
 CMS_BUILD = CudaKernel("cms_build", [P, P, P, P, I32, I64, I32, I32, U32,
-                                     I32, I32])
+                                     I32, I32, I32])
 CMS_QUERY = CudaKernel(
     "cms_query", [P, P, P, P, I64, I32, I32, U32, I32, I32, I64, F32, I32, P])
 FAMILIES = ("kernel", "engine")
@@ -136,9 +139,12 @@ def by_value_i64(x: torch.Tensor) -> torch.Tensor:
 
 def cms_build_plain(keys: torch.Tensor, weights: torch.Tensor | None, *,
                     rows: int, width: int, seed: int = 0,
-                    family: str = "kernel", shards: int = 1) -> torch.Tensor:
+                    family: str = "kernel", shards: int = 1,
+                    block: int = 256) -> torch.Tensor:
     """Plain build: [shards, rows, width] tables, lane s over keys
-    [s * m/S, (s+1) * m/S). One index_add over all lanes and rows."""
+    [s * m/S, (s+1) * m/S). One index_add over all lanes and rows; an f32
+    table of the kernels' family sums as the Pallas build does, by blocks of
+    ``block`` keys (``pallas_f32_build``)."""
     m = keys.shape[0]
     dev = keys.device
     dtype = torch.int32 if weights is None else weights.dtype
@@ -154,6 +160,10 @@ def cms_build_plain(keys: torch.Tensor, weights: torch.Tensor | None, *,
         acc = torch.zeros(size, dtype=torch.int64, device=dev)
         acc.index_add_(0, cell, w.repeat_interleave(rows)[hit])
         table = wrap_to(acc, dtype)
+    elif dtype == torch.float32 and _family(family) != 1:
+        return pallas_f32_build(keys, weights, rows=rows, width=width,
+                                seed=seed, family=family, shards=shards,
+                                block=block)
     elif dtype == torch.float32:
         table = _f32_sums(cell, flush_subnormals(weights).repeat_interleave(
             rows)[hit], size)
@@ -173,9 +183,9 @@ def _f32_sums(cell: torch.Tensor, w: torch.Tensor, size: int) -> torch.Tensor:
     FLT_MIN on one key reads FLT_MIN, not 1.5 * FLT_MIN), so its weights
     are added one at a time in entry order, a flush after each: round k
     adds the k-th weight of every such cell. A sum flushed below zero
-    stays -0 here; ``core.sketches.cms_build`` adds the table to +0, as the
-    reference's eager build does (its jitted build leaves that sign to
-    XLA's simplifier, ROADMAP Queue 3 A29)."""
+    stays -0 here; ``core.sketches.plus_zero_rows`` adds the rows of the
+    table to +0 as the reference does (every row eagerly, from row 2 on in
+    a jitted body, ROADMAP Queue 3 A29)."""
     dev = cell.device
     table = torch.zeros(size, dtype=torch.float32, device=dev)
     pos = torch.zeros(size, dtype=torch.bool, device=dev)
@@ -198,6 +208,154 @@ def _f32_sums(cell: torch.Tensor, w: torch.Tensor, size: int) -> torch.Tensor:
             c = mc[at]
             table[c] = flush_subnormals(table[c] + mw[at])
     return table
+
+
+def _runs(*keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """For entries sorted by ``keys`` (equal keys adjacent): (group id of
+    each entry, rank within its group, whether it ends its group)."""
+    n = keys[0].numel()
+    new = torch.zeros(n, dtype=torch.bool, device=keys[0].device)
+    new[:1] = True
+    for k in keys:
+        new[1:] |= k[1:] != k[:-1]
+    gid = torch.cumsum(new, 0) - 1
+    pos = torch.arange(n, device=keys[0].device)
+    start = torch.cummax(torch.where(new, pos, 0), 0).values
+    last = torch.ones_like(new)
+    last[:-1] = new[1:]
+    return gid, pos - start, last
+
+
+def _plus_zero(acc: torch.Tensor, where: torch.Tensor) -> torch.Tensor:
+    """``acc`` after adds of +0 ``where`` set: a sum of -0 reads +0."""
+    return torch.where(where & (acc == 0), 0.0, acc)
+
+
+def _fadd(acc: torch.Tensor, v: torch.Tensor,
+          reset: torch.Tensor) -> torch.Tensor:
+    """One flushed add of XLA's sum, after adds of +0 where ``reset``."""
+    return flush_subnormals(_plus_zero(acc, reset) + v)
+
+
+def pallas_f32_build(keys: torch.Tensor, weights: torch.Tensor, *,
+                     rows: int, width: int, seed: int = 0,
+                     family: str = "kernel", shards: int = 1,
+                     block: int = 256) -> torch.Tensor:
+    """f32 tables [shards, rows, width] summed as the Pallas build sums
+    them (ROADMAP Queue 3 A29): each block of ``block`` keys of a lane gives
+    every counter the sum of its keys' one-hot products, which XLA's CPU
+    reduction takes in windows of 32 (``tree_windows``), each summed in
+    order from +0, then the window sums in order from +0, every add
+    flushed; the table adds each block's sum in block order, a flush after
+    each. A key that misses the counter adds +0 (whatever its weight), which
+    only turns a sum of -0 into +0. So each window, block or table sum is
+    walked over its hits alone, a +0 added first where a miss, a window or a
+    block without a hit comes between, in rounds across all of them at
+    once. A lane's last block may be shorter (the ops entry point pads to
+    whole blocks)."""
+    m = keys.shape[0]
+    dev = keys.device
+    n = m // shards
+    nbl = -(-n // block) if n else 0
+    exact = _integral_sums(keys, weights.to(torch.float32), rows=rows,
+                           width=width, seed=seed, family=family,
+                           shards=shards)
+    if exact is not None:
+        return exact
+    wf = flush_subnormals(weights.to(torch.float32))
+    idx = torch.arange(m, device=dev)
+    lane = idx // max(n, 1)
+    j = idx - lane * n
+    blk = j // block
+    gblk = lane * nbl + blk
+    bstart = lane * n + blk * block
+    blen = torch.clamp(n - blk * block, max=block)
+    nwin, front = tree_windows(blen)
+    win = (j - blk * block + front) // 32
+    wstart = bstart + torch.clamp(32 * win - front, min=0)
+    wend = bstart + torch.minimum(blen, 32 * (win + 1) - front)
+    table = torch.zeros(shards * rows * width, dtype=torch.float32,
+                        device=dev)
+    cols = row_hashes(keys, rows, width, seed, family)
+    for r in range(rows):
+        hit = torch.nonzero(cols[:, r] >= 0).flatten()
+        if not hit.numel():
+            continue
+        cell = (lane[hit] * rows + r) * width + cols[hit, r]
+        order = torch.sort(cell, stable=True).indices
+        g, cell = hit[order], cell[order]
+        gb, wn = gblk[g], win[g]
+        # window sums, hit by hit
+        ga, ka, enda = _runs(cell, gb, wn)
+        prev = torch.where(ka == 0, wstart[g] - 1, torch.roll(g, 1))
+        acc = torch.zeros(int(ga[-1]) + 1, device=dev)
+        for k in range(int(ka.max()) + 1):
+            at = ka == k
+            acc[ga[at]] = _fadd(acc[ga[at]], wf[g[at]], g[at] > prev[at] + 1)
+        ge = g[enda]
+        acc = _plus_zero(acc, ge < wend[ge] - 1)
+        # block sums over the windows with a hit
+        cw, gbw, ww = cell[enda], gb[enda], wn[enda]
+        gbk, kb, endb = _runs(cw, gbw)
+        prevw = torch.where(kb == 0, -1, torch.roll(ww, 1))
+        bs = torch.zeros(int(gbk[-1]) + 1, device=dev)
+        for k in range(int(kb.max()) + 1):
+            at = kb == k
+            bs[gbk[at]] = _fadd(bs[gbk[at]], acc[at], ww[at] > prevw[at] + 1)
+        bs = _plus_zero(bs, ww[endb] < nwin[ge[endb]] - 1)
+        # the table: block sums in block order
+        cb, gbb = cw[endb], gbw[endb]
+        gc, kc, endc = _runs(cb)
+        lane0 = (cb // (rows * width)) * nbl
+        prevb = torch.where(kc == 0, lane0 - 1, torch.roll(gbb, 1))
+        t = torch.zeros(int(gc[-1]) + 1, device=dev)
+        for k in range(int(kc.max()) + 1):
+            at = kc == k
+            t[gc[at]] = _fadd(t[gc[at]], bs[at], gbb[at] > prevb[at] + 1)
+        t = _plus_zero(t, gbb[endc] < lane0[endc] + nbl - 1)
+        table[cb[endc]] = t
+    return table.reshape(shards, rows, width)
+
+
+def _integral_sums(keys: torch.Tensor, w: torch.Tensor, *, rows: int,
+                   width: int, seed: int, family: str,
+                   shards: int) -> torch.Tensor | None:
+    """The f32 tables [shards, rows, width] when every weight is an integer
+    and each counter's sum of |weight| stays below 2^24, else None. Then
+    every partial sum of every order is an exact integer, and a sum from +0
+    that reaches 0 reads +0, so every order gives these bits: the main
+    path's weights take this sum (one index_add in f64), not the walk of
+    ``pallas_f32_build``."""
+    if not bool((torch.isfinite(w) & (w == w.trunc())).all()):
+        return None
+    m = keys.shape[0]
+    dev = keys.device
+    lane = torch.arange(m, device=dev) // max(m // shards, 1)
+    col = row_hashes(keys, rows, width, seed, family)
+    hit = col >= 0
+    cell = ((lane[:, None] * rows + torch.arange(rows, device=dev)) * width
+            + col)[hit]
+    w64 = w.to(torch.float64)[:, None].expand(m, rows)[hit]
+    size = shards * rows * width
+    bound = torch.zeros(size, dtype=torch.float64, device=dev).index_add_(
+        0, cell, w64.abs())
+    if bool((bound >= float(1 << 24)).any()):
+        return None
+    table = torch.zeros(size, dtype=torch.float64, device=dev).index_add_(
+        0, cell, w64)
+    return (table.to(torch.float32) + 0.0).reshape(shards, rows, width)
+
+
+def tree_windows(length: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(windows, front pads) of XLA's CPU sum of ``length`` f32 values
+    (ROADMAP Queue 3 A29): up to 32 values are one window; more are cut into
+    ceil(length / 32) windows of 32, the first short by (32 * windows -
+    length) // 2 (the front pads, which add +0 to a sum that starts at +0)
+    and the last by the rest."""
+    many = length > 32
+    nwin = torch.where(many, -(-length // 32), 1)
+    return nwin, torch.where(many, (32 * nwin - length) // 2, 0)
 
 
 @lru_cache(maxsize=None)
@@ -234,11 +392,12 @@ def _kernel_weights(weights: torch.Tensor | None):
 
 def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
                      rows: int, width: int, seed: int = 0,
-                     family: str = "kernel",
-                     shards: int = 1) -> torch.Tensor:
+                     family: str = "kernel", shards: int = 1,
+                     block: int = 256) -> torch.Tensor:
     """Count-Min tables [shards, rows, width] of the weights' dtype, lane s
     over the contiguous keys [s * m/S, (s+1) * m/S). The C build lays
-    itself out (``build_plan``)."""
+    itself out (``build_plan``). An f32 table of the kernels' family sums
+    by blocks of ``block`` keys (``pallas_f32_build``)."""
     m = keys.shape[0]
     fam = _family(family, keys)
     if rows < 1 or width < 1:
@@ -252,7 +411,8 @@ def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
                          f"{weights.dtype} {tuple(weights.shape)}")
     if not keys.is_cuda:
         return cms_build_plain(keys, weights, rows=rows, width=width,
-                               seed=seed, family=family, shards=shards)
+                               seed=seed, family=family, shards=shards,
+                               block=block)
     k = _keys_u32(keys)
     check_cuda("keys", k, torch.uint32)
     if weights is not None:
@@ -270,13 +430,19 @@ def cms_build_kernel(keys: torch.Tensor, weights: torch.Tensor | None, *,
     table = (torch.empty if staged else torch.zeros)(
         (shards, rows, width), dtype=_C_TABLES[ttype], device=dev)
     if m:
-        # the plan's workspace, and 16 bytes for an f32 build's sign flags
+        # the plan's workspace, 16 bytes for an f32 build's sign flags, and
+        # the last blocks of the kernels' family's block-order walk
         nbytes = (-(-build_plan(dev, shards, n, rows, width, ttype)[2] // 16)
                   * 16 + 16 if ttype < 2 else 16)
+        if ttype == 0 and w is not None and fam != 1:
+            if not 1 <= block <= 1024:
+                raise ValueError(f"the CUDA build sums blocks of 1 to 1024 "
+                                 f"keys, got block={block}")
+            nbytes += 4 * shards * rows * width
         work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         CMS_BUILD.launch(dev, ptr(k), None if w is None else ptr(w),
                          ptr(table), ptr(work), shards, n, rows, width,
-                         seed & 0xFFFFFFFF, fam, ttype)
+                         seed & 0xFFFFFFFF, fam, ttype, block)
     else:
         table.zero_()
     return kernel_table(table, dtype)

@@ -307,3 +307,35 @@ def cummin_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
     the order-preserving int32 image, every NaN put at the bottom)."""
     o = torch.where(x.isnan(), -_I32_MAX - 1, ordered_i32(x))
     return unordered_f32(torch.cummin(o, dim).values)
+
+
+def xla_sum_f32(t: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(t, axis=0)`` of f32 ``t`` [S, ...] in the order of XLA's CPU
+    reduction (ROADMAP Queue 3 A29), every add flushed: one element is
+    itself (a copy); up to 32 add in order from +0; more are cut into
+    ceil(S / 32) windows of 32, the first short by (32 * windows - S) // 2
+    and the last by the rest, each window adds in order from +0, and the
+    window sums add by the same rule. One torch function on the CPU and the
+    card alike: 32 flushed adds across all the windows at once a level."""
+    S = t.shape[0]
+    if S == 1:
+        return t[0].clone()
+    t = flush_subnormals(t)
+    if S > 32:
+        nwin = -(-S // 32)
+        front = (32 * nwin - S) // 2
+        # +0 in front and -0 behind are the adds a window without them
+        # takes: +0 + +0 is +0, and x + -0 is x for every x
+        pads = torch.zeros((32 * nwin - S,) + tuple(t.shape[1:]),
+                           dtype=t.dtype, device=t.device)
+        pads[front:] = -0.0
+        t = torch.cat([pads[:front], t, pads[front:]]).reshape(
+            (nwin, 32) + tuple(t.shape[1:]))
+        acc = torch.zeros_like(t[:, 0])
+        for i in range(32):
+            acc = flush_subnormals(acc + t[:, i])
+        return xla_sum_f32(acc) if nwin > 1 else acc[0]
+    acc = torch.zeros_like(t[0])
+    for i in range(S):
+        acc = flush_subnormals(acc + t[i])
+    return acc

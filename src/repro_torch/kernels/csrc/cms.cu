@@ -82,11 +82,14 @@
 // An f32 table's adds flush (--ftz=true, as XLA's do), so they do not
 // associate either once a sum can pass below FLT_MIN, which takes weights
 // of both signs in one counter (ROADMAP Queue 3 A28). The partial build
-// flags the signs of an f32 build's weights (one vote a CTA), and the same
-// walk in f32 (cms_build_walk<float>) follows it: it returns at once unless
-// the weights take both signs, and then builds every counter in entry
-// order, a flush after each add, as the reference's scatter-add and the
-// plain build add. Weights of one sign keep the partial build.
+// flags the signs of an f32 build's weights (one vote a CTA), and a walk
+// follows it that returns at once unless the weights take both signs, and
+// then builds every counter in the reference's order, a flush after each
+// add: for the engine's family the same walk in f32 (cms_build_walk<float>,
+// entry order, as the reference's scatter-add and the plain build add),
+// for the kernels' family cms_build_blocks (the Pallas build's blocks, each
+// summed in XLA's reduction order, ROADMAP Queue 3 A29). Weights of one
+// sign keep the partial build.
 //
 // Hash family at run time: 0 is the Pallas kernels'
 // hash_mod(key, width, seed + 101 r) on uint32 lanes, 2 the same on an int32
@@ -367,6 +370,155 @@ __global__ void __launch_bounds__(CMS_F16_THREADS)
   if (!staged) return;
   __syncthreads();
   for (int c = t; c < width; c += CMS_F16_THREADS) out[c] = row[c];
+}
+
+// The Pallas order of an f32 build of the kernels' family (ROADMAP Queue 3
+// A29; kernels/cms_sketch.py, pallas_f32_build, is the same walk in torch):
+// grid (rows, lanes), CMS_BB_THREADS threads, one CTA a (row, lane). The
+// lane's keys go in blocks of ``block`` (the last may be shorter); a
+// block's sum of each counter is XLA's CPU reduction of the block's one-hot
+// products: windows of 32 (the first short by the front pads, cms_bb_win),
+// each summed in order from +0, then the window sums in order from +0;
+// the table adds each block's sum in block order. Every add flushes
+// (--ftz=true). A key that misses a counter adds +0, which only turns a
+// sum of -0 into +0, so a block is sorted by (column, position) in shared
+// memory (bitonic), and the first entry of each column's run walks the
+// run's hits: a +0 goes first where a miss comes between two hits, after
+// the last hit of a window, or where a window or a block without a hit
+// comes between (``last``: each counter's last block with a hit). The row
+// and ``last`` live in shared memory when they fit, else in the output and
+// in ``glast`` (rows * lanes * width ints of workspace). ``go``: the sign
+// flags of the partial build; the walk runs only when the weights take
+// both signs (3). Its chain: the blocks of a lane, each a sort of the
+// block and its hottest column's run.
+#define CMS_BB_THREADS 256
+#define CMS_BB_MAX 1024  // the largest block (the sort's keys)
+
+// The windows and front pads of XLA's sum of n values (n <= 1024).
+__device__ __forceinline__ void cms_bb_win(int n, int* nwin, int* front) {
+  if (n <= 32) {
+    *nwin = 1;
+    *front = 0;
+  } else {
+    *nwin = (n + 31) >> 5;
+    *front = ((*nwin << 5) - n) >> 1;
+  }
+}
+
+// A sum of -0 after an add of +0 reads +0.
+__device__ __forceinline__ float cms_bb_plus0(float a, bool add) {
+  return add && a == 0.0f ? 0.0f : a;
+}
+
+__global__ void __launch_bounds__(CMS_BB_THREADS)
+    cms_build_blocks(const uint32_t* __restrict__ keys,
+                     const float* __restrict__ weights,
+                     float* __restrict__ table, int* __restrict__ glast,
+                     long long shard_len, int rows, int width, uint32_t seed,
+                     int family, int block, int staged,
+                     const unsigned* __restrict__ go) {
+  if (*go != 3u) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* sk = reinterpret_cast<unsigned long long*>(smem);  // (col << 32) | i
+  float* sw = reinterpret_cast<float*>(sk + CMS_BB_MAX);
+  float* srow = sw + CMS_BB_MAX;
+  int* slast = reinterpret_cast<int*>(srow + (staged ? width : 0));
+  const int r = blockIdx.x;
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.y) * shard_len;
+  const long long cell0 = (static_cast<long long>(blockIdx.y) * rows + r) * width;
+  float* row = staged ? srow : table + cell0;
+  int* last = staged ? slast : glast + cell0;
+  for (int c = t; c < width; c += CMS_BB_THREADS) {
+    row[c] = 0.0f;
+    last[c] = -1;
+  }
+  const uint32_t wmask = (width & (width - 1)) == 0 ? width - 1 : 0u;
+  const unsigned long long none = ~0ull;  // padding and dropped probes
+  const long long nbl = (shard_len + block - 1) / block;
+  for (long long b = 0; b < nbl; ++b) {
+    const long long c0 = b * block;
+    const int n = static_cast<int>(min(static_cast<long long>(block),
+                                       shard_len - c0));
+    int np = 1;
+    while (np < n) np <<= 1;
+    __syncthreads();  // the last block's walk is done with sk, sw and row
+    for (int i = t; i < np; i += CMS_BB_THREADS) {
+      unsigned long long k = none;
+      if (i < n) {
+        const int col = cms_hash_build(keys[base + c0 + i], r, width, wmask,
+                                       seed, family);
+        sw[i] = weights[base + c0 + i];
+        if (col >= 0)
+          k = (static_cast<unsigned long long>(col) << 32) |
+              static_cast<unsigned>(i);
+      }
+      sk[i] = k;
+    }
+    __syncthreads();
+    for (int k = 2; k <= np; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = t; i < np / 2; i += CMS_BB_THREADS) {
+          const int lo = 2 * i - (i & (j - 1));
+          const int hi = lo + j;
+          const unsigned long long a = sk[lo];
+          const unsigned long long bb = sk[hi];
+          if ((a > bb) == ((lo & k) == 0)) {
+            sk[lo] = bb;
+            sk[hi] = a;
+          }
+        }
+        __syncthreads();
+      }
+    int nwin, front;
+    cms_bb_win(n, &nwin, &front);
+    for (int i = t; i < n; i += CMS_BB_THREADS) {
+      const unsigned long long k = sk[i];
+      if (k == none) continue;
+      const unsigned col = static_cast<unsigned>(k >> 32);
+      if (i > 0 && static_cast<unsigned>(sk[i - 1] >> 32) == col) continue;
+      float acc = 0.0f, bsum = 0.0f;
+      int q = -1, prev = -1, wend = 0, prevq = -1;
+      for (int j = i; j < n && static_cast<unsigned>(sk[j] >> 32) == col; ++j) {
+        const int p = static_cast<int>(static_cast<unsigned>(sk[j]));
+        const int qj = (p + front) >> 5;
+        if (qj != q) {
+          if (q >= 0) {  // close window q into the block's sum
+            acc = cms_bb_plus0(acc, prev < wend - 1);
+            bsum = cms_bb_plus0(bsum, q > prevq + 1) + acc;
+            prevq = q;
+          }
+          q = qj;
+          acc = 0.0f;
+          prev = max(0, 32 * q - front) - 1;
+          wend = min(n, 32 * (q + 1) - front);
+        }
+        acc = cms_bb_plus0(acc, p > prev + 1) + sw[p];
+        prev = p;
+      }
+      acc = cms_bb_plus0(acc, prev < wend - 1);
+      bsum = cms_bb_plus0(bsum, q > prevq + 1) + acc;
+      bsum = cms_bb_plus0(bsum, q < nwin - 1);
+      row[col] = cms_bb_plus0(row[col], b > last[col] + 1) + bsum;
+      last[col] = static_cast<int>(b);
+    }
+  }
+  __syncthreads();
+  for (int c = t; c < width; c += CMS_BB_THREADS) {
+    const float v = cms_bb_plus0(row[c], last[c] < nbl - 1);
+    if (staged)
+      table[cell0 + c] = v;
+    else
+      row[c] = v;
+  }
+}
+
+// Shared memory of the block-order walk: the sort's keys and weights, and
+// the row and its last blocks when they fit beside them.
+size_t cms_blocks_smem(int width, bool* staged) {
+  const size_t chunk = CMS_BB_MAX * (sizeof(unsigned long long) + 4);
+  *staged = chunk + static_cast<size_t>(width) * 8 <= CHEETAH_MAX_SMEM;
+  return chunk + (*staged ? static_cast<size_t>(width) * 8 : 0);
 }
 
 // T is the query's type: float, int (a signed minimum) or unsigned.
@@ -854,6 +1006,23 @@ size_t cms_walk_smem(int width, size_t tsize, bool* staged) {
   return chunk + (*staged ? static_cast<size_t>(width) * tsize : 0);
 }
 
+cudaError_t blocks_launch(const uint32_t* keys, const void* weights,
+                          void* table, int* glast, int lanes,
+                          long long shard_len, int rows, int width,
+                          uint32_t seed, int family, int block,
+                          const unsigned* go, cudaStream_t stream) {
+  if (!weights || block < 1 || block > CMS_BB_MAX) return cudaErrorInvalidValue;
+  bool staged;
+  const size_t smem = cms_blocks_smem(width, &staged);
+  cudaError_t err = cheetah_launch_prep(
+      reinterpret_cast<const void*>(cms_build_blocks), smem);
+  if (err != cudaSuccess) return err;
+  cms_build_blocks<<<dim3(rows, lanes), CMS_BB_THREADS, smem, stream>>>(
+      keys, static_cast<const float*>(weights), static_cast<float*>(table),
+      glast, shard_len, rows, width, seed, family, block, staged, go);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t walk_launch(const uint32_t* keys, const void* weights,
                         void* table, int lanes, long long shard_len, int rows,
@@ -890,16 +1059,20 @@ extern "C" int cms_build_plan(int lanes, long long shard_len, int rows,
 // The output table: written whole where the table is staged in shared
 // memory, else added into (the caller zeroes it first). ``work`` holds
 // cms_build_plan's workspace bytes rounded up to 16, and 16 bytes more for
-// an f32 build's sign flags. ttype: 0 f32, 1 int32, 2 f16 (the f16 walk,
-// which takes no workspace). An f32 build with weights runs the partial
-// build, which also flags the signs its weights take, then the f32 walk,
-// which returns at once unless they take both (ROADMAP Queue 3 A28: such a
-// cell's sums can pass below FLT_MIN, where each add flushes, so they must
-// come in entry order) and else builds the whole table in entry order.
+// an f32 build's sign flags, and for the kernels' family (family != 1)
+// lanes * rows * width ints more (cms_build_blocks' last blocks). ttype: 0
+// f32, 1 int32, 2 f16 (the f16 walk, which takes no workspace). An f32
+// build with weights runs the partial build, which also flags the signs
+// its weights take, then a walk, which returns at once unless they take
+// both (ROADMAP Queue 3 A28: such a cell's sums can pass below FLT_MIN,
+// where each add flushes, so they must come in the reference's order) and
+// else builds the whole table again: in entry order for the engine's
+// family, by blocks of ``block`` keys in XLA's order for the kernels'
+// (A29, cms_build_blocks).
 extern "C" int cms_build(const uint32_t* keys, const void* weights,
                          void* table, void* work, int lanes,
                          long long shard_len, int rows, int width,
-                         uint32_t seed, int family, int ttype,
+                         uint32_t seed, int family, int ttype, int block,
                          cudaStream_t stream) {
   if (ttype == 2)
     return walk_launch<__half>(keys, weights, table, lanes, shard_len, rows,
@@ -922,6 +1095,12 @@ extern "C" int cms_build(const uint32_t* keys, const void* weights,
   err = build_launch<float>(keys, weights, table, work, lanes, shard_len,
                             rows, width, seed, family, plan, signs, stream);
   if (err != cudaSuccess || !weights) return err;
+  if (family != 1)
+    return blocks_launch(keys, weights, table,
+                         reinterpret_cast<int*>(
+                             reinterpret_cast<unsigned char*>(signs) + 16),
+                         lanes, shard_len, rows, width, seed, family, block,
+                         signs, stream);
   return walk_launch<float>(keys, weights, table, lanes, shard_len, rows,
                             width, seed, family, signs, stream);
 }

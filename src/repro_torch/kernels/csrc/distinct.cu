@@ -72,6 +72,13 @@
 //     valid flags one by one); no entry point of the package launches it,
 //     and chip_smoke.py holds the staged kernel against it.
 //
+// A resumed walk (B = 1, resume = 1: the streaming fold, core.streaming)
+// starts each row from the slots, valid flags and head the outputs already
+// hold, which its warp reads first and writes back at its end (in place);
+// distinct_mark's rule stays exact, since a dropped repeat follows an
+// entry of this call whose key the row then holds (FIFO: cached; LRU: in
+// front). LRU leaves the head as it was.
+//
 // distinct_pass1_serial is the kernel the B = 1 walk replaced (one thread of a
 // CTA walks its lane's entries in order, the cache in shared memory). No
 // entry point of the package launches it; chip_smoke.py holds the walk
@@ -450,7 +457,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
                   const int* __restrict__ starts, uint8_t* __restrict__ keep,
                   uint32_t* __restrict__ slots_out,
                   uint8_t* __restrict__ valid_out, int* __restrict__ head_out,
-                  long long nseg, int w) {
+                  long long nseg, int w, int resume) {
   __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
   const long long g =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -469,10 +476,16 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   };
   for (int c = 0; c < ROWPAR_STAGES - 1; ++c) issue(c);
   uint32_t s[W];
-#pragma unroll
-  for (int i = 0; i < W; ++i) s[i] = 0u;
   unsigned vm = 0u;  // valid flags, bit i for slot i
-  int head = 0;
+  // a resumed walk starts from the row's carried slots, flags and head
+  // (read here, before this warp writes the row back at its end)
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const bool in = resume && i < w;
+    s[i] = in ? slots_out[g * w + i] : 0u;
+    if (in && valid_out[g * w + i]) vm |= 1u << i;
+  }
+  int head = resume ? head_out[g] : 0;
   for (int c = 0; c < chunks; ++c) {
     __syncwarp();  // every lane is done with the slot this issue refills
     issue(c + ROWPAR_STAGES - 1);
@@ -516,15 +529,15 @@ template <int W>
 void distinct_walk_launch(const uint2* walk, const int* pos,
                           const int* starts, uint8_t* keep, uint32_t* slots,
                           uint8_t* valid, int* head, long long nseg, int w,
-                          int lru, cudaStream_t stream) {
+                          int lru, int resume, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((nseg * 32 + ROWPAR_THREADS - 1) /
                                                 ROWPAR_THREADS);
   if (lru)
     distinct_walk<W, true><<<blocks, ROWPAR_THREADS, 0, stream>>>(
-        walk, pos, starts, keep, slots, valid, head, nseg, w);
+        walk, pos, starts, keep, slots, valid, head, nseg, w, resume);
   else
     distinct_walk<W, false><<<blocks, ROWPAR_THREADS, 0, stream>>>(
-        walk, pos, starts, keep, slots, valid, head, nseg, w);
+        walk, pos, starts, keep, slots, valid, head, nseg, w, resume);
 }
 
 // The walk for rows wider than a warp's registers (w > 32): one warp a
@@ -539,7 +552,8 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
                        uint8_t* __restrict__ keep,
                        uint32_t* __restrict__ slots_out,
                        uint8_t* __restrict__ valid_out,
-                       int* __restrict__ head_out, long long nseg, int w) {
+                       int* __restrict__ head_out, long long nseg, int w,
+                       int resume) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -550,13 +564,13 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   uint8_t* vb = smem + static_cast<size_t>(warps) * w * sizeof(uint32_t) +
                 static_cast<size_t>(warp) * w;
   for (int i = lane; i < w; i += 32) {
-    s[i] = 0u;
-    vb[i] = 0;
+    s[i] = resume ? slots_out[g * w + i] : 0u;
+    vb[i] = resume ? valid_out[g * w + i] : 0;
   }
   __syncwarp();
   const int lo = pos[starts[g]];
   const int hi = pos[starts[g + 1]];
-  int head = 0;
+  int head = resume ? head_out[g] : 0;
   for (int c0 = lo; c0 < hi; c0 += 32) {
     const int n = min(32, hi - c0);
     const uint2 en = lane < n ? walk[c0 + lane] : make_uint2(0u, 0u);
@@ -598,7 +612,8 @@ cudaError_t distinct_walk_wide_launch(const uint2* walk, const int* pos,
                                       const int* starts, uint8_t* keep,
                                       uint32_t* slots, uint8_t* valid,
                                       int* head, long long nseg, int w,
-                                      int lru, cudaStream_t stream) {
+                                      int lru, int resume,
+                                      cudaStream_t stream) {
   const size_t row = static_cast<size_t>(w) * (sizeof(uint32_t) + 1);
   const int warps = rowpar_wide_warps(row);
   if (warps == 0) return cudaErrorInvalidValue;
@@ -610,10 +625,10 @@ cudaError_t distinct_walk_wide_launch(const uint2* walk, const int* pos,
   if (err != cudaSuccess) return err;
   if (lru)
     distinct_walk_wide<true><<<blocks, warps * 32, smem, stream>>>(
-        walk, pos, starts, keep, slots, valid, head, nseg, w);
+        walk, pos, starts, keep, slots, valid, head, nseg, w, resume);
   else
     distinct_walk_wide<false><<<blocks, warps * 32, smem, stream>>>(
-        walk, pos, starts, keep, slots, valid, head, nseg, w);
+        walk, pos, starts, keep, slots, valid, head, nseg, w, resume);
   return cudaGetLastError();
 }
 
@@ -1017,8 +1032,8 @@ cudaError_t distinct_walks(const uint32_t* x, uint8_t* keep, uint32_t* slots,
                            uint8_t* valid, int* head, int shards,
                            int shard_len, int d, int w, int block, int lru,
                            int fmode, uint32_t seed, unsigned char* work,
-                           cudaStream_t stream) {
-  if (w < 1 || block < 1 ||
+                           int resume, cudaStream_t stream) {
+  if (w < 1 || block < 1 || (resume && block > 1) ||
       (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 5) == 0))
     return cudaErrorInvalidValue;
   const DistinctWork k = distinct_work(shards, shard_len, d);
@@ -1066,19 +1081,19 @@ cudaError_t distinct_walks(const uint32_t* x, uint8_t* keep, uint32_t* slots,
   }
   if (w <= 4)
     distinct_walk_launch<4>(walk, flags, starts, keep, slots, valid, head,
-                            nseg, w, lru, stream);
+                            nseg, w, lru, resume, stream);
   else if (w <= 8)
     distinct_walk_launch<8>(walk, flags, starts, keep, slots, valid, head,
-                            nseg, w, lru, stream);
+                            nseg, w, lru, resume, stream);
   else if (w <= 16)
     distinct_walk_launch<16>(walk, flags, starts, keep, slots, valid, head,
-                             nseg, w, lru, stream);
+                             nseg, w, lru, resume, stream);
   else if (w <= 32)
     distinct_walk_launch<32>(walk, flags, starts, keep, slots, valid, head,
-                             nseg, w, lru, stream);
+                             nseg, w, lru, resume, stream);
   else
     return distinct_walk_wide_launch(walk, flags, starts, keep, slots, valid,
-                                     head, nseg, w, lru, stream);
+                                     head, nseg, w, lru, resume, stream);
   return cudaGetLastError();
 }
 
@@ -1110,13 +1125,15 @@ extern "C" size_t distinct_pass1_workspace(int shards, int shard_len, int d) {
 }
 
 // B = 1: the row-parallel walk (FIFO or LRU); B > 1: the one-CTA-a-lane
-// block kernel.
+// block kernel. resume (B = 1 only, the streaming fold): each row starts
+// from the slots, valid flags and head the outputs hold.
 extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
                               uint8_t* valid, int* head, int shards,
                               int shard_len, int d, int w, int block, int lru,
                               int fmode, uint32_t seed, unsigned char* work,
-                              cudaStream_t stream) {
+                              int resume, cudaStream_t stream) {
   if (block > 1) {
+    if (resume) return cudaErrorInvalidValue;
     if (lru) return cudaErrorInvalidValue;  // LRU is per entry: B = 1 only
     if (block > 1024 || shard_len % block) return cudaErrorInvalidValue;
     const StagedPlan p = distinct_block_plan(d, w, block);
@@ -1129,7 +1146,7 @@ extern "C" int distinct_pass1(const uint32_t* x, uint8_t* keep, uint32_t* slots,
     return cudaGetLastError();
   }
   return distinct_walks(x, keep, slots, valid, head, shards, shard_len, d, w,
-                        1, lru, fmode, seed, work, stream);
+                        1, lru, fmode, seed, work, resume, stream);
 }
 
 // The row-parallel block walk (FIFO, block semantics, B >= 1); work holds
@@ -1141,7 +1158,7 @@ extern "C" int distinct_pass1_block_walk(const uint32_t* x, uint8_t* keep,
                                          uint32_t seed, unsigned char* work,
                                          cudaStream_t stream) {
   return distinct_walks(x, keep, slots, valid, head, shards, shard_len, d, w,
-                        block, 0, fmode, seed, work, stream);
+                        block, 0, fmode, seed, work, 0, stream);
 }
 
 // The retired block kernel (FIFO, B > 1), for holding the staged block

@@ -46,6 +46,12 @@
 // slot; the partition carries the hashed key, and the walks read both by
 // the entry's index. Both are null for integer keys.
 //
+// A resumed walk (resume = 1: the streaming fold, core.streaming) starts
+// each row from the cache the outputs already hold, which its warp reads
+// before anything else and writes back at its end, so the carried state is
+// updated in place; the run entries stay exact, since a run entry follows
+// an entry of this call whose key the row then holds.
+//
 // groupby_serial_kernel is the kernel the walk replaced (one thread of a
 // CTA walks the lane, the cache in shared memory, 144 KB at d = 4096,
 // w = 4). No entry point of the package launches it; chip_smoke.py holds
@@ -216,7 +222,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
                  uint32_t* __restrict__ keys_out, float* __restrict__ aggs_out,
                  uint8_t* __restrict__ valid_out, long long nseg, int w,
                  const uint32_t* __restrict__ skey,
-                 const uint8_t* __restrict__ nohit) {
+                 const uint8_t* __restrict__ nohit, int resume) {
   __shared__ uint4 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
   const long long g =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -240,12 +246,16 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   const unsigned wmask = w == 32 ? ROWPAR_FULL : (1u << w) - 1u;
   uint32_t ks[W];
   float as[W];
+  unsigned vm = 0u;   // valid flags, bit i for slot i
+  // a resumed walk starts from the row's carried cache (read here, before
+  // this warp writes the row back at its end)
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    ks[i] = 0u;
-    as[i] = init;
+    const bool in = resume && i < w;
+    ks[i] = in ? keys_out[g * w + i] : 0u;
+    as[i] = in ? aggs_out[g * w + i] : init;
+    if (in && valid_out[g * w + i]) vm |= 1u << i;
   }
-  unsigned vm = 0u;   // valid flags, bit i for slot i
   int at = 0;         // the slot of the last valid entry's key
   // while whole-run chunks follow each other: the run's aggregate (as[at])
   // and the last slot's key and aggregate, held in registers
@@ -418,13 +428,14 @@ void groupby_walk_launch(const uint4* part, const int* starts, uint32_t* ev_k,
                          float* ev_a, uint8_t* ev_valid, uint32_t* keys_out,
                          float* aggs_out, uint8_t* valid_out, long long nseg,
                          int w, int agg, const uint32_t* skey,
-                         const uint8_t* nohit, cudaStream_t stream) {
+                         const uint8_t* nohit, int resume,
+                         cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((nseg * 32 + ROWPAR_THREADS - 1) /
                                                 ROWPAR_THREADS);
 #define CHEETAH_WALK(A)                                                       \
   groupby_walk<W, A><<<blocks, ROWPAR_THREADS, 0, stream>>>(                  \
       part, starts, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,     \
-      nseg, w, skey, nohit)
+      nseg, w, skey, nohit, resume)
   switch (agg) {
     case kSum: CHEETAH_WALK(kSum); break;
     case kCount: CHEETAH_WALK(kCount); break;
@@ -449,7 +460,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
                       float* __restrict__ aggs_out,
                       uint8_t* __restrict__ valid_out, long long nseg, int w,
                       const uint32_t* __restrict__ skey,
-                      const uint8_t* __restrict__ nohit) {
+                      const uint8_t* __restrict__ nohit, int resume) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -462,9 +473,9 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   uint8_t* vb = smem + cells * 8 + static_cast<size_t>(warp) * w;
   const float init = init_value(kAgg);
   for (int i = lane; i < w; i += 32) {
-    ks[i] = 0u;
-    as[i] = init;
-    vb[i] = 0;
+    ks[i] = resume ? keys_out[g * w + i] : 0u;
+    as[i] = resume ? aggs_out[g * w + i] : init;
+    vb[i] = resume ? valid_out[g * w + i] : 0;
   }
   __syncwarp();
   const int last = w - 1;
@@ -526,7 +537,7 @@ cudaError_t groupby_walk_wide_launch(const uint4* part, const int* starts,
                                      float* aggs_out, uint8_t* valid_out,
                                      long long nseg, int w, int agg,
                                      const uint32_t* skey,
-                                     const uint8_t* nohit,
+                                     const uint8_t* nohit, int resume,
                                      cudaStream_t stream) {
   const size_t row = static_cast<size_t>(w) * 9;
   const int warps = rowpar_wide_warps(row);
@@ -542,7 +553,7 @@ cudaError_t groupby_walk_wide_launch(const uint4* part, const int* starts,
 #define CHEETAH_WALK(A)                                                       \
   groupby_walk_wide<A><<<blocks, warps * 32, smem, stream>>>(                 \
       part, starts, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,     \
-      nseg, w, skey, nohit)
+      nseg, w, skey, nohit, resume)
   switch (agg) {
     case kSum: CHEETAH_WALK(kSum); break;
     case kCount: CHEETAH_WALK(kCount); break;
@@ -580,8 +591,8 @@ extern "C" int groupby_pass1(const uint32_t* keys, const float* vals,
                              float* aggs_out, uint8_t* valid_out, int shards,
                              int shard_len, int d, int w, int agg,
                              uint32_t seed, const uint32_t* skey,
-                             const uint8_t* nohit, unsigned char* work,
-                             cudaStream_t stream) {
+                             const uint8_t* nohit, int resume,
+                             unsigned char* work, cudaStream_t stream) {
   if (w < 1 || agg < kSum || agg > kMax ||
       (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 9) == 0))
     return cudaErrorInvalidValue;
@@ -600,23 +611,23 @@ extern "C" int groupby_pass1(const uint32_t* keys, const float* vals,
   if (w <= 4)
     groupby_walk_launch<4>(part, starts, ev_k, ev_a, ev_valid, keys_out,
                            aggs_out, valid_out, nseg, w, agg, skey, nohit,
-                           stream);
+                           resume, stream);
   else if (w <= 8)
     groupby_walk_launch<8>(part, starts, ev_k, ev_a, ev_valid, keys_out,
                            aggs_out, valid_out, nseg, w, agg, skey, nohit,
-                           stream);
+                           resume, stream);
   else if (w <= 16)
     groupby_walk_launch<16>(part, starts, ev_k, ev_a, ev_valid, keys_out,
                             aggs_out, valid_out, nseg, w, agg, skey, nohit,
-                           stream);
+                           resume, stream);
   else if (w <= 32)
     groupby_walk_launch<32>(part, starts, ev_k, ev_a, ev_valid, keys_out,
                             aggs_out, valid_out, nseg, w, agg, skey, nohit,
-                           stream);
+                           resume, stream);
   else
     return groupby_walk_wide_launch(part, starts, ev_k, ev_a, ev_valid,
                                     keys_out, aggs_out, valid_out, nseg, w,
-                                    agg, skey, nohit, stream);
+                                    agg, skey, nohit, resume, stream);
   return cudaGetLastError();
 }
 

@@ -53,6 +53,7 @@ struct RowparPlan {
   int tile;
   int tiles_per_lane;
   long long cells;  // shards * d * tiles_per_lane counters, plus one
+  uint32_t idx_off;  // kIdx: added to the shard-local index (mod 2^32)
 };
 
 // Tiles of at least 2048 entries, grown until the count matrix has at most
@@ -70,6 +71,7 @@ static inline RowparPlan rowpar_plan(int shards, int shard_len, int d) {
   p.tile = t;
   p.tiles_per_lane = shard_len > 0 ? (shard_len + t - 1) / t : 1;
   p.cells = static_cast<long long>(shards) * d * p.tiles_per_lane + 1;
+  p.idx_off = 0u;
   return p;
 }
 
@@ -154,8 +156,8 @@ __global__ void rowpar_scan_apply(int* __restrict__ a, long long n,
   }
 }
 
-// kIdx: the row is hashed from the shard-local index t * tile + i, not
-// from the entry's bits.
+// kIdx: the row is hashed from the shard-local index t * tile + i plus
+// p.idx_off (a resumed TOP-N scan's offset), not from the entry's bits.
 template <bool kSmem, bool kIdx>
 __global__ void rowpar_hist(const uint32_t* __restrict__ x,
                             int* __restrict__ cells, RowparPlan p,
@@ -178,7 +180,8 @@ __global__ void rowpar_hist(const uint32_t* __restrict__ x,
     const unsigned active = __ballot_sync(ROWPAR_FULL, in);
     if (in) {
       const uint32_t key =
-          kIdx ? static_cast<uint32_t>(t * p.tile + i) : x[base + i];
+          kIdx ? static_cast<uint32_t>(t * p.tile + i) + p.idx_off
+               : x[base + i];
       const int r = cheetah_hash_mod(key, p.d, seed);
       const unsigned peers = __match_any_sync(active, r);
       if (lane == __ffs(peers) - 1) {
@@ -250,8 +253,9 @@ __global__ void rowpar_scatter(const uint32_t* __restrict__ x,
     unsigned peers = 0;
     if (in) {
       v = x[base + i];
-      r = cheetah_hash_mod(kIdx ? static_cast<uint32_t>(t * p.tile + i) : v,
-                           p.d, seed);
+      r = cheetah_hash_mod(
+          kIdx ? static_cast<uint32_t>(t * p.tile + i) + p.idx_off : v, p.d,
+          seed);
       peers = __match_any_sync(active, r);
       rank = __popc(peers & ((1u << lane) - 1u));
       leader = __ffs(peers) - 1;

@@ -65,6 +65,14 @@
 // elementwise keep pass against each block's start store (sky_keep_block):
 // no replay.
 //
+// A resumed pass (B = 1, resume = 1: the streaming fold, core.streaming)
+// starts every lane from its carried store, which sky_chain reads into the
+// lane's version 0 before any phase writes the outputs; the replay reads
+// only versions, and the store goes out at the end as before (in place).
+// The merge's invariant holds for any carried store sorted descending with
+// no NaN score, as every store an engine step leaves is, and a lane whose
+// carried store is not so is replayed in order from its first entry.
+//
 // skyline_pass1_serial is the B = 1 kernel these phases replaced (one
 // thread of a CTA runs the engine step over its lane). No entry point of
 // the package launches it; chip_smoke.py holds the phases against it at
@@ -411,16 +419,21 @@ __device__ __forceinline__ void sky_merge(const float* st, const float* cd,
 }
 
 // Phase 2: one warp a lane. vers gets the lane's store versions (version 0
-// empty), cver each chunk's start version, up to and including the lane's
-// first chunk with a NaN flag (first_nan; nc when none). Without a NaN the
-// last version is the lane's final store, written out here.
+// the start store: empty, or with resume the carried store the outputs
+// hold, read here before any phase writes them), cver each chunk's start
+// version, up to and including the lane's first chunk with a NaN flag
+// (first_nan; nc when none). Without a NaN the last version is the lane's
+// final store, written out here. A carried store that holds a NaN score or
+// is not sorted descending breaks the merge's invariant: the lane is then
+// replayed in order from its first chunk (first_nan = 0).
 __global__ void sky_chain(const float* __restrict__ cand,
                           const float* __restrict__ best,
                           const int* __restrict__ nanf,
                           float* __restrict__ vers, int* __restrict__ cver,
                           int* __restrict__ first_nan,
                           float* __restrict__ out_pts,
-                          float* __restrict__ out_sc, int nc, int D, int w) {
+                          float* __restrict__ out_sc, int nc, int D, int w,
+                          int resume) {
   extern __shared__ __align__(16) float buf[];
   const int s = blockIdx.x;
   const int lane = threadIdx.x;
@@ -429,13 +442,25 @@ __global__ void sky_chain(const float* __restrict__ cand,
   float* st = buf;
   float* nx = buf + rec;
   float* cd = buf + 2 * rec;
-  for (int i = lane; i < rec; i += 32) st[i] = i < w ? neg : 0.0f;
+  for (int i = lane; i < rec; i += 32)
+    st[i] = resume ? (i < w ? out_sc[static_cast<long long>(s) * w + i]
+                            : out_pts[static_cast<long long>(s) * w * D + i - w])
+                   : (i < w ? neg : 0.0f);
   __syncwarp();
   float* vs = vers + static_cast<long long>(s) * (nc + 1) * rec;
   for (int i = lane; i < rec; i += 32) vs[i] = st[i];
   const long long cb = static_cast<long long>(s) * nc;
   int nv = 0;
   int nan_at = nc;
+  if (resume) {
+    bool bad = false;
+    for (int i = lane; i < w; i += 32)
+      bad |= st[i] != st[i] || (i + 1 < w && st[i] < st[i + 1]);
+    if (__any_sync(0xFFFFFFFFu, bad)) {
+      nan_at = 0;
+      if (lane == 0) cver[cb] = 0;
+    }
+  }
   // SKY_BATCH chunk summaries a load, then walked 32 chunks a ballot
   __shared__ float sb[SKY_BATCH];
   __shared__ int sn[SKY_BATCH];
@@ -843,10 +868,13 @@ extern "C" size_t skyline_pass1_workspace(int shards, int shard_len, int D,
   return sky_plan(shards, shard_len, D, w, block).total;
 }
 
+// resume (B = 1 only, the streaming fold): each lane's chain starts from
+// the store out_pts / out_sc hold, which take the final one in place.
 extern "C" int skyline_pass1(const float* x, uint8_t* keep, float* out_pts,
                              float* out_sc, int shards, int shard_len, int D,
                              int w, int block, int mode, unsigned char* work,
-                             cudaStream_t stream) {
+                             int resume, cudaStream_t stream) {
+  if (resume && block != 1) return cudaErrorInvalidValue;
   const SkyPlan p = sky_plan(shards, shard_len, D, w, block);
   float* cand = reinterpret_cast<float*>(work);
   float* best = reinterpret_cast<float*>(work + p.cand);
@@ -867,7 +895,7 @@ extern "C" int skyline_pass1(const float* x, uint8_t* keep, float* out_pts,
   if (err != cudaSuccess) return err;
   sky_chain<<<shards, 32, 3 * rec, stream>>>(cand, best, nanf, vers, cver,
                                              first, out_pts, out_sc, p.nc, D,
-                                             w);
+                                             w, resume);
   if (block == 1) {
     const size_t s3 = 32 * sizeof(int) + rec;
     err = cheetah_launch_prep(reinterpret_cast<const void*>(sky_replay), s3);

@@ -43,6 +43,12 @@
 // x twice and writes 8 bytes an entry; the walk reads them and scatters
 // keep), not its chain, the costliest segment's inserting groups.
 //
+// A resumed walk (B = 1: the streaming fold, core.streaming) hashes the
+// shard-local index plus idx_off (the entries the lane has consumed, mod
+// 2^32; rowpar.cuh's partition and the apply add it alike) and starts each
+// (lane, row) from the row ``states`` holds, which its warp reads before
+// anything else and writes back at its end (in place).
+//
 // topn_pass1 at B > 1 is topn_pass1_block, one CTA a lane with its
 // f32[d][w] matrix in shared memory: a chunk's keeps read the pre-chunk
 // matrix, and each row's candidate is a shared atomicMax on topn_cand_ord
@@ -473,7 +479,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     topn_walk(const uint2* __restrict__ part, const int* __restrict__ starts,
               uint8_t* __restrict__ keep, float* __restrict__ states,
               long long nseg, int w, int shard_len, int block,
-              unsigned* __restrict__ tinf) {
+              unsigned* __restrict__ tinf, int resume) {
   __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
   const long long g =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -492,6 +498,10 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   };
   for (int c = 0; c < ROWPAR_STAGES - 1; ++c) issue(c);
   TopnRegRow row;
+  if (resume) {  // the carried row, read before this warp writes it back
+    row.r = lane < w ? states[g * w + lane] : cheetah_neg_value();
+    row.rmin = __shfl_sync(ROWPAR_FULL, row.r, w - 1);
+  }
   TopnGroup grp{false, 0xFFFFFFFFu, 0u};
   unsigned tl = 0xFFFFFFFFu;
   for (int c = 0; c < chunks; ++c) {
@@ -520,7 +530,8 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     topn_walk_wide(const uint2* __restrict__ part,
                    const int* __restrict__ starts, uint8_t* __restrict__ keep,
                    float* __restrict__ states, long long nseg, int w,
-                   int shard_len, int block, unsigned* __restrict__ tinf) {
+                   int shard_len, int block, unsigned* __restrict__ tinf,
+                   int resume) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -530,8 +541,10 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   TopnSmemRow row{
       reinterpret_cast<float*>(smem) + static_cast<size_t>(warp) * w,
       cheetah_neg_value()};
-  for (int i = lane; i < w; i += 32) row.s[i] = cheetah_neg_value();
+  for (int i = lane; i < w; i += 32)
+    row.s[i] = resume ? states[g * w + i] : cheetah_neg_value();
   __syncwarp();
+  row.rmin = row.s[w - 1];
   TopnGroup grp{false, 0xFFFFFFFFu, 0u};
   unsigned tl = 0xFFFFFFFFu;
   const int lo = starts[g];
@@ -733,7 +746,7 @@ __global__ void __launch_bounds__(APPLY_THREADS, 4)
                        const float* __restrict__ col, long long rstride,
                        uint8_t* __restrict__ keep, int shards, int L, int d,
                        uint32_t seed, int kfam, int per_group, int staged,
-                       const int* __restrict__ nf_global) {
+                       const int* __restrict__ nf_global, uint32_t off) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s = reinterpret_cast<float*>(smem);
   const int nf = apply_stage(col, rstride, d, s, reinterpret_cast<int*>(s + d),
@@ -746,7 +759,8 @@ __global__ void __launch_bounds__(APPLY_THREADS, 4)
   for (int t = 0; t < 4; ++t)
     r[t] = apply_read(
         apply_min(col, rstride, s, staged,
-                  cheetah_hash_mod(static_cast<uint32_t>(j + t), d, seed)),
+                  cheetah_hash_mod(static_cast<uint32_t>(j + t) + off, d,
+                                   seed)),
         nf, kfam);
   const int s0 = blockIdx.y * per_group;
   const int s1 = min(shards, s0 + per_group);
@@ -777,7 +791,7 @@ __global__ void __launch_bounds__(APPLY_THREADS, 4)
                        const float* __restrict__ col, long long rstride,
                        uint8_t* __restrict__ keep, int shards, int L, int d,
                        uint32_t seed, int kfam, int per_group, int staged,
-                       const int* __restrict__ nf_global) {
+                       const int* __restrict__ nf_global, uint32_t off) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s = reinterpret_cast<float*>(smem);
   const int nf = apply_stage(col, rstride, d, s, reinterpret_cast<int*>(s + d),
@@ -791,8 +805,8 @@ __global__ void __launch_bounds__(APPLY_THREADS, 4)
     r[t] = j + t < L
                ? apply_read(apply_min(col, rstride, s, staged,
                                       cheetah_hash_mod(
-                                          static_cast<uint32_t>(j + t), d,
-                                          seed)),
+                                          static_cast<uint32_t>(j + t) + off,
+                                          d, seed)),
                             nf, kfam)
                : 0.0f;
   const int xoff = static_cast<int>((reinterpret_cast<uintptr_t>(x) >> 2) & 3);
@@ -843,11 +857,13 @@ size_t topn_apply_smem(int d) {
 cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
                              int shards, int shard_len, int d, int w,
                              int block, uint32_t seed, unsigned char* work,
-                             unsigned* tinf, cudaStream_t stream) {
+                             unsigned* tinf, uint32_t idx_off, int resume,
+                             cudaStream_t stream) {
   if (w < 1 || block < 1 ||
       (w > 32 && rowpar_wide_warps(static_cast<size_t>(w) * 4) == 0))
     return cudaErrorInvalidValue;
-  const TopnWork k = topn_work(shards, shard_len, d);
+  TopnWork k = topn_work(shards, shard_len, d);
+  k.plan.idx_off = idx_off;
   const long long nseg = static_cast<long long>(shards) * d;
   uint2* part = reinterpret_cast<uint2*>(work + k.partition);
   int* starts = nullptr;
@@ -860,10 +876,12 @@ cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
         (nseg * 32 + ROWPAR_THREADS - 1) / ROWPAR_THREADS);
     if (block > 1)
       topn_walk<true><<<blocks, ROWPAR_THREADS, 0, stream>>>(
-          part, starts, keep, states, nseg, w, shard_len, block, tinf);
+          part, starts, keep, states, nseg, w, shard_len, block, tinf,
+          resume);
     else
       topn_walk<false><<<blocks, ROWPAR_THREADS, 0, stream>>>(
-          part, starts, keep, states, nseg, w, shard_len, block, tinf);
+          part, starts, keep, states, nseg, w, shard_len, block, tinf,
+          resume);
     return cudaGetLastError();
   }
   const int warps = rowpar_wide_warps(static_cast<size_t>(w) * 4);
@@ -876,10 +894,10 @@ cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
   if (err != cudaSuccess) return err;
   if (block > 1)
     topn_walk_wide<true><<<blocks, warps * 32, smem, stream>>>(
-        part, starts, keep, states, nseg, w, shard_len, block, tinf);
+        part, starts, keep, states, nseg, w, shard_len, block, tinf, resume);
   else
     topn_walk_wide<false><<<blocks, warps * 32, smem, stream>>>(
-        part, starts, keep, states, nseg, w, shard_len, block, tinf);
+        part, starts, keep, states, nseg, w, shard_len, block, tinf, resume);
   return cudaGetLastError();
 }
 
@@ -907,12 +925,15 @@ extern "C" size_t topn_pass1_workspace(int shards, int shard_len, int d) {
 // B = 1: the row-parallel walk; B > 1: the one-CTA-a-lane block kernel.
 // tinf (the kernels' family, else null): uint32 [shards * d], the block of
 // each row's last insert, for topn_onehot_fixup (the block kernel writes
-// only the rows whose minimum became +inf).
+// only the rows whose minimum became +inf). idx_off and resume (B = 1
+// only, the streaming fold): the rows hash the shard-local index plus
+// idx_off, and each (lane, row) starts from the row ``states`` holds.
 extern "C" int topn_pass1(const float* x, uint8_t* keep, float* states,
                           int shards, int shard_len, int d, int w, int block,
                           uint32_t seed, unsigned char* work, unsigned* tinf,
-                          cudaStream_t stream) {
+                          uint32_t idx_off, int resume, cudaStream_t stream) {
   if (block > 1) {
+    if (idx_off || resume) return cudaErrorInvalidValue;
     if (block > 1024 || shard_len % block) return cudaErrorInvalidValue;
     const StagedPlan p = topn_block_plan(d, w, block);
     const void* fn = tinf ? reinterpret_cast<const void*>(topn_pass1_block<true>)
@@ -930,7 +951,7 @@ extern "C" int topn_pass1(const float* x, uint8_t* keep, float* states,
     return cudaGetLastError();
   }
   return topn_walk_launch(x, keep, states, shards, shard_len, d, w, 1, seed,
-                          work, tinf, stream);
+                          work, tinf, idx_off, resume, stream);
 }
 
 // The retired block kernel (B > 1), for holding the staged block kernel
@@ -958,7 +979,7 @@ extern "C" int topn_pass1_block_walk(const float* x, uint8_t* keep,
                                      unsigned char* work, unsigned* tinf,
                                      cudaStream_t stream) {
   return topn_walk_launch(x, keep, states, shards, shard_len, d, w, block,
-                          seed, work, tinf, stream);
+                          seed, work, tinf, 0u, 0, stream);
 }
 
 // The kernels' family of pass 1 (kernels/ref.py, onehot_keep): grid (gx,
@@ -1018,11 +1039,12 @@ extern "C" int topn_apply_plan(int shards, int shard_len, int d, int aligned,
 }
 
 // work: one int, for the kernels' family when the column is not staged
-// (smem == 0).
+// (smem == 0). off: added to the shard-local index before it is hashed
+// (mod 2^32), as the engine's apply of a streamed micro-batch hashes it.
 extern "C" int topn_apply(const float* x, const float* col, long long rstride,
                           uint8_t* keep, int shards, int shard_len, int d,
                           uint32_t seed, int kfam, int aligned, int gx,
-                          int groups, int smem, int* work,
+                          int groups, int smem, int* work, uint32_t off,
                           cudaStream_t stream) {
   if (shards < 1 || shard_len < 1 || d < 1 || gx < 1 || groups < 1)
     return cudaErrorInvalidValue;
@@ -1045,11 +1067,11 @@ extern "C" int topn_apply(const float* x, const float* col, long long rstride,
   if (aligned)
     topn_apply_aligned<<<grid, APPLY_THREADS, smem, stream>>>(
         x, col, rstride, keep, shards, shard_len, d, seed, kfam, per_group,
-        staged, work);
+        staged, work, off);
   else
     topn_apply_shifted<<<grid, APPLY_THREADS, smem, stream>>>(
         x, col, rstride, keep, shards, shard_len, d, seed, kfam, per_group,
-        staged, work);
+        staged, work, off);
   return cudaGetLastError();
 }
 

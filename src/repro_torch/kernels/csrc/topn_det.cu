@@ -40,6 +40,14 @@
 // What bounds it: the bytes (x read twice, keep written once), not a
 // chain: the only sequential work is the two scans over a lane's chunks.
 //
+// A resumed scan (resume = 1: the streaming fold, core.streaming) starts
+// each lane from the (t0, counts, seen) the outputs hold: the entries with
+// seen + j < N are warm, the min-scan starts from the carried t0 and the
+// count scans from the carried counts. The outputs are written by phases 2,
+// 4 and 5, so the carried state is first copied into the workspace, and
+// every phase reads that copy: no phase reads what another has written in
+// its place.
+//
 // topn_det_pass1_serial is the kernel the chunked scan replaced: one CTA a
 // lane walks its shard in blocks of 256 with w + 1 block scans a block,
 // the state carried from block to block. No entry point of the package
@@ -223,17 +231,25 @@ __device__ __forceinline__ T block_exscan(T v, T* buf, Op op, T* total) {
   return ex;
 }
 
+// The entries of a lane that warm up its ladder: j < N - seen, seen the
+// count a resumed lane carries in (seen_in; null for a fresh lane), and
+// the lane's bound on them, at most n.
+__device__ __forceinline__ int ladder_nwarm(int N, const int* seen_in,
+                                            long long s) {
+  return seen_in ? (seen_in[s] >= N ? 0 : N - seen_in[s]) : N;
+}
+
 // Phase 1: one CTA a warm chunk (blockIdx.x = lane * warm + chunk), the
-// minimum of the chunk's entries j < N, in stream order, from POS.
+// minimum of the chunk's warm entries, in stream order, from POS.
 __global__ void __launch_bounds__(LADDER_THREADS)
     ladder_warm(const float* __restrict__ x, float* __restrict__ wmin, int n,
-                int N, int warm) {
+                int N, int warm, const int* __restrict__ seen_in) {
   __shared__ float buf[33];
   const long long s = blockIdx.x / warm;
   const int c = blockIdx.x % warm;
   const float* xs = x + s * n;
   const int j0 = c * LADDER_CHUNK + threadIdx.x * LADDER_ITEMS;
-  const int lim = min(n, N);
+  const int lim = min(n, ladder_nwarm(N, seen_in, s));
   float lf = pos_value();
   for (int k = 0; k < LADDER_ITEMS; ++k)
     if (j0 + k < lim) lf = nan_min(lf, xs[j0 + k]);
@@ -242,16 +258,17 @@ __global__ void __launch_bounds__(LADDER_THREADS)
   if (threadIdx.x == 0) wmin[blockIdx.x] = tot;
 }
 
-// The exclusive scan in order from Op::ident() of row ``row`` of ``len``
-// values of ``a``, in place; total[row] gets the row's. ``buf`` is 33
-// slots of shared memory; ends on a barrier.
+// The exclusive scan in order from init[row] (Op::ident() when init is
+// null) of row ``row`` of ``len`` values of ``a``, in place; total[row]
+// gets the row's. ``buf`` is 33 slots of shared memory; ends on a barrier.
 template <typename T, typename Op>
 __device__ __forceinline__ void scan_row(T* __restrict__ a,
                                          T* __restrict__ total, int len,
-                                         int row, T* buf) {
+                                         int row, T* buf,
+                                         const T* __restrict__ init = nullptr) {
   const Op op{};
   T* r = a + static_cast<long long>(row) * len;
-  T carry = Op::ident();
+  T carry = init ? init[row] : Op::ident();
   for (int b0 = 0; b0 < len; b0 += LADDER_THREADS * LADDER_SCAN_ITEMS) {
     const int j0 = b0 + threadIdx.x * LADDER_SCAN_ITEMS;
     T v[LADDER_SCAN_ITEMS];
@@ -273,21 +290,23 @@ __device__ __forceinline__ void scan_row(T* __restrict__ a,
   if (threadIdx.x == 0) total[row] = carry;
 }
 
-// Phases 2 and 4 of the ladder, and the run scan's three scans: one CTA a
-// row of ``len`` values (blockIdx.x = row).
+// Phases 2 and 4 of the ladder: one CTA a row of ``len`` values
+// (blockIdx.x = row), from the row's carried value (init; null: fresh).
 template <typename T, typename Op>
 __global__ void __launch_bounds__(LADDER_THREADS)
-    ladder_scan(T* __restrict__ a, T* __restrict__ total, int len) {
+    ladder_scan(T* __restrict__ a, T* __restrict__ total, int len,
+                const T* __restrict__ init) {
   __shared__ T buf[33];
-  scan_row<T, Op>(a, total, len, blockIdx.x, buf);
+  scan_row<T, Op>(a, total, len, blockIdx.x, buf, init);
 }
 
 // The 16 entries of this thread in chunk c of a lane (xs, n entries), POS
 // past the lane's end, and the t0 of each: inside a warm chunk the running
-// minimum from the chunk's entering t0 ``t_in``, else ``t_in``, the lane's
-// final t0. The branch is uniform over the block.
+// minimum over its warm entries (j < nwarm) from the chunk's entering t0
+// ``t_in``, else ``t_in``, the lane's final t0. The branch is uniform over
+// the block.
 __device__ __forceinline__ void ladder_items(const float* __restrict__ xs,
-                                             int n, int N, int c, int warm,
+                                             int n, int nwarm, int c, int warm,
                                              float t_in,
                                              float (&v)[LADDER_ITEMS],
                                              float (&t0)[LADDER_ITEMS],
@@ -311,7 +330,7 @@ __device__ __forceinline__ void ladder_items(const float* __restrict__ xs,
       v[k] = j0 + k < n ? xs[j0 + k] : pos;
   }
   if (c < warm) {
-    const int lim = min(n, N);
+    const int lim = min(n, nwarm);
     float lf = pos;
 #pragma unroll
     for (int k = 0; k < LADDER_ITEMS; ++k)
@@ -336,7 +355,8 @@ template <int W>
 __global__ void __launch_bounds__(LADDER_THREADS)
     ladder_count(const float* __restrict__ x, const float* __restrict__ wpre,
                  const float* __restrict__ tfin, int* __restrict__ cnt, int n,
-                 int N, int w, int chunks, int warm) {
+                 int N, int w, int chunks, int warm,
+                 const int* __restrict__ seen_in) {
   __shared__ float buf[33];
   __shared__ int part[LADDER_THREADS / 32][W];
   const int s = blockIdx.x / chunks;
@@ -344,8 +364,8 @@ __global__ void __launch_bounds__(LADDER_THREADS)
   const float t_in = c < warm ? wpre[static_cast<long long>(s) * warm + c]
                               : tfin[s];
   float v[LADDER_ITEMS], t0[LADDER_ITEMS];
-  ladder_items(x + static_cast<long long>(s) * n, n, N, c, warm, t_in, v, t0,
-               buf);
+  ladder_items(x + static_cast<long long>(s) * n, n,
+               ladder_nwarm(N, seen_in, s), c, warm, t_in, v, t0, buf);
   const int j0 = c * LADDER_CHUNK + threadIdx.x * LADDER_ITEMS;
   int cn[W];
 #pragma unroll
@@ -383,7 +403,8 @@ __global__ void __launch_bounds__(LADDER_THREADS)
                 const float* __restrict__ tfin, const int* __restrict__ cnt,
                 const int* __restrict__ totals, uint8_t* __restrict__ keep,
                 int* __restrict__ seen_out, int* __restrict__ cur_out, int n,
-                int N, int w, int chunks, int warm) {
+                int N, int w, int chunks, int warm,
+                const int* __restrict__ seen_in) {
   __shared__ float buf[33];
   __shared__ int part[LADDER_THREADS / 32][W];
   const int s = blockIdx.x / chunks;
@@ -391,8 +412,8 @@ __global__ void __launch_bounds__(LADDER_THREADS)
   const float t_in = c < warm ? wpre[static_cast<long long>(s) * warm + c]
                               : tfin[s];
   float v[LADDER_ITEMS], t0[LADDER_ITEMS];
-  ladder_items(x + static_cast<long long>(s) * n, n, N, c, warm, t_in, v, t0,
-               buf);
+  ladder_items(x + static_cast<long long>(s) * n, n,
+               ladder_nwarm(N, seen_in, s), c, warm, t_in, v, t0, buf);
   const int j0 = c * LADDER_CHUNK + threadIdx.x * LADDER_ITEMS;
   int loc[W];  // this thread's count of each level
 #pragma unroll
@@ -432,13 +453,14 @@ __global__ void __launch_bounds__(LADDER_THREADS)
     if (i < w && run[i] + loc[i] >= N) cur_last = i;
   }
   const float neg = cheetah_neg_value();
+  const int nwarm = ladder_nwarm(N, seen_in, s);
   uint8_t kp[LADDER_ITEMS];
   if (cur_first == cur_last) {
 #pragma unroll
     for (int k = 0; k < LADDER_ITEMS; ++k) {
       const float thr =
           cur_first >= 0 ? __fmul_rn(t0[k], pow2(cur_first)) : neg;
-      kp[k] = (j0 + k < N) || (v[k] >= thr);
+      kp[k] = (j0 + k < nwarm) || (v[k] >= thr);
     }
   } else {
 #pragma unroll
@@ -451,7 +473,7 @@ __global__ void __launch_bounds__(LADDER_THREADS)
         if (i < w && run[i] >= N) cur = i;
       }
       const float thr = cur >= 0 ? __fmul_rn(t0[k], pow2(cur)) : neg;
-      kp[k] = (j < N) || (v[k] >= thr);
+      kp[k] = (j < nwarm) || (v[k] >= thr);
     }
   }
   uint8_t* kd = keep + static_cast<long long>(s) * n + j0;
@@ -471,17 +493,22 @@ __global__ void __launch_bounds__(LADDER_THREADS)
     int cur = -1;
     for (int i = 0; i < w; ++i)
       if (totals[static_cast<long long>(s) * w + i] >= N) cur = i;
-    seen_out[s] = n;
+    // seen is int32 and wraps, as the reference's seen + 1 does
+    seen_out[s] = static_cast<int>(
+        (seen_in ? static_cast<unsigned>(seen_in[s]) : 0u) +
+        static_cast<unsigned>(n));
     cur_out[s] = cur;
   }
 }
 
 // The chunked scan's plan for S lanes of n entries: chunks a lane, warm
-// chunks a lane (those holding entries j < N), and the workspace: the warm
-// chunks' minima [S][warm], then the level counts [S][w][chunks].
+// chunks a lane (those holding entries j < N, a bound for a resumed lane),
+// and the workspace: the warm chunks' minima [S][warm], the level counts
+// [S][w][chunks], then a resumed scan's copy of the carried t0 [S], counts
+// [S][w] and seen [S].
 struct LadderPlan {
   int chunks, warm;
-  size_t wmin_bytes, total;
+  size_t wmin_bytes, cnt_bytes, carry, total;
 };
 
 static inline size_t ladder_align(size_t b) { return (b + 255) & ~size_t(255); }
@@ -493,9 +520,11 @@ static inline LadderPlan ladder_plan(int shards, int n, int N, int w) {
   p.warm = lim > 0 ? (lim + LADDER_CHUNK - 1) / LADDER_CHUNK : 0;
   p.wmin_bytes = ladder_align(static_cast<size_t>(shards) *
                               (p.warm > 0 ? p.warm : 1) * sizeof(float));
-  p.total = p.wmin_bytes + ladder_align(static_cast<size_t>(shards) * w *
-                                        (p.chunks > 0 ? p.chunks : 1) *
-                                        sizeof(int));
+  p.cnt_bytes = ladder_align(static_cast<size_t>(shards) * w *
+                             (p.chunks > 0 ? p.chunks : 1) * sizeof(int));
+  p.carry = p.wmin_bytes + p.cnt_bytes;
+  p.total = p.carry + 3 * ladder_align(static_cast<size_t>(shards) * w *
+                                       sizeof(int));
   return p;
 }
 
@@ -503,15 +532,17 @@ template <int W>
 void ladder_levels(const float* x, uint8_t* keep, float* t0, int* counts,
                    int* seen, int* cur, int shards, int n, int N, int w,
                    const LadderPlan& p, float* wmin, int* cnt,
+                   const int* cnt_in, const int* seen_in,
                    cudaStream_t stream) {
   const unsigned grid = static_cast<unsigned>(shards) * p.chunks;
-  ladder_count<W><<<grid, LADDER_THREADS, 0, stream>>>(x, wmin, t0, cnt, n, N,
-                                                       w, p.chunks, p.warm);
+  ladder_count<W><<<grid, LADDER_THREADS, 0, stream>>>(
+      x, wmin, t0, cnt, n, N, w, p.chunks, p.warm, seen_in);
   ladder_scan<int, AddOp><<<static_cast<unsigned>(shards) * w,
                             LADDER_THREADS, 0, stream>>>(cnt, counts,
-                                                         p.chunks);
+                                                         p.chunks, cnt_in);
   ladder_keep<W><<<grid, LADDER_THREADS, 0, stream>>>(
-      x, wmin, t0, cnt, counts, keep, seen, cur, n, N, w, p.chunks, p.warm);
+      x, wmin, t0, cnt, counts, keep, seen, cur, n, N, w, p.chunks, p.warm,
+      seen_in);
 }
 
 // The retired one-CTA-a-lane ladder (see the header).
@@ -982,27 +1013,49 @@ extern "C" size_t topn_det_pass1_workspace(int shards, int shard_len, int N,
 }
 
 // The chunked scan over S lanes of shard_len > 0 entries; work holds
-// topn_det_pass1_workspace bytes.
+// topn_det_pass1_workspace bytes. resume (the streaming fold): each lane's
+// ladder starts from the (t0, counts, seen) the outputs hold, copied into
+// the workspace before the first launch, since the scans write the outputs
+// (t0 in phase 2, counts in phase 4, seen and cur in phase 5).
 extern "C" int topn_det_pass1(const float* x, uint8_t* keep, float* t0,
                               int* counts, int* seen, int* cur, int shards,
-                              int shard_len, int N, int w, unsigned char* work,
-                              cudaStream_t stream) {
+                              int shard_len, int N, int w, int resume,
+                              unsigned char* work, cudaStream_t stream) {
   if (w < 1 || w > TOPN_DET_MAX_W || shards < 1 || shard_len < 1)
     return cudaErrorInvalidValue;
   const LadderPlan p = ladder_plan(shards, shard_len, N, w);
   float* wmin = reinterpret_cast<float*>(work);
   int* cnt = reinterpret_cast<int*>(work + p.wmin_bytes);
+  const size_t slot = ladder_align(static_cast<size_t>(shards) * w * sizeof(int));
+  float* t0_in = nullptr;
+  int* cnt_in = nullptr;
+  int* seen_in = nullptr;
+  if (resume) {
+    t0_in = reinterpret_cast<float*>(work + p.carry);
+    cnt_in = reinterpret_cast<int*>(work + p.carry + slot);
+    seen_in = reinterpret_cast<int*>(work + p.carry + 2 * slot);
+    cudaError_t err = cudaMemcpyAsync(t0_in, t0, shards * sizeof(float),
+                                      cudaMemcpyDeviceToDevice, stream);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(cnt_in, counts,
+                            static_cast<size_t>(shards) * w * sizeof(int),
+                            cudaMemcpyDeviceToDevice, stream);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(seen_in, seen, shards * sizeof(int),
+                            cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess) return err;
+  }
   if (p.warm > 0)
     ladder_warm<<<static_cast<unsigned>(shards) * p.warm, LADDER_THREADS, 0,
-                  stream>>>(x, wmin, shard_len, N, p.warm);
-  ladder_scan<float, MinOp><<<shards, LADDER_THREADS, 0, stream>>>(wmin, t0,
-                                                                   p.warm);
+                  stream>>>(x, wmin, shard_len, N, p.warm, seen_in);
+  ladder_scan<float, MinOp><<<shards, LADDER_THREADS, 0, stream>>>(
+      wmin, t0, p.warm, t0_in);
   if (w <= 8)
     ladder_levels<8>(x, keep, t0, counts, seen, cur, shards, shard_len, N, w,
-                     p, wmin, cnt, stream);
+                     p, wmin, cnt, cnt_in, seen_in, stream);
   else
     ladder_levels<32>(x, keep, t0, counts, seen, cur, shards, shard_len, N, w,
-                      p, wmin, cnt, stream);
+                      p, wmin, cnt, cnt_in, seen_in, stream);
   return cudaGetLastError();
 }
 

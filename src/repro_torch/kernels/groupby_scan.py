@@ -40,7 +40,7 @@ from .common import (I32, P, U32, CudaKernel, check_cuda, check_rowpar,
 
 GROUPBY_PASS1 = CudaKernel(
     "groupby_pass1",
-    [P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, U32, P, P, P])
+    [P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, U32, P, P, I32, P])
 AGGS = ("sum", "count", "min", "max")
 INIT = {"sum": 0.0, "count": 0.0, "min": float(POS), "max": float(NEG)}
 
@@ -104,9 +104,11 @@ def key_form(keys: torch.Tensor):
 
 def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
                         valid: torch.Tensor | None, *, d: int, w: int,
-                        agg: str = "sum", seed: int = 0):
+                        agg: str = "sum", seed: int = 0,
+                        state: tuple | None = None):
     """Plain pass 1 over lanes [S, n]: ((ev_k, ev_a, ev_valid) each [S, n],
-    (keys, aggs, valid) each [S, d, w])."""
+    (keys, aggs, valid) each [S, d, w]). ``state`` resumes from carried
+    caches (keys, aggs, valid), which take the final ones in place."""
     _agg(agg)
     S, n = keys.shape
     dev = keys.device
@@ -115,7 +117,8 @@ def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
     ok = (torch.ones((S, n), dtype=torch.bool, device=dev) if valid is None
           else valid)
     rows = hash_mod(hkey, d, seed)
-    st_k, st_a, st_v = init_state(S, d, w, agg, dev)
+    st_k, st_a, st_v = (init_state(S, d, w, agg, dev) if state is None
+                        else (t.reshape(S, d, w).clone() for t in state))
     st_k = as_u32(st_k)
     ev_k = torch.empty((S, n), dtype=torch.int64, device=dev)
     ev_a = torch.empty((S, n), dtype=torch.float32, device=dev)
@@ -140,17 +143,23 @@ def groupby_pass1_plain(keys: torch.Tensor, values: torch.Tensor,
         st_k[lane, r] = torch.where(o2 & ~h, k_miss, kr)
         st_a[lane, r] = torch.where(o2, torch.where(h, a_hit, a_miss), ar)
         st_v[lane, r] = torch.where(o2 & ~h, v_miss, vr)
-    return ((wrap_i32(ev_k).view(torch.uint32), ev_a, ev_v),
-            (wrap_i32(st_k).view(torch.uint32), st_a, st_v))
+    st = (wrap_i32(st_k).view(torch.uint32), st_a, st_v)
+    if state is not None:
+        st = tuple(c.copy_(n.reshape(c.shape)).reshape(n.shape)
+                   for c, n in zip(state, st))
+    return (wrap_i32(ev_k).view(torch.uint32), ev_a, ev_v), st
 
 
 def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
                          valid: torch.Tensor | None = None, *, d: int, w: int,
-                         agg: str = "sum", seed: int = 0, shards: int = 1):
+                         agg: str = "sum", seed: int = 0, shards: int = 1,
+                         state: tuple | None = None):
     """Pass 1 of S lanes over a stream of m keys (``key_form``) and values:
     ((ev_k uint32, ev_a f32, ev_valid bool) each [m], (keys uint32, aggs f32,
     valid bool) each [shards, d, w]). Lane s owns the entries
-    [s * m/S, (s+1) * m/S)."""
+    [s * m/S, (s+1) * m/S). ``state``, such a stacked tuple, resumes every
+    row from its carried cache: read at entry and written back in place
+    (each walk reads and writes only its own row)."""
     code = _agg(agg)
     m = keys.shape[0]
     if shards < 1 or m % shards:
@@ -161,11 +170,20 @@ def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
     if values.shape != (m,) or (valid is not None and valid.shape != (m,)):
         raise ValueError("keys, values and valid must have one length")
     n = m // shards
+    if state is not None:
+        want = (torch.uint32, torch.float32, torch.bool)
+        if len(state) != 3 or any(
+                t.dtype != dt or tuple(t.shape) != (shards, d, w)
+                or t.device != keys.device or not t.is_contiguous()
+                for t, dt in zip(state, want)):
+            raise ValueError(f"a carried GROUP BY cache is (keys uint32, "
+                             f"aggs f32, valid bool), each [{shards}, {d}, "
+                             f"{w}], on {keys.device}")
     if not keys.is_cuda:
         ev, st = groupby_pass1_plain(
             keys.reshape(shards, n), values.reshape(shards, n),
             None if valid is None else valid.reshape(shards, n), d=d, w=w,
-            agg=agg, seed=seed)
+            agg=agg, seed=seed, state=state)
         return tuple(e.reshape(m) for e in ev), st
     k, skey, hittable = key_form(keys)
     # a float key stores another key than it is hashed by, and may hit no
@@ -181,7 +199,7 @@ def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
     ev_k = torch.empty(m, dtype=torch.int32, device=dev).view(torch.uint32)
     ev_a = torch.empty(m, dtype=torch.float32, device=dev)
     ev_v = torch.empty(m, dtype=torch.bool, device=dev)
-    st = init_state(shards, d, w, agg, dev)
+    st = init_state(shards, d, w, agg, dev) if state is None else state
     if m:
         work = workspace(dev, "groupby_pass1_workspace", shards, n, d)
         GROUPBY_PASS1.launch(dev, ptr(k), ptr(values),
@@ -190,5 +208,5 @@ def groupby_pass1_kernel(keys: torch.Tensor, values: torch.Tensor,
                              shards, n, d, w, code, seed & 0xFFFFFFFF,
                              None if skey is None else ptr(skey),
                              None if nohit is None else ptr(nohit),
-                             ptr(work))
+                             int(state is not None), ptr(work))
     return (ev_k, ev_a, ev_v), st

@@ -140,7 +140,8 @@ def cms_build(keys: torch.Tensor, weights: torch.Tensor, *, rows: int,
         raise ValueError("multiply-shift range reduction needs width < 2^16")
     k, _ = _pad_to(keys.contiguous(), block, 0)
     wts, _ = _pad_to(weights.to(torch.float32).contiguous(), block, 0.0)
-    return cms_build_kernel(k, wts, rows=rows, width=width, seed=seed)[0]
+    return cms_build_kernel(k, wts, rows=rows, width=width, seed=seed,
+                            block=block)[0]
 
 
 def cms_query(table: torch.Tensor, keys: torch.Tensor, *, block: int = 256,

@@ -47,8 +47,8 @@ from .rle_scan import RLE_TOPN_DET
 from .topn_det_scan import TOPN_DET_PASS1
 
 TOPN_PASS1 = CudaKernel("topn_pass1",
-                        [P, P, P, I32, I32, I32, I32, I32, U32, P, P],
-                        smem_fn="topn_pass1_smem")
+                        [P, P, P, I32, I32, I32, I32, I32, U32, P, P, U32,
+                         I32], smem_fn="topn_pass1_smem")
 TOPN_BLOCK_WALK = CudaKernel("topn_pass1_block_walk",
                              [P, P, P, I32, I32, I32, I32, I32, U32, P, P])
 # the kernels' family of TOP-N pass 1: the keep of the Pallas one-hot read
@@ -56,11 +56,11 @@ TOPN_BLOCK_WALK = CudaKernel("topn_pass1_block_walk",
 TOPN_ONEHOT_FIXUP = CudaKernel("topn_onehot_fixup",
                                [P, P, P, I32, I32, I32, I32, I32, U32, I32])
 TOPN_APPLY = CudaKernel("topn_apply", [P, P, I64, P, I32, I32, I32, U32,
-                                       I32, I32, I32, I32, I32, P])
+                                       I32, I32, I32, I32, I32, P, U32])
 FAMILIES = ("kernel", "engine")  # topn_apply's reads of the row minimum
 DISTINCT_PASS1 = CudaKernel(
     "distinct_pass1",
-    [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, U32, P],
+    [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, U32, P, I32],
     smem_fn="distinct_pass1_smem")
 # the LRU policy of distinct_pass1's row-parallel walk, counted apart
 DISTINCT_PASS1_LRU = LaunchCount("distinct_pass1_lru")
@@ -75,7 +75,7 @@ DISTINCT_APPLY = CudaKernel(
     "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32,
                        I32, P])
 SKYLINE_PASS1 = CudaKernel(
-    "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32, P],
+    "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32, P, I32],
     smem_fn="skyline_pass1_smem")
 SKYLINE_APPLY = CudaKernel("skyline_apply",
                            [P, P, P, P, I64, I32, I32, I32, P])
@@ -128,6 +128,28 @@ def _check_pass1(kernel: CudaKernel, d: int, w: int, block: int) -> None:
                          f"{MAX_SMEM}")
 
 
+def _check_resume(what: str, block: int, carried: tuple | None,
+                  shapes: tuple, dtypes: tuple,
+                  device: torch.device) -> None:
+    """A carried state resumes the one-entry (B = 1) pass only, the
+    reference having no resumed block kernel, and must be stacked [S, ...]
+    tensors of the pass's own shapes and dtypes, contiguous, on the
+    stream's device (they are written in place)."""
+    if carried is None:
+        return
+    if block != 1:
+        raise ValueError(f"{what}: a carried state resumes the one-entry "
+                         f"pass only (block=1), got block={block}")
+    if len(carried) != len(shapes) or any(
+            t.dtype != dt or tuple(t.shape) != sh or t.device != device
+            or not t.is_contiguous()
+            for t, sh, dt in zip(carried, shapes, dtypes)):
+        raise ValueError(f"{what}: a carried state is "
+                         + ", ".join(f"{dt} {list(sh)}" for sh, dt in
+                                     zip(shapes, dtypes))
+                         + f", contiguous on {device}")
+
+
 def use_block_walk(shards: int, device: torch.device) -> bool:
     """Whether pass 1 at B > 1, of TOP-N and of DISTINCT alike, takes the
     row-parallel block walk on the card (else the staged one-CTA-a-lane
@@ -150,7 +172,9 @@ def use_block_walk(shards: int, device: torch.device) -> bool:
 # ======================================================= TOP-N (rand, Ex. 7)
 def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                              shards: int, block: int = 256, seed: int = 0,
-                             family: str = "kernel"):
+                             family: str = "kernel",
+                             state: torch.Tensor | None = None,
+                             index_offset: int = 0):
     """Pass 1: keep bool[m] and per-shard matrices f32[shards, d, w].
 
     ``values`` is f32[m], m a multiple of shards * block; lane s owns the
@@ -170,14 +194,28 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     one-CTA-a-lane block kernel. In the kernels' family every form records
     the block of each row's last insert, and ``topn_onehot_fixup`` then
     rewrites the keep of a lane whose matrix holds a row minimum of +inf
-    (it returns at once when none does)."""
+    (it returns at once when none does).
+
+    ``state`` [S, d, w] and ``index_offset`` resume the engine's B = 1
+    scan (the streaming fold, ``core.topn.topn_rand_prune``): every
+    (lane, row) starts from its carried row, which takes the final one in
+    place, and the row hashes the shard-local index plus the offset, mod
+    2^32. The kernels' family and B > 1 take neither."""
     onehot = _apply_family(family)
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, block)
+    if (state is not None or index_offset) and (block != 1 or onehot):
+        raise ValueError("a carried state or an index offset resumes the "
+                         "engine's one-entry pass only (block=1, "
+                         "family='engine')")
+    _check_resume("topn pass 1", block, None if state is None else (state,),
+                  ((shards, d, w),), (torch.float32,), values.device)
+    index_offset = int(index_offset) & 0xFFFFFFFF
     if not values.is_cuda:
         keep, states = ref.topn_block_ref(
             values.reshape(shards, shard_len), d=d, w=w, block=block,
-            seed=seed, return_state=True, onehot=bool(onehot))
+            seed=seed, return_state=True, onehot=bool(onehot), state=state,
+            index_offset=index_offset)
         return keep.reshape(m), states
     if block > 1 and use_block_walk(shards, values.device):
         return topn_block_walk_kernel(values, d=d, w=w, shards=shards,
@@ -189,7 +227,8 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
         _check_pass1(TOPN_PASS1, d, w, block)
     dev = values.device
     keep = torch.empty(m, dtype=torch.bool, device=dev)
-    states = torch.empty((shards, d, w), dtype=torch.float32, device=dev)
+    states = (torch.empty((shards, d, w), dtype=torch.float32, device=dev)
+              if state is None else state)
     if m:
         work = (workspace(dev, "topn_pass1_workspace", shards, shard_len, d)
                 if block == 1 else None)
@@ -197,12 +236,13 @@ def topn_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
         TOPN_PASS1.launch(dev, ptr(values), ptr(keep), ptr(states), shards,
                           shard_len, d, w, block, seed & 0xFFFFFFFF,
                           None if work is None else ptr(work),
-                          None if tinf is None else ptr(tinf),
+                          None if tinf is None else ptr(tinf), index_offset,
+                          int(state is not None),
                           count=TOPN_PASS1_BLOCK if block > 1 else None)
         if onehot:
             topn_onehot_fixup(keep, states, tinf, shards=shards, d=d,
                               block=block, seed=seed)
-    else:
+    elif state is None:
         states.fill_(float(NEG))
     return keep, states
 
@@ -285,13 +325,14 @@ def merge_topn_states(states: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def topn_apply_plain(values: torch.Tensor, rowmin: torch.Tensor, *, d: int,
-                     shards: int, seed: int = 0,
-                     family: str = "kernel") -> torch.Tensor:
-    """Plain pass 2: keep = x >= read(rowmin, hash(shard-local index)),
-    compared with f32 subnormals flushed (A25). ``read`` is the family's
-    (``topn_apply_kernel``)."""
+                     shards: int, seed: int = 0, family: str = "kernel",
+                     index_offset: int = 0) -> torch.Tensor:
+    """Plain pass 2: keep = x >= read(rowmin, hash(shard-local index +
+    index_offset, mod 2^32)), compared with f32 subnormals flushed (A25).
+    ``read`` is the family's (``topn_apply_kernel``)."""
     m = values.shape[0]
-    idx = torch.arange(m // shards, device=values.device)
+    idx = ((torch.arange(m // shards, device=values.device)
+            + int(index_offset)) & 0xFFFFFFFF)
     rows = hash_mod(idx, d, seed)
     if _apply_family(family):
         got = onehot_reads(rowmin.to(torch.float32)[None], rows[:, None])[:, 0]
@@ -326,8 +367,8 @@ def apply_plan(device: torch.device, shards: int, shard_len: int, d: int,
 
 
 def topn_apply_kernel(values: torch.Tensor, merged: torch.Tensor, *, d: int,
-                      shards: int, seed: int = 0,
-                      family: str = "kernel") -> torch.Tensor:
+                      shards: int, seed: int = 0, family: str = "kernel",
+                      index_offset: int = 0) -> torch.Tensor:
     """Pass 2: keep bool[m] = value >= the read of its row's merged minimum
     (column w - 1 of ``merged`` [d, w]), compared with f32 subnormals
     flushed. Two families (A26): ``"kernel"`` for ``ops.topn_prune_parallel``
@@ -340,15 +381,19 @@ def topn_apply_kernel(values: torch.Tensor, merged: torch.Tensor, *, d: int,
     consecutive shard-local indices once and walks its group of the S shards
     with one 16-byte load and one 4-byte store each; the column is read in
     place (no copy) and the keep mask is allocated at the values' offset mod
-    16 (``common.query_out``)."""
+    16 (``common.query_out``). ``index_offset`` is added to the shard-local
+    index before it is hashed, mod 2^32, as the engine's apply of one
+    streamed micro-batch hashes it."""
     fam = _apply_family(family)
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, 1)
     if merged.ndim != 2 or merged.shape[0] != d or merged.shape[1] < 1:
         raise ValueError(f"merged must be [d={d}, w], got {tuple(merged.shape)}")
+    index_offset = int(index_offset) & 0xFFFFFFFF
     if not values.is_cuda:
         return topn_apply_plain(values, merged[:, -1], d=d, shards=shards,
-                                seed=seed, family=family)
+                                seed=seed, family=family,
+                                index_offset=index_offset)
     check_cuda("values", values, torch.float32)
     if not merged.is_cuda or merged.device != values.device \
             or merged.dtype != torch.float32:
@@ -365,7 +410,7 @@ def topn_apply_kernel(values: torch.Tensor, merged: torch.Tensor, *, d: int,
         TOPN_APPLY.launch(dev, ptr(values), col, merged.stride(0), ptr(keep),
                           shards, shard_len, d, seed & 0xFFFFFFFF, fam,
                           int(aligned), gx, groups, smem,
-                          None if work is None else ptr(work))
+                          None if work is None else ptr(work), index_offset)
     return keep
 
 
@@ -415,7 +460,8 @@ def _distinct_outputs(shards: int, d: int, w: int, m: int, device):
 
 def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                                  shards: int, block: int = 256,
-                                 seed: int = 0, policy: str = "fifo"):
+                                 seed: int = 0, policy: str = "fifo",
+                                 state: tuple | None = None):
     """Pass 1: keep bool[m] and per-shard caches (slots uint32[S, d, w],
     valid bool[S, d, w], head int32[S, d]). ``policy="lru"`` takes
     block=1 only (head then stays 0). ``values`` is uint32 or float32
@@ -426,7 +472,12 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     (lane, row) is walked on its own, in stream order, after a stable
     partition; at d >= 2^16 it hashes by modulo, as ``hash_mod`` does. At
     block > 1 it is the block walk (``distinct_block_walk_kernel``) when
-    ``use_block_walk``, else the one-CTA-a-lane block kernel."""
+    ``use_block_walk``, else the one-CTA-a-lane block kernel.
+
+    ``state`` (slots, valid, head), stacked [S, ...], resumes the B = 1
+    walk (the streaming fold, ``core.distinct.distinct_prune``): every row
+    starts from its carried slots, valid flags and FIFO head, which take
+    the final ones in place (LRU leaves head as it was)."""
     if policy not in POLICIES:
         raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
     if policy == "lru" and block != 1:
@@ -436,14 +487,19 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     shard_len = _check_shape(m, d, shards, block, any_d=block == 1)
     if w < 1:
         raise ValueError(f"a cache needs w >= 1, got {w}")
+    _check_resume("distinct pass 1", block, state,
+                  ((shards, d, w), (shards, d, w), (shards, d)),
+                  (torch.uint32, torch.bool, torch.int32), values.device)
     if not values.is_cuda:
         lanes = values.reshape(shards, shard_len)
-        keep, state = (
+        keep, st = (
             ref.distinct_lru_ref(lanes, d=d, w=w, seed=seed,
-                                 return_state=True) if policy == "lru"
+                                 return_state=True, state=state)
+            if policy == "lru"
             else ref.distinct_block_ref(lanes, d=d, w=w, block=block,
-                                        seed=seed, return_state=True))
-        return (keep.reshape(m),) + state
+                                        seed=seed, return_state=True,
+                                        state=state))
+        return (keep.reshape(m),) + st
     if block > 1 and use_block_walk(shards, values.device):
         return distinct_block_walk_kernel(values, d=d, w=w, shards=shards,
                                           block=block, seed=seed)
@@ -454,7 +510,8 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
     else:
         _check_pass1(DISTINCT_PASS1, d, w, block)
     dev = values.device
-    out = _distinct_outputs(shards, d, w, m, dev)
+    out = (_distinct_outputs(shards, d, w, m, dev) if state is None
+           else (torch.empty(m, dtype=torch.bool, device=dev),) + tuple(state))
     if not m:
         return out
     lru = policy == "lru"
@@ -464,6 +521,7 @@ def distinct_shard_states_kernel(values: torch.Tensor, *, d: int, w: int,
                           shard_len, d, w, block, int(lru),
                           int(values.dtype == torch.float32),
                           seed & 0xFFFFFFFF, None if work is None else ptr(work),
+                          int(state is not None),
                           count=DISTINCT_PASS1_LRU if lru
                           else DISTINCT_PASS1_BLOCK if block > 1 else None)
     return out
@@ -607,7 +665,8 @@ def _check_points(name: str, points: torch.Tensor) -> int:
 
 def skyline_shard_states_kernel(points: torch.Tensor, *, w: int, shards: int,
                                 block: int = 256, score: str = "aph",
-                                form: str = "kernel"):
+                                form: str = "kernel",
+                                state: tuple | None = None):
     """Pass 1: keep bool[m], stored points f32[S, w, D] and scores f32[S, w].
 
     ``points`` is f32[m, D], m a multiple of shards * block; lane s owns the
@@ -617,30 +676,42 @@ def skyline_shard_states_kernel(points: torch.Tensor, *, w: int, shards: int,
     candidates of each chunk of a lane, one chain of store merges a lane,
     then every chunk's keep decisions from its start store (at block=1 the
     engine step, replayed against the exact store; a lane's chunks from its
-    first NaN score on are replayed in order)."""
+    first NaN score on are replayed in order).
+
+    ``state`` (points [S, w, D], scores [S, w]) resumes the B = 1 scan (the
+    streaming fold, ``core.skyline.skyline_prune``): each lane's chain of
+    merges starts from its carried store, which takes the final one in
+    place; a carried store that holds a NaN score or is not sorted
+    descending is replayed from the lane's first entry in order."""
     D = _check_points("points", points)
     m = points.shape[0]
     shard_len = _check_shards(m, shards, block)
     mode = _score_mode(score, form)
     if w < 1:
         raise ValueError(f"the store needs w >= 1 points, got {w}")
+    _check_resume("skyline pass 1", block, state, ((shards, w, D), (shards, w)),
+                  (torch.float32, torch.float32), points.device)
     if not points.is_cuda:
         keep, (pts, scs) = ref.skyline_block_ref(
             points.reshape(shards, shard_len, D), w=w, block=block,
-            score=score, form=form, return_state=True)
+            score=score, form=form, return_state=True, state=state)
         return keep.reshape(m), pts, scs
     check_cuda("points", points, torch.float32)
     _check_pass1(SKYLINE_PASS1, D, w, block)
     dev = points.device
     keep = torch.empty(m, dtype=torch.bool, device=dev)
-    pts = torch.zeros((shards, w, D), dtype=torch.float32, device=dev)
-    scs = torch.full((shards, w), float(NEG), dtype=torch.float32,
-                     device=dev)
+    if state is None:
+        pts = torch.zeros((shards, w, D), dtype=torch.float32, device=dev)
+        scs = torch.full((shards, w), float(NEG), dtype=torch.float32,
+                         device=dev)
+    else:
+        pts, scs = state
     if m:
         work = workspace(dev, "skyline_pass1_workspace", shards, shard_len,
                          D, w, block)
         SKYLINE_PASS1.launch(dev, ptr(points), ptr(keep), ptr(pts), ptr(scs),
-                             shards, shard_len, D, w, block, mode, ptr(work))
+                             shards, shard_len, D, w, block, mode, ptr(work),
+                             int(state is not None))
     return keep, pts, scs
 
 

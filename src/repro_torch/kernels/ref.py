@@ -44,7 +44,8 @@ def _lanes(values: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
 
 def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
                    seed: int = 0, return_state: bool = False,
-                   onehot: bool = False):
+                   onehot: bool = False, state: torch.Tensor | None = None,
+                   index_offset: int = 0):
     """Randomized TOP-N matrix, block semantics: keep bool[m] (or [S, n]),
     plus the final f32[d, w] (or [S, d, w]) matrix when ``return_state``.
 
@@ -62,13 +63,22 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     ``topn_shard_states_kernel``), which read an entry's row minimum by a
     one-hot product over the d minima (``onehot_keep``); by default the
     minimum itself, as the JAX package's ``ref.topn_block_ref`` and the
-    engine's scan read it."""
+    engine's scan read it.
+
+    ``state`` (f32 [d, w] or [S, d, w]) resumes a scan from carried
+    matrices, which take the final ones in place; ``index_offset`` is added
+    to the shard-local index before it is hashed, mod 2^32 (the engine's
+    resumed scan, ``core.topn.topn_rand_prune``)."""
     one = values.ndim == 1
     x, nb = _lanes(values.to(torch.float32), block)
     xf = ftz(x)
     S, dev = x.shape[0], x.device
-    rows_all = hash_mod(torch.arange(nb * block, device=dev), d, seed)
-    state = torch.full((S, d, w), float(NEG), dtype=torch.float32, device=dev)
+    rows_all = hash_mod((torch.arange(nb * block, device=dev) + index_offset)
+                        & 0xFFFFFFFF, d, seed)
+    carried = state
+    state = (torch.full((S, d, w), float(NEG), dtype=torch.float32,
+                        device=dev) if carried is None
+             else carried.reshape(S, d, w).clone())
     keep = torch.empty(x.shape, dtype=torch.bool, device=dev)
     idxw = torch.arange(w, device=dev)
     neg = ordered_i32(torch.full((S, d), float(NEG), device=dev))
@@ -94,6 +104,8 @@ def topn_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
             tlast[:, rows] = torch.where(do, c, tlast[:, rows])
     if onehot:
         keep = onehot_keep(keep, state, tlast, d=d, block=block, seed=seed)
+    if carried is not None:
+        state = carried.copy_(state.reshape(carried.shape)).reshape(S, d, w)
     if one:
         keep, state = keep[0], state[0]
     return (keep, state) if return_state else keep
@@ -160,10 +172,12 @@ def distinct_keys(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
-                       seed: int = 0, return_state: bool = False):
+                       seed: int = 0, return_state: bool = False,
+                       state: tuple | None = None):
     """FIFO d x w fingerprint cache, block semantics: keep bool[m] (or
     [S, n]), plus the final (slots uint32, valid bool, head int32) state
-    when ``return_state``."""
+    when ``return_state``. ``state`` resumes from carried (slots, valid,
+    head), which take the final state in place."""
     one = values.ndim == 1
     v, nb = _lanes(values, block)
     x, hittable = distinct_keys(v)      # int64 keys: exact uint32 compares
@@ -174,6 +188,10 @@ def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     slots = torch.zeros((S, d + 1, w), dtype=torch.int64, device=dev)
     valid = torch.zeros((S, d + 1, w), dtype=torch.bool, device=dev)
     head = torch.zeros((S, d + 1), dtype=torch.int64, device=dev)
+    if state is not None:
+        slots[:, :d] = as_u32(state[0].reshape(S, d, w))
+        valid[:, :d] = state[1].reshape(S, d, w)
+        head[:, :d] = state[2].reshape(S, d).to(torch.int64)
     keep = torch.empty(x.shape, dtype=torch.bool, device=dev)
     lane = torch.arange(S, device=dev)[:, None]
     iota = torch.arange(block, device=dev).expand(S, -1)
@@ -200,19 +218,31 @@ def distinct_block_ref(values: torch.Tensor, *, d: int, w: int, block: int,
     slots = slots[:, :d].to(torch.int32).view(torch.uint32)
     valid = valid[:, :d].contiguous()
     head = head[:, :d].to(torch.int32)
+    if state is not None:
+        slots, valid, head = _write_back(state, (slots, valid, head))
     if one:
         keep, slots, valid, head = keep[0], slots[0], valid[0], head[0]
     return (keep, (slots, valid, head)) if return_state else keep
 
 
+def _write_back(carried: tuple, new: tuple) -> tuple:
+    """Copy each new stacked state [S, ...] into the carried tensor it
+    resumed from (of the same elements, [S, ...] or one lane's [...]);
+    returns the carried tensors, viewed [S, ...]."""
+    return tuple(c.copy_(n.reshape(c.shape)).reshape(n.shape)
+                 for c, n in zip(carried, new))
+
+
 def distinct_lru_ref(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
-                     return_state: bool = False):
+                     return_state: bool = False, state: tuple | None = None):
     """LRU d x w fingerprint cache, per-entry semantics (the JAX package's
     ``core.distinct._step`` with policy "lru"): keep bool[m] (or [S, n]),
     plus the final (slots uint32, valid bool, head int32 = 0) state when
     ``return_state``. A hit moves its first matching slot to the front; a
     miss inserts at the front and drops the last slot. One loop step an
-    entry, vectorised across the S lanes."""
+    entry, vectorised across the S lanes. ``state`` resumes from carried
+    (slots, valid, head), which take the final state in place (head passes
+    through, as the reference's LRU step leaves it)."""
     one = values.ndim == 1
     lanes = values[None] if one else values
     x, hittable = distinct_keys(lanes)            # int64: exact compares
@@ -221,6 +251,9 @@ def distinct_lru_ref(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
     rows = hash_mod(lanes, d, seed)
     slots = torch.zeros((S, d, w), dtype=torch.int64, device=dev)
     valid = torch.zeros((S, d, w), dtype=torch.bool, device=dev)
+    if state is not None:
+        slots[:] = as_u32(state[0].reshape(S, d, w))
+        valid[:] = state[1].reshape(S, d, w)
     keep = torch.empty((S, n), dtype=torch.bool, device=dev)
     lane = torch.arange(S, device=dev)
     idx = torch.arange(w, device=dev)
@@ -239,7 +272,10 @@ def distinct_lru_ref(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
         valid[lane, r] = nv
         keep[:, t] = ~hit
     slots = slots.to(torch.int32).view(torch.uint32)
-    head = torch.zeros((S, d), dtype=torch.int32, device=dev)
+    head = (torch.zeros((S, d), dtype=torch.int32, device=dev)
+            if state is None else state[2].reshape(S, d).clone())
+    if state is not None:
+        slots, valid, head = _write_back(state, (slots, valid, head))
     if one:
         keep, slots, valid, head = keep[0], slots[0], valid[0], head[0]
     return (keep, (slots, valid, head)) if return_state else keep
@@ -247,7 +283,8 @@ def distinct_lru_ref(values: torch.Tensor, *, d: int, w: int, seed: int = 0,
 
 def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
                       score: str = "aph", form: str = "engine",
-                      return_state: bool = False):
+                      return_state: bool = False,
+                      state: tuple | None = None):
     """w-point store, block semantics: keep bool[m] (or [S, n]) for f32
     points [m, D] (or lanes [S, n, D]), plus the final (points f32[w, D],
     scores f32[w]) store (or [S, w, D], [S, w]) when ``return_state``.
@@ -263,11 +300,15 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
     without inserting (NaN > S[-1] is False), so NaN candidates drop out of
     the merge. ``form`` is the APH association (``core.skyline``): the JAX
     package's oracle uses the engine's, its Pallas kernel the kernel's.
-    At block=1 this is ``skyline_scan_ref``.
+    At block=1 this is ``skyline_scan_ref``, which alone resumes from a
+    carried ``state``.
     """
     if block == 1:
         return skyline_scan_ref(points, w=w, score=score, form=form,
-                                return_state=return_state)
+                                return_state=return_state, state=state)
+    if state is not None:
+        raise ValueError("a carried store resumes the one-entry scan only "
+                         "(block=1)")
     one = points.ndim == 2
     x = (points[None] if one else points).to(torch.float32)
     S, n, D = x.shape
@@ -303,7 +344,8 @@ def skyline_block_ref(points: torch.Tensor, *, w: int, block: int,
 
 
 def skyline_scan_ref(points: torch.Tensor, *, w: int, score: str = "aph",
-                     form: str = "engine", return_state: bool = False):
+                     form: str = "engine", return_state: bool = False,
+                     state: tuple | None = None):
     """The engine's per-entry SKYLINE scan (``core.skyline.skyline_prune``
     of the JAX package, a ``lax.scan``), over points [m, D] or lanes
     [S, n, D]; returns as ``skyline_block_ref``.
@@ -316,6 +358,8 @@ def skyline_scan_ref(points: torch.Tensor, *, w: int, score: str = "aph",
     scores that are neither NaN nor <= NEG this is block semantics at one
     entry a block; an entry whose score is <= NEG also counts the empty
     slots, zero points, as stored, as the reference does.
+       ``state`` (points, scores) resumes from a carried store, which takes
+    the final one in place.
     """
     one = points.ndim == 2
     x = (points[None] if one else points).to(torch.float32)
@@ -324,6 +368,9 @@ def skyline_scan_ref(points: torch.Tensor, *, w: int, score: str = "aph",
     h = skyline_score(x, score, form)
     pts = torch.zeros((S, w, D), dtype=torch.float32, device=dev)
     scs = torch.full((S, w), float(NEG), dtype=torch.float32, device=dev)
+    if state is not None:
+        pts = state[0].reshape(S, w, D).clone()
+        scs = state[1].reshape(S, w).clone()
     keep = torch.empty((S, n), dtype=torch.bool, device=dev)
     idx = torch.arange(w, device=dev)
     for t in range(n):
@@ -337,6 +384,8 @@ def skyline_scan_ref(points: torch.Tensor, *, w: int, score: str = "aph",
         scs = torch.where(at, ht, torch.where(shift, scs.roll(1, 1), scs))
         pts = torch.where(at[..., None], xt, torch.where(
             shift[..., None], pts.roll(1, 1), pts))
+    if state is not None:
+        pts, scs = _write_back(state, (pts, scs))
     if one:
         keep, pts, scs = keep[0], pts[0], scs[0]
     return (keep, (pts, scs)) if return_state else keep

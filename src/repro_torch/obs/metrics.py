@@ -20,6 +20,10 @@ state_bytes_shipped             counter    bytes crossing the wire per
 merge_collective_count          counter    merge collectives dispatched
 dispatch_count                  counter    engine invocations
 decode_skipped_ratio            gauge      encoded rows never decoded
+snapshot_staleness_batches      histogram  folds since the live-mask
+                                           snapshot was merged
+window_occupancy                histogram  in-flight live masks after
+                                           each streaming fold
 ==============================  =========  ==============================
 """
 from __future__ import annotations

@@ -213,16 +213,34 @@ NOT_PORTED = [
 
 @pytest.mark.parametrize("algo,x,kw", NOT_PORTED)
 def test_not_ported_raises(algo, x, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a resume is refused as the reference's engine refuses it, pointing to
+    # the stream and the core functions; the rest name their ROADMAP item
+    resume = "state" in kw or "index_offset" in kw
+    with pytest.raises(NotImplementedError,
+                       match="PruneStream" if resume else "ROADMAP"):
         T.engine_prune(algo, x, **kw)
 
 
 def test_resume_and_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.topn_rand_prune(X, d=8, w=2, index_offset=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.distinct_prune(F, d=8, w=2, policy="fifo",
-                         state=T.DistinctState(None, None, None))
+    """The core functions resume as the reference's do (the engine refuses
+    a resume as the reference's engine does, NOT_PORTED above)."""
+    x = _stream("topn_rand", 64, seed=4)
+    a = T.topn_rand_prune(torch.from_numpy(x), d=8, w=2, index_offset=5)
+    b = J.topn_rand_prune(jnp.asarray(x), d=8, w=2, index_offset=5)
+    _eq(a.keep, b.keep)
+    _eq(a.state.vals, b.state.vals)
+    u = _stream("distinct", 64, seed=4)
+    st = T.distinct_prune(torch.from_numpy(u[:20]), d=8, w=2,
+                          policy="fifo").state
+    jst = J.distinct_prune(jnp.asarray(u[:20]), d=8, w=2,
+                           policy="fifo").state
+    a = T.distinct_prune(torch.from_numpy(u[20:]), d=8, w=2, policy="fifo",
+                         state=st)
+    b = J.distinct_prune(jnp.asarray(u[20:]), d=8, w=2, policy="fifo",
+                         state=jst)
+    _eq(a.keep, b.keep)
+    for f in ("slots", "valid", "head"):
+        _eq(getattr(a.state, f), getattr(b.state, f))
     with pytest.raises(KeyError):
         T.engine_prune("median", X)
     with pytest.raises(ValueError):

@@ -62,7 +62,11 @@ reference, faults of the reference included:
 - A28: XLA's f32 scatter-add adds in entry order and flushes after each
   add, so a counter whose weights take both signs can pass below FLT_MIN
   and flush on the way ([1.5, -1, 1] * FLT_MIN reads FLT_MIN), and a sum
-  flushed to -0 reads +0 in the table.
+  flushed to -0 reads +0 in the table;
+- A29: XLA's CPU reduction sums f32 values in windows of 32, each in order
+  from +0, then the window sums (the HAVING merge over S lanes, the Pallas
+  Count-Min build's block sums), every add flushed; a jitted Count-Min
+  build keeps the -0 of rows 0 and 1 and reads rows 2 and up as +0.
 """
 import dataclasses
 
@@ -1452,9 +1456,79 @@ def test_a28_salted_mixed_sign(seed):
     tr = T.engine_prune("having", torch.from_numpy(k), torch.from_numpy(w),
                         obs="off", **kw)
     _eq(tr.keep, jr.keep)
-    # by value, so -0 equals +0: in the reference's jitted build the sign of
-    # a counter flushed to zero depends on whether XLA drops the add of its
-    # row into the table of zeros (it does for rows 0 and 1; ROADMAP Queue
-    # 3 A29); every other bit is held
-    np.testing.assert_array_equal(tr.state.table.numpy(),
-                                  np.asarray(jr.state.table))
+    # by its bits: the jitted build keeps the -0 of rows 0 and 1 (A29)
+    np.testing.assert_array_equal(tr.state.table.numpy().view(np.int32),
+                                  np.asarray(jr.state.table).view(np.int32))
+
+
+# ------------------------------------------------------------------- A29
+def _a29_weights(rng, m):
+    """Weights +-k * FLT_MIN / 8, k in 8..39: every sum is exact, and only
+    the order of the flushes decides the counters."""
+    return ((rng.integers(8, 40, m) * rng.choice([-1, 1], m)).astype(
+        np.float32) * (FLT_MIN / 8)).astype(np.float32)
+
+
+def _eq_bits(t, j):
+    np.testing.assert_array_equal(t.numpy().view(np.int32),
+                                  np.asarray(j).view(np.int32))
+
+
+@pytest.mark.parametrize("shards", [2, 17, 33, 40, 64, 65, 128])
+def test_a29_engine_having_merge(shards):
+    """The HAVING merge of two_pass sums the S lane tables as XLA's
+    reduction does (33 lanes: a first window of 17, then 16)."""
+    rng = np.random.default_rng(0)
+    m = 64 * shards
+    k = rng.integers(0, 5000, m).astype(np.uint32)
+    w = _a29_weights(rng, m)
+    kw = dict(mode="two_pass", shards=shards, threshold=0.0, rows=3,
+              width=1024, obs="off")
+    jr = J.engine_prune("having", jnp.asarray(k), jnp.asarray(w), **kw)
+    tr = T.engine_prune("having", torch.from_numpy(k), torch.from_numpy(w),
+                        **kw)
+    _eq_bits(tr.state.table, jr.state.table)
+    _eq(tr.keep, jr.keep)
+
+
+@pytest.mark.parametrize("sign", [1, -1, 0])
+def test_a29_ops_cms_build_f32(sign):
+    """``ops.cms_build`` on f32 weights sums each block of 256 keys in XLA's
+    order before it adds the block: on weights of both signs near FLT_MIN
+    (3 x 64, 4096 keys below 5000, seed 1: the entry order left 149 of 192
+    counters apart), and on non-integer weights of one sign, whose sums
+    round by their order."""
+    rng = np.random.default_rng(1)
+    k = rng.integers(0, 5000, 4096).astype(np.uint32)
+    w = _a29_weights(rng, 4096)
+    if sign:
+        w = (np.abs(rng.standard_normal(4096)) * 10).astype(
+            np.float32) * np.float32(sign)
+    want = jops.cms_build(jnp.asarray(k), jnp.asarray(w), rows=3, width=64)
+    got = tops.cms_build(torch.from_numpy(k), torch.from_numpy(w), rows=3,
+                         width=64)
+    _eq_bits(got, want)
+
+
+def test_a29_jitted_build_keeps_minus_zero_in_rows_0_and_1():
+    """Every counter's sum flushes to -0 ([-1.5, 1] * FLT_MIN a key): the
+    jitted engine and ``having_prune`` keep -0 in rows 0 and 1 and read +0
+    from row 2 on; the eager ``core.cms_build`` reads +0 everywhere."""
+    k = np.repeat(np.arange(32, dtype=np.uint32), 2)
+    w = np.tile(np.array([-1.5, 1.0], np.float32), 32) * FLT_MIN
+    for mode in ("scan", "sharded"):
+        kw = dict(mode=mode, threshold=0.0, rows=5, width=64, obs="off")
+        if mode == "sharded":
+            kw["shards"] = 2
+        jr = J.engine_prune("having", jnp.asarray(k), jnp.asarray(w), **kw)
+        tr = T.engine_prune("having", torch.from_numpy(k),
+                            torch.from_numpy(w), **kw)
+        _eq_bits(tr.state.table, jr.state.table)
+    jtab = J.having_prune(jnp.asarray(k), jnp.asarray(w), 0.0, rows=5,
+                          width=64).state.table
+    assert np.signbit(np.asarray(jtab)[:2]).any()
+    _eq_bits(T.having_prune(torch.from_numpy(k), torch.from_numpy(w), 0.0,
+                         rows=5, width=64).state.table, jtab)
+    _eq_bits(T.cms_build(torch.from_numpy(k), torch.from_numpy(w), 5,
+                      64).table,
+          jsk.cms_build(jnp.asarray(k), jnp.asarray(w), 5, 64).table)

@@ -206,10 +206,25 @@ def test_groupby_traffic_inverted_matches_reference():
 
 
 def test_groupby_state_resume_raises():
-    k = torch.zeros(8, dtype=torch.int32).view(torch.uint32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.groupby_prune(k, torch.zeros(8), d=4, w=2,
-                        state=T.groupby_init(4, 2, device="cpu"))
+    """A resumed scan (the carried cache of a first call) emits and ends as
+    the reference's resumed scan, bit for bit; the carried state stays."""
+    rng = np.random.default_rng(7)
+    k = rng.integers(0, 40, 300).astype(np.uint32)
+    v = rng.integers(1, 9, 300).astype(np.float32)
+    a = T.groupby_prune(torch.from_numpy(k[:120]), torch.from_numpy(v[:120]),
+                        d=4, w=2)
+    ja = jgroupby.groupby_prune(jnp.asarray(k[:120]), jnp.asarray(v[:120]),
+                                d=4, w=2)
+    kept = a.state.aggs.clone()
+    b = T.groupby_prune(torch.from_numpy(k[120:]), torch.from_numpy(v[120:]),
+                        d=4, w=2, state=a.state)
+    jb = jgroupby.groupby_prune(jnp.asarray(k[120:]), jnp.asarray(v[120:]),
+                                d=4, w=2, state=ja.state)
+    for t, j in zip(b.emitted, jb.emitted):
+        _eq(t, j)
+    for f in ("keys", "aggs", "valid"):
+        _eq(getattr(b.state, f), getattr(jb.state, f))
+    assert torch.equal(a.state.aggs, kept)
 
 
 @pytest.mark.parametrize("agg", AGGS)

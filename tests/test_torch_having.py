@@ -206,8 +206,13 @@ def test_init_and_scan_match():
     b = J.having_prune(jnp.asarray(k), jnp.asarray(v), 9000, width=128)
     _eq(a.keep, b.keep)
     _eq(a.state.table, b.state.table)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.having_prune(torch.from_numpy(k), None, 1, state=a.state)
+    # resumed on the carried sketch: keep against the running estimate
+    ra = T.having_prune(torch.from_numpy(k), torch.from_numpy(v), 9000,
+                        width=128, state=a.state)
+    rb = J.having_prune(jnp.asarray(k), jnp.asarray(v), 9000, width=128,
+                        state=b.state)
+    _eq(ra.keep, rb.keep)
+    _eq(ra.state.table, rb.state.table)
 
 
 def test_having_stream_checks():

@@ -138,8 +138,11 @@ def test_topn_det_init_and_bad_arguments():
     st = T.topn_det_init(W, device="cpu")
     j = topn_det_init(W)
     _state_eq(st, j)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.topn_det_prune(torch.zeros(4), N=2, state=st)
+    # a resumed fresh state is the one-shot scan
+    x = torch.tensor([3.0, 1.0, 4.0, 1.0])
+    _state_eq(T.topn_det_prune(x, N=2, state=st).state,
+              J.topn_det_prune(jnp.asarray(x.numpy()), N=2, w=W,
+                               state=j).state)
     with pytest.raises(ValueError, match="levels"):
         T.topn_det_prune(torch.zeros(4), N=2, w=0)
     with pytest.raises(ValueError, match="multiple"):
