@@ -506,12 +506,18 @@ class HostPlain:
             lambda z: R.distinct_lru_ref(z, d=DISTINCT["d"],
                                          w=DISTINCT["w"], return_state=True),
             (fs.view(SHARDS, -1),))
+        # phase batch's plain versions of the batched walks, on the first
+        # BATCH_PREFIX entries: short, so they go first
+        batch = batch_host_jobs(cols, torch)
+        jobs.update(batch)
         _HOST_JOBS.clear()
         _HOST_JOBS.update(jobs)
         # the longest loops first (the walks at S = 128, then the block
         # walks, then the prefix scans), so that they end near together
-        order = sorted(jobs, key=lambda k: (k[2] == 1 and k[1] == 1, k[1] == 1,
-                                            k[0] != "topn_pass1"))
+        order = list(batch) + sorted(
+            (k for k in jobs if k not in batch),
+            key=lambda k: (k[2] == 1 and k[1] == 1, k[1] == 1,
+                           k[0] != "topn_pass1"))
         sys.stdout.flush()
         sys.stderr.flush()
         self.pool = multiprocessing.get_context("fork").Pool(
@@ -1968,6 +1974,7 @@ def phase_subnormals(torch, P, R, table):
                         "2^25-entry column")
     say("subnormals", kernel="topn_apply", entries=M_MAIN, ok=ok)
     subnormals_a28(torch, table)
+    subnormals_a30(torch)
 
 
 # ROADMAP Queue 3 A28: (family, rows, width, lanes) of the mixed-sign f32
@@ -2025,6 +2032,46 @@ def subnormals_a28(torch, table):
     say("subnormals", case="A28 walk at the main Count-Min shape",
         keys=M_MAIN, ms=event_ms(lambda: C.cms_build_kernel(
             src, mixed, **CMS_OPS), 2), first_s=round(secs, 3))
+
+
+# ROADMAP Queue 3 A30: the Pallas build's short blocks (32 keys or fewer)
+# and the widths whose first vectorised block differs (7: 15 / 14, 16: 22
+# / 20), 3 rows, on A30_M keys
+A30_BLOCKS = (9, 15, 16, 17, 20, 22, 24, 31, 32)
+A30_WIDTHS = (7, 16)
+A30_M = 2040
+
+
+def subnormals_a30(torch):
+    """Queue 3 A30 on the card: ``cms_build_blocks`` sums a block of 32
+    keys or fewer in the order of XLA's fused loop (in key order, or by
+    lanes, a halving tree and the rest in order, by block, width and row),
+    held bit for bit to the plain build on a CPU copy, on weights of both
+    signs in units of FLT_MIN / 8 (the flushes decide the counters), the
+    stream padded to whole blocks with (key 0, weight 0.0) as the ops entry
+    point pads it."""
+    from repro_torch.kernels import cms_sketch as C
+
+    g = torch.Generator().manual_seed(30)
+    ok = True
+    for block in A30_BLOCKS:
+        for width in A30_WIDTHS:
+            mp = -(-A30_M // block) * block
+            keys = torch.zeros(mp, dtype=torch.int32).view(torch.uint32)
+            keys[:A30_M] = torch.randint(0, 5000, (A30_M,),
+                                         generator=g).to(torch.uint32)
+            w = torch.zeros(mp)
+            w[:A30_M] = (torch.randint(8, 40, (A30_M,), generator=g)
+                         * (torch.randint(0, 2, (A30_M,), generator=g) * 2
+                            - 1)).float() * (C.FLT_MIN / 8)
+            kw = dict(rows=3, width=width, block=block)
+            got = C.cms_build_kernel(keys.cuda(), w.cuda(), **kw)
+            want, _ = on_host(lambda: C.cms_build_plain(keys, w, **kw))
+            ok &= check(same_bits(got, want), f"A30 cms_build_blocks "
+                        f"block={block} width={width} differs from the "
+                        "plain build")
+    say("subnormals", case="A30", blocks=json.dumps(A30_BLOCKS),
+        widths=json.dumps(A30_WIDTHS), keys=A30_M, ok=ok)
 
 
 # the engine calls of PERF.md section 5: (name, algo, streams of the
@@ -2923,6 +2970,306 @@ def phase_main(torch, P, O):
             pruned=round(1 - float(keep.float().mean()), 6),
             launches=json.dumps(counts, separators=(",", ":")))
     return table, rankings, pts, totals, encoded, (rle_t, rle_l), paths
+
+
+# -------------------------------------------------------------- phase batch
+# run_queries groups on the 2^25-row uservisits table, (d, w, seed) of each
+# member: TOP-N rand on ad_revenue (N = TOPN_N), DISTINCT LRU and FIFO on
+# source_ip, GROUP BY SUM of ad_revenue by source_ip; then TOP-N det
+# (N, w), HAVING COUNT by source_ip (threshold, rows, width) and two
+# SKYLINEs (w) through engine_prune_batch
+BATCH_TOPN = ((256, 4, 1), (512, 8, 0), (1024, 6, 5), (768, 8, 9))
+BATCH_DISTINCT = ((4096, 4, 0), (2048, 2, 3), (4096, 3, 5))
+BATCH_GROUPBY = ((4096, 4, 0), (4096, 2, 2), (4096, 3, 4))
+BATCH_TOPN_DET = ((100, 8), (50, 6), (250, 8))
+BATCH_HAVING = ((100_000, 3, 4096), (50_000, 2, 2048), (200_000, 4, 4096))
+BATCH_SKYLINE_W = (8, 6)
+BATCH_PREFIX = 1 << 16          # entries of the batched walks' plain check
+BATCH_PLAIN_Q = 2               # queries of each wave the plain check takes
+
+
+def batch_specs(QuerySpec):
+    specs = [QuerySpec("topn", ("ad_revenue",), dict(d=d, w=w, N=TOPN_N,
+                                                     seed=sd))
+             for d, w, sd in BATCH_TOPN]
+    for policy in ("lru", "fifo"):
+        specs += [QuerySpec("distinct", ("source_ip",),
+                            dict(d=d, w=w, seed=sd, policy=policy))
+                  for d, w, sd in BATCH_DISTINCT]
+    specs += [QuerySpec("groupby", ("source_ip", "ad_revenue"),
+                        dict(d=d, w=w, seed=sd))
+              for d, w, sd in BATCH_GROUPBY]
+    specs += [QuerySpec("topn", ("ad_revenue",), dict(mode="det", N=n, w=w))
+              for n, w in BATCH_TOPN_DET]
+    specs += [QuerySpec("having", HAVING_COUNT[:2],
+                        dict(threshold=t, rows=r, width=wd, agg="count"))
+              for t, r, wd in BATCH_HAVING]
+    return specs
+
+
+def _walk_wave(members):
+    """(d, w, seeds, dcap, wcap) of a wave of (d, w, seed) members."""
+    d, w, seeds = (list(x) for x in zip(*members))
+    return d, w, seeds, max(d), max(w)
+
+
+def batch_walks(BW):
+    """name -> (the batched walk on (stream, S), its queries' serial walks
+    on (stream, S), the wave's members, column)."""
+    from repro_torch.kernels import parallel as P
+    from repro_torch.kernels.groupby_scan import groupby_pass1_kernel
+
+    def topn(v, S, wave=_walk_wave(BATCH_TOPN)):
+        d, w, sd, dc, wc = wave
+        return BW.topn_pass1_batch(v, d=d, w=w, seeds=sd, shards=S, dcap=dc,
+                                   wcap=wc)
+
+    def distinct(v, S, policy, wave=_walk_wave(BATCH_DISTINCT)):
+        d, w, sd, dc, wc = wave
+        return BW.distinct_pass1_batch(v, d=d, w=w, seeds=sd, shards=S,
+                                       dcap=dc, wcap=wc, policy=policy)
+
+    def groupby(kv, S, wave=_walk_wave(BATCH_GROUPBY)):
+        d, w, sd, dc, wc = wave
+        return BW.groupby_pass1_batch(kv[0], kv[1], None, d=d, w=w, seeds=sd,
+                                      agg="sum", shards=S, dcap=dc, wcap=wc)
+
+    out = {"topn_pass1_batch": (
+        topn, lambda v, S: [P.topn_shard_states_kernel(
+            v, d=a, w=b, shards=S, block=1, seed=c, family="engine")
+            for a, b, c in BATCH_TOPN], BATCH_TOPN, "ad_revenue")}
+    for policy, name in (("lru", "distinct_pass1_batch_lru"),
+                         ("fifo", "distinct_pass1_batch")):
+        out[name] = (
+            lambda v, S, p=policy: distinct(v, S, p),
+            lambda v, S, p=policy: [P.distinct_shard_states_kernel(
+                v, d=a, w=b, shards=S, block=1, seed=c, policy=p)
+                for a, b, c in BATCH_DISTINCT], BATCH_DISTINCT, "source_ip")
+    out["groupby_pass1_batch"] = (
+        groupby, lambda kv, S: [groupby_pass1_kernel(
+            kv[0], kv[1], None, d=a, w=b, agg="sum", seed=c, shards=S)
+            for a, b, c in BATCH_GROUPBY], BATCH_GROUPBY, "source_ip")
+    return out
+
+
+def batch_host_jobs(cols, torch):
+    """HostPlain jobs: each batched walk's plain version on the first
+    BATCH_PREFIX entries (the one-lane B = 1 rule) for its wave's first
+    BATCH_PLAIN_Q members."""
+    from repro_torch.kernels import batch_walks as BW
+
+    keys = cols["distinct_pass1"][:BATCH_PREFIX].clone()
+    revenue = cols["topn_pass1"][:BATCH_PREFIX].clone()
+    jobs = {}
+    for name, (_, _, members, _) in batch_walks(BW).items():
+        d, w, sd, dc, wc = _walk_wave(members[:BATCH_PLAIN_Q])
+        if name == "topn_pass1_batch":
+            fn = (lambda v, d=d, w=w, sd=sd, dc=dc, wc=wc:
+                  BW.topn_pass1_batch(v, d=d, w=w, seeds=sd, shards=1,
+                                      dcap=dc, wcap=wc))
+            args = (revenue,)
+        elif name == "groupby_pass1_batch":
+            fn = (lambda k, v, d=d, w=w, sd=sd, dc=dc, wc=wc:
+                  BW.groupby_pass1_batch(k, v, None, d=d, w=w, seeds=sd,
+                                         agg="sum", shards=1, dcap=dc,
+                                         wcap=wc))
+            args = (keys, revenue)
+        else:
+            policy = "lru" if name.endswith("_lru") else "fifo"
+            fn = (lambda v, d=d, w=w, sd=sd, dc=dc, wc=wc, p=policy:
+                  BW.distinct_pass1_batch(v, d=d, w=w, seeds=sd, shards=1,
+                                          dcap=dc, wcap=wc, policy=p))
+            args = (keys,)
+        jobs[(name, 1, 1)] = (fn, args)
+    return jobs
+
+
+def same_result(torch, a, b) -> bool:
+    """Two run_query results alike: keep, forwarded and output."""
+    if a["forwarded"] != b["forwarded"] or not same(a["keep"], b["keep"]):
+        return False
+    x, y = a["output"], b["output"]
+    if isinstance(x, torch.Tensor):
+        return same(x, y)
+    if isinstance(x, tuple):
+        return all(same(p, q) for p, q in zip(x, y))
+    return x == y
+
+
+def batch_chain_ms(torch, name, v, members, clock_hz):
+    """The longest dependent chain of a batched walk's work on this stream,
+    in ms: the costliest (query, row) segment's, as the serial walks' bounds
+    count it (REG_STEP_CYCLES a step on a row in registers). TOP-N: the
+    inserts of the segment's entries in stream order (running_inserts);
+    DISTINCT: its entries whose key differs from the segment predecessor's
+    (a repeat needs no step); GROUP BY SUM: those, and one fold
+    (FADD_CYCLES) for each repeat. The segments come from a stable sort
+    here, bookkeeping of this measurement."""
+    from repro_torch.core.hashing import as_u32, hash_mod
+
+    worst = 0.0
+    for d, w, seed in members:
+        if name == "topn_pass1_batch":
+            idx = torch.arange(v.numel(), device=v.device)
+            seg = hash_mod(idx, d, seed)
+            order = torch.sort(seg, stable=True).indices
+            ss = seg[order]
+            counts = torch.bincount(ss, minlength=d)
+            starts = torch.cumsum(counts, 0) - counts
+            mat = torch.full((d, int(counts.max())), float("nan"),
+                             device=v.device)
+            mat[ss, torch.arange(v.numel(), device=v.device) - starts[ss]] \
+                = v[order]
+            cycles = float(running_inserts(torch, mat, w).sum(1).max()) \
+                * REG_STEP_CYCLES
+        else:
+            seg = hash_mod(v, d, seed)
+            order = torch.sort(seg, stable=True).indices
+            ss, kk = seg[order], as_u32(v)[order]
+            new = torch.ones_like(ss, dtype=torch.bool)
+            new[1:] = (ss[1:] != ss[:-1]) | (kk[1:] != kk[:-1])
+            rep = FADD_CYCLES if name == "groupby_pass1_batch" else 0
+            cost = torch.where(new, float(REG_STEP_CYCLES), float(rep))
+            cycles = float(torch.bincount(ss, weights=cost.double(),
+                                          minlength=d).max())
+        worst = max(worst, cycles)
+    return worst / clock_hz * 1e3
+
+
+def phase_batch(torch, P, table, pts, clock_hz, host):
+    """Multi-query batching on the 2^25-row table. ``run_queries`` over
+    groups of TOP-N rand, DISTINCT LRU and FIFO, GROUP BY SUM, TOP-N det
+    and HAVING COUNT is the batch path: every launch count is zeroed just
+    before it and read just after, and each batched walk must have run.
+    Every member's result equals its serial ``run_query``; the two SKYLINEs
+    run through ``engine_prune_batch`` (their completion is O(k^2)) against
+    serial ``engine_prune``; ``engine_prune_batch`` two_pass at S = 128
+    equals serial two_pass. Each batched walk is bit-identical to its Q
+    serial walk launches on the whole column at S = 1 and 128, and to its
+    plain version on the first BATCH_PREFIX entries (HostPlain). Prints
+    the batch's wall time beside the serial loop's, and each batched walk's
+    device time beside its Q serial launches'; returns the kernels line's
+    rows of the batched walks."""
+    from repro_torch import core
+    from repro_torch.kernels import batch_walks as BW
+    from repro_torch.query import QuerySpec, run_queries, run_query
+
+    specs = batch_specs(QuerySpec)
+    P.reset_launch_counts()
+    res, secs = sync_time(lambda: run_queries(specs, table))
+    counts = {k.name: k.launches for k in P.KERNELS}
+    walks = batch_walks(BW)
+    for k in tuple(walks) + ("topn_det_pass1", "cms_build", "cms_query"):
+        check(counts[k] > 0, f"batch: kernel {k} was never launched by "
+              "run_queries")
+    _, again = sync_time(lambda: run_queries(specs, table))
+    serial, serial_s = sync_time(lambda: [run_query(s, table) for s in specs])
+    _, serial_again = sync_time(lambda: [run_query(s, table)
+                                         for s in specs])
+    for spec, a, b in zip(specs, res, serial):
+        check(same_result(torch, a, b), f"batch: run_queries member "
+              f"{spec.kind} {spec.params} differs from its run_query")
+    say("batch", path="run_queries", queries=len(specs), groups=6,
+        s=round(secs, 4), s_again=round(again, 4),
+        serial_s=round(serial_s, 4), serial_again=round(serial_again, 4),
+        launches=json.dumps(counts, separators=(",", ":")))
+
+    qs = [dict(w=w) for w in BATCH_SKYLINE_W]
+    rb, secs = sync_time(lambda: core.engine_prune_batch(
+        "skyline", qs, pts, mode="scan"))
+    for i, q in enumerate(qs):
+        s = core.engine_prune("skyline", pts, mode="scan", **q)
+        check(same(rb.keep[i], s.keep), f"batch: SKYLINE w={q['w']} keep "
+              "differs from engine_prune")
+    say("batch", path="engine_prune_batch skyline scan", s=round(secs, 4))
+
+    xs, fs = table.cols["ad_revenue"], table.cols["source_ip"]
+    for algo, v, members, extra in (
+            ("topn_rand", xs, BATCH_TOPN, {}),
+            ("distinct", fs, BATCH_DISTINCT, {"policy": "lru"})):
+        qs = [dict(d=d, w=w, seed=sd, **extra) for d, w, sd in members]
+        rb, secs = sync_time(lambda: core.engine_prune_batch(
+            algo, qs, v, mode="two_pass", shards=SHARDS))
+        loop, loop_s = sync_time(lambda: [core.engine_prune(
+            algo, v, mode="two_pass", shards=SHARDS, **q) for q in qs])
+        for i, (q, s) in enumerate(zip(qs, loop)):
+            check(same(rb.keep[i], s.keep), f"batch: two_pass S={SHARDS} "
+                  f"{algo} {q} keep differs from engine_prune")
+        say("batch", path=f"engine_prune_batch {algo} two_pass",
+            S=SHARDS, s=round(secs, 4), serial_s=round(loop_s, 4))
+
+    rows = []
+    cols = {"ad_revenue": xs, "source_ip": fs}
+    for name, (batched, serial_fn, members, col) in walks.items():
+        v = ((fs, xs) if name == "groupby_pass1_batch"
+             else P.distinct_form(cols[col]) if col == "source_ip"
+             else cols[col])
+        for S in (1, SHARDS):
+            got = batched(v, S)
+            want = serial_fn(v, S)
+            ok = True
+            for q, (dq, wq, _) in enumerate(members):
+                if name == "groupby_pass1_batch":
+                    ev, st = got
+                    wev, wst = want[q]
+                    ok &= all(same(a[q], b) for a, b in zip(ev, wev))
+                    ok &= all(same(a[q, :, :dq, :wq].contiguous(), b)
+                              for a, b in zip(st, wst))
+                elif name == "topn_pass1_batch":
+                    ok &= same(got[0][q], want[q][0])
+                    ok &= same(got[1][q, :, :dq, :wq].contiguous(),
+                               want[q][1])
+                else:
+                    k, sl, vl, hd = want[q]
+                    ok &= same(got[0][q], k)
+                    ok &= same(got[1][q, :, :dq, :wq].contiguous(), sl)
+                    ok &= same(got[2][q, :, :dq, :wq].contiguous(), vl)
+                    ok &= same(got[3][q, :, :dq].contiguous(), hd)
+            check(ok, f"batch: {name} S={S} differs from {len(members)} "
+                  "serial walks on the whole column")
+        # the main path's shape: one lane, the whole column, the wave
+        ms = event_ms(lambda: batched(v, 1), 5)
+        serial_ms = event_ms(lambda: serial_fn(v, 1), 5)
+        # plain version on the prefix (HostPlain, on the host)
+        u = tuple(t[:BATCH_PREFIX] for t in v) if isinstance(v, tuple) \
+            else v[:BATCH_PREFIX]
+        plain, plain_s = host.get((name, 1, 1))
+        d, w, sd, dc, wc = _walk_wave(members[:BATCH_PLAIN_Q])
+        mine = (BW.groupby_pass1_batch(u[0], u[1], None, d=d, w=w, seeds=sd,
+                                       agg="sum", shards=1, dcap=dc, wcap=wc)
+                if name == "groupby_pass1_batch" else
+                BW.topn_pass1_batch(u, d=d, w=w, seeds=sd, shards=1,
+                                    dcap=dc, wcap=wc)
+                if name == "topn_pass1_batch" else
+                BW.distinct_pass1_batch(
+                    u, d=d, w=w, seeds=sd, shards=1, dcap=dc, wcap=wc,
+                    policy="lru" if name.endswith("_lru") else "fifo"))
+        flat = (lambda x: [t for y in x for t in (y if isinstance(y, tuple)
+                                                  else (y,))])
+        pairs = list(zip(flat(mine), flat(plain)))
+        err = max_abs_err(pairs)
+        check(all(same(a, b) for a, b in pairs),
+              f"batch: {name} differs from its plain version on the first "
+              f"{BATCH_PREFIX} entries")
+        # bytes: each input read once, each output written once
+        m, Q = M_MAIN, len(members)
+        d, w, sd, dc, wc = _walk_wave(members)
+        if name == "topn_pass1_batch":
+            nbytes = m * 4 + Q * m + Q * dc * wc * 4
+        elif name == "groupby_pass1_batch":
+            nbytes = 2 * m * 4 + Q * m * 9 + Q * dc * wc * 9
+        else:
+            nbytes = m * 4 + Q * m + Q * dc * (wc * 5 + 4)
+        t_bytes = bytes_ms(nbytes)
+        t_chain = batch_chain_ms(torch, name, v[0] if isinstance(v, tuple)
+                                 else v, members, clock_hz)
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_chain
+                     else (t_chain, "operations"))
+        say("batch", kernel=name, queries=Q, ms=ms,
+            serial_walks_ms=serial_ms, bytes_ms=t_bytes, chain_ms=t_chain,
+            plain_prefix_s=round(plain_s, 3), plain_queries=BATCH_PLAIN_Q)
+        rows.append(_row(name, counts, err, ms, plain_s * 1e3, bound, by))
+    return rows
 
 
 # ------------------------------------------------------------- phase stream
@@ -5045,6 +5392,15 @@ SOURCES = {
     # the kernels' family of TOP-N pass 1: the keep of the one-hot read
     "topn_onehot_fixup": ("src/repro_torch/kernels/csrc/topn.cu",
                           "src/repro/kernels/topn_prune.py:34"),
+    # no pallas_call: the vmapped lax.scans of core.batched's bodies
+    "topn_pass1_batch": ("src/repro_torch/kernels/csrc/topn.cu",
+                         "src/repro/core/batched.py:198"),
+    "distinct_pass1_batch": ("src/repro_torch/kernels/csrc/distinct.cu",
+                             "src/repro/core/batched.py:255"),
+    "distinct_pass1_batch_lru": ("src/repro_torch/kernels/csrc/distinct.cu",
+                                 "src/repro/core/batched.py:255"),
+    "groupby_pass1_batch": ("src/repro_torch/kernels/csrc/groupby.cu",
+                            "src/repro/core/batched.py:394"),
 }
 
 
@@ -5113,9 +5469,11 @@ def main() -> int:
         sbytes = timed("planner", phase_planner, torch, table)
         timed("obs", phase_obs, torch, paths, sbytes)
         timed("stream", phase_stream, torch, P, table, pts)
+        batch_rows = timed("batch", phase_batch, torch, P, table, pts,
+                           clock_hz, host)
         timed("subnormals", phase_subnormals, torch, P, R, table)
         rows = timed("timing", phase_timing, torch, P, R, table, rankings,
-                     pts, totals, clock_hz, encoded, rle, host)
+                     pts, totals, clock_hz, encoded, rle, host) + batch_rows
     finally:
         host.close()
     timed("witness", phase_witness, torch, table, rankings, pts, rle)

@@ -31,6 +31,9 @@ from .engine import (ALGORITHMS, MODES, PASS2, DistinctMerged,
                      TopNDetMerged, apply_merged, calibrate_merge_cost,
                      engine_prune, merge_states, reset_caches, shard_stack,
                      unshard_mask)
+from . import batched
+from .batch_engine import (MODES_BATCH, BatchPruneResult,
+                           engine_prune_batch, unshard_mask_batch)
 from .planner import (SwitchProfile, ResourceFootprint, footprint,
                       pack_queries, rule_count, PackingPlan,
                       MultiSwitchPlan, plan_multi_switch, optimal_shards,

@@ -112,10 +112,12 @@ class DistinctMerged:
 
     @property
     def shard(self) -> torch.Tensor:
-        """int32[S*w]: the owner shard of each cache column."""
-        S = self.slots.shape[1] // self.w
-        return torch.arange(S, dtype=torch.int32,
-                            device=self.slots.device).repeat_interleave(self.w)
+        """int32[S*w]: the owner shard of each cache column (with the
+        slots' leading axes, [Q, S*w] for a batch)."""
+        S = self.slots.shape[-1] // self.w
+        own = torch.arange(S, dtype=torch.int32,
+                           device=self.slots.device).repeat_interleave(self.w)
+        return own.expand(tuple(self.slots.shape[:-2]) + own.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -611,12 +613,13 @@ def _state_nbytes(state) -> int:
 
 
 def _obs_mask_counts(rec, keep: torch.Tensor, m: int, *,
-                     encoded: bool = False) -> None:
+                     encoded: bool = False, queries: int = 1) -> None:
     """Feed the per-call mask counters from the materialised keep mask
-    (bool[m]): one sum and one host read of the count."""
-    scanned = int(m)
+    (bool[m], or bool[Q, m] for a batch of ``queries``): one sum and one
+    host read of the count."""
+    scanned = int(m) * queries
     rec.count("entries_scanned", scanned)
-    kept = int(rec.sync(keep).reshape(-1)[:m].sum())
+    kept = int(rec.sync(keep).reshape(queries, -1)[:, :m].sum())
     rec.count("entries_kept", kept)
     if encoded and scanned:
         # pruning on codes: only the survivors are ever decoded

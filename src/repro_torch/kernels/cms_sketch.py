@@ -64,7 +64,7 @@ import torch
 from ..constants import POS
 from ..core.hashing import hash_mod, multi_hash
 from .common import (F32, FLT_MIN, I32, I64, P, U32, CudaKernel, check_cuda,
-                     flush_subnormals, library_fn, ptr, query_out)
+                     flush_subnormals, ftz_add, library_fn, ptr, query_out)
 
 CMS_BUILD = CudaKernel("cms_build", [P, P, P, P, I32, I64, I32, I32, U32,
                                      I32, I32, I32])
@@ -243,17 +243,21 @@ def pallas_f32_build(keys: torch.Tensor, weights: torch.Tensor, *,
                      family: str = "kernel", shards: int = 1,
                      block: int = 256) -> torch.Tensor:
     """f32 tables [shards, rows, width] summed as the Pallas build sums
-    them (ROADMAP Queue 3 A29): each block of ``block`` keys of a lane gives
-    every counter the sum of its keys' one-hot products, which XLA's CPU
-    reduction takes in windows of 32 (``tree_windows``), each summed in
-    order from +0, then the window sums in order from +0, every add
-    flushed; the table adds each block's sum in block order, a flush after
-    each. A key that misses the counter adds +0 (whatever its weight), which
-    only turns a sum of -0 into +0. So each window, block or table sum is
-    walked over its hits alone, a +0 added first where a miss, a window or a
-    block without a hit comes between, in rounds across all of them at
-    once. A lane's last block may be shorter (the ops entry point pads to
-    whole blocks)."""
+    them: each block of ``block`` keys of a lane gives every counter the sum
+    of its keys' one-hot products, and the table adds each block's sum in
+    block order, a flush after each. A key that misses the counter adds +0
+    (whatever its weight), which only turns a sum of -0 into +0.
+
+    A block of more than 32 keys goes through XLA's CPU reduction (ROADMAP
+    Queue 3 A29): windows of 32 (``tree_windows``), each summed in order
+    from +0, then the window sums in order from +0, every add flushed. So
+    each window, block or table sum is walked over its hits alone, a +0
+    added first where a miss, a window or a block without a hit comes
+    between, in rounds across all of them at once. A block of 32 keys or
+    fewer is XLA's fused loop, whose order LLVM picks (A30,
+    ``short_block_order``): its block sums are ``_short_block_sums``. A
+    lane's last block may be shorter (the ops entry point pads to whole
+    blocks)."""
     m = keys.shape[0]
     dev = keys.device
     n = m // shards
@@ -283,29 +287,14 @@ def pallas_f32_build(keys: torch.Tensor, weights: torch.Tensor, *,
         if not hit.numel():
             continue
         cell = (lane[hit] * rows + r) * width + cols[hit, r]
-        order = torch.sort(cell, stable=True).indices
-        g, cell = hit[order], cell[order]
-        gb, wn = gblk[g], win[g]
-        # window sums, hit by hit
-        ga, ka, enda = _runs(cell, gb, wn)
-        prev = torch.where(ka == 0, wstart[g] - 1, torch.roll(g, 1))
-        acc = torch.zeros(int(ga[-1]) + 1, device=dev)
-        for k in range(int(ka.max()) + 1):
-            at = ka == k
-            acc[ga[at]] = _fadd(acc[ga[at]], wf[g[at]], g[at] > prev[at] + 1)
-        ge = g[enda]
-        acc = _plus_zero(acc, ge < wend[ge] - 1)
-        # block sums over the windows with a hit
-        cw, gbw, ww = cell[enda], gb[enda], wn[enda]
-        gbk, kb, endb = _runs(cw, gbw)
-        prevw = torch.where(kb == 0, -1, torch.roll(ww, 1))
-        bs = torch.zeros(int(gbk[-1]) + 1, device=dev)
-        for k in range(int(kb.max()) + 1):
-            at = kb == k
-            bs[gbk[at]] = _fadd(bs[gbk[at]], acc[at], ww[at] > prevw[at] + 1)
-        bs = _plus_zero(bs, ww[endb] < nwin[ge[endb]] - 1)
+        if block <= 32:
+            cb, gbb, bs = _short_block_sums(
+                cell, gblk[hit], j[hit] - blk[hit] * block, wf[hit],
+                shards * nbl, block, short_block_order(block, width, r))
+        else:
+            cb, gbb, bs = _window_block_sums(cell, hit, gblk, win, wstart,
+                                             wend, nwin, wf)
         # the table: block sums in block order
-        cb, gbb = cw[endb], gbw[endb]
         gc, kc, endc = _runs(cb)
         lane0 = (cb // (rows * width)) * nbl
         prevb = torch.where(kc == 0, lane0 - 1, torch.roll(gbb, 1))
@@ -316,6 +305,134 @@ def pallas_f32_build(keys: torch.Tensor, weights: torch.Tensor, *,
         t = _plus_zero(t, gbb[endc] < lane0[endc] + nbl - 1)
         table[cb[endc]] = t
     return table.reshape(shards, rows, width)
+
+
+def _window_block_sums(cell, hit, gblk, win, wstart, wend, nwin, wf):
+    """(cell, global block, sum) of every (counter, block) with a hit, in
+    (counter, block) order: XLA's windowed reduction of a block of more than
+    32 keys (A29), walked over the hits of ``hit``'s entries."""
+    dev = cell.device
+    order = torch.sort(cell, stable=True).indices
+    g, cell = hit[order], cell[order]
+    gb, wn = gblk[g], win[g]
+    # window sums, hit by hit
+    ga, ka, enda = _runs(cell, gb, wn)
+    prev = torch.where(ka == 0, wstart[g] - 1, torch.roll(g, 1))
+    acc = torch.zeros(int(ga[-1]) + 1, device=dev)
+    for k in range(int(ka.max()) + 1):
+        at = ka == k
+        acc[ga[at]] = _fadd(acc[ga[at]], wf[g[at]], g[at] > prev[at] + 1)
+    ge = g[enda]
+    acc = _plus_zero(acc, ge < wend[ge] - 1)
+    # block sums over the windows with a hit
+    cw, gbw, ww = cell[enda], gb[enda], wn[enda]
+    gbk, kb, endb = _runs(cw, gbw)
+    prevw = torch.where(kb == 0, -1, torch.roll(ww, 1))
+    bs = torch.zeros(int(gbk[-1]) + 1, device=dev)
+    for k in range(int(kb.max()) + 1):
+        at = kb == k
+        bs[gbk[at]] = _fadd(bs[gbk[at]], acc[at], ww[at] > prevw[at] + 1)
+    bs = _plus_zero(bs, ww[endb] < nwin[ge[endb]] - 1)
+    return cw[endb], gbw[endb], bs
+
+
+# XLA's fused loop for a block of at most 32 keys (ROADMAP Queue 3 A30): the
+# first block that LLVM vectorises, by the row's place in the kernel (row 0
+# is its own fusion; the others add into the table in theirs) and by whether
+# the width is a power of two. At a width of 1 no block is vectorised.
+SHORT_VECTOR_FROM = {(0, True): 22, (0, False): 15, (1, True): 20,
+                     (1, False): 14}
+
+
+def short_block_order(block: int, width: int, row: int
+                      ) -> tuple[int, int, int]:
+    """(VF, UF, epi): how XLA's CPU code sums a counter's one-hot products
+    over a block of ``block`` <= 32 keys in row ``row`` of the Pallas build
+    (ROADMAP Queue 3 A30, read from the fused loop's LLVM IR and held, by
+    ``scripts/probe_xla_short_blocks.py``, on every block of 1 to 32 at
+    widths 1 to 16, 64, 1024 and 4096 in rows 0 to 3 of builds of 1 to 4
+    rows). (1, 1, 1) is the loop in key order. Else the loop is vectorised:
+    key i of the first (block // (VF * UF)) * VF * UF goes to lane i mod VF
+    of accumulator (i // VF) mod UF, each lane adding its keys in order; the
+    accumulators add lane by lane (the second plus the first, then the
+    third plus that, ...), and the VF lanes combine as a halving tree (lane
+    l plus lane l + VF/2, ...). epi = 0 is a tail-folded loop: the last
+    iteration is masked, and a lane past the block adds nothing; epi = 1
+    adds the rest of the keys in order; epi = E > 1 is a vectorised
+    epilogue of E lanes, the sum so far on lane 0, its keys E at a time,
+    a halving tree, then the rest in order."""
+    p2 = width & (width - 1) == 0
+    if width == 1 or block < SHORT_VECTOR_FROM[(min(row, 1), p2)]:
+        return 1, 1, 1
+    if block < 16:
+        return 8, 1, 0
+    if 20 <= block < 24:
+        return 4, 4, 2
+    return 8, 1, 1
+
+
+def _halve(v: list) -> torch.Tensor:
+    """The halving tree of a power-of-two list of lanes (XLA's vector
+    reduction): lane l plus lane l + n/2, until one is left."""
+    while len(v) > 1:
+        h = len(v) // 2
+        v = [ftz_add(v[i], v[i + h]) for i in range(h)]
+    return v[0]
+
+
+def short_block_sum(leaves: torch.Tensor, order: tuple[int, int, int]
+                    ) -> torch.Tensor:
+    """[G, B] flushed one-hot products (a miss +0, the first already added
+    to +0) -> [G] sums in the order ``order`` (``short_block_order``), every
+    add flushed. A lane that takes no key holds -0, the vector reductions'
+    identity."""
+    B = leaves.shape[1]
+    vf, uf, epi = order
+    if vf == 1:
+        acc = leaves[:, 0]
+        for i in range(1, B):
+            acc = ftz_add(acc, leaves[:, i])
+        return acc
+    step = vf * uf
+    main = -(-B // step) * step if epi == 0 else B // step * step
+    acc = [[None] * vf for _ in range(uf)]
+    for i in range(min(main, B)):
+        u, lane = (i // vf) % uf, i % vf
+        x = leaves[:, i]
+        acc[u][lane] = x if acc[u][lane] is None else ftz_add(acc[u][lane], x)
+    neg = torch.full_like(leaves[:, 0], -0.0)
+    acc = [[neg if a is None else a for a in row] for row in acc]
+    lanes = acc[0]
+    for u in range(1, uf):
+        lanes = [ftz_add(acc[u][i], lanes[i]) for i in range(vf)]
+    s = _halve(lanes)
+    i = min(main, B)
+    if epi > 1 and B - i >= epi:
+        v = [s] + [None] * (epi - 1)
+        while B - i >= epi:
+            for k in range(epi):
+                x = leaves[:, i + k]
+                v[k] = x if v[k] is None else ftz_add(v[k], x)
+            i += epi
+        s = _halve([neg if x is None else x for x in v])
+    for k in range(i, B):
+        s = ftz_add(s, leaves[:, k])
+    return s
+
+
+def _short_block_sums(cell, gblk, pos, w, nblocks, block, order):
+    """(cell, global block, sum) of every (counter, block) with a hit, in
+    (counter, block) order, for blocks of at most 32 keys: each group's
+    keys as a dense row of one-hot products (``pos``: a hit's place in its
+    block), summed by ``short_block_sum``."""
+    groups, inv = torch.unique(cell * nblocks + gblk, return_inverse=True)
+    leaves = torch.zeros((groups.numel(), block), dtype=torch.float32,
+                         device=cell.device)
+    leaves[inv, pos] = w
+    # the reduction's init, +0, added to the first key's product
+    leaves[:, 0] = ftz_add(leaves[:, 0], torch.zeros_like(leaves[:, 0]))
+    return groups // nblocks, groups % nblocks, short_block_sum(leaves,
+                                                                order)
 
 
 def _integral_sums(keys: torch.Tensor, w: torch.Tensor, *, rows: int,

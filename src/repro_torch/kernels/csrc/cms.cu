@@ -378,7 +378,8 @@ __global__ void __launch_bounds__(CMS_F16_THREADS)
 // lane's keys go in blocks of ``block`` (the last may be shorter); a
 // block's sum of each counter is XLA's CPU reduction of the block's one-hot
 // products: windows of 32 (the first short by the front pads, cms_bb_win),
-// each summed in order from +0, then the window sums in order from +0;
+// each summed in order from +0, then the window sums in order from +0
+// (a block of 32 keys or fewer: XLA's fused loop, cms_short_sum, A30);
 // the table adds each block's sum in block order. Every add flushes
 // (--ftz=true). A key that misses a counter adds +0, which only turns a
 // sum of -0 into +0, so a block is sorted by (column, position) in shared
@@ -410,6 +411,79 @@ __device__ __forceinline__ float cms_bb_plus0(float a, bool add) {
   return add && a == 0.0f ? 0.0f : a;
 }
 
+// A block of at most 32 keys is XLA's fused loop, whose order LLVM picks
+// (ROADMAP Queue 3 A30; cms_sketch.short_block_order says what each order
+// is): (VF, UF, epi) by the block, the width and the row (row 0 is a
+// fusion of its own).
+__device__ __forceinline__ void cms_short_order(int block, int width, int r,
+                                                int* vf, int* uf, int* epi) {
+  const bool p2 = (width & (width - 1)) == 0;
+  const int from = r == 0 ? (p2 ? 22 : 15) : (p2 ? 20 : 14);
+  *vf = 8;
+  *uf = 1;
+  *epi = 1;
+  if (width == 1 || block < from) {
+    *vf = 1;
+  } else if (block < 16) {
+    *epi = 0;
+  } else if (block >= 20 && block < 24) {
+    *vf = 4;
+    *uf = 4;
+    *epi = 2;
+  }
+}
+
+// The halving tree of n (a power of two, <= 8) lanes.
+__device__ __forceinline__ float cms_halve(float* v, int n) {
+  for (int h = n >> 1; h > 0; h >>= 1)
+    for (int i = 0; i < h; ++i) v[i] = __fadd_rn(v[i], v[i + h]);
+  return v[0];
+}
+
+// A counter's sum over a block of B <= 32 one-hot products x (a miss +0,
+// the first already added to +0) in the order (vf, uf, epi); a lane that
+// takes no key holds -0.
+__device__ float cms_short_sum(const float* x, int B, int vf, int uf,
+                               int epi) {
+  if (vf == 1) {
+    float a = x[0];
+    for (int i = 1; i < B; ++i) a = __fadd_rn(a, x[i]);
+    return a;
+  }
+  float acc[4][8];
+  unsigned has[4] = {0u, 0u, 0u, 0u};
+  for (int u = 0; u < 4; ++u)
+    for (int l = 0; l < 8; ++l) acc[u][l] = -0.0f;
+  const int step = vf * uf;
+  const int main = epi == 0 ? (B + step - 1) / step * step : B / step * step;
+  const int lim = min(main, B);
+  for (int i = 0; i < lim; ++i) {
+    const int u = (i / vf) % uf, l = i % vf;
+    acc[u][l] = (has[u] >> l) & 1u ? __fadd_rn(acc[u][l], x[i]) : x[i];
+    has[u] |= 1u << l;
+  }
+  float lanes[8];
+  for (int l = 0; l < vf; ++l) lanes[l] = acc[0][l];
+  for (int u = 1; u < uf; ++u)
+    for (int l = 0; l < vf; ++l) lanes[l] = __fadd_rn(acc[u][l], lanes[l]);
+  float s = cms_halve(lanes, vf);
+  int i = lim;
+  if (epi > 1 && B - i >= epi) {
+    float v[8];
+    unsigned got = 1u;
+    v[0] = s;
+    for (int k = 1; k < epi; ++k) v[k] = -0.0f;
+    for (; B - i >= epi; i += epi)
+      for (int k = 0; k < epi; ++k) {
+        v[k] = (got >> k) & 1u ? __fadd_rn(v[k], x[i + k]) : x[i + k];
+        got |= 1u << k;
+      }
+    s = cms_halve(v, epi);
+  }
+  for (; i < B; ++i) s = __fadd_rn(s, x[i]);
+  return s;
+}
+
 __global__ void __launch_bounds__(CMS_BB_THREADS)
     cms_build_blocks(const uint32_t* __restrict__ keys,
                      const float* __restrict__ weights,
@@ -436,6 +510,8 @@ __global__ void __launch_bounds__(CMS_BB_THREADS)
   const uint32_t wmask = (width & (width - 1)) == 0 ? width - 1 : 0u;
   const unsigned long long none = ~0ull;  // padding and dropped probes
   const long long nbl = (shard_len + block - 1) / block;
+  int vf, uf, epi;
+  cms_short_order(block, width, r, &vf, &uf, &epi);
   for (long long b = 0; b < nbl; ++b) {
     const long long c0 = b * block;
     const int n = static_cast<int>(min(static_cast<long long>(block),
@@ -477,6 +553,22 @@ __global__ void __launch_bounds__(CMS_BB_THREADS)
       if (k == none) continue;
       const unsigned col = static_cast<unsigned>(k >> 32);
       if (i > 0 && static_cast<unsigned>(sk[i - 1] >> 32) == col) continue;
+      if (block <= 32) {
+        // the fused loop's order over the whole block (a short last block
+        // is padded with +0, as the ops entry point pads it)
+        float x[32];
+        for (int p = 0; p < 32; ++p) x[p] = 0.0f;
+        for (int j = i; j < n && static_cast<unsigned>(sk[j] >> 32) == col;
+             ++j) {
+          const int p = static_cast<int>(static_cast<unsigned>(sk[j]));
+          x[p] = sw[p];
+        }
+        x[0] = __fadd_rn(x[0], 0.0f);
+        const float bsum = cms_short_sum(x, block, vf, uf, epi);
+        row[col] = cms_bb_plus0(row[col], b > last[col] + 1) + bsum;
+        last[col] = static_cast<int>(b);
+        continue;
+      }
       float acc = 0.0f, bsum = 0.0f;
       int q = -1, prev = -1, wend = 0, prevq = -1;
       for (int j = i; j < n && static_cast<unsigned>(sk[j] >> 32) == col; ++j) {

@@ -72,6 +72,12 @@
 //     valid flags one by one); no entry point of the package launches it,
 //     and chip_smoke.py holds the staged kernel against it.
 //
+// distinct_pass1_batch carries a wave of queries (core.batched, B = 1):
+// the query-axis partition of rowpar.cuh, the repeats dropped and the rest
+// compacted as for one query (distinct_mark_q, distinct_compact), then
+// distinct_walk_q, one warp a (query, lane, row) segment taking
+// distinct_walk's steps with its query's w, into the batch's padded state.
+//
 // A resumed walk (B = 1, resume = 1: the streaming fold, core.streaming)
 // starts each row from the slots, valid flags and head the outputs already
 // hold, which its warp reads first and writes back at its end (in place);
@@ -448,30 +454,22 @@ __device__ __forceinline__ bool distinct_step(uint32_t (&s)[W], unsigned& vm,
   return !hit;
 }
 
-// One warp a segment g = lane * d + row over its compacted entries
-// [pos[starts[g]], pos[starts[g + 1]]), loaded through the cp.async ring
-// of rowpar.cuh. W >= w bounds the registers.
+// One warp walks one segment, its compacted entries [lo, hi) loaded
+// through the warp's cp.async ring of rowpar.cuh. W >= w bounds the
+// registers. keep: by the entry's index; *_row: the row's slots, of which
+// wout are written (w, or the batch's padded width: slots past w as 0,
+// never valid), and its head.
 template <int W, bool kLru>
-__global__ void __launch_bounds__(ROWPAR_THREADS)
-    distinct_walk(const uint2* __restrict__ walk, const int* __restrict__ pos,
-                  const int* __restrict__ starts, uint8_t* __restrict__ keep,
-                  uint32_t* __restrict__ slots_out,
-                  uint8_t* __restrict__ valid_out, int* __restrict__ head_out,
-                  long long nseg, int w, int resume) {
-  __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
-  const long long g =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (g >= nseg) return;  // whole warps
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int lo = pos[starts[g]];
-  const int hi = pos[starts[g + 1]];
+__device__ __forceinline__ void distinct_walk_seg(
+    uint2 (*ring)[32], const uint2* __restrict__ walk, int lo, int hi,
+    uint8_t* __restrict__ keep, uint32_t* __restrict__ slots_row,
+    uint8_t* __restrict__ valid_row, int* __restrict__ head_row, int w,
+    int wout, int resume, int lane) {
   const int chunks = (hi - lo + 31) >> 5;
   auto issue = [&](int c) {
     const int j = lo + (c << 5) + lane;
     const bool in = c < chunks && j < hi;
-    rowpar_cp<8>(&ring[warp][c % ROWPAR_STAGES][lane], walk + (in ? j : 0),
-                 in);
+    rowpar_cp<8>(&ring[c % ROWPAR_STAGES][lane], walk + (in ? j : 0), in);
     rowpar_commit();
   };
   for (int c = 0; c < ROWPAR_STAGES - 1; ++c) issue(c);
@@ -482,16 +480,16 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
 #pragma unroll
   for (int i = 0; i < W; ++i) {
     const bool in = resume && i < w;
-    s[i] = in ? slots_out[g * w + i] : 0u;
-    if (in && valid_out[g * w + i]) vm |= 1u << i;
+    s[i] = in ? slots_row[i] : 0u;
+    if (in && valid_row[i]) vm |= 1u << i;
   }
-  int head = resume ? head_out[g] : 0;
+  int head = resume ? *head_row : 0;
   for (int c = 0; c < chunks; ++c) {
     __syncwarp();  // every lane is done with the slot this issue refills
     issue(c + ROWPAR_STAGES - 1);
     rowpar_wait();
     __syncwarp();  // every lane's copy of chunk c is visible to the warp
-    const uint2* ch = ring[warp][c % ROWPAR_STAGES];
+    const uint2* ch = ring[c % ROWPAR_STAGES];
     const int n = min(32, hi - lo - (c << 5));
     bool mine = false;
     if (n == 32) {  // unrolled: the broadcast reads run ahead of the chain
@@ -513,16 +511,34 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     if (lane < n) keep[ch[lane].y & 0x7FFFFFFF] = mine;
   }
   rowpar_wait_all();
-  const long long o = g * w;
-  for (int i = lane; i < w; i += 32) {
+  for (int i = lane; i < wout; i += 32) {
     uint32_t v = 0u;
 #pragma unroll
     for (int c = 0; c < W; ++c)
-      if (c == i) v = s[c];
-    slots_out[o + i] = v;
-    valid_out[o + i] = (vm >> i) & 1u;
+      if (c == i && c < w) v = s[c];
+    slots_row[i] = v;
+    valid_row[i] = (vm >> i) & 1u;
   }
-  if (lane == 0) head_out[g] = head;
+  if (lane == 0) *head_row = head;
+}
+
+// One warp a segment g = lane * d + row over its compacted entries
+// [pos[starts[g]], pos[starts[g + 1]]).
+template <int W, bool kLru>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    distinct_walk(const uint2* __restrict__ walk, const int* __restrict__ pos,
+                  const int* __restrict__ starts, uint8_t* __restrict__ keep,
+                  uint32_t* __restrict__ slots_out,
+                  uint8_t* __restrict__ valid_out, int* __restrict__ head_out,
+                  long long nseg, int w, int resume) {
+  __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseg) return;  // whole warps
+  distinct_walk_seg<W, kLru>(ring[threadIdx.x >> 5], walk, pos[starts[g]],
+                             pos[starts[g + 1]], keep, slots_out + g * w,
+                             valid_out + g * w, head_out + g, w, w, resume,
+                             threadIdx.x & 31);
 }
 
 template <int W>
@@ -1103,6 +1119,103 @@ size_t serial_smem(int d, int w) {
          CHEETAH_STAGE * (sizeof(uint32_t) + sizeof(int) + 1);
 }
 
+// The batched walk (distinct_pass1_batch, B = 1, FIFO or LRU): a wave of
+// queries partitioned on the query axis (rowpar_partition_q); the repeats
+// dropped as for one query (distinct_mark_q: the predecessor of the same
+// query, lane and row, with the query's d and seed), the rest compacted
+// (distinct_compact); then one warp a (query, lane, row) segment takes the
+// walk of distinct_walk with its query's w, and writes the row into the
+// padded state [Q][S][dcap][wcap]: slots past w are 0 and never valid, as
+// the reference's batched pads. keep is [Q][m].
+__global__ void distinct_mark_q(const uint2* __restrict__ part,
+                                int* __restrict__ flags,
+                                uint8_t* __restrict__ keep, RowparQ p,
+                                int fmode) {
+  const long long m = static_cast<long long>(p.shards) * p.shard_len;
+  const long long total = p.nq * m;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < total; j += stride) {
+    bool dup = false;
+    const uint2 e1 = part[j];
+    const int q = static_cast<int>(j / m);
+    if (j % m) {
+      const uint2 e0 = part[j - 1];
+      if (e1.y / p.shard_len == e0.y / p.shard_len &&
+          cheetah_hash_mod(e1.x, p.d[q], p.seed[q]) ==
+              cheetah_hash_mod(e0.x, p.d[q], p.seed[q])) {
+        bool can1, can0;
+        const uint32_t k1 = distinct_key(e1.x, fmode, &can1);
+        const uint32_t k0 = distinct_key(e0.x, fmode, &can0);
+        dup = can1 && k1 == k0;
+      }
+    }
+    flags[j] = !dup;
+    if (dup) keep[q * m + e1.y] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) flags[total] = 0;
+}
+
+template <int W, bool kLru>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    distinct_walk_q(const uint2* __restrict__ walk, const int* __restrict__ pos,
+                    const int* __restrict__ starts,
+                    uint8_t* __restrict__ keep, uint32_t* __restrict__ slots_out,
+                    uint8_t* __restrict__ valid_out, int* __restrict__ head_out,
+                    RowparQ p) {
+  __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= p.nseg) return;  // whole warps
+  int q, sl, row;
+  rowpar_segment_q(p, g, &q, &sl, &row);
+  const long long o = rowpar_slot_q(p, q, sl, row);
+  distinct_walk_seg<W, kLru>(
+      ring[threadIdx.x >> 5], walk, pos[starts[g]], pos[starts[g + 1]],
+      keep + static_cast<long long>(q) * p.shards * p.shard_len,
+      slots_out + o, valid_out + o,
+      head_out + (static_cast<long long>(q) * p.shards + sl) * p.dcap + row,
+      p.w[q], p.wcap, 0, threadIdx.x & 31);
+}
+
+template <int W>
+void distinct_walk_q_launch(const uint2* walk, const int* pos,
+                            const int* starts, uint8_t* keep, uint32_t* slots,
+                            uint8_t* valid, int* head, const RowparQ& p,
+                            int lru, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(
+      (p.nseg * 32 + ROWPAR_THREADS - 1) / ROWPAR_THREADS);
+  if (lru)
+    distinct_walk_q<W, true><<<blocks, ROWPAR_THREADS, 0, stream>>>(
+        walk, pos, starts, keep, slots, valid, head, p);
+  else
+    distinct_walk_q<W, false><<<blocks, ROWPAR_THREADS, 0, stream>>>(
+        walk, pos, starts, keep, slots, valid, head, p);
+}
+
+// The batched walk's workspace: the query-axis partition's scratch, the
+// nq * m partitioned entries, their flags and the scan's partials, and
+// the compacted entries.
+struct DistinctBatchWork {
+  RowparQ plan;
+  size_t part, flags, partial, walk, total;
+};
+
+DistinctBatchWork distinct_batch_work(int nq, int shards, int shard_len,
+                                      const int* d, const int* w,
+                                      const uint32_t* seed, int dcap,
+                                      int wcap) {
+  DistinctBatchWork k;
+  k.plan = rowpar_plan_q(nq, shards, shard_len, d, w, seed, dcap, wcap);
+  const long long n = static_cast<long long>(nq) * shards * shard_len;
+  k.part = rowpar_partition_bytes_q(k.plan);
+  k.flags = k.part + rowpar_align(n * sizeof(uint2));
+  k.partial = k.flags + rowpar_align((n + 1) * sizeof(int));
+  k.walk = k.partial + rowpar_align((rowpar_scan_blocks(n + 1) + 1) * sizeof(int));
+  k.total = k.walk + rowpar_align(n * sizeof(uint2));
+  return k;
+}
+
 // The block kernel's layout: the slots, the row states and first, the ring.
 StagedPlan distinct_block_plan(int d, int w, int block) {
   return staged_plan(static_cast<size_t>(d) * w * sizeof(uint32_t) +
@@ -1245,5 +1358,65 @@ extern "C" int distinct_apply_scan(const uint32_t* x, const uint8_t* keep1,
                                    cudaStream_t stream) {
   distinct_apply_kernel<<<grid, 256, 0, stream>>>(
       x, keep1, mslots, mvalid, keep, m, shard_len, d, w, sw, seed, fmode);
+  return cudaGetLastError();
+}
+
+// Workspace of distinct_pass1_batch.
+extern "C" size_t distinct_pass1_batch_workspace(int nq, int shards,
+                                                 int shard_len, const int* d) {
+  if (nq < 1 || nq > ROWPAR_MAX_Q) return 0;
+  uint32_t seeds[ROWPAR_MAX_Q] = {};
+  return distinct_batch_work(nq, shards, shard_len, d, nullptr, seeds, 0, 0)
+      .total;
+}
+
+// DISTINCT pass 1 of a wave of nq <= ROWPAR_MAX_Q queries (B = 1): keep
+// [nq][m], slots and valid [nq][shards][dcap][wcap], head [nq][shards][dcap]
+// (the wrapper zeroes them first). d, w, seed: host arrays of nq, w <= wcap
+// <= 32. work holds distinct_pass1_batch_workspace bytes.
+extern "C" int distinct_pass1_batch(const uint32_t* x, uint8_t* keep,
+                                    uint32_t* slots, uint8_t* valid, int* head,
+                                    int nq, int shards, int shard_len,
+                                    const int* d, const int* w,
+                                    const uint32_t* seed, int dcap, int wcap,
+                                    int lru, int fmode, unsigned char* work,
+                                    cudaStream_t stream) {
+  if (nq < 1 || nq > ROWPAR_MAX_Q || wcap < 1 || wcap > 32)
+    return cudaErrorInvalidValue;
+  for (int q = 0; q < nq; ++q)
+    if (w[q] < 1 || w[q] > wcap || d[q] < 1 || d[q] > dcap)
+      return cudaErrorInvalidValue;
+  const DistinctBatchWork k =
+      distinct_batch_work(nq, shards, shard_len, d, w, seed, dcap, wcap);
+  const RowparQ& p = k.plan;
+  const long long n = static_cast<long long>(nq) * shards * shard_len;
+  uint2* part = reinterpret_cast<uint2*>(work + k.part);
+  int* flags = reinterpret_cast<int*>(work + k.flags);
+  int* partial = reinterpret_cast<int*>(work + k.partial);
+  uint2* walk = reinterpret_cast<uint2*>(work + k.walk);
+  int* starts = nullptr;
+  cudaError_t err = rowpar_partition_q(x, nullptr, nullptr, p, part, work,
+                                       &starts, stream);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(
+      min((n + ROWPAR_THREADS - 1) / ROWPAR_THREADS, 132LL * 16));
+  distinct_mark_q<<<grid, ROWPAR_THREADS, 0, stream>>>(part, flags, keep, p,
+                                                       fmode);
+  err = rowpar_scan(flags, n + 1, partial, stream);
+  if (err != cudaSuccess) return err;
+  distinct_compact<<<grid, ROWPAR_THREADS, 0, stream>>>(
+      part, flags, walk, n, shard_len, fmode, 1);
+  if (wcap <= 4)
+    distinct_walk_q_launch<4>(walk, flags, starts, keep, slots, valid, head,
+                              p, lru, stream);
+  else if (wcap <= 8)
+    distinct_walk_q_launch<8>(walk, flags, starts, keep, slots, valid, head,
+                              p, lru, stream);
+  else if (wcap <= 16)
+    distinct_walk_q_launch<16>(walk, flags, starts, keep, slots, valid, head,
+                               p, lru, stream);
+  else
+    distinct_walk_q_launch<32>(walk, flags, starts, keep, slots, valid, head,
+                               p, lru, stream);
   return cudaGetLastError();
 }

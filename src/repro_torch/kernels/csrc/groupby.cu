@@ -46,6 +46,11 @@
 // slot; the partition carries the hashed key, and the walks read both by
 // the entry's index. Both are null for integer keys.
 //
+// groupby_pass1_batch carries a wave of queries (core.batched): the
+// query-axis partition of rowpar.cuh, the run marks, then groupby_walk_q,
+// one warp a (query, lane, row) segment taking groupby_walk's steps with
+// its query's w, into the batch's padded state.
+//
 // A resumed walk (resume = 1: the streaming fold, core.streaming) starts
 // each row from the cache the outputs already hold, which its warp reads
 // before anything else and writes back at its end, so the carried state is
@@ -192,15 +197,18 @@ __device__ __forceinline__ float fold_t(float a, float v) {
 
 // Marks the run entries of the partitioned stream: an entry whose
 // predecessor is in the same lane, has the same key (so the same row) and
-// is valid, as it is itself. Such an entry hits the slot that key sits in.
+// is valid, as it is itself, and belongs to the same query (region: the
+// entries of one query; m for a single one). Such an entry hits the slot
+// that key sits in.
 // The flag goes to the entry's fourth word, which the partition left 0.
 __global__ void groupby_mark(uint4* __restrict__ part, long long m,
-                             int shard_len, const uint8_t* __restrict__ nohit) {
+                             int shard_len, const uint8_t* __restrict__ nohit,
+                             long long region) {
   const uint32_t* words = reinterpret_cast<const uint32_t*>(part);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < m; j += stride) {
-    if (j == 0) continue;
+    if (j % region == 0) continue;  // a query's first entry (a batch)
     const uint32_t k1 = words[4 * j], i1 = words[4 * j + 2];
     const uint32_t k0 = words[4 * j - 4], i0 = words[4 * j - 2];
     const bool run = k1 == k0 && !((i1 | i0) & ROWPAR_INVALID) &&
@@ -210,32 +218,25 @@ __global__ void groupby_mark(uint4* __restrict__ part, long long m,
   }
 }
 
-// One warp a segment g = lane * d + row over [starts[g], starts[g + 1]) of
-// the partitioned stream, loaded through the cp.async ring of rowpar.cuh.
-// A chunk's run mask is read one chunk ahead, so that it is ready when the
-// chunk's chain starts. W >= w bounds the registers.
+// One warp walks one segment, its entries [lo, hi) of the partitioned
+// stream loaded through the warp's cp.async ring of rowpar.cuh. A chunk's
+// run mask is read one chunk ahead, so that it is ready when the chunk's
+// chain starts. W >= w bounds the registers. ev_*: the emissions, by the
+// entry's index; *_row: the row's slots, of which wout are written (w, or
+// the batch's padded width: slots past w as (0, init, invalid)).
 template <int W, int kAgg>
-__global__ void __launch_bounds__(ROWPAR_THREADS)
-    groupby_walk(const uint4* __restrict__ part,
-                 const int* __restrict__ starts, uint32_t* __restrict__ ev_k,
-                 float* __restrict__ ev_a, uint8_t* __restrict__ ev_valid,
-                 uint32_t* __restrict__ keys_out, float* __restrict__ aggs_out,
-                 uint8_t* __restrict__ valid_out, long long nseg, int w,
-                 const uint32_t* __restrict__ skey,
-                 const uint8_t* __restrict__ nohit, int resume) {
-  __shared__ uint4 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
-  const long long g =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (g >= nseg) return;  // whole warps
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int lo = starts[g];
-  const int hi = starts[g + 1];
+__device__ __forceinline__ void groupby_walk_seg(
+    uint4 (*ring)[32], const uint4* __restrict__ part, int lo, int hi,
+    uint32_t* __restrict__ ev_k, float* __restrict__ ev_a,
+    uint8_t* __restrict__ ev_valid, uint32_t* __restrict__ keys_row,
+    float* __restrict__ aggs_row, uint8_t* __restrict__ valid_row, int w,
+    int wout, const uint32_t* __restrict__ skey,
+    const uint8_t* __restrict__ nohit, int resume, int lane) {
   const int chunks = (hi - lo + 31) >> 5;
   auto issue = [&](int c) {
     const int j = lo + (c << 5) + lane;
     const bool in = c < chunks && j < hi;
-    rowpar_cp<16>(&ring[warp][c % ROWPAR_STAGES][lane], part + (in ? j : 0),
+    rowpar_cp<16>(&ring[c % ROWPAR_STAGES][lane], part + (in ? j : 0),
                   in);
     rowpar_commit();
   };
@@ -252,9 +253,9 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
 #pragma unroll
   for (int i = 0; i < W; ++i) {
     const bool in = resume && i < w;
-    ks[i] = in ? keys_out[g * w + i] : 0u;
-    as[i] = in ? aggs_out[g * w + i] : init;
-    if (in && valid_out[g * w + i]) vm |= 1u << i;
+    ks[i] = in ? keys_row[i] : 0u;
+    as[i] = in ? aggs_row[i] : init;
+    if (in && valid_row[i]) vm |= 1u << i;
   }
   int at = 0;         // the slot of the last valid entry's key
   // while whole-run chunks follow each other: the run's aggregate (as[at])
@@ -265,9 +266,9 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
   rowpar_wait_for<ROWPAR_STAGES - 1>();
   __syncwarp();
   unsigned run = __ballot_sync(
-      ROWPAR_FULL, chunks > 0 && lane < size(0) && ring[warp][0][lane].w);
+      ROWPAR_FULL, chunks > 0 && lane < size(0) && ring[0][lane].w);
   for (int c = 0; c < chunks; ++c) {
-    const uint4* ch = ring[warp][c % ROWPAR_STAGES];
+    const uint4* ch = ring[c % ROWPAR_STAGES];
     const int n = size(c);
     // chunk c + 1 lands while chunk c is walked; its flag is read now and
     // voted on after the chain
@@ -275,7 +276,7 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
     __syncwarp();
     const bool more = c + 1 < chunks;
     const uint32_t next_flag =
-        more && lane < size(c + 1) ? ring[warp][(c + 1) % ROWPAR_STAGES][lane].w
+        more && lane < size(c + 1) ? ring[(c + 1) % ROWPAR_STAGES][lane].w
                                    : 0u;
     const uint4 en = ch[lane];
     uint32_t my_k = 0u;
@@ -407,20 +408,41 @@ __global__ void __launch_bounds__(ROWPAR_THREADS)
       if (i == at) as[i] = ra;
   }
   rowpar_wait_all();
-  const long long o = g * w;
-  for (int i = lane; i < w; i += 32) {
+  for (int i = lane; i < wout; i += 32) {
     uint32_t kv = 0u;
     float av = init;
 #pragma unroll
     for (int c = 0; c < W; ++c)
-      if (c == i) {
+      if (c == i && c < w) {
         kv = ks[c];
         av = as[c];
       }
-    keys_out[o + i] = kv;
-    aggs_out[o + i] = av;
-    valid_out[o + i] = (vm >> i) & 1u;
+    keys_row[i] = kv;
+    aggs_row[i] = av;
+    valid_row[i] = (vm >> i) & 1u;
   }
+}
+
+// One warp a segment g = lane * d + row over [starts[g], starts[g + 1]).
+template <int W, int kAgg>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    groupby_walk(const uint4* __restrict__ part,
+                 const int* __restrict__ starts, uint32_t* __restrict__ ev_k,
+                 float* __restrict__ ev_a, uint8_t* __restrict__ ev_valid,
+                 uint32_t* __restrict__ keys_out, float* __restrict__ aggs_out,
+                 uint8_t* __restrict__ valid_out, long long nseg, int w,
+                 const uint32_t* __restrict__ skey,
+                 const uint8_t* __restrict__ nohit, int resume) {
+  __shared__ uint4 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= nseg) return;  // whole warps
+  const int lane = threadIdx.x & 31;
+  const long long o = g * w;
+  groupby_walk_seg<W, kAgg>(ring[threadIdx.x >> 5], part, starts[g],
+                            starts[g + 1], ev_k, ev_a, ev_valid, keys_out + o,
+                            aggs_out + o, valid_out + o, w, w, skey, nohit,
+                            resume, lane);
 }
 
 template <int W>
@@ -564,6 +586,59 @@ cudaError_t groupby_walk_wide_launch(const uint4* part, const int* starts,
   return cudaGetLastError();
 }
 
+// The batched walk (groupby_pass1_batch): a wave of queries partitioned on
+// the query axis (rowpar_partition_q, with values and validity), its run
+// entries marked as for one query (groupby_mark, a run never crossing the
+// boundary of two queries' entries); one warp a (query, lane, row) segment
+// takes the walk of groupby_walk with its query's w, emits into [Q][m] and
+// writes the row into the padded state [Q][S][dcap][wcap]: slots past w
+// are (0, init, invalid), as the reference's batched pads.
+template <int W, int kAgg>
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    groupby_walk_q(const uint4* __restrict__ part,
+                   const int* __restrict__ starts, uint32_t* __restrict__ ev_k,
+                   float* __restrict__ ev_a, uint8_t* __restrict__ ev_valid,
+                   uint32_t* __restrict__ keys_out, float* __restrict__ aggs_out,
+                   uint8_t* __restrict__ valid_out, RowparQ p,
+                   const uint32_t* __restrict__ skey,
+                   const uint8_t* __restrict__ nohit) {
+  __shared__ uint4 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= p.nseg) return;  // whole warps
+  int q, sl, row;
+  rowpar_segment_q(p, g, &q, &sl, &row);
+  const long long eo = static_cast<long long>(q) * p.shards * p.shard_len;
+  const long long o = rowpar_slot_q(p, q, sl, row);
+  groupby_walk_seg<W, kAgg>(ring[threadIdx.x >> 5], part, starts[g],
+                            starts[g + 1], ev_k + eo, ev_a + eo, ev_valid + eo,
+                            keys_out + o, aggs_out + o, valid_out + o,
+                            p.w[q], p.wcap, skey, nohit, 0,
+                            threadIdx.x & 31);
+}
+
+template <int W>
+void groupby_walk_q_launch(const uint4* part, const int* starts,
+                           uint32_t* ev_k, float* ev_a, uint8_t* ev_valid,
+                           uint32_t* keys_out, float* aggs_out,
+                           uint8_t* valid_out, const RowparQ& p, int agg,
+                           const uint32_t* skey, const uint8_t* nohit,
+                           cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(
+      (p.nseg * 32 + ROWPAR_THREADS - 1) / ROWPAR_THREADS);
+#define CHEETAH_WALK(A)                                                       \
+  groupby_walk_q<W, A><<<blocks, ROWPAR_THREADS, 0, stream>>>(                \
+      part, starts, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out, p,  \
+      skey, nohit)
+  switch (agg) {
+    case kSum: CHEETAH_WALK(kSum); break;
+    case kCount: CHEETAH_WALK(kCount); break;
+    case kMin: CHEETAH_WALK(kMin); break;
+    default: CHEETAH_WALK(kMax); break;
+  }
+#undef CHEETAH_WALK
+}
+
 struct GroupbyWork {
   RowparPlan plan;
   size_t partition, total;
@@ -607,7 +682,8 @@ extern "C" int groupby_pass1(const uint32_t* keys, const float* vals,
   const long long m = static_cast<long long>(shards) * shard_len;
   groupby_mark<<<static_cast<unsigned>(min((m + ROWPAR_THREADS - 1) /
                                            ROWPAR_THREADS, 132LL * 16)),
-                 ROWPAR_THREADS, 0, stream>>>(part, m, shard_len, nohit);
+                 ROWPAR_THREADS, 0, stream>>>(part, m, shard_len, nohit,
+                                               m > 0 ? m : 1);
   if (w <= 4)
     groupby_walk_launch<4>(part, starts, ev_k, ev_a, ev_valid, keys_out,
                            aggs_out, valid_out, nseg, w, agg, skey, nohit,
@@ -650,5 +726,54 @@ extern "C" int groupby_pass1_serial(const uint32_t* keys, const float* vals,
   groupby_serial_kernel<<<shards, CHEETAH_STAGE, smem, stream>>>(
       keys, vals, valid, ev_k, ev_a, ev_valid, keys_out, aggs_out, valid_out,
       shard_len, d, w, agg, seed);
+  return cudaGetLastError();
+}
+
+// GROUP BY pass 1 of a wave of nq <= ROWPAR_MAX_Q queries: emissions
+// [nq][m], the state [nq][shards][dcap][wcap] (the wrapper fills it with
+// the pads first). d, w, seed: host arrays of nq, w <= wcap <= 32. skey,
+// nohit: float keys' stored key and no-hit flags by entry (else null).
+// work holds rowpar_batch_workspace(nq, shards, shard_len, d, 16).
+extern "C" int groupby_pass1_batch(const uint32_t* keys, const float* vals,
+                                   const uint8_t* valid, uint32_t* ev_k,
+                                   float* ev_a, uint8_t* ev_valid,
+                                   uint32_t* keys_out, float* aggs_out,
+                                   uint8_t* valid_out, int nq, int shards,
+                                   int shard_len, const int* d, const int* w,
+                                   const uint32_t* seed, int dcap, int wcap,
+                                   int agg, const uint32_t* skey,
+                                   const uint8_t* nohit, unsigned char* work,
+                                   cudaStream_t stream) {
+  if (nq < 1 || nq > ROWPAR_MAX_Q || wcap < 1 || wcap > 32 || agg < kSum ||
+      agg > kMax)
+    return cudaErrorInvalidValue;
+  for (int q = 0; q < nq; ++q)
+    if (w[q] < 1 || w[q] > wcap || d[q] < 1 || d[q] > dcap)
+      return cudaErrorInvalidValue;
+  const RowparQ p =
+      rowpar_plan_q(nq, shards, shard_len, d, w, seed, dcap, wcap);
+  uint4* part = reinterpret_cast<uint4*>(work + rowpar_partition_bytes_q(p));
+  int* starts = nullptr;
+  cudaError_t err = rowpar_partition_q(
+      keys, reinterpret_cast<const uint32_t*>(vals), valid, p, part, work,
+      &starts, stream);
+  if (err != cudaSuccess) return err;
+  const long long m = static_cast<long long>(shards) * shard_len;
+  groupby_mark<<<static_cast<unsigned>(min((nq * m + ROWPAR_THREADS - 1) /
+                                           ROWPAR_THREADS, 132LL * 16)),
+                 ROWPAR_THREADS, 0, stream>>>(part, nq * m, shard_len, nohit,
+                                               m > 0 ? m : 1);
+  if (wcap <= 4)
+    groupby_walk_q_launch<4>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                             aggs_out, valid_out, p, agg, skey, nohit, stream);
+  else if (wcap <= 8)
+    groupby_walk_q_launch<8>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                             aggs_out, valid_out, p, agg, skey, nohit, stream);
+  else if (wcap <= 16)
+    groupby_walk_q_launch<16>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                              aggs_out, valid_out, p, agg, skey, nohit, stream);
+  else
+    groupby_walk_q_launch<32>(part, starts, ev_k, ev_a, ev_valid, keys_out,
+                              aggs_out, valid_out, p, agg, skey, nohit, stream);
   return cudaGetLastError();
 }

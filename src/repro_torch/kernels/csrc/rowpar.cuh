@@ -30,6 +30,15 @@
 //      whose sign bit marks an invalid (padding) entry.
 // No sort: the partition is a counting sort on the segment, in one pass
 // over the stream for the counts and one for the scatter.
+//
+// The query-axis partition (rowpar_partition_q) does the same for a wave
+// of up to ROWPAR_MAX_Q queries over one stream, each with its own d and
+// seed (core.batched): segment g = segbase[q] + lane * d[q] + row, with
+// segbase[q] = S * (d[0] + ... + d[q - 1]), so query q's entries fill
+// [q * m, (q + 1) * m) of the output. rowpar_hist_q and rowpar_scatter_q
+// load each entry once and hash it once for each query of the wave; the
+// shared-memory bins of a tile hold every query's rows when they fit. The
+// count matrix keeps its 2^24-cell cap by growing the tile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,11 +84,70 @@ static inline RowparPlan rowpar_plan(int shards, int shard_len, int d) {
   return p;
 }
 
+// A wave of the query-axis partition and of the batched walks, passed to
+// the kernels by value. w, dcap and wcap are the walks' (each query's cache
+// width, and the batch's padded state [Q][S][dcap][wcap]).
+#define ROWPAR_MAX_Q 16
+struct RowparQ {
+  int nq;
+  int shards;
+  int shard_len;
+  int tile;
+  int tiles_per_lane;
+  int dcap, wcap;
+  long long nseg;   // S * (d[0] + ... + d[nq - 1]) segments
+  long long cells;  // nseg * tiles_per_lane counters, plus one
+  int d[ROWPAR_MAX_Q];
+  int w[ROWPAR_MAX_Q];
+  uint32_t seed[ROWPAR_MAX_Q];
+  long long segbase[ROWPAR_MAX_Q + 1];
+  int binbase[ROWPAR_MAX_Q + 1];  // d[0] + ... + d[q - 1]
+};
+
+static inline RowparQ rowpar_plan_q(int nq, int shards, int shard_len,
+                                    const int* d, const int* w,
+                                    const uint32_t* seed, int dcap,
+                                    int wcap) {
+  RowparQ p{};
+  p.nq = nq;
+  p.shards = shards;
+  p.shard_len = shard_len;
+  p.dcap = dcap;
+  p.wcap = wcap;
+  long long rows = 0;
+  for (int q = 0; q < nq; ++q) {
+    p.d[q] = d[q];
+    p.w[q] = w ? w[q] : 0;
+    p.seed[q] = seed[q];
+    p.binbase[q] = static_cast<int>(rows);
+    p.segbase[q] = rows * shards;
+    rows += d[q];
+  }
+  p.binbase[nq] = static_cast<int>(rows);
+  p.segbase[nq] = rows * shards;
+  p.nseg = rows * shards;
+  int t = 2048;
+  while (t < (1 << 20) &&
+         static_cast<long long>(shards) * ((shard_len + t - 1) / t) * rows >
+             (1LL << 24))
+    t *= 2;
+  p.tile = t;
+  p.tiles_per_lane = shard_len > 0 ? (shard_len + t - 1) / t : 1;
+  p.cells = p.nseg * p.tiles_per_lane + 1;
+  return p;
+}
+
 static inline long long rowpar_scan_blocks(long long n) {
   return (n + ROWPAR_SCAN_CHUNK - 1) / ROWPAR_SCAN_CHUNK;
 }
 
 static inline size_t rowpar_align(size_t b) { return (b + 255) & ~size_t(255); }
+
+static inline size_t rowpar_partition_bytes_q(const RowparQ& p) {
+  return rowpar_align(p.cells * sizeof(int)) +
+         rowpar_align((rowpar_scan_blocks(p.cells) + 1) * sizeof(int)) +
+         rowpar_align((p.nseg + 1) * sizeof(int));
+}
 
 // Bytes of the partition's own scratch: the count matrix, the scan's block
 // partials and the segment starts.
@@ -207,6 +275,51 @@ __global__ void rowpar_starts(const int* __restrict__ cells,
   if (g <= nseg) starts[g] = cells[g * tiles_per_lane];
 }
 
+// The query-axis histogram: a CTA a tile of a lane, each entry loaded once
+// and hashed with each query's d and seed.
+template <bool kSmem, bool kIdx>
+__global__ void rowpar_hist_q(const uint32_t* __restrict__ x,
+                              int* __restrict__ cells, RowparQ p) {
+  extern __shared__ int bins[];
+  const int s = blockIdx.x / p.tiles_per_lane;
+  const int t = blockIdx.x % p.tiles_per_lane;
+  const long long base =
+      static_cast<long long>(s) * p.shard_len + static_cast<long long>(t) * p.tile;
+  const int n = min(p.tile, p.shard_len - t * p.tile);
+  if (kSmem) {
+    for (int r = threadIdx.x; r < p.binbase[p.nq]; r += blockDim.x) bins[r] = 0;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const bool in = i < n;
+    const unsigned active = __ballot_sync(ROWPAR_FULL, in);
+    const uint32_t key =
+        !in ? 0u : kIdx ? static_cast<uint32_t>(t * p.tile + i) : x[base + i];
+    for (int q = 0; q < p.nq; ++q) {
+      if (!in) continue;
+      const int r = cheetah_hash_mod(key, p.d[q], p.seed[q]);
+      const unsigned peers = __match_any_sync(active, r);
+      if (lane == __ffs(peers) - 1) {
+        if (kSmem)
+          atomicAdd(&bins[p.binbase[q] + r], __popc(peers));
+        else
+          atomicAdd(&cells[(p.segbase[q] + static_cast<long long>(s) * p.d[q] + r) *
+                               p.tiles_per_lane + t],
+                    __popc(peers));
+      }
+    }
+  }
+  if (kSmem) {
+    __syncthreads();
+    for (int q = 0; q < p.nq; ++q)
+      for (int r = threadIdx.x; r < p.d[q]; r += blockDim.x)
+        cells[(p.segbase[q] + static_cast<long long>(s) * p.d[q] + r) *
+                  p.tiles_per_lane + t] = bins[p.binbase[q] + r];
+  }
+}
+
 // One entry of the partitioned stream: (key, index) or (key, payload,
 // index, 0), one store each, so that a scattered entry dirties one sector.
 __device__ __forceinline__ void rowpar_put(uint2* out, int pos, uint32_t k,
@@ -278,6 +391,71 @@ __global__ void rowpar_scatter(const uint32_t* __restrict__ x,
       const long long e = base + i;
       rowpar_put(out, pos, v, aux, e,
                  static_cast<uint32_t>(e) | (ok && !ok[e] ? ROWPAR_INVALID : 0u));
+    }
+  }
+}
+
+// The query-axis scatter: as rowpar_scatter, each entry loaded once and
+// placed once for each query of the wave (query q's segments start at
+// segbase[q], so its entries land in [q * m, (q + 1) * m)).
+template <bool kSmem, bool kIdx, typename E>
+__global__ void rowpar_scatter_q(const uint32_t* __restrict__ x,
+                                 const uint32_t* __restrict__ aux,
+                                 const uint8_t* __restrict__ ok,
+                                 int* __restrict__ cells, RowparQ p,
+                                 E* __restrict__ out) {
+  extern __shared__ int off[];
+  const int s = blockIdx.x / p.tiles_per_lane;
+  const int t = blockIdx.x % p.tiles_per_lane;
+  const long long base =
+      static_cast<long long>(s) * p.shard_len + static_cast<long long>(t) * p.tile;
+  const int n = min(p.tile, p.shard_len - t * p.tile);
+  if (kSmem) {
+    for (int q = 0; q < p.nq; ++q)
+      for (int r = threadIdx.x; r < p.d[q]; r += blockDim.x)
+        off[p.binbase[q] + r] =
+            cells[(p.segbase[q] + static_cast<long long>(s) * p.d[q] + r) *
+                      p.tiles_per_lane + t];
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const bool in = i < n;
+    const unsigned active = __ballot_sync(ROWPAR_FULL, in);
+    const long long e = base + i;
+    const uint32_t v = in ? x[e] : 0u;
+    const uint32_t idx =
+        static_cast<uint32_t>(e) | (in && ok && !ok[e] ? ROWPAR_INVALID : 0u);
+    const uint32_t key = kIdx ? static_cast<uint32_t>(t * p.tile + i) : v;
+    for (int q = 0; q < p.nq; ++q) {
+      int r = 0, rank = 0, leader = 0;
+      unsigned peers = 0;
+      if (in) {
+        r = cheetah_hash_mod(key, p.d[q], p.seed[q]);
+        peers = __match_any_sync(active, r);
+        rank = __popc(peers & ((1u << lane) - 1u));
+        leader = __ffs(peers) - 1;
+      }
+      int pos = 0;
+      // warps in order, so that a row's ranks follow stream order
+      for (int wv = 0; wv < nwarps; ++wv) {
+        if (warp == wv) {
+          int b = 0;
+          if (in && lane == leader) {
+            int* c = kSmem ? &off[p.binbase[q] + r]
+                           : &cells[(p.segbase[q] + static_cast<long long>(s) * p.d[q] + r) *
+                                        p.tiles_per_lane + t];
+            b = *c;
+            *c = b + __popc(peers);
+          }
+          pos = __shfl_sync(ROWPAR_FULL, b, leader) + rank;
+        }
+        __syncthreads();
+      }
+      if (in) rowpar_put(out, pos, v, aux, e, idx);
     }
   }
 }
@@ -419,6 +597,64 @@ cudaError_t rowpar_partition(const uint32_t* x, const uint32_t* aux,
                                               starts, stream)
                   : rowpar_partition_by<false>(x, aux, ok, p, seed, out, work,
                                                starts, stream);
+}
+
+// Partition the lanes of x into every query's segments of E entries at
+// out (nq * m entries); *starts gets the nseg + 1 segment starts. work
+// holds rowpar_partition_bytes_q(p). by_index as rowpar_partition.
+template <typename E>
+cudaError_t rowpar_partition_q(const uint32_t* x, const uint32_t* aux,
+                               const uint8_t* ok, const RowparQ& p, E* out,
+                               unsigned char* work, int** starts,
+                               cudaStream_t stream, bool by_index = false) {
+  int* cells = reinterpret_cast<int*>(work);
+  work += rowpar_align(p.cells * sizeof(int));
+  int* partial = reinterpret_cast<int*>(work);
+  work += rowpar_align((rowpar_scan_blocks(p.cells) + 1) * sizeof(int));
+  *starts = reinterpret_cast<int*>(work);
+  const unsigned tiles = static_cast<unsigned>(p.shards) * p.tiles_per_lane;
+  const bool smem = p.binbase[p.nq] <= ROWPAR_SMEM_BINS;
+  const size_t bins = smem ? static_cast<size_t>(p.binbase[p.nq]) * sizeof(int) : 0;
+  cudaError_t err = cudaMemsetAsync(cells, 0, p.cells * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+#define CHEETAH_Q(K, I)                                                        \
+  rowpar_hist_q<K, I><<<tiles, ROWPAR_THREADS, bins, stream>>>(x, cells, p)
+  if (smem && by_index) CHEETAH_Q(true, true);
+  else if (smem) CHEETAH_Q(true, false);
+  else if (by_index) CHEETAH_Q(false, true);
+  else CHEETAH_Q(false, false);
+#undef CHEETAH_Q
+  err = rowpar_scan(cells, p.cells, partial, stream);
+  if (err != cudaSuccess) return err;
+  rowpar_starts<<<static_cast<unsigned>((p.nseg + 1 + 255) / 256), 256, 0, stream>>>(
+      cells, *starts, p.nseg, p.tiles_per_lane);
+#define CHEETAH_Q(K, I)                                                        \
+  rowpar_scatter_q<K, I, E><<<tiles, ROWPAR_THREADS, bins, stream>>>(          \
+      x, aux, ok, cells, p, out)
+  if (smem && by_index) CHEETAH_Q(true, true);
+  else if (smem) CHEETAH_Q(true, false);
+  else if (by_index) CHEETAH_Q(false, true);
+  else CHEETAH_Q(false, false);
+#undef CHEETAH_Q
+  return cudaGetLastError();
+}
+
+// The segment g of a wave: its query, lane and row.
+__device__ __forceinline__ void rowpar_segment_q(const RowparQ& p, long long g,
+                                                 int* q, int* lane, int* row) {
+  int k = 0;
+  while (k + 1 < p.nq && g >= p.segbase[k + 1]) ++k;
+  const long long local = g - p.segbase[k];
+  *q = k;
+  *lane = static_cast<int>(local / p.d[k]);
+  *row = static_cast<int>(local % p.d[k]);
+}
+
+// The padded state's first slot of (query, lane, row): [Q][S][dcap][wcap].
+__device__ __forceinline__ long long rowpar_slot_q(const RowparQ& p, int q,
+                                                   int lane, int row) {
+  return ((static_cast<long long>(q) * p.shards + lane) * p.dcap + row) *
+         p.wcap;
 }
 
 }  // namespace

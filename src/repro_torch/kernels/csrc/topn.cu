@@ -43,6 +43,10 @@
 // x twice and writes 8 bytes an entry; the walk reads them and scatters
 // keep), not its chain, the costliest segment's inserting groups.
 //
+// topn_pass1_batch carries a wave of queries (core.batched): the
+// query-axis partition of rowpar.cuh, then topn_walk_q, one warp a (query,
+// lane, row) segment with its query's w, into the batch's padded state.
+//
 // A resumed walk (B = 1: the streaming fold, core.streaming) hashes the
 // shard-local index plus idx_off (the entries the lane has consumed, mod
 // 2^32; rowpar.cuh's partition and the apply add it alike) and starts each
@@ -901,6 +905,52 @@ cudaError_t topn_walk_launch(const float* x, uint8_t* keep, float* states,
   return cudaGetLastError();
 }
 
+// The batched walk (topn_pass1_batch): a wave of queries over one stream,
+// each with its own d, w and seed, partitioned on the query axis
+// (rowpar_partition_q, by index); one warp a (query, lane, row) segment
+// takes the B = 1 steps of topn_walk with its query's w, and writes its row
+// into the padded state [Q][S][dcap][wcap] (slots past w stay NEG; rows a
+// query does not have are filled by the wrapper). keep is [Q][m].
+__global__ void __launch_bounds__(ROWPAR_THREADS)
+    topn_walk_q(const uint2* __restrict__ part, const int* __restrict__ starts,
+                uint8_t* __restrict__ keep, float* __restrict__ states,
+                RowparQ p) {
+  __shared__ uint2 ring[ROWPAR_WARPS][ROWPAR_STAGES][32];
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= p.nseg) return;  // whole warps
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int q, sl, row_id;
+  rowpar_segment_q(p, g, &q, &sl, &row_id);
+  const int w = p.w[q];
+  uint8_t* kq = keep + static_cast<long long>(q) * p.shards * p.shard_len;
+  const int lo = starts[g];
+  const int hi = starts[g + 1];
+  const int chunks = (hi - lo + 31) >> 5;
+  auto issue = [&](int c) {
+    const int j = lo + (c << 5) + lane;
+    const bool in = c < chunks && j < hi;
+    rowpar_cp<8>(&ring[warp][c % ROWPAR_STAGES][lane], part + (in ? j : 0),
+                 in);
+    rowpar_commit();
+  };
+  for (int c = 0; c < ROWPAR_STAGES - 1; ++c) issue(c);
+  TopnRegRow row;
+  unsigned tl = 0u;
+  for (int c = 0; c < chunks; ++c) {
+    __syncwarp();  // every lane is done with the slot this issue refills
+    issue(c + ROWPAR_STAGES - 1);
+    rowpar_wait();
+    __syncwarp();  // every lane's copy of chunk c is visible to the warp
+    const uint2 e = ring[warp][c % ROWPAR_STAGES][lane];
+    const int n = min(32, hi - lo - (c << 5));
+    topn_window(row, e, n, w, lane, p.shard_len, tl, kq);
+  }
+  rowpar_wait_all();
+  if (lane < p.wcap) states[rowpar_slot_q(p, q, sl, row_id) + lane] = row.r;
+}
+
 // The block kernel's layout: the matrix, the candidates, the ring.
 StagedPlan topn_block_plan(int d, int w, int block) {
   return staged_plan(static_cast<size_t>(d) * w * sizeof(float) +
@@ -1085,5 +1135,44 @@ extern "C" int topn_apply_grid(const float* x, const float* rowmin,
   const size_t smem = staged ? static_cast<size_t>(d) * sizeof(float) : 0;
   topn_apply_grid_kernel<<<grid, 256, smem, stream>>>(
       x, rowmin, keep, m, shard_len, d, seed, staged);
+  return cudaGetLastError();
+}
+
+// The batched walk's workspace: the query-axis partition's scratch and
+// the nq * m partitioned entries. d: the nq queries' rows.
+extern "C" size_t rowpar_batch_workspace(int nq, int shards, int shard_len,
+                                         const int* d, int entry_bytes) {
+  if (nq < 1 || nq > ROWPAR_MAX_Q) return 0;
+  uint32_t seeds[ROWPAR_MAX_Q] = {};
+  const RowparQ p =
+      rowpar_plan_q(nq, shards, shard_len, d, nullptr, seeds, 0, 0);
+  return rowpar_partition_bytes_q(p) +
+         rowpar_align(static_cast<size_t>(nq) * shards * shard_len * entry_bytes);
+}
+
+// TOP-N pass 1 of a wave of nq <= ROWPAR_MAX_Q queries (B = 1, the engine's
+// family): keep [nq][m], states [nq][shards][dcap][wcap] (the wrapper fills
+// it with NEG first). d, w, seed: host arrays of nq, w <= wcap <= 32.
+extern "C" int topn_pass1_batch(const float* x, uint8_t* keep, float* states,
+                                int nq, int shards, int shard_len,
+                                const int* d, const int* w,
+                                const uint32_t* seed, int dcap, int wcap,
+                                unsigned char* work, cudaStream_t stream) {
+  if (nq < 1 || nq > ROWPAR_MAX_Q || wcap < 1 || wcap > 32)
+    return cudaErrorInvalidValue;
+  for (int q = 0; q < nq; ++q)
+    if (w[q] < 1 || w[q] > wcap || d[q] < 1 || d[q] > dcap)
+      return cudaErrorInvalidValue;
+  const RowparQ p =
+      rowpar_plan_q(nq, shards, shard_len, d, w, seed, dcap, wcap);
+  uint2* part = reinterpret_cast<uint2*>(work + rowpar_partition_bytes_q(p));
+  int* starts = nullptr;
+  cudaError_t err = rowpar_partition_q(reinterpret_cast<const uint32_t*>(x),
+                                       nullptr, nullptr, p, part, work,
+                                       &starts, stream, true);
+  if (err != cudaSuccess) return err;
+  topn_walk_q<<<static_cast<unsigned>((p.nseg * 32 + ROWPAR_THREADS - 1) /
+                                      ROWPAR_THREADS),
+                ROWPAR_THREADS, 0, stream>>>(part, starts, keep, states, p);
   return cudaGetLastError();
 }

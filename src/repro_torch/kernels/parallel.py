@@ -23,7 +23,8 @@ the one-CTA-a-lane block kernel.
 ``KERNELS`` lists every CUDA kernel of the port, the Count-Min pair of
 ``cms_sketch.py``, the Bloom pair of ``bloom_filter.py``, the GROUP BY
 scan of ``groupby_scan.py``, the ``topn_det`` ladder of
-``topn_det_scan.py`` and the RLE run scan of ``rle_scan.py`` included.
+``topn_det_scan.py``, the RLE run scan of ``rle_scan.py`` and the
+query-batched walks of ``batch_walks.py`` included.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from .common import (I32, I64, MAX_SMEM, P, U32, CudaKernel, LaunchCount,
                      check_cuda, check_rowpar, grid_for, library_fn, ptr,
                      query_out, sm_count, workspace)
 from .common import flush_subnormals as ftz
+from .batch_walks import BATCH_KERNELS
 from .groupby_scan import GROUPBY_PASS1
 from .rle_scan import RLE_TOPN_DET
 from .topn_det_scan import TOPN_DET_PASS1
@@ -84,7 +86,7 @@ KERNELS = (TOPN_PASS1, TOPN_APPLY, DISTINCT_PASS1, DISTINCT_APPLY,
            BLOOM_QUERY, GROUPBY_PASS1, TOPN_DET_PASS1, DISTINCT_PASS1_LRU,
            RLE_TOPN_DET, DISTINCT_BLOCK_WALK, TOPN_BLOCK_WALK,
            BLOOM_BUILD_GLOBAL, TOPN_PASS1_BLOCK, DISTINCT_PASS1_BLOCK,
-           TOPN_ONEHOT_FIXUP)
+           TOPN_ONEHOT_FIXUP) + BATCH_KERNELS
 POLICIES = ("lru", "fifo")
 
 

@@ -281,6 +281,103 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     return out
 
 
+def _group_key(spec: QuerySpec):
+    """Batching key: specs batch together only when their streams and
+    family statics agree (same columns, policy, score or agg, and the same
+    side of the hash's 2^16 multiply-shift / modulo branch, a static of
+    ``core.batched``). None for JOIN and FILTER, which run on their own."""
+    k, p = spec.kind, spec.params
+    if k == "distinct":
+        return (k, spec.columns, p.get("policy", "lru"),
+                int(p["d"]) < (1 << 16))
+    if k == "topn":
+        if p.get("mode", "rand") == "rand":
+            return (k, spec.columns, "rand", int(p["d"]) < (1 << 16))
+        return (k, spec.columns, "det")
+    if k == "skyline":
+        return (k, spec.columns, p.get("score", "aph"))
+    if k == "groupby":
+        return (k, spec.columns, p.get("agg", "sum"),
+                int(p["d"]) < (1 << 16))
+    if k == "having":
+        return (k, spec.columns, p.get("agg", "sum"))
+    return None
+
+
+def run_queries(specs, tables, mesh=None, axis: str = "data",
+                device_budget_bytes: int | None = None,
+                tune: str | None = None, plan_cache=None,
+                options: ExecOptions | None = None,
+                decode: str | None = None,
+                obs: str | None = None) -> list:
+    """Execute many queries, batching compatible ones into one program.
+
+    Specs are grouped by ``_group_key`` (same family, columns and family
+    statics); each group of two or more runs through
+    ``core.engine_prune_batch`` in ``scan`` mode (one lane over the shared
+    stream for every query of the group). Singleton groups, JOIN and FILTER
+    run through ``run_query``. Results come back in input order, one
+    ``run_query``-shaped dict a spec, equal to a serial ``run_query`` loop;
+    every member of a group shares the group's ``ExecReport``.
+
+    device_budget_bytes caps each group's resident switch state (§8):
+    an oversubscribed group runs in admission waves
+    (``planner.plan_query_batch``).
+
+    Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 7) and ``tune=`` other
+    than ``"off"`` with ``plan_cache=`` (item 11).
+    """
+    del axis
+    opts = ExecOptions.resolve(options, tune=tune, plan_cache=plan_cache,
+                               decode=decode, obs=obs)
+    opts.require_unset("run_queries", "mode", "shards", "pass2",
+                       "apply_block")
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_queries(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
+    if opts.tune not in (None, "off") or opts.plan_cache is not None:
+        raise NotImplementedError(
+            "run_queries(tune=) is not ported yet (ROADMAP Queue 1 item 11)")
+    decode = opts.decode if opts.decode is not None else "auto"
+    specs = list(specs)
+    results: list = [None] * len(specs)
+    groups: dict = {}
+    for i, spec in enumerate(specs):
+        key = _group_key(spec)
+        if key is None:
+            results[i] = run_query(spec, tables, decode=decode, obs=opts.obs)
+        else:
+            groups.setdefault(key, []).append(i)
+    for idxs in groups.values():
+        if len(idxs) == 1:
+            results[idxs[0]] = run_query(specs[idxs[0]], tables,
+                                         decode=decode, obs=opts.obs)
+            continue
+        prepped = [_prepare(specs[i], tables, decode) for i in idxs]
+        algo, streams, encs = prepped[0][0], prepped[0][1], prepped[0][2]
+        queries = [pr[3] for pr in prepped]
+        rb = core.engine_prune_batch(
+            algo, queries, *streams, mode="scan", encoding=encs,
+            device_budget_bytes=device_budget_bytes, obs=opts.obs)
+        for j, i in enumerate(idxs):
+            state_j = core.batched.take(rb.state, j)
+            if algo == "groupby":
+                # trim the batch-cap pads (never-valid slots) back to the
+                # query's own (d, w), so that completion and the traffic
+                # count see the serial state's shape
+                d, w = int(queries[j]["d"]), int(queries[j]["w"])
+                state_j = dataclasses.replace(state_j, **{
+                    f.name: getattr(state_j, f.name)[:d, :w]
+                    for f in dataclasses.fields(state_j)})
+            rj = core.PruneResult(
+                keep=rb.keep[j], state=state_j,
+                emitted=core.batched.take(rb.emitted, j))
+            results[i] = prepped[j][4](rj)
+            # one batched dispatch served the whole group
+            results[i]["report"] = rb.report
+    return results
+
+
 def _result(output, keep: torch.Tensor) -> dict:
     keepf = keep.to(torch.float32)
     return {

@@ -66,7 +66,11 @@ reference, faults of the reference included:
 - A29: XLA's CPU reduction sums f32 values in windows of 32, each in order
   from +0, then the window sums (the HAVING merge over S lanes, the Pallas
   Count-Min build's block sums), every add flushed; a jitted Count-Min
-  build keeps the -0 of rows 0 and 1 and reads rows 2 and up as +0.
+  build keeps the -0 of rows 0 and 1 and reads rows 2 and up as +0;
+- A30: a Pallas Count-Min block of 32 keys or fewer is one fused loop of
+  XLA's CPU code, which LLVM vectorises from a block that depends on the
+  row and the width (``cms_sketch.short_block_order``): keys by lanes of 8
+  (or 4 lanes unrolled 4 times), a halving tree, the rest in order.
 """
 import dataclasses
 
@@ -1532,3 +1536,91 @@ def test_a29_jitted_build_keeps_minus_zero_in_rows_0_and_1():
     _eq_bits(T.cms_build(torch.from_numpy(k), torch.from_numpy(w), 5,
                       64).table,
           jsk.cms_build(jnp.asarray(k), jnp.asarray(w), 5, 64).table)
+
+
+# ------------------------------------------------------------------- A30
+_A30_BLOCKS = (9, 15, 16, 17, 20, 24, 31, 32)
+
+
+def _a30_weights(kind, rng, m):
+    """Both signs near FLT_MIN (the flushes decide the counters), or
+    non-integer weights of one sign (the rounding decides them)."""
+    if kind == "flt":
+        return _a29_weights(rng, m)
+    w = (np.abs(rng.standard_normal(m)) * 10).astype(np.float32)
+    return w if kind == "pos" else -w
+
+
+def _a30_build(k, w, **kw):
+    want = jops.cms_build(jnp.asarray(k), jnp.asarray(w), **kw)
+    got = tops.cms_build(torch.from_numpy(k), torch.from_numpy(w), **kw)
+    _eq_bits(got, want)
+
+
+@pytest.mark.parametrize("kind", ["flt", "pos", "neg"])
+@pytest.mark.parametrize("width", [7, 16])
+def test_a30_ops_cms_build_short_blocks(width, kind):
+    """``ops.cms_build`` on f32 weights at blocks of 32 keys or fewer, 2040
+    keys below 5000, 2 rows, seed 1 (the probe's input): at width 16 row 0
+    is vectorised from block 22 and row 1 from block 20, at width 7 from 15
+    and 14; blocks 24 to 32 are 8 lanes and the rest of the keys in order,
+    block 20 is 4 lanes unrolled 4 times with an epilogue of 2."""
+    for block in _A30_BLOCKS:
+        rng = np.random.default_rng(1)
+        k = rng.integers(0, 5000, 2040).astype(np.uint32)
+        _a30_build(k, _a30_weights(kind, rng, 2040), rows=2, width=width,
+                   block=block)
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("width", [3, 64])
+def test_a30_rows_and_widths(rows, width):
+    """The first vectorised block by row and width: rows past 0 from 14
+    (20 at a power-of-two width), row 0 from 15 (22), and none at a width
+    of 1, on keys of few distinct values (many hits a block)."""
+    rng = np.random.default_rng(rows * 10 + width)
+    for block, wd in ((14, width), (15, width), (20, width), (22, width),
+                      (32, width), (32, 1)):
+        pool = rng.integers(0, 1 << 20, 5).astype(np.uint32)
+        k = pool[rng.integers(0, 5, 1536)]
+        _a30_build(k, _a30_weights("flt", rng, 1536), rows=rows,
+                   width=wd, block=block)
+
+
+@pytest.mark.parametrize("block", [20, 24, 31])
+def test_a30_short_last_block(block):
+    """A stream that is no multiple of the block: the ops entry point pads
+    the last block with (key 0, weight 0.0), whose products are +0 in the
+    fused loop's lanes."""
+    rng = np.random.default_rng(block)
+    k = rng.integers(0, 300, 1000 + block // 2).astype(np.uint32)
+    w = (rng.standard_normal(k.shape[0]) * 10).astype(np.float32)
+    _a30_build(k, w, rows=3, width=16, block=block)
+    _a30_build(k, _a30_weights("flt", rng, k.shape[0]), rows=3, width=16,
+               block=block)
+
+
+@pytest.mark.parametrize("block", [100, 256])
+def test_a30_long_blocks_still_match(block):
+    """Blocks of more than 32 keys keep the windows of A29."""
+    rng = np.random.default_rng(block)
+    k = rng.integers(0, 5000, 4096).astype(np.uint32)
+    for kind in ("flt", "pos"):
+        _a30_build(k, _a30_weights(kind, rng, 4096), rows=2, width=16,
+                   block=block)
+
+
+def test_a30_short_block_order_rule():
+    """The rule's table: sequential below the threshold, and every
+    vectorised order a sum of all B products (on integers, exact)."""
+    assert tcms.short_block_order(32, 1, 0) == (1, 1, 1)
+    assert tcms.short_block_order(21, 16, 0) == (1, 1, 1)
+    assert tcms.short_block_order(22, 16, 0) == (4, 4, 2)
+    assert tcms.short_block_order(14, 7, 1) == (8, 1, 0)
+    assert tcms.short_block_order(13, 7, 1) == (1, 1, 1)
+    x = torch.arange(1, 33, dtype=torch.float32)[None]
+    for B in range(1, 33):
+        for r in (0, 1):
+            s = tcms.short_block_sum(x[:, :B], tcms.short_block_order(
+                B, 5, r))
+            assert float(s) == B * (B + 1) / 2

@@ -100,3 +100,44 @@ def test_default_device_is_the_card(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
+
+
+BATCH_MODULES = ("repro_torch.core.batched", "repro_torch.core.batch_engine",
+                 "repro_torch.kernels.batch_walks")
+
+
+def test_batch_modules_stand_alone():
+    """The multi-query modules load with jax, jaxlib and repro blocked, and
+    every batched walk is a kernel of ``parallel.KERNELS`` with its own
+    launch count."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        sys.path[:0] = [{str(ROOT / 'src')!r}]
+        import importlib
+        for name in {BATCH_MODULES!r}:
+            importlib.import_module(name)
+        from repro_torch.kernels import batch_walks, parallel
+        from repro_torch import core, query
+        assert all(k in parallel.KERNELS for k in batch_walks.BATCH_KERNELS)
+        names = [k.name for k in parallel.KERNELS]
+        assert len(names) == len(set(names))
+        assert core.engine_prune_batch and core.unshard_mask_batch
+        assert core.BatchPruneResult and query.run_queries
+        print("isolated")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
+def test_batch_walks_check_the_wave():
+    """A query wider than the wave's cap is refused before any walk."""
+    from repro_torch.kernels import batch_walks
+
+    x = torch.zeros(8, dtype=torch.float32)
+    with pytest.raises(ValueError, match="wcap"):
+        batch_walks.topn_pass1_batch(x, d=[4], w=[3], seeds=[0], shards=1,
+                                     dcap=4, wcap=2)

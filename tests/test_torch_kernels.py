@@ -326,8 +326,11 @@ def test_launch_counts_reset():
     tcore.engine_prune("distinct", torch.arange(64, dtype=torch.int32).view(
         torch.uint32), d=4, w=2, mode="two_pass", shards=2)
     tops.rle_topn_prune(torch.rand(8), torch.ones(8, dtype=torch.int32), N=2)
+    tcore.engine_prune_batch("distinct", [dict(d=4, w=2), dict(d=8, w=1)],
+                             torch.arange(64, dtype=torch.int32).view(
+                                 torch.uint32), mode="two_pass", shards=2)
     assert [k.launches for k in tpar.KERNELS] == [0] * len(tpar.KERNELS)
-    assert len({k.name for k in tpar.KERNELS}) == 20
+    assert len({k.name for k in tpar.KERNELS}) == 24
 
 
 def test_apply_shape_checks():
