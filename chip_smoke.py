@@ -123,6 +123,14 @@ Phases, one line each, and a non-zero exit on any failure:
            times, entries/s against the one-shot call, window_blocks, the
            lane states' data_ptr; the staleness slope sigma from
            merge_every 1, 4 and 16; and the f32 HAVING merge's time.
+   tune    self-tuned plans (after phase batch): each engine call's
+           candidate plans with keeps equal to the incumbent's on the
+           whole column, a race with real clocks in a fresh plan cache,
+           the cached replay, engine_prune(tune="race"), a dict-encoded
+           DISTINCT; run_queries' DISTINCT LRU and GROUP BY SUM groups at
+           tune off / race / cached with execute_plan_batch against
+           execute_plan; the TPC-H subset suite at TUNE_SCALE rows against
+           its plain-Python references; the launch counts of the phase.
 4. subnormals
            every kernel that computes on f32 values (TOP-N, DISTINCT on
            float32 keys and SKYLINE pass 1 at S = 1 and 128, B = 1 and
@@ -3272,6 +3280,197 @@ def phase_batch(torch, P, table, pts, clock_hz, host):
     return rows
 
 
+# --------------------------------------------------------------- phase tune
+TUNE_SCALE = 3_000_000          # lineitem rows of the TPC-H subset suite
+                                # (~SF 0.5: Q1's f32 flag sums stay < 2^24)
+TUNE_PATH_KERNELS = ("topn_pass1", "topn_apply", "topn_det_pass1",
+                     "distinct_pass1", "distinct_pass1_lru",
+                     "distinct_apply", "skyline_pass1", "skyline_apply",
+                     "cms_build", "cms_query", "groupby_pass1")
+
+
+def answer_err(torch, a, b) -> float:
+    """How far two run_query answers are apart (the keep masks of two plans
+    may differ: a tuned plan is two_pass, tune="off" a scan): 0.0 when
+    equal, inf when they differ, and for GROUP BY's {key: sum} of the same
+    keys the largest relative difference (f32 partials split by another
+    plan round otherwise)."""
+    x, y = a["output"], b["output"]
+    if isinstance(x, torch.Tensor):
+        return 0.0 if same(x, y) else float("inf")
+    if isinstance(x, tuple):
+        return 0.0 if all(same(p, q) for p, q in zip(x, y)) \
+            else float("inf")
+    if isinstance(x, dict) and x.keys() == y.keys():
+        return max((abs(x[k] - y[k]) / max(abs(y[k]), 1e-300)
+                    for k in y), default=0.0)
+    return 0.0 if x == y else float("inf")
+
+
+def tune_engine_calls(torch, table, fresh):
+    """Part 1 of phase tune: each engine call of phase planner through the
+    tuner on the whole 2^25-entry stream."""
+    from repro_torch import core
+
+    for name, algo, cols, params in ENGINE_CALLS:
+        streams = engine_streams(torch, table, algo, cols)
+        inc = core.analytic_plan(algo, streams, params)
+        plans = core.candidate_plans(algo, streams, params, incumbent=inc)
+        base = core.execute_plan(algo, *streams, plan=inc, obs="off",
+                                 **params).keep
+        for plan in plans[1:]:
+            keep = core.execute_plan(algo, *streams, plan=plan, obs="off",
+                                     **params).keep
+            check(same(keep, base), f"tune: {name} candidate {plan.key()} "
+                  f"keep differs from the incumbent {inc.key()}")
+        cache = fresh(name)
+        res = core.tune(algo, streams, params, cache=cache)
+        full = {}
+        for label, plan in (("incumbent", inc), ("winner", res.plan)):
+            full[label] = min(sync_time(lambda: core.execute_plan(
+                algo, *streams, plan=plan, obs="off", **params))[1]
+                for _ in range(2))
+        again = core.resolve_plan(algo, streams, params, tune_mode="cached",
+                                  cache=cache)
+        check(again.source == "cache" and again.plan == res.plan,
+              f"tune: {name} cached replay {again.source} "
+              f"{again.plan.key()} is not the race's {res.plan.key()}")
+        fresh_cache = fresh(name + " engine")
+        ep = core.engine_prune(algo, *streams, tune="race",
+                               plan_cache=fresh_cache, obs="off", **params)
+        ep_plan = core.resolve_plan(algo, streams, params,
+                                    tune_mode="cached",
+                                    cache=fresh_cache).plan
+        check(same(ep.keep, core.execute_plan(
+            algo, *streams, plan=ep_plan, obs="off", **params).keep),
+            f"tune: {name} engine_prune(tune='race') keep differs from "
+            f"execute_plan({ep_plan.key()})")
+        say("tune", call=json.dumps(name), incumbent=inc.key(),
+            candidates=len(plans), winner=res.plan.key(),
+            probe_us=json.dumps({k: round(v, 1)
+                                 for k, v in res.timings.items()}),
+            speedup_x=round(res.speedup_x, 4),
+            race_wall_s=round(res.race_wall_s, 4),
+            incumbent_s=round(full["incumbent"], 5),
+            winner_s=round(full["winner"], 5),
+            kept=int(base.sum()))
+    fs = table.cols["source_ip"]
+    codes, enc = table.encode("source_ip").col("source_ip").code_stream()
+    a = core.engine_prune("distinct", codes, encoding=enc, tune="race",
+                          plan_cache=fresh("dict codes"), obs="off",
+                          **DISTINCT)
+    b = core.engine_prune("distinct", fs, tune="race",
+                          plan_cache=fresh("dict decoded"), obs="off",
+                          **DISTINCT)
+    check(same(a.keep, b.keep), "tune: dict-encoded DISTINCT tune='race' "
+          "keep differs from the decoded call's")
+
+
+def tune_batch_groups(torch, table, fresh):
+    """Part 2 of phase tune: phase batch's DISTINCT LRU x3 and GROUP BY
+    SUM x3 groups through run_queries at tune off, race and cached, and
+    each query's execute_plan_batch keep against its execute_plan."""
+    from repro_torch import core
+    from repro_torch.query import QuerySpec, run_queries
+
+    specs = batch_specs(QuerySpec)
+    specs = [s for s in specs if (s.kind, s.params.get("policy")) ==
+             ("distinct", "lru") or s.kind == "groupby"]
+    cache = fresh("batch")
+    off, off_s = sync_time(lambda: run_queries(specs, table))
+    race, race_s = sync_time(lambda: run_queries(specs, table, tune="race",
+                                                 plan_cache=cache))
+    cached, cached_s = sync_time(lambda: run_queries(
+        specs, table, tune="cached", plan_cache=cache))
+    rel = 0.0
+    for spec, a, b, c in zip(specs, off, race, cached):
+        err = max(answer_err(torch, b, a), answer_err(torch, c, a))
+        # DISTINCT's answer is exact; GROUP BY SUM of the f32 ad_revenue
+        # within phase main's 1e-2 relative
+        check(err <= (1e-2 if spec.kind == "groupby" else 0.0),
+              f"tune: run_queries {spec.kind} {spec.params} tuned answer "
+              f"differs from tune='off' ({err} relative)")
+        rel = max(rel, err)
+    fs, xs = table.cols["source_ip"], table.cols["ad_revenue"]
+    plans = {}
+    for algo, streams, queries in (
+            ("distinct", (fs,), [dict(d=d, w=w, policy="lru", seed=sd)
+                                 for d, w, sd in BATCH_DISTINCT]),
+            ("groupby", (fs, xs), [dict(d=d, w=w, agg="sum", seed=sd)
+                                   for d, w, sd in BATCH_GROUPBY])):
+        plan = core.resolve_plan(algo, streams, queries[0],
+                                 tune_mode="cached", cache=cache)
+        check(plan.source == "cache", f"tune: run_queries' {algo} group "
+              "left no plan in its cache")
+        plans[algo] = plan.plan.key()
+        rb = core.execute_plan_batch(algo, queries, *streams, plan=plan.plan)
+        for i, q in enumerate(queries):
+            one = core.execute_plan(algo, *streams, plan=plan.plan,
+                                    obs="off", **q)
+            check(same(rb.keep[i], one.keep), f"tune: execute_plan_batch "
+                  f"{algo} query {q} keep differs from its execute_plan")
+    say("tune", path="run_queries", queries=len(specs),
+        plans=json.dumps(plans), groupby_max_rel_vs_off=rel,
+        off_s=round(off_s, 4),
+        race_s=round(race_s, 4), cached_s=round(cached_s, 4))
+
+
+def tune_suite(torch, fresh):
+    """Part 3 of phase tune: the TPC-H subset suite on the card, each query
+    at tune off, race and cached against its plain-Python reference."""
+    from repro_torch.query import workloads
+
+    tabs, gen_s = sync_time(lambda: workloads.tpch_tables(TUNE_SCALE,
+                                                          seed=0))
+    say("tune", suite_rows=TUNE_SCALE, generate_s=round(gen_s, 3))
+    for q in workloads.SUITE:
+        t0 = time.perf_counter()
+        want = q.reference(tabs)
+        ref_s = time.perf_counter() - t0
+        cache = fresh(q.name)
+        secs = {}
+        for tune in ("off", "race", "cached"):
+            got, secs[tune] = sync_time(lambda: q.run(
+                tabs, tune=tune, plan_cache=cache))
+            check(got == want, f"tune: suite {q.name} at tune={tune} "
+                  "differs from its plain-Python reference")
+        say("tune", suite=q.name, algo=q.algo, off_s=round(secs["off"], 4),
+            race_s=round(secs["race"], 4), cached_s=round(secs["cached"], 4),
+            reference_s=round(ref_s, 3))
+
+
+def phase_tune(torch, P, table):
+    """Self-tuned plans on the card: every race gets a PlanCache in a fresh
+    temporary directory (a plan left by an earlier run would skip it).
+    Every launch count is zeroed before the phase's paths and read after:
+    each kernel of the tuned engine calls, and the Bloom pair of suite Q3,
+    must have run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import PlanCache
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_plans_"))
+
+    def fresh(name):
+        return PlanCache(tmp / re.sub(r"\W+", "_", name) / "plans.json")
+
+    try:
+        P.reset_launch_counts()
+        tune_engine_calls(torch, table, fresh)
+        tune_batch_groups(torch, table, fresh)
+        tune_suite(torch, fresh)
+        counts = {k.name: k.launches for k in P.KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in TUNE_PATH_KERNELS + ("bloom_query",):
+        check(counts[k] > 0, f"tune: kernel {k} was never launched")
+    check(counts["bloom_build"] + counts["bloom_build_global"] > 0,
+          "tune: suite Q3 built no Bloom filter on the card")
+    say("tune", launches=json.dumps({k: v for k, v in counts.items() if v},
+                                    separators=(",", ":")))
+
+
 # ------------------------------------------------------------- phase stream
 STREAM_BATCH = 1 << 20          # entries a micro-batch of phase stream
 STREAM_RAGGED = 77              # batch 5 is this much short, batch 6 long
@@ -5471,6 +5670,7 @@ def main() -> int:
         timed("stream", phase_stream, torch, P, table, pts)
         batch_rows = timed("batch", phase_batch, torch, P, table, pts,
                            clock_hz, host)
+        timed("tune", phase_tune, torch, P, table)
         timed("subnormals", phase_subnormals, torch, P, R, table)
         rows = timed("timing", phase_timing, torch, P, R, table, rankings,
                      pts, totals, clock_hz, encoded, rle, host) + batch_rows

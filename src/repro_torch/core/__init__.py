@@ -29,19 +29,23 @@ from .encoding import (DictEncoding, dict_encode, normalize_encodings,
                        rle_encode, rle_expand)
 from .engine import (ALGORITHMS, MODES, PASS2, DistinctMerged,
                      TopNDetMerged, apply_merged, calibrate_merge_cost,
-                     engine_prune, merge_states, reset_caches, shard_stack,
-                     unshard_mask)
+                     engine_prune, execute_plan, merge_states, reset_caches,
+                     shard_stack, unshard_mask)
 from . import batched
 from .batch_engine import (MODES_BATCH, BatchPruneResult,
-                           engine_prune_batch, unshard_mask_batch)
+                           engine_prune_batch, execute_plan_batch,
+                           unshard_mask_batch)
 from .planner import (SwitchProfile, ResourceFootprint, footprint,
                       pack_queries, rule_count, PackingPlan,
                       MultiSwitchPlan, plan_multi_switch, optimal_shards,
                       optimal_pass2, pass2_time, MEASURED_MERGE_COSTS,
                       QueryBatchPlan, plan_query_batch,
                       RESIDENT_OVERHEAD_ENTRIES, optimal_merge_interval,
-                      DEFAULT_STALENESS_RATE)
+                      DEFAULT_STALENESS_RATE, Plan, TuneResult,
+                      TUNE_MODES, analytic_plan, candidate_plans, tune,
+                      resolve_plan)
 from .options import DECODE_MODES, ExecOptions
+from .plancache import PlanCache, cache_key
 from .streaming import (PruneStream, StreamResult, engine_prune_stream,
                         lane_view)
 

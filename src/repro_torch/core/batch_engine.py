@@ -23,9 +23,13 @@ alone); every wave runs at the batch's caps, so the waves concatenate
 along Q. Telemetry as the reference records it: a span a wave, and in
 ``two_pass`` one merge collective and the wave's state bytes a wave.
 
+``execute_plan_batch`` runs one tuned ``planner.Plan`` for the whole
+batch (``query.run_queries(tune=)``): two_pass at the plan's S and chunk.
+
 Not ported yet, and refused naming their ROADMAP item: ``mode="mesh"``,
-``mesh=`` and ``pass2`` (Queue 1 item 7: the mesh waves); ``tune=`` and
-``plan_cache=`` are refused as the reference refuses them.
+``mesh=`` and ``pass2``, and a ``mode="mesh"`` plan (Queue 1 item 7: the
+mesh waves); ``tune=`` and ``plan_cache=`` are refused as the reference
+refuses them.
 """
 from __future__ import annotations
 
@@ -276,3 +280,21 @@ def engine_prune_batch(algo: str, queries, *streams,
                            queries=len(queries))
         res.report = rec.finish()
     return res
+
+
+def execute_plan_batch(algo: str, queries, *streams, plan,
+                       encoding=None,
+                       device_budget_bytes: int | None = None,
+                       obs: str | None = None) -> BatchPruneResult:
+    """Batched counterpart of ``engine.execute_plan``: one tuned plan for Q
+    same-family queries over shared streams; keep comes back flat
+    bool[Q, m]. A ``mode="mesh"`` plan waits for the mesh (ROADMAP Queue 1
+    item 7)."""
+    if plan.mode == "mesh":
+        raise E._not_ported("execute_plan_batch of a mode='mesh' plan",
+                            "Queue 1 item 7: mesh mode")
+    return engine_prune_batch(algo, queries, *streams, mode="two_pass",
+                              shards=plan.shards,
+                              apply_block=plan.apply_block,
+                              encoding=encoding, obs=obs,
+                              device_budget_bytes=device_budget_bytes)

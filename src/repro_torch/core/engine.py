@@ -42,6 +42,10 @@ c measured once per algorithm and signature on the streams' device
 (``calibrate_merge_cost``), and ``obs=`` attaches an ``ExecReport`` to the
 result (counters from the materialised mask, wall-clock spans in
 ``"trace"`` mode); no instrument touches a kernel's input or output.
+``tune="cached"`` / ``"race"`` runs a plan of the self-tuning planner
+(``planner.resolve_plan``, the plan cache in ``core.plancache``) through
+``execute_plan``: two_pass at the plan's S, masks identical for every
+plan at that S.
 
 Ported so far: all six algorithms (``topn_det``, ``topn_rand``,
 ``distinct`` with ``policy="lru"`` or ``"fifo"``, ``skyline``, ``having``,
@@ -84,6 +88,8 @@ MODES = ("scan", "sharded", "two_pass", "mesh")
 ALGORITHMS = ("topn_det", "topn_rand", "distinct", "skyline", "groupby",
               "having")
 PASS2 = ("master", "mesh", "auto")
+# pass-2 chunk of the tuner's incumbent for the chunkable algorithms
+DEFAULT_MESH_APPLY_BLOCK = 4096
 
 
 @dataclasses.dataclass
@@ -746,11 +752,9 @@ def reset_caches() -> None:
     planner.MEASURED_MERGE_COSTS.clear()
 
 
-def _reject_unported(mesh, tune, plan_cache) -> None:
+def _reject_unported(mesh) -> None:
     if mesh is not None:
         raise _not_ported("mesh=", "Queue 1 item 7: mesh mode")
-    if tune != "off" or plan_cache is not None:
-        raise _not_ported("tune= / plan_cache=", "Queue 1 item 11: tuning")
 
 
 def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
@@ -804,11 +808,18 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     bit-identical to pruning the decoded streams. ``decode="eager"`` decodes
     them up front; ``"auto"`` / ``"late"`` (the default) prune on codes.
 
+    tune / plan_cache: ``"off"`` (the default) runs ``mode``;
+    ``"cached"`` replays the plan cache's plan for these streams or runs
+    the analytic plan, ``"race"`` races the candidate plans on a prefix
+    when the cache has none and persists the winner
+    (``planner.resolve_plan``; ``plan_cache`` is a ``PlanCache``, None the
+    default file). The race runs on the raw code streams, the winning plan
+    then with ``encoding=``; mode, shards and apply_block are the plan's.
+
     Not ported yet, and refused naming their ROADMAP item: ``mode="mesh"``,
-    ``mesh=`` and ``pass2`` other than ``"master"`` (item 7), ``tune=`` and
-    ``plan_cache=`` (item 11). Scan resume (``state=`` / ``index_offset=``)
-    is refused as the reference refuses it: ``core.streaming.PruneStream``
-    and the core functions resume.
+    ``mesh=`` and ``pass2`` other than ``"master"`` (item 7). Scan resume
+    (``state=`` / ``index_offset=``) is refused as the reference refuses
+    it: ``core.streaming.PruneStream`` and the core functions resume.
     """
     del mesh_axis
     opts = ExecOptions.resolve(options, mode=mode, shards=shards,
@@ -820,8 +831,18 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     pass2 = opts.pass2 if opts.pass2 is not None else "master"
     apply_block = opts.apply_block
     decode = opts.decode if opts.decode is not None else "auto"
-    _reject_unported(mesh, opts.tune if opts.tune is not None else "off",
-                     opts.plan_cache)
+    tune = opts.tune if opts.tune is not None else "off"
+    _reject_unported(mesh)
+    spec = _spec(algo, params)
+    # 64-bit columns as jnp.asarray hands them to the reference
+    streams = tuple(as_x32(s) for s in streams if s is not None)
+    encs = normalize_encodings(encoding, len(streams))
+    if decode == "eager":
+        streams = _decode_streams(streams, encs)
+        encs = (None,) * len(streams)
+    encoded = any(e is not None for e in encs)
+    if tune != "off":
+        return _tuned(algo, streams, encs if encoded else None, params, opts)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "mesh":
@@ -831,14 +852,6 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     if pass2 != "master":
         raise ValueError(
             f"pass2={pass2!r} only applies to mode='mesh' (got {mode!r})")
-    spec = _spec(algo, params)
-    # 64-bit columns as jnp.asarray hands them to the reference
-    streams = tuple(as_x32(s) for s in streams if s is not None)
-    encs = normalize_encodings(encoding, len(streams))
-    if decode == "eager":
-        streams = _decode_streams(streams, encs)
-        encs = (None,) * len(streams)
-    encoded = any(e is not None for e in encs)
     if not 1 <= len(streams) <= spec.max_streams:
         raise ValueError(f"{algo} takes {spec.max_streams} stream(s) at most "
                          f"and one at least, got {len(streams)}")
@@ -905,6 +918,43 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
         rec.sync(keep2)
     return _finish(rec, PruneResult(keep=_unshard(keep2, m), state=merged,
                                     emitted=emitted), m, encoded)
+
+
+def _tuned(algo: str, streams, encoding, params: dict,
+           opts: ExecOptions) -> PruneResult:
+    """``engine_prune``'s ``tune`` branch: resolve a plan on the raw code
+    streams (uniform across candidates, so the race is fair), then run it
+    with the decode gather fused in."""
+    if opts.tune not in planner.TUNE_MODES:
+        raise ValueError(f"tune must be one of {planner.TUNE_MODES}, "
+                         f"got {opts.tune!r}")
+    if obsreport._compiling():
+        raise ValueError(
+            "tune= needs concrete streams (the race times real "
+            "executions) — call outside jit, or pass tune='off'")
+    resolved = planner.resolve_plan(algo, streams, params,
+                                    tune_mode=opts.tune,
+                                    cache=opts.plan_cache, obs=opts.obs)
+    return execute_plan(algo, *streams, plan=resolved.plan,
+                        encoding=encoding, obs=opts.obs, **params)
+
+
+def execute_plan(algo: str, *streams, plan, encoding=None,
+                 obs: str | None = None, **params) -> PruneResult:
+    """Run one tuned or analytic ``planner.Plan`` through the engine.
+
+    The execution contract behind ``tune=``: every plan in the tuner's
+    universe maps onto the two-pass family at the plan's lane count, so
+    the keep mask is bit-identical across all plans for the same stream,
+    and it is returned flat over the original m entries. A ``mode="mesh"``
+    plan waits for the mesh (ROADMAP Queue 1 item 7).
+    """
+    if plan.mode == "mesh":
+        raise _not_ported("execute_plan of a mode='mesh' plan",
+                          "Queue 1 item 7: mesh mode")
+    return engine_prune(algo, *streams, mode="two_pass",
+                        shards=plan.shards, encoding=encoding,
+                        apply_block=plan.apply_block, obs=obs, **params)
 
 
 def _finish(rec, res: PruneResult, m: int, encoded: bool) -> PruneResult:

@@ -6,15 +6,24 @@ ALUs and SRAM, reusing stages across resource-orthogonal algorithms),
 models S switch replicas and a merging master (``plan_multi_switch``,
 ``optimal_shards``: the lane count behind ``engine_prune(shards="auto")``),
 places pass 2, admits query batches under a device budget and picks the
-streaming merge period. Pure Python: nothing here touches a tensor.
+streaming merge period; that part is pure Python and touches no tensor.
 
-The self-tuning plan search of the JAX package (``Plan``, ``tune``,
-``resolve_plan``) is not ported yet (ROADMAP Queue 1 item 11).
+The self-tuning plan search (``Plan``, ``analytic_plan``,
+``candidate_plans``, ``tune``, ``resolve_plan``) races mask-preserving
+engine plans on a prefix of the streams and keeps the winner in the plan
+cache (``core.plancache``). Until the mesh is ported (ROADMAP Queue 1 item
+7) every plan it builds is ``two_pass`` on one device: ``max_devices``
+defaults to 1, and a larger value raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
+
+from ..obs import log as _obslog
+from ..obs import report as obsreport
+from .encoding import as_x32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,6 +402,379 @@ def optimal_merge_interval(batch_entries: int, merge_cost_entries: float,
         return max_interval
     k = math.sqrt(2.0 * max(merge_cost_entries, 0.0) / denom)
     return max(1, min(int(round(k)), max_interval))
+
+
+# ------------------------------------------------ self-tuning plan search
+# `tune` races a small candidate set of *mask-preserving* engine plans on a
+# prefix of the entry stream and persists the winner in the plan cache
+# (core.plancache). At a FIXED lane count S, `two_pass` with any
+# `apply_block` chunking (and, once the mesh is ported, `mesh` with either
+# pass-2 placement over any device spread that divides S) gives
+# BIT-IDENTICAL keep masks. S itself is semantic (it changes the lane
+# states and so the mask), so the tuner takes S from the analytic model
+# (optimal_shards over the measured merge cost) and races only the
+# execution choices: chunk size, and later mode, pass-2 placement and the
+# device spread. Plans change speed, never results.
+
+TUNE_MODES = ("off", "cached", "race")
+DEFAULT_PROBE_ENTRIES = 1 << 14
+DEFAULT_EXIT_FACTOR = 1.5
+DEFAULT_TIME_BUDGET_S = 2.0
+# candidate apply_block values raced for the chunkable algorithms
+CANDIDATE_BLOCKS = (1024, 4096)
+# hard cap on the raced grid (incumbent included)
+MAX_CANDIDATES = 12
+
+# test seam: when set, used in place of wall-clock timing by every race
+# that did not pass an explicit `measure` (tests inject recorded timings so
+# race winners are deterministic)
+MEASURE_HOOK = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One executable engine configuration in the tuner's universe.
+
+    All tuner plans run the two-pass family at the same lane count
+    ``shards`` (>= 2: S=1 would degrade two_pass to the scan body, a
+    *different mask family*), so any plan the tuner can select gives the
+    analytic incumbent's keep mask. ``num_devices`` only matters for
+    ``mode="mesh"`` and must divide ``shards``. A mesh plan is valid data
+    here; running one waits for the mesh (ROADMAP Queue 1 item 7).
+    """
+
+    mode: str = "two_pass"        # "two_pass" | "mesh"
+    shards: int = 8
+    pass2: str = "master"         # mesh only: "master" | "mesh"
+    apply_block: int | None = None
+    num_devices: int = 1          # mesh only: lane spread
+
+    def key(self) -> str:
+        return (f"{self.mode}/s{self.shards}/p2-{self.pass2}"
+                f"/b{self.apply_block or 0}/d{self.num_devices}")
+
+    def to_dict(self) -> dict:
+        return dict(mode=self.mode, shards=self.shards, pass2=self.pass2,
+                    apply_block=self.apply_block,
+                    num_devices=self.num_devices)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Plan":
+        """Validating deserializer: any malformed field raises ValueError
+        so cache consumers can fall back to the analytic plan."""
+        try:
+            plan = cls(mode=d["mode"], shards=int(d["shards"]),
+                       pass2=d.get("pass2", "master"),
+                       apply_block=(None if d.get("apply_block") in
+                                    (None, 0) else int(d["apply_block"])),
+                       num_devices=int(d.get("num_devices", 1)))
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"malformed plan dict {d!r}: {e}") from e
+        if plan.mode not in ("two_pass", "mesh"):
+            raise ValueError(f"plan mode {plan.mode!r} outside the "
+                             f"mask-preserving universe")
+        if plan.pass2 not in ("master", "mesh"):
+            raise ValueError(f"plan pass2 {plan.pass2!r} invalid")
+        if plan.shards < 2:
+            raise ValueError("tuned plans need shards >= 2 (S=1 changes "
+                             "the mask family)")
+        if plan.apply_block is not None and plan.apply_block < 1:
+            raise ValueError("apply_block must be positive or None")
+        if plan.num_devices < 1 or plan.shards % plan.num_devices:
+            raise ValueError(f"num_devices={plan.num_devices} must "
+                             f"divide shards={plan.shards}")
+        return plan
+
+
+@dataclasses.dataclass
+class TuneResult:
+    """What `tune` / `resolve_plan` decided and how.
+
+    source: "cache" (hit: the race short-circuited), "race" (raced now,
+    winner persisted when a cache is in play), or "analytic" (no race:
+    tune="cached" miss, or a stream too short to race).
+    timings: plan.key() -> probe microseconds for every candidate actually
+    measured (incumbent first).
+    """
+
+    plan: Plan
+    source: str
+    key: str | None = None
+    timings: dict = dataclasses.field(default_factory=dict)
+    incumbent_us: float | None = None
+    best_us: float | None = None
+    race_wall_s: float = 0.0
+    report: object | None = None  # repro_torch.obs.ExecReport (None if off)
+
+    @property
+    def speedup_x(self) -> float:
+        """Raced winner vs analytic incumbent, from the race's own timings
+        (>= 1.0 by construction: the incumbent is in the race)."""
+        if not self.incumbent_us or not self.best_us:
+            return 1.0
+        return self.incumbent_us / self.best_us
+
+
+def _streams(streams) -> tuple:
+    """The streams as the engine takes them: Nones dropped, 64-bit columns
+    narrowed as ``jnp.asarray`` narrows them for the JAX package."""
+    return tuple(as_x32(s) for s in streams if s is not None)
+
+
+def _one_device(max_devices: int | None) -> None:
+    """Plans spread their lanes over one device until the mesh is ported
+    (None means every device the port can use, which is one)."""
+    if max_devices is not None and max_devices > 1:
+        raise NotImplementedError(
+            f"max_devices={max_devices} (a mesh plan) is not ported yet "
+            "(ROADMAP Queue 1 item 7: mesh mode)")
+
+
+def analytic_plan(algo: str, streams, params: dict | None = None, *,
+                  shards: int | None = None,
+                  max_devices: int | None = 1) -> Plan:
+    """The incumbent: what the analytic formulas pick today.
+
+    S from ``optimal_shards`` over the measured merge cost
+    (``calibrate_merge_cost``: the incumbent is already calibrated, the
+    race challenges what the formulas do not measure), clamped to [2, m];
+    the chunkable algorithms get the engine's default apply block when a
+    lane is longer than it. two_pass on one device: the reference's mesh
+    incumbent (``src/repro/core/planner.py:536-545``) comes with the mesh.
+    """
+    from . import engine as _engine  # lazy: engine imports planner
+
+    _one_device(max_devices)
+    params = dict(params or {})
+    streams = _streams(streams)
+    m = int(streams[0].shape[0])
+    c, state_bytes = _engine.calibrate_merge_cost(algo, streams, params)
+    s = shards if shards is not None else optimal_shards(
+        m, state_bytes, merge_byte_cost=c)
+    s = max(2, min(int(s), m))
+    block = None
+    if _engine._SPECS[algo].chunkable \
+            and -(-m // s) > _engine.DEFAULT_MESH_APPLY_BLOCK:
+        block = _engine.DEFAULT_MESH_APPLY_BLOCK
+    return Plan(mode="two_pass", shards=s, apply_block=block)
+
+
+def candidate_plans(algo: str, streams, params: dict | None = None, *,
+                    incumbent: Plan | None = None,
+                    max_devices: int | None = 1,
+                    max_candidates: int = MAX_CANDIDATES) -> list:
+    """The raced grid: incumbent first, then mask-preserving variants.
+
+    The pass-2 chunk (whole, then each of CANDIDATE_BLOCKS shorter than a
+    lane) at the incumbent's S: every plan here gives the incumbent's keep
+    mask. The reference's mesh plans (mode x pass2 x device spread,
+    ``src/repro/core/planner.py:570-585``) come with the mesh.
+    """
+    from . import engine as _engine
+
+    _one_device(max_devices)
+    params = dict(params or {})
+    streams = _streams(streams)
+    if incumbent is None:
+        incumbent = analytic_plan(algo, streams, params)
+    s = incumbent.shards
+    n_per = -(-int(streams[0].shape[0]) // s)
+    chunkable = _engine._SPECS[algo].chunkable
+    blocks = [None] + [b for b in CANDIDATE_BLOCKS
+                       if chunkable and b < n_per]
+    plans = [incumbent] + [Plan(mode="two_pass", shards=s, apply_block=b)
+                           for b in blocks]
+    out, seen = [], set()
+    for p in plans:
+        if p.key() not in seen:
+            seen.add(p.key())
+            out.append(p)
+    return out[:max_candidates]
+
+
+def _time_plan_us(thunk) -> float:
+    """Default race measurement: one warm-up run, then the best of 2."""
+    thunk()
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        thunk()
+        best = min(best, (time.perf_counter() - t0) * 1e6)
+    return best
+
+
+def _cached_plan(cache, key: str, m: int, *, warn_long: bool
+                 ) -> Plan | None:
+    """The usable cached plan under ``key``, or None. A malformed entry
+    warns; so does one with more shards than the stream has entries when
+    ``warn_long`` (the race warns, the cached mode passes over it)."""
+    entry = cache.get(key)
+    if entry is None:
+        return None
+    try:
+        plan = Plan.from_dict(entry["plan"])
+        if plan.shards > m and warn_long:
+            raise ValueError(f"cached shards={plan.shards} exceed stream "
+                             f"length {m}")
+    except ValueError as e:
+        _obslog.warn(f"ignoring unusable cached plan for {key!r}: {e}",
+                     logger="core.planner", stacklevel=3)
+        return None
+    return plan if plan.shards <= m else None
+
+
+def tune(algo: str, streams, params: dict | None = None, *,
+         probe_entries: int = DEFAULT_PROBE_ENTRIES,
+         exit_factor: float = DEFAULT_EXIT_FACTOR,
+         time_budget_s: float = DEFAULT_TIME_BUDGET_S,
+         cache=None, use_cache: bool = True,
+         measure=None, max_devices: int | None = 1,
+         obs: str | None = None) -> TuneResult:
+    """Race candidate plans on a prefix of the streams; keep the winner.
+
+    The analytic incumbent runs first, then each candidate in grid order;
+    racing stops once a candidate beats the incumbent by >= ``exit_factor``
+    or the ``time_budget_s`` wall budget is spent (the incumbent's own
+    probe is always measured, so `speedup_x` is defined and >= 1.0). The
+    winner is persisted to the plan cache keyed by (algo, query shape,
+    m-bucket, distribution fingerprint, device); a later call with the
+    same key skips the race.
+
+    Each candidate's probe runs ``execute_plan`` on the first
+    ``probe_entries`` entries (at least S) and synchronises the streams'
+    device before the clock is read, so the race times the kernels, not
+    their launches. ``measure(plan, thunk) -> us`` overrides the clock
+    (tests inject recorded timings); ``cache=None`` uses the default cache
+    file, ``use_cache=False`` disables lookup and persistence.
+
+    Telemetry (``obs``): the ``planner.tune`` report counts
+    ``plan_cache_hit`` / ``plan_cache_miss`` and ``tune_candidates``. The
+    JAX package also counts ``compile_count`` once a candidate, since each
+    compiles an XLA executable; nothing compiles here, so the port does
+    not count it.
+    """
+    from . import engine as _engine
+    from . import plancache as _pc
+
+    params = dict(params or {})
+    streams = _streams(streams)
+    if obsreport._compiling():
+        raise ValueError(
+            "planner.tune races wall-clock time and needs concrete "
+            "streams — call it outside jit")
+    rec = obsreport.recorder("planner.tune", obs)
+    m = int(streams[0].shape[0])
+    if rec.active:
+        rec.annotate(algo=algo, m=m)
+    key = None
+    if use_cache:
+        cache = cache if cache is not None else _pc.PlanCache()
+        key = _pc.cache_key(algo, streams, params)
+        plan = _cached_plan(cache, key, m, warn_long=True)
+        if plan is not None:
+            result = TuneResult(plan=plan, source="cache", key=key)
+            if rec.active:
+                rec.count("plan_cache_hit", 1)
+                rec.annotate(source="cache", plan=plan.key())
+                result.report = rec.finish()
+            return result
+        if rec.active:
+            rec.count("plan_cache_miss", 1)
+
+    incumbent = analytic_plan(algo, streams, params,
+                              max_devices=max_devices)
+    if m < 4:
+        result = TuneResult(plan=incumbent, source="analytic", key=key)
+        if rec.active:
+            rec.annotate(source="analytic", plan=incumbent.key())
+            result.report = rec.finish()
+        return result
+    plans = candidate_plans(algo, streams, params, incumbent=incumbent,
+                            max_devices=max_devices)
+    probe_m = max(min(m, probe_entries), incumbent.shards)
+    probe = tuple(s[:probe_m] for s in streams)
+    device = streams[0].device
+    if measure is None:
+        measure = MEASURE_HOOK
+    timings: dict = {}
+    t0 = time.perf_counter()
+    best_plan, best_us, incumbent_us = incumbent, None, None
+    with rec.span("tune_race", candidates=len(plans),
+                  probe_entries=probe_m):
+        for i, plan in enumerate(plans):
+            def thunk(plan=plan):
+                _engine.execute_plan(algo, *probe, plan=plan, obs="off",
+                                     **params)
+                _engine._sync(device)
+
+            with rec.span(f"candidate:{plan.key()}"):
+                us = (float(measure(plan, thunk)) if measure is not None
+                      else _time_plan_us(thunk))
+            timings[plan.key()] = us
+            if rec.active:
+                rec.count("tune_candidates", 1)
+            if i == 0:
+                incumbent_us = best_us = us
+            elif us < best_us:
+                best_us, best_plan = us, plan
+            if i > 0 and us * exit_factor <= incumbent_us:
+                break  # exit gate: beat the incumbent by >= the factor
+            if time.perf_counter() - t0 >= time_budget_s:
+                break
+    wall = time.perf_counter() - t0
+    result = TuneResult(plan=best_plan, source="race", key=key,
+                        timings=timings, incumbent_us=incumbent_us,
+                        best_us=best_us, race_wall_s=wall)
+    if use_cache:
+        cache.put(key, best_plan.to_dict(), algo=algo, m=m,
+                  probe_entries=probe_m, incumbent=incumbent.key(),
+                  raced=len(timings), speedup_x=round(result.speedup_x, 3))
+    if rec.active:
+        rec.annotate(source="race", plan=best_plan.key(),
+                     speedup_x=round(result.speedup_x, 3))
+        result.report = rec.finish()
+    return result
+
+
+def resolve_plan(algo: str, streams, params: dict | None = None,
+                 tune_mode: str = "race", cache=None,
+                 obs: str | None = None, **tune_kwargs) -> TuneResult:
+    """The engine's tune= knob, as a planner entry point.
+
+    ``"cached"``: cache hit -> cached plan; miss -> analytic incumbent
+    (never races, never writes). ``"race"``: cache hit -> cached plan;
+    miss -> race now and persist the winner. ``"off"`` is rejected here
+    (the engine handles it by not calling us).
+    """
+    if tune_mode not in ("cached", "race"):
+        raise ValueError(
+            f"tune must be one of {TUNE_MODES}, got {tune_mode!r}")
+    from . import plancache as _pc
+
+    params = dict(params or {})
+    streams = _streams(streams)
+    if tune_mode == "race":
+        return tune(algo, streams, params, cache=cache, obs=obs,
+                    **tune_kwargs)
+    rec = obsreport.recorder("planner.tune", obs)
+    cache = cache if cache is not None else _pc.PlanCache()
+    key = _pc.cache_key(algo, streams, params)
+    plan = _cached_plan(cache, key, int(streams[0].shape[0]),
+                        warn_long=False)
+    if plan is not None:
+        result = TuneResult(plan=plan, source="cache", key=key)
+        if rec.active:
+            rec.count("plan_cache_hit", 1)
+            rec.annotate(algo=algo, source="cache", plan=plan.key())
+            result.report = rec.finish()
+        return result
+    result = TuneResult(plan=analytic_plan(algo, streams, params),
+                        source="analytic", key=key)
+    if rec.active:
+        rec.count("plan_cache_miss", 1)
+        rec.annotate(algo=algo, source="analytic", plan=result.plan.key())
+        result.report = rec.finish()
+    return result
 
 
 def rule_count(algo: str, **p) -> int:

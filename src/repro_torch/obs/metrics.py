@@ -24,7 +24,17 @@ snapshot_staleness_batches      histogram  folds since the live-mask
                                            snapshot was merged
 window_occupancy                histogram  in-flight live masks after
                                            each streaming fold
+tune_candidates                 counter    plans raced (``planner.tune``)
+plan_cache_hit / _miss          counter    tuner lookups that replayed a
+                                           cached plan / found none
+hits / misses / evictions /     counter    plan-cache traffic
+corruption_fallbacks                       (``plancache.*``)
 ==============================  =========  ==============================
+
+The JAX package's ``planner.tune`` also counts ``compile_count``, once a
+raced candidate, because each candidate compiles an XLA executable.
+Nothing compiles in the port (its kernels are built once a process), so
+the port does not count it.
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
 """Query execution on one device: switch pruning, then master completion.
 
 Without a mesh every single-table pruner runs ``core.engine_prune`` in
-``scan`` mode (one switch lane over the table), and the master completes the
-query on the survivors. JOIN keeps its own two-table Bloom exchange and
-FILTER is stateless. Ported: TOP-N with ``mode="rand"`` (the default) or
-``"det"``, DISTINCT with ``policy="lru"`` (the default) or ``"fifo"``,
-SKYLINE, HAVING, GROUP BY, JOIN and FILTER, on plain, dictionary- and
-RLE-encoded columns.
+``scan`` mode (one switch lane over the table), or with ``tune="cached"`` /
+``"race"`` a plan of the self-tuning planner through ``core.execute_plan``
+(two_pass; the answer is the same), and the master completes the query on
+the survivors. JOIN keeps its own two-table Bloom exchange and FILTER is
+stateless; both ignore ``tune``. Ported: TOP-N with ``mode="rand"`` (the
+default) or ``"det"``, DISTINCT with ``policy="lru"`` (the default) or
+``"fifo"``, SKYLINE, HAVING, GROUP BY, JOIN and FILTER, on plain,
+dictionary- and RLE-encoded columns.
 
 Encoded columns (``DictColumn`` / ``RLEColumn``) prune in code space, and
 the completions decode pass-1 survivors only (``Column.take``):
@@ -47,13 +49,15 @@ class QuerySpec:
     params: dict       # algorithm params (d, w, N, policy, seed, ...)
 
 
-def _engine_call(algo: str, streams: tuple, params: dict,
-                 encoding=None, obs: str | None = None) -> core.PruneResult:
-    """One engine invocation per query: the sequential scan (no mesh).
-    ``encoding``: a per-stream ``DictEncoding | None`` tuple; encoded
-    streams carry codes and pass 1 prunes in code space."""
-    return core.engine_prune(algo, *streams, mode="scan", encoding=encoding,
-                             obs=obs, **params)
+def _check_tune(tune: str, mesh) -> None:
+    if tune not in core.TUNE_MODES:
+        raise ValueError(
+            f"tune must be one of {core.TUNE_MODES}, got {tune!r}")
+    if tune != "off" and mesh is not None:
+        raise ValueError(
+            "tune= picks its own lane count and device spread; it can't "
+            "be combined with an explicit worker mesh (the mesh IS the "
+            "deployment) — pass mesh=None or tune='off'")
 
 
 def _code_stream(col, decode: str):
@@ -251,9 +255,14 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     in code space and decode the survivors only; ``"eager"`` decodes every
     column up front.
 
-    ``options``: an ``ExecOptions`` bundle (decode and obs apply here;
-    mode, shards, pass2 and apply_block are the mesh's at this layer and
-    are refused). ``obs``: the telemetry level (see
+    ``tune``: ``"off"`` (the default), ``"cached"`` or ``"race"``: a
+    self-tuned two-pass engine plan for the single-table pruners (JOIN and
+    FILTER ignore it), ``plan_cache`` its ``PlanCache``; the answer is the
+    same at all three. It cannot be combined with ``mesh=``.
+
+    ``options``: an ``ExecOptions`` bundle (tune, plan_cache, decode and
+    obs apply here; mode, shards, pass2 and apply_block are the mesh's at
+    this layer and are refused). ``obs``: the telemetry level (see
     ``core.engine_prune``); the result's ``"report"`` is the engine's
     ``ExecReport``, None for JOIN and FILTER (their own bodies) and with
     ``obs="off"``.
@@ -263,19 +272,22 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
                                decode=decode, obs=obs)
     opts.require_unset("run_query", "mode", "shards", "pass2",
                        "apply_block")
+    tune = opts.tune if opts.tune is not None else "off"
+    _check_tune(tune, mesh)
     if mesh is not None:
         raise NotImplementedError(
             "run_query(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
-    if opts.tune not in (None, "off") or opts.plan_cache is not None:
-        raise NotImplementedError(
-            "run_query(tune=) is not ported yet (ROADMAP Queue 1 item 11)")
     decode = opts.decode if opts.decode is not None else "auto"
     if spec.kind == "join":
         return _run_join(spec, tables, dict(spec.params))
     if spec.kind == "filter":
         return _run_filter(spec, tables, dict(spec.params))
     algo, streams, encs, params, complete = _prepare(spec, tables, decode)
-    r = _engine_call(algo, streams, params, encoding=encs, obs=opts.obs)
+    # the sequential scan (no mesh), or with tune the cached or raced
+    # two-pass plan; encoded streams carry codes, pruned in code space
+    r = core.engine_prune(algo, *streams, mode="scan", tune=tune,
+                          plan_cache=opts.plan_cache, encoding=encs,
+                          obs=opts.obs, **params)
     out = complete(r)
     out["report"] = r.report
     return out
@@ -304,6 +316,12 @@ def _group_key(spec: QuerySpec):
     return None
 
 
+def _trim_cols(a: torch.Tensor, d: int, w: int, w_cap: int) -> torch.Tensor:
+    """[d_cap, L * w_cap] -> [d, L * w]: each block of w_cap columns (a lane's
+    slots) cut to its first w, the rows to the first d."""
+    return a.reshape(a.shape[0], -1, w_cap)[:d, :, :w].reshape(d, -1)
+
+
 def run_queries(specs, tables, mesh=None, axis: str = "data",
                 device_budget_bytes: int | None = None,
                 tune: str | None = None, plan_cache=None,
@@ -324,50 +342,69 @@ def run_queries(specs, tables, mesh=None, axis: str = "data",
     an oversubscribed group runs in admission waves
     (``planner.plan_query_batch``).
 
-    Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 7) and ``tune=`` other
-    than ``"off"`` with ``plan_cache=`` (item 11).
+    tune: ``"off"`` | ``"cached"`` | ``"race"``. Each group of two or more
+    resolves ONE plan, on the group's shared streams with its first
+    query's parameters, and runs the whole batch through it
+    (``core.execute_plan_batch``); singletons tune query by query. The
+    answers are exact either way, though a group's masks may differ from
+    a serial loop tuned query by query, since the group shares one S.
+
+    Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 7).
     """
     del axis
     opts = ExecOptions.resolve(options, tune=tune, plan_cache=plan_cache,
                                decode=decode, obs=obs)
     opts.require_unset("run_queries", "mode", "shards", "pass2",
                        "apply_block")
+    tune = opts.tune if opts.tune is not None else "off"
+    plan_cache = opts.plan_cache
+    _check_tune(tune, mesh)
     if mesh is not None:
         raise NotImplementedError(
             "run_queries(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
-    if opts.tune not in (None, "off") or opts.plan_cache is not None:
-        raise NotImplementedError(
-            "run_queries(tune=) is not ported yet (ROADMAP Queue 1 item 11)")
     decode = opts.decode if opts.decode is not None else "auto"
+    obs = opts.obs
     specs = list(specs)
     results: list = [None] * len(specs)
     groups: dict = {}
     for i, spec in enumerate(specs):
         key = _group_key(spec)
         if key is None:
-            results[i] = run_query(spec, tables, decode=decode, obs=opts.obs)
+            results[i] = run_query(spec, tables, decode=decode, obs=obs)
         else:
             groups.setdefault(key, []).append(i)
     for idxs in groups.values():
         if len(idxs) == 1:
-            results[idxs[0]] = run_query(specs[idxs[0]], tables,
-                                         decode=decode, obs=opts.obs)
+            results[idxs[0]] = run_query(specs[idxs[0]], tables, tune=tune,
+                                         plan_cache=plan_cache,
+                                         decode=decode, obs=obs)
             continue
         prepped = [_prepare(specs[i], tables, decode) for i in idxs]
         algo, streams, encs = prepped[0][0], prepped[0][1], prepped[0][2]
         queries = [pr[3] for pr in prepped]
-        rb = core.engine_prune_batch(
-            algo, queries, *streams, mode="scan", encoding=encs,
-            device_budget_bytes=device_budget_bytes, obs=opts.obs)
+        if tune != "off":
+            tr = core.resolve_plan(algo, streams, queries[0],
+                                   tune_mode=tune, cache=plan_cache,
+                                   obs=obs)
+            rb = core.execute_plan_batch(
+                algo, queries, *streams, plan=tr.plan, encoding=encs,
+                device_budget_bytes=device_budget_bytes, obs=obs)
+        else:
+            rb = core.engine_prune_batch(
+                algo, queries, *streams, mode="scan", encoding=encs,
+                device_budget_bytes=device_budget_bytes, obs=obs)
+        w_cap = (max(int(q["w"]) for q in queries)
+                 if algo == "groupby" else None)
         for j, i in enumerate(idxs):
             state_j = core.batched.take(rb.state, j)
             if algo == "groupby":
                 # trim the batch-cap pads (never-valid slots) back to the
                 # query's own (d, w), so that completion and the traffic
-                # count see the serial state's shape
+                # count see the serial state's shape; the columns come in
+                # blocks of the batch's w cap, one a lane (one in scan)
                 d, w = int(queries[j]["d"]), int(queries[j]["w"])
                 state_j = dataclasses.replace(state_j, **{
-                    f.name: getattr(state_j, f.name)[:d, :w]
+                    f.name: _trim_cols(getattr(state_j, f.name), d, w, w_cap)
                     for f in dataclasses.fields(state_j)})
             rj = core.PruneResult(
                 keep=rb.keep[j], state=state_j,

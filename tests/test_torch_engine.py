@@ -199,11 +199,14 @@ F = torch.zeros(64, dtype=torch.int32).view(torch.uint32)
 NOT_PORTED = [
     ("topn_rand", X, dict(d=8, w=2, mode="mesh")),
     ("topn_rand", X, dict(d=8, w=2, mesh=object())),
-    ("topn_rand", X, dict(d=8, w=2, mode="two_pass", plan_cache=object())),
+    # tune does not lift the mesh refusal
+    ("topn_rand", X, dict(d=8, w=2, mode="two_pass", plan_cache=object(),
+                          mesh=object())),
     ("topn_rand", X, dict(d=8, w=2, state=None)),
     ("topn_rand", X, dict(d=8, w=2, index_offset=3)),
-    ("topn_rand", X, dict(d=8, w=2, options=T.ExecOptions(tune="cached"))),
-    ("topn_rand", X, dict(d=8, w=2, tune="race")),
+    ("topn_rand", X, dict(d=8, w=2, options=T.ExecOptions(tune="cached"),
+                          mesh=object())),
+    ("topn_rand", X, dict(d=8, w=2, tune="race", mesh=object())),
     ("topn_rand", X, dict(d=8, w=2, options=T.ExecOptions(mode="mesh"))),
     ("groupby", X, dict(d=8, w=2, state=None)),
     ("skyline", X[:, None], dict(w=2, state=None)),

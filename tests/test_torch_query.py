@@ -76,16 +76,18 @@ def test_run_query_on_a_converted_table():
 
 @pytest.mark.parametrize("kind,cols,params,kw", [
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(mesh=object())),
-    ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(tune="race")),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5),
-     dict(options=tq.ExecOptions(tune="race"))),
-    ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(plan_cache=object())),
+     dict(mesh=object(), obs="off")),
+    ("topn", ("ad_revenue",), dict(d=8, w=2, N=5),
+     dict(mesh=object(), options=tq.ExecOptions(decode="eager"))),
+    ("topn", ("ad_revenue",), dict(d=8, w=2, N=5),
+     dict(mesh=object(), plan_cache=object())),
     ("skyline", ("ad_revenue", "duration"), dict(w=2), dict(mesh=object())),
     ("groupby", ("source_ip", "ad_revenue"), dict(d=8, w=2),
      dict(mesh=object())),
     ("having", ("source_ip", "ad_revenue"), dict(threshold=1.0),
-     dict(tune="race")),
-    ("join", ("source_ip", "source_ip"), dict(nbits=64), dict(tune="race")),
+     dict(mesh=object(), decode="eager")),
+    ("join", ("source_ip", "source_ip"), dict(nbits=64), dict(mesh=object())),
     ("filter", ("duration",), dict(formula=None), dict(mesh=object())),
 ])
 def test_run_query_not_ported_raises(kind, cols, params, kw):
