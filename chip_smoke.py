@@ -131,6 +131,27 @@ Phases, one line each, and a non-zero exit on any failure:
            tune off / race / cached with execute_plan_batch against
            execute_plan; the TPC-H subset suite at TUNE_SCALE rows against
            its plain-Python references; the launch counts of the phase.
+   edges   the edges of the system (after phase tune): the token
+           pipeline's batches() on a 2^20-document corpus (vocab 32000,
+           seq_len 128, batch 64, dup_fraction 0.3) with the dedup block
+           walk at B = 16, d = 1024 and 32768, and with the LRU scan; the
+           fingerprints against a numpy fold of the whole corpus and the
+           reference's per-document loop on its first 4096 documents; the
+           block walk at B = 16 bit for bit against its plain version (a
+           worker process) on the whole column, keep and state; the LRU
+           run's keep against core.distinct_prune on the CPU (a worker) on
+           its first 2^18 documents; the filter
+           against numpy; every batch against a numpy packing of the
+           survivors; RequestCache(d=256, w=4) over 2^16 zipf(1.2) prompts
+           in 256 calls against the same calls on the CPU (a worker), first
+           occurrences kept, reset honoured; the §7.2 protocol over three
+           LRU DISTINCT queries' engine_prune_batch masks of 4096 entries
+           (held bit for bit to the same call on a CPU copy) at drop 0 and
+           0.02; pruned_topk of [64, 151936] logits over 16
+           shards at k = 1 and 8 against torch.topk, with both times; the
+           ms of each pipeline step, documents/s, tokens/s and the host s
+           of corpus(); the µs a dedup call. The launch counts are zeroed
+           before these paths and read after.
 4. subnormals
            every kernel that computes on f32 values (TOP-N, DISTINCT on
            float32 keys and SKYLINE pass 1 at S = 1 and 128, B = 1 and
@@ -3471,6 +3492,451 @@ def phase_tune(torch, P, table):
                                     separators=(",", ":")))
 
 
+# -------------------------------------------------------------- phase edges
+EDGE_DOCS = 1 << 20             # documents of one worker's corpus shard
+EDGE_PIPE = dict(vocab=32000, seq_len=128, batch_size=64, seed=0)
+EDGE_DUP = 0.3
+EDGE_QUALITY = 0.25
+EDGE_BLOCK = 16                 # the pipeline's dedup block
+EDGE_DEDUP = ((1024, 4), (32768, 4))   # the pipeline's default cache, and
+                                # one that holds a real share of a shard
+EDGE_FP_LOOP_DOCS = 4096        # documents held to the per-document loop
+# The plain LRU scan walks one entry at a time on the host (about 0.1 ms an
+# entry), so the LRU run's keep is held to it on this prefix of the column:
+# a one-lane scan's keep of a prefix is the prefix of its keep.
+EDGE_LRU_PLAIN = 1 << 18
+EDGE_PROMPTS = 1 << 16          # the serving queue: prompts drawn zipf(1.2)
+EDGE_PROMPT_POOL = 1 << 14      # from this many strings of 16-200 bytes
+EDGE_CALL = 256                 # prompts a RequestCache.dedup call
+EDGE_CACHE = dict(d=256, w=4)
+# The protocol's stream: the simulation costs O(m^2 p) Python steps, since
+# a round walks every unacknowledged packet and drops all after its first
+# gap (the reference's cost too), so it takes the first 4096 entries.
+EDGE_PROTOCOL_M = 4096
+EDGE_PROTOCOL_Q = ((4096, 4, 0), (2048, 2, 3), (1024, 3, 5))  # LRU d, w, seed
+EDGE_DROPS = (0.0, 0.02)
+EDGE_LOGITS = (64, 151936)      # a decode batch over Qwen3's vocabulary
+EDGE_LOGIT_SHARDS = 16
+EDGE_KS = (1, 8)
+EDGE_PATH_KERNELS = ("distinct_pass1_block_walk", "distinct_pass1_lru",
+                     "distinct_apply", "distinct_pass1_batch_lru")
+
+
+def np_mix32(x, seed: int = 0):
+    """The murmur3 fmix32 finalizer in numpy uint32 (wrapping) arithmetic."""
+    import numpy as np
+
+    h = x.astype(np.uint32) ^ np.uint32(seed)
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x85EBCA6B)
+    h ^= h >> np.uint32(13)
+    h *= np.uint32(0xC2B2AE35)
+    h ^= h >> np.uint32(16)
+    return h
+
+
+def np_doc_fps(flat, starts, lens):
+    """The reference's document fingerprint over a whole corpus in numpy:
+    the first 64 token hashes of each folded as out * 31 + v (mod 2^32)."""
+    import numpy as np
+
+    j = np.arange(64)
+    valid = j < lens[:, None]
+    h = np_mix32(flat[np.where(valid, starts[:, None] + j, 0)]).astype(
+        np.uint64)
+    out = np.zeros(lens.size, np.uint64)
+    for t in range(64):
+        out = np.where(valid[:, t], (out * 31 + h[:, t]) & 0xFFFFFFFF, out)
+    return out.astype(np.uint32)
+
+
+def np_doc_fp_loop(doc) -> int:
+    """One document's fingerprint by the reference's own loop: every token
+    hashed, the first 64 hashes folded."""
+    out = 0
+    for v in np_mix32(doc).ravel()[:64].tolist():
+        out = (out * 31 + v) & 0xFFFFFFFF
+    return out
+
+
+def edge_prompts():
+    """The serving queue: EDGE_PROMPTS prompts, zipf(1.2) over
+    EDGE_PROMPT_POOL printable strings of 16-200 bytes, seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    pool = ["".join(map(chr, rng.integers(32, 127, int(n))))
+            for n in rng.integers(16, 201, EDGE_PROMPT_POOL)]
+    ranks = (rng.zipf(1.2, EDGE_PROMPTS) - 1) % EDGE_PROMPT_POOL
+    return [pool[r] for r in ranks]
+
+
+def _edges_host_job(kind, arg, d, w):
+    """A plain run of phase edges in a worker process, on one thread:
+    ("dedup", uint32 fingerprints viewed as int32) the block walk's plain
+    version at B = EDGE_BLOCK, keep and state; ("lru", the same) the LRU
+    scan's keep on the CPU over the first EDGE_LRU_PLAIN entries;
+    ("requests", prompts) the RequestCache's calls on the CPU, its live
+    masks, then one call after a reset. Returns (numpy results, seconds)."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if kind == "dedup":
+        from repro_torch.kernels import ref as R
+
+        keep, (sl, va, he) = R.distinct_block_ref(
+            torch.from_numpy(arg).view(torch.uint32), d=d, w=w,
+            block=EDGE_BLOCK, return_state=True)
+        out = (keep.numpy(), sl.view(torch.int32).numpy(), va.numpy(),
+               he.numpy())
+    elif kind == "lru":
+        from repro_torch import core
+
+        fps = torch.from_numpy(arg[:EDGE_LRU_PLAIN]).view(torch.uint32)
+        out = core.distinct_prune(fps, d=d, w=w).keep.numpy()
+    else:
+        from repro_torch.serve import RequestCache
+
+        rc = RequestCache(d=d, w=w, device="cpu")
+        calls = [rc.dedup(arg[i:i + EDGE_CALL])
+                 for i in range(0, len(arg), EDGE_CALL)]
+        masks = torch.cat(rc._stream.live_masks()).numpy()
+        rc.reset()
+        out = (calls, masks, rc.dedup(arg[:EDGE_CALL]))
+    return out, time.perf_counter() - t0
+
+
+def edges_pipeline(docs, dev):
+    """The pipeline's runs on the main path: batches() at both caches of
+    EDGE_DEDUP with the block kernel, and once with the LRU scan; each
+    run's wall time ends in a synchronise."""
+    from repro_torch.data import TokenPipeline
+
+    runs = {}
+    for d, w in EDGE_DEDUP:
+        pipe = TokenPipeline(**EDGE_PIPE, dedup_d=d, dedup_w=w,
+                             dedup_block=EDGE_BLOCK,
+                             quality_min=EDGE_QUALITY, device=dev)
+        runs[d] = (pipe,) + sync_time(lambda: list(pipe.batches(docs)))
+    pipe = TokenPipeline(**EDGE_PIPE, use_kernel=False,
+                         quality_min=EDGE_QUALITY, device=dev)
+    runs["lru"] = (pipe,) + sync_time(lambda: list(pipe.batches(docs)))
+    return runs
+
+
+def edges_requests(prompts, dev):
+    """The RequestCache's calls on the card: (fresh lists and fingerprints
+    of each call, the live masks, the call after a reset, seconds of each
+    call)."""
+    import torch
+
+    from repro_torch.serve import RequestCache
+
+    rc = RequestCache(**EDGE_CACHE, device=dev)
+    calls, secs = [], []
+    for i in range(0, len(prompts), EDGE_CALL):
+        out, s = sync_time(lambda: rc.dedup(prompts[i:i + EDGE_CALL]))
+        calls.append(out)
+        secs.append(s)
+    masks = torch.cat(rc._stream.live_masks()).cpu().numpy()
+    rc.reset()
+    return calls, masks, rc.dedup(prompts[:EDGE_CALL]), secs
+
+
+def edges_protocol(v):
+    """The §7.2 protocol over the Q = 3 DISTINCT queries' batched keep masks
+    of ``v``: (keep [Q, m], {drop: (result, seconds)})."""
+    from repro_torch import core
+    from repro_torch.query import simulate_lossy_stream_multi
+
+    queries = [dict(d=d, w=w, policy="lru", seed=s)
+               for d, w, s in EDGE_PROTOCOL_Q]
+    keep = core.engine_prune_batch("distinct", queries, v).keep
+    sims = {}
+    for drop in EDGE_DROPS:
+        t0 = time.perf_counter()
+        sims[drop] = (simulate_lossy_stream_multi(v, keep, drop, seed=0,
+                                                  max_rounds=5000),
+                      time.perf_counter() - t0)
+    return keep, sims
+
+
+def edges_check_lru(pipe, keep, job):
+    """The LRU run's keep on the card against the plain LRU scan on the
+    CPU, on the first EDGE_LRU_PLAIN entries."""
+    import numpy as np
+
+    plain, secs = job.get()
+    n = plain.size
+    check(np.array_equal(keep[:n], plain),
+          f"edges: the LRU scan at d={pipe.dedup_d}, w={pipe.dedup_w} differs "
+          f"from core.distinct_prune on the CPU over the first {n} entries")
+    say("edges", kernel="distinct_pass1_lru", d=pipe.dedup_d, w=pipe.dedup_w,
+        m_plain=n, kept_plain=int(plain.sum()), plain_s=round(secs, 3))
+
+
+def edges_check_pipeline(torch, runs, docs, flat_np, fps, quality, plain):
+    """Every run's stages and batches against numpy: the dedup keep (the
+    plain block walk's; the LRU run's from the card, held to the plain scan
+    on its prefix by edges_check_lru) keeps every distinct fingerprint once at
+    least, the stats count what the masks say,
+    and the batches are the survivors' tokens concatenated, cut into rows
+    of seq_len + 1 and batches of batch_size, the partial ones dropped."""
+    import numpy as np
+
+    row, bs = EDGE_PIPE["seq_len"] + 1, EDGE_PIPE["batch_size"]
+    lens = np.fromiter((d.size for d, _ in docs), np.int64, len(docs))
+    starts = np.cumsum(lens) - lens
+    fps_np = fps.view(torch.int32).cpu().numpy().view(np.uint32)
+    fkeep = quality > np.float32(EDGE_QUALITY)
+    for key, (pipe, batches, secs) in runs.items():
+        keep = plain[key]
+        check(np.array_equal(np.unique(fps_np[keep]), np.unique(fps_np)),
+              f"edges: pipeline {key} dropped a fingerprint altogether")
+        surv = keep & fkeep
+        st = pipe.stats
+        check((st.seen_docs, st.deduped_docs, st.filtered_docs,
+               st.emitted_batches) ==
+              (len(docs), int((~keep).sum()), int((keep & ~fkeep).sum()),
+               len(batches)), f"edges: pipeline {key} stats {st}")
+        total = int(lens[surv].sum())
+        check(len(batches) == total // row // bs,
+              f"edges: pipeline {key} gave {len(batches)} batches, not "
+              f"({total} // {row}) // {bs}")
+        need = len(batches) * bs * row
+        k = int(((np.cumsum(lens[surv]) - lens[surv]) < need).sum())
+        want = np.concatenate([flat_np[starts[i]:starts[i] + lens[i]]
+                               for i in np.nonzero(surv)[0][:k]])[:need]
+        got = torch.stack([torch.cat([b["tokens"], b["labels"][:, -1:]], 1)
+                           for b in batches])
+        check(got.dtype == torch.int32
+              and np.array_equal(got.cpu().numpy().reshape(-1), want),
+              f"edges: pipeline {key} batches differ from the numpy packing")
+        say("edges", pipeline=key, batches=len(batches),
+            kept_docs=int(surv.sum()), deduped=st.deduped_docs,
+            filtered=st.filtered_docs, batches_s=round(secs, 4),
+            docs_per_s=round(len(docs) / secs, 1),
+            corpus_tokens_per_s=round(int(lens.sum()) / secs, 1),
+            emitted_tokens=need)
+
+
+def edges_block_walk(torch, P, fps, jobs, runs, counts, clock_hz):
+    """ops.distinct_prune's kernel at the pipeline's B = 16, at both caches,
+    on the whole 2^20-entry fingerprint column: keep and state bit for bit
+    against the plain block walk, its time and its bound. Returns the plain
+    keeps and the kernels line's row (d = 1024)."""
+    m = fps.numel()
+    keeps, rows = {}, []
+    for d, w in EDGE_DEDUP:
+        (keep, *st), secs = jobs[d].get()
+        plain = (torch.from_numpy(keep), torch.from_numpy(st[0]).view(
+            torch.uint32)) + tuple(torch.from_numpy(a) for a in st[1:])
+        keeps[d] = keep
+        out = P.distinct_shard_states_kernel(fps, d=d, w=w, shards=1,
+                                             block=EDGE_BLOCK)
+        out = (out[0],) + tuple(t[0] for t in out[1:])
+        err = max_abs_err([(a.cpu(), b) for a, b in zip(out, plain)])
+        check(err == 0.0 and all(same(a.cpu(), b)
+                                 for a, b in zip(out, plain)),
+              f"edges: the block walk at B={EDGE_BLOCK}, d={d} differs "
+              "from its plain version")
+        check(same(runs[d][0].dedup_keep(fps).cpu(), plain[0]),
+              f"edges: ops.distinct_prune at d={d} differs from the plain "
+              "block walk")
+        ms = event_ms(lambda: P.distinct_shard_states_kernel(
+            fps, d=d, w=w, shards=1, block=EDGE_BLOCK), 5)
+        io_ms = bytes_ms(m * 4 + m + d * w * 5 + d * 4)
+        bound, by = block_walk_bound(torch, fps, out[0], 1, EDGE_BLOCK, d,
+                                     io_ms, clock_hz)
+        say("edges", kernel="distinct_pass1_block_walk", B=EDGE_BLOCK, d=d,
+            w=w, m=m, kept=int(keep.sum()), ms=ms, plain_s=round(secs, 3),
+            bound_ms=bound, bound_by=by)
+        if d == EDGE_DEDUP[0][0]:
+            name = "distinct_pass1_block_walk_b16"
+            rows.append(_row(name, {name: counts["distinct_pass1_block_walk"]},
+                             err, ms, secs * 1e3, bound, by))
+    return keeps, rows
+
+
+def edges_check_requests(calls, masks, after_reset, call_s, job):
+    """The RequestCache on the card against the same calls on the CPU: the
+    fresh lists, fingerprints and live masks equal, every fingerprint's
+    first occurrence kept, and a reset that makes the first call fresh
+    again."""
+    import numpy as np
+
+    (cpu_calls, cpu_masks, cpu_reset), cpu_s = job.get()
+    check(calls == cpu_calls and np.array_equal(masks, cpu_masks),
+          "edges: RequestCache on the card differs from the CPU's")
+    fp_all = np.array([f for _, fp in calls for f in fp], np.int64)
+    _, first = np.unique(fp_all, return_index=True)
+    check(bool(masks[first].all()),
+          "edges: RequestCache pruned a fingerprint's first occurrence")
+    check(after_reset == cpu_reset == calls[0],
+          "edges: RequestCache.reset() did not drop the switch state")
+    us = sorted(s * 1e6 for s in call_s)
+    say("edges", requests=len(fp_all), calls=len(calls),
+        distinct_fps=first.size, fresh=int(masks.sum()),
+        call_us_median=us[len(us) // 2], call_us_max=us[-1],
+        cpu_run_s=round(cpu_s, 3))
+
+
+def edges_check_protocol(torch, v, pkeep, sims):
+    """The card's batched keep masks bit for bit against the same
+    engine_prune_batch call on a CPU copy (the plain batched walk);
+    delivered_all, the master's rows a superset of every query's keep,
+    and each query's DISTINCT completion over the rows the master received,
+    and over its own keep, equal to the true distinct set."""
+    import numpy as np
+
+    from repro_torch import core
+
+    queries = [dict(d=d, w=w, policy="lru", seed=s)
+               for d, w, s in EDGE_PROTOCOL_Q]
+    cpu_keep = core.engine_prune_batch("distinct", queries, v.cpu()).keep
+    check(same(pkeep.cpu(), cpu_keep),
+          "edges: engine_prune_batch's DISTINCT masks on the card differ "
+          "from the same call on the CPU")
+    vals = v.cpu().numpy()
+    truth = set(vals.tolist())
+    union = pkeep.any(0).cpu().numpy()
+    for q in range(pkeep.shape[0]):
+        own = core.master_complete_distinct(v, pkeep[q]).cpu().numpy()
+        check(set(vals[own].tolist()) == truth,
+              f"edges: query {q}'s DISTINCT completion is wrong")
+    for drop, (sim, secs) in sims.items():
+        got = np.zeros(vals.size, bool)
+        got[sim["master_indices"]] = True
+        out = core.master_complete_distinct(
+            v, torch.from_numpy(got).to(v.device)).cpu().numpy()
+        check(sim["delivered_all"] and not (union & ~got).any()
+              and set(vals[out].tolist()) == truth,
+              f"edges: the protocol at drop {drop} lost a survivor or a "
+              "distinct value")
+        say("edges", protocol_drop=drop, m=vals.size,
+            queries=pkeep.shape[0], forwarded=int(union.sum()),
+            received=len(sim["master_indices"]), rounds=sim["rounds"],
+            s=round(secs, 4))
+
+
+def edges_steps(torch, docs, runs, quality, dev):
+    """The ms of each of batches()' steps on the card, on the uploaded
+    corpus: the upload (host concatenation and copy, wall), the
+    fingerprints, the dedup at each cache and with the LRU scan, the
+    filter and the packing. Returns the fingerprints."""
+    from repro_torch.data import TokenPipeline
+
+    (flat, starts, lens), up_s = sync_time(
+        lambda: TokenPipeline.upload(docs, dev))
+    fps = TokenPipeline.doc_fingerprints(flat, starts, lens)
+    pipe = runs[EDGE_DEDUP[0][0]][0]
+    qt = torch.from_numpy(quality).to(dev)
+    ms = dict(upload=up_s * 1e3, fingerprint=event_ms(
+        lambda: TokenPipeline.doc_fingerprints(flat, starts, lens), 3))
+    for key, (p, _, _) in runs.items():
+        ms[f"dedup_{key}"] = event_ms(lambda: p.dedup_keep(fps), 3)
+    ms["filter"] = event_ms(lambda: pipe.quality_keep(qt), 3)
+    surv = pipe.dedup_keep(fps) & pipe.quality_keep(qt)
+    ms["pack"] = event_ms(lambda: pipe.pack(flat, starts, lens, surv), 3)
+    say("edges", step_ms=json.dumps({k: round(x, 4) for k, x in ms.items()}))
+    return fps, pipe.quality_keep(qt).cpu().numpy()
+
+
+def phase_edges(torch, P, table, clock_hz):
+    """The edges of the system on the card (ROADMAP Queue 1 item 13): the
+    token pipeline on a 2^20-document corpus shard, the RequestCache on a
+    2^16-prompt queue, the §7.2 protocol over batched DISTINCT masks and
+    pruned_topk over a [64, 151936] decode batch. The launch counts are
+    zeroed before these paths and read after. The plain block walks at
+    B = 16 and the RequestCache's CPU run start first, in worker processes,
+    and are compared last. Returns the kernels line's row of the block walk
+    at the pipeline's B = 16."""
+    import multiprocessing
+
+    import numpy as np
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.serve import pruned_topk
+
+    dev = table.cols["source_ip"].device
+    docs, corpus_s = sync_time(
+        lambda: TokenPipeline(**EDGE_PIPE).corpus(EDGE_DOCS, EDGE_DUP))
+    lens = np.fromiter((d.size for d, _ in docs), np.int64, len(docs))
+    flat_np = np.concatenate([d for d, _ in docs])
+    fps_np, np_fp_s = sync_time(lambda: np_doc_fps(
+        flat_np, np.cumsum(lens) - lens, lens))
+    quality = np.asarray([q for _, q in docs], np.float64).astype(np.float32)
+    prompts = edge_prompts()
+    say("edges", docs=len(docs), unique_fps=len(np.unique(fps_np)),
+        tokens=int(lens.sum()), corpus_host_s=round(corpus_s, 3),
+        numpy_fp_s=round(np_fp_s, 3), prompts=len(prompts))
+    pool = multiprocessing.get_context("spawn").Pool(len(EDGE_DEDUP) + 2)
+    try:
+        jobs = {d: pool.apply_async(_edges_host_job, (
+            "dedup", fps_np.view(np.int32), d, w)) for d, w in EDGE_DEDUP}
+        jobs["lru"] = pool.apply_async(_edges_host_job, (
+            "lru", fps_np.view(np.int32), TokenPipeline.dedup_d,
+            TokenPipeline.dedup_w))
+        jobs["requests"] = pool.apply_async(_edges_host_job, (
+            "requests", prompts, EDGE_CACHE["d"], EDGE_CACHE["w"]))
+
+        # ---- the main path, its launches counted
+        v = table.cols["source_ip"][:EDGE_PROTOCOL_M]
+        g = torch.Generator(device=dev).manual_seed(0)
+        logits = torch.randn(EDGE_LOGITS, generator=g, device=dev)
+        P.reset_launch_counts()
+        runs = edges_pipeline(docs, dev)
+        calls, masks, after_reset, call_s = edges_requests(prompts, dev)
+        pkeep, sims = edges_protocol(v)
+        tops = {k: pruned_topk(logits, k, EDGE_LOGIT_SHARDS)
+                for k in EDGE_KS}
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in P.KERNELS}
+        for k in EDGE_PATH_KERNELS:
+            check(counts[k] > 0, f"edges: kernel {k} was never launched")
+        say("edges", launches=json.dumps({k: c for k, c in counts.items()
+                                          if c}, separators=(",", ":")))
+
+        # ---- the fingerprints and the filter against numpy
+        fps, fkeep = edges_steps(torch, docs, runs, quality, dev)
+        got_fp = fps.view(torch.int32).cpu().numpy().view(np.uint32)
+        check(np.array_equal(got_fp, fps_np),
+              "edges: the pipeline's fingerprints differ from numpy's fold")
+        loop = [np_doc_fp_loop(d) for d, _ in docs[:EDGE_FP_LOOP_DOCS]]
+        check(got_fp[:EDGE_FP_LOOP_DOCS].tolist() == loop,
+              "edges: the pipeline's fingerprints differ from the "
+              "reference's per-document loop")
+        check(np.array_equal(fkeep, quality > np.float32(EDGE_QUALITY)),
+              "edges: the quality filter differs from numpy's")
+        edges_check_protocol(torch, v, pkeep, sims)
+        for k, (fv, fi) in tops.items():
+            tv, ti = torch.topk(logits, k)
+            check(same(fv, tv) and same(fi, ti)
+                  and same(logits.gather(1, fi), fv),
+                  f"edges: pruned_topk k={k} differs from torch.topk")
+            say("edges", pruned_topk_k=k, shape=list(EDGE_LOGITS),
+                shards=EDGE_LOGIT_SHARDS,
+                ms=event_ms(lambda: pruned_topk(logits, k,
+                                                EDGE_LOGIT_SHARDS), 20),
+                full_topk_ms=event_ms(lambda: torch.topk(logits, k), 20))
+
+        # ---- the plain runs, last
+        keeps, rows = edges_block_walk(torch, P, fps, jobs, runs, counts,
+                                       clock_hz)
+        lru = runs["lru"][0]
+        keeps["lru"] = lru.dedup_keep(fps).cpu().numpy()
+        edges_check_pipeline(torch, runs, docs, flat_np, fps, quality,
+                             keeps)
+        edges_check_requests(calls, masks, after_reset, call_s,
+                             jobs["requests"])
+        edges_check_lru(lru, keeps["lru"], jobs["lru"])
+    finally:
+        pool.terminate()
+        pool.join()
+    return rows
+
+
 # ------------------------------------------------------------- phase stream
 STREAM_BATCH = 1 << 20          # entries a micro-batch of phase stream
 STREAM_RAGGED = 77              # batch 5 is this much short, batch 6 long
@@ -5585,6 +6051,10 @@ SOURCES = {
     # distinct_pass1 at B > 1 while the lanes fill few SMs (use_block_walk)
     "distinct_pass1_block_walk": ("src/repro_torch/kernels/csrc/distinct.cu",
                                   "src/repro/kernels/distinct_prune.py:67"),
+    # the same kernel at the token pipeline's B = 16 (phase edges)
+    "distinct_pass1_block_walk_b16": (
+        "src/repro_torch/kernels/csrc/distinct.cu",
+        "src/repro/kernels/distinct_prune.py:67"),
     # topn_pass1 at B > 1 while the lanes fill few SMs (use_block_walk)
     "topn_pass1_block_walk": ("src/repro_torch/kernels/csrc/topn.cu",
                               "src/repro/kernels/topn_prune.py:49"),
@@ -5671,9 +6141,11 @@ def main() -> int:
         batch_rows = timed("batch", phase_batch, torch, P, table, pts,
                            clock_hz, host)
         timed("tune", phase_tune, torch, P, table)
+        edge_rows = timed("edges", phase_edges, torch, P, table, clock_hz)
         timed("subnormals", phase_subnormals, torch, P, R, table)
         rows = timed("timing", phase_timing, torch, P, R, table, rankings,
-                     pts, totals, clock_hz, encoded, rle, host) + batch_rows
+                     pts, totals, clock_hz, encoded, rle, host) \
+            + batch_rows + edge_rows
     finally:
         host.close()
     timed("witness", phase_witness, torch, table, rankings, pts, rle)

@@ -5,8 +5,9 @@ encodings they prune before decode.
 A pruner maps a stream D to a keep mask selecting a subset with
 Q(subset) = Q(D); the master completes the query on the survivors.
 """
-from .pruning import PruneResult, compact, prune_rate_vs_opt
-from .hashing import by_value, mix32, hash_mod, hash_mod_dyn, multi_hash
+from .pruning import PruneResult, compact, compact_argsort, prune_rate_vs_opt
+from .hashing import (by_value, fingerprint, fingerprint_bits_thm4, mix32,
+                      hash_mod, hash_mod_dyn, multi_hash)
 from .distinct import (DistinctState, distinct_prune, master_complete_distinct,
                        opt_keep_distinct, thm1_bound)
 from .topn import (TopNDetState, TopNRandState, topn_det_init,

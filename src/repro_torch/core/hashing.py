@@ -32,6 +32,11 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & _M32
 
 
+def to_u32(h: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as a uint32 tensor of the same bits."""
+    return _signed(h).to(torch.int32).view(torch.uint32)
+
+
 def by_value(x: torch.Tensor) -> torch.Tensor:
     """``x`` as a tensor that compares as its values do: uint32 by value in
     int64 (torch compares no uint32 on the CPU), other integers in int64,
@@ -119,3 +124,53 @@ def hash_mod(x: torch.Tensor, mod: int, seed: int = 0, *,
     """Hash entries into {0, ..., mod-1}: multiply-shift below 2^16, else
     modulo. ``signed``: as the Pallas kernels hash an int32 key."""
     return hash_mod_dyn(x, mod, seed, small=mod < (1 << 16), signed=signed)
+
+
+def _u32_seed(seed: int) -> int:
+    """``seed`` as the JAX package converts it (``jnp.uint32(seed)``), which
+    refuses a Python int outside [0, 2^32)."""
+    if not 0 <= seed <= _M32:
+        raise OverflowError(f"Python integer {seed} out of bounds for uint32")
+    return seed
+
+
+def fingerprint(cols, bits: int = 32, seed: int = 0) -> torch.Tensor:
+    """Fingerprint one column or a list of columns into ``bits``-bit uint32.
+
+    The paper's CWorker computes fingerprints of wide / multi-column entries
+    before they reach the switch (Ex. 8, Thm 4). Column i of a list mixes as
+    ``mix32(as_u32(c) + h * 0x9E3779B9, seed + i * 101)`` with every product
+    and sum wrapped at 32 bits; the shapes broadcast. Returns uint32, the
+    dtype the DISTINCT kernels take. ``fingerprint_bits_thm4`` sizes
+    ``bits``.
+    """
+    if bits > 32:
+        raise ValueError("fingerprints are uint32 lanes; bits must be <= 32")
+    if isinstance(cols, (list, tuple)):
+        cols = [torch.as_tensor(c) for c in cols]
+        h = torch.zeros(torch.broadcast_shapes(*(c.shape for c in cols)),
+                        dtype=torch.int64, device=cols[0].device)
+        for i, c in enumerate(cols):
+            h = mix32((as_u32(c) + h * _C3) & _M32, _u32_seed(seed + i * 101))
+    else:
+        h = mix32(torch.as_tensor(cols), _u32_seed(seed))
+    return to_u32(h if bits == 32 else h & ((1 << bits) - 1))
+
+
+def fingerprint_bits_thm4(d: int, D: int, delta: float,
+                          w: int | None = None) -> int:
+    """Thm 4: required fingerprint length f = ceil(log2(d * M^2 / delta)).
+
+    M is the per-row distinct load bound; three regimes by D against
+    d ln(2d/delta).
+    """
+    import math
+
+    if D > d * math.log(2 * d / delta):
+        M = math.e * D / d
+    elif D >= d * math.log(1 / delta) / math.e:
+        M = math.e * math.log(2 * d / delta)
+    else:
+        M = 1.3 * math.log(2 * d / delta) / math.log(
+            (d / (D * math.e)) * math.log(2 * d / delta))
+    return max(1, math.ceil(math.log2(d * M * M / delta)))

@@ -55,6 +55,19 @@ def compact(values: torch.Tensor, keep: torch.Tensor, fill=0):
     return torch.where(mask, moved, torch.full_like(moved, fill)), count
 
 
+def compact_argsort(values: torch.Tensor, keep: torch.Tensor, fill=0):
+    """``compact`` by a stable sort that puts the kept rows first; returns
+    (moved, count). The former sort-based compact, kept as a baseline."""
+    m = keep.shape[0]
+    order = torch.sort((~keep).to(torch.uint8), stable=True).indices
+    moved = values[order]
+    count = keep.to(torch.int64).sum()
+    mask = torch.arange(m, device=keep.device) < count
+    if moved.ndim > 1:
+        mask = mask[:, None]
+    return torch.where(mask, moved, torch.full_like(moved, fill)), count
+
+
 def prune_rate_vs_opt(keep: torch.Tensor, opt_keep: torch.Tensor) -> dict:
     """Compare a pruner against OPT (the minimal correct survivor set)."""
     keep = keep.to(torch.float32)

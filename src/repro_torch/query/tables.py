@@ -175,6 +175,25 @@ class Table:
         return {k: as_column(v).take(idx) for k, v in self.cols.items()}
 
 
+def make_products_ratings(device=None) -> tuple[Table, Table]:
+    """The paper's Table 1 running example (dictionary-encoded names).
+
+    name ids: Burger=1 Pizza=2 Fries=3 Jello=4 Cheetos=5; seller ids:
+    McCheetah=1 Papizza=2 JellyFish=3."""
+    dev = resolve_device(device)
+    products = Table.from_numpy("products", {
+        "name": np.array([1, 2, 3, 4], np.uint32),
+        "seller": np.array([1, 2, 1, 3], np.uint32),
+        "price": np.array([4, 7, 2, 5], np.int32),
+    }, dev)
+    ratings = Table.from_numpy("ratings", {
+        "name": np.array([2, 5, 4, 1, 3], np.uint32),
+        "taste": np.array([7, 8, 9, 5, 3], np.int32),
+        "texture": np.array([5, 6, 4, 7, 3], np.int32),
+    }, dev)
+    return products, ratings
+
+
 def make_uservisits(m: int, seed: int = 0, num_ips: int | None = None,
                     num_langs: int = 64, device=None) -> Table:
     """Big Data benchmark uservisits: sourceIP, destURL, adRevenue, lang,

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch import convert, core
+from repro_torch.data import TokenPipeline
 from repro_torch.query import tables
+from repro_torch.serve import RequestCache
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -92,6 +94,10 @@ CONSTRUCTORS = [
     lambda: core.skyline_init(4, 2),
     lambda: core.groupby_init(4, 2),
     lambda: core.having_init(),
+    lambda: tables.make_products_ratings(),
+    lambda: TokenPipeline(vocab=64, seq_len=8, batch_size=1).batches(
+        [(np.arange(40, dtype=np.int32), 0.5)]),
+    lambda: RequestCache().dedup(["q1"]),
 ]
 
 
@@ -141,3 +147,20 @@ def test_batch_walks_check_the_wave():
     with pytest.raises(ValueError, match="wcap"):
         batch_walks.topn_pass1_batch(x, d=[4], w=[3], seeds=[0], shards=1,
                                      dcap=4, wcap=2)
+
+
+def test_top_level_surface_covers_the_reference():
+    """``repro_torch.__all__`` holds every name of the JAX package's
+    top-level ``__all__``, read from its source as text."""
+    import ast
+
+    import repro_torch
+
+    tree = ast.parse((ROOT / "src" / "repro" / "__init__.py").read_text())
+    ref = next(ast.literal_eval(n.value) for n in tree.body
+               if isinstance(n, ast.Assign)
+               and any(getattr(t, "id", None) == "__all__"
+                       for t in n.targets))
+    assert {"engine_prune_batch", "run_queries", "PlanCache"} <= set(ref)
+    assert set(ref) <= set(repro_torch.__all__)
+    assert all(hasattr(repro_torch, n) for n in repro_torch.__all__)

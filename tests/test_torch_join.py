@@ -213,11 +213,14 @@ def _run_both(spec_cols, params, jtabs, ttabs):
 
 
 def test_run_query_join_products_ratings():
+    """The paper's Table 1, built by each package's make_products_ratings."""
     products, ratings = jt.make_products_ratings()
-    tp = convert.table_from_numpy({c: np.asarray(v) for c, v in
-                                   products.cols.items()}, device="cpu")
-    tr = convert.table_from_numpy({c: np.asarray(v) for c, v in
-                                   ratings.cols.items()}, device="cpu")
+    tp, tr = tt.make_products_ratings(device="cpu")
+    for jtab, ttab in ((products, tp), (ratings, tr)):
+        assert (ttab.name, list(ttab.cols)) == (jtab.name, list(jtab.cols))
+        for c, v in jtab.cols.items():
+            assert str(ttab.cols[c].dtype) == f"torch.{np.asarray(v).dtype}"
+            _eq(ttab.cols[c], v)
     a, _ = _run_both(("name", "name"),
                      dict(nbits=64, payload_a="price", payload_b="taste"),
                      (products, ratings), (tp, tr))
