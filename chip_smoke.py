@@ -99,6 +99,25 @@ Phases, one line each, and a non-zero exit on any failure:
            keep mask a superset of the true survivors. Launch counts are set
            to 0 before each path and read after it; each path is then
            called once more, for its time as a repeated query meets it.
+   mesh    mesh mode (right after phase main): the seven engine calls of
+           section 5 at mode="mesh", S = 128, pass2 master, mesh and auto,
+           on (a) default_mesh(), one position on the card, (b) that
+           position in a one-rank NCCL group over a HashStore (NCCL's
+           all-gather on the card) and (c) 8 positions on the card (every
+           pass on lane sub-ranges, every apply with its lane base): keep,
+           merged state and emissions bit for bit against two_pass at
+           S = 128, the report's counts against the masks, each call's
+           wall time against two_pass's and the state bytes it gathered;
+           a run_query a query kind (JOIN's filters ORed over the workers)
+           on (c)'s 8 workers, each answer phase main's; a run_queries
+           DISTINCT group whose resident wave is one gather; a
+           PruneStream on (c) against one-shot two_pass on the lane view;
+           execute_plan of a mesh plan, its keep flat. Launch counts are
+           set to 0 just before each mesh run and read just after it, the
+           two_pass references run outside those windows: each engine
+           call's pass-1 kernels launch D times its two_pass's (once a
+           position) and its apply kernel (D if resident else 1) x chunks
+           times, and every kernel of the mesh paths is launched by them.
    planner each section-5 engine call's merge cost and one lane's state
            bytes measured on the card (calibrate_merge_cost), the lane count
            shards="auto" resolves at 2^25 entries, the two_pass call at
@@ -239,6 +258,7 @@ Needs one CUDA card; exits non-zero without one. The last line is
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1459,7 +1479,10 @@ def phase_kernels_distinct_apply(torch, g):
     """The lowest-owner distinct_apply against distinct_apply_plain at
     S = 1, 8 and 128 and w in DISTINCT_APPLY_WS, on the streams of
     distinct_apply_streams, after the FIFO pass 1 (B = 1) on the card:
-    keep bit for bit. The plain versions run on the host (on_host)."""
+    keep bit for bit; then at each lane base of MESH_POSITIONS positions
+    (the resident pass 2's sub-ranges), each against its plain run and all
+    against the whole apply. The plain versions run on the host
+    (on_host)."""
     from repro_torch.kernels import parallel as P
 
     d = 37
@@ -1477,6 +1500,24 @@ def phase_kernels_distinct_apply(torch, g):
                     *a, d=d, shards=S, seed=S), x, keep1, ms, mv)
                 ok &= check(same(k, k2), f"distinct_apply S={S} {name} "
                             f"w={w}")
+                # a mesh position's lanes with their lane base: each part
+                # against its plain run, and together the whole apply's
+                L = max(1, S // MESH_POSITIONS)
+                parts = []
+                for lane0 in range(0, S, L):
+                    cut = slice(lane0 * n, (lane0 + L) * n)
+                    kp = P.distinct_apply_kernel(
+                        x[cut], keep1[cut], ms, mv, d=d, shards=L, seed=S,
+                        lane0=lane0, w=w)
+                    kp2, _ = on_host(lambda *a: P.distinct_apply_plain(
+                        *a, d=d, shards=L, seed=S, lane0=lane0, w=w),
+                        x[cut], keep1[cut], ms, mv)
+                    ok &= check(same(kp, kp2), f"distinct_apply S={S} "
+                                f"{name} w={w} lane0={lane0}")
+                    parts.append(kp)
+                ok &= check(same(torch.cat(parts), k), f"distinct_apply "
+                            f"S={S} {name} w={w}: the positions' applies "
+                            "differ from the whole one")
         say("kernels", S=S, n=n, distinct_apply=ok,
             s=round(time.perf_counter() - t0, 3))
 
@@ -2982,9 +3023,12 @@ def phase_main(torch, P, O):
             rle_distinct_ok, lambda r: r[1], ("distinct_pass1_lru",)),
     })
     totals = {k.name: 0 for k in P.KERNELS}
+    answers = {}
     for name, (run, verify, keep_of, needs) in paths.items():
         P.reset_launch_counts()
         res, secs = sync_time(run)
+        if name in MESH_QUERY_PATHS:
+            answers[name] = res["output"]
         counts = {k.name: k.launches for k in P.KERNELS}
         for k, n in counts.items():
             totals[k] += n
@@ -2998,7 +3042,339 @@ def phase_main(torch, P, O):
         say("main", path=name, s=round(secs, 4), s_again=round(again, 4),
             pruned=round(1 - float(keep.float().mean()), 6),
             launches=json.dumps(counts, separators=(",", ":")))
-    return table, rankings, pts, totals, encoded, (rle_t, rle_l), paths
+    return (table, rankings, pts, totals, encoded, (rle_t, rle_l), paths,
+            answers)
+
+
+# --------------------------------------------------------------- phase mesh
+# mesh mode on the one card: the engine calls of section 5 at S = SHARDS on
+# three meshes, (a) default_mesh(), one position; (b) that position in a
+# one-rank NCCL group, so that NCCL's all-gather runs on the card; (c)
+# MESH_POSITIONS positions on the card, so that every pass runs on lane
+# sub-ranges and every apply with its lane base
+MESH_PASS2 = ("master", "mesh", "auto")
+MESH_POSITIONS = 8
+# phase main's run_query paths whose answers a mesh run must give, one a
+# query kind (GROUP BY COUNT: the f32 SUM partials add in another order
+# when the lanes split)
+MESH_QUERY_PATHS = ("run_query_topn", "run_query_distinct",
+                    "run_query_skyline", "run_query_having_count",
+                    "run_query_groupby_count", "run_query_join",
+                    "run_query_filter_uservisits")
+MESH_STREAM = ("distinct lru", 4)   # the PruneStream call, its merge period
+# the pass-2 kernels: launched once an apply (a chunk of one), every other
+# kernel of an engine call once a pass 1 of a position
+MESH_APPLY_KERNELS = ("topn_apply", "distinct_apply", "skyline_apply",
+                      "cms_query")
+MESH_PATH_KERNELS = ("topn_pass1", "topn_apply", "topn_det_pass1",
+                     "distinct_pass1", "distinct_pass1_lru",
+                     "distinct_apply", "skyline_pass1", "skyline_apply",
+                     "cms_build", "cms_query", "groupby_pass1", "bloom_query",
+                     "distinct_pass1_batch_lru")
+
+
+def same_state(torch, a, b) -> bool:
+    """Two states (dataclasses, tuples of tensors or None) bit for bit:
+    every float by its bits (torch.equal holds no NaN equal)."""
+    def bits(t):
+        if t.dtype == torch.float32:
+            return t.contiguous().view(torch.int32)
+        if t.dtype == torch.uint32:
+            return t.contiguous().view(torch.int32)
+        return t
+
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and bool(torch.equal(bits(a), bits(b))))
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_state(torch, x, y)
+                                        for x, y in zip(a, b))
+    fields = [f for f in vars(a) if isinstance(getattr(a, f), torch.Tensor)]
+    return all(same_state(torch, getattr(a, f), getattr(b, f))
+               for f in fields)
+
+
+def counted(P, fn):
+    """(fn()'s result, its wall seconds, {kernel: launches} of that run
+    alone): every launch count set to 0 just before fn and read just
+    after it."""
+    P.reset_launch_counts()
+    out, secs = sync_time(fn)
+    return out, secs, {k.name: k.launches for k in P.KERNELS if k.launches}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def mesh_launches(base: dict, D: int, resident: bool, chunks: int) -> dict:
+    """The launches a mesh call must make, from its two_pass's at the same
+    S (one pass 1 and one whole apply): each pass-1 kernel once a position,
+    each apply kernel once a chunk on each position that applies (all D
+    when pass 2 is resident, the master alone else)."""
+    return {k: v * ((D if resident else 1) * chunks
+                    if k in MESH_APPLY_KERNELS else D)
+            for k, v in base.items()}
+
+
+def mesh_engine_calls(torch, P, table, meshes, total):
+    """Each engine call of section 5 at pass2 master, mesh and auto on each
+    mesh: keep, merged state and emissions bit for bit against two_pass at
+    S = SHARDS; the report's counts against the masks (entries kept), one
+    merge collective, and the gathered bytes (S lanes' states, times the
+    positions when pass 2 is resident); the launches of the call's first
+    run alone against ``mesh_launches``, added to ``total``; the wall time
+    of each call, first and again, against two_pass's (warm: after one
+    call)."""
+    from repro_torch import core
+
+    block = core.engine.DEFAULT_MESH_APPLY_BLOCK
+    n = -(-M_MAIN // SHARDS)
+    ok = True
+    for name, algo, cols, params in ENGINE_CALLS:
+        streams = engine_streams(torch, table, algo, cols)
+
+        def two_pass():
+            return core.engine_prune(algo, *streams, mode="two_pass",
+                                     shards=SHARDS, **params)
+
+        two_pass()
+        two, two_s, base = counted(P, two_pass)
+        shipped = two.report.counters["state_bytes_shipped"]
+        chunks = (-(-n // block) if core.engine._SPECS[algo].chunkable
+                  and block < n else 1)
+        for mname, mesh in meshes:
+            D = mesh.shape[mesh.axis]
+            for p2 in MESH_PASS2:
+                def call():
+                    return core.engine_prune(algo, *streams, mode="mesh",
+                                             shards=SHARDS, mesh=mesh,
+                                             pass2=p2, **params)
+
+                before = mesh.collectives
+                res, secs, counts = counted(P, call)
+                gathers = mesh.collectives - before
+                add_counts(total, counts)
+                _, again = sync_time(call)
+                resident = res.keep.ndim == 2
+                keep = (core.unshard_mask(res.keep, M_MAIN, mesh)
+                        if resident else res.keep)
+                c = res.report.counters
+                good = check(same(keep, two.keep), f"mesh: {name} {mname} "
+                             f"pass2={p2} keep differs from two_pass")
+                good &= check(same_state(torch, res.state, two.state),
+                              f"mesh: {name} {mname} pass2={p2} merged "
+                              "state differs from two_pass's")
+                good &= check(same_state(torch, res.emitted, two.emitted),
+                              f"mesh: {name} {mname} pass2={p2} emissions "
+                              "differ from two_pass's")
+                good &= check(
+                    c["entries_kept"] == int(keep.sum())
+                    and c["merge_collective_count"] == 1
+                    and c["state_bytes_shipped"]
+                    == shipped * (D if resident else 1)
+                    and gathers > 0,
+                    f"mesh: {name} {mname} pass2={p2} counts differ from "
+                    "the masks")
+                want = mesh_launches(base, D, resident, chunks)
+                good &= check(counts == want, f"mesh: {name} {mname} "
+                              f"pass2={p2} launched {counts}, not {want}")
+                ok &= good
+                say("mesh", call=json.dumps(name), mesh=mname, positions=D,
+                    pass2=p2, placed="mesh" if resident else "master",
+                    s=round(secs, 5), s_again=round(again, 5),
+                    two_pass_s=round(two_s, 5),
+                    gathered_bytes=c["state_bytes_shipped"],
+                    collectives=gathers, ok=good,
+                    launches=json.dumps(counts, separators=(",", ":")))
+    return ok
+
+
+def mesh_query_specs(QuerySpec, table, rankings) -> dict:
+    """(spec, tables) of each of phase main's MESH_QUERY_PATHS."""
+    from repro_torch import core
+
+    uv_filter = filter_formulas(core, 0.0)[1]
+    return {
+        "run_query_topn": (QuerySpec("topn", ("ad_revenue",),
+                                     dict(N=TOPN_N, **TOPN)), table),
+        "run_query_distinct": (QuerySpec("distinct", ("source_ip",),
+                                         dict(policy="fifo", **DISTINCT)),
+                               table),
+        "run_query_skyline": (QuerySpec("skyline", SKY_COLS, SKYLINE), table),
+        "run_query_having_count": (QuerySpec("having", HAVING_COUNT[:2],
+                                             HAVING_COUNT[2]), table),
+        "run_query_groupby_count": (QuerySpec(
+            "groupby", ("source_ip", "ad_revenue"),
+            dict(agg="count", **GROUPBY)), table),
+        "run_query_join": (QuerySpec("join", ("dest_url", "page_url"), JOIN),
+                           (table, rankings)),
+        "run_query_filter_uservisits": (QuerySpec(
+            "filter", uv_filter[1], dict(formula=uv_filter[2])), table),
+    }
+
+
+def mesh_queries(torch, P, table, rankings, answers, total):
+    """One run_query a query kind on mesh (c)'s workers (axis "data"), each
+    answer against phase main's; then one run_queries group whose resident
+    wave is one gather. Each run's launches alone are added to ``total``;
+    JOIN's must have built and queried its Bloom filters on the card."""
+    from repro_torch import core
+    from repro_torch.query import QuerySpec, run_queries, run_query
+
+    specs = mesh_query_specs(QuerySpec, table, rankings)
+    ok = True
+    for name in MESH_QUERY_PATHS:
+        spec, tabs = specs[name]
+        mesh = core.Mesh((torch.device("cuda", 0),) * MESH_POSITIONS,
+                         axis="data")
+        r, secs, counts = counted(
+            P, lambda: run_query(spec, tabs, mesh=mesh))
+        add_counts(total, counts)
+        good = check(same_answer(torch, r["output"], answers[name]),
+                     f"mesh: {name} with a mesh differs from phase main's "
+                     "answer")
+        if name == "run_query_join":
+            good &= check(counts.get("bloom_query", 0) > 0 and (
+                counts.get("bloom_build", 0)
+                + counts.get("bloom_build_global", 0)) > 0,
+                "mesh: JOIN built or queried no Bloom filter on the card")
+        ok &= good
+        say("mesh", path=name, workers=MESH_POSITIONS, s=round(secs, 4),
+            pruned=round(r["pruned_fraction"], 6),
+            collectives=mesh.collectives, ok=good,
+            launches=json.dumps(counts, separators=(",", ":")))
+    specs = [s for s in batch_specs(QuerySpec)
+             if (s.kind, s.params.get("policy")) == ("distinct", "lru")]
+    mesh = core.Mesh((torch.device("cuda", 0),) * MESH_POSITIONS,
+                     axis="data")
+    out, secs, counts = counted(
+        P, lambda: run_queries(specs, table, mesh=mesh))
+    add_counts(total, counts)
+    f64 = table.cols["source_ip"].view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
+    uniq = torch.unique(f64)
+    good = check(mesh.collectives == 1, f"mesh: run_queries' group took "
+                 f"{mesh.collectives} gathers, not one")
+    for spec, r in zip(specs, out):
+        got = r["output"].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        good &= check(torch.equal(got, uniq), f"mesh: run_queries {spec} "
+                      "answer differs from unique")
+    say("mesh", path="run_queries", queries=len(specs), s=round(secs, 4),
+        collectives=mesh.collectives, ok=good,
+        launches=json.dumps(counts, separators=(",", ":")))
+    return ok & good
+
+
+def same_answer(torch, a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and bool(torch.equal(a, b)))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_answer(torch, x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def mesh_stream_and_plan(torch, P, table, total):
+    """A PruneStream on mesh (c), close() against one-shot two_pass on the
+    lane view; and execute_plan of a mesh plan, whose keep comes back flat
+    and equal to two_pass's. The references run first; each mesh run's
+    launches alone are added to ``total``."""
+    from repro_torch import core
+
+    name, K = MESH_STREAM
+    _, algo, cols, params = next(c for c in ENGINE_CALLS if c[0] == name)
+    streams = engine_streams(torch, table, algo, cols)
+    sizes = stream_sizes()
+    lv, valid, arrival = core.lane_view(algo, streams, sizes, SHARDS,
+                                        **params)
+    lone = core.engine_prune(algo, *lv, mode="two_pass", shards=SHARDS,
+                             obs="off", **params)
+    mesh = core.Mesh((torch.device("cuda", 0),) * MESH_POSITIONS)
+    s = core.PruneStream(algo, shards=SHARDS, mesh=mesh, merge_every=K,
+                         obs="counters", **params)
+
+    def fold_all():
+        lo = 0
+        for b in sizes:
+            s.fold(*(x[lo:lo + b] for x in streams))
+            lo += b
+        return s.close()
+
+    res, wall, counts = counted(P, fold_all)
+    add_counts(total, counts)
+    ok = check(same(res.keep[arrival[valid]], lone.keep[valid]),
+               f"mesh: PruneStream {name} close() differs from one-shot "
+               "two_pass on the lane view")
+    ok &= check(mesh.collectives == res.stats["merges"], "mesh: the stream "
+                "took another count of gathers than merges")
+    say("mesh", path="PruneStream", call=json.dumps(name), merge_every=K,
+        positions=MESH_POSITIONS, batches=res.stats["batches"],
+        merges=res.stats["merges"], stream_s=round(wall, 4),
+        gathered_bytes=res.report.counters["state_bytes_shipped"], ok=ok,
+        launches=json.dumps(counts, separators=(",", ":")))
+    for name, algo, cols, params in ENGINE_CALLS[:4]:
+        streams = engine_streams(torch, table, algo, cols)
+        two = core.engine_prune(algo, *streams, mode="two_pass",
+                                shards=SHARDS, obs="off", **params)
+        plan = core.Plan(mode="mesh", shards=SHARDS, pass2="mesh",
+                         num_devices=1)
+        got, secs, counts = counted(P, lambda: core.execute_plan(
+            algo, *streams, plan=plan, obs="off", **params))
+        add_counts(total, counts)
+        good = check(got.keep.shape == (M_MAIN,) and same(got.keep, two.keep),
+                     f"mesh: execute_plan({plan.key()}) {name} keep is not "
+                     "two_pass's flat keep")
+        ok &= good
+        say("mesh", path="execute_plan", call=json.dumps(name),
+            plan=plan.key(), s=round(secs, 5), ok=good)
+    return ok
+
+
+def phase_mesh(torch, P, table, rankings, answers):
+    """Mesh mode on the card (module comment above MESH_PASS2): the engine
+    calls on meshes (a), (b) and (c); a run_query a query kind and a
+    run_queries group on (c)'s workers; a PruneStream on (c); execute_plan
+    of a mesh plan. Launch counts are set to 0 just before each mesh run
+    and read just after it (``counted``), never around a reference run;
+    their sum must hold every kernel of the mesh paths. Mesh (a) is built
+    before any process group exists, so it is default_mesh's card branch
+    with no group; the one-rank NCCL group (b) meets through a HashStore
+    and is destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch import core
+
+    card = torch.device("cuda", 0)
+    total: dict = {}
+    alone = core.default_mesh()
+    ok = check(alone.devices == (card,) and alone.group is None,
+               "mesh: default_mesh() is not one position on the card "
+               "without a group")
+    # NCCL's bootstrap of the one rank stays on the loopback device
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        nccl = core.Mesh((card,), group=dist.group.WORLD)
+        ok &= check(dist.get_backend(nccl.group) == "nccl",
+                    "mesh: mesh (b)'s group is not NCCL")
+        meshes = (("a default_mesh", alone), ("b nccl", nccl),
+                  ("c 8 positions", core.Mesh((card,) * MESH_POSITIONS)))
+        ok &= mesh_engine_calls(torch, P, table, meshes, total)
+    finally:
+        dist.destroy_process_group()
+    ok &= mesh_queries(torch, P, table, rankings, answers, total)
+    ok &= mesh_stream_and_plan(torch, P, table, total)
+    for k in MESH_PATH_KERNELS:
+        ok &= check(total.get(k, 0) > 0,
+                    f"mesh: kernel {k} was never launched by a mesh run")
+    say("mesh", card=json.dumps(card_line()), ok=ok,
+        launches=json.dumps(total, separators=(",", ":")))
 
 
 # -------------------------------------------------------------- phase batch
@@ -6133,8 +6509,9 @@ def main() -> int:
         timed("kernels", phase_kernels, torch, P, R, O, host)
         timed("dtypes", phase_dtypes, torch, P)
         say("host", plain_loops_done=host.done())
-        table, rankings, pts, totals, encoded, rle, paths = timed(
+        table, rankings, pts, totals, encoded, rle, paths, answers = timed(
             "main", phase_main, torch, P, O)
+        timed("mesh", phase_mesh, torch, P, table, rankings, answers)
         sbytes = timed("planner", phase_planner, torch, table)
         timed("obs", phase_obs, torch, paths, sbytes)
         timed("stream", phase_stream, torch, P, table, pts)

@@ -28,6 +28,7 @@ from .having import (having_init, having_prune, master_complete_having,
                      having_oracle)
 from .encoding import (DictEncoding, dict_encode, normalize_encodings,
                        rle_encode, rle_expand)
+from .mesh import Mesh, default_mesh
 from .engine import (ALGORITHMS, MODES, PASS2, DistinctMerged,
                      TopNDetMerged, apply_merged, calibrate_merge_cost,
                      engine_prune, execute_plan, merge_states, reset_caches,

@@ -7,13 +7,22 @@ Cheetah's switch serves many concurrent queries over one entry stream
 stream's lanes together, each family's bodies in ``core.batched``: every
 shape parameter padded to the batch's cap, every value parameter the
 query's own, each query's keep bit-identical to its serial
-``engine_prune``. Two modes:
+``engine_prune``. Three modes:
 
 ``scan``      one lane over the whole stream for every query; the state is
               each query's lane state [Q, ...] at the batch's caps.
 ``two_pass``  S lanes for every query (pass 1 of the whole wave), then each
               query's merge and pass 2; the state is each query's merged
               state, GROUP BY's emissions are [Q, S * ceil(m/S)].
+``mesh``      the S lanes over the positions of a ``core.mesh.Mesh``:
+              each position runs the wave's pass 1 (the batched walks) on
+              its own lanes. ``pass2="mesh"`` (the default here) gathers
+              only the wave's states, a leading Q axis on every leaf, so
+              ONE gather a leaf serves the whole wave; every device folds
+              each query's merge and each position filters its own lanes
+              (keep stacked [Q, S, n], ``unshard_mask_batch`` flattens).
+              ``pass2="master"`` gathers masks, states and emissions to
+              the master, which filters the whole stream.
 
 ``device_budget_bytes`` charges each query its padded switch state times
 the lanes that ship it (``state_bytes`` of the family, from the caps and
@@ -21,15 +30,14 @@ the decoded streams' dtypes), and ``planner.plan_query_batch`` splits the
 batch into admission waves that fit (a query above the budget runs
 alone); every wave runs at the batch's caps, so the waves concatenate
 along Q. Telemetry as the reference records it: a span a wave, and in
-``two_pass`` one merge collective and the wave's state bytes a wave.
+``two_pass`` and ``mesh`` one merge collective and the wave's state bytes
+a wave (times the positions when pass 2 is resident).
 
 ``execute_plan_batch`` runs one tuned ``planner.Plan`` for the whole
-batch (``query.run_queries(tune=)``): two_pass at the plan's S and chunk.
+batch (``query.run_queries(tune=)``): two_pass, or mesh on the plan's
+device spread, at the plan's S and chunk.
 
-Not ported yet, and refused naming their ROADMAP item: ``mode="mesh"``,
-``mesh=`` and ``pass2``, and a ``mode="mesh"`` plan (Queue 1 item 7: the
-mesh waves); ``tune=`` and ``plan_cache=`` are refused as the reference
-refuses them.
+``tune=`` and ``plan_cache=`` are refused as the reference refuses them.
 """
 from __future__ import annotations
 
@@ -65,9 +73,14 @@ class BatchPruneResult:
     report = None
 
 
-def unshard_mask_batch(keep: torch.Tensor, m: int) -> torch.Tensor:
+def unshard_mask_batch(keep: torch.Tensor, m: int, mesh=None
+                       ) -> torch.Tensor:
     """Stacked [Q, S, n] batch keep masks -> flat bool[Q, m]: per query,
-    the lanes in stream order, the tail pads dropped."""
+    the lanes in stream order, the tail pads dropped. With the ``mesh`` of
+    a resident pass 2 across processes (each holding its own lanes), the
+    processes' lanes are gathered first, as ``engine.unshard_mask`` does."""
+    if mesh is not None and mesh.world > 1:
+        keep = mesh.all_gather([keep], dim=1)
     return keep.reshape(keep.shape[0], -1)[:, :m]
 
 
@@ -108,23 +121,91 @@ def _run_wave_scan(bspec, streams, qps, caps):
             None if ev is None else tuple(e[:, 0] for e in ev))
 
 
+def _apply_wave(bspec, pads_fn, lanes, qps, caps, apply_block, keep1,
+                merged, lane0: int = 0) -> torch.Tensor:
+    """Each query's pass 2 on ``lanes`` (global lanes from ``lane0``):
+    keep [Q, S, n]."""
+    keeps = []
+    for i, q in enumerate(qps):
+        q2 = dict(q, _lane0=lane0)
+        if apply_block and bspec.chunkable \
+                and apply_block < lanes[0].shape[1]:
+            k2 = E._apply_chunked(
+                lambda g, ln, k1, p, q=q2: bspec.apply(g, ln, k1, q, caps),
+                pads_fn, merged[i], lanes, keep1[i], {}, apply_block)
+        else:
+            k2 = bspec.apply(merged[i], lanes, keep1[i], q2, caps)
+        keeps.append(k2)
+    return torch.stack(keeps)
+
+
+def _pass2_master(bspec, pads_fn, lanes, qps, caps, apply_block, keep1, st,
+                  ev):
+    """Each query's merge, then its pass 2 over all S lanes (two_pass, and
+    mesh mode's pass2="master"): (keep [Q, S, n], merged [Q, ...],
+    emitted)."""
+    merged = [bspec.merge(batched.take(st, i), q, caps)
+              for i, q in enumerate(qps)]
+    keep = _apply_wave(bspec, pads_fn, lanes, qps, caps, apply_block, keep1,
+                       merged)
+    return keep, batched.stack(merged), ev
+
+
 def _run_wave_two_pass(bspec, pads_fn, lanes, qps, caps, apply_block):
     """Pass 1 of the wave's queries over S lanes, then each query's merge
     and pass 2: (keep [Q, S, n], merged states [Q, ...], emitted)."""
     keep1, st, ev = bspec.pass1(lanes, qps, caps, False)
-    keeps, merged = [], []
-    for i, q in enumerate(qps):
-        mg = bspec.merge(batched.take(st, i), q, caps)
-        if apply_block and bspec.chunkable \
-                and apply_block < lanes[0].shape[1]:
-            k2 = E._apply_chunked(
-                lambda g, ln, k1, p, q=q: bspec.apply(g, ln, k1, q, caps),
-                pads_fn, mg, lanes, keep1[i], {}, apply_block)
-        else:
-            k2 = bspec.apply(mg, lanes, keep1[i], q, caps)
-        keeps.append(k2)
-        merged.append(mg)
-    return torch.stack(keeps), batched.stack(merged), ev
+    return _pass2_master(bspec, pads_fn, lanes, qps, caps, apply_block,
+                         keep1, st, ev)
+
+
+def _wave_pass1_parts(bspec, lanes, qps, caps, mesh):
+    """Pass 1 of the wave on each position's own S/D lanes (the batched
+    walks once a position): [(device, lane0, local lanes, (keep [Q, L, n],
+    states [Q, L, ...], emitted))]."""
+    L = E._mesh_lanes(lanes[0].shape[0], mesh.shape[mesh.axis])
+    out = []
+    for dev, g0 in mesh.positions(L):
+        local = E._position_lanes(lanes, g0, L, dev)
+        out.append((dev, g0, local, bspec.pass1(local, qps, caps, False)))
+    return out
+
+
+def _run_wave_mesh_master(bspec, pads_fn, lanes, qps, caps, mesh,
+                          apply_block):
+    """The wave's pass 1 on the mesh; its masks, states and emissions
+    gathered to the master (lane axis 1), which merges and filters the
+    whole stream for each query."""
+    parts = _wave_pass1_parts(bspec, lanes, qps, caps, mesh)
+    keep1, st, ev = (mesh.all_gather([p[3][i] for p in parts], dim=1)
+                     for i in range(3))
+    home = mesh.devices[0]
+    return _pass2_master(bspec, pads_fn, tuple(s.to(home) for s in lanes),
+                         qps, caps, apply_block, keep1, st, ev)
+
+
+def _run_wave_mesh_resident(bspec, pads_fn, lanes, qps, caps, mesh,
+                            apply_block):
+    """Both passes of a whole wave on the mesh.
+
+    Every lane state carries the wave's leading Q axis, so ONE gather a
+    state leaf ships every query's states at once (not Q of them); every
+    device folds each query's merge and each position applies it to its
+    own lanes. Returns this process's keep [Q, S_proc, n], the merged
+    states [Q, ...] and the emissions [Q, S_proc, n] on ``devices[0]``."""
+    parts = _wave_pass1_parts(bspec, lanes, qps, caps, mesh)
+    gathered = mesh.all_gather([p[3][1] for p in parts], dim=1)
+    home = mesh.devices[0]
+    merged = mesh.replicate(gathered, lambda g: [
+        bspec.merge(batched.take(g, i), q, caps) for i, q in enumerate(qps)])
+    keeps = [_apply_wave(bspec, pads_fn, local, qps, caps, apply_block,
+                         r1[0], merged[dev], g0).to(home)
+             for dev, g0, local, r1 in parts]
+    ev = None
+    if parts[0][3][2] is not None:
+        ev = tuple(torch.cat([p[3][2][i].to(home) for p in parts], dim=1)
+                   for i in range(len(parts[0][3][2])))
+    return torch.cat(keeps, dim=1), batched.stack(merged[home]), ev
 
 
 def _concat_waves(parts: list):
@@ -155,9 +236,12 @@ def engine_prune_batch(algo: str, queries, *streams,
     modulus) must agree: ``query.run_queries`` groups specs so that they
     do.
 
-    mode: ``"scan"`` or ``"two_pass"`` (the default). ``shards`` must be a
-    concrete lane count (None: 8, capped at m; ``"auto"`` calibration is
-    per query). ``apply_block`` chunks the DISTINCT and SKYLINE pass 2.
+    mode: ``"scan"``, ``"two_pass"`` (the default) or ``"mesh"``
+    (``mesh`` / ``mesh_axis`` / ``pass2`` as ``engine_prune`` takes them;
+    pass2 defaults to ``"mesh"``, the point of batching on a mesh).
+    ``shards`` must be a concrete lane count (None: 8, capped at m, or one
+    lane a position in mesh mode; ``"auto"`` calibration is per query).
+    ``apply_block`` chunks the DISTINCT and SKYLINE pass 2.
     ``encoding`` / ``decode`` as ``engine_prune``. ``obs``: the telemetry
     level; the report counts every query's entries.
 
@@ -165,7 +249,8 @@ def engine_prune_batch(algo: str, queries, *streams,
     (§8): each query is charged its padded state times its lanes, and the
     batch runs in admission waves that fit (``planner.plan_query_batch``).
 
-    Returns ``BatchPruneResult``: keep bool[Q, m], the plan attached.
+    Returns ``BatchPruneResult``: keep bool[Q, m] (stacked [Q, S, n] when
+    pass 2 ran resident), the plan attached.
     """
     opts = ExecOptions.resolve(options, mode=mode, shards=shards,
                                pass2=pass2, apply_block=apply_block,
@@ -188,10 +273,6 @@ def engine_prune_batch(algo: str, queries, *streams,
             raise ValueError(
                 f"pass2={pass2!r} only applies to mode='mesh' "
                 f"(got {mode!r})")
-    if mode == "mesh" or mesh is not None:
-        raise E._not_ported("engine_prune_batch(mode='mesh', mesh=)",
-                            "Queue 1 item 7: mesh mode")
-    del mesh_axis
     bspec = batched.BSPECS[algo]  # KeyError = unknown algorithm
     spec = E._SPECS[algo]
     queries = list(queries)
@@ -205,13 +286,16 @@ def engine_prune_batch(algo: str, queries, *streams,
         encs = (None,) * len(streams)
     encoded = any(e is not None for e in encs)
     m = streams[0].shape[0]
+    ndev = ((mesh.shape[mesh_axis] if mesh is not None
+             else E.default_positions(streams[0].device))
+            if mode == "mesh" else 1)
     if shards is None:
-        shards = min(8, m)
+        shards = ndev if mode == "mesh" else min(8, m)
     if not isinstance(shards, int) or isinstance(shards, bool):
         raise ValueError(
             f"engine_prune_batch needs a concrete lane count, got "
             f"shards={shards!r} ('auto' calibration is per-query)")
-    scan_only = mode == "scan" or shards <= 1
+    scan_only = mode == "scan" or (shards <= 1 and mode != "mesh")
 
     if scan_only:
         if encoded:
@@ -222,6 +306,8 @@ def engine_prune_batch(algo: str, queries, *streams,
     else:
         if shards > m:
             raise ValueError(f"shards={shards} exceeds stream length {m}")
+        if mode == "mesh" and mesh is None:
+            mesh = E._mesh_for_shards(shards, mesh_axis, streams[0].device)
         if m % shards and spec.pad_validity and len(streams) < 3:
             streams = streams + (torch.ones(m, dtype=torch.bool,
                                             device=streams[0].device),)
@@ -234,6 +320,8 @@ def engine_prune_batch(algo: str, queries, *streams,
                  else (0,) * len(streams))
         lanes = tuple(E.shard_stack(s, shards, f)
                       for s, f in zip(streams, fills))
+        if apply_block is None and mode == "mesh" and bspec.chunkable:
+            apply_block = E.DEFAULT_MESH_APPLY_BLOCK
         per_query = _batch_query_bytes(bspec, caps, streams, encs, shards)
 
     plan = planner.plan_query_batch([per_query] * len(queries),
@@ -244,21 +332,39 @@ def engine_prune_batch(algo: str, queries, *streams,
                      shards=int(shards), m=int(m), encoded=encoded,
                      waves=len(plan.waves))
 
+    p2 = None
+    if mode == "mesh":
+        p2 = pass2 or "mesh"
+        if p2 == "auto":
+            # the largest wave's resident gather; one placement for every
+            # wave keeps the keep's layout uniform across waves
+            p2 = planner.optimal_pass2(
+                m, ndev, per_query * max(len(w) for w in plan.waves))
+    resident = p2 == "mesh"
+
     parts = []
     for wi, wave in enumerate(plan.waves):
         qps_w = [qps[i] for i in wave]
         with rec.span(f"wave{wi}", queries=len(wave), mode=mode):
             if scan_only:
                 parts.append(_run_wave_scan(bspec, streams, qps_w, caps))
+            elif resident:
+                parts.append(_run_wave_mesh_resident(
+                    bspec, spec.pads, lanes, qps_w, caps, mesh, apply_block))
+            elif mode == "mesh":
+                parts.append(_run_wave_mesh_master(
+                    bspec, spec.pads, lanes, qps_w, caps, mesh, apply_block))
             else:
                 parts.append(_run_wave_two_pass(bspec, spec.pads, lanes,
                                                 qps_w, caps, apply_block))
             rec.sync(parts[-1][0])
         if rec.active and not scan_only:
-            # a wave's states cross to the master together: one merge
-            # collective over all its queries' states
+            # a wave's states cross together: one merge collective over all
+            # its queries' states (per_query is S x one lane's bytes), and
+            # the resident gather lands a copy on every position
             rec.count("merge_collective_count", 1)
-            rec.count("state_bytes_shipped", per_query * len(wave))
+            rec.count("state_bytes_shipped",
+                      per_query * len(wave) * (ndev if resident else 1))
     keep, state, emitted = _concat_waves(parts)
 
     order = np.concatenate([np.asarray(w, np.int64) for w in plan.waves])
@@ -272,12 +378,14 @@ def engine_prune_batch(algo: str, queries, *streams,
         # emissions keep the full padded length, flattened per query
         emitted = (None if emitted is None else
                    tuple(e.reshape(e.shape[0], -1) for e in emitted))
-        keep = unshard_mask_batch(keep, m)
+        if not resident:
+            keep = unshard_mask_batch(keep, m)
     res = BatchPruneResult(keep=keep, state=state, emitted=emitted,
                            plan=plan)
     if rec.active:
         E._obs_mask_counts(rec, keep, m, encoded=encoded,
-                           queries=len(queries))
+                           queries=len(queries),
+                           partial=resident and mesh.world > 1)
         res.report = rec.finish()
     return res
 
@@ -288,13 +396,23 @@ def execute_plan_batch(algo: str, queries, *streams, plan,
                        obs: str | None = None) -> BatchPruneResult:
     """Batched counterpart of ``engine.execute_plan``: one tuned plan for Q
     same-family queries over shared streams; keep comes back flat
-    bool[Q, m]. A ``mode="mesh"`` plan waits for the mesh (ROADMAP Queue 1
-    item 7)."""
+    bool[Q, m] on the streams' device, wherever pass 2 ran."""
+    streams = tuple(s for s in streams if s is not None)
+    dev = streams[0].device
+    kwargs = dict(shards=plan.shards, apply_block=plan.apply_block,
+                  encoding=encoding, obs=obs,
+                  device_budget_bytes=device_budget_bytes)
+    mesh = None
     if plan.mode == "mesh":
-        raise E._not_ported("execute_plan_batch of a mode='mesh' plan",
-                            "Queue 1 item 7: mesh mode")
-    return engine_prune_batch(algo, queries, *streams, mode="two_pass",
-                              shards=plan.shards,
-                              apply_block=plan.apply_block,
-                              encoding=encoding, obs=obs,
-                              device_budget_bytes=device_budget_bytes)
+        mesh = E.default_mesh("shards", num_devices=plan.num_devices,
+                              device=dev)
+        res = engine_prune_batch(algo, queries, *streams, mode="mesh",
+                                 mesh=mesh, pass2=plan.pass2, **kwargs)
+    else:
+        res = engine_prune_batch(algo, queries, *streams, mode="two_pass",
+                                 **kwargs)
+    if res.keep.ndim == 3:  # resident pass 2: stacked [Q, S, n]
+        res.keep = unshard_mask_batch(res.keep, int(streams[0].shape[0]),
+                                      mesh)
+    res.keep = res.keep.to(dev)
+    return res

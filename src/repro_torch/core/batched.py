@@ -300,7 +300,8 @@ def _distinct_apply(merged, lanes, keep1, q, caps):
     keep = kpar.distinct_apply_kernel(
         kpar.distinct_form(x.reshape(-1)), keep1.reshape(-1),
         merged.slots[:q["d"]].contiguous(), merged.valid[:q["d"]].contiguous(),
-        d=q["d"], shards=x.shape[0], seed=q["seed"])
+        d=q["d"], shards=x.shape[0], seed=q["seed"],
+        lane0=q.get("_lane0", 0), w=merged.w)
     return keep.reshape(x.shape)
 
 

@@ -3,8 +3,8 @@
 Forwarding any superset of a pruner's keep set leaves the query answer
 unchanged, so S independent switch lanes over S contiguous shards of the
 stream still yield a correct superset. ``engine_prune(algo, stream,
-mode=..., shards=S)`` runs one of three modes on the device the stream
-lives on:
+mode=..., shards=S)`` runs one of four modes on the device the stream
+lives on (``mesh``: on the mesh's positions):
 
 ``scan``      one lane over the whole stream (the single-switch oracle).
 ``sharded``   S lanes, each over its contiguous shard; the keep masks
@@ -47,11 +47,16 @@ result (counters from the materialised mask, wall-clock spans in
 ``execute_plan``: two_pass at the plan's S, masks identical for every
 plan at that S.
 
-Ported so far: all six algorithms (``topn_det``, ``topn_rand``,
-``distinct`` with ``policy="lru"`` or ``"fifo"``, ``skyline``, ``having``,
-``groupby``) in ``scan``, ``sharded`` and ``two_pass``, plain or encoded.
-Each algorithm's ``resume`` and ``init`` bodies carry the streaming fold
-(``core.streaming``): pass 1 from a carried stacked state, in place.
+``mesh``     two_pass with the S lanes spread over the positions of a
+             ``core.mesh.Mesh`` (S/D lanes a position), pass 2 at the
+             master (``pass2="master"``) or on each position's resident
+             lanes (``pass2="mesh"``: only the lane states are gathered).
+
+All six algorithms (``topn_det``, ``topn_rand``, ``distinct`` with
+``policy="lru"`` or ``"fifo"``, ``skyline``, ``having``, ``groupby``) run
+in all four modes, plain or encoded. Each algorithm's ``resume`` and
+``init`` bodies carry the streaming fold (``core.streaming``): pass 1 from
+a carried stacked state, in place.
 """
 from __future__ import annotations
 
@@ -78,6 +83,7 @@ from .encoding import as_x32, normalize_encodings
 from .groupby import GroupByState, groupby_init
 from .having import add_tables, batch_table, having_init
 from .hashing import by_value
+from .mesh import Mesh, default_mesh, default_positions
 from .options import ExecOptions
 from .pruning import PruneResult
 from .skyline import SkylineState, skyline_init
@@ -87,8 +93,12 @@ from .topn import TopNDetState, TopNRandState, topn_det_init, topn_rand_init
 MODES = ("scan", "sharded", "two_pass", "mesh")
 ALGORITHMS = ("topn_det", "topn_rand", "distinct", "skyline", "groupby",
               "having")
+# pass-2 placements for mode="mesh": apply the merged state at the master
+# (the whole stream), on each position's resident lanes, or let the
+# planner's cost rule choose (planner.optimal_pass2)
 PASS2 = ("master", "mesh", "auto")
-# pass-2 chunk of the tuner's incumbent for the chunkable algorithms
+# pass-2 chunk of mode="mesh" (and of the tuner's incumbent) for the
+# chunkable algorithms, DISTINCT and SKYLINE
 DEFAULT_MESH_APPLY_BLOCK = 4096
 
 
@@ -276,10 +286,14 @@ def _distinct_merge(st, p):
 
 
 def _distinct_apply(merged, lanes, keep1, p):
+    # the "a lower-ranked shard owns it" test needs global lane ranks: a
+    # resident pass 2 sees its position's lanes only, which start at
+    # _lane0 of the merged union
     (x,) = lanes
     keep = kpar.distinct_apply_kernel(
         kpar.distinct_form(x.reshape(-1)), keep1.reshape(-1), merged.slots,
-        merged.valid, d=p["d"], shards=x.shape[0], seed=p.get("seed", 0))
+        merged.valid, d=p["d"], shards=x.shape[0], seed=p.get("seed", 0),
+        lane0=p.get("_lane0", 0), w=merged.w)
     return keep.reshape(x.shape)
 
 
@@ -473,10 +487,6 @@ _SPECS: dict[str, _AlgoSpec] = {
 }
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _spec(algo: str, params: dict) -> _AlgoSpec:
     if algo not in ALGORITHMS:
         raise KeyError(algo)
@@ -564,8 +574,17 @@ def _unshard(x: torch.Tensor, m: int) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[2:]))[:m]
 
 
-def unshard_mask(keep: torch.Tensor, m: int) -> torch.Tensor:
-    """Stacked [S, n] keep mask -> flat bool[m] (inverse of shard_stack)."""
+def unshard_mask(keep: torch.Tensor, m: int, mesh=None) -> torch.Tensor:
+    """Stacked [S, n] keep mask -> flat bool[m] (inverse of shard_stack):
+    the lanes in stream order, the tail pads dropped.
+
+    A resident pass 2 (``pass2="mesh"``) across processes leaves each
+    process its own lanes; with that ``mesh`` the flat masks of every
+    process are gathered over its group: the O(m) bools that are the only
+    gather a resident pass 2 needs, never the entries. A torch tensor does
+    not carry its sharding, so the mesh is passed."""
+    if mesh is not None and mesh.world > 1:
+        keep = mesh.all_gather([keep.reshape(-1)])
     return _unshard(keep, m)
 
 
@@ -619,12 +638,17 @@ def _state_nbytes(state) -> int:
 
 
 def _obs_mask_counts(rec, keep: torch.Tensor, m: int, *,
-                     encoded: bool = False, queries: int = 1) -> None:
+                     encoded: bool = False, queries: int = 1,
+                     partial: bool = False) -> None:
     """Feed the per-call mask counters from the materialised keep mask
-    (bool[m], or bool[Q, m] for a batch of ``queries``): one sum and one
-    host read of the count."""
+    (bool[m], stacked [S, n], or either with a leading Q axis for a batch
+    of ``queries``): one sum and one host read of the count. ``partial``:
+    the mask holds this process's lanes only (a resident pass 2 across
+    processes), so the kept count is not read."""
     scanned = int(m) * queries
     rec.count("entries_scanned", scanned)
+    if partial:
+        return
     kept = int(rec.sync(keep).reshape(queries, -1)[:, :m].sum())
     rec.count("entries_kept", kept)
     if encoded and scanned:
@@ -724,16 +748,18 @@ def calibrate_merge_cost(algo: str, streams, params: dict
 
 
 def _resolve_shards(algo: str, streams, params: dict, mode: str,
-                    shards) -> int:
-    """Turn shards=None / "auto" into a lane count for ``mode``: None is 8
-    (capped at m), "auto" is 1 for ``scan`` and else the planner's
-    ``optimal_shards`` over the calibrated merge cost, capped at m. An int
-    passes through (``engine_prune`` checks it)."""
+                    shards, ndev: int = 1) -> int:
+    """Turn shards=None / "auto" into a lane count for ``mode``; ``ndev``
+    is the mesh's position count (1 outside mode="mesh"). None is 8 (capped
+    at m), or one lane a position in mesh mode; "auto" is 1 for ``scan`` and
+    else the planner's ``optimal_shards`` over the calibrated merge cost,
+    capped at m (in mesh mode rounded up to a multiple of ndev, and down to
+    the stream). An int passes through (``engine_prune`` checks it)."""
     m = streams[0].shape[0]
     if isinstance(shards, int):
         return shards
     if shards is None:
-        return min(8, m)
+        return ndev if mode == "mesh" else min(8, m)
     if shards != "auto":
         raise ValueError(
             f"shards must be an int, None or 'auto', got {shards!r}")
@@ -741,7 +767,96 @@ def _resolve_shards(algo: str, streams, params: dict, mode: str,
         return 1
     c, state_bytes = calibrate_merge_cost(algo, streams, params)
     s = planner.optimal_shards(m, state_bytes, merge_byte_cost=c)
+    if mode == "mesh":
+        if m < ndev:
+            raise ValueError(f"stream length {m} is shorter than the mesh "
+                             f"axis ({ndev} devices)")
+        s = -(-s // ndev) * ndev           # round up to a lane multiple
+        s = min(s, m // ndev * ndev)       # ...but never past the stream
+        return max(s, ndev)
     return max(1, min(s, m))
+
+
+# ---------------------------------------------------------------- the mesh
+def _mesh_for_shards(shards: int, axis: str, device=None) -> Mesh:
+    """The largest default mesh of ``device`` whose position count divides
+    S, so that S lanes spread evenly and any S runs: the lane count, not
+    the device count, is what the keep mask depends on."""
+    ndev = default_positions(device)
+    d = max(k for k in range(1, min(ndev, shards) + 1) if shards % k == 0)
+    return default_mesh(axis, d, device=device)
+
+
+def _mesh_lanes(shards: int, ndev: int) -> int:
+    """Lanes a position (S/D); the one place the mesh modes check that an
+    explicit mesh's axis size divides the lane count."""
+    if shards % ndev:
+        raise ValueError(
+            f"mode='mesh' needs shards divisible by the mesh axis size "
+            f"({shards} lanes over {ndev} devices); use shards='auto'")
+    return shards // ndev
+
+
+def _position_lanes(lanes: tuple, lane0: int, n: int, device) -> tuple:
+    """Lanes [lane0, lane0 + n) of each stream, on ``device``."""
+    return tuple(s[lane0:lane0 + n].to(device) for s in lanes)
+
+
+def _mesh_pass1(spec: _AlgoSpec, lanes: tuple, params: dict, mesh: Mesh):
+    """Pass 1 on the mesh: each position runs the pass-1 kernels on its own
+    S/D lanes (one launch over them); every position's keep, state and
+    emissions are then gathered to the master, ``devices[0]``, in the
+    stacked [S, ...] layout of the one-device pass 1 (the reference's
+    ``out_specs=P(axis)``)."""
+    L = _mesh_lanes(lanes[0].shape[0], mesh.shape[mesh.axis])
+    parts = [spec.pass1(_position_lanes(lanes, g0, L, dev), params)
+             for dev, g0 in mesh.positions(L)]
+    return tuple(mesh.all_gather([p[i] for p in parts]) for i in range(3))
+
+
+def _apply_at(spec: _AlgoSpec, merged, local: tuple, keep1, params: dict,
+              lane0: int, apply_block: int | None) -> torch.Tensor:
+    """One position's pass 2 on its lanes, which start at global lane
+    ``lane0``."""
+    p2 = dict(params, _lane0=lane0)
+    if apply_block and spec.chunkable and apply_block < local[0].shape[1]:
+        return _apply_chunked(spec.apply, spec.pads, merged, local, keep1,
+                              p2, apply_block)
+    return spec.apply(merged, local, keep1, p2)
+
+
+def _mesh_two_pass_resident(spec: _AlgoSpec, lanes: tuple, params: dict,
+                            mesh: Mesh, apply_block: int | None):
+    """Both passes on the mesh: the master never touches the stream.
+
+    Each position scans its resident S/D lanes; only the compact lane states
+    are gathered over the mesh (S x one lane's state bytes to each of the D
+    positions: "ship state upward, not entries"); every device folds the
+    same merge (that is the broadcast) and each position applies it to its
+    own lanes, whose global lane ranks start at its ``lane0``. Returns this
+    process's keep [S_proc, n] and emissions on ``devices[0]`` (all S lanes
+    in one process) and the merged state there."""
+    L = _mesh_lanes(lanes[0].shape[0], mesh.shape[mesh.axis])
+    pos = mesh.positions(L)
+    local = [_position_lanes(lanes, g0, L, dev) for dev, g0 in pos]
+    parts = [spec.pass1(x, params) for x in local]
+    gathered = mesh.all_gather([p[1] for p in parts])
+    home = mesh.devices[0]
+    merged = mesh.replicate(gathered, lambda g: spec.merge(g, params))
+    keep2 = [_apply_at(spec, merged[dev], x, p[0], params, g0, apply_block)
+             .to(home) for (dev, g0), x, p in zip(pos, local, parts)]
+    ev = None
+    if parts[0][2] is not None:
+        ev = tuple(torch.cat([p[2][i].to(home) for p in parts])
+                   for i in range(len(parts[0][2])))
+    return torch.cat(keep2), merged[home], ev
+
+
+def _per_shard_state_bytes(spec: _AlgoSpec, lanes: tuple, params: dict
+                           ) -> int:
+    """One lane's switch-state bytes, from an empty lane state (no pass 1
+    runs): what the resident gather ships a lane."""
+    return _state_nbytes(spec.init(tuple(s[:1, :1] for s in lanes), params))
 
 
 def reset_caches() -> None:
@@ -750,11 +865,6 @@ def reset_caches() -> None:
     calibrated first)."""
     _CALIBRATION.clear()
     planner.MEASURED_MERGE_COSTS.clear()
-
-
-def _reject_unported(mesh) -> None:
-    if mesh is not None:
-        raise _not_ported("mesh=", "Queue 1 item 7: mesh mode")
 
 
 def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
@@ -796,17 +906,36 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     card synchronised at each span's end. The counters read the finished
     mask, so the mask is bit-identical at every level.
 
-    Returns a PruneResult whose keep mask is over the original m entries.
+    Returns a PruneResult whose keep mask is over the original m entries
+    (stacked [S, n] over the padded stream when pass 2 is resident).
     state is the final scan state (``scan``), the stacked per-shard states
-    (``sharded``) or the merged global state (``two_pass``). emitted is
-    GROUP BY's (evicted key, evicted aggregate, valid) streams: m long in
-    ``scan``, S * ceil(m/S) long (the padded lanes, flattened) otherwise.
+    (``sharded``) or the merged global state (``two_pass``, ``mesh``).
+    emitted is GROUP BY's (evicted key, evicted aggregate, valid) streams:
+    m long in ``scan``, S * ceil(m/S) long (the padded lanes, flattened)
+    otherwise (this process's lanes when pass 2 is resident across
+    processes).
 
     encoding / decode: ``encoding`` is a ``DictEncoding`` (stream 0) or a
     per-stream tuple of ``DictEncoding | None``; encoded streams carry uint32
     codes and every body decodes them at entry, so the keep mask is
     bit-identical to pruning the decoded streams. ``decode="eager"`` decodes
     them up front; ``"auto"`` / ``"late"`` (the default) prune on codes.
+
+    mode="mesh" / mesh / mesh_axis / pass2: S lanes over the positions of
+    a ``core.mesh.Mesh`` (default: the largest ``default_mesh`` of the
+    streams' device whose position count divides S; an explicit mesh needs
+    S divisible by ``mesh.shape[mesh_axis]``; ``shards=None`` is one lane a
+    position). Each position runs pass 1 on its S/D lanes. ``pass2``:
+    ``"master"`` (the default) gathers the lanes' masks, states and
+    emissions to the master, ``mesh.devices[0]``, which merges and filters
+    the whole stream; ``"mesh"`` gathers only the states, every device
+    folds the same merge and each position filters its own lanes, so the
+    keep comes back stacked [S, n] (this process's lanes across processes;
+    flatten with ``unshard_mask(keep, m, mesh)``); ``"auto"`` takes the
+    planner's placement rule (``planner.optimal_pass2``). The chunkable
+    algorithms' pass 2 runs in blocks of ``DEFAULT_MESH_APPLY_BLOCK``
+    unless ``apply_block`` says otherwise. The masks, states and emissions
+    are those of ``two_pass`` at the same S, bit for bit.
 
     tune / plan_cache: ``"off"`` (the default) runs ``mode``;
     ``"cached"`` replays the plan cache's plan for these streams or runs
@@ -816,12 +945,10 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     default file). The race runs on the raw code streams, the winning plan
     then with ``encoding=``; mode, shards and apply_block are the plan's.
 
-    Not ported yet, and refused naming their ROADMAP item: ``mode="mesh"``,
-    ``mesh=`` and ``pass2`` other than ``"master"`` (item 7). Scan resume
-    (``state=`` / ``index_offset=``) is refused as the reference refuses
-    it: ``core.streaming.PruneStream`` and the core functions resume.
+    Scan resume (``state=`` / ``index_offset=``) is refused as the
+    reference refuses it: ``core.streaming.PruneStream`` and the core
+    functions resume.
     """
-    del mesh_axis
     opts = ExecOptions.resolve(options, mode=mode, shards=shards,
                                pass2=pass2, apply_block=apply_block,
                                tune=tune, plan_cache=plan_cache,
@@ -832,7 +959,6 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     apply_block = opts.apply_block
     decode = opts.decode if opts.decode is not None else "auto"
     tune = opts.tune if opts.tune is not None else "off"
-    _reject_unported(mesh)
     spec = _spec(algo, params)
     # 64-bit columns as jnp.asarray hands them to the reference
     streams = tuple(as_x32(s) for s in streams if s is not None)
@@ -845,11 +971,9 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
         return _tuned(algo, streams, encs if encoded else None, params, opts)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "mesh":
-        raise _not_ported("mode='mesh'", "Queue 1 item 7: mesh mode")
     if pass2 not in PASS2:
         raise ValueError(f"pass2 must be one of {PASS2}, got {pass2!r}")
-    if pass2 != "master":
+    if pass2 != "master" and mode != "mesh":
         raise ValueError(
             f"pass2={pass2!r} only applies to mode='mesh' (got {mode!r})")
     if not 1 <= len(streams) <= spec.max_streams:
@@ -859,13 +983,22 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     if any(s.shape[0] != m for s in streams):
         raise ValueError(f"{algo}: streams of unequal length "
                          f"{[s.shape[0] for s in streams]}")
-    shards = _resolve_shards(algo, streams, params, mode, shards)
+    if mode == "mesh":
+        ndev = (mesh.shape[mesh_axis] if mesh is not None
+                else default_positions(streams[0].device))
+    else:
+        ndev = 1
+    shards = _resolve_shards(algo, streams, params, mode, shards, ndev)
     rec = obsreport.recorder("engine_prune", opts.obs)
     if rec.active:
         rec.annotate(algo=algo, mode=mode, shards=shards, m=int(m),
                      encoded=encoded)
+        if mode == "mesh":
+            rec.annotate(pass2=pass2, num_devices=ndev)
 
-    if mode == "scan" or shards <= 1:
+    if mode == "scan" or (shards <= 1 and mode != "mesh"):
+        # mesh keeps its output contract at S=1 too (the one-lane mesh: a
+        # merged state, and a stacked mask when pass 2 is resident)
         if encoded:
             spec = _encoded_spec(algo, spec, _padded_encodings(
                 algo, spec, encs, streams, params))
@@ -879,6 +1012,8 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
         return _finish(rec, res, m, encoded)
     if shards > m:
         raise ValueError(f"shards={shards} exceeds stream length {m}")
+    if mode == "mesh" and mesh is None:
+        mesh = _mesh_for_shards(shards, mesh_axis, streams[0].device)
     if m % shards and spec.pad_validity and len(streams) < 3:
         streams = streams + (torch.ones(m, dtype=torch.bool,
                                         device=streams[0].device),)
@@ -891,8 +1026,23 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
     fills = (spec.pads(streams, params) if m % shards
              else (0,) * len(streams))
     lanes = tuple(shard_stack(s, shards, f) for s, f in zip(streams, fills))
+    if mode == "mesh":
+        if apply_block is None and spec.chunkable:
+            apply_block = DEFAULT_MESH_APPLY_BLOCK
+        if pass2 == "auto":
+            # the resident gather ships the S lanes' states (the units of
+            # plan_multi_switch's merge bytes)
+            pass2 = planner.optimal_pass2(
+                m, ndev, shards * _per_shard_state_bytes(spec, lanes, params))
+        if pass2 == "mesh":
+            return _mesh_resident_call(rec, spec, lanes, params, mesh,
+                                       apply_block, m, encoded)
     with rec.span("pass1", mode=mode, shards=shards):
-        keep1, stacked, ev = spec.pass1(lanes, params)
+        if mode == "mesh":
+            keep1, stacked, ev = _mesh_pass1(spec, lanes, params, mesh)
+            lanes = tuple(s.to(mesh.devices[0]) for s in lanes)
+        else:
+            keep1, stacked, ev = spec.pass1(lanes, params)
         rec.sync(stacked)
     # emissions are switch->master traffic, not per-entry masks: keep the
     # full padded length, since a tail pad can evict a real partial
@@ -918,6 +1068,34 @@ def engine_prune(algo: str, *streams, options: ExecOptions | None = None,
         rec.sync(keep2)
     return _finish(rec, PruneResult(keep=_unshard(keep2, m), state=merged,
                                     emitted=emitted), m, encoded)
+
+
+def _mesh_resident_call(rec, spec: _AlgoSpec, lanes: tuple, params: dict,
+                        mesh: Mesh, apply_block, m: int,
+                        encoded: bool) -> PruneResult:
+    """``engine_prune``'s mode="mesh", pass2="mesh": both passes on the
+    mesh. keep is stacked [S, n] in one process (this process's lanes
+    across processes: ``unshard_mask(keep, m, mesh)`` flattens it)."""
+    shards = lanes[0].shape[0]
+    ndev = mesh.shape[mesh.axis]
+    with rec.span("resident_fused", shards=shards, num_devices=ndev):
+        keep2, merged, ev = _mesh_two_pass_resident(spec, lanes, params,
+                                                    mesh, apply_block)
+        rec.sync(keep2)
+    emitted = None if ev is None else tuple(e.reshape(-1) for e in ev)
+    res = PruneResult(keep=keep2, state=merged, emitted=emitted)
+    if rec.active:
+        # the resident gather lands every lane's state on every position:
+        # S x one lane's bytes x D (the merged state's bytes would count
+        # less: TOP-N det folds S thresholds into one scalar)
+        rec.count("merge_collective_count", 1)
+        rec.count("state_bytes_shipped",
+                  shards * _per_shard_state_bytes(spec, lanes, params)
+                  * ndev)
+        _obs_mask_counts(rec, keep2, m, encoded=encoded,
+                         partial=mesh.world > 1)
+        res.report = rec.finish()
+    return res
 
 
 def _tuned(algo: str, streams, encoding, params: dict,
@@ -946,12 +1124,24 @@ def execute_plan(algo: str, *streams, plan, encoding=None,
     The execution contract behind ``tune=``: every plan in the tuner's
     universe maps onto the two-pass family at the plan's lane count, so
     the keep mask is bit-identical across all plans for the same stream,
-    and it is returned flat over the original m entries. A ``mode="mesh"``
-    plan waits for the mesh (ROADMAP Queue 1 item 7).
+    and it is returned flat over the original m entries on the streams'
+    device, wherever pass 2 ran (a mesh plan runs on
+    ``default_mesh(num_devices=plan.num_devices)`` of that device).
     """
+    streams = tuple(s for s in streams if s is not None)
     if plan.mode == "mesh":
-        raise _not_ported("execute_plan of a mode='mesh' plan",
-                          "Queue 1 item 7: mesh mode")
+        dev = streams[0].device
+        mesh = default_mesh("shards", num_devices=plan.num_devices,
+                            device=dev)
+        res = engine_prune(algo, *streams, mode="mesh", shards=plan.shards,
+                           mesh=mesh, apply_block=plan.apply_block,
+                           pass2=plan.pass2, encoding=encoding, obs=obs,
+                           **params)
+        if res.keep.ndim == 2:  # resident pass 2: stacked [S, n]
+            res.keep = unshard_mask(res.keep, int(streams[0].shape[0]),
+                                    mesh)
+        res.keep = res.keep.to(dev)
+        return res
     return engine_prune(algo, *streams, mode="two_pass",
                         shards=plan.shards, encoding=encoding,
                         apply_block=plan.apply_block, obs=obs, **params)

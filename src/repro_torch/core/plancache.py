@@ -113,11 +113,14 @@ def distribution_fingerprint(streams, sample: int = FINGERPRINT_SAMPLE
 
 def device_fingerprint(device) -> str:
     """``torch-<device type>x<count>``: the package, the device type and
-    how many such devices the process sees (a plan raced on one card is
-    not replayed on a host of four, nor in the JAX package)."""
+    the device spread a plan may use, the positions of ``default_mesh`` for
+    that device (the cards the process sees, 1 on the CPU, the process
+    group's size when one is initialized): a plan raced on one card is not
+    replayed on a host of four, nor in the JAX package."""
+    from .mesh import default_positions
+
     dev = torch.device(device)
-    count = torch.cuda.device_count() if dev.type == "cuda" else 1
-    return f"torch-{dev.type}x{count}"
+    return f"torch-{dev.type}x{default_positions(dev)}"
 
 
 def cache_key(algo: str, streams, params: dict) -> str:

@@ -11,9 +11,10 @@ streaming merge period; that part is pure Python and touches no tensor.
 The self-tuning plan search (``Plan``, ``analytic_plan``,
 ``candidate_plans``, ``tune``, ``resolve_plan``) races mask-preserving
 engine plans on a prefix of the streams and keeps the winner in the plan
-cache (``core.plancache``). Until the mesh is ported (ROADMAP Queue 1 item
-7) every plan it builds is ``two_pass`` on one device: ``max_devices``
-defaults to 1, and a larger value raises ``NotImplementedError``.
+cache (``core.plancache``): ``two_pass`` and, when more than one mesh
+position can host the lanes (``max_devices``, default every position
+``core.mesh.default_mesh`` gives for the streams' device), ``mesh`` plans
+with either pass-2 placement.
 """
 from __future__ import annotations
 
@@ -219,8 +220,8 @@ def plan_multi_switch(queries: dict[str, ResourceFootprint], m: int,
 # the all-gather and every device folding the merged state are a constant
 # dispatch and collective overhead that the per-entry terms do not
 # capture. A model prior of 2^18 entries, not a measurement of this
-# package; it only matters for mesh pass 2 (ROADMAP Queue 1 item 7), which
-# is not ported yet, and is to be measured on the cards when it is.
+# package; it only matters for mesh pass 2 over more than one position,
+# and one H100 gives a mesh of one card (PERF.md).
 RESIDENT_OVERHEAD_ENTRIES = float(1 << 18)
 
 
@@ -269,8 +270,8 @@ def optimal_pass2(m: int, ndev: int, state_bytes: int,
     resident apply wins when the (D-1)/D of the stream it keeps off the
     master outweighs both the merged-state re-broadcast and the fixed
     collective overhead — which flips the choice back to master for
-    short streams. Used by ``engine_prune(pass2="auto")`` once mesh mode
-    is ported.
+    short streams. Used by ``engine_prune(pass2="auto")`` and the
+    tuner's mesh incumbent.
     """
     if ndev <= 1:
         return "master"
@@ -408,13 +409,12 @@ def optimal_merge_interval(batch_entries: int, merge_cost_entries: float,
 # `tune` races a small candidate set of *mask-preserving* engine plans on a
 # prefix of the entry stream and persists the winner in the plan cache
 # (core.plancache). At a FIXED lane count S, `two_pass` with any
-# `apply_block` chunking (and, once the mesh is ported, `mesh` with either
-# pass-2 placement over any device spread that divides S) gives
-# BIT-IDENTICAL keep masks. S itself is semantic (it changes the lane
-# states and so the mask), so the tuner takes S from the analytic model
-# (optimal_shards over the measured merge cost) and races only the
-# execution choices: chunk size, and later mode, pass-2 placement and the
-# device spread. Plans change speed, never results.
+# `apply_block` chunking and `mesh` with either pass-2 placement over any
+# device spread that divides S give BIT-IDENTICAL keep masks. S itself is
+# semantic (it changes the lane states and so the mask), so the tuner takes
+# S from the analytic model (optimal_shards over the measured merge cost)
+# and races only the execution choices: chunk size, mode, pass-2 placement
+# and the device spread. Plans change speed, never results.
 
 TUNE_MODES = ("off", "cached", "race")
 DEFAULT_PROBE_ENTRIES = 1 << 14
@@ -439,8 +439,8 @@ class Plan:
     ``shards`` (>= 2: S=1 would degrade two_pass to the scan body, a
     *different mask family*), so any plan the tuner can select gives the
     analytic incumbent's keep mask. ``num_devices`` only matters for
-    ``mode="mesh"`` and must divide ``shards``. A mesh plan is valid data
-    here; running one waits for the mesh (ROADMAP Queue 1 item 7).
+    ``mode="mesh"`` and must divide ``shards``; a mesh plan runs on
+    ``default_mesh(num_devices=num_devices)`` of the streams' device.
     """
 
     mode: str = "two_pass"        # "two_pass" | "mesh"
@@ -521,30 +521,22 @@ def _streams(streams) -> tuple:
     return tuple(as_x32(s) for s in streams if s is not None)
 
 
-def _one_device(max_devices: int | None) -> None:
-    """Plans spread their lanes over one device until the mesh is ported
-    (None means every device the port can use, which is one)."""
-    if max_devices is not None and max_devices > 1:
-        raise NotImplementedError(
-            f"max_devices={max_devices} (a mesh plan) is not ported yet "
-            "(ROADMAP Queue 1 item 7: mesh mode)")
-
-
 def analytic_plan(algo: str, streams, params: dict | None = None, *,
                   shards: int | None = None,
-                  max_devices: int | None = 1) -> Plan:
+                  max_devices: int | None = None) -> Plan:
     """The incumbent: what the analytic formulas pick today.
 
     S from ``optimal_shards`` over the measured merge cost
     (``calibrate_merge_cost``: the incumbent is already calibrated, the
     race challenges what the formulas do not measure), clamped to [2, m];
-    the chunkable algorithms get the engine's default apply block when a
-    lane is longer than it. two_pass on one device: the reference's mesh
-    incumbent (``src/repro/core/planner.py:536-545``) comes with the mesh.
+    mesh when more than one position can host the lanes (the largest
+    divisor of S up to ``max_devices``), with ``optimal_pass2`` choosing
+    the pass-2 placement; the chunkable algorithms get the engine's default
+    apply block when a lane is longer than it.
     """
     from . import engine as _engine  # lazy: engine imports planner
+    from .mesh import mesh_spreads
 
-    _one_device(max_devices)
     params = dict(params or {})
     streams = _streams(streams)
     m = int(streams[0].shape[0])
@@ -552,38 +544,53 @@ def analytic_plan(algo: str, streams, params: dict | None = None, *,
     s = shards if shards is not None else optimal_shards(
         m, state_bytes, merge_byte_cost=c)
     s = max(2, min(int(s), m))
+    ndev = (mesh_spreads(s, max_devices, streams[0].device) or [1])[0]
+    mode = "mesh" if ndev > 1 else "two_pass"
+    pass2 = "master"
+    if mode == "mesh":
+        pass2 = optimal_pass2(m, ndev, s * state_bytes)
     block = None
     if _engine._SPECS[algo].chunkable \
             and -(-m // s) > _engine.DEFAULT_MESH_APPLY_BLOCK:
         block = _engine.DEFAULT_MESH_APPLY_BLOCK
-    return Plan(mode="two_pass", shards=s, apply_block=block)
+    return Plan(mode=mode, shards=s, pass2=pass2, apply_block=block,
+                num_devices=ndev if mode == "mesh" else 1)
 
 
 def candidate_plans(algo: str, streams, params: dict | None = None, *,
                     incumbent: Plan | None = None,
-                    max_devices: int | None = 1,
+                    max_devices: int | None = None,
                     max_candidates: int = MAX_CANDIDATES) -> list:
     """The raced grid: incumbent first, then mask-preserving variants.
 
-    The pass-2 chunk (whole, then each of CANDIDATE_BLOCKS shorter than a
-    lane) at the incumbent's S: every plan here gives the incumbent's keep
-    mask. The reference's mesh plans (mode x pass2 x device spread,
-    ``src/repro/core/planner.py:570-585``) come with the mesh.
+    mode x pass2 x chunk x device spread at the incumbent's S: for each
+    pass-2 chunk (whole, then each of CANDIDATE_BLOCKS shorter than a
+    lane), two_pass, then the two widest spreads that divide S and that
+    ``default_mesh`` can build (``mesh.mesh_spreads``), each with the
+    resident and the master pass 2. Every plan here gives the incumbent's
+    keep mask.
     """
     from . import engine as _engine
+    from .mesh import mesh_spreads
 
-    _one_device(max_devices)
     params = dict(params or {})
     streams = _streams(streams)
     if incumbent is None:
-        incumbent = analytic_plan(algo, streams, params)
+        incumbent = analytic_plan(algo, streams, params,
+                                  max_devices=max_devices)
     s = incumbent.shards
     n_per = -(-int(streams[0].shape[0]) // s)
     chunkable = _engine._SPECS[algo].chunkable
     blocks = [None] + [b for b in CANDIDATE_BLOCKS
                        if chunkable and b < n_per]
-    plans = [incumbent] + [Plan(mode="two_pass", shards=s, apply_block=b)
-                           for b in blocks]
+    devs = mesh_spreads(s, max_devices, streams[0].device)[:2]
+    plans = [incumbent]
+    for block in blocks:
+        plans.append(Plan(mode="two_pass", shards=s, apply_block=block))
+        for d in devs:
+            for p2 in ("mesh", "master"):
+                plans.append(Plan(mode="mesh", shards=s, pass2=p2,
+                                  apply_block=block, num_devices=d))
     out, seen = [], set()
     for p in plans:
         if p.key() not in seen:
@@ -628,7 +635,7 @@ def tune(algo: str, streams, params: dict | None = None, *,
          exit_factor: float = DEFAULT_EXIT_FACTOR,
          time_budget_s: float = DEFAULT_TIME_BUDGET_S,
          cache=None, use_cache: bool = True,
-         measure=None, max_devices: int | None = 1,
+         measure=None, max_devices: int | None = None,
          obs: str | None = None) -> TuneResult:
     """Race candidate plans on a prefix of the streams; keep the winner.
 

@@ -41,10 +41,22 @@ close
     ``engine_prune(mode="two_pass")`` on the lane-view stream (``lane_view``)
     bit for bit, at every merge interval.
 
-Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 7, which brings the
-multiprocess fence on the collectives with it). The default ``shards`` is
-the device count of the port's device (the card's, or 1 on the CPU), where
-the reference takes ``len(jax.devices())``.
+mesh
+    ``mesh=`` spreads the S lanes over the positions of a
+    ``core.mesh.Mesh``, S/D lanes a position (default ``shards``: the
+    mesh's position count, as in the reference). Each position folds its
+    own lanes, the merge gathers the lane states with ``mesh.all_gather``
+    (S x one lane's state bytes to each of the D positions), and every
+    pass 2 runs on each position's lanes with their global lane base. The
+    mesh's collectives are never in flight two at a time, so the
+    reference's multiprocess fence (``src/repro/core/streaming.py:185-210``)
+    has no counterpart. Across processes ``close()`` gathers every
+    process's masks and emissions, so its result is whole in each;
+    ``live_masks()`` and ``lane_state`` are this process's lanes.
+
+Without a mesh the lanes run on the streams' device, and the default
+``shards`` is the device count of the port's device (the card's, or 1 on
+the CPU), where the reference takes ``len(jax.devices())``.
 """
 from __future__ import annotations
 
@@ -59,8 +71,9 @@ from ..obs import report as obsreport
 from . import planner
 from .encoding import as_x32, normalize_encodings
 from .engine import (_FIRST_ELEMENT_PADS, _SPECS, _apply_chunked,
-                     _decode_streams, _encoded_spec, _not_ported,
+                     _decode_streams, _encoded_spec, _mesh_lanes,
                      _padded_encodings, _state_nbytes, calibrate_merge_cost)
+from .mesh import to_device
 from .options import ExecOptions
 
 
@@ -101,10 +114,11 @@ def _clone_state(state):
                                          _tensor_fields(state)})
 
 
-def _unaliased(merged, state):
+def _unaliased(merged, states: list):
     """``merged`` with every tensor that shares memory with a lane state
     copied (a merge may return a view, as ``cols_by_shard`` does at S = 1)."""
-    lanes = {t.untyped_storage().data_ptr() for _, t in _tensor_fields(state)}
+    lanes = {t.untyped_storage().data_ptr() for state in states
+             for _, t in _tensor_fields(state)}
     return dataclasses.replace(merged, **{
         n: t.clone() for n, t in _tensor_fields(merged)
         if t.untyped_storage().data_ptr() in lanes})
@@ -134,14 +148,10 @@ class PruneStream:
                  window: int = 4, donate: bool = True,
                  apply_block: int | None = None, retain: bool = True,
                  encoding=None, obs: str | None = None, **params):
-        del mesh_axis
         opts = ExecOptions.resolve(options, shards=shards,
                                    apply_block=apply_block, obs=obs)
         opts.require_unset("PruneStream", "mode", "pass2", "tune",
                            "plan_cache")
-        if mesh is not None:
-            raise _not_ported("PruneStream(mesh=)", "Queue 1 item 7: mesh "
-                              "mode")
         shards = opts.shards
         self.algo = algo
         self._spec = _SPECS[algo]  # KeyError = unknown algorithm
@@ -151,9 +161,23 @@ class PruneStream:
         if shards is not None and not isinstance(shards, int):
             raise ValueError(f"PruneStream needs a concrete lane count, got "
                              f"shards={shards!r}")
-        self.shards = int(default_shards() if shards is None else shards)
+        if shards is None:
+            shards = (mesh.shape[mesh_axis] if mesh is not None
+                      else default_shards())
+        self.shards = int(shards)
         if self.shards < 1:
             raise ValueError(f"shards must be >= 1, got {self.shards}")
+        self.mesh = mesh
+        if mesh is None:
+            # one position holding every lane, on the streams' device
+            self._lanes_pos = self.shards
+            self._pos = [(None, 0)]
+        else:
+            self._lanes_pos = _mesh_lanes(self.shards,
+                                          mesh.shape[mesh_axis])
+            self._pos = mesh.positions(self._lanes_pos)
+        # this process's first global lane
+        self._g_first = 0 if mesh is None else mesh.first * self._lanes_pos
         self.params = dict(params)
         self._apply_block = opts.apply_block
         self.merge_every = merge_every
@@ -186,12 +210,33 @@ class PruneStream:
             out.append(s.reshape((S, nb) + tuple(s.shape[1:])))
         return tuple(out)
 
-    def _init_state(self, lanes: tuple):
+    def _home(self, lanes: tuple):
+        """The device the stream's masks and merged state live on."""
+        return lanes[0].device if self.mesh is None else self.mesh.devices[0]
+
+    def _local(self, lanes: tuple, g0: int, dev) -> tuple:
+        """A position's lanes [g0, g0 + S/D) of the batch, on its device."""
+        L = self._lanes_pos
+        return tuple(x[g0:g0 + L] if dev is None else x[g0:g0 + L].to(dev)
+                     for x in lanes)
+
+    def _init_state(self, lanes: tuple) -> list:
+        """Each position's empty lane states [S/D, ...], on its device."""
         lane = self._spec.init(lanes, self.params)
-        S = self.shards
-        return dataclasses.replace(lane, **{
-            n: t[None].expand((S,) + tuple(t.shape)).clone()
-            for n, t in _tensor_fields(lane)})
+        L = self._lanes_pos
+        return [to_device(dataclasses.replace(lane, **{
+            n: t[None].expand((L,) + tuple(t.shape)).clone()
+            for n, t in _tensor_fields(lane)}), dev or lanes[0].device)
+            for dev, _ in self._pos]
+
+    def _join(self, parts: list, home):
+        """This process's per-position pieces joined along the lane axis."""
+        if len(parts) == 1:
+            return parts[0]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat([p[i].to(home) for p in parts])
+                         for i in range(len(parts[0])))
+        return torch.cat([p.to(home) for p in parts])
 
     def _resolve_merge_k(self, batch_entries: int, streams: tuple) -> int:
         if self._merge_k is None:
@@ -209,13 +254,26 @@ class PruneStream:
                     f"got {self.merge_every!r}")
         return self._merge_k
 
-    def _apply(self, merged, lanes, keep1, offset):
-        p = dict(self.params, _index_offset=offset)
+    def _apply(self, merged: dict, lanes, keep1, offset):
+        """Each position's pass 2 on its lanes of the batch (global lane
+        base g0), against ``merged[device]``: this process's keep."""
         block = self._apply_block
-        if block and self._spec.chunkable and block < lanes[0].shape[1]:
-            return _apply_chunked(self._spec.apply, self._spec.pads, merged,
-                                  lanes, keep1, p, block)
-        return self._spec.apply(merged, lanes, keep1, p)
+        home = self._home(lanes)
+        L = self._lanes_pos
+        out = []
+        for dev, g0 in self._pos:
+            local = self._local(lanes, g0, dev)
+            k1 = None if keep1 is None else keep1[g0 - self._g_first:
+                                                  g0 - self._g_first + L]
+            k1 = None if k1 is None else k1.to(local[0].device)
+            p = dict(self.params, _index_offset=offset, _lane0=g0)
+            mg = merged[local[0].device]
+            if block and self._spec.chunkable and block < lanes[0].shape[1]:
+                out.append(_apply_chunked(self._spec.apply, self._spec.pads,
+                                          mg, local, k1, p, block))
+            else:
+                out.append(self._spec.apply(mg, local, k1, p))
+        return self._join(out, home)
 
     # ------------------------------------------------------------- hot path
     def fold(self, *streams) -> int:
@@ -259,9 +317,15 @@ class PruneStream:
         rec = self._rec
         with rec.span("fold_dispatch", batch=t, entries=b):
             if not self.donate:
-                self._state = _clone_state(self._state)
-            keep1, self._state, emitted = self._spec.resume(
-                self._state, lanes, dict(self.params, _index_offset=off))
+                self._state = [_clone_state(st) for st in self._state]
+            p = dict(self.params, _index_offset=off)
+            parts = [self._spec.resume(st, self._local(lanes, g0, dev), p)
+                     for st, (dev, g0) in zip(self._state, self._pos)]
+            home = self._home(lanes)
+            keep1 = (None if parts[0][0] is None
+                     else self._join([r[0] for r in parts], home))
+            emitted = (None if parts[0][2] is None
+                       else self._join([r[2] for r in parts], home))
         if (t + 1) % K == 0:
             with rec.span("merge_dispatch", batch=t):
                 self._merged = self._merge_now()
@@ -285,18 +349,30 @@ class PruneStream:
         return t
 
     def _merge_now(self):
-        return _unaliased(self._spec.merge(self._state, self.params),
-                          self._state)
+        """The merged snapshot, on the home device (and, in
+        ``_merged_on``, on every device of a position): one gather of the
+        lane states over the mesh, then every device folds the same
+        merge."""
+        if self.mesh is None:
+            st = self._state[0]
+            merged = _unaliased(self._spec.merge(st, self.params),
+                                self._state)
+            self._merged_on = {_tensor_fields(st)[0][1].device: merged}
+            return merged
+        gathered = self.mesh.all_gather(self._state)
+        self._merged_on = self.mesh.replicate(gathered, lambda g: _unaliased(
+            self._spec.merge(g, self.params), self._state))
+        return self._merged_on[self.mesh.devices[0]]
 
     def _live_mask(self, lanes, keep1, offset, nb):
         if self._spec.sharded_needs_merge:
             # HAVING: the running sketch underestimates the final count, so
             # pruning on it could drop a key that qualifies later
-            return torch.ones((self.shards, nb), dtype=torch.bool,
-                              device=lanes[0].device)
+            return torch.ones((self._lanes_pos * len(self._pos), nb),
+                              dtype=torch.bool, device=self._home(lanes))
         if self._merged is None:
             return keep1
-        return self._apply(self._merged, lanes, keep1, offset)
+        return self._apply(self._merged_on, lanes, keep1, offset)
 
     def _enqueue(self, mask: torch.Tensor) -> None:
         event = None
@@ -316,15 +392,20 @@ class PruneStream:
             self._pending.popleft()
 
     def _count_merge(self, t: int | None = None) -> None:
-        """Book one cross-lane merge: stats and telemetry (on one device
-        the lanes' stacked states are what a merge reads)."""
+        """Book one cross-lane merge: stats and telemetry. On one device a
+        merge reads the lanes' stacked states once; the mesh's gather lands
+        every lane's state on each of its D positions: S x one lane's bytes
+        x D."""
         self.stats["merges"] += 1
         if t is not None:
             self._last_merge_t = t
         rec = self._rec
         if rec.active and self._state is not None:
             rec.count("merge_collective_count", 1)
-            rec.count("state_bytes_shipped", _state_nbytes(self._state))
+            nbytes = sum(_state_nbytes(st) for st in self._state)
+            if self.mesh is not None:
+                nbytes *= self.mesh.world * self.mesh.size
+            rec.count("state_bytes_shipped", nbytes)
 
     # ------------------------------------------------------------- queries
     def merge(self):
@@ -337,7 +418,8 @@ class PruneStream:
         return self._merged
 
     def live_masks(self) -> list:
-        """Per-batch live keep masks in arrival order, flattened."""
+        """Per-batch live keep masks in arrival order, flattened (across
+        processes: this process's lanes)."""
         return [b["keep_live"].reshape(-1)[:b["b"]] for b in self._batches]
 
     def live_mask(self, idx: int) -> torch.Tensor:
@@ -352,14 +434,21 @@ class PruneStream:
 
     @property
     def lane_state(self):
-        """The S stacked lane states (updated in place by every fold)."""
-        return self._state
+        """The S stacked lane states (updated in place by every fold). On a
+        mesh: this process's lanes, a copy joined from its positions'."""
+        if self._state is None or self.mesh is None:
+            return None if self._state is None else self._state[0]
+        home = self.mesh.devices[0]
+        return dataclasses.replace(self._state[0], **{
+            n: torch.cat([getattr(st, n).to(home) for st in self._state])
+            for n, _ in _tensor_fields(self._state[0])})
 
     def reset(self):
         """Drop the stream's state and batches (keeps the lane count, the
         merge period once resolved and the encodings' wrapping)."""
         self._state = None
         self._merged = None
+        self._merged_on = None
         self._offset = 0
         self._batches: list[dict] = []
         self._pending: collections.deque = collections.deque()
@@ -369,6 +458,13 @@ class PruneStream:
         self._rec = obsreport.recorder("prune_stream", self._obs_level)
 
     # --------------------------------------------------------------- close
+    def _whole(self, x: torch.Tensor) -> torch.Tensor:
+        """A batch's [S_proc, nb] lanes of this process, joined with every
+        other process's (the O(m) bools of a mask: never the entries)."""
+        if self.mesh is None or self.mesh.world == 1:
+            return x
+        return self.mesh.all_gather([x])
+
     def close(self) -> StreamResult:
         """Final merge and exact refresh of every stored micro-batch: the
         scan-free filter again with the final merged state and each batch's
@@ -389,11 +485,11 @@ class PruneStream:
         keeps, lives = [], []
         with orec.span("close_refresh", batches=len(self._batches)):
             for rec in self._batches:
-                live = rec["keep_live"].reshape(-1)[: rec["b"]]
+                live = self._whole(rec["keep_live"]).reshape(-1)[: rec["b"]]
                 if self.retain:
-                    keep = self._apply(merged, rec["lanes"], rec["keep1"],
-                                       rec["offset"])
-                    keeps.append(keep.reshape(-1)[: rec["b"]])
+                    keep = self._apply(self._merged_on, rec["lanes"],
+                                       rec["keep1"], rec["offset"])
+                    keeps.append(self._whole(keep).reshape(-1)[: rec["b"]])
                 else:
                     keeps.append(live)
                 lives.append(live)
@@ -403,8 +499,8 @@ class PruneStream:
             # emissions keep each batch's whole padded lane layout, as the
             # one-shot engine's do (a pad can evict a real partial)
             emitted = tuple(
-                torch.cat([r["emitted"][i].reshape(-1) for r in
-                           self._batches])
+                torch.cat([self._whole(r["emitted"][i]).reshape(-1)
+                           for r in self._batches])
                 for i in range(len(self._batches[0]["emitted"])))
         keep_cat = torch.cat(keeps)
         report = None

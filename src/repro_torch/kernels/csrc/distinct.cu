@@ -926,13 +926,15 @@ __device__ __forceinline__ long long owner_of(
 // Each thread takes OWNER_RUN consecutive entries: keep1 read and keep
 // written as 16 bytes where aligned, the lane found once for the run. A
 // pass-1 survivor that can hit makes one lookup and is dropped iff a lower
-// shard owns its key.
+// shard owns its key. x holds the lanes [lane0, lane0 + m / shard_len) of
+// the union's lanes (a mesh position's own), so local lane s is lane0 + s.
 __global__ void distinct_owner_apply(const uint32_t* __restrict__ x,
                                      const uint8_t* __restrict__ keep1,
                                      const unsigned long long* __restrict__ table,
                                      uint8_t* __restrict__ keep, long long m,
                                      int shard_len, int d, int tbits,
-                                     uint32_t seed, int fmode) {
+                                     uint32_t seed, int fmode,
+                                     long long lane0) {
   const long long runs = (m + OWNER_RUN - 1) / OWNER_RUN;
   const bool vec = ((reinterpret_cast<uintptr_t>(keep1) |
                      reinterpret_cast<uintptr_t>(keep)) & 15) == 0;
@@ -958,6 +960,7 @@ __global__ void distinct_owner_apply(const uint32_t* __restrict__ x,
     }
     long long lane = i0 / shard_len;
     long long next = (lane + 1) * shard_len;
+    lane += lane0;
 #pragma unroll
     for (int j = 0; j < OWNER_RUN; ++j) {
       if (i0 + j == next) {
@@ -1321,12 +1324,12 @@ extern "C" size_t distinct_apply_workspace(int d, int sw) {
 }
 
 // Build the lowest-owner table (work holds distinct_apply_workspace bytes),
-// then apply it to every entry.
+// then apply it to every entry; x's first lane is lane lane0 of the union.
 extern "C" int distinct_apply(const uint32_t* x, const uint8_t* keep1,
                               const uint32_t* mslots, const uint8_t* mvalid,
                               uint8_t* keep, long long m, int shard_len, int d,
                               int w, int sw, uint32_t seed, int fmode,
-                              int grid, unsigned char* work,
+                              long long lane0, int grid, unsigned char* work,
                               cudaStream_t stream) {
   const int tbits = owner_bits(sw);
   const size_t smem = sizeof(unsigned long long) << tbits;
@@ -1343,7 +1346,7 @@ extern "C" int distinct_apply(const uint32_t* x, const uint8_t* keep1,
   }
   distinct_owner_apply<<<grid, 256, 0, stream>>>(x, keep1, table, keep, m,
                                                  shard_len, d, tbits, seed,
-                                                 fmode);
+                                                 fmode, lane0);
   return cudaGetLastError();
 }
 

@@ -75,7 +75,7 @@ DISTINCT_BLOCK_WALK = CudaKernel(
     [P, P, P, P, P, I32, I32, I32, I32, I32, I32, U32, P])
 DISTINCT_APPLY = CudaKernel(
     "distinct_apply", [P, P, P, P, P, I64, I32, I32, I32, I32, U32, I32,
-                       I32, P])
+                       I64, I32, P])
 SKYLINE_PASS1 = CudaKernel(
     "skyline_pass1", [P, P, P, P, I32, I32, I32, I32, I32, I32, P, I32],
     smem_fn="skyline_pass1_smem")
@@ -581,44 +581,57 @@ def merge_distinct_states(slots: torch.Tensor, valid: torch.Tensor):
 
 def distinct_apply_plain(values: torch.Tensor, keep1: torch.Tensor,
                          mslots: torch.Tensor, mvalid: torch.Tensor, *,
-                         d: int, shards: int, seed: int = 0) -> torch.Tensor:
+                         d: int, shards: int, seed: int = 0, lane0: int = 0,
+                         w: int | None = None) -> torch.Tensor:
     """Plain pass 2: drop a pass-1 survivor whose fingerprint is valid in the
-    cache of a lower-ranked shard. Loops over shards to bound memory."""
+    cache of a lower-ranked shard. ``values`` holds ``shards`` lanes, lane s
+    being lane ``lane0 + s`` of the union (w columns a lane; default: the
+    union is these lanes'). Loops over the owner lanes to bound memory."""
     m = values.shape[0]
-    w = mslots.shape[1] // shards
+    w = mslots.shape[1] // shards if w is None else w
     v = values.reshape(shards, -1)
     x, hittable = ref.distinct_keys(v)
     rows = hash_mod(v, d, seed)
     ms = as_u32(mslots)
     dup = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    for s in range(shards - 1):
-        cols = slice(s * w, (s + 1) * w)
-        r, xs = rows[s + 1:], x[s + 1:, :, None]
-        dup[s + 1:] |= ((ms[r, cols] == xs) & mvalid[r, cols]).any(-1)
+    for o in range(lane0 + shards - 1):
+        lo = max(0, o + 1 - lane0)   # the local lanes ranked above owner o
+        cols = slice(o * w, (o + 1) * w)
+        r, xs = rows[lo:], x[lo:, :, None]
+        dup[lo:] |= ((ms[r, cols] == xs) & mvalid[r, cols]).any(-1)
     return keep1 & ~(dup & hittable).reshape(m)
 
 
 def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
                           mslots: torch.Tensor, mvalid: torch.Tensor, *,
-                          d: int, shards: int, seed: int = 0) -> torch.Tensor:
+                          d: int, shards: int, seed: int = 0, lane0: int = 0,
+                          w: int | None = None) -> torch.Tensor:
     """Pass 2: keep bool[m] = keep1 and not cached by a lower-ranked shard.
 
+    ``values`` holds ``shards`` lanes; lane s is lane ``lane0 + s`` of the
+    [d, S*w] union (a mesh position applies against its own lanes), w its
+    columns a lane (default: S is ``shards``, the union is these lanes').
     On the card ``distinct.cu`` first reduces each row of the union to a
     table from key to the lowest shard that holds it in a valid slot; a
     pass-1 survivor of lane s that can hit is then dropped iff that owner
-    is below s: one lookup an entry."""
+    is below lane0 + s: one lookup an entry."""
     m = values.shape[0]
     shard_len = _check_shape(m, d, shards, 1, any_d=True)
     sw = mslots.shape[-1]
-    if (mslots.shape != (d, sw) or mvalid.shape != (d, sw) or sw % shards
-            or keep1.shape != (m,)):
+    whole = w is None
+    w = sw // shards if whole else w
+    if (mslots.shape != (d, sw) or mvalid.shape != (d, sw) or w < 1
+            or sw % (shards if whole else w) or lane0 < 0
+            or lane0 + shards > sw // w or keep1.shape != (m,)):
         raise ValueError(
             f"distinct apply takes keep1 [m={m}] and a [d={d}, S*w] union "
-            f"over S={shards} shards; got keep1 {tuple(keep1.shape)}, "
+            f"holding lanes [lane0={lane0}, {lane0 + shards}) of w={w} "
+            f"columns; got keep1 {tuple(keep1.shape)}, "
             f"slots {tuple(mslots.shape)}, valid {tuple(mvalid.shape)}")
     if not values.is_cuda:
         return distinct_apply_plain(values, keep1, mslots, mvalid, d=d,
-                                    shards=shards, seed=seed)
+                                    shards=shards, seed=seed, lane0=lane0,
+                                    w=w)
     _check_distinct_dtype(values)
     check_cuda("values", values, values.dtype)
     check_cuda("keep1", keep1, torch.bool, values.device)
@@ -630,8 +643,8 @@ def distinct_apply_kernel(values: torch.Tensor, keep1: torch.Tensor,
         table = workspace(dev, "distinct_apply_workspace", d, sw)
         DISTINCT_APPLY.launch(dev, ptr(values), ptr(keep1), ptr(mslots),
                               ptr(mvalid), ptr(keep), m, shard_len, d,
-                              sw // shards, sw, seed & 0xFFFFFFFF,
-                              int(values.dtype == torch.float32),
+                              w, sw, seed & 0xFFFFFFFF,
+                              int(values.dtype == torch.float32), lane0,
                               grid_for(m, dev), ptr(table))
     return keep
 

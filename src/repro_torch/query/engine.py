@@ -1,14 +1,20 @@
-"""Query execution on one device: switch pruning, then master completion.
+"""Query execution: workers, switch pruning, then master completion.
 
 Without a mesh every single-table pruner runs ``core.engine_prune`` in
 ``scan`` mode (one switch lane over the table), or with ``tune="cached"`` /
 ``"race"`` a plan of the self-tuning planner through ``core.execute_plan``
 (two_pass; the answer is the same), and the master completes the query on
-the survivors. JOIN keeps its own two-table Bloom exchange and FILTER is
-stateless; both ignore ``tune``. Ported: TOP-N with ``mode="rand"`` (the
-default) or ``"det"``, DISTINCT with ``policy="lru"`` (the default) or
-``"fifo"``, SKYLINE, HAVING, GROUP BY, JOIN and FILTER, on plain,
-dictionary- and RLE-encoded columns.
+the survivors. With a mesh (``core.mesh.Mesh``, axis ``"data"``: the worker
+rack), each position is a worker with one switch lane: ``engine_prune``
+runs ``mode="mesh"`` with ``pass2="mesh"`` (the lane states gathered
+across the workers, the merged state applied to each worker's resident
+rows), and only the keep mask is flattened for the master
+(``core.unshard_mask``). JOIN keeps its own two-table Bloom exchange (with
+a mesh each worker builds its filters, which are ORed over the mesh: the
+shared switch filter) and FILTER is stateless; both ignore ``tune``.
+Ported: TOP-N with ``mode="rand"`` (the default) or ``"det"``, DISTINCT
+with ``policy="lru"`` (the default) or ``"fifo"``, SKYLINE, HAVING, GROUP
+BY, JOIN and FILTER, on plain, dictionary- and RLE-encoded columns.
 
 Encoded columns (``DictColumn`` / ``RLEColumn``) prune in code space, and
 the completions decode pass-1 survivors only (``Column.take``):
@@ -39,6 +45,7 @@ from ..constants import NEG
 from ..core.options import ExecOptions
 from ..core.encoding import ambiguous_floats, take_rows
 from ..core.hashing import as_u32, by_value
+from ..kernels.ops import first_value
 from .tables import DictColumn, Table
 
 
@@ -47,6 +54,10 @@ class QuerySpec:
     kind: str          # distinct|topn|join|having|skyline|groupby|filter
     columns: tuple     # relevant column names
     params: dict       # algorithm params (d, w, N, policy, seed, ...)
+
+
+def _num_workers(mesh, axis: str = "data") -> int:
+    return 1 if mesh is None else mesh.shape[axis]
 
 
 def _check_tune(tune: str, mesh) -> None:
@@ -211,17 +222,75 @@ def _prepare(spec: QuerySpec, table: Table, decode: str = "auto"):
     raise KeyError(k)
 
 
-def _run_join(spec: QuerySpec, tables, p: dict) -> dict:
-    """Two-table Bloom exchange on one worker: F_A (seed 0) over A's keys
-    and F_B (seed 7919) over B's, each table pruned by the other's filter,
-    then the master's exact join of the survivors."""
+def _engine_call(algo: str, streams: tuple, mesh, axis: str, params: dict,
+                 tune: str = "off", plan_cache=None, encoding=None,
+                 obs: str | None = None) -> core.PruneResult:
+    """One engine call a query: with a mesh, S = one lane a worker on the
+    data axis and pass 2 resident on the workers, the keep flattened to
+    bool[m] (only the mask is gathered); without one the scan, or with
+    ``tune`` the cached or raced two-pass plan."""
+    if mesh is None:
+        return core.engine_prune(algo, *streams, mode="scan", tune=tune,
+                                 plan_cache=plan_cache, encoding=encoding,
+                                 obs=obs, **params)
+    r = core.engine_prune(algo, *streams, mode="mesh",
+                          shards=mesh.shape[axis], mesh=mesh, mesh_axis=axis,
+                          pass2="mesh", encoding=encoding, obs=obs, **params)
+    out = core.PruneResult(
+        keep=core.unshard_mask(r.keep, streams[0].shape[0], mesh),
+        state=r.state, emitted=r.emitted)
+    out.report = r.report  # the telemetry rides along
+    return out
+
+
+def _bloom_merged(parts: list, mesh) -> core.BloomFilter:
+    """The workers' filters ORed over the mesh, as the reference's psum of
+    their bits as int32, then > 0: the one filter a shared switch holds."""
+    from ..kernels.bloom_filter import pack_bits
+
+    f0 = parts[0]
+    bits = mesh.all_reduce([f.bits.to(torch.int32) for f in parts]) > 0
+    return core.BloomFilter(words=pack_bits(bits), nbits=f0.nbits,
+                            num_hashes=f0.num_hashes, seed=f0.seed)
+
+
+def _run_join(spec: QuerySpec, tables, mesh, axis: str, p: dict) -> dict:
+    """Two-table Bloom exchange: F_A (seed 0) over A's keys and F_B (seed
+    7919) over B's, each table pruned by the other's filter, then the
+    master's exact join of the survivors. With a mesh each worker builds
+    both filters over its rows (the tail padded with the first key, already
+    a member, so no filter changes), the filters are ORed over the mesh and
+    each worker queries its own rows."""
     ta, tb = tables
     ka_name, kb_name = spec.columns
     ka, kb = ta.col(ka_name).decoded(), tb.col(kb_name).decoded()
     nbits, H = p["nbits"], p.get("num_hashes", 3)
-    fa = core.bloom_build(ka, nbits, H, seed=0)
-    fb = core.bloom_build(kb, nbits, H, seed=7919)
-    keep_a, keep_b = core.bloom_query(fb, ka), core.bloom_query(fa, kb)
+    if mesh is None:
+        fa = core.bloom_build(ka, nbits, H, seed=0)
+        fb = core.bloom_build(kb, nbits, H, seed=7919)
+        keep_a, keep_b = core.bloom_query(fb, ka), core.bloom_query(fa, kb)
+    else:
+        nw = _num_workers(mesh, axis)
+        ka_st = core.shard_stack(ka, nw, first_value(ka))
+        kb_st = core.shard_stack(kb, nw, first_value(kb))
+        pos = mesh.positions(1)
+        ka_w = [ka_st[g0].to(dev) for dev, g0 in pos]
+        kb_w = [kb_st[g0].to(dev) for dev, g0 in pos]
+        FA = _bloom_merged([core.bloom_build(k, nbits, H, seed=0)
+                            for k in ka_w], mesh)
+        FB = _bloom_merged([core.bloom_build(k, nbits, H, seed=7919)
+                            for k in kb_w], mesh)
+        home = mesh.devices[0]
+
+        def query(F, ks):
+            # each worker's rows against the merged filter, then every
+            # worker's mask (O(rows) bools) for the master
+            keep = torch.cat([core.bloom_query(dataclasses.replace(
+                F, words=F.words.to(k.device)), k).to(home) for k in ks])
+            return mesh.all_gather([keep]) if mesh.world > 1 else keep
+
+        keep_a = query(FB, ka_w)[:ka.shape[0]].to(ka.device)
+        keep_b = query(FA, kb_w)[:kb.shape[0]].to(kb.device)
     va = ta.col(p.get("payload_a", ka_name)).decoded()
     vb = tb.col(p.get("payload_b", kb_name)).decoded()
     out = core.master_complete_join(ka, va, keep_a, kb, vb, keep_b)
@@ -255,6 +324,11 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     in code space and decode the survivors only; ``"eager"`` decodes every
     column up front.
 
+    ``mesh`` / ``axis``: a ``core.mesh.Mesh`` whose positions on ``axis``
+    are the workers, one switch lane each (``engine_prune(mode="mesh",
+    pass2="mesh")``; JOIN's filters ORed over it); the answer is the one
+    without a mesh.
+
     ``tune``: ``"off"`` (the default), ``"cached"`` or ``"race"``: a
     self-tuned two-pass engine plan for the single-table pruners (JOIN and
     FILTER ignore it), ``plan_cache`` its ``PlanCache``; the answer is the
@@ -267,27 +341,21 @@ def run_query(spec: QuerySpec, tables, mesh=None, axis: str = "data",
     ``ExecReport``, None for JOIN and FILTER (their own bodies) and with
     ``obs="off"``.
     """
-    del axis
     opts = ExecOptions.resolve(options, tune=tune, plan_cache=plan_cache,
                                decode=decode, obs=obs)
     opts.require_unset("run_query", "mode", "shards", "pass2",
                        "apply_block")
     tune = opts.tune if opts.tune is not None else "off"
     _check_tune(tune, mesh)
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_query(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
     decode = opts.decode if opts.decode is not None else "auto"
     if spec.kind == "join":
-        return _run_join(spec, tables, dict(spec.params))
+        return _run_join(spec, tables, mesh, axis, dict(spec.params))
     if spec.kind == "filter":
         return _run_filter(spec, tables, dict(spec.params))
     algo, streams, encs, params, complete = _prepare(spec, tables, decode)
-    # the sequential scan (no mesh), or with tune the cached or raced
-    # two-pass plan; encoded streams carry codes, pruned in code space
-    r = core.engine_prune(algo, *streams, mode="scan", tune=tune,
-                          plan_cache=opts.plan_cache, encoding=encs,
-                          obs=opts.obs, **params)
+    # encoded streams carry codes, pruned in code space
+    r = _engine_call(algo, streams, mesh, axis, params, tune,
+                     opts.plan_cache, encoding=encs, obs=opts.obs)
     out = complete(r)
     out["report"] = r.report
     return out
@@ -333,10 +401,12 @@ def run_queries(specs, tables, mesh=None, axis: str = "data",
     Specs are grouped by ``_group_key`` (same family, columns and family
     statics); each group of two or more runs through
     ``core.engine_prune_batch`` in ``scan`` mode (one lane over the shared
-    stream for every query of the group). Singleton groups, JOIN and FILTER
-    run through ``run_query``. Results come back in input order, one
-    ``run_query``-shaped dict a spec, equal to a serial ``run_query`` loop;
-    every member of a group shares the group's ``ExecReport``.
+    stream for every query of the group), or with a mesh in ``mesh`` mode,
+    pass 2 resident on the workers: one gather of the group's states a
+    wave. Singleton groups, JOIN and FILTER run through ``run_query``.
+    Results come back in input order, one ``run_query``-shaped dict a
+    spec, equal to a serial ``run_query`` loop; every member of a group
+    shares the group's ``ExecReport``.
 
     device_budget_bytes caps each group's resident switch state (§8):
     an oversubscribed group runs in admission waves
@@ -347,11 +417,9 @@ def run_queries(specs, tables, mesh=None, axis: str = "data",
     query's parameters, and runs the whole batch through it
     (``core.execute_plan_batch``); singletons tune query by query. The
     answers are exact either way, though a group's masks may differ from
-    a serial loop tuned query by query, since the group shares one S.
-
-    Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 7).
+    a serial loop tuned query by query, since the group shares one S. It
+    cannot be combined with ``mesh=``.
     """
-    del axis
     opts = ExecOptions.resolve(options, tune=tune, plan_cache=plan_cache,
                                decode=decode, obs=obs)
     opts.require_unset("run_queries", "mode", "shards", "pass2",
@@ -359,9 +427,6 @@ def run_queries(specs, tables, mesh=None, axis: str = "data",
     tune = opts.tune if opts.tune is not None else "off"
     plan_cache = opts.plan_cache
     _check_tune(tune, mesh)
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_queries(mesh=) is not ported yet (ROADMAP Queue 1 item 7)")
     decode = opts.decode if opts.decode is not None else "auto"
     obs = opts.obs
     specs = list(specs)
@@ -370,13 +435,14 @@ def run_queries(specs, tables, mesh=None, axis: str = "data",
     for i, spec in enumerate(specs):
         key = _group_key(spec)
         if key is None:
-            results[i] = run_query(spec, tables, decode=decode, obs=obs)
+            results[i] = run_query(spec, tables, mesh, axis, decode=decode,
+                                   obs=obs)
         else:
             groups.setdefault(key, []).append(i)
     for idxs in groups.values():
         if len(idxs) == 1:
-            results[idxs[0]] = run_query(specs[idxs[0]], tables, tune=tune,
-                                         plan_cache=plan_cache,
+            results[idxs[0]] = run_query(specs[idxs[0]], tables, mesh, axis,
+                                         tune=tune, plan_cache=plan_cache,
                                          decode=decode, obs=obs)
             continue
         prepped = [_prepare(specs[i], tables, decode) for i in idxs]
@@ -389,10 +455,18 @@ def run_queries(specs, tables, mesh=None, axis: str = "data",
             rb = core.execute_plan_batch(
                 algo, queries, *streams, plan=tr.plan, encoding=encs,
                 device_budget_bytes=device_budget_bytes, obs=obs)
-        else:
+        elif mesh is None:
             rb = core.engine_prune_batch(
                 algo, queries, *streams, mode="scan", encoding=encs,
                 device_budget_bytes=device_budget_bytes, obs=obs)
+        else:
+            rb = core.engine_prune_batch(
+                algo, queries, *streams, mode="mesh",
+                shards=mesh.shape[axis], mesh=mesh, mesh_axis=axis,
+                pass2="mesh", encoding=encs,
+                device_budget_bytes=device_budget_bytes, obs=obs)
+            rb.keep = core.unshard_mask_batch(rb.keep, streams[0].shape[0],
+                                              mesh)
         w_cap = (max(int(q["w"]) for q in queries)
                  if algo == "groupby" else None)
         for j, i in enumerate(idxs):

@@ -209,7 +209,7 @@ def test_batch_streams_of_other_dtypes():
 
 
 def test_batch_refusals():
-    """The reference's errors, and mesh mode refused for ROADMAP item 7."""
+    """The reference's errors, the mesh's among them."""
     v = torch.ones(64, dtype=torch.uint32)
     f = torch.ones(64, dtype=torch.float32)
     with pytest.raises(ValueError, match="policy"):
@@ -238,11 +238,12 @@ def test_batch_refusals():
     with pytest.raises(ValueError, match="tune"):
         T.engine_prune_batch("topn_det", [dict(N=2, w=4)], f,
                              options=T.ExecOptions(tune="race"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.engine_prune_batch("topn_det", [dict(N=2, w=4)], f, mode="mesh")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.engine_prune_batch("topn_det", [dict(N=2, w=4)], f,
-                             mode="two_pass", mesh=object())
+    with pytest.raises(ValueError, match="pass2 must be one of"):
+        T.engine_prune_batch("topn_det", [dict(N=2, w=4)], f, mode="mesh",
+                             pass2="sideways")
+    with pytest.raises(ValueError, match="divisible"):
+        T.engine_prune_batch("topn_det", [dict(N=2, w=4)], f, mode="mesh",
+                             shards=3, mesh=T.Mesh(("cpu",) * 2))
 
 
 # --------------------------------------------------- the batched walks
@@ -419,15 +420,16 @@ def test_run_queries_members_share_the_group_report():
         assert torch.equal(r["keep"], s["keep"])
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 7"),
-                                     (dict(tune="race", mesh=object()),
-                                      "worker mesh")])
+@pytest.mark.parametrize("kw,item", [
+    (dict(mesh=T.Mesh(("cpu",) * 2, axis="data"),
+          options=T.ExecOptions(shards=2)), "shards"),
+    (dict(tune="race", mesh=T.Mesh(("cpu",) * 2, axis="data")),
+     "worker mesh")])
 def test_run_queries_refusals(kw, item):
-    # the mesh is not ported (item 7); tune= with a mesh is refused as the
-    # reference refuses it
+    # the mesh sets the lanes at this layer, and tune= with a mesh is
+    # refused as the reference refuses it
     ttab = tt.make_uservisits(64, seed=2, device="cpu")
-    err = ValueError if "tune" in kw else NotImplementedError
-    with pytest.raises(err, match=item):
+    with pytest.raises(ValueError, match=item):
         tq.run_queries([tq.QuerySpec("topn", ("ad_revenue",),
                                      dict(d=8, w=2, N=5))], ttab, **kw)
 

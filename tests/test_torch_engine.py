@@ -196,31 +196,41 @@ def test_sizing_helpers_match():
 
 X = torch.zeros(64)
 F = torch.zeros(64, dtype=torch.int32).view(torch.uint32)
+CPU2 = T.Mesh(("cpu",) * 2)
+# the resumes the engine refuses, and (since the mesh is ported) the mesh
+# calls the reference's engine refuses too, each with its ValueError
 NOT_PORTED = [
-    ("topn_rand", X, dict(d=8, w=2, mode="mesh")),
-    ("topn_rand", X, dict(d=8, w=2, mesh=object())),
-    # tune does not lift the mesh refusal
-    ("topn_rand", X, dict(d=8, w=2, mode="two_pass", plan_cache=object(),
-                          mesh=object())),
+    ("topn_rand", X, dict(d=8, w=2, mode="mesh", pass2="sideways")),
+    ("topn_rand", X, dict(d=8, w=2, pass2="mesh")),
+    ("topn_rand", X, dict(d=8, w=2, mode="mesh", shards=3, mesh=CPU2)),
     ("topn_rand", X, dict(d=8, w=2, state=None)),
     ("topn_rand", X, dict(d=8, w=2, index_offset=3)),
-    ("topn_rand", X, dict(d=8, w=2, options=T.ExecOptions(tune="cached"),
-                          mesh=object())),
-    ("topn_rand", X, dict(d=8, w=2, tune="race", mesh=object())),
-    ("topn_rand", X, dict(d=8, w=2, options=T.ExecOptions(mode="mesh"))),
+    ("topn_rand", X, dict(d=8, w=2, mode="mesh", shards=65, mesh=CPU2)),
+    ("topn_rand", X, dict(d=8, w=2, mode="mesh", shards="auto",
+                          mesh=T.Mesh(("cpu",) * 65))),
+    ("topn_rand", X, dict(d=8, w=2, options=T.ExecOptions(mode="mesh"),
+                          shards=3, mesh=CPU2)),
     ("groupby", X, dict(d=8, w=2, state=None)),
     ("skyline", X[:, None], dict(w=2, state=None)),
     ("having", F, dict(threshold=1, state=None)),
 ]
+MESH_REFUSALS = ("pass2 must be one of", "only applies to mode='mesh'",
+                 "divisible", None, None, "exceeds stream length",
+                 "shorter than the mesh", "divisible")
 
 
 @pytest.mark.parametrize("algo,x,kw", NOT_PORTED)
 def test_not_ported_raises(algo, x, kw):
     # a resume is refused as the reference's engine refuses it, pointing to
-    # the stream and the core functions; the rest name their ROADMAP item
+    # the stream and the core functions; a mesh call the reference refuses
+    # raises its ValueError
     resume = "state" in kw or "index_offset" in kw
-    with pytest.raises(NotImplementedError,
-                       match="PruneStream" if resume else "ROADMAP"):
+    if resume:
+        with pytest.raises(NotImplementedError, match="PruneStream"):
+            T.engine_prune(algo, x, **kw)
+        return
+    i = next(i for i, case in enumerate(NOT_PORTED) if case[2] is kw)
+    with pytest.raises(ValueError, match=MESH_REFUSALS[i]):
         T.engine_prune(algo, x, **kw)
 
 

@@ -70,7 +70,12 @@ reference, faults of the reference included:
 - A30: a Pallas Count-Min block of 32 keys or fewer is one fused loop of
   XLA's CPU code, which LLVM vectorises from a block that depends on the
   row and the width (``cms_sketch.short_block_order``): keys by lanes of 8
-  (or 4 lanes unrolled 4 times), a halving tree, the rest in order.
+  (or 4 lanes unrolled 4 times), a halving tree, the rest in order;
+- A31: DISTINCT's pass 2 on a mesh position's lanes (the serial and the
+  batched apply) ranks a lane by its global index and reads w columns a
+  lane of the union, as the reference's ``_lane_ids`` do (the port took
+  local lane s for lane s, and the union's width over the local lanes
+  for w).
 """
 import dataclasses
 
@@ -1624,3 +1629,66 @@ def test_a30_short_block_order_rule():
             s = tcms.short_block_sum(x[:, :B], tcms.short_block_order(
                 B, 5, r))
             assert float(s) == B * (B + 1) / 2
+
+
+# ------------------------------------------------------------------- A31
+_A31_S, _A31_N = 16, 64
+_A31_POS = (0, 6, 12, 14)   # first lanes of positions of 2 lanes
+
+
+def _a31_bed(policy):
+    """16 DISTINCT lanes of 64 entries where 777, the last entry of lane
+    12, stays in its cache and occurs again in lanes 13 to 15: the sharded
+    states, merged, and the lanes of both packages."""
+    rng = np.random.default_rng(31)
+    x = rng.integers(1, 120, _A31_S * _A31_N).astype(np.uint32)
+    x[[13 * _A31_N - 1] + [lane * _A31_N + 3 for lane in (13, 14, 15)]] = 777
+    p = dict(d=16, w=2, policy=policy)
+    j = J.engine_prune("distinct", jnp.asarray(x), mode="sharded",
+                       shards=_A31_S, **p)
+    t = T.engine_prune("distinct", torch.from_numpy(x), mode="sharded",
+                       shards=_A31_S, **p)
+    jm, tm = J.merge_states("distinct", j.state, **p), \
+        T.merge_states("distinct", t.state, **p)
+    jl = jnp.asarray(x).reshape(_A31_S, -1)
+    tl = torch.from_numpy(x).reshape(_A31_S, -1)
+    return p, (jm, jl, j.keep.reshape(_A31_S, -1)), \
+        (tm, tl, t.keep.reshape(_A31_S, -1))
+
+
+@pytest.mark.parametrize("policy", ["fifo", "lru"])
+@pytest.mark.parametrize("g0", _A31_POS)
+def test_a31_distinct_apply_on_a_position(g0, policy):
+    """A resident pass 2 applies the merged union to one position's lanes
+    only; a lane's rank in "a lower-ranked shard owns it" is global (the
+    reference's ``_lane_ids``, the port's ``_lane0``), and a lane's columns
+    in the union are w, not the union's width over the local lanes."""
+    p, (jm, jl, jk), (tm, tl, tk) = _a31_bed(policy)
+    cut = slice(g0, g0 + 2)
+    want = J.apply_merged("distinct", jm, (jl[cut],), jk[cut],
+                          _lane_ids=jnp.arange(g0, g0 + 2, dtype=jnp.int32),
+                          **p)
+    got = T.apply_merged("distinct", tm, (tl[cut].contiguous(),),
+                         tk[cut].contiguous(), _lane0=g0, **p)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("g0", _A31_POS)
+def test_a31_batched_distinct_apply_on_a_position(g0):
+    """The batched DISTINCT apply (a mesh wave's resident pass 2) on one
+    position's lanes, against the reference's batched apply."""
+    from repro.core import batched as jbatched
+    from repro_torch.core import batched as tbatched
+
+    p, (jm, jl, jk), (tm, tl, tk) = _a31_bed("fifo")
+    cut = slice(g0, g0 + 2)
+    jqp, jcaps = jbatched.BSPECS["distinct"].build([p])
+    jq1 = {k: v[0] for k, v in jqp.items()}
+    jq1["_lane_ids"] = jnp.arange(g0, g0 + 2, dtype=jnp.int32)
+    want = jbatched.BSPECS["distinct"].apply(jm, (jl[cut],), jk[cut], jq1,
+                                             jcaps)
+    tqps, tcaps = tbatched.BSPECS["distinct"].build([p])
+    got = tbatched.BSPECS["distinct"].apply(
+        tm, (tl[cut].contiguous(),), tk[cut].contiguous(),
+        dict(tqps[0], _lane0=g0), tcaps)
+    _eq(got, want)

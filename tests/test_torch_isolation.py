@@ -98,6 +98,8 @@ CONSTRUCTORS = [
     lambda: TokenPipeline(vocab=64, seq_len=8, batch_size=1).batches(
         [(np.arange(40, dtype=np.int32), 0.5)]),
     lambda: RequestCache().dedup(["q1"]),
+    lambda: core.default_mesh(),
+    lambda: core.default_mesh("data", 2),
 ]
 
 
@@ -131,6 +133,35 @@ def test_batch_modules_stand_alone():
         assert len(names) == len(set(names))
         assert core.engine_prune_batch and core.unshard_mask_batch
         assert core.BatchPruneResult and query.run_queries
+        print("isolated")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
+def test_mesh_module_stands_alone():
+    """``core.mesh`` loads with jax, jaxlib and repro blocked, and so does
+    every module that imports it; the engine's mesh mode runs on CPU
+    positions there."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        sys.path[:0] = [{str(ROOT / 'src')!r}]
+        import torch
+        from repro_torch.core import mesh
+        from repro_torch import core
+        assert core.Mesh is mesh.Mesh and core.default_mesh
+        m = core.Mesh(("cpu",) * 4)
+        x = torch.arange(64, dtype=torch.float32)
+        r = core.engine_prune("topn_det", x, mode="mesh", shards=8, mesh=m,
+                              pass2="mesh", N=4, w=4)
+        assert r.keep.shape == (8, 8) and m.collectives == 1
+        loaded = [n for n, mod in sys.modules.items() if mod is not None
+                  and n.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not loaded, loaded
         print("isolated")
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

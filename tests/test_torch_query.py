@@ -6,6 +6,7 @@ import torch
 from repro.query import engine as jq
 from repro.query import tables as jt
 from repro_torch import convert
+from repro_torch.core import Mesh
 from repro_torch.query import engine as tq
 from repro_torch.query import tables as tt
 
@@ -74,23 +75,32 @@ def test_run_query_on_a_converted_table():
         cols["source_ip"][[3, 1]].tolist()
 
 
+MESH2 = Mesh(("cpu",) * 2, axis="data")
+
+
+# since the mesh is ported, what stays refused with one: tune= (the
+# reference's ValueError, for every kind) and the engine's knobs
 @pytest.mark.parametrize("kind,cols,params,kw", [
-    ("topn", ("ad_revenue",), dict(d=8, w=2, N=5), dict(mesh=object())),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5),
-     dict(mesh=object(), obs="off")),
+     dict(mesh=MESH2, tune="race")),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5),
-     dict(mesh=object(), options=tq.ExecOptions(decode="eager"))),
+     dict(mesh=MESH2, tune="cached", obs="off")),
     ("topn", ("ad_revenue",), dict(d=8, w=2, N=5),
-     dict(mesh=object(), plan_cache=object())),
-    ("skyline", ("ad_revenue", "duration"), dict(w=2), dict(mesh=object())),
+     dict(mesh=MESH2, options=tq.ExecOptions(decode="eager", tune="race"))),
+    ("topn", ("ad_revenue",), dict(d=8, w=2, N=5),
+     dict(mesh=MESH2, plan_cache=object(), tune="cached")),
+    ("skyline", ("ad_revenue", "duration"), dict(w=2),
+     dict(mesh=MESH2, options=tq.ExecOptions(pass2="mesh"))),
     ("groupby", ("source_ip", "ad_revenue"), dict(d=8, w=2),
-     dict(mesh=object())),
+     dict(mesh=MESH2, tune="race")),
     ("having", ("source_ip", "ad_revenue"), dict(threshold=1.0),
-     dict(mesh=object(), decode="eager")),
-    ("join", ("source_ip", "source_ip"), dict(nbits=64), dict(mesh=object())),
-    ("filter", ("duration",), dict(formula=None), dict(mesh=object())),
+     dict(mesh=MESH2, decode="eager", tune="race")),
+    ("join", ("source_ip", "source_ip"), dict(nbits=64),
+     dict(mesh=MESH2, tune="race")),
+    ("filter", ("duration",), dict(formula=None),
+     dict(mesh=MESH2, tune="race")),
 ])
 def test_run_query_not_ported_raises(kind, cols, params, kw):
     table = tt.make_uservisits(64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="worker mesh|'pass2' option"):
         tq.run_query(tq.QuerySpec(kind, cols, params), table, **kw)

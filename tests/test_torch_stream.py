@@ -246,8 +246,9 @@ def test_dict_encoded_stream_matches_the_reference(algo):
 
 
 def test_mesh_and_unknowns_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TS.PruneStream("distinct", mesh=object(), d=8, w=2)
+    with pytest.raises(ValueError, match="divisible"):
+        TS.PruneStream("distinct", shards=3, mesh=T.Mesh(("cpu",) * 2),
+                       d=8, w=2)
     with pytest.raises(KeyError):
         TS.PruneStream("median")
     with pytest.raises(ValueError, match="mode"):

@@ -5,7 +5,8 @@ S comes from a measured merge cost, so both packages are given the same
 cost (``calibrate_merge_cost`` replaced in both by one that returns the
 true state bytes and the cost that makes ``optimal_shards`` pick S); the
 reference's planner calls take ``max_devices=1`` (the test platform has 8
-CPU devices, and the port has no mesh yet). Then, with tolerance 0:
+CPU devices; the port's default on the CPU is one position, and its mesh
+plans are held in ``test_torch_mesh_layers.py``). Then, with tolerance 0:
 
 * ``analytic_plan`` and ``candidate_plans`` give the reference's plans;
 * every candidate's ``execute_plan`` keep is the reference's, bit for bit;
@@ -16,8 +17,7 @@ CPU devices, and the port has no mesh yet). Then, with tolerance 0:
   report's counters are the reference's but for ``compile_count``;
 * ``engine_prune``, ``run_query`` and ``run_queries`` at ``tune="race"``
   then ``"cached"`` give the reference's keeps and answers (S prime and
-  above 8, so the reference's own plans run two_pass too);
-* a mesh plan and ``max_devices > 1`` are refused, naming ROADMAP item 7.
+  above 8, so the reference's own plans run two_pass too).
 """
 import pathlib
 
@@ -530,25 +530,6 @@ def test_execute_plan_batch_is_execute_plan_query_by_query(tables,
 
 
 # --------------------------------------------------------- the refusals
-MESH = tplanner.Plan(mode="mesh", shards=8, pass2="mesh", num_devices=2)
-
-
-@pytest.mark.parametrize("call", [
-    lambda ts, p: tplanner.analytic_plan("topn_det", ts, p, max_devices=2),
-    lambda ts, p: tplanner.candidate_plans("topn_det", ts, p,
-                                           max_devices=4),
-    lambda ts, p: tplanner.tune("topn_det", ts, p, max_devices=2,
-                                use_cache=False),
-    lambda ts, p: tengine.execute_plan("topn_det", *ts, plan=MESH, **p),
-    lambda ts, p: T.execute_plan_batch("topn_det", [p], *ts, plan=MESH),
-])
-def test_mesh_plans_are_refused(call, monkeypatch):
-    _, ts, p = _bed("topn_det")
-    _fix_lanes(monkeypatch, 8)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        call(ts, p)
-
-
 def test_tune_refusals_match(monkeypatch):
     js, ts, p = _bed("topn_det")
     msgs = []
@@ -567,9 +548,12 @@ def test_tune_refusals_match(monkeypatch):
     with pytest.raises(ValueError, match="tune"):
         T.engine_prune_batch("topn_det", [p], *ts,
                              options=T.ExecOptions(tune="race"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tengine.engine_prune("topn_det", *ts, mesh=object(), tune="race",
-                             **p)
+    # as in the reference, engine_prune's tune= runs the tuned plan and does
+    # not read mesh=
+    a = tengine.engine_prune("topn_det", *ts, mesh=T.Mesh(("cpu",) * 2),
+                             tune="race", **p)
+    assert torch.equal(a.keep, tengine.engine_prune(
+        "topn_det", *ts, tune="race", **p).keep)
 
 
 def test_tune_refuses_a_compiling_caller(monkeypatch):
