@@ -171,6 +171,22 @@ Phases, one line each, and a non-zero exit on any failure:
            ms of each pipeline step, documents/s, tokens/s and the host s
            of corpus(); the µs a dedup call. The launch counts are zeroed
            before these paths and read after.
+   serve   the LM serving path (after phase edges): qwen3-1.7b at full
+           width (28 layers, d_model 2048, vocab padded to 152,064, 2.03 B
+           parameters from the port's init on the card); 8 requests of 4
+           distinct prompts through RequestCache, then
+           ServeEngine.generate of 16 tokens from 8-token prompts with
+           track_topn=16, its launch counts zeroed before the dedup and
+           read after (topn_det_pass1 once a fold, the dedup's LRU walk
+           and apply); the trace against torch.topk of the folded wire,
+           0 < shipped <= entries, the ladder kernel against its plain
+           version fold by fold on that wire; generate three times with
+           and three without tracking, in turns, every token equal; the
+           decode step's time and tok/s; the full-width prefill-via-
+           decode logits against forward's (0.08 of the largest logit);
+           the ten smoke archs' forward and a 4-step decode on the card
+           against the CPU (SERVE_CARD_TOL), beside the CPU's shift from
+           one bf16 ulp of one parameter.
 4. subnormals
            every kernel that computes on f32 values (TOP-N, DISTINCT on
            float32 keys and SKYLINE pass 1 at S = 1 and 128, B = 1 and
@@ -4313,6 +4329,278 @@ def phase_edges(torch, P, table, clock_hz):
     return rows
 
 
+# -------------------------------------------------------------- phase serve
+SERVE_ARCH = "qwen3-1.7b"       # served at full width (configs.get)
+SERVE_REQUESTS = 8              # 4 distinct prompts, each sent twice
+SERVE_DISTINCT = 4
+SERVE_PROMPT = 8
+SERVE_NEW = 16
+SERVE_TRACK = 16                # track_topn
+SERVE_SHARDS = 16               # the vocab shards of the logit wire
+SERVE_TOPK = 8                  # candidates a shard ships a step
+SERVE_TOL = 0.08                # of the largest |logit|: the reference's own
+                                # decode-vs-forward tolerance for bf16 paths
+# card against CPU at smoke size: SERVE_TOL, except for the three archs
+# whose logits move by more than it when one parameter moves by one bf16
+# ulp (the random init's weights of std (layers)^-0.5 saturate their
+# softmaxes and routers); phase serve prints that shift for every arch
+# (``sensitivity``): 0.095 moonshot, 0.29 jamba, 0.27 seamless on the CPU
+SERVE_CARD_TOL = {"moonshot-v1-16b-a3b": 0.3, "jamba-1.5-large-398b": 0.3,
+                  "seamless-m4t-large-v2": 0.3}
+SERVE_SMOKE = dict(B=2, S=16, steps=4)   # the ten archs, card against CPU
+SERVE_TIMING_PAIRS = 3          # generate with and without tracking, in turns
+SERVE_PATH_KERNELS = ("distinct_pass1_lru", "distinct_apply",
+                      "topn_det_pass1")
+
+
+def rel_to_max(torch, want, got) -> float:
+    want, got = want.double().cpu(), got.double().cpu()
+    return float((want - got).abs().max() / want.abs().max())
+
+
+def smoke_batch(torch, cfg, B, S, dev):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.frontend == "vision":
+        b["patch_embeds"] = rng.normal(0, 0.02, (B, cfg.frontend_len,
+                                                 cfg.d_model))
+    if cfg.frontend == "audio":
+        b["frame_embeds"] = rng.normal(0, 0.02, (B, S, cfg.d_model))
+    return {k: torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+            .to(dev) if v.dtype == np.float64 else torch.from_numpy(v).to(dev)
+            for k, v in b.items()}
+
+
+def serve_logits(torch, lm, b, steps):
+    """The forward logits and ``steps`` decode steps' logits of ``lm`` on
+    batch ``b``."""
+    B = b["tokens"].shape[0]
+    hidden, _ = lm.forward(b)
+    cache = lm.init_cache(B, steps)
+    if lm.cfg.n_enc_layers:
+        cache["cross"] = lm.build_cross_cache(lm.encode(b["frame_embeds"]))
+    return [lm.logits(hidden)] + [lm.decode_step(cache, b["tokens"][:, i],
+                                                 i)[0] for i in range(steps)]
+
+
+def serve_card_vs_cpu(torch, configs, LM):
+    """Each of the ten archs at smoke size: the card's forward logits and a
+    decode of SERVE_SMOKE["steps"] tokens against the port's CPU run of the
+    same parameters; beside it, the shift of the CPU's logits when the first
+    layer's ln1 gamma[0] moves by one bf16 ulp (the model's own noise)."""
+    import copy
+
+    B, S, steps = SERVE_SMOKE["B"], SERVE_SMOKE["S"], SERVE_SMOKE["steps"]
+    for arch in configs.ARCH_NAMES:
+        cfg = configs.get_smoke(arch)
+        cpu = LM(cfg)
+        cpu.init(0, device="cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        want = serve_logits(torch, cpu, smoke_batch(torch, cfg, B, S, "cpu"),
+                            steps)
+        got = serve_logits(torch, card,
+                           smoke_batch(torch, cfg, B, S, "cuda"), steps)
+        gamma = cpu.params()["groups"]["blk0"]["ln1"]
+        g0 = gamma[0, 0].clone()
+        gamma[0, 0] = (g0.view(torch.int16) + 1).view(torch.bfloat16)
+        bumped = serve_logits(torch, cpu,
+                              smoke_batch(torch, cfg, B, S, "cpu"), steps)
+        gamma[0, 0] = g0
+        errs = [rel_to_max(torch, a, g) for a, g in zip(want, got)]
+        noise = max(rel_to_max(torch, a, g) for a, g in zip(want, bumped))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        tol = SERVE_CARD_TOL.get(arch, SERVE_TOL)
+        check(finite and max(errs) < tol,
+              f"serve: {arch} on the card differs from the CPU: forward "
+              f"{errs[0]:.3g}, decode {max(errs[1:]):.3g} (tol {tol})")
+        say("serve", smoke=arch, forward_err=f"{errs[0]:.3e}",
+            decode_err=f"{max(errs[1:]):.3e}", tol=tol,
+            sensitivity=f"{noise:.3e}")
+
+
+def serve_profile(torch, fn):
+    """(the card's busy ms over fn() by torch.profiler, or None when the
+    profiler saw no device time; the five costliest device ops' ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the kernels' own rows (a CPU op's row repeats its kernels' time)
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages() if e.self_device_time_total > 0
+           and str(e.device_type).endswith("CUDA")]
+    ops.sort(key=lambda o: -o[1])
+    busy = sum(o[1] for o in ops)
+    return (busy or None), [[k[:60], round(ms, 3), n] for k, ms, n in ops[:5]]
+
+
+def phase_serve(torch, P, card):
+    """The LM serving path (ROADMAP Queue 1 items 15a, 15d): qwen3-1.7b at
+    full width from the port's init on the card; 8 requests (4 distinct)
+    through a RequestCache, then ServeEngine.generate of 16 tokens with
+    track_topn=16. The launch counts are zeroed before the dedup and read
+    after generate. Then decode against forward at full width, determinism,
+    passive tracking, the trace against torch.topk of the folded wire, the
+    ladder kernel against its plain version on that wire, the decode step's
+    time, and the ten smoke archs on the card against the CPU."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.topn_det_scan import (init_state,
+                                                   topn_det_pass1_kernel,
+                                                   topn_det_pass1_plain)
+    from repro_torch.models import LM
+    from repro_torch.serve import RequestCache, ServeEngine
+
+    class Recording(ServeEngine):
+        def _step(self, cache, tok, pos):
+            tok, cand, cache = super()._step(cache, tok, pos)
+            self.cands.append(cand)
+            return tok, cand, cache
+
+    dev = torch.device("cuda")
+    cfg = configs.get(SERVE_ARCH)
+    lm = LM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    _, init_s = sync_time(lambda: lm.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = sum(p.numel() for p in lm.parameters())
+    say("serve", arch=SERVE_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab_padded=cfg.vocab_padded, params=n_params,
+        param_count=cfg.param_count(),
+        param_gb=round(sum(p.numel() * p.element_size()
+                           for p in lm.parameters()) / 1e9, 3),
+        init_s=round(init_s, 3))
+    eng = Recording(lm, n_logit_shards=SERVE_SHARDS, topk=SERVE_TOPK,
+                    device=dev)
+    rc = RequestCache(device=dev)
+    requests = [f"request-{i % SERVE_DISTINCT}"
+                for i in range(SERVE_REQUESTS)]
+    rng = np.random.default_rng(0)
+
+    # ---- the main path, its launches counted
+    eng.cands = []
+    P.reset_launch_counts()
+    t0 = time.perf_counter()
+    fresh, _ = rc.dedup(requests)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (len(fresh), SERVE_PROMPT)).astype(np.int32)).to(dev)
+    tokens, trace = eng.generate(prompts, SERVE_NEW, track_topn=SERVE_TRACK)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in P.KERNELS}
+    say("serve", launches=json.dumps({k: c for k, c in counts.items() if c},
+                                     separators=(",", ":")),
+        requests=len(requests), fresh=len(fresh), first_call_s=round(
+            first_s, 3), peak_gb=round(torch.cuda.max_memory_allocated()
+                                       / 1e9, 3))
+    check(len(fresh) == SERVE_DISTINCT,
+          f"serve: {len(fresh)} fresh requests of {SERVE_REQUESTS}, want "
+          f"{SERVE_DISTINCT}")
+    for k in SERVE_PATH_KERNELS:
+        check(counts[k] > 0, f"serve: kernel {k} was never launched")
+    check(counts["topn_det_pass1"] == SERVE_NEW,
+          f"serve: topn_det_pass1 launched {counts['topn_det_pass1']} times "
+          f"for {SERVE_NEW} folds")
+    check(tokens.shape == (SERVE_DISTINCT, SERVE_NEW)
+          and tokens.dtype == np.int32 and (tokens >= 0).all()
+          and (tokens < cfg.vocab_padded).all(),
+          f"serve: tokens {tokens.shape} {tokens.dtype} out of range")
+
+    # ---- the trace, and the ladder kernel against its plain version
+    wire = torch.cat(eng.cands)
+    want = torch.topk(wire, SERVE_TRACK).values.cpu()
+    check(same(torch.from_numpy(trace.values), want),
+          "serve: the trace differs from torch.topk of the folded wire")
+    check(trace.entries == wire.numel() and 0 < trace.shipped
+          <= trace.entries, f"serve: trace entries {trace.entries}, "
+          f"shipped {trace.shipped}, wire {wire.numel()}")
+    st_k = init_state(1, 8, dev)
+    st_p = init_state(1, 8, "cpu")
+    keeps = []
+    for c in eng.cands:
+        kk, st_k = topn_det_pass1_kernel(c, N=SERVE_TRACK, w=8, state=st_k)
+        kp, st_p = topn_det_pass1_plain(c.cpu().reshape(1, -1),
+                                        N=SERVE_TRACK, w=8, state=st_p)
+        keeps.append((kk.cpu(), kp.reshape(-1)))
+    pairs = keeps + list(zip((s.cpu() for s in st_k), st_p))
+    err = max_abs_err(pairs)
+    check(all(same(a, b) for a, b in pairs),
+          "serve: topn_det_pass1 differs from its plain version on the "
+          "candidate wire")
+    c = eng.cands[-1]
+    fold_ms = event_ms(lambda: topn_det_pass1_kernel(
+        c, N=SERVE_TRACK, w=8, state=st_k), 20)
+    _, fold_plain_s = sync_time(lambda: topn_det_pass1_plain(
+        c.cpu().reshape(1, -1), N=SERVE_TRACK, w=8, state=st_p))
+    say("serve", trace_entries=trace.entries, shipped=trace.shipped,
+        wire_saving=round(1 - trace.shipped / trace.entries, 6),
+        ladder_max_abs_err=err, top=f"{float(trace.values[0]):.6g}",
+        ladder_fold_ms=round(fold_ms, 4),
+        ladder_fold_plain_ms=round(fold_plain_s * 1e3, 4),
+        ladder_fold_bound_ms=bytes_ms(c.numel() * 5 + 4 * (3 + 8) * 2))
+
+    # ---- determinism, passive tracking, times (in turns; medians)
+    times = {False: [], True: []}
+    for i in range(2 * SERVE_TIMING_PAIRS):
+        tracked = i % 4 in (1, 2)
+        out, secs = sync_time(lambda: eng.generate(
+            prompts, SERVE_NEW, track_topn=SERVE_TRACK if tracked else None))
+        times[tracked].append(secs)
+        toks = out[0] if tracked else out
+        check(np.array_equal(toks, tokens) and (not tracked or same(
+            torch.from_numpy(out[1].values), want)),
+            "serve: generate is not deterministic, or tracking is not "
+            "passive")
+    plain_s, again_s = (sorted(times[k])[len(times[k]) // 2]
+                        for k in (False, True))
+    B = len(fresh)
+    cache = lm.init_cache(B, SERVE_PROMPT + SERVE_NEW)
+    _, prefill_s = sync_time(lambda: lm.prefill_via_decode(cache, prompts))
+    tok = prompts[:, -1]
+
+    def steps():
+        for t in range(SERVE_NEW):
+            lm.decode_step(cache, tok, SERVE_PROMPT + t)
+
+    _, decode_s = sync_time(steps)
+    step_ms = decode_s / SERVE_NEW * 1e3
+    device_ms, top = serve_profile(torch, steps)
+    say("serve", card=json.dumps(card), batch=B, prompt=SERVE_PROMPT,
+        new=SERVE_NEW, generate_s=round(plain_s, 4),
+        generate_tracked_s=round(again_s, 4),
+        tracking_share=round(1 - plain_s / again_s, 4),
+        generate_s_all=json.dumps([round(t, 4) for t in times[False]]),
+        tracked_s_all=json.dumps([round(t, 4) for t in times[True]]),
+        prefill_s=round(prefill_s, 4), decode_step_ms=round(step_ms, 3),
+        decode_tok_s=round(B / (step_ms / 1e3), 1),
+        generate_tok_s=round(B * SERVE_NEW / plain_s, 1),
+        device_ms_per_step=("not measured" if device_ms is None
+                            else round(device_ms / SERVE_NEW, 4)),
+        idle_share=("not measured" if device_ms is None
+                    else round(1 - device_ms / (decode_s * 1e3), 4)))
+    say("serve", device_ms_by_kernel=json.dumps(top))
+
+    # ---- decode against forward at full width
+    hidden, _ = lm.forward({"tokens": prompts})
+    full = lm.logits(hidden[:, -1:])[:, 0]
+    cache = lm.init_cache(B, SERVE_PROMPT)
+    last, _ = lm.prefill_via_decode(cache, prompts)
+    err = rel_to_max(torch, full, last)
+    check(bool(torch.isfinite(last).all()) and err < SERVE_TOL,
+          f"serve: full-width decode differs from forward by {err:.4g} of "
+          f"the largest logit (tol {SERVE_TOL})")
+    say("serve", decode_vs_forward=f"{err:.4e}", tol=SERVE_TOL,
+        max_logit=f"{float(full.abs().max()):.4g}")
+    del lm, eng, cache, hidden
+    torch.cuda.empty_cache()
+    serve_card_vs_cpu(torch, configs, LM)
+
+
 # ------------------------------------------------------------- phase stream
 STREAM_BATCH = 1 << 20          # entries a micro-batch of phase stream
 STREAM_RAGGED = 77              # batch 5 is this much short, batch 6 long
@@ -6495,6 +6783,9 @@ def main() -> int:
         print(f"chip_smoke: kernel build failed: {e}", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products add in f32 throughout (no bf16 split-K reduction), as
+    # the port's CPU path and the reference do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -6519,6 +6810,7 @@ def main() -> int:
                            clock_hz, host)
         timed("tune", phase_tune, torch, P, table)
         edge_rows = timed("edges", phase_edges, torch, P, table, clock_hz)
+        timed("serve", phase_serve, torch, P, card)
         timed("subnormals", phase_subnormals, torch, P, R, table)
         rows = timed("timing", phase_timing, torch, P, R, table, rankings,
                      pts, totals, clock_hz, encoded, rle, host) \

@@ -141,3 +141,52 @@ def groupby_state_from_numpy(keys, aggs, valid, device=None) -> GroupByState:
 def table_from_numpy(cols: dict, name: str = "table", device=None) -> Table:
     """A Table of the given numpy columns on ``device``."""
     return Table.from_numpy(name, cols, device)
+
+
+def _map_tree(fn, tree: dict) -> dict:
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _leaves(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _lm_leaf(a, dev: torch.device) -> torch.Tensor:
+    """One leaf of a parameter tree: bf16 arrives as its uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(np.array(a).view(np.int16)) \
+            .view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None):
+    """A ``models.LM`` of ``cfg`` holding the reference's parameter tree
+    (``repro.models.LM(cfg).init(key)[0]`` as nested dicts of numpy arrays;
+    bf16 leaves as their uint16 bit patterns,
+    ``np.asarray(a).view(np.uint16)``; f32 leaves as they are). Every path,
+    shape and dtype must be the one the port's ``init`` draws."""
+    from .models import LM
+
+    dev = resolve_device(device)
+    tree = _map_tree(lambda a: _lm_leaf(a, dev), tree)
+    want = _leaves(LM(cfg).init(device="meta"))
+    params = _leaves(tree)
+    bad = sorted(set(want) ^ set(params)) + [
+        f"{k}: {tuple(params[k].shape)} {params[k].dtype}, want "
+        f"{tuple(w.shape)} {w.dtype}" for k, w in want.items()
+        if k in params and (params[k].shape != w.shape
+                            or params[k].dtype != w.dtype)]
+    if bad:
+        raise ValueError("the parameter tree does not fit the model: "
+                         + "; ".join(bad))
+    lm = LM(cfg)
+    lm.load_tree(tree)
+    return lm

@@ -1,2 +1,3 @@
-"""Serving: Cheetah logit TOP-N pruning and request dedup."""
-from .engine import RequestCache, pruned_topk
+"""Serving: batched greedy decode, Cheetah logit TOP-N pruning, request
+dedup."""
+from .engine import RequestCache, ServeEngine, TopNTrace, pruned_topk

@@ -7,13 +7,17 @@ provable superset of the global top-k (any global top-k element is a local
 top-k element of its shard), and the "master" finishes on n_shards x k
 candidates. The wire sees k * shards values instead of V.
 
+On top of that per-step pruning, ``ServeEngine.generate(...,
+track_topn=N)`` folds every step's candidate wire into a streaming TOP-N
+switch (``core.PruneStream("topn_det")``, one ``topn_det_pass1`` launch a
+step): a *global* top-N over the whole generation, resolved exactly at the
+end by ``master_complete_topn`` without materializing the [steps, B, V]
+logit history.
+
 Request dedup (Ex. 2/8): prompts are fingerprinted and folded into a
 persistent streaming DISTINCT cache (``core.PruneStream``), so a repeated
 prompt hits the response cache instead of the model, also when it arrives
 in a later call than its first occurrence.
-
-The decode loop (``ServeEngine``, ``TopNTrace``) needs a language model
-and is not ported yet (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from .. import obs
 from ..core.hashing import _M32, as_u32, fingerprint, to_u32
 from ..core.streaming import PruneStream
+from ..core.topn import master_complete_topn
 from ..device import resolve_device
 
 # the 32-bit image of each float dtype that orders as XLA's total order
@@ -183,3 +188,89 @@ class RequestCache:
 
     def get(self, fp: int):
         return self._responses.get(fp)
+
+
+@dataclasses.dataclass
+class TopNTrace:
+    """Global top-N over a generation's candidate wire.
+
+    values: f32[N] descending; entries: total candidates folded;
+    shipped: candidates the streaming switch would have forwarded
+    upstream (live mask), so the wire saving is 1 - shipped/entries.
+    report: the tracking stream's ``ExecReport`` (None when obs is off).
+    """
+
+    values: np.ndarray
+    entries: int
+    shipped: int
+    report: object | None = None
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    """Batched greedy decoding of ``lm`` (a ``models.LM``) on ``device``
+    (None: the card, which raises RuntimeError when there is none); the
+    model's parameters must be there."""
+    lm: object
+    rules: object | None = None
+    n_logit_shards: int = 16
+    topk: int = 8
+    device: object = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        have = self.lm.device
+        if (have.type, have.index or 0) != (self.device.type,
+                                            self.device.index or 0):
+            raise ValueError(f"the model's parameters are on {have}, the "
+                             f"engine runs on {self.device}")
+
+    def _step(self, cache, tok, pos: int):
+        """One decode step: (greedy tokens int32 [B], the candidate wire
+        f32 [B * shards * topk], cache)."""
+        lg, cache = self.lm.decode_step(cache, tok, pos, self.rules)
+        B, V = lg.shape
+        shards = self.n_logit_shards if V % self.n_logit_shards == 0 else 1
+        _, idx = pruned_topk(lg, 1, shards)
+        # the pruned wire: each vocab shard's local top-k candidates
+        cand_v, _ = _top_k(lg.reshape(B, shards, V // shards), self.topk)
+        return idx[:, 0].to(torch.int32), cand_v.reshape(-1), cache
+
+    def generate(self, prompt_tokens, max_new: int, enc_inputs=None,
+                 track_topn: int | None = None):
+        """Greedy decode. Returns np.int32[B, max_new] tokens; with
+        ``track_topn=N`` returns ``(tokens, TopNTrace)``: the exact global
+        top-N candidate logits across all decode steps, folded into a
+        ``topn_det`` stream step by step. The tokens stay on the device
+        until the end: one read back a call."""
+        tokens = torch.as_tensor(prompt_tokens, device=self.device)
+        B, S = tokens.shape
+        cache = self.lm.init_cache(B, S + max_new)
+        if enc_inputs is not None:
+            enc_out = self.lm.encode(
+                torch.as_tensor(enc_inputs, device=self.device), self.rules)
+            cache["cross"] = self.lm.build_cross_cache(enc_out)
+        _, cache = self.lm.prefill_via_decode(cache, tokens, self.rules)
+        tok = tokens[:, -1]
+        out = []
+        tracker = cands = None
+        if track_topn:
+            tracker = PruneStream("topn_det", shards=1, merge_every=1,
+                                  N=track_topn, w=8)
+            cands = []
+        for t in range(max_new):
+            tok, cand_v, cache = self._step(cache, tok, S + t - 1)
+            out.append(tok)
+            if tracker is not None:
+                tracker.fold(cand_v)
+                cands.append(cand_v)
+        toks = torch.stack(out, dim=1).cpu().numpy()
+        if tracker is None:
+            return toks
+        res = tracker.close()
+        vals, _ = master_complete_topn(torch.cat(cands), res.keep,
+                                       track_topn)
+        return toks, TopNTrace(values=vals.cpu().numpy(),
+                               entries=int(res.keep.shape[0]),
+                               shipped=int(res.live_keep.sum()),
+                               report=res.report)

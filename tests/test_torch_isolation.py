@@ -11,15 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import convert, core
+from repro_torch import configs, convert, core
 from repro_torch.data import TokenPipeline
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import LM
 from repro_torch.query import tables
-from repro_torch.serve import RequestCache
+from repro_torch.serve import RequestCache, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b")
+IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)\b")
 
 
 def test_no_jax_import_lines():
@@ -32,10 +34,11 @@ def test_no_jax_import_lines():
 
 def test_imports_with_jax_blocked():
     """Every module of the port and chip_smoke's imports load with jax,
-    jaxlib and repro unimportable; none of them is loaded afterwards."""
+    jaxlib, repro and ml_dtypes unimportable; none of them is loaded
+    afterwards."""
     code = textwrap.dedent(f"""
         import sys
-        for name in ("jax", "jaxlib", "repro"):
+        for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
             sys.modules[name] = None
         sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
         import pkgutil, importlib
@@ -45,7 +48,7 @@ def test_imports_with_jax_blocked():
         import chip_smoke
         from repro_torch.kernels import common, ops, parallel, ref
         loaded = [n for n, m in sys.modules.items() if m is not None and (
-            n.split(".")[0] in ("jax", "jaxlib", "repro"))]
+            n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))]
         assert not loaded, loaded
         print("isolated")
     """)
@@ -100,7 +103,18 @@ CONSTRUCTORS = [
     lambda: RequestCache().dedup(["q1"]),
     lambda: core.default_mesh(),
     lambda: core.default_mesh("data", 2),
+    lambda: LM(configs.get_smoke("qwen3-1.7b")).init(0),
+    lambda: convert.lm_params_from_numpy(configs.get_smoke("qwen3-1.7b"),
+                                         {}),
+    lambda: ServeEngine(_cpu_lm()),
+    lambda: launch_serve.main([]),
 ]
+
+
+def _cpu_lm():
+    lm = LM(configs.get_smoke("qwen3-1.7b"))
+    lm.init(0, device="cpu")
+    return lm
 
 
 @pytest.mark.parametrize("make", CONSTRUCTORS)
@@ -108,6 +122,42 @@ def test_default_device_is_the_card(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
+
+
+def test_lm_modules_stand_alone():
+    """The LM harness (configs, models, launch, serve) loads with jax,
+    jaxlib, repro and ml_dtypes blocked and serves a smoke model on the
+    CPU there."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
+            sys.modules[name] = None
+        sys.path[:0] = [{str(ROOT / 'src')!r}]
+        import numpy as np
+        from repro_torch import configs, launch, models, serve
+        from repro_torch.launch import serve as launch_serve
+        out = launch_serve.main(["--device", "cpu", "--max-new", "2"])
+        assert out.shape == (3, 2)
+        loaded = [n for n, mod in sys.modules.items() if mod is not None
+                  and n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                          "ml_dtypes")]
+        assert not loaded, loaded
+        print("isolated")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
+def test_launch_serve_without_a_card_fails():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode != 0
+    assert "RuntimeError" in res.stderr and "CUDA" in res.stderr
 
 
 BATCH_MODULES = ("repro_torch.core.batched", "repro_torch.core.batch_engine",
